@@ -1,0 +1,54 @@
+"""Carry state from NumPy arrays into the port's containers.
+
+Each function takes a mapping from field name to array (for example the
+fields of a JAX ``MPMState`` passed through ``np.asarray``) and returns the
+port's container on ``device`` in ``dtype``. Floating arrays take ``dtype``;
+integer arrays keep their type. The tests hand both packages the same bytes
+this way.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from softmac_tpu_torch.engine import sdf as sdf_mod
+from softmac_tpu_torch.engine.types import (
+    BodyState, MPMParams, MPMState, SDFParams,
+)
+
+
+def _tensor(a, device, dtype) -> torch.Tensor:
+    a = np.array(a)   # a writable, contiguous copy
+    t = torch.as_tensor(a, device=device)
+    return t.to(dtype) if a.dtype.kind == "f" else t
+
+
+def _fields(cls, arrays: Mapping[str, np.ndarray], device, dtype):
+    names = cls.__dataclass_fields__
+    return cls(**{k: _tensor(arrays[k], device, dtype) for k in names})
+
+
+def mpm_state(arrays, device="cpu", dtype=torch.float64) -> MPMState:
+    """x (3, N), v (3, N), C (3, 3, N), F (3, 3, N)."""
+    return _fields(MPMState, arrays, device, dtype)
+
+
+def body_state(arrays, device="cpu", dtype=torch.float64) -> BodyState:
+    """pos (B, 3), quat (B, 4) wxyz, v (B, 3), w (B, 3)."""
+    return _fields(BodyState, arrays, device, dtype)
+
+
+def mpm_params(arrays, device="cpu", dtype=torch.float64) -> MPMParams:
+    """mu, lam, yield_stress, control_idx (N,), gravity (3,), friction,
+    softness (B,)."""
+    return _fields(MPMParams, arrays, device, dtype)
+
+
+def sdf_params(arrays, device="cpu", dtype=torch.float64) -> SDFParams:
+    """neighborhood (M, 32), lower, upper (3,), inv_dx (), res (3 ints)."""
+    return sdf_mod.sdf_params(
+        np.asarray(arrays["neighborhood"]), np.asarray(arrays["lower"]),
+        np.asarray(arrays["upper"]), float(np.asarray(arrays["inv_dx"])),
+        tuple(int(r) for r in arrays["res"]), dtype, device)
