@@ -1,27 +1,34 @@
-"""Scene building and the forward rollout.
+"""Scene building, the forward rollout and its gradient.
 
 Counterpart of ``softmac_tpu/engine/env.py`` for the rigid-velocity scene
 family (pour_vel): particle contact against SDF primitives whose (w, v) the
-actions set. The rollout runs eagerly on ``device`` (CUDA by default) under
-``torch.no_grad()``:
+actions set. ``rollout`` (under ``torch.no_grad()``) and
+``rollout_and_grad`` (autograd, then ``torch.autograd.grad`` of the loss
+with respect to the actions) run one loop, eagerly on ``device`` (CUDA by
+default):
 
     sort particles by y-cell
-    for each loss block:   re-sort (``_resort``)
-        for each env step: substeps (P2G / grid / G2P kernels) + pose update
+    for each loss block:   clip the carry's cotangent (``grad_clip``),
+                           re-sort (``_resort``)
+        for each env step: substeps (P2G / grid / G2P kernels) + pose update,
+                           checkpointed per ``remat``
         loss terms at the block boundary, on the unsorted particle order
+        at a ``bptt_window`` segment end: detach the carry
     unsort the exit carry
 
 with the same loss-frame sampling as the JAX rollout (``_sample_mask``).
-``rollout_and_grad``, the imperative facade, batching and the other scene
-families come with later slices of the port.
+The imperative facade, batching and the other scene families come with
+later slices of the port.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from softmac_tpu_torch.engine import mpm as mpm_mod
 from softmac_tpu_torch.engine.losses import LOSS_REGISTRY, FrameSample
@@ -31,7 +38,8 @@ from softmac_tpu_torch.engine.rigid import RigidState, RigidVelocityModel
 from softmac_tpu_torch.engine.sdf import preprocess_sdf, sdf_params_from_bake
 from softmac_tpu_torch.engine.shapes import Shapes
 from softmac_tpu_torch.engine.types import (
-    BodyState, MPMConfig, MPMParams, mpm_state_from_packed, mpm_state_zero,
+    BodyState, MPMConfig, MPMParams, MPMState, mpm_state_from_packed,
+    mpm_state_zero,
 )
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -63,6 +71,58 @@ def _resolve_dtype(cfg, device: torch.device) -> torch.dtype:
     if choice in ("float64", "f64"):
         return torch.float64
     return torch.float32 if device.type == "cuda" else torch.float64
+
+
+class ClipCotangent(torch.autograd.Function):
+    """Identity whose backward zeroes non-finite cotangent entries and
+    scales the cotangents of all its tensors together to global L2 norm
+    <= cap (``clip_cotangent`` of the JAX package). Applied to the carry at
+    block boundaries it clips the gradient through time only when it
+    explodes."""
+
+    @staticmethod
+    def forward(ctx, cap, *tensors):
+        ctx.cap = cap
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.where(torch.isfinite(g), g, 0.0) for g in grads]
+        sq = sum(torch.sum(g * g) for g in grads)
+        scale = torch.clamp(ctx.cap / torch.sqrt(sq + 1e-30), max=1.0)
+        return (None,) + tuple(g * scale for g in grads)
+
+
+def _carry_tensors(carry):
+    mpm, bodies, rigid = carry
+    return (mpm.x, mpm.v, mpm.C, mpm.F, bodies.pos, bodies.quat, bodies.v,
+            bodies.w, rigid.q, rigid.qd)
+
+
+def _carry_from(t):
+    return (MPMState(x=t[0], v=t[1], C=t[2], F=t[3]),
+            BodyState(pos=t[4], quat=t[5], v=t[6], w=t[7]),
+            RigidState(q=t[8], qd=t[9]))
+
+
+def _remat_group(remat, block):
+    """Env steps per checkpoint for ``remat``: 1 for "step", the largest
+    divisor of the loss block <= K for "window:K" (as the JAX rollout),
+    None (no checkpoint) for "none" and for None, the forward rollout."""
+    if remat is None or remat == "none":
+        return None
+    if remat == "step":
+        return 1
+    if isinstance(remat, str) and remat.startswith("window:"):
+        k = int(remat.split(":", 1)[1])
+        if k < 1:
+            raise ValueError(f"remat window must be >= 1, got {remat!r}")
+        k = min(k, block)
+        while block % k != 0:
+            k -= 1
+        return k
+    raise ValueError(
+        f"remat must be 'step', 'none' or 'window:K', got {remat!r}")
 
 
 class SoftMacEnv:
@@ -276,44 +336,113 @@ class SoftMacEnv:
     def rollout(self, actions, loss_start_frame=None, loss_stride=20):
         """Forward rollout of ``actions`` (T, action_dim). Returns
         {"loss", "terms", "carry"} as the JAX ``SoftMacEnv.rollout`` does;
-        the exit carry is in the original particle order."""
+        the exit carry is in the original particle order. Nothing is saved
+        for autograd."""
         actions = torch.as_tensor(actions, dtype=self.dtype, device=self.device)
+        loss, terms, carry = self._run(actions, loss_start_frame, loss_stride)
+        self._check_overflow(terms)
+        return {"loss": loss, "terms": terms, "carry": carry}
+
+    def rollout_and_grad(self, actions, loss_start_frame=None, loss_stride=20,
+                         bptt_window=None, grad_clip=None, remat="step"):
+        """Rollout and the gradient of its loss with respect to the actions:
+        {"loss", "terms", "carry", "action_grad"}, as the JAX
+        ``SoftMacEnv.rollout_and_grad``. ``remat``: "step" checkpoints each
+        env step (memory O(1) in T; the backward replays each step's
+        forward), "none" keeps every step's tensors, "window:K" checkpoints
+        every K env steps. ``bptt_window``: the carry is detached every
+        ~bptt_window env steps. ``grad_clip``: the carry's cotangent is
+        clipped to that global L2 norm at every loss block start."""
+        actions = torch.as_tensor(actions, dtype=self.dtype, device=self.device)
+        actions = actions.detach().requires_grad_()
+        with torch.enable_grad():
+            loss, terms, carry = self._run(
+                actions, loss_start_frame, loss_stride, bptt_window,
+                grad_clip, remat)
+            if loss.requires_grad:
+                grad, = torch.autograd.grad(loss, actions, allow_unused=True)
+            else:
+                grad = None
+        if grad is None:
+            grad = torch.zeros_like(actions)
+        terms = {k: v.detach() if torch.is_tensor(v) else v
+                 for k, v in terms.items()}
+        carry = _carry_from([t.detach() for t in _carry_tensors(carry)])
+        self._check_overflow(terms)
+        return {"loss": loss.detach(), "terms": terms, "carry": carry,
+                "action_grad": grad.detach()}
+
+    def _steps(self, carry, acts, params_s, weights, perm):
+        """Env steps ``acts`` from ``carry`` (one checkpointed unit)."""
+        overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        terms = {}
+        for a, w in zip(acts, weights):
+            carry, out = self._env_step_fn(carry, a, params_s, loss_weights=w,
+                                           unsort_perm=perm)
+            overflow = overflow | out[0]
+            if w is not None:
+                for k, v in out[2].items():
+                    terms[k] = terms.get(k, 0.0) + v
+        return carry, overflow, terms
+
+    def _run(self, actions, loss_start_frame, loss_stride, bptt_window=None,
+             grad_clip=None, remat=None):
+        """The rollout loop of both entry points. ``remat`` None runs each
+        loss block's steps in one piece without checkpoints (the forward
+        rollout under no_grad). Returns (loss, terms, exit carry)."""
         n_steps = actions.shape[0]
         block, n_blocks, mask_np, include_f0, sub_w = self._sample_mask(
             n_steps, loss_start_frame, loss_stride)
         use_general = sub_w is not None and self.loss is not None
+        group = _remat_group(remat, block)
+        run = self._steps if group is None else functools.partial(
+            checkpoint, self._steps, use_reentrant=False)
+        group = group or block
+        seg_blocks = n_blocks
+        if bptt_window is not None:
+            seg_blocks = max(int(bptt_window) // block, 1)
+            while n_blocks % seg_blocks != 0:
+                seg_blocks -= 1
         cfg = self.mpm_cfg
 
         carry0 = self._initial_carry()
-        mpm, bodies, rigid = carry0
+        carry = carry0
         params_s = self.mpm_params
         perm = torch.arange(self.n_particles, device=self.device)
         overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         per_block, general = [], []
         for b in range(n_blocks):
+            if grad_clip is not None:
+                carry = _carry_from(ClipCotangent.apply(
+                    float(grad_clip), *_carry_tensors(carry)))
             # _resort: re-key the sorted carry at every block boundary
+            mpm, bodies, rigid = carry
             q, _ = mpm_mod.sort_perm(cfg, mpm.x)
-            mpm = mpm_mod.permute_state(mpm, q)
+            carry = (mpm_mod.permute_state(mpm, q), bodies, rigid)
             params_s = mpm_mod.permute_params(params_s, q)
             perm = perm[q]
             block_terms = {}
-            for t in range(block):
-                s = b * block + t
-                (mpm, bodies, rigid), out = self._env_step_fn(
-                    (mpm, bodies, rigid), actions[s], params_s,
-                    loss_weights=sub_w[s] if use_general else None,
-                    unsort_perm=perm)
-                overflow = overflow | out[0]
-                if use_general:
-                    for k, v in out[2].items():
-                        block_terms[k] = block_terms.get(k, 0.0) + v
+            for t0 in range(0, block, group):
+                s0 = b * block + t0
+                acts = actions[s0:s0 + group]
+                weights = (list(sub_w[s0:s0 + group]) if use_general
+                           else [None] * group)
+                carry, ovf, terms = run(carry, acts, params_s, weights, perm)
+                overflow = overflow | ovf
+                for k, v in terms.items():
+                    block_terms[k] = block_terms.get(k, 0.0) + v
             general.append(block_terms)
+            mpm, bodies, _ = carry
             if self.loss is not None and (mask_np[b] or b == n_blocks - 1):
                 sample = FrameSample(x=_unsort_rows(mpm.x_nd, perm),
                                      bodies=bodies)
                 per_block.append(self.loss.terms(sample))
             else:
                 per_block.append(None)
+            if (b + 1) % seg_blocks == 0 and b + 1 < n_blocks:
+                # truncated BPTT: gradients stop at the segment boundary
+                carry = _carry_from([t.detach()
+                                     for t in _carry_tensors(carry)])
 
         terms_acc = {"window_overflow": overflow}
         loss_total = self._scalar(0.0)
@@ -338,11 +467,9 @@ class SoftMacEnv:
                     loss_total = loss_total + v
 
         # _sort_out: back to the original particle order
-        inv = torch.empty_like(perm)
-        inv[perm] = torch.arange(perm.shape[0], device=perm.device)
-        carry = (mpm_mod.permute_state(mpm, inv), bodies, rigid)
-        self._check_overflow(terms_acc)
-        return {"loss": loss_total, "terms": terms_acc, "carry": carry}
+        mpm, bodies, rigid = carry
+        carry = (mpm_mod.permute_state(mpm, _inverse(perm)), bodies, rigid)
+        return loss_total, terms_acc, carry
 
     def _check_overflow(self, terms):
         """Warn (once per env) when the active window missed a particle:
@@ -358,10 +485,15 @@ class SoftMacEnv:
             self._overflow_warned = True
 
 
+def _inverse(perm):
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return inv
+
+
 def _unsort_rows(x_nd, perm):
-    """Rows of a sorted-order (N, k) tensor back in original order."""
+    """Rows of a sorted-order (N, k) tensor back in original order (a
+    gather, so that gradients flow back to the sorted rows)."""
     if perm is None:
         return x_nd
-    out = torch.empty_like(x_nd)
-    out[perm] = x_nd
-    return out
+    return x_nd[_inverse(perm)]

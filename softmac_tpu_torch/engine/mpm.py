@@ -8,7 +8,10 @@ of ``grid_coords``. The transfers are the P2G and G2P of ``ops.transfer``
 (CUDA kernels on the card, plain PyTorch on the CPU).
 
 The window corner stays a device tensor, so a substep never waits on the
-host; ``window_overflow`` comes back as a 0-d bool tensor.
+host; ``window_overflow`` comes back as a 0-d bool tensor. A substep is
+differentiable end to end under autograd (the transfers and the contact
+through their autograd Functions); the corner and the sort permutation are
+integer and carry no gradient.
 """
 from __future__ import annotations
 
@@ -46,7 +49,8 @@ def window_geometry(cfg: MPMConfig, x: torch.Tensor):
                 torch.zeros((), dtype=torch.bool, device=x.device))
     sizes = tuple(int(w) for w in cfg.active_window)
     size_t = torch.tensor(sizes, dtype=torch.int32, device=x.device)
-    pos = x * cfg.inv_dx - 0.5
+    # integer outputs only: no autograd graph through the corner
+    pos = x.detach() * cfg.inv_dx - 0.5
     center = pos.mean(dim=1)
     corner = torch.round(center).to(torch.int32) - size_t // 2
     corner = torch.minimum(torch.clamp(corner, min=0), ng - size_t)
@@ -59,8 +63,10 @@ def window_geometry(cfg: MPMConfig, x: torch.Tensor):
 
 def sort_perm(cfg: MPMConfig, x: torch.Tensor):
     """(perm, inv): the stable permutation sorting particles by base y-cell
-    (the order ``jnp.argsort`` gives), and its inverse."""
-    key = torch.floor(x[1] * cfg.inv_dx - 0.5).to(torch.int32)
+    (the order ``jnp.argsort`` gives), and its inverse. The key is
+    discrete; gradients flow through the gathers that apply the
+    permutation."""
+    key = torch.floor(x[1].detach() * cfg.inv_dx - 0.5).to(torch.int32)
     perm = torch.argsort(key, stable=True)
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.shape[0], device=perm.device)

@@ -33,6 +33,9 @@ SIGNATURES = {
     "softmac_g2p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "softmac_collide_particle": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "softmac_p2g_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "softmac_g2p_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
+    "softmac_collide_particle_bwd": [_P] * 8 + [_I] * 4 + [_F] * 9 + [_P],
 }
 
 

@@ -15,7 +15,12 @@ of the engine.
 
 ``collide_particle`` dispatches on the device of the particles: the CPU runs
 the plain version, CUDA launches the kernel (and counts the launch),
-anything else raises.
+anything else raises. Under autograd it goes through ``CollideParticle``
+(the custom_vjp of ``pallas_contact._particle_factory``): cotangents reach
+x, v and the 14 body floats (position, quaternion, velocity, angular
+velocity, friction); the backward launches ``collide_particle_bwd`` on
+CUDA and runs ``collide_particle_vjp_plain`` on the CPU. The SDF table gets
+no gradient, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -130,11 +135,40 @@ def collide_particle_plain(prim, body_pos, body_quat, body_v, body_w,
     return torch.stack([torch.where(mask, i, 0.0) for i in imp]), mask
 
 
-def collide_particle(prim, body_pos, body_quat, body_v, body_w, friction,
-                     x, v, dt, p_mass):
-    """Penalty contact impulse and mask; see ``collide_particle_plain``.
-    body_pos/v/w (3,), body_quat (4,) wxyz and friction () are tensors on
-    the particles' device."""
+def collide_particle_vjp_plain(prim, body_pos, body_quat, body_v, body_w,
+                               friction, x, v, dt, p_mass, dimp):
+    """Cotangents (d body_pos, d body_quat, d body_v, d body_w, d friction,
+    dx, dv) of ``collide_particle_plain``'s impulse for the cotangent dimp
+    (3, N): autograd of the plain version, recomputed."""
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_() for t in
+                    (body_pos, body_quat, body_v, body_w, friction, x, v))
+        imp, _ = collide_particle_plain(prim, *ins, dt, p_mass)
+        return torch.autograd.grad(imp, ins, dimp)
+
+
+def _body_floats(body_pos, body_quat, body_v, body_w, friction):
+    return torch.cat([body_pos, body_quat, body_v, body_w,
+                      friction.reshape(1)]).contiguous()
+
+
+def _check_cuda(name, prim, tensors, n):
+    table = prim.neighborhood
+    for t in tensors + (table,):
+        if t.device != tensors[0].device or t.dtype != torch.float32:
+            raise TypeError(f"{name}: CUDA kernel takes float32 tensors on "
+                            f"one device, got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    if (any(t.shape != (3, n) for t in tensors[:-1])
+            or tensors[-1].shape != (14,)
+            or table.shape != (prim.res[0] * prim.res[1] * prim.res[2], 32)
+            or table.data_ptr() % 16):
+        raise ValueError(f"{name}: bad shapes or table alignment")
+
+
+def _collide_particle(prim, body_pos, body_quat, body_v, body_w, friction,
+                      x, v, dt, p_mass):
     kind = x.device.type
     if kind == "cpu":
         return collide_particle_plain(prim, body_pos, body_quat, body_v,
@@ -142,31 +176,83 @@ def collide_particle(prim, body_pos, body_quat, body_v, body_w, friction,
     if kind != "cuda":
         raise TypeError(f"collide_particle: no implementation for {x.device}")
     n = x.shape[1]
-    table = prim.neighborhood
-    body = torch.cat([body_pos, body_quat, body_v, body_w,
-                      friction.reshape(1)]).contiguous()
-    for t in (x, v, table, body):
-        if t.device != x.device or t.dtype != torch.float32:
-            raise TypeError("collide_particle: CUDA kernel takes float32 "
-                            f"tensors on one device, got {t.dtype} on "
-                            f"{t.device}")
-        if not t.is_contiguous():
-            raise ValueError("collide_particle: tensors must be contiguous")
-    if (x.shape != (3, n) or v.shape != (3, n) or body.shape != (14,)
-            or table.shape != (prim.res[0] * prim.res[1] * prim.res[2], 32)
-            or table.data_ptr() % 16):
-        raise ValueError("collide_particle: bad shapes or table alignment")
+    body = _body_floats(body_pos, body_quat, body_v, body_w, friction)
+    _check_cuda("collide_particle", prim, (x, v, body), n)
     imp = torch.empty((3, n), dtype=x.dtype, device=x.device)
     mask = torch.empty((n,), dtype=torch.bool, device=x.device)
-    lo, up, inv_dx = prim.geom[0:3], prim.geom[3:6], prim.geom[6]
     rc = build.library().softmac_collide_particle(
-        x.data_ptr(), v.data_ptr(), table.data_ptr(), body.data_ptr(),
-        imp.data_ptr(), mask.data_ptr(), n, *prim.res, *lo, *up, inv_dx,
-        float(dt), float(p_mass),
+        x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
+        body.data_ptr(), imp.data_ptr(), mask.data_ptr(), n, *prim.res,
+        *prim.geom, float(dt), float(p_mass),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "collide_particle")
     collide_particle.launches += 1
     return imp, mask
 
 
+def collide_particle_bwd(prim, body_pos, body_quat, body_v, body_w, friction,
+                         x, v, dt, p_mass, dimp):
+    """The contact backward kernel: the cotangents
+    ``collide_particle_vjp_plain`` returns, on CUDA float32 tensors. The
+    body cotangent is summed in a fixed order (per-block partials, then
+    ``torch.sum``), so it is the same on every run."""
+    n = x.shape[1]
+    body = _body_floats(body_pos, body_quat, body_v, body_w, friction)
+    _check_cuda("collide_particle_bwd", prim, (x, v, dimp, body), n)
+    blocks = -(-n // 256)     # the kernel's block count (kThreads = 256)
+    dx = torch.empty((3, n), dtype=x.dtype, device=x.device)
+    dv = torch.empty((3, n), dtype=x.dtype, device=x.device)
+    part = torch.empty((14, blocks), dtype=x.dtype, device=x.device)
+    rc = build.library().softmac_collide_particle_bwd(
+        x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
+        body.data_ptr(), dimp.data_ptr(), dx.data_ptr(), dv.data_ptr(),
+        part.data_ptr(), n, *prim.res, *prim.geom, float(dt), float(p_mass),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "collide_particle_bwd")
+    collide_particle_bwd.launches += 1
+    db = part.sum(dim=1, dtype=torch.float64).to(x.dtype)
+    return (db[0:3], db[3:7], db[7:10], db[10:13], db[13].reshape(()),
+            dx, dv)
+
+
+class CollideParticle(torch.autograd.Function):
+    """Particle contact with its backward kernel
+    (``pallas_contact._particle_factory``'s custom_vjp). Outputs the impulse
+    (3, N) and the contact mask (N,), which is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, prim, body_pos, body_quat, body_v, body_w, friction, x,
+                v, dt, p_mass):
+        imp, mask = _collide_particle(prim, body_pos, body_quat, body_v,
+                                      body_w, friction, x, v, dt, p_mass)
+        ctx.mark_non_differentiable(mask)
+        ctx.save_for_backward(body_pos, body_quat, body_v, body_w, friction,
+                              x, v)
+        ctx.prim, ctx.dt, ctx.p_mass = prim, dt, p_mass
+        return imp, mask
+
+    @staticmethod
+    def backward(ctx, dimp, _dmask):
+        saved = ctx.saved_tensors
+        vjp = (collide_particle_vjp_plain if saved[5].device.type == "cpu"
+               else collide_particle_bwd)
+        grads = vjp(ctx.prim, *saved, ctx.dt, ctx.p_mass, dimp.contiguous())
+        return ((None,) + tuple(g if need else None for g, need in
+                                zip(grads, ctx.needs_input_grad[1:8]))
+                + (None, None))
+
+
+def collide_particle(prim, body_pos, body_quat, body_v, body_w, friction,
+                     x, v, dt, p_mass):
+    """Penalty contact impulse and mask; see ``collide_particle_plain``.
+    body_pos/v/w (3,), body_quat (4,) wxyz and friction () are tensors on
+    the particles' device. CUDA tensors launch the kernel; under autograd
+    the backward launches ``collide_particle_bwd``."""
+    args = (body_pos, body_quat, body_v, body_w, friction, x, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return CollideParticle.apply(prim, *args, dt, p_mass)
+    return _collide_particle(prim, *args, dt, p_mass)
+
+
 collide_particle.launches = 0
+collide_particle_bwd.launches = 0

@@ -23,7 +23,8 @@
 // Simple design: one thread per particle, global atomicAdd straight into
 // a zeroed window, no shared memory. The sorted-by-y particle order of
 // the rollout keeps a warp's atomics on a few nearby cache lines. A
-// block-local shared-memory grid tile is the later optimisation.
+// block-local shared-memory grid tile is the later optimisation. The
+// splat itself (bspline.cuh splat_stencil) is shared with G2P's backward.
 //
 // Accumulation is in float64 (atomicAdd(double*)), then one more launch
 // rounds the window to float32. This is kept for reproducibility: float32
@@ -49,50 +50,15 @@ __global__ void p2g_kernel(const float* __restrict__ x,
 
   softmac::Axis ax[3];
   int rel[3];
-  for (int d = 0; d < 3; ++d) {
-    ax[d] = softmac::axis_weights(x[d * n + p], inv_dx);
-    rel[d] = ax[d].base - corner[d];
-  }
+  softmac::particle_stencil(x, n, p, corner, inv_dx, ax, rel);
   const float mass = chan[p];
   float mom[3], a[3][3];
   for (int d = 0; d < 3; ++d) {
     mom[d] = chan[(1 + d) * n + p];
     for (int j = 0; j < 3; ++j) a[d][j] = chan[(4 + 3 * d + j) * n + p];
   }
-
-  const int w3 = 3 * wx;
-  for (int j = 0; j < 3; ++j) {
-    const int cy = rel[1] + j;
-    if (cy < 0 || cy >= wy) continue;
-    for (int k = 0; k < 3; ++k) {
-      const int cz = rel[2] + k;
-      if (cz < 0 || cz >= wz) continue;
-      const int row = cy * wz + cz;
-      const float wyz = ax[1].w[j] * ax[2].w[k];
-      const float dyz = ax[1].wd[j] * ax[2].w[k];
-      const float ydz = ax[1].w[j] * ax[2].wd[k];
-      for (int i = 0; i < 3; ++i) {
-        const int cx = rel[0] + i;
-        if (cx < 0 || cx >= wx) continue;
-        const float wgt = ax[0].w[i] * wyz;
-        const float dwx = ax[0].wd[i] * wyz;
-        const float dwy = ax[0].w[i] * dyz;
-        const float dwz = ax[0].w[i] * ydz;
-        atomicAdd(gm + row * wx + cx, static_cast<double>(wgt * mass));
-        double* g = gmom + row * w3 + cx;
-        for (int d = 0; d < 3; ++d) {
-          atomicAdd(g + d * wx, static_cast<double>(
-              wgt * mom[d] + dwx * a[d][0] + dwy * a[d][1] + dwz * a[d][2]));
-        }
-      }
-    }
-  }
-}
-
-__global__ void round_to_float(const double* __restrict__ src,
-                               float* __restrict__ dst, int count) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < count) dst[i] = static_cast<float>(src[i]);
+  softmac::splat_stencil(ax, rel, wx, wy, wz, gm, mass, gmom, 3 * wx, wx,
+                         mom, a);
 }
 
 }  // namespace
@@ -111,7 +77,7 @@ extern "C" int softmac_p2g(const float* x, const float* chan, const int* corner,
     p2g_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0, s>>>(
         x, chan, corner, acc, acc + cells, n, wx, wy, wz, inv_dx);
   }
-  round_to_float<<<softmac::blocks_for(4 * cells), softmac::kThreads, 0, s>>>(
-      acc, out, 4 * cells);
+  softmac::round_to_float<<<softmac::blocks_for(4 * cells), softmac::kThreads,
+                            0, s>>>(acc, out, 4 * cells);
   return static_cast<int>(cudaGetLastError());
 }

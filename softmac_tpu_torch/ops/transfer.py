@@ -12,6 +12,12 @@ launch), anything else raises. There is no fallback from CUDA to the plain
 version: the plain version runs on a CUDA tensor only when called by name
 (``chip_smoke.py`` does, to hold the kernel against it).
 
+Under autograd (grad enabled and an input that requires grad) both go
+through the ``P2G`` / ``G2P`` autograd Functions (the custom_vjp of
+``pallas_chunked.family``): the backward launches ``p2g_bwd`` / ``g2p_bwd``
+on CUDA and runs ``p2g_vjp_plain`` / ``g2p_vjp_plain`` on the CPU. The
+window corner is an int tensor and gets no gradient.
+
 Window semantics differ from the TPU kernels on purpose: those truncate each
 particle tile to a 16-row y-window and report ``window_overflow`` when a tile
 spans more (``pallas_chunked.chunk_meta``). Both versions here are exact over
@@ -98,6 +104,27 @@ def g2p_plain(x, gv0, gv1, gv2, corner, window, inv_dx):
     return torch.stack(rows)
 
 
+def p2g_vjp_plain(x, chan, corner, window, inv_dx, dgm, dgmom):
+    """Cotangents (dx (3, N), dchan (13, N)) of ``p2g_plain`` for the
+    window cotangents dgm (wy*wz, wx), dgmom (wy*wz, 3*wx): autograd of the
+    plain version, recomputed."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_()
+        chan = chan.detach().requires_grad_()
+        gm, gmom = p2g_plain(x, chan, corner, window, inv_dx)
+        return torch.autograd.grad((gm, gmom), (x, chan), (dgm, dgmom))
+
+
+def g2p_vjp_plain(x, gv0, gv1, gv2, corner, window, inv_dx, g):
+    """Cotangents (dx (3, N), dgv0, dgv1, dgv2 (wy*wz, wx)) of
+    ``g2p_plain`` for the output cotangent g (12, N): autograd of the plain
+    version, recomputed."""
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_() for t in (x, gv0, gv1, gv2))
+        out = g2p_plain(*ins, corner, window, inv_dx)
+        return torch.autograd.grad(out, ins, g)
+
+
 def _check_cuda(name, tensors, corner):
     for t in tensors:
         if t.device.type != "cuda" or t.dtype != torch.float32:
@@ -118,7 +145,7 @@ def _device_kind(x, name):
     return kind
 
 
-def p2g(x, chan, corner, window, inv_dx):
+def _p2g(x, chan, corner, window, inv_dx):
     """P2G splat; see ``p2g_plain``. CUDA tensors launch the kernel."""
     if _device_kind(x, "p2g") == "cpu":
         return p2g_plain(x, chan, corner, window, inv_dx)
@@ -140,17 +167,14 @@ def p2g(x, chan, corner, window, inv_dx):
     return out[:cells].view(wy * wz, wx), out[cells:].view(wy * wz, 3 * wx)
 
 
-def g2p(x, gv0, gv1, gv2, corner, window, inv_dx):
+def _g2p(x, gv0, gv1, gv2, corner, window, inv_dx):
     """G2P gather; see ``g2p_plain``. CUDA tensors launch the kernel."""
     if _device_kind(x, "g2p") == "cpu":
         return g2p_plain(x, gv0, gv1, gv2, corner, window, inv_dx)
     wx, wy, wz = (int(w) for w in window)
     n = x.shape[1]
     _check_cuda("g2p", (x, gv0, gv1, gv2), corner)
-    if x.shape != (3, n) or any(g.shape != (wy * wz, wx)
-                                for g in (gv0, gv1, gv2)):
-        raise ValueError(f"g2p: x {tuple(x.shape)}, grids "
-                         f"{[tuple(g.shape) for g in (gv0, gv1, gv2)]}")
+    _check_grids("g2p", x, (gv0, gv1, gv2), window)
     out = torch.empty((12, n), dtype=x.dtype, device=x.device)
     rc = build.library().softmac_g2p(
         x.data_ptr(), gv0.data_ptr(), gv1.data_ptr(), gv2.data_ptr(),
@@ -161,5 +185,120 @@ def g2p(x, gv0, gv1, gv2, corner, window, inv_dx):
     return out
 
 
+def _check_grids(name, x, grids, window):
+    wx, wy, wz = (int(w) for w in window)
+    if x.shape != (3, x.shape[1]) or any(g.shape != (wy * wz, wx)
+                                         for g in grids):
+        raise ValueError(f"{name}: x {tuple(x.shape)}, grids "
+                         f"{[tuple(g.shape) for g in grids]}")
+
+
+def p2g_bwd(x, chan, corner, window, inv_dx, dgm, dgmom):
+    """The P2G backward kernel: (dx, dchan) as ``p2g_vjp_plain`` computes
+    them, on CUDA float32 tensors."""
+    wx, wy, wz = (int(w) for w in window)
+    n = x.shape[1]
+    _check_cuda("p2g_bwd", (x, chan, dgm, dgmom), corner)
+    if (x.shape != (3, n) or chan.shape != (13, n)
+            or dgm.shape != (wy * wz, wx) or dgmom.shape != (wy * wz, 3 * wx)):
+        raise ValueError("p2g_bwd: bad shapes")
+    dx = torch.empty((3, n), dtype=x.dtype, device=x.device)
+    dchan = torch.empty((13, n), dtype=x.dtype, device=x.device)
+    rc = build.library().softmac_p2g_bwd(
+        x.data_ptr(), chan.data_ptr(), corner.data_ptr(), dgm.data_ptr(),
+        dgmom.data_ptr(), dx.data_ptr(), dchan.data_ptr(), n, wx, wy, wz,
+        float(inv_dx), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "p2g_bwd")
+    p2g_bwd.launches += 1
+    return dx, dchan
+
+
+def g2p_bwd(x, gv0, gv1, gv2, corner, window, inv_dx, g):
+    """The G2P backward kernel: (dx, dgv0, dgv1, dgv2) as ``g2p_vjp_plain``
+    computes them, on CUDA float32 tensors. The grid cotangents are summed
+    in float64 and rounded once, as P2G's window."""
+    wx, wy, wz = (int(w) for w in window)
+    n = x.shape[1]
+    _check_cuda("g2p_bwd", (x, gv0, gv1, gv2, g), corner)
+    _check_grids("g2p_bwd", x, (gv0, gv1, gv2), window)
+    if g.shape != (12, n):
+        raise ValueError(f"g2p_bwd: cotangent {tuple(g.shape)}")
+    cells = wx * wy * wz
+    dx = torch.empty((3, n), dtype=x.dtype, device=x.device)
+    acc = torch.zeros(3 * cells, dtype=torch.float64, device=x.device)
+    out = torch.empty(3 * cells, dtype=x.dtype, device=x.device)
+    rc = build.library().softmac_g2p_bwd(
+        x.data_ptr(), gv0.data_ptr(), gv1.data_ptr(), gv2.data_ptr(),
+        corner.data_ptr(), g.data_ptr(), dx.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), n, wx, wy, wz, float(inv_dx),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "g2p_bwd")
+    g2p_bwd.launches += 1
+    return (dx,) + tuple(out[d * cells:(d + 1) * cells].view(wy * wz, wx)
+                         for d in range(3))
+
+
+class P2G(torch.autograd.Function):
+    """P2G with its backward kernel (``pallas_chunked.family().p2g_c``)."""
+
+    @staticmethod
+    def forward(ctx, x, chan, corner, window, inv_dx):
+        ctx.save_for_backward(x, chan, corner)
+        ctx.window, ctx.inv_dx = window, inv_dx
+        return _p2g(x, chan, corner, window, inv_dx)
+
+    @staticmethod
+    def backward(ctx, dgm, dgmom):
+        x, chan, corner = ctx.saved_tensors
+        vjp = p2g_vjp_plain if _device_kind(x, "p2g") == "cpu" else p2g_bwd
+        dx, dchan = vjp(x, chan, corner, ctx.window, ctx.inv_dx,
+                        dgm.contiguous(), dgmom.contiguous())
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dchan if need[1] else None,
+                None, None, None)
+
+
+class G2P(torch.autograd.Function):
+    """G2P with its backward kernel (``pallas_chunked.family().g2p_c``)."""
+
+    @staticmethod
+    def forward(ctx, x, gv0, gv1, gv2, corner, window, inv_dx):
+        ctx.save_for_backward(x, gv0, gv1, gv2, corner)
+        ctx.window, ctx.inv_dx = window, inv_dx
+        return _g2p(x, gv0, gv1, gv2, corner, window, inv_dx)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gv0, gv1, gv2, corner = ctx.saved_tensors
+        vjp = g2p_vjp_plain if _device_kind(x, "g2p") == "cpu" else g2p_bwd
+        grads = vjp(x, gv0, gv1, gv2, corner, ctx.window, ctx.inv_dx,
+                    g.contiguous())
+        return tuple(gr if need else None
+                     for gr, need in zip(grads, ctx.needs_input_grad)) \
+            + (None, None, None)
+
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def p2g(x, chan, corner, window, inv_dx):
+    """P2G splat; see ``p2g_plain``. CUDA tensors launch the kernel; under
+    autograd the backward launches ``p2g_bwd``."""
+    if _needs_grad(x, chan):
+        return P2G.apply(x, chan, corner, window, inv_dx)
+    return _p2g(x, chan, corner, window, inv_dx)
+
+
+def g2p(x, gv0, gv1, gv2, corner, window, inv_dx):
+    """G2P gather; see ``g2p_plain``. CUDA tensors launch the kernel; under
+    autograd the backward launches ``g2p_bwd``."""
+    if _needs_grad(x, gv0, gv1, gv2):
+        return G2P.apply(x, gv0, gv1, gv2, corner, window, inv_dx)
+    return _g2p(x, gv0, gv1, gv2, corner, window, inv_dx)
+
+
 p2g.launches = 0
 g2p.launches = 0
+p2g_bwd.launches = 0
+g2p_bwd.launches = 0

@@ -2,11 +2,13 @@
 (softmac_tpu_torch.engine.materials) against the JAX package's
 compute_stress_and_F, in float64. The SVD-driven models raise until the
 SVD is ported. Tolerance 1e-13 relative (the port's cube root is a power,
-JAX's is cbrt)."""
+JAX's is cbrt), for the values and for the gradients of the corotated
+liquid's sign-safe cube root."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from softmac_tpu.engine import materials as jmat
@@ -56,3 +58,21 @@ def test_svd_models_raise(ptype):
     F = m33.from_mat_array(torch.eye(3)[:, :, None].expand(3, 3, N))
     with pytest.raises(NotImplementedError, match="SVD"):
         tmat.compute_stress_and_F(cfg, F, torch.ones(N), torch.ones(N))
+
+
+def test_cube_root_gradient_matches_cbrt():
+    """d/dJ of sign(J) |J|^(1/3) against jax.grad of jnp.cbrt, for J on
+    both sides of 0 (the liquid keeps J near 1): finite, and equal."""
+    J = np.concatenate([np.linspace(0.5, 1.5, 21), -np.linspace(0.2, 2, 5)])
+    F = np.zeros((3, 3, J.size))
+    F[0, 0], F[1, 1], F[2, 2] = J, 1.0, 1.0
+    cfg = TConfig(n_particles=J.size, material_model=0, ptype=2,
+                  dtype=torch.float64)
+    Ft = torch.as_tensor(F).requires_grad_()
+    ones = torch.ones(J.size, dtype=torch.float64)
+    _, new_F = tmat.compute_stress_and_F(cfg, m33.from_mat_array(Ft), ones,
+                                         ones)
+    g, = torch.autograd.grad(new_F[0][0].sum(), Ft)
+    ref = np.asarray(jax.vmap(jax.grad(jnp.cbrt))(jnp.asarray(J)))
+    assert np.isfinite(g.numpy()).all()
+    np.testing.assert_allclose(g[0, 0].numpy(), ref, rtol=1e-13)

@@ -138,7 +138,22 @@ def test_kernel_library_is_keyed_by_sources():
     assert path.parent == ROOT / "build" / "softmac_tpu_torch"
     assert path == build.library_path()
     assert set(build.SIGNATURES) == {
-        "softmac_p2g", "softmac_g2p", "softmac_collide_particle"}
+        "softmac_p2g", "softmac_g2p", "softmac_collide_particle",
+        "softmac_p2g_bwd", "softmac_g2p_bwd", "softmac_collide_particle_bwd"}
     sources = " ".join(p.read_text() for p in build.CSRC.glob("*.cu"))
     for name in build.SIGNATURES:
         assert f'extern "C" int {name}(' in sources
+
+
+@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
+def test_kernel_signature_matches_source(name):
+    """The ctypes argument list of each entry point has the C prototype's
+    length and types (pointer, int, float), so no argument is cut."""
+    sources = " ".join(p.read_text() for p in build.CSRC.glob("*.cu"))
+    head = sources.split(f'extern "C" int {name}(', 1)[1].split(")", 1)[0]
+    params = [a.strip() for a in head.split(",")]
+    kinds = ["p" if "*" in a else "i" if a.startswith("int ") else "f"
+             for a in params]
+    want = {build.ctypes.c_void_p: "p", build.ctypes.c_int: "i",
+            build.ctypes.c_float: "f"}
+    assert kinds == [want[t] for t in build.SIGNATURES[name]]

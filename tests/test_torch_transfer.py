@@ -9,6 +9,10 @@ port's exact-window transfers. A second case shifts the window corner so
 that stencils cross the window's x/y/z faces: the port skips those cells as
 the dense weights' zero rows do.
 
+The cotangents of both transfers (the plain vjps, and autograd through the
+P2G / G2P Functions) are held against jax.vjp of the dense transfers
+composed with the dense weights, on the same two cases.
+
 Tolerances: 1e-12 relative against the dense transfers (float64 sums in
 another order); 2e-6 relative against the chunked references, which return
 their dot products in float32 whatever the input type
@@ -17,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from softmac_tpu.engine import mpm as jmpm
@@ -160,3 +165,108 @@ def test_sort_perm_matches_jax():
     tperm, tinv = tmpm.sort_perm(_tcfg(), torch.as_tensor(x))
     np.testing.assert_array_equal(tperm.numpy(), np.asarray(jperm))
     np.testing.assert_array_equal(tinv.numpy(), np.asarray(jinv))
+
+
+# ---------------------------------------------------------------------------
+# Cotangents: the P2G / G2P autograd Functions and their plain vjps against
+# jax.vjp of the dense transfers composed with axis_weights and hyz_family,
+# so that x takes its cotangent through the weights. Random cotangents;
+# tolerance 1e-12 of the largest |value| of each output.
+# ---------------------------------------------------------------------------
+
+def _vjp_inputs(shift):
+    x, _, _, _, _, jcfg, tcfg, xj, sizes, corner = _setup(shift)
+    t_corner = torch.tensor([int(c) for c in corner], dtype=torch.int32)
+    return x, jcfg, tcfg, sizes, corner, t_corner, np.random.RandomState(11)
+
+
+def _grad_through_function(fn, inputs, cotangents):
+    """torch.autograd.grad through the entry point (the autograd Function)."""
+    ins = [torch.as_tensor(a).requires_grad_() for a in inputs]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, ins,
+                               [torch.as_tensor(c) for c in cotangents])
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_p2g_vjp_matches_jax(shift):
+    x, jcfg, tcfg, sizes, corner, t_corner, rng = _vjp_inputs(shift)
+    chan = rng.randn(13, N)
+    chan[0] = tcfg.p_mass
+    dgm = rng.randn(WY * WZ, WX)
+    dgmom = rng.randn(WY * WZ, 3 * WX)
+
+    def jax_p2g(xs, mom, adx):
+        # p2g_dense with the port's channels: momentum as the impulse (v
+        # = 0), dx * affine as dx * p_mass * C (stress = 0)
+        W, WD = jmpm.axis_weights(jcfg, xs, sizes, corner)
+        H, HDy, HDz = jmpm.hyz_family(jcfg, W, WD)
+        zero = jnp.zeros(N)
+        C = tuple(tuple(adx[3 * i + j] / (jcfg.p_mass * jcfg.dx)
+                        for j in range(3)) for i in range(3))
+        out = jmpm.p2g_dense(jcfg, W, WD, H, HDy, HDz, (zero,) * 3, C,
+                             tuple(tuple(zero for _ in range(3))
+                                   for _ in range(3)), tuple(mom))
+        return out[0], jnp.concatenate(out[1:], axis=1)
+
+    xs = tuple(jnp.asarray(x[d]) for d in range(3))
+    (gm_j, _), vjp = jax.vjp(jax_p2g, xs, jnp.asarray(chan[1:4]),
+                             jnp.asarray(chan[4:13]))
+    dxs, dmom, dadx = vjp((jnp.asarray(dgm), jnp.asarray(dgmom)))
+    # the mass channel is a constant in p2g_dense: its cotangent is
+    # sum_cells W dgm over JAX's dense weights
+    W, _ = jmpm.axis_weights(jcfg, xs, sizes, corner)
+    H = (W[1][:, None, :] * W[2][None, :, :]).reshape(WY * WZ, N)
+    dmass = np.einsum("rp,cp,rc->p", np.asarray(H), np.asarray(W[0]), dgm)
+    ref_dx = np.stack([np.asarray(d) for d in dxs])
+    ref_dchan = np.concatenate([dmass[None], np.asarray(dmom),
+                                np.asarray(dadx)])
+    assert np.abs(np.asarray(gm_j)).max() > 0
+
+    args = (torch.as_tensor(x), torch.as_tensor(chan), t_corner, WINDOW,
+            tcfg.inv_dx)
+    plain = transfer.p2g_vjp_plain(*args, torch.as_tensor(dgm),
+                                   torch.as_tensor(dgmom))
+    through = _grad_through_function(
+        lambda xx, cc: transfer.p2g(xx, cc, t_corner, WINDOW, tcfg.inv_dx),
+        (x, chan), (dgm, dgmom))
+    for dx, dchan in (plain, through):
+        assert dx.shape == (3, N) and dchan.shape == (13, N)
+        _close(dx.numpy(), ref_dx)
+        _close(dchan.numpy(), ref_dchan)
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_g2p_vjp_matches_jax(shift):
+    x, jcfg, tcfg, sizes, corner, t_corner, rng = _vjp_inputs(shift)
+    gv = [rng.randn(WY * WZ, WX) for _ in range(3)]
+    g = rng.randn(12, N)
+    s = 4.0 * tcfg.inv_dx
+
+    def jax_g2p(xs, g0, g1, g2):
+        W, WD = jmpm.axis_weights(jcfg, xs, sizes, corner)
+        H, HDy, HDz = jmpm.hyz_family(jcfg, W, WD)
+        v, C, _ = jmpm.g2p_dense(jcfg, W, WD, H, HDy, HDz, (g0, g1, g2), xs)
+        return jnp.stack(list(v) + [C[d][j] for d in range(3)
+                                    for j in range(3)])
+
+    xs = tuple(jnp.asarray(x[d]) for d in range(3))
+    _, vjp = jax.vjp(jax_g2p, xs, *(jnp.asarray(a) for a in gv))
+    # the port's rows 3-11 are C unscaled: the JAX C rows take g / s
+    gj = np.concatenate([g[:3], g[3:] / s])
+    dxs, *dgv = vjp(jnp.asarray(gj))
+    ref = [np.stack([np.asarray(d) for d in dxs])] + [np.asarray(d)
+                                                      for d in dgv]
+
+    args = (torch.as_tensor(x), *(torch.as_tensor(a) for a in gv), t_corner,
+            WINDOW, tcfg.inv_dx)
+    plain = transfer.g2p_vjp_plain(*args, torch.as_tensor(g))
+    through = _grad_through_function(
+        lambda xx, a, b, c: transfer.g2p(xx, a, b, c, t_corner, WINDOW,
+                                         tcfg.inv_dx),
+        (x, *gv), (g,))
+    for grads in (plain, through):
+        assert [tuple(t.shape) for t in grads] == [(3, N)] + [(WY * WZ, WX)] * 3
+        for got, want in zip(grads, ref):
+            _close(got.numpy(), want)
