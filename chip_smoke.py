@@ -9,15 +9,19 @@ script exits non-zero:
   device   the card as nvidia-smi reports it (name, power limit)
   build    nvcc builds the CUDA kernels from softmac_tpu_torch/ops/csrc
   kernels  each kernel against its plain PyTorch version at the main path's
-           shapes (1e5-particle pour_vel scene, window (40, 32, 16), the
-           state after 10 env steps): max error, time over 20+ calls (CUDA
-           events), the plain version's time, the least time the card needs
-           for the same work, launches on the main paths. The contact kernel
-           is also held against its plain version on particles spread over
-           each body's SDF box, so that both bodies have many contacts. The
-           three backward kernels (p2g_bwd, g2p_bwd, collide_particle_bwd)
-           are held against the plain vjps in float64 on the same inputs
-           with seeded normal cotangents
+           shapes: max error, time over 20+ calls (CUDA events), the plain
+           version's time, the least time the card needs for the same work,
+           launches on the main paths. P2G, G2P and the particle contact on
+           the 1e5-particle pour_vel scene, window (40, 32, 16), the state
+           after 10 env steps; the three backward kernels (p2g_bwd, g2p_bwd,
+           collide_particle_bwd) against the plain vjps in float64 on the
+           same inputs with seeded normal cotangents; gather, splat and the
+           mixed contact (merged and split) against their plain versions in
+           float64 on the flagship pour scene's state after 10 env steps
+           (1e5 particles, window (32, 32, 16)). Both contact families are
+           also held on particles spread over each body's SDF box, so that
+           both bodies have many contacts (and, for the mixed contact,
+           particles that approach, lie in the soft band and penetrate)
   slice    the forward main path: SoftMacEnv.rollout of that scene for 100
            env steps on the card, launches counted; then 7 more timed
            rollouts of the same actions: substeps/s (median and spread),
@@ -28,13 +32,20 @@ script exits non-zero:
            fwd+bwd substeps/s, peak device memory, the launches of all six
            kernels, finite nonzero gradients, and how far step and none and
            the repeats differ
-  profile  torch.profiler over 20 env steps of the rollout and 10 of
-           rollout_and_grad (remat "none"): device busy share of the wall
-           time, kernel launches per substep, the kernels that take the most
-           device time
-  parity   the demo's own 5000-particle scene, card (float32, kernels)
+  pour     the flagship main path: SoftMacEnv.rollout of the demo_pour
+           scene (mixed contact, two floating force-controlled bodies) at
+           1e5 particles, window (32, 32, 16), 100 env steps of zero
+           actions, launches counted; 7 more timed rollouts; then the same
+           scene under SOFTMAC_TPU_CONTACT_SPLIT (the split contact
+           kernels, counted), and rollout_and_grad, which must raise (no
+           CUDA backward of this slice's kernels yet)
+  profile  torch.profiler over 20 env steps of each rollout and 10 of the
+           pour_vel rollout_and_grad (remat "none"): device busy share of
+           the wall time, kernel launches per substep, the kernels that
+           take the most device time
+  parity   each demo's own 5000-particle scene, card (float32, kernels)
            against the CPU (float64, plain versions): 20 steps of rollout
-           and of rollout_and_grad
+           (and, for pour_vel, of rollout_and_grad)
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -49,7 +60,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WINDOW = (40, 32, 16)
+POUR_WINDOW = (32, 32, 16)        # bench.py's build_headline_env
 N_MAIN = 100_000
+SPLIT_STEPS = 20
 SLICE_STEPS = 100
 SLICE_REPEATS = 7
 STATE_STEPS = 10
@@ -72,21 +85,33 @@ FLOPS_PER_PARTICLE = {"p2g": 57 + 27 + 27 * 30, "g2p": 57 + 27 + 27 * 28,
                       # rate (the least time for the same work)
                       "p2g_bwd": 80 + 81 + 27 * 82,
                       "g2p_bwd": 80 + 81 + 27 * 80,
-                      "collide_particle_bwd": 240 + 310}
+                      "collide_particle_bwd": 240 + 310,
+                      # gather and splat: the weights ~57, per (y, z) pair
+                      # 1, per cell the weight and 3 multiply-adds (7)
+                      "gather": 57 + 9 + 27 * 7, "splat": 57 + 9 + 27 * 7,
+                      # mixed contact: 4 quaternion rotations ~30 each, two
+                      # trilinear samples 8 x 10 + normalisation ~90 each,
+                      # the friction cone, soft band, forecast and push-out
+                      # ~130; in double in the kernel, counted at the
+                      # float32 rate (the least time for the same work); the
+                      # split pair does the same work
+                      "collide_mixed": 430, "collide_mixed_split": 430}
 GRAD_REPEATS = 5
 GRAD_TOL = 1e-6           # step vs none, repeats vs the counted call
 ROW_TOL = 1e-5            # backward rows and grids
 BODY_TOL = 1e-4           # the 14 body floats, sums over 1e5 particles
 FORWARD = ("p2g", "g2p", "collide_particle")
+POUR = ("gather", "splat", "collide_mixed")
 
 
 def emit(tag, obj):
     print(f"{tag}: {json.dumps(obj)}" if tag else json.dumps(obj), flush=True)
 
 
-def tiled_pour_vel_particles(n):
-    """The pour_vel init state tiled to n particles with 1e-4 jitter (the
-    1e5-particle scene of bench.py's build_pour_vel_env)."""
+def tiled_pour_particles(n):
+    """The pour init state tiled to n particles with 1e-4 jitter (the
+    1e5-particle scenes of bench.py's build_headline_env and
+    build_pour_vel_env, _tile_to_1e5)."""
     import numpy as np
     base = np.load(ROOT / "envs/pour/pour_mpm_init_state_corotated.npy")
     reps = int(np.ceil(n / base.shape[0]))
@@ -100,6 +125,17 @@ def tiled_pour_vel_particles(n):
 def pour_vel_cfg(window=None):
     from softmac_tpu_torch import load
     cfg = load(str(ROOT / "softmac_tpu_torch/config/demo_pour_vel_config.py"))
+    if window is not None:
+        cfg.defrost()
+        cfg.TPU.active_window = tuple(window)
+        cfg.freeze()
+    return cfg
+
+
+def pour_cfg(window=None):
+    """The flagship demo_pour config (mixed contact, floating bodies)."""
+    from softmac_tpu_torch import load
+    cfg = load(str(ROOT / "softmac_tpu_torch/config/demo_pour_config.py"))
     if window is not None:
         cfg.defrost()
         cfg.TPU.active_window = tuple(window)
@@ -428,6 +464,226 @@ def check_contact_backward(inp, normal):
     return e
 
 
+def pour_kernel_inputs(env, carry):
+    """The inputs the flagship pour's first substep from ``carry`` hands
+    gather, the mixed contact (glass, then bowl) and splat, built with the
+    port's own substep stages and the plain versions (y-sorted)."""
+    import torch
+    from softmac_tpu_torch.engine import mpm
+    from softmac_tpu_torch.ops import contact, m33, transfer
+    cfg = env.mpm_cfg
+    state, bodies, _ = carry
+    q, _ = mpm.sort_perm(cfg, state.x)
+    state = mpm.permute_state(state, q)
+    params = mpm.permute_params(env.mpm_params, q)
+    stress, _ = mpm.stress_and_F(cfg, params, state)
+    impulse, _ = mpm.contact_impulse(cfg, params, env.prims, state, bodies)
+    sizes, corner, overflow = mpm.window_geometry(cfg, state.x)
+    if bool(overflow):
+        raise AssertionError("window overflow in the pour kernel-check state")
+    chan = mpm._p2g_channels(cfg, tuple(state.v), m33.from_mat_array(state.C),
+                             stress, impulse)
+    gm, gmom = transfer.p2g_plain(state.x, chan, corner, sizes, cfg.inv_dx)
+    wx = sizes[0]
+    g_v, _, _ = mpm.grid_normalize(
+        cfg, (gm, gmom[:, :wx], gmom[:, wx:2 * wx], gmom[:, 2 * wx:]),
+        params.gravity)
+    gvm = tuple(g.contiguous() for g in mpm.boundary_condition(
+        cfg, mpm.grid_coords(cfg, sizes, corner), g_v))
+    v_tmp = transfer.gather_plain(state.x, *gvm, corner, sizes, cfg.inv_dx)
+    life = torch.full((), 1.0 / cfg.substeps, dtype=state.x.dtype,
+                      device=state.x.device)      # substep k = 0
+    contacts, v_in = [], v_tmp
+    for i, prim in enumerate(env.prims):
+        body = (bodies.pos[i], bodies.quat[i], bodies.v[i], bodies.w[i],
+                params.friction[i], params.softness[i], life)
+        contacts.append((prim, body, v_in))
+        v_in = contact.collide_mixed_plain(
+            prim, *body, state.x, v_in, cfg.dt, cfg.p_mass,
+            cfg.contact_push_velocity_cap)[0]
+    return dict(cfg=cfg, state=state, corner=corner, sizes=sizes, gvm=gvm,
+                contacts=contacts,
+                vals=(-2.0 * (v_tmp - v_in)).contiguous())
+
+
+def _prim64(prim):
+    return prim.replace(neighborhood=prim.neighborhood.double(),
+                        lower=prim.lower.double(), upper=prim.upper.double(),
+                        inv_dx=prim.inv_dx.double())
+
+
+def _row_rel(got, want):
+    """max |kernel - plain| and that over the largest |plain| of its row."""
+    diff = (got.double() - want).abs()
+    scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    return diff.max().item(), (diff / scale).max().item()
+
+
+def check_pour_kernels(inp):
+    """Gather, splat and the mixed contact (merged and split) against their
+    plain versions run in float64 on the same inputs; returns the JSON
+    entries (launches filled in by the caller)."""
+    import torch
+    from softmac_tpu_torch.ops import transfer
+    cfg, x = inp["cfg"], inp["state"].x
+    n = x.shape[1]
+    corner, sizes = inp["corner"], inp["sizes"]
+    wx, wy, wz = sizes
+    cells = wx * wy * wz
+    entries = []
+
+    # --- gather: each velocity component against its largest |value| ------
+    args = (x, *inp["gvm"], corner, sizes, cfg.inv_dx)
+    err, rel = _row_rel(transfer.gather(*args),
+                        transfer.gather_plain(*map(_f64, args)))
+    entries.append(kernel_entry(
+        n, "gather", "softmac_tpu_torch/ops/csrc/gather.cu",
+        "softmac_tpu/ops/pallas_chunked.py:742 (_gather_c_pallas, "
+        "pallas_call :758, kernel _gather_c_kernel)", err, rel,
+        cuda_time_ms(lambda: transfer.gather(*args)),
+        cuda_time_ms(lambda: transfer.gather_plain(*args)),
+        (6 * n + 3 * cells) * 4))
+    entries[-1]["rel_err_is"] = "max |kernel - plain| / max |plain| per row"
+
+    # --- splat: each component's window against its largest |value| -------
+    args = (x, inp["vals"], corner, sizes, cfg.inv_dx)
+
+    def by_component(out):
+        return out.reshape(wy * wz, 3, wx).transpose(0, 1).reshape(3, -1)
+    err, rel = _row_rel(by_component(transfer.splat(*args)),
+                        by_component(transfer.splat_plain(*map(_f64, args))))
+    entries.append(kernel_entry(
+        n, "splat", "softmac_tpu_torch/ops/csrc/splat.cu",
+        "softmac_tpu/ops/pallas_chunked.py:797 (_splat_c_pallas, "
+        "pallas_call :812, kernel _splat_c_kernel)", err, rel,
+        cuda_time_ms(lambda: transfer.splat(*args)),
+        cuda_time_ms(lambda: transfer.splat_plain(*args)),
+        (6 * n + 3 * cells) * 4))
+    entries[-1]["rel_err_is"] = ("max |kernel - plain| / max |plain| per "
+                                 "velocity component's window")
+    entries[-1]["nonzero_vals"] = int((inp["vals"] != 0).any(dim=0).sum())
+    entries += check_mixed_kernels(inp)
+    return entries
+
+
+def check_mixed_kernels(inp):
+    """The merged mixed contact and its split pair, per body, on the main
+    path's particles and on particles spread over the body's SDF box with
+    seeded velocities; against collide_mixed_plain in float64 (p_v_out and
+    the reaction force within 1e-5 of their largest |value| where the masks
+    agree, masks equal away from the threshold), and split against merged
+    within 1e-6."""
+    import torch
+    from softmac_tpu_torch.ops import contact, m33
+    cfg, x = inp["cfg"], inp["state"].x
+    n = x.shape[1]
+    dt, p_mass = cfg.dt, cfg.p_mass
+    cap = cfg.contact_push_velocity_cap
+    gen = torch.Generator(device=x.device).manual_seed(2)
+    worst = {k: (0.0, 0.0) for k in ("merged", "split", "split_vs_merged")}
+    ms = {"merged": 0.0, "split": 0.0}
+    plain_ms = 0.0
+    nbytes = {"merged": 0, "split": 0}
+    for b, (prim, body, v_in) in enumerate(inp["contacts"]):
+        prim64 = _prim64(prim)
+        body64 = tuple(map(_f64, body))
+        x_box = box_particles(prim, body[0], body[1], n, gen)
+        v_box = (1.5 * torch.randn((3, n), generator=gen, dtype=x.dtype,
+                                   device=x.device)).contiguous()
+        for xs, vs, label in ((x, v_in, "main path"),
+                              (x_box, v_box, "SDF box")):
+            merged = contact.collide_mixed(prim, *body, xs, vs, dt, p_mass,
+                                           cap)
+            st1 = contact.collide_mixed1(prim, *body, xs, vs, dt)
+            split = contact.collide_mixed2(prim, *body, xs, vs, st1, dt,
+                                           p_mass, cap)
+            want = contact.collide_mixed_plain(prim64, *body64, _f64(xs),
+                                               _f64(vs), dt, p_mass, cap)
+            st1_p = contact.collide_mixed1_plain(prim64, *body64, _f64(xs),
+                                                 _f64(vs), dt)
+            dist = st1_p[6]
+            edge = (dist - contact.CONTACT_THRESHOLD).abs() < 1e-6
+            for key, got, ref in (("merged", merged, want),
+                                  ("split", split, want),
+                                  ("split_vs_merged", split, merged)):
+                if bool(((got[2] != ref[2]) & ~edge).any()):
+                    raise AssertionError(f"collide_mixed {key} ({label}, body "
+                                         f"{b}): masks differ away from the "
+                                         "threshold")
+                same = got[2] == ref[2]
+                for k in range(2):      # p_v_out, reaction force
+                    err = ((got[k].double() - ref[k].double()).abs()
+                           * same).max().item()
+                    rel = err / max(ref[k].abs().max().item(), 1e-30)
+                    worst[key] = max(worst[key], (rel, err))
+            mask = want[2]
+            sdf2, _ = contact.sample_sdf_normal_world(
+                prim64, tuple(body64[0]), tuple(body64[1]), tuple(st1_p[3:6]))
+            counts = {"contacts": int(mask.sum()),
+                      "approaching": int((mask & (st1_p[0:3] != _f64(vs))
+                                          .any(dim=0)).sum()),
+                      "soft": int((mask & (dist > 0)).sum()),
+                      "penetrating": int((mask & (sdf2 < 0)).sum()),
+                      "mask_mismatch_at_threshold": int(
+                          (merged[2] != mask).sum())}
+            print(f"collide_mixed body {b} {label}: {json.dumps(counts)}, "
+                  "worst rel err so far "
+                  + json.dumps({k: w[0] for k, w in worst.items()}),
+                  flush=True)
+            if label == "SDF box" and (
+                    counts["contacts"] < MIN_BOX_CONTACTS
+                    or min(counts["approaching"], counts["soft"],
+                           counts["penetrating"]) == 0):
+                raise AssertionError(f"collide_mixed: body {b}'s SDF box "
+                                     f"misses a case: {counts}")
+        cargs = (prim, *body, x, v_in, dt, p_mass, cap)
+        ms["merged"] += cuda_time_ms(lambda: contact.collide_mixed(*cargs))
+        ms["split"] += cuda_time_ms(lambda: contact.collide_mixed2(
+            prim, *body, x, v_in,
+            contact.collide_mixed1(prim, *body, x, v_in, dt), dt, p_mass,
+            cap))
+        plain_ms += cuda_time_ms(lambda: contact.collide_mixed_plain(*cargs))
+        qinv = m33.qnorm(m33.qconj(tuple(body[1])))
+        p_loc = m33.qrot(qinv, m33.vsub(tuple(x), tuple(body[0])))
+        rows = torch.unique(contact.cell_index(prim, p_loc)[0]).numel()
+        # in: x, v, the rows, 16 body floats; out: p_v_out, force, mask
+        nbytes["merged"] += 12 * n * 4 + rows * 128 + 16 * 4 + n
+        # the split also writes 7 doubles a particle and reads them back,
+        # and its second stage reads x, v, the rows and the body again
+        nbytes["split"] += (18 * n * 4 + 2 * rows * 128 + 2 * 16 * 4
+                            + 2 * 7 * n * 8 + n)
+        print(f"collide_mixed body {b}: distinct table rows {rows}",
+              flush=True)
+    if not worst["split_vs_merged"][0] <= 1e-6:
+        raise AssertionError("collide_mixed: split and merged differ by "
+                             f"{worst['split_vs_merged'][0]} > 1e-6")
+    note = ("max |kernel - plain| / max |plain| of p_v_out and the reaction "
+            "force where the masks agree, over both bodies and both particle "
+            "sets, the plain version in float64; times and bytes (main "
+            "path's particles) summed over glass + bowl")
+    entries = []
+    for name, key, replaces in (
+            ("collide_mixed", "merged",
+             "softmac_tpu/ops/pallas_contact.py:269 (_make_mixed12_kernel via "
+             "_fused12_factory :612, pallas_call in _run_kernel :472, call "
+             "site :635)"),
+            ("collide_mixed_split", "split",
+             "softmac_tpu/ops/pallas_contact.py:339 (_make_mixed1_kernel and "
+             "_make_mixed2_kernel :346 via _fused_factory :511, call sites "
+             ":530, :534)")):
+        e = kernel_entry(n, name, "softmac_tpu_torch/ops/csrc/contact_mixed.cu",
+                         replaces, worst[key][1], worst[key][0], ms[key],
+                         plain_ms, nbytes[key])
+        e["rel_err_is"] = note
+        e["per_substep"] = len(inp["contacts"])
+        entries.append(e)
+    entries[-1]["split_vs_merged_rel_err"] = worst["split_vs_merged"][0]
+    entries[-1]["split_vs_merged_tolerance"] = 1e-6
+    entries[-1]["launches_are"] = ("collide_mixed1 launches on the split "
+                                   "path (collide_mixed2 the same)")
+    return entries
+
+
 def timed_rollout(env, acts):
     import torch
     torch.cuda.synchronize()
@@ -442,7 +698,11 @@ def wrappers():
     return {"p2g": transfer.p2g, "g2p": transfer.g2p,
             "collide_particle": contact.collide_particle,
             "p2g_bwd": transfer.p2g_bwd, "g2p_bwd": transfer.g2p_bwd,
-            "collide_particle_bwd": contact.collide_particle_bwd}
+            "collide_particle_bwd": contact.collide_particle_bwd,
+            "gather": transfer.gather, "splat": transfer.splat,
+            "collide_mixed": contact.collide_mixed,
+            "collide_mixed1": contact.collide_mixed1,
+            "collide_mixed2": contact.collide_mixed2}
 
 
 def reset_launches():
@@ -483,9 +743,9 @@ def run_slice(env):
            "launches": launches,
            "x_finite": bool(torch.isfinite(state.x).all()),
            "x_shape": list(state.x.shape)}
-    expect = {"p2g": n_sub, "g2p": n_sub,
-              "collide_particle": n_sub * env.n_primitives,
-              "p2g_bwd": 0, "g2p_bwd": 0, "collide_particle_bwd": 0}
+    expect = dict.fromkeys(wrappers(), 0)
+    expect.update({"p2g": n_sub, "g2p": n_sub,
+                   "collide_particle": n_sub * env.n_primitives})
     if launches != expect:
         raise AssertionError(f"launch counts {launches}, expected {expect}")
     if out["loss"].requires_grad or state.x.requires_grad:
@@ -528,7 +788,7 @@ def run_grad(env):
         g = out["action_grad"]
         loss = out["loss"].item()
         replays = graded if remat == "step" else 0   # checkpoint replays
-        expect = {}
+        expect = dict.fromkeys(wrappers(), 0)
         for k, c in per_step.items():
             expect[k] = c * (n_sub + replays)
             expect[k + "_bwd"] = c * graded
@@ -581,13 +841,115 @@ def run_grad(env):
     return out, launches
 
 
-def run_profile(env, steps=20, grad=False):
-    """Device busy share and the top kernels over a short rollout (or
-    rollout_and_grad with remat "none")."""
+def run_pour(env):
+    """The flagship main path: one rollout of zero actions with the launches
+    counted from zero, then SLICE_REPEATS timed rollouts of the same."""
+    import numpy as np
+    import torch
+    acts = np.zeros((SLICE_STEPS, env.action_dim))
+    q0 = env._initial_carry()[2].q
+    reset_launches()
+    out, secs = timed_rollout(env, acts)
+    launches = read_launches()
+    n_sub = SLICE_STEPS * env.substeps
+    expect = dict.fromkeys(wrappers(), 0)
+    expect.update({"p2g": n_sub, "g2p": n_sub, "gather": n_sub,
+                   "splat": n_sub, "collide_mixed": n_sub * env.n_primitives})
+    if launches != expect:
+        raise AssertionError(f"pour launch counts {launches}, expected "
+                             f"{expect}")
+    state, _, rigid = out["carry"]
+    loss = out["loss"].item()
+    glass_moved = (rigid.q[0:6] - q0[0:6]).abs().max().item()
+    rates, repeat_diff = [], 0.0
+    for _ in range(SLICE_REPEATS):
+        rep, rep_secs = timed_rollout(env, acts)
+        rates.append(n_sub / rep_secs)
+        repeat_diff = max(repeat_diff,
+                          (rep["carry"][0].x - state.x).abs().max().item(),
+                          (rep["carry"][2].q - rigid.q).abs().max().item())
+    res = {"scene": "demo_pour", "n_particles": env.n_particles,
+           "window": list(POUR_WINDOW), "env_steps": SLICE_STEPS,
+           "substeps": n_sub, "actions": "zero",
+           "substeps_per_s": statistics.median(rates),
+           "substeps_per_s_min": min(rates), "substeps_per_s_max": max(rates),
+           "substeps_per_s_runs": rates,
+           "counted_run_substeps_per_s": n_sub / secs,
+           "repeat_max_abs_diff": repeat_diff,
+           "loss": loss,
+           "terms": {k: float(v) for k, v in out["terms"].items()},
+           "rigid_q": rigid.q.tolist(), "rigid_qd": rigid.qd.tolist(),
+           "glass_q_moved": glass_moved, "launches": launches,
+           "x_finite": bool(torch.isfinite(state.x).all()),
+           "x_shape": list(state.x.shape)}
+    if out["loss"].requires_grad or state.x.requires_grad:
+        raise AssertionError("pour rollout kept an autograd graph")
+    if (res["terms"]["window_overflow"] or not math.isfinite(loss)
+            or not res["x_finite"] or res["x_shape"] != [3, env.n_particles]
+            or not glass_moved > 0):
+        raise AssertionError(f"pour output wrong: {res}")
+    return res, launches
+
+
+def run_pour_split(env):
+    """The flagship scene under SOFTMAC_TPU_CONTACT_SPLIT: SPLIT_STEPS env
+    steps with the launches counted from zero (the split pair, no merged
+    kernel), against the merged kernel's rollout of the same steps."""
+    import os
+    import numpy as np
+    acts = np.zeros((SPLIT_STEPS, env.action_dim))
+    merged = env.rollout(acts)["carry"]
+    os.environ["SOFTMAC_TPU_CONTACT_SPLIT"] = "1"
+    try:
+        reset_launches()
+        split = env.rollout(acts)["carry"]
+        launches = read_launches()
+    finally:
+        del os.environ["SOFTMAC_TPU_CONTACT_SPLIT"]
+    n_sub = SPLIT_STEPS * env.substeps
+    expect = dict.fromkeys(wrappers(), 0)
+    expect.update({"p2g": n_sub, "g2p": n_sub, "gather": n_sub,
+                   "splat": n_sub,
+                   "collide_mixed1": n_sub * env.n_primitives,
+                   "collide_mixed2": n_sub * env.n_primitives})
+    if launches != expect:
+        raise AssertionError(f"split launch counts {launches}, expected "
+                             f"{expect}")
+    res = {"env_steps": SPLIT_STEPS, "launches": launches,
+           "x_max_abs_diff_vs_merged":
+               (split[0].x - merged[0].x).abs().max().item(),
+           "q_max_abs_diff_vs_merged":
+               (split[2].q - merged[2].q).abs().max().item(),
+           "tolerance": 1e-6}
+    if not (res["x_max_abs_diff_vs_merged"] <= 1e-6
+            and res["q_max_abs_diff_vs_merged"] <= 1e-6):
+        raise AssertionError(f"split and merged rollouts differ: {res}")
+    return res, launches
+
+
+def run_pour_grad_guard(env):
+    """rollout_and_grad of the flagship scene on the card must raise: the
+    gather, splat and mixed-contact kernels have no backward yet, and a
+    ctypes launch under autograd would return a tensor cut off from the
+    graph (a silently wrong gradient)."""
+    import numpy as np
+    try:
+        out = env.rollout_and_grad(np.zeros((3, env.action_dim)),
+                                   loss_stride=1)
+    except NotImplementedError as e:
+        return {"raised": "NotImplementedError", "message": str(e)}
+    raise AssertionError("pour rollout_and_grad on CUDA returned a gradient "
+                         f"(max |g| {out['action_grad'].abs().max().item()}) "
+                         "instead of raising")
+
+
+def run_profile(env, acts, grad=False):
+    """Device busy share and the top kernels over a short rollout of
+    ``acts`` (or rollout_and_grad with remat "none")."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    acts = actions(steps, seed=3)
+    steps = len(acts)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -619,9 +981,36 @@ def run_profile(env, steps=20, grad=False):
                             for k, (t, c) in top]}
 
 
+def rigid_step_launches(env):
+    """Device kernels one RigidModel step and its body_states launch (once
+    per env step of the pour scene), counted with torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rm = env.rigid_model
+    rigid = rm.init_state()
+    kw = dict(dtype=env.dtype, device=env.device)
+    act = torch.zeros((rm.action_dim,), **kw)
+    ext_f = torch.zeros((rm.n_primitives, 6), **kw)
+    rm.body_states(rm.step(rigid, act, ext_f))      # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rm.body_states(rm.step(rigid, act, ext_f))
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
 def run_parity():
     """Card (float32, kernels) against the CPU (float64, plain versions)
-    on the demo's own scene."""
+    on each demo's own scene: pour_vel (rollout and rollout_and_grad) and
+    the flagship pour (rollout)."""
+    return {"pour_vel": run_pour_vel_parity(), "pour": run_pour_parity()}
+
+
+def run_pour_vel_parity():
+    """pour_vel's 5000-particle demo scene, 20 steps of rollout and of
+    rollout_and_grad on the card and on the CPU."""
     from softmac_tpu_torch import SoftMacEnv
     steps = 20
     outs, grads = {}, {}
@@ -654,6 +1043,39 @@ def run_parity():
     return res
 
 
+def run_pour_parity():
+    """The flagship pour's 5000-particle demo scene (its SHAPES, window
+    (48, 32, 16)), 20 steps of seeded actions: x, the rigid q and qd within
+    1e-4 absolute, the loss within 1e-4 relative."""
+    import numpy as np
+    from softmac_tpu_torch import SoftMacEnv
+    steps = 20
+    acts = np.random.RandomState(2).randn(steps, 12) * 0.05
+    reset_launches()
+    outs = {"cuda": SoftMacEnv(pour_cfg(), device="cuda").rollout(acts)}
+    launches = read_launches()      # the card's run went through the kernels
+    outs["cpu"] = SoftMacEnv(pour_cfg(), device="cpu").rollout(acts)
+    (mg, _, rg), (mc, _, rc) = outs["cuda"]["carry"], outs["cpu"]["carry"]
+    lg, lc = outs["cuda"]["loss"].item(), outs["cpu"]["loss"].item()
+    res = {"n_particles": mc.x.shape[1], "env_steps": steps,
+           "x_max_abs_err": (mg.x.double().cpu() - mc.x).abs().max().item(),
+           "q_max_abs_err": (rg.q.double().cpu() - rc.q).abs().max().item(),
+           "qd_max_abs_err": (rg.qd.double().cpu() - rc.qd).abs().max().item(),
+           "glass_qd_cpu_max_abs": rc.qd[0:6].abs().max().item(),
+           "loss_gpu": lg, "loss_cpu": lc,
+           "loss_rel_err": abs(lg - lc) / abs(lc), "tolerance": 1e-4,
+           "window_overflow": bool(outs["cuda"]["terms"]["window_overflow"]),
+           "gpu_launches": launches}
+    if not all(launches[k] > 0 for k in POUR):
+        raise AssertionError(f"pour parity: the card's run missed a kernel "
+                             f"{launches}")
+    if not (res["x_max_abs_err"] <= 1e-4 and res["q_max_abs_err"] <= 1e-4
+            and res["qd_max_abs_err"] <= 1e-4 and res["loss_rel_err"] <= 1e-4
+            and not res["window_overflow"]):
+        raise AssertionError(f"pour GPU/CPU parity failed: {res}")
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -664,6 +1086,7 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    import numpy as np
     from softmac_tpu_torch import SoftMacEnv
     from softmac_tpu_torch.ops import build
 
@@ -683,27 +1106,54 @@ def main():
     emit("build", {"seconds": secs, "library": so.name, "ptxas": regs})
 
     env = SoftMacEnv(pour_vel_cfg(WINDOW),
-                     init_particles=tiled_pour_vel_particles(N_MAIN))
+                     init_particles=tiled_pour_particles(N_MAIN))
     state10 = env.rollout(actions(STATE_STEPS))["carry"]   # also warms up
     inp = kernel_inputs(env, state10)
     kernels = check_kernels(inp) + check_backward_kernels(inp)
-    slice_res, launches = run_slice(env)
+    pour_env = SoftMacEnv(pour_cfg(POUR_WINDOW),
+                          init_particles=tiled_pour_particles(N_MAIN))
+    zeros10 = np.zeros((STATE_STEPS, pour_env.action_dim))
+    pour10 = pour_env.rollout(zeros10)["carry"]
+    kernels += check_pour_kernels(pour_kernel_inputs(pour_env, pour10))
+
+    paths = {}
+    slice_res, paths["slice"] = run_slice(env)
     grad_res, grad_launches = run_grad(env)
+    paths["grad_step"], paths["grad_none"] = (grad_launches["step"],
+                                              grad_launches["none"])
+    pour_res, paths["pour"] = run_pour(pour_env)
+    split_res, paths["pour_split"] = run_pour_split(pour_env)
+    guard_res = run_pour_grad_guard(pour_env)
     for k in kernels:
-        # the forward kernels' main path is the rollout, the backward
-        # kernels' the gradient path with the default remat ("step")
-        path = launches if k["name"] in FORWARD else grad_launches["step"]
-        k["launches"] = path[k["name"]]
-        k["launches_by_path"] = {
-            "slice": launches[k["name"]],
-            "grad_step": grad_launches["step"][k["name"]],
-            "grad_none": grad_launches["none"][k["name"]]}
+        # each kernel's main path: the forward kernels of pour_vel on its
+        # rollout, the backward kernels on its gradient path with the
+        # default remat ("step"), this slice's kernels on the flagship
+        # pour's rollout, the split pair on that scene under the switch
+        name = k["name"]
+        counter = "collide_mixed1" if name == "collide_mixed_split" else name
+        path = ("slice" if name in FORWARD else "pour" if name in POUR
+                else "pour_split" if counter == "collide_mixed1"
+                else "grad_step")
+        k["launches"] = paths[path][counter]
+        k["main_path"] = path
+        k["launches_by_path"] = {p: c[counter] for p, c in paths.items()}
+        if not k["launches"] > 0:
+            raise AssertionError(f"{name} was not launched on its main path "
+                                 f"({path})")
     emit(None, {"kernels": kernels})
     emit("slice", slice_res)
     emit("grad", grad_res)
-    emit("profile", run_profile(env))
-    emit("profile_grad", run_profile(env, steps=10, grad=True))
+    emit("pour", pour_res)
+    emit("pour_split", split_res)
+    emit("pour_grad_guard", guard_res)
+    emit("profile", run_profile(env, actions(20, seed=3)))
+    profile_pour = run_profile(pour_env, np.zeros((20, pour_env.action_dim)))
+    profile_pour["rigid_step_launches_per_env_step"] = rigid_step_launches(
+        pour_env)
+    emit("profile_pour", profile_pour)
+    emit("profile_grad", run_profile(env, actions(10, seed=3), grad=True))
     emit("parity", run_parity())
+    print(smi, flush=True)      # the card again, next to the result
     emit(None, {"ok": True, "device": {"platform": "gpu", "kind": kind,
                                       "count": torch.cuda.device_count()}})
     return 0

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from softmac_tpu_torch.engine import sdf as sdf_mod
+from softmac_tpu_torch.engine.rigid import RigidState
 from softmac_tpu_torch.engine.types import (
     BodyState, MPMParams, MPMState, SDFParams,
 )
@@ -38,6 +39,12 @@ def mpm_state(arrays, device="cpu", dtype=torch.float64) -> MPMState:
 def body_state(arrays, device="cpu", dtype=torch.float64) -> BodyState:
     """pos (B, 3), quat (B, 4) wxyz, v (B, 3), w (B, 3)."""
     return _fields(BodyState, arrays, device, dtype)
+
+
+def rigid_state(arrays, device="cpu", dtype=torch.float64) -> RigidState:
+    """q (D,), qd (D,): per floating body [exp(3), pos(3)] and
+    [w(3), v(3)]."""
+    return _fields(RigidState, arrays, device, dtype)
 
 
 def mpm_params(arrays, device="cpu", dtype=torch.float64) -> MPMParams:

@@ -1,12 +1,13 @@
 """Rigid-primitive contact models (``softmac_tpu/engine/contact.py``).
 
 The penalty particle model (``collide_particle``, reference
-``primitive_base.py:105-137``) is ported: the impulse comes from
-``ops.contact`` (CUDA kernel on the card, plain PyTorch on the CPU) and the
-6-DoF wrench on the body (force, torque about the body origin) is a masked
-sum here. ``collider_velocity`` and the contact threshold live beside the
-kernel in ``ops.contact``. The grid and mixed (forecast) models come with
-later slices.
+``primitive_base.py:105-137``) and the forecast mixed model
+(``collide_mixed``, ``primitive_base.py:139-181``) are ported: the
+per-particle part comes from ``ops.contact`` (CUDA kernels on the card,
+plain PyTorch on the CPU) and the 6-DoF wrench on the body (force, torque
+about the body origin) is a masked sum here. ``collider_velocity`` and the
+contact threshold live beside the kernels in ``ops.contact``. The grid
+model comes with a later slice.
 """
 from __future__ import annotations
 
@@ -44,7 +45,14 @@ def collide_grid(*args, **kwargs):
         "slice that ports the scenes using it")
 
 
-def collide_mixed(*args, **kwargs):
-    raise NotImplementedError(
-        "mixed contact (CONTACT_MIXED) is not ported yet; it comes with the "
-        "flagship-pour slice (gather, splat and mixed12 kernels)")
+def collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
+                  softness, x, p_v, p_mass, dt, life, push_cap=None):
+    """Forecast-based mixed contact (CONTACT_MIXED). x, p_v (3, N); life
+    the remaining-window factor 1 / (substeps - k); ``push_cap`` bounds the
+    penetration push-out speed (None / inf: the reference's uncapped
+    (sdf / dt) * life). Returns (p_v' (3, N), wrench (6,))."""
+    p_v_out, force, mask = contact_ops.collide_mixed(
+        prim, body_pos, body_quat, body_v, body_w, friction, softness, life,
+        x, p_v, dt, p_mass, push_cap)
+    r = m33.vsub((x[0], x[1], x[2]), (body_pos[0], body_pos[1], body_pos[2]))
+    return p_v_out, _wrench((force[0], force[1], force[2]), r, mask)

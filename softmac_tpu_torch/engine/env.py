@@ -1,17 +1,19 @@
 """Scene building, the forward rollout and its gradient.
 
-Counterpart of ``softmac_tpu/engine/env.py`` for the rigid-velocity scene
-family (pour_vel): particle contact against SDF primitives whose (w, v) the
-actions set. ``rollout`` (under ``torch.no_grad()``) and
-``rollout_and_grad`` (autograd, then ``torch.autograd.grad`` of the loss
-with respect to the actions) run one loop, eagerly on ``device`` (CUDA by
-default):
+Counterpart of ``softmac_tpu/engine/env.py`` for the rigid-coupled scenes
+of the pour family: the velocity-controlled pour_vel (particle contact
+against SDF primitives whose (w, v) the actions set) and the flagship pour
+(forecast mixed contact against floating, force-controlled bodies that the
+``RigidModel`` steps once per env step with the window-averaged contact
+wrench). ``rollout`` (under ``torch.no_grad()``) and ``rollout_and_grad``
+(autograd, then ``torch.autograd.grad`` of the loss with respect to the
+actions) run one loop, eagerly on ``device`` (CUDA by default):
 
     sort particles by y-cell
     for each loss block:   clip the carry's cotangent (``grad_clip``),
                            re-sort (``_resort``)
-        for each env step: substeps (P2G / grid / G2P kernels) + pose update,
-                           checkpointed per ``remat``
+        for each env step: substeps (P2G / grid / G2P kernels) + pose update
+                           or rigid step, checkpointed per ``remat``
         loss terms at the block boundary, on the unsorted particle order
         at a ``bptt_window`` segment end: detach the carry
     unsort the exit carry
@@ -34,7 +36,9 @@ from softmac_tpu_torch.engine import mpm as mpm_mod
 from softmac_tpu_torch.engine.losses import LOSS_REGISTRY, FrameSample
 from softmac_tpu_torch.engine.materials import lame_parameters
 from softmac_tpu_torch.engine.meshio import load_obj, load_urdf
-from softmac_tpu_torch.engine.rigid import RigidState, RigidVelocityModel
+from softmac_tpu_torch.engine.rigid import (
+    RigidModel, RigidState, RigidVelocityModel, grad_scale,
+)
 from softmac_tpu_torch.engine.sdf import preprocess_sdf, sdf_params_from_bake
 from softmac_tpu_torch.engine.shapes import Shapes
 from softmac_tpu_torch.engine.types import (
@@ -153,21 +157,21 @@ class SoftMacEnv:
         self.n_particles = len(self.init_particles)
 
         # ---------------- primitives (URDF -> SDF tables) -------------------
-        prims, prim_friction = [], []
+        prims, prim_friction, prim_ext_force, urdf_models = [], [], [], []
         prim_cfgs = cfg.PRIMITIVES if isinstance(cfg.PRIMITIVES, (list, tuple)) else []
         for pc in prim_cfgs:
             model = load_urdf(str(self._resolve(pc.urdf_path)))
+            urdf_models.append(model)
             for link, _joint in model.moving_links():
                 verts, faces = load_obj(link.mesh_path)
                 bake = preprocess_sdf(verts, faces, Path(link.mesh_path).parent)
                 prims.append(sdf_params_from_bake(bake, self.dtype, self.device))
                 prim_friction.append(pc.friction)
+                prim_ext_force.append(
+                    bool(pc.get("enable_external_force", True)))
         self.prims = tuple(prims)
         self.n_primitives = len(self.prims)
-        if self.n_primitives > 0 and not cfg.rigid_velocity_control:
-            raise NotImplementedError(
-                "force-controlled rigid bodies (RigidModel) are not ported "
-                "yet; the port runs velocity-controlled scenes")
+        self.control_mode = cfg.control_mode
 
         # ---------------- MPM config/params ---------------------------------
         sim = cfg.SIMULATOR
@@ -201,6 +205,8 @@ class SoftMacEnv:
             n_primitives=self.n_primitives,
             primitives_contact=(True,) * self.n_primitives,
             mpm_scale=mpm_scale,
+            contact_push_velocity_cap=float(
+                sim.get("contact_push_velocity_cap", np.inf)),
             cfl_velocity_clamp=float(sim.get("cfl_velocity_clamp", np.inf)),
             dtype=self.dtype,
         )
@@ -220,9 +226,17 @@ class SoftMacEnv:
 
         # ---------------- rigid bodies ----------------------------------------
         self.rigid_vel_model = None
+        self.rigid_model = None
         if self.n_primitives > 0:
-            self.rigid_vel_model = RigidVelocityModel(
-                self.n_primitives, cfg.RIGID, self.dtype, self.device)
+            if cfg.rigid_velocity_control:
+                self.rigid_vel_model = RigidVelocityModel(
+                    self.n_primitives, cfg.RIGID, self.dtype, self.device)
+            else:
+                self.rigid_model = RigidModel(
+                    urdf_models, cfg.RIGID, cfg.env_dt, self.dtype,
+                    self.device, ext_force_flags=prim_ext_force)
+                assert self.rigid_model.n_primitives == self.n_primitives
+        self.ext_grad_scale = float(cfg.RIGID.get("ext_grad_scale", 1.0))
 
         # ---------------- loss ----------------------------------------------
         self.loss = None
@@ -232,7 +246,10 @@ class SoftMacEnv:
                     f"loss {cfg.ENV.loss_type} is not ported yet")
             self.loss = LOSS_REGISTRY[cfg.ENV.loss_type](cfg.ENV.loss, self)
 
-        self.action_dim = 6 * self.n_primitives
+        if self.rigid_model is not None:
+            self.action_dim = self.rigid_model.action_dim
+        else:
+            self.action_dim = 6 * self.n_primitives
         self._overflow_warned = False
 
     def _resolve(self, path) -> Path:
@@ -256,11 +273,15 @@ class SoftMacEnv:
         else:
             mpm0 = mpm_state_from_packed(self.mpm_cfg, x0)
         empty = torch.zeros((0,), dtype=self.dtype, device=self.device)
+        rigid0 = RigidState(q=empty, qd=empty.clone())
         if self.rigid_vel_model is not None:
             bodies0 = self.rigid_vel_model.init_bodies()
+        elif self.rigid_model is not None:
+            rigid0 = self.rigid_model.init_state()
+            bodies0 = self.rigid_model.body_states(rigid0)
         else:
             bodies0 = BodyState.identity(0, self.dtype, self.device)
-        return (mpm0, bodies0, RigidState(q=empty, qd=empty.clone()))
+        return (mpm0, bodies0, rigid0)
 
     def _env_step_fn(self, carry, action, params=None, loss_weights=None,
                   unsort_perm=None):
@@ -274,6 +295,10 @@ class SoftMacEnv:
         params = self.mpm_params if params is None else params
         mpm, bodies, rigid = carry
         cfg = self.mpm_cfg
+        if self.rigid_model is not None:
+            # the bodies stay frozen over the substeps; their cotangents
+            # from the MPM side are damped by ext_grad_scale
+            bodies = grad_scale(bodies, self.ext_grad_scale)
         ext, ovf, terms = [], [], {}
         for k in range(cfg.substeps):
             mpm, extf, aux = mpm_mod.substep(cfg, params, self.prims, mpm,
@@ -291,6 +316,10 @@ class SoftMacEnv:
         overflow = torch.stack(ovf).any()
         if self.rigid_vel_model is not None:
             bodies = self.rigid_vel_model.apply_action(bodies, action)
+        elif self.rigid_model is not None:
+            rigid_action = action if self.control_mode == "rigid" else None
+            rigid = self.rigid_model.step(rigid, rigid_action, ext_f)
+            bodies = self.rigid_model.body_states(rigid)
         out = (overflow, ext_f)
         if loss_weights is not None:
             out = out + (terms,)

@@ -1,11 +1,13 @@
-"""MLS-MPM core: one substep of the particle-contact scenes.
+"""MLS-MPM core: one substep with particle contact or forecast mixed
+contact.
 
 Counterpart of ``softmac_tpu/engine/mpm.py`` (reference
 ``softmac/engine/mpm_simulator.py``: compute_F_tmp :126, p2g :199,
-grid_op :284, boundary_condition :269, g2p :300). Particles are ``(3, N)``
-struct-of-arrays; the grid is the active window in the ``(wy*wz, wx)`` form
-of ``grid_coords``. The transfers are the P2G and G2P of ``ops.transfer``
-(CUDA kernels on the card, plain PyTorch on the CPU).
+grid_op :284, boundary_condition :269, grid_op_mixed1-4, g2p :300).
+Particles are ``(3, N)`` struct-of-arrays; the grid is the active window in
+the ``(wy*wz, wx)`` form of ``grid_coords``. The transfers are the P2G, G2P,
+gather and splat of ``ops.transfer`` (CUDA kernels on the card, plain
+PyTorch on the CPU).
 
 The window corner stays a device tensor, so a substep never waits on the
 host; ``window_overflow`` comes back as a 0-d bool tensor. A substep is
@@ -157,11 +159,12 @@ def contact_impulse(cfg: MPMConfig, params: MPMParams,
                     prims: Tuple[SDFParams, ...], state: MPMState,
                     bodies: BodyState):
     """Particle-contact impulse (3-tuple of (N,)) and per-primitive wrenches
-    (list of (6,))."""
-    if cfg.collision_type in (CONTACT_MIXED, CONTACT_GRID) and prims:
+    (list of (6,)); zero impulse and wrenches under mixed contact, whose
+    wrenches come from ``grid_velocity_mixed``."""
+    if cfg.collision_type == CONTACT_GRID and prims:
         raise NotImplementedError(
-            f"collision_type {cfg.collision_type} is not ported yet; the "
-            "PyTorch port runs particle contact (collision_type 1)")
+            "grid contact (collision_type 0) is not ported yet; the PyTorch "
+            "port runs particle and mixed contact (collision_types 1, 2)")
     zero = torch.zeros_like(state.x[0])
     impulse = (zero, zero, zero)
     wrenches = [torch.zeros((6,), dtype=state.x.dtype, device=state.x.device)
@@ -179,22 +182,64 @@ def contact_impulse(cfg: MPMConfig, params: MPMParams,
     return impulse, wrenches
 
 
+def _bounded_velocity(cfg: MPMConfig, params: MPMParams, gm, gmom, sizes,
+                      corner):
+    """P2G grids -> velocity with gravity on the non-empty cells (the mask)
+    and the boundary applied: (3 grids, mask)."""
+    wx = sizes[0]
+    grid = (gm, gmom[:, :wx], gmom[:, wx:2 * wx], gmom[:, 2 * wx:])
+    g_v, mask, _ = grid_normalize(cfg, grid, params.gravity)
+    return (boundary_condition(cfg, grid_coords(cfg, sizes, corner), g_v),
+            mask)
+
+
 def grid_velocity(cfg: MPMConfig, params: MPMParams, gm, gmom, sizes, corner):
     """P2G grids -> the three grid velocity channels G2P reads: normalize,
     add gravity, apply the boundary and the optional CFL clamp."""
+    gv, _ = _bounded_velocity(cfg, params, gm, gmom, sizes, corner)
+    return tuple(g.contiguous() for g in cfl_clamp(cfg, gv))
+
+
+def grid_velocity_mixed(cfg: MPMConfig, params: MPMParams,
+                        prims: Tuple[SDFParams, ...], state: MPMState,
+                        bodies: BodyState, gm, gmom, sizes, corner, k: int,
+                        wrenches):
+    """P2G grids -> grid velocity under forecast mixed contact
+    (grid_op_mixed1-4): normalize, add gravity, apply the boundary, gather
+    the grid velocity at the particles (v_tmp), run each contacting
+    primitive's mixed contact in order (each from the previous one's
+    target velocity), splat the correction -2 (v_tmp - v_tgt) back onto
+    the non-empty cells and apply the optional CFL clamp (the boundary is
+    not applied again). Adds each primitive's wrench to ``wrenches[i]``."""
     wx = sizes[0]
-    grid = (gm, gmom[:, :wx], gmom[:, wx:2 * wx], gmom[:, 2 * wx:])
-    g_v, _, _ = grid_normalize(cfg, grid, params.gravity)
-    gv = cfl_clamp(cfg, boundary_condition(cfg, grid_coords(cfg, sizes, corner),
-                                           g_v))
-    return tuple(g.contiguous() for g in gv)
+    gvm, mask = _bounded_velocity(cfg, params, gm, gmom, sizes, corner)
+    x = state.x
+    v_tmp = transfer.gather(x, *gvm, corner, sizes, cfg.inv_dx)
+    v_tgt = v_tmp
+    # the remaining-window factor, a device scalar: no host round trip
+    life = torch.full((), 1.0 / (cfg.substeps - k), dtype=x.dtype,
+                      device=x.device)
+    for i, prim in enumerate(prims):
+        if not cfg.primitives_contact[i]:
+            continue
+        v_tgt, wr = contact_mod.collide_mixed(
+            prim, bodies.pos[i], bodies.quat[i], bodies.v[i], bodies.w[i],
+            params.friction[i], params.softness[i], x, v_tgt, cfg.p_mass,
+            cfg.dt, life, push_cap=cfg.contact_push_velocity_cap)
+        wrenches[i] = wrenches[i] + wr
+    corr = transfer.splat(x, -2.0 * (v_tmp - v_tgt), corner, sizes,
+                          cfg.inv_dx)
+    gv = tuple(torch.where(mask, gvm[d] + corr[:, d * wx:(d + 1) * wx], 0.0)
+               for d in range(3))
+    return tuple(g.contiguous() for g in cfl_clamp(cfg, gv))
 
 
 def substep(cfg: MPMConfig, params: MPMParams,
             prims: Tuple[SDFParams, ...], state: MPMState, bodies: BodyState,
             k: int):
-    """One MLS-MPM substep with particle contact (or none). Returns
-    (new_state, ext_f (B, 6), {"window_overflow": 0-d bool tensor})."""
+    """One MLS-MPM substep (k-th of the env step) with particle contact,
+    mixed contact or none. Returns (new_state, ext_f (B, 6),
+    {"window_overflow": 0-d bool tensor})."""
     stress, F_new = stress_and_F(cfg, params, state)
     impulse, wrenches = contact_impulse(cfg, params, prims, state, bodies)
 
@@ -203,7 +248,11 @@ def substep(cfg: MPMConfig, params: MPMParams,
     chan = _p2g_channels(cfg, tuple(state.v), m33.from_mat_array(state.C),
                          stress, impulse)
     gm, gmom = transfer.p2g(state.x, chan, corner, sizes, cfg.inv_dx)
-    gv = grid_velocity(cfg, params, gm, gmom, sizes, corner)
+    if cfg.collision_type == CONTACT_MIXED:
+        gv = grid_velocity_mixed(cfg, params, prims, state, bodies, gm, gmom,
+                                 sizes, corner, k, wrenches)
+    else:
+        gv = grid_velocity(cfg, params, gm, gmom, sizes, corner)
     vc = transfer.g2p(state.x, *gv, corner, sizes, cfg.inv_dx)
     v_new = vc[0:3]
     new_state = MPMState(

@@ -1,13 +1,26 @@
 """Quaternion helpers on batched tensors, ``(w, x, y, z)`` order.
 
-The two functions the velocity-controlled bodies need, with the semantics of
-``softmac_tpu/engine/quat.py`` (reference ``primitive_utils.py:8-47``).
+What the velocity-controlled and the floating rigid bodies need, with the
+semantics of ``softmac_tpu/engine/quat.py`` (reference
+``primitive_utils.py:8-47`` and the rotation conversions of
+``rigid_simulator.py:274-353``). All functions broadcast over leading batch
+dimensions; ``rpy2mat`` is host-side NumPy for the URDF joint frames.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-12
+
+
+def qrot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by quaternion(s) q. q: (..., 4), v: (..., 3);
+    the batch dimensions broadcast."""
+    qvec, v = torch.broadcast_tensors(q[..., 1:], v)
+    uv = torch.cross(qvec, v, dim=-1)
+    uuv = torch.cross(qvec, uv, dim=-1)
+    return v + 2.0 * (q[..., :1] * uv + uuv)
 
 
 def qmul(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -27,6 +40,14 @@ def qmul(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return out / torch.sqrt(torch.sum(out * out, dim=-1, keepdim=True))
 
 
+def qconj(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def qnormalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + _EPS)
+
+
 def w2quat(axis_angle: torch.Tensor) -> torch.Tensor:
     """Axis-angle (rotation vector) to quaternion, safe at zero angle."""
     theta = torch.sqrt(torch.sum(axis_angle * axis_angle, dim=-1, keepdim=True)
@@ -34,3 +55,41 @@ def w2quat(axis_angle: torch.Tensor) -> torch.Tensor:
     v = (axis_angle / theta) * torch.sin(theta / 2.0)
     w = torch.cos(theta / 2.0)
     return torch.cat([w, v], dim=-1)
+
+
+def quat2w(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion to rotation vector (log map). The 1e-24 inside the sqrt
+    keeps the value and the gradient finite at the identity, where a
+    where-based guard would leak NaN through the untaken branch."""
+    q = qnormalize(q)
+    sin_half = torch.sqrt(
+        torch.sum(q[..., 1:] * q[..., 1:], dim=-1, keepdim=True) + 1e-24)
+    half = torch.atan2(sin_half, q[..., :1])
+    return q[..., 1:] * (2.0 * half / sin_half)
+
+
+def quat2mat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion to rotation matrix, (..., 3, 3)."""
+    q = qnormalize(q)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r = torch.stack(
+        [
+            1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+            2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+            2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+        ],
+        dim=-1,
+    )
+    return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def rpy2mat(rpy) -> np.ndarray:
+    """URDF roll-pitch-yaw (fixed XYZ) to a rotation matrix (host, float64)."""
+    r, p, y = (float(a) for a in rpy)
+    cr, sr = np.cos(r), np.sin(r)
+    cp, sp = np.cos(p), np.sin(p)
+    cy, sy = np.cos(y), np.sin(y)
+    rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1.0]])
+    ry = np.array([[cp, 0, sp], [0, 1.0, 0], [-sp, 0, cp]])
+    rx = np.array([[1.0, 0, 0], [0, cr, -sr], [0, sr, cr]])
+    return rz @ ry @ rx

@@ -109,6 +109,9 @@ class MPMConfig:
     active_window: Any = None
     primitives_contact: Tuple[bool, ...] = ()
     mpm_scale: float = 1.0
+    # mixed contact's penetration push-out speed cap (m/s); inf = the
+    # reference's uncapped (sdf / dt) * life
+    contact_push_velocity_cap: float = np.inf
     # grid-velocity clamp at this multiple of dx/dt; inf = off (mpm.cfl_clamp)
     cfl_velocity_clamp: float = np.inf
     dtype: Any = torch.float32

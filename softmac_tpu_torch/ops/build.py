@@ -6,7 +6,9 @@ interface. The library is built at first use into ``build/softmac_tpu_torch/``
 at the repository root, named by a hash of the sources and flags, so a
 changed source rebuilds and an unchanged one loads the earlier build.
 Building needs nvcc (``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or
-``PATH``); nothing here runs when the package is imported.
+``PATH``); nothing here runs when the package is imported. ``on_cpu`` is
+the device rule every kernel wrapper dispatches by, ``check`` its launch
+check.
 """
 from __future__ import annotations
 
@@ -36,6 +38,11 @@ SIGNATURES = {
     "softmac_p2g_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
     "softmac_g2p_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
     "softmac_collide_particle_bwd": [_P] * 8 + [_I] * 4 + [_F] * 9 + [_P],
+    "softmac_gather": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "softmac_splat": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "softmac_collide_mixed": [_P] * 7 + [_I] * 4 + [_F] * 10 + [_P],
+    "softmac_collide_mixed1": [_P] * 5 + [_I] * 4 + [_F] * 8 + [_P],
+    "softmac_collide_mixed2": [_P] * 8 + [_I] * 4 + [_F] * 10 + [_P],
 }
 
 
@@ -113,6 +120,16 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def on_cpu(x, name: str) -> bool:
+    """The dispatch rule of every kernel wrapper: True for a CPU tensor (run
+    the plain version), False for a CUDA tensor (launch the kernel); any
+    other device raises."""
+    kind = x.device.type
+    if kind not in ("cpu", "cuda"):
+        raise TypeError(f"{name}: no implementation for device {x.device}")
+    return kind == "cpu"
 
 
 def check(rc: int, name: str) -> None:

@@ -1,10 +1,17 @@
-"""Penalty particle contact: the CUDA kernel and its plain PyTorch version.
+"""Particle contact against SDF primitives: the CUDA kernels and their plain
+PyTorch versions.
 
-Counterpart of the particle-contact kernel of ``softmac_tpu/ops/pallas_contact.py``
-(``_particle_math`` behind ``_particle_factory``), including the stencil-row
-gather the JAX package leaves to XLA. Both versions return the masked
-impulse (3, N) and the contact mask (N,); the wrench reduction is done by
-the caller (``engine.contact.collide_particle``).
+Penalty contact: counterpart of the particle-contact kernel of
+``softmac_tpu/ops/pallas_contact.py`` (``_particle_math`` behind
+``_particle_factory``), including the stencil-row gather the JAX package
+leaves to XLA. Both versions return the masked impulse (3, N) and the
+contact mask (N,); the wrench reduction is done by the caller
+(``engine.contact.collide_particle``).
+
+Forecast mixed contact (``collide_mixed``, further below): counterpart of
+the merged kernel ``_make_mixed12_kernel`` (``_mixed12_math``) and of its
+two-launch split ``_make_mixed1_kernel`` / ``_make_mixed2_kernel``, with the
+semantics of ``contact._collide_mixed_xla``.
 
 The plain version's SDF sample (clamped base cell, one 32-float stencil row,
 trilinear sdf and normal; BIG and normal (0, 1, 0) outside the table's box)
@@ -23,6 +30,9 @@ CUDA and runs ``collide_particle_vjp_plain`` on the CPU. The SDF table gets
 no gradient, as in the JAX package.
 """
 from __future__ import annotations
+
+import math
+import os
 
 import torch
 
@@ -169,12 +179,9 @@ def _check_cuda(name, prim, tensors, n):
 
 def _collide_particle(prim, body_pos, body_quat, body_v, body_w, friction,
                       x, v, dt, p_mass):
-    kind = x.device.type
-    if kind == "cpu":
+    if build.on_cpu(x, "collide_particle"):
         return collide_particle_plain(prim, body_pos, body_quat, body_v,
                                       body_w, friction, x, v, dt, p_mass)
-    if kind != "cuda":
-        raise TypeError(f"collide_particle: no implementation for {x.device}")
     n = x.shape[1]
     body = _body_floats(body_pos, body_quat, body_v, body_w, friction)
     _check_cuda("collide_particle", prim, (x, v, body), n)
@@ -234,7 +241,8 @@ class CollideParticle(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dimp, _dmask):
         saved = ctx.saved_tensors
-        vjp = (collide_particle_vjp_plain if saved[5].device.type == "cpu"
+        vjp = (collide_particle_vjp_plain
+               if build.on_cpu(saved[5], "collide_particle")
                else collide_particle_bwd)
         grads = vjp(ctx.prim, *saved, ctx.dt, ctx.p_mass, dimp.contiguous())
         return ((None,) + tuple(g if need else None for g, need in
@@ -256,3 +264,264 @@ def collide_particle(prim, body_pos, body_quat, body_v, body_w, friction,
 
 collide_particle.launches = 0
 collide_particle_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Forecast mixed contact (reference primitive_base.py:139-181)
+#
+# Stage 1 samples the SDF at x (one stencil row), applies the friction-cone
+# response to particles approaching the body within the contact threshold
+# and forecasts x_new = x + dt * p_v1. Stage 2 samples the SDF at x_new
+# against the SAME stencil row (``forecast_fx``: fractions relative to
+# base(x), unclamped) and pushes penetrating particles out along the
+# forecast normal over the remaining window (``life``). Both versions
+# return p_v_out (3, N), the unmasked reaction force (v - p_v_out) p_mass /
+# dt (3, N) and the contact mask dist(x) <= threshold (N,); the wrench is a
+# masked reduction in the caller (``engine.contact.collide_mixed``), as
+# ``pallas_contact._tail12`` is plain XLA.
+# ---------------------------------------------------------------------------
+
+def forecast_fx(prim, base, p2):
+    """Trilinear fractions of points p2 relative to another point's stencil
+    base (3 x float), unclamped: ``interp_rows`` then extrapolates that
+    cell's patch linearly where p2 crossed a cell face."""
+    return tuple((p2[d] - prim.lower[d]) * prim.inv_dx - base[d]
+                 for d in range(3))
+
+
+def _split_mode() -> bool:
+    """The two-launch split (``SOFTMAC_TPU_CONTACT_SPLIT`` set to any
+    non-empty value), as ``pallas_contact.collide_mixed_fused`` reads it."""
+    return bool(os.environ.get("SOFTMAC_TPU_CONTACT_SPLIT"))
+
+
+def _relu(a):
+    # max(a, 0) with the tie rule of jnp.maximum (half the cotangent each
+    # way at a == 0), where clamp would pass all of it
+    return torch.maximum(a, torch.zeros_like(a))
+
+
+def _mixed_stage1(prim, body, xs, vs):
+    """Stage 1 (``_mixed1_math``): p_v1, dist and the stencil row it read
+    (rows, base) for stage 2."""
+    bp, bq, bv, bw, friction, softness, _ = body
+    qinv = m33.qnorm(m33.qconj(bq))
+    p_loc = m33.qrot(qinv, m33.vsub(xs, bp))
+    rows, base, fx0 = gather_rows(prim, p_loc)
+    dist, D_loc = interp_rows(rows, fx0, _in_box(prim, p_loc))
+    D = m33.qrot(bq, D_loc)      # the raw quaternion, as the reference
+    mask = dist <= CONTACT_THRESHOLD
+    dist_s = torch.where(mask, dist, 0.0)
+
+    cv = collider_velocity(bq, bv, bw, m33.vsub(xs, bp))
+    input_v = m33.vsub(vs, cv)
+    nc = m33.dot(input_v, D)
+    # friction-cone tangential response (only when approaching: nc < 0)
+    p_v_t = m33.vsub(input_v, m33.vscale(D, nc))
+    vt_norm = torch.sqrt(m33.dot(p_v_t, p_v_t) + 1e-8)
+    vt_fric = m33.vscale(p_v_t, _relu(vt_norm + nc * friction) / vt_norm)
+    flag = (nc < 0) & (m33.dot(p_v_t, p_v_t) > 1e-60)
+    p_v_t = m33.vwhere(flag, vt_fric, p_v_t)
+    v_contact = m33.vadd(cv, p_v_t)
+    # min(exp(-d s), 1) written AD-safely: exp of a clamped exponent
+    influence = torch.exp(-_relu(dist_s) * softness)
+    v_soft = m33.vadd(cv, m33.vadd(m33.vscale(input_v, 1.0 - influence),
+                                   m33.vscale(p_v_t, influence)))
+    v_near = m33.vwhere(dist_s > 0, v_soft, v_contact)
+    p_v1 = m33.vwhere(mask & (nc < 0), v_near, vs)
+    return p_v1, dist, rows, base
+
+
+def _mixed_stage2(prim, body, xs, vs, p_v1, x_new, dist, rows, base, dt,
+                  p_mass, push_cap):
+    """Stage 2 (``_mixed2_math``): the forecast push-out; returns p_v_out,
+    the unmasked reaction force and the mask."""
+    bp, bq = body[0], body[1]
+    life = body[6]
+    qinv = m33.qnorm(m33.qconj(bq))
+    p_loc2 = m33.qrot(qinv, m33.vsub(x_new, bp))
+    sdf2, n2_loc = interp_rows(rows, forecast_fx(prim, base, p_loc2),
+                               _in_box(prim, p_loc2))
+    n2 = m33.qrot(bq, n2_loc)
+    mask = dist <= CONTACT_THRESHOLD
+    pen = mask & (sdf2 < 0)
+    sdf2_s = torch.where(pen, sdf2, 0.0)
+    push = -(sdf2_s / dt) * life          # >= 0: outward along n2
+    if push_cap is not None and math.isfinite(push_cap):
+        push = torch.clamp(push, max=push_cap)
+    p_v2 = m33.vadd(p_v1, m33.vscale(n2, push))
+    p_v_out = m33.vwhere(mask, p_v2, vs)
+    force = m33.vscale(m33.vsub(vs, p_v_out), p_mass / dt)
+    return torch.stack(p_v_out), torch.stack(force), mask
+
+
+def _mixed_body(body_pos, body_quat, body_v, body_w, friction, softness,
+                life):
+    return (tuple(body_pos[d] for d in range(3)),
+            tuple(body_quat[d] for d in range(4)),
+            tuple(body_v[d] for d in range(3)),
+            tuple(body_w[d] for d in range(3)), friction, softness, life)
+
+
+def collide_mixed_plain(prim, body_pos, body_quat, body_v, body_w, friction,
+                        softness, life, x, v, dt, p_mass, push_cap=None):
+    """Plain PyTorch forecast mixed contact (``contact._collide_mixed_xla``
+    semantics). x, v (3, N); body_pos/v/w (3,), body_quat (4,) wxyz,
+    friction, softness () and life (the remaining-window factor
+    1 / (substeps - k)) tensors or floats. Returns (p_v_out (3, N),
+    unmasked reaction force (3, N), mask (N,) bool)."""
+    body = _mixed_body(body_pos, body_quat, body_v, body_w, friction,
+                       softness, life)
+    xs, vs = (x[0], x[1], x[2]), (v[0], v[1], v[2])
+    p_v1, dist, rows, base = _mixed_stage1(prim, body, xs, vs)
+    x_new = m33.vadd(m33.vscale(p_v1, dt), xs)
+    return _mixed_stage2(prim, body, xs, vs, p_v1, x_new, dist, rows, base,
+                         dt, p_mass, push_cap)
+
+
+def collide_mixed1_plain(prim, body_pos, body_quat, body_v, body_w, friction,
+                         softness, life, x, v, dt):
+    """Stage 1 of the split mode: the (7, N) block p_v1 (rows 0-2),
+    x + dt p_v1 (3-5) and dist (6) that ``collide_mixed2_plain`` reads."""
+    body = _mixed_body(body_pos, body_quat, body_v, body_w, friction,
+                       softness, life)
+    xs = (x[0], x[1], x[2])
+    p_v1, dist, _, _ = _mixed_stage1(prim, body, xs, (v[0], v[1], v[2]))
+    return torch.stack([*p_v1, *(xs[d] + dt * p_v1[d] for d in range(3)),
+                        dist])
+
+
+def collide_mixed2_plain(prim, body_pos, body_quat, body_v, body_w, friction,
+                         softness, life, x, v, st1, dt, p_mass,
+                         push_cap=None):
+    """Stage 2 of the split mode from stage 1's block; the stencil row is
+    the one at base(x) again. Returns what ``collide_mixed_plain`` does."""
+    body = _mixed_body(body_pos, body_quat, body_v, body_w, friction,
+                       softness, life)
+    xs = (x[0], x[1], x[2])
+    qinv = m33.qnorm(m33.qconj(body[1]))
+    rows, base, _ = gather_rows(prim, m33.qrot(qinv, m33.vsub(xs, body[0])))
+    return _mixed_stage2(prim, body, xs, (v[0], v[1], v[2]),
+                         (st1[0], st1[1], st1[2]), (st1[3], st1[4], st1[5]),
+                         st1[6], rows, base, dt, p_mass, push_cap)
+
+
+def _mixed_floats(body_pos, body_quat, body_v, body_w, friction, softness,
+                  life):
+    """The 16 body floats the mixed kernels read: bp, bq, bv, bw,
+    friction, softness, life (``pallas_contact._pack_par``'s differentiable
+    lanes)."""
+    if not torch.is_tensor(life):
+        life = torch.full((), float(life), dtype=body_pos.dtype,
+                          device=body_pos.device)
+    return torch.cat([body_pos, body_quat, body_v, body_w,
+                      friction.reshape(1), softness.reshape(1),
+                      life.reshape(1)]).contiguous()
+
+
+def _check_mixed(name, prim, args, x, v):
+    body = _mixed_floats(*args)
+    for t in (x, v, body, prim.neighborhood):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise TypeError(f"{name}: CUDA kernel takes float32 tensors on "
+                            f"one device, got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    n = x.shape[1]
+    res = prim.res
+    if (x.shape != (3, n) or v.shape != (3, n)
+            or prim.neighborhood.shape != (res[0] * res[1] * res[2], 32)
+            or prim.neighborhood.data_ptr() % 16):
+        raise ValueError(f"{name}: bad shapes or table alignment")
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in args + (x, v)):
+        raise NotImplementedError(
+            f"{name}: no CUDA backward yet; the backward kernel comes with "
+            "slice 4 of the port (use device='cpu' for gradients)")
+    return body, n
+
+
+def _cap(push_cap):
+    return math.inf if push_cap is None else float(push_cap)
+
+
+def collide_mixed1(prim, body_pos, body_quat, body_v, body_w, friction,
+                   softness, life, x, v, dt):
+    """Stage 1 of the split mode; see ``collide_mixed1_plain``. CUDA
+    tensors launch the kernel, which keeps the block in float64 (its math
+    is in double)."""
+    args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
+    if build.on_cpu(x, "collide_mixed1"):
+        return collide_mixed1_plain(prim, *args, x, v, dt)
+    body, n = _check_mixed("collide_mixed1", prim, args, x, v)
+    st1 = torch.empty((7, n), dtype=torch.float64, device=x.device)
+    rc = build.library().softmac_collide_mixed1(
+        x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
+        body.data_ptr(), st1.data_ptr(), n, *prim.res, *prim.geom, float(dt),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "collide_mixed1")
+    collide_mixed1.launches += 1
+    return st1
+
+
+def collide_mixed2(prim, body_pos, body_quat, body_v, body_w, friction,
+                   softness, life, x, v, st1, dt, p_mass, push_cap=None):
+    """Stage 2 of the split mode; see ``collide_mixed2_plain``. CUDA
+    tensors launch the kernel."""
+    args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
+    if build.on_cpu(x, "collide_mixed2"):
+        return collide_mixed2_plain(prim, *args, x, v, st1, dt, p_mass,
+                                    push_cap)
+    body, n = _check_mixed("collide_mixed2", prim, args, x, v)
+    if (st1.shape != (7, n) or st1.dtype != torch.float64
+            or st1.device != x.device or not st1.is_contiguous()):
+        raise ValueError("collide_mixed2: st1 must be collide_mixed1's "
+                         "contiguous (7, N) float64 block")
+    p_v_out, force, mask = _mixed_outputs(x)
+    rc = build.library().softmac_collide_mixed2(
+        x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
+        body.data_ptr(), st1.data_ptr(), p_v_out.data_ptr(),
+        force.data_ptr(), mask.data_ptr(), n, *prim.res, *prim.geom,
+        float(dt), float(p_mass), _cap(push_cap),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "collide_mixed2")
+    collide_mixed2.launches += 1
+    return p_v_out, force, mask
+
+
+def _mixed_outputs(x):
+    n = x.shape[1]
+    return (torch.empty((3, n), dtype=x.dtype, device=x.device),
+            torch.empty((3, n), dtype=x.dtype, device=x.device),
+            torch.empty((n,), dtype=torch.bool, device=x.device))
+
+
+def collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
+                  softness, life, x, v, dt, p_mass, push_cap=None):
+    """Forecast mixed contact; see ``collide_mixed_plain``. CUDA tensors
+    launch the merged kernel (stages 1+2 in one launch), or the two split
+    kernels when ``SOFTMAC_TPU_CONTACT_SPLIT`` is set; there is no CUDA
+    backward yet, so a CUDA call under autograd with an input that
+    requires grad raises. CPU tensors run the plain version (autograd
+    differentiates it)."""
+    args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
+    if _split_mode():
+        st1 = collide_mixed1(prim, *args, x, v, dt)
+        return collide_mixed2(prim, *args, x, v, st1, dt, p_mass, push_cap)
+    if build.on_cpu(x, "collide_mixed"):
+        return collide_mixed_plain(prim, *args, x, v, dt, p_mass, push_cap)
+    body, n = _check_mixed("collide_mixed", prim, args, x, v)
+    p_v_out, force, mask = _mixed_outputs(x)
+    rc = build.library().softmac_collide_mixed(
+        x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
+        body.data_ptr(), p_v_out.data_ptr(), force.data_ptr(),
+        mask.data_ptr(), n, *prim.res, *prim.geom, float(dt), float(p_mass),
+        _cap(push_cap), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "collide_mixed")
+    collide_mixed.launches += 1
+    return p_v_out, force, mask
+
+
+collide_mixed.launches = 0
+collide_mixed1.launches = 0
+collide_mixed2.launches = 0

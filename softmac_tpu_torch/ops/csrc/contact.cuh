@@ -1,7 +1,8 @@
-// Per-particle penalty contact against one SDF primitive, forward and
-// reverse, shared by contact.cu and contact_bwd.cu. Same math as
-// pallas_contact._particle_math and engine.contact._collide_particle_xla
-// of the JAX package:
+// Per-particle contact against one SDF primitive: the penalty contact,
+// forward and reverse, shared by contact.cu and contact_bwd.cu, and the
+// forecast mixed contact of contact_mixed.cu (at the end of this file).
+// The penalty contact has the same math as pallas_contact._particle_math
+// and engine.contact._collide_particle_xla of the JAX package:
 //   p_loc  = rot(conj(q)/|q|, x - bp)
 //   base   = clamp(floor((p_loc - lower) * inv_dx), 0, res - 2)   per axis
 //   fx     = clamp((p_loc - lower) * inv_dx - base, 0, 1)
@@ -42,6 +43,8 @@ __device__ __forceinline__ float r_max(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double r_max(double a, double b) { return fmax(a, b); }
 __device__ __forceinline__ float r_abs(float a) { return fabsf(a); }
 __device__ __forceinline__ double r_abs(double a) { return fabs(a); }
+__device__ __forceinline__ float r_exp(float a) { return expf(a); }
+__device__ __forceinline__ double r_exp(double a) { return exp(a); }
 
 template <class T>
 struct V3 {
@@ -146,6 +149,74 @@ struct Contact {
   V3<T> imp;             // zero where mask is false
 };
 
+// Base cell of the local point pl (clamped to the table), the fractions
+// relative to it (clamped) and whether pl lies in the table's box
+// [lower, upper), as pallas_contact._cell_index / _local_and_fx.
+template <class T>
+struct Cell {
+  const float4* row;     // the cell's 2x2x2 stencil row: 32 floats = 8 float4
+  T basef[3];
+  T fx[3];
+  bool fx_free[3];       // fx not clamped: d fx / d p_loc = inv_dx
+  bool in_box;
+};
+
+template <class T>
+__device__ __forceinline__ Cell<T> locate(V3<T> pl, const float4* __restrict__ table,
+                                          const Geom& g) {
+  Cell<T> c;
+  const T lp[3] = {pl.x, pl.y, pl.z};
+  int base[3];
+  c.in_box = true;
+  for (int d = 0; d < 3; ++d) {
+    const T lower = T(g.lower[d]);
+    c.in_box = c.in_box && (lp[d] >= lower) && (lp[d] < T(g.upper[d]));
+    const T pos = (lp[d] - lower) * T(g.inv_dx);
+    const T bf = r_min(r_max(r_floor(pos), T(0)), T(g.res[d] - 2));
+    base[d] = static_cast<int>(bf);
+    c.basef[d] = bf;
+    const T f = pos - bf;
+    c.fx_free[d] = f >= T(0) && f <= T(1);
+    c.fx[d] = r_min(r_max(f, T(0)), T(1));
+  }
+  const long long cell =
+      (static_cast<long long>(base[0]) * g.res[1] + base[1]) * g.res[2] + base[2];
+  c.row = table + cell * 8;
+  return c;
+}
+
+// Trilinear sdf (returned) and normal before normalisation (u) over the
+// corners c = 4i + 2j + k of a stencil row, each [sdf, nx, ny, nz]; fx
+// may lie outside [0, 1] (a forecast point against another point's row).
+template <class T>
+__device__ __forceinline__ T trilinear(const float4 e[8], const T fx[3], V3<T>& u) {
+  T sdf = T(0);
+  u = {T(0), T(0), T(0)};
+  for (int c = 0; c < 8; ++c) {
+    const int i = c >> 2, j = (c >> 1) & 1, l = c & 1;
+    const T wi = i ? fx[0] : T(1) - fx[0];
+    const T wj = j ? fx[1] : T(1) - fx[1];
+    const T wl = l ? fx[2] : T(1) - fx[2];
+    const T w = wi * wj * wl;
+    sdf += w * T(e[c].x);
+    u.x += w * T(e[c].y);
+    u.y += w * T(e[c].z);
+    u.z += w * T(e[c].w);
+  }
+  return sdf;
+}
+
+// (sdf, unit normal) from trilinear's result: BIG and (0, 1, 0) outside
+// the box; nrm is |u| with the 1e-14 inside the root.
+template <class T>
+__device__ __forceinline__ T finish_sample(T sdf, V3<T> u, bool in_box,
+                                           V3<T>& n, T& nrm) {
+  nrm = r_sqrt(u.x * u.x + u.y * u.y + u.z * u.z + T(1e-14));
+  n = in_box ? V3<T>{u.x / nrm, u.y / nrm, u.z / nrm}
+             : V3<T>{T(0), T(1), T(0)};
+  return in_box ? sdf : T(kBigContact);
+}
+
 template <class T>
 __device__ __forceinline__ Contact<T> contact_forward(
     const Body<T>& b, V3<T> xp, V3<T> vp, const float4* __restrict__ table,
@@ -155,43 +226,15 @@ __device__ __forceinline__ Contact<T> contact_forward(
   k.r = xp - b.bp;
   k.pl = qrot(b.nw, nv_conj, k.r);
 
-  // cell index and fractions, as pallas_contact._cell_index / _local_and_fx
-  const T lp[3] = {k.pl.x, k.pl.y, k.pl.z};
-  int base[3];
-  k.in_box = true;
+  const Cell<T> cell = locate(k.pl, table, g);
+  k.in_box = cell.in_box;
   for (int d = 0; d < 3; ++d) {
-    const T lower = T(g.lower[d]);
-    k.in_box = k.in_box && (lp[d] >= lower) && (lp[d] < T(g.upper[d]));
-    const T pos = (lp[d] - lower) * T(g.inv_dx);
-    const T bf = r_min(r_max(r_floor(pos), T(0)), T(g.res[d] - 2));
-    base[d] = static_cast<int>(bf);
-    const T f = pos - bf;
-    k.fx_free[d] = f >= T(0) && f <= T(1);
-    k.fx[d] = r_min(r_max(f, T(0)), T(1));
+    k.fx[d] = cell.fx[d];
+    k.fx_free[d] = cell.fx_free[d];
   }
-  const long long cell =
-      (static_cast<long long>(base[0]) * g.res[1] + base[1]) * g.res[2] + base[2];
-  const float4* row = table + cell * 8;  // 32 floats = 8 float4
-
-  // trilinear over corners c = 4i + 2j + k, each [sdf, nx, ny, nz]
-  T sdf = T(0);
-  k.u = {T(0), T(0), T(0)};
-  for (int c = 0; c < 8; ++c) {
-    const int i = c >> 2, j = (c >> 1) & 1, l = c & 1;
-    const T wi = i ? k.fx[0] : T(1) - k.fx[0];
-    const T wj = j ? k.fx[1] : T(1) - k.fx[1];
-    const T wl = l ? k.fx[2] : T(1) - k.fx[2];
-    const T w = wi * wj * wl;
-    k.e[c] = __ldg(row + c);
-    sdf += w * T(k.e[c].x);
-    k.u.x += w * T(k.e[c].y);
-    k.u.y += w * T(k.e[c].z);
-    k.u.z += w * T(k.e[c].w);
-  }
-  k.nrm = r_sqrt(k.u.x * k.u.x + k.u.y * k.u.y + k.u.z * k.u.z + T(1e-14));
-  k.n_loc = k.in_box ? V3<T>{k.u.x / k.nrm, k.u.y / k.nrm, k.u.z / k.nrm}
-                     : V3<T>{T(0), T(1), T(0)};
-  const T dist = k.in_box ? sdf : T(kBigContact);
+  for (int c = 0; c < 8; ++c) k.e[c] = __ldg(cell.row + c);
+  const T sdf = trilinear(k.e, k.fx, k.u);
+  const T dist = finish_sample(sdf, k.u, k.in_box, k.n_loc, k.nrm);
   k.D = qrot(b.qw, b.qv, k.n_loc);
 
   k.c = dist - T(kThreshold);
@@ -328,6 +371,99 @@ __device__ __forceinline__ void contact_backward(const Body<T>& b,
   gbody[10] = gbw.x;
   gbody[11] = gbw.y;
   gbody[12] = gbw.z;
+}
+
+// ---------------------------------------------------------------------------
+// Forecast mixed contact, shared by the merged kernel and the two split
+// kernels of contact_mixed.cu. Same math as pallas_contact._mixed1_math /
+// _mixed2_math and contact._collide_mixed_xla of the JAX package:
+// stage 1 samples the SDF at x, applies the friction-cone response to
+// particles approaching the body within the contact threshold and
+// forecasts x_new = x + dt p_v1; stage 2 samples at x_new against the SAME
+// stencil row (fractions relative to base(x), unclamped; in_box of x_new)
+// and pushes penetrating particles out along that normal over the rest of
+// the window. The body floats are load_body's 14 followed by softness and
+// life.
+// ---------------------------------------------------------------------------
+
+template <class T>
+struct Mixed1 {
+  V3<T> pv1, xnew;
+  T dist;
+};
+
+// Stage 1 on the stencil row e of the cell c at base(x).
+template <class T>
+__device__ __forceinline__ Mixed1<T> mixed_stage1(const Body<T>& b, T softness,
+                                                  V3<T> xp, V3<T> vp,
+                                                  const Cell<T>& cell,
+                                                  const float4 e[8], T dt) {
+  Mixed1<T> m;
+  V3<T> u, n_loc;
+  T nrm;
+  const T sdf = trilinear(e, cell.fx, u);
+  m.dist = finish_sample(sdf, u, cell.in_box, n_loc, nrm);
+  const V3<T> D = qrot(b.qw, b.qv, n_loc);     // the raw quaternion
+  const bool mask = m.dist <= T(kThreshold);
+  const T dist_s = mask ? m.dist : T(0);
+
+  const V3<T> nv_conj = {-b.nv.x, -b.nv.y, -b.nv.z};
+  const V3<T> pl = qrot(b.nw, nv_conj, xp - b.bp);
+  const V3<T> cv = qrot(b.nw, b.nv, b.bv + cross(b.bw, pl));
+  const V3<T> in_v = vp - cv;
+  const T nc = dot(in_v, D);
+  m.pv1 = vp;
+  if (mask && nc < T(0)) {
+    V3<T> pvt = in_v - D * nc;
+    const T pvt2 = dot(pvt, pvt);
+    const T vt_norm = r_sqrt(pvt2 + T(1e-8));
+    if (pvt2 > T(1e-60)) {
+      pvt = pvt * (r_max(T(0), vt_norm + nc * b.friction) / vt_norm);
+    }
+    if (dist_s > T(0)) {
+      const T influence = r_exp(-r_max(dist_s, T(0)) * softness);
+      m.pv1 = cv + (in_v * (T(1) - influence) + pvt * influence);
+    } else {
+      m.pv1 = cv + pvt;
+    }
+  }
+  m.xnew = xp + m.pv1 * dt;
+  return m;
+}
+
+// Stage 2 from stage 1's outputs on the same stencil row. Writes p_v_out,
+// the unmasked reaction force (v - p_v_out) p_mass / dt and the mask.
+template <class T>
+__device__ __forceinline__ void mixed_stage2(const Body<T>& b, T life,
+                                             V3<T> vp, const Mixed1<T>& m,
+                                             const Cell<T>& cell,
+                                             const float4 e[8], const Geom& g,
+                                             T dt, T p_mass, T push_cap,
+                                             V3<T>& pv_out, V3<T>& force,
+                                             bool& mask) {
+  mask = m.dist <= T(kThreshold);
+  pv_out = vp;
+  if (mask) {
+    const V3<T> nv_conj = {-b.nv.x, -b.nv.y, -b.nv.z};
+    const V3<T> pl2 = qrot(b.nw, nv_conj, m.xnew - b.bp);
+    const T lp[3] = {pl2.x, pl2.y, pl2.z};
+    T fx[3];
+    bool in_box = true;
+    for (int d = 0; d < 3; ++d) {
+      const T lower = T(g.lower[d]);
+      in_box = in_box && (lp[d] >= lower) && (lp[d] < T(g.upper[d]));
+      fx[d] = (lp[d] - lower) * T(g.inv_dx) - cell.basef[d];   // unclamped
+    }
+    V3<T> u, n_loc;
+    T nrm;
+    const T sdf2 = finish_sample(trilinear(e, fx, u), u, in_box, n_loc, nrm);
+    const V3<T> n2 = qrot(b.qw, b.qv, n_loc);
+    const T sdf2_s = sdf2 < T(0) ? sdf2 : T(0);
+    T push = -(sdf2_s / dt) * life;           // >= 0: outward along n2
+    if (isfinite(push_cap)) push = r_min(push, push_cap);
+    pv_out = m.pv1 + n2 * push;
+  }
+  force = (vp - pv_out) * (p_mass / dt);
 }
 
 }  // namespace softmac

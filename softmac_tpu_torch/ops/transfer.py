@@ -1,22 +1,26 @@
-"""B-spline particle/grid transfers: the P2G and G2P CUDA kernels and their
-plain PyTorch versions.
+"""B-spline particle/grid transfers: the P2G, G2P, gather and splat CUDA
+kernels and their plain PyTorch versions.
 
-Counterpart of ``softmac_tpu/ops/pallas_chunked.py`` (p2g, g2p). Layouts are
-the JAX package's: particles ``(3, N)``; the window grid ``(wy*wz, wx)``
-with row ``(y - cy) * wz + (z - cz)`` and column ``x - cx``; momentum
-``(wy*wz, 3*wx)`` with component d in columns ``d*wx .. (d+1)*wx``.
+Counterpart of ``softmac_tpu/ops/pallas_chunked.py`` (p2g, g2p, gather,
+splat). Layouts are the JAX package's: particles ``(3, N)``; the window
+grid ``(wy*wz, wx)`` with row ``(y - cy) * wz + (z - cz)`` and column
+``x - cx``; momentum and splat ``(wy*wz, 3*wx)`` with component d in
+columns ``d*wx .. (d+1)*wx``.
 
-``p2g`` and ``g2p`` dispatch on the device of their tensors: on the CPU they
-run the plain version, on CUDA they launch the kernel (and count the
-launch), anything else raises. There is no fallback from CUDA to the plain
-version: the plain version runs on a CUDA tensor only when called by name
-(``chip_smoke.py`` does, to hold the kernel against it).
+``p2g``, ``g2p``, ``gather`` and ``splat`` dispatch on the device of their
+tensors: on the CPU they run the plain version, on CUDA they launch the
+kernel (and count the launch), anything else raises. There is no fallback
+from CUDA to the plain version: the plain version runs on a CUDA tensor
+only when called by name (``chip_smoke.py`` does, to hold the kernel
+against it).
 
-Under autograd (grad enabled and an input that requires grad) both go
-through the ``P2G`` / ``G2P`` autograd Functions (the custom_vjp of
+Under autograd (grad enabled and an input that requires grad) P2G and G2P
+go through the ``P2G`` / ``G2P`` autograd Functions (the custom_vjp of
 ``pallas_chunked.family``): the backward launches ``p2g_bwd`` / ``g2p_bwd``
 on CUDA and runs ``p2g_vjp_plain`` / ``g2p_vjp_plain`` on the CPU. The
-window corner is an int tensor and gets no gradient.
+window corner is an int tensor and gets no gradient. Gather and splat have
+no CUDA backward yet: on CUDA under autograd they raise, on the CPU autograd
+differentiates their plain versions.
 
 Window semantics differ from the TPU kernels on purpose: those truncate each
 particle tile to a 16-row y-window and report ``window_overflow`` when a tile
@@ -104,6 +108,28 @@ def g2p_plain(x, gv0, gv1, gv2, corner, window, inv_dx):
     return torch.stack(rows)
 
 
+def gather_plain(x, gv0, gv1, gv2, corner, window, inv_dx):
+    """Plain PyTorch gather: sum W gv_d over the stencil, (3, N)
+    (``mpm.gather_dense``)."""
+    flat, W, _, _, _ = stencil(x, corner, window, inv_dx)
+    return torch.stack([torch.sum(W * g.reshape(-1)[flat], dim=0)
+                        for g in (gv0, gv1, gv2)])
+
+
+def splat_plain(x, vals, corner, window, inv_dx):
+    """Plain PyTorch splat of vals (3, N): sum W vals_d onto the window,
+    (wy*wz, 3*wx) with component d in columns d*wx .. (d+1)*wx
+    (``mpm.splat_channels``)."""
+    wx, wy, wz = window
+    flat, W, _, _, _ = stencil(x, corner, window, inv_dx)
+    row, col = flat // wx, flat % wx
+    out = torch.zeros(wy * wz * 3 * wx, dtype=x.dtype, device=x.device)
+    for d in range(3):
+        out.index_add_(0, (row * (3 * wx) + d * wx + col).reshape(-1),
+                       (W * vals[d]).reshape(-1))
+    return out.reshape(wy * wz, 3 * wx)
+
+
 def p2g_vjp_plain(x, chan, corner, window, inv_dx, dgm, dgmom):
     """Cotangents (dx (3, N), dchan (13, N)) of ``p2g_plain`` for the
     window cotangents dgm (wy*wz, wx), dgmom (wy*wz, 3*wx): autograd of the
@@ -138,16 +164,9 @@ def _check_cuda(name, tensors, corner):
                         "tensor on the particles' device")
 
 
-def _device_kind(x, name):
-    kind = x.device.type
-    if kind not in ("cpu", "cuda"):
-        raise TypeError(f"{name}: no implementation for device {x.device}")
-    return kind
-
-
 def _p2g(x, chan, corner, window, inv_dx):
     """P2G splat; see ``p2g_plain``. CUDA tensors launch the kernel."""
-    if _device_kind(x, "p2g") == "cpu":
+    if build.on_cpu(x, "p2g"):
         return p2g_plain(x, chan, corner, window, inv_dx)
     wx, wy, wz = (int(w) for w in window)
     n = x.shape[1]
@@ -169,7 +188,7 @@ def _p2g(x, chan, corner, window, inv_dx):
 
 def _g2p(x, gv0, gv1, gv2, corner, window, inv_dx):
     """G2P gather; see ``g2p_plain``. CUDA tensors launch the kernel."""
-    if _device_kind(x, "g2p") == "cpu":
+    if build.on_cpu(x, "g2p"):
         return g2p_plain(x, gv0, gv1, gv2, corner, window, inv_dx)
     wx, wy, wz = (int(w) for w in window)
     n = x.shape[1]
@@ -250,7 +269,7 @@ class P2G(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dgm, dgmom):
         x, chan, corner = ctx.saved_tensors
-        vjp = p2g_vjp_plain if _device_kind(x, "p2g") == "cpu" else p2g_bwd
+        vjp = p2g_vjp_plain if build.on_cpu(x, "p2g") else p2g_bwd
         dx, dchan = vjp(x, chan, corner, ctx.window, ctx.inv_dx,
                         dgm.contiguous(), dgmom.contiguous())
         need = ctx.needs_input_grad
@@ -270,7 +289,7 @@ class G2P(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, gv0, gv1, gv2, corner = ctx.saved_tensors
-        vjp = g2p_vjp_plain if _device_kind(x, "g2p") == "cpu" else g2p_bwd
+        vjp = g2p_vjp_plain if build.on_cpu(x, "g2p") else g2p_bwd
         grads = vjp(x, gv0, gv1, gv2, corner, ctx.window, ctx.inv_dx,
                     g.contiguous())
         return tuple(gr if need else None
@@ -280,6 +299,58 @@ class G2P(torch.autograd.Function):
 
 def _needs_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _no_cuda_grad(name, *tensors):
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: no CUDA backward yet; the backward kernel comes with "
+            "slice 4 of the port (use device='cpu' for gradients)")
+
+
+def gather(x, gv0, gv1, gv2, corner, window, inv_dx):
+    """Gather of the grid velocity at the particles, (3, N); see
+    ``gather_plain``. CUDA tensors launch the kernel."""
+    if build.on_cpu(x, "gather"):
+        return gather_plain(x, gv0, gv1, gv2, corner, window, inv_dx)
+    _no_cuda_grad("gather", x, gv0, gv1, gv2)
+    wx, wy, wz = (int(w) for w in window)
+    n = x.shape[1]
+    _check_cuda("gather", (x, gv0, gv1, gv2), corner)
+    _check_grids("gather", x, (gv0, gv1, gv2), window)
+    out = torch.empty((3, n), dtype=x.dtype, device=x.device)
+    rc = build.library().softmac_gather(
+        x.data_ptr(), gv0.data_ptr(), gv1.data_ptr(), gv2.data_ptr(),
+        corner.data_ptr(), out.data_ptr(), n, wx, wy, wz, float(inv_dx),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "gather")
+    gather.launches += 1
+    return out
+
+
+def splat(x, vals, corner, window, inv_dx):
+    """Splat of vals (3, N) onto the window, (wy*wz, 3*wx); see
+    ``splat_plain``. CUDA tensors launch the kernel (float64 accumulation,
+    rounded once)."""
+    if build.on_cpu(x, "splat"):
+        return splat_plain(x, vals, corner, window, inv_dx)
+    _no_cuda_grad("splat", x, vals)
+    wx, wy, wz = (int(w) for w in window)
+    n = x.shape[1]
+    _check_cuda("splat", (x, vals), corner)
+    if x.shape != (3, n) or vals.shape != (3, n):
+        raise ValueError(f"splat: x {tuple(x.shape)}, vals "
+                         f"{tuple(vals.shape)}")
+    cells = wx * wy * wz
+    acc = torch.zeros(3 * cells, dtype=torch.float64, device=x.device)
+    out = torch.empty((wy * wz, 3 * wx), dtype=x.dtype, device=x.device)
+    rc = build.library().softmac_splat(
+        x.data_ptr(), vals.data_ptr(), corner.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), n, wx, wy, wz, float(inv_dx),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "splat")
+    splat.launches += 1
+    return out
 
 
 def p2g(x, chan, corner, window, inv_dx):
@@ -300,5 +371,7 @@ def g2p(x, gv0, gv1, gv2, corner, window, inv_dx):
 
 p2g.launches = 0
 g2p.launches = 0
+gather.launches = 0
+splat.launches = 0
 p2g_bwd.launches = 0
 g2p_bwd.launches = 0

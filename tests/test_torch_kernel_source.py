@@ -76,6 +76,34 @@ void h_g2p_bwd(const float* x, const float* g0, const float* g1,
   launch(n, [&] { k_g2p_bwd::g2p_bwd_kernel(x, g0, g1, g2, corner, g, dx, acc,
                                             n, wx, wy, wz, inv_dx); });
 }
+void h_gather(const float* x, const float* g0, const float* g1,
+              const float* g2, const int* corner, float* out, int n, int wx,
+              int wy, int wz, float inv_dx) {
+  launch(n, [&] { k_gather::gather_kernel(x, g0, g1, g2, corner, out, n, wx,
+                                          wy, wz, inv_dx); });
+}
+void h_splat(const float* x, const float* vals, const int* corner,
+             double* acc, int n, int wx, int wy, int wz, float inv_dx) {
+  launch(n, [&] { k_splat::splat_kernel(x, vals, corner, acc, n, wx, wy, wz,
+                                        inv_dx); });
+}
+void h_mixed(int split, const float* x, const float* v, const float* table,
+             const float* body, double* st1, float* pv, float* force,
+             uint8_t* mask, int n, int r0, int r1, int r2, float l0, float l1,
+             float l2, float u0, float u1, float u2, float inv_dx, float dt,
+             float p_mass, float cap) {
+  softmac::Geom g = {{l0, l1, l2}, {u0, u1, u2}, inv_dx, {r0, r1, r2}};
+  const float4* t = (const float4*)table;
+  if (split) {
+    launch(n, [&] { k_contact_mixed::collide_mixed1_kernel(x, v, t, body, st1,
+                                                           n, g, dt); });
+    launch(n, [&] { k_contact_mixed::collide_mixed2_kernel(
+        x, v, t, body, st1, pv, force, mask, n, g, dt, p_mass, cap); });
+  } else {
+    launch(n, [&] { k_contact_mixed::collide_mixed_kernel(
+        x, v, t, body, pv, force, mask, n, g, dt, p_mass, cap); });
+  }
+}
 void h_contact_bwd(const float* x, const float* v, const float* table,
                    const float* body, const float* gimp, double* dx,
                    double* dv, double* dbody, int n, int r0, int r1, int r2,
@@ -118,8 +146,9 @@ def lib(tmp_path_factory):
         pytest.skip("no host C++ compiler to build the kernel sources with")
     d = tmp_path_factory.mktemp("kernel_source")
     (d / "cuda_runtime.h").write_text(CUDA_STANDIN)
-    src = "".join(_kernel_bodies(n) for n in ("p2g", "p2g_bwd", "g2p_bwd",
-                                                "contact")) + DRIVER
+    src = "".join(_kernel_bodies(n) for n in (
+        "p2g", "p2g_bwd", "g2p_bwd", "gather", "splat", "contact",
+        "contact_mixed")) + DRIVER
     (d / "driver.cpp").write_text(src)
     so = d / "libkernels_host.so"
     subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
@@ -194,13 +223,114 @@ def test_g2p_backward_source(lib, shift):
         assert _rel(acc.reshape(3, -1)[d], ref[1 + d].reshape(-1)) < 2e-6
 
 
-def test_contact_backward_source(lib):
+def _glass():
+    """The glass's SDF table in float32 and float64."""
     verts, faces = load_obj(str(ROOT / "assets/glass/glass.obj"))
     bake = tsdf.preprocess_sdf(verts, faces, ROOT / "assets/glass")
     prim = tsdf.sdf_params_from_bake(bake, torch.float32, "cpu")
     prim64 = prim.replace(neighborhood=prim.neighborhood.double(),
                           lower=prim.lower.double(), upper=prim.upper.double(),
                           inv_dx=prim.inv_dx.double())
+    return prim, prim64
+
+
+def _box_particles(prim64, b64, n, rng):
+    """n float32 world points spread over the SDF box posed by b64."""
+    lo, up = prim64.lower, prim64.upper
+    p_loc = lo[:, None] + (up - lo)[:, None] * torch.as_tensor(rng.rand(3, n))
+    x = torch.stack(m33.vadd(m33.qrot(m33.qnorm(tuple(b64[3:7])),
+                                      tuple(p_loc)), tuple(b64[0:3])))
+    return x.float().contiguous()
+
+
+def _geom(prim):
+    f = ctypes.c_float
+    return [ctypes.c_int(r) for r in prim.res] + [f(g) for g in prim.geom]
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_gather_and_splat_sources(lib, shift):
+    x, corner, rng = _scene(shift, seed=2)
+    wx, wy, wz = WINDOW
+    gv = [_f32(rng, wy * wz, wx) for _ in range(3)]
+    out = torch.zeros(3, N)
+    lib.h_gather(_p(x), *map(_p, gv), _p(corner), _p(out), *_dims(WINDOW))
+    ref = transfer.gather_plain(x.double(), *(g.double() for g in gv), corner,
+                                WINDOW, INV_DX)
+    for d in range(3):
+        assert _rel(out[d], ref[d]) < 2e-6
+
+    vals = _f32(rng, 3, N)
+    acc = torch.zeros(3 * wx * wy * wz, dtype=torch.float64)
+    lib.h_splat(_p(x), _p(vals), _p(corner), _p(acc), *_dims(WINDOW))
+    ref = transfer.splat_plain(x.double(), vals.double(), corner, WINDOW,
+                               INV_DX)
+    assert _rel(acc, ref.reshape(-1)) < 2e-6
+
+
+@pytest.mark.parametrize("cap", [float("inf"), 2.0])
+def test_mixed_contact_source(lib, cap):
+    """The merged kernel and the split pair on particles over the glass's
+    SDF box with velocities of up to a few m/s: the contact, soft,
+    penetrating and face-crossing cases all occur (counted)."""
+    prim, prim64 = _glass()
+    rng = np.random.RandomState(4)
+    n = 4000
+    q = np.array([0.9, 0.1, -0.2, 0.15])
+    q *= 1.001 / np.linalg.norm(q)        # slightly off unit, as |q| may be
+    body = torch.tensor(np.concatenate(
+        [[0.72, 0.28, 0.51], q, [0.1, -0.2, 0.05], [0.3, 0.1, -0.2],
+         [0.4, 666.0, 0.5]]), dtype=torch.float32)
+    b64 = body.double()
+    x = _box_particles(prim64, b64, n, rng)
+    v = _f32(rng, 3, n) * 1.5
+    dt, p_mass = 1e-3, 1.5e-5
+    outs = {}
+    for split in (0, 1):
+        st1 = torch.zeros(7, n, dtype=torch.float64)
+        pv, force = torch.zeros(3, n), torch.zeros(3, n)
+        mask = torch.zeros(n, dtype=torch.bool)
+        lib.h_mixed(ctypes.c_int(split), _p(x), _p(v), _p(prim.neighborhood),
+                    _p(body), _p(st1), _p(pv), _p(force), _p(mask),
+                    ctypes.c_int(n), *_geom(prim), ctypes.c_float(dt),
+                    ctypes.c_float(p_mass), ctypes.c_float(cap))
+        outs[split] = (pv, force, mask)
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b), "split and merged kernels differ"
+
+    parts = (b64[0:3], b64[3:7], b64[7:10], b64[10:13], b64[13], b64[14],
+             b64[15])
+    pv_p, f_p, mask_p = contact.collide_mixed_plain(
+        prim64, *parts, x.double(), v.double(), dt, p_mass,
+        None if cap == float("inf") else cap)
+    pv, force, mask = outs[0]
+    xs = tuple(x.double())
+    dist, _ = contact.sample_sdf_normal_world(prim64, tuple(b64[0:3]),
+                                              tuple(b64[3:7]), xs)
+    edge = (dist - contact.CONTACT_THRESHOLD).abs() < 1e-6
+    assert not bool(((mask != mask_p) & ~edge).any())
+    same = mask == mask_p
+    assert _rel(pv * same, pv_p * same) < 1e-6
+    assert _rel(force * same, f_p * same) < 1e-6
+    # the cases the kernel must cover
+    st1 = contact.collide_mixed1_plain(prim64, *parts, x.double(), v.double(),
+                                       dt)
+    qinv = m33.qnorm(m33.qconj(tuple(b64[3:7])))
+    base1 = contact.cell_index(prim64, m33.qrot(qinv, m33.vsub(
+        xs, tuple(b64[0:3]))))[0]
+    base2 = contact.cell_index(prim64, m33.qrot(qinv, m33.vsub(
+        tuple(st1[3:6]), tuple(b64[0:3]))))[0]
+    sdf2, _ = contact.sample_sdf_normal_world(prim64, tuple(b64[0:3]),
+                                              tuple(b64[3:7]), tuple(st1[3:6]))
+    counts = {"contact": int(mask_p.sum()),
+              "soft": int((mask_p & (dist > 0)).sum()),
+              "penetrating": int((mask_p & (sdf2 < 0)).sum()),
+              "face-crossing": int((mask_p & (base1 != base2)).sum())}
+    assert min(counts.values()) > 20, counts
+
+
+def test_contact_backward_source(lib):
+    prim, prim64 = _glass()
     rng = np.random.RandomState(0)
     n = 4000
     q = np.array([0.9, 0.1, -0.2, 0.15])
@@ -209,11 +339,7 @@ def test_contact_backward_source(lib):
         [[0.72, 0.28, 0.51], q, [0.1, -0.2, 0.05], [0.3, 0.1, -0.2], [10.0]]),
         dtype=torch.float32)
     b64 = body.double()
-    lo, up = prim64.lower, prim64.upper
-    p_loc = lo[:, None] + (up - lo)[:, None] * torch.as_tensor(rng.rand(3, n))
-    x = torch.stack(m33.vadd(m33.qrot(m33.qnorm(tuple(b64[3:7])),
-                                      tuple(p_loc)), tuple(b64[0:3])))
-    x = x.float().contiguous()
+    x = _box_particles(prim64, b64, n, rng)
     v, gimp = _f32(rng, 3, n) * 0.5, _f32(rng, 3, n)
     dt, p_mass = 1e-3, 1.5e-5
 
@@ -223,8 +349,7 @@ def test_contact_backward_source(lib):
     f = ctypes.c_float
     lib.h_contact_bwd(_p(x), _p(v), _p(prim.neighborhood), _p(body),
                       _p(gimp), _p(dx), _p(dv), _p(db), ctypes.c_int(n),
-                      *(ctypes.c_int(r) for r in prim.res),
-                      *(f(g) for g in prim.geom), f(dt), f(p_mass))
+                      *_geom(prim), f(dt), f(p_mass))
     parts = (b64[0:3], b64[3:7], b64[7:10], b64[10:13], b64[13])
     _, mask = contact.collide_particle_plain(prim64, *parts, x.double(),
                                              v.double(), dt, p_mass)

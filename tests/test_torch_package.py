@@ -64,7 +64,8 @@ def _plain(node):
     return node
 
 
-@pytest.mark.parametrize("name", [None, "demo_pour_vel_config.py"])
+@pytest.mark.parametrize("name", [None, "demo_pour_vel_config.py",
+                                  "demo_pour_config.py"])
 def test_config_loads_to_same_dict(name):
     jpath = tpath = None
     if name is not None:
@@ -84,7 +85,7 @@ def test_env_without_device_needs_cuda(monkeypatch):
     assert torch_env.resolve_device("cpu").type == "cpu"
 
 
-def test_wrappers_refuse_other_devices():
+def test_wrappers_refuse_other_devices(monkeypatch):
     n, window = 8, (8, 8, 8)
     meta = dict(device="meta", dtype=torch.float32)
     x = torch.empty((3, n), **meta)
@@ -101,8 +102,23 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(TypeError, match="no implementation"):
         contact.collide_particle(prim, b3, torch.empty(4, **meta), b3, b3,
                                  torch.empty((), **meta), x, x, 1e-3, 1e-5)
-    assert transfer.p2g.launches == 0 and transfer.g2p.launches == 0
-    assert contact.collide_particle.launches == 0
+    with pytest.raises(TypeError, match="no implementation"):
+        transfer.gather(x, g, g, g, corner, window, 128.0)
+    with pytest.raises(TypeError, match="no implementation"):
+        transfer.splat(x, x, corner, window, 128.0)
+    s0 = torch.empty((), **meta)
+    body = (b3, torch.empty(4, **meta), b3, b3, s0, s0, s0)
+    for split in ("", "1"):
+        monkeypatch.setenv("SOFTMAC_TPU_CONTACT_SPLIT", split)
+        with pytest.raises(TypeError, match="no implementation"):
+            contact.collide_mixed(prim, *body, x, x, 1e-3, 1e-5)
+    with pytest.raises(TypeError, match="no implementation"):
+        contact.collide_mixed2(prim, *body, x, x,
+                               torch.empty((7, n), device="meta"), 1e-3, 1e-5)
+    for w in (transfer.p2g, transfer.g2p, transfer.gather, transfer.splat,
+              contact.collide_particle, contact.collide_mixed,
+              contact.collide_mixed1, contact.collide_mixed2):
+        assert w.launches == 0
 
 
 @pytest.mark.parametrize("n_steps,start,stride", [
@@ -139,7 +155,9 @@ def test_kernel_library_is_keyed_by_sources():
     assert path == build.library_path()
     assert set(build.SIGNATURES) == {
         "softmac_p2g", "softmac_g2p", "softmac_collide_particle",
-        "softmac_p2g_bwd", "softmac_g2p_bwd", "softmac_collide_particle_bwd"}
+        "softmac_p2g_bwd", "softmac_g2p_bwd", "softmac_collide_particle_bwd",
+        "softmac_gather", "softmac_splat", "softmac_collide_mixed",
+        "softmac_collide_mixed1", "softmac_collide_mixed2"}
     sources = " ".join(p.read_text() for p in build.CSRC.glob("*.cu"))
     for name in build.SIGNATURES:
         assert f'extern "C" int {name}(' in sources

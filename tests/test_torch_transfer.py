@@ -270,3 +270,44 @@ def test_g2p_vjp_matches_jax(shift):
         assert [tuple(t.shape) for t in grads] == [(3, N)] + [(WY * WZ, WX)] * 3
         for got, want in zip(grads, ref):
             _close(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# Gather and splat (the mixed-contact substep's v_tmp and its correction):
+# the plain versions and the wrappers against mpm.gather_dense and
+# mpm.splat_channels built with axis_weights and hyz_family, on the same two
+# cases (shift 2 puts stencils over the window's faces).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_gather_plain_matches_jax(shift):
+    x, _, _, _, _, jcfg, tcfg, xj, sizes, corner = _setup(shift)
+    rng = np.random.RandomState(6)
+    gv = [rng.randn(WY * WZ, WX) for _ in range(3)]
+    t_corner = torch.tensor([int(c) for c in corner], dtype=torch.int32)
+    args = (torch.as_tensor(x), *(torch.as_tensor(g) for g in gv), t_corner,
+            WINDOW, tcfg.inv_dx)
+    out = transfer.gather(*args)
+    assert out.shape == (3, N)
+    assert torch.equal(out, transfer.gather_plain(*args))
+    W, _, H, _, _ = _dense(jcfg, xj, sizes, corner)
+    ref = jmpm.gather_dense(jcfg, W, H, tuple(jnp.asarray(g) for g in gv))
+    for d in range(3):
+        _close(out[d].numpy(), ref[d])
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_splat_plain_matches_jax(shift):
+    x, _, _, _, _, jcfg, tcfg, xj, sizes, corner = _setup(shift)
+    vals = np.random.RandomState(8).randn(3, N)
+    t_corner = torch.tensor([int(c) for c in corner], dtype=torch.int32)
+    args = (torch.as_tensor(x), torch.as_tensor(vals), t_corner, WINDOW,
+            tcfg.inv_dx)
+    out = transfer.splat(*args)
+    assert out.shape == (WY * WZ, 3 * WX)
+    assert torch.equal(out, transfer.splat_plain(*args))
+    W, _, H, _, _ = _dense(jcfg, xj, sizes, corner)
+    ref = jmpm.splat_channels(jcfg, W, H, [jnp.asarray(v) for v in vals])
+    for d in range(3):
+        _close(out[:, d * WX:(d + 1) * WX].numpy(), ref[d])
+    assert np.abs(np.asarray(ref[0])).max() > 0
