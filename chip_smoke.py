@@ -18,34 +18,50 @@ script exits non-zero:
            same inputs with seeded normal cotangents; gather, splat and the
            mixed contact (merged and split) against their plain versions in
            float64 on the flagship pour scene's state after 10 env steps
-           (1e5 particles, window (32, 32, 16)). Both contact families are
+           (1e5 particles, window (32, 32, 16)), their inputs built by the
+           kernels so that they repeat; the backward kernels of those
+           (gather_bwd, splat_bwd, collide_mixed_bwd and the split pair
+           collide_mixed2_bwd -> collide_mixed1_bwd) against their plain
+           vjps in float64 on the same inputs. Both contact families are
            also held on particles spread over each body's SDF box, so that
            both bodies have many contacts (and, for the mixed contact,
-           particles that approach, lie in the soft band and penetrate)
-  slice    the forward main path: SoftMacEnv.rollout of that scene for 100
+           particles that approach, lie in the soft band, penetrate and
+           forecast across a cell face)
+  slice    the pour_vel main path: SoftMacEnv.rollout of that scene for 50
            env steps on the card, launches counted; then 7 more timed
            rollouts of the same actions: substeps/s (median and spread),
            loss, overflow, and how far the repeats' end states differ
-  grad     the gradient main path: SoftMacEnv.rollout_and_grad of the same
-           scene and actions (loss_start_frame 0, loss_stride 20), under
-           remat "step" and "none": one counted call and 5 timed ones each,
-           fwd+bwd substeps/s, peak device memory, the launches of all six
-           kernels, finite nonzero gradients, and how far step and none and
-           the repeats differ
+  grad     pour_vel's gradient path: SoftMacEnv.rollout_and_grad of the
+           same scene and actions (loss_start_frame 0, loss_stride 20),
+           under remat "step" and "none": one counted call and 5 timed ones
+           each, fwd+bwd substeps/s, peak device memory, the launches of its
+           six kernels, finite nonzero gradients, and how far step and none
+           and the repeats differ
   pour     the flagship main path: SoftMacEnv.rollout of the demo_pour
            scene (mixed contact, two floating force-controlled bodies) at
            1e5 particles, window (32, 32, 16), 100 env steps of zero
            actions, launches counted; 7 more timed rollouts; then the same
            scene under SOFTMAC_TPU_CONTACT_SPLIT (the split contact
-           kernels, counted), and rollout_and_grad, which must raise (no
-           CUDA backward of this slice's kernels yet)
-  profile  torch.profiler over 20 env steps of each rollout and 10 of the
-           pour_vel rollout_and_grad (remat "none"): device busy share of
-           the wall time, kernel launches per substep, the kernels that
-           take the most device time
+           kernels, counted)
+  pour_grad  the flagship's gradient main path: rollout_and_grad of the
+           same scene and actions (loss_start_frame 0, loss_stride 20)
+           under remat "step" and "none": one counted call and 5 timed ones
+           each, fwd+bwd substeps/s, peak memory, the launches of every
+           forward and backward kernel, a finite nonzero gradient, step
+           against none and the repeats within GRAD_TOL; then 20 steps
+           under SOFTMAC_TPU_CONTACT_SPLIT (the split backward pair,
+           counted) against the merged gradient
+  profile  torch.profiler over 20 env steps of each rollout and 10 of each
+           rollout_and_grad (remat "none"): device busy share of the wall
+           time, kernel launches per substep, the kernels that take the
+           most device time
   parity   each demo's own 5000-particle scene, card (float32, kernels)
            against the CPU (float64, plain versions): 20 steps of rollout
-           (and, for pour_vel, of rollout_and_grad)
+           and of rollout_and_grad
+  demo     the ported trainer softmac_tpu_torch.demos.demo_pour on the
+           card, 3 epochs of 60 env steps on its own scene: finite losses,
+           losses.npy and the checkpoints written, the actions moved, every
+           kernel launched, the epoch times
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -64,6 +80,7 @@ POUR_WINDOW = (32, 32, 16)        # bench.py's build_headline_env
 N_MAIN = 100_000
 SPLIT_STEPS = 20
 SLICE_STEPS = 100
+VEL_STEPS = 50                    # pour_vel's paths, cut to keep the time
 SLICE_REPEATS = 7
 STATE_STEPS = 10
 MIN_BOX_CONTACTS = 5000
@@ -95,16 +112,38 @@ FLOPS_PER_PARTICLE = {"p2g": 57 + 27 + 27 * 30, "g2p": 57 + 27 + 27 * 28,
                       # ~130; in double in the kernel, counted at the
                       # float32 rate (the least time for the same work); the
                       # split pair does the same work
-                      "collide_mixed": 430, "collide_mixed_split": 430}
+                      "collide_mixed": 430, "collide_mixed_split": 430,
+                      # gather / splat backward: weights and their
+                      # derivatives ~80, per (y, z) pair 9, per cell the
+                      # splat or gather of 3 values (6), the weight
+                      # cotangent (6) and 3 position terms (12)
+                      "gather_bwd": 80 + 81 + 27 * 24,
+                      "splat_bwd": 80 + 81 + 27 * 24,
+                      # mixed backward: the forward again ~430 and its
+                      # reverse sweep (5 rotation adjoints ~40 each, two
+                      # trilinear adjoints 8 x 14 + normalisations, the
+                      # cone, soft band and push-out) ~470, in double,
+                      # counted at the float32 rate; the split pair the same
+                      "collide_mixed_bwd": 900, "collide_mixed_split_bwd": 900}
 GRAD_REPEATS = 5
 GRAD_TOL = 1e-6           # step vs none, repeats vs the counted call
 ROW_TOL = 1e-5            # backward rows and grids
 BODY_TOL = 1e-4           # the 14 body floats, sums over 1e5 particles
 FORWARD = ("p2g", "g2p", "collide_particle")
 POUR = ("gather", "splat", "collide_mixed")
+POUR_BWD = ("gather_bwd", "splat_bwd", "collide_mixed_bwd")
+DEMO_STEPS = 60
+DEMO_EPOCHS = 3
+
+
+T0 = time.perf_counter()
 
 
 def emit(tag, obj):
+    """One phase's JSON line, with the seconds since the script started
+    (at_s) for a tagged phase."""
+    if tag:
+        obj = {**obj, "at_s": time.perf_counter() - T0}
     print(f"{tag}: {json.dumps(obj)}" if tag else json.dumps(obj), flush=True)
 
 
@@ -467,7 +506,9 @@ def check_contact_backward(inp, normal):
 def pour_kernel_inputs(env, carry):
     """The inputs the flagship pour's first substep from ``carry`` hands
     gather, the mixed contact (glass, then bowl) and splat, built with the
-    port's own substep stages and the plain versions (y-sorted)."""
+    port's own substep stages and the kernels (y-sorted), so that they are
+    the same on every run (the plain P2G's float32 index_add_ sums in
+    another order each run on the card)."""
     import torch
     from softmac_tpu_torch.engine import mpm
     from softmac_tpu_torch.ops import contact, m33, transfer
@@ -483,14 +524,14 @@ def pour_kernel_inputs(env, carry):
         raise AssertionError("window overflow in the pour kernel-check state")
     chan = mpm._p2g_channels(cfg, tuple(state.v), m33.from_mat_array(state.C),
                              stress, impulse)
-    gm, gmom = transfer.p2g_plain(state.x, chan, corner, sizes, cfg.inv_dx)
+    gm, gmom = transfer.p2g(state.x, chan, corner, sizes, cfg.inv_dx)
     wx = sizes[0]
     g_v, _, _ = mpm.grid_normalize(
         cfg, (gm, gmom[:, :wx], gmom[:, wx:2 * wx], gmom[:, 2 * wx:]),
         params.gravity)
     gvm = tuple(g.contiguous() for g in mpm.boundary_condition(
         cfg, mpm.grid_coords(cfg, sizes, corner), g_v))
-    v_tmp = transfer.gather_plain(state.x, *gvm, corner, sizes, cfg.inv_dx)
+    v_tmp = transfer.gather(state.x, *gvm, corner, sizes, cfg.inv_dx)
     life = torch.full((), 1.0 / cfg.substeps, dtype=state.x.dtype,
                       device=state.x.device)      # substep k = 0
     contacts, v_in = [], v_tmp
@@ -498,7 +539,7 @@ def pour_kernel_inputs(env, carry):
         body = (bodies.pos[i], bodies.quat[i], bodies.v[i], bodies.w[i],
                 params.friction[i], params.softness[i], life)
         contacts.append((prim, body, v_in))
-        v_in = contact.collide_mixed_plain(
+        v_in = contact.collide_mixed(
             prim, *body, state.x, v_in, cfg.dt, cfg.p_mass,
             cfg.contact_push_velocity_cap)[0]
     return dict(cfg=cfg, state=state, corner=corner, sizes=sizes, gvm=gvm,
@@ -684,6 +725,195 @@ def check_mixed_kernels(inp):
     return entries
 
 
+def check_pour_backward_kernels(inp):
+    """gather_bwd, splat_bwd and the mixed-contact backward (merged and
+    split) against their plain vjps run in float64 on the same inputs
+    (float32 values promoted), with seeded normal cotangents: rows and
+    grids within ROW_TOL of the largest |value| of each output, the 16
+    body floats within BODY_TOL; the split within 1e-6 of the merged."""
+    import torch
+    from softmac_tpu_torch.ops import transfer
+    cfg, x = inp["cfg"], inp["state"].x
+    n = x.shape[1]
+    corner, sizes = inp["corner"], inp["sizes"]
+    wx, wy, wz = sizes
+    cells = wx * wy * wz
+    gen = torch.Generator(device=x.device).manual_seed(3)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=x.dtype,
+                           device=x.device)
+
+    entries = []
+    # --- gather_bwd --------------------------------------------------------
+    args = (x, *inp["gvm"], corner, sizes, cfg.inv_dx, normal(3, n))
+    errs = _errors(transfer.gather_bwd(*args),
+                   transfer.gather_vjp_plain(*map(_f64, args)),
+                   ("dx", "dgv0", "dgv1", "dgv2"))
+    entries.append(kernel_entry(
+        n, "gather_bwd", "softmac_tpu_torch/ops/csrc/gather_bwd.cu",
+        "softmac_tpu/ops/pallas_chunked.py:767 (_gather_c_bwd_pallas, "
+        "pallas_call :784, kernel _gather_c_bwd_kernel :512)",
+        max(e[0] for e in errs.values()), max(e[1] for e in errs.values()),
+        cuda_time_ms(lambda: transfer.gather_bwd(*args)),
+        cuda_time_ms(lambda: transfer.gather_vjp_plain(*args)),
+        (9 * n + 6 * cells) * 4, ROW_TOL))
+    entries[-1]["rel_err_by_output"] = {k: e[1] for k, e in errs.items()}
+
+    # --- splat_bwd ---------------------------------------------------------
+    args = (x, inp["vals"], corner, sizes, cfg.inv_dx,
+            normal(wy * wz, 3 * wx))
+    errs = _errors(transfer.splat_bwd(*args),
+                   transfer.splat_vjp_plain(*map(_f64, args)),
+                   ("dx", "dvals"))
+    entries.append(kernel_entry(
+        n, "splat_bwd", "softmac_tpu_torch/ops/csrc/splat_bwd.cu",
+        "softmac_tpu/ops/pallas_chunked.py:821 (_splat_c_bwd_pallas, "
+        "pallas_call :836, kernel _splat_c_bwd_kernel :564)",
+        max(e[0] for e in errs.values()), max(e[1] for e in errs.values()),
+        cuda_time_ms(lambda: transfer.splat_bwd(*args)),
+        cuda_time_ms(lambda: transfer.splat_vjp_plain(*args)),
+        (12 * n + 3 * cells) * 4, ROW_TOL))
+    entries[-1]["rel_err_by_output"] = {k: e[1] for k, e in errs.items()}
+    return entries + check_mixed_backward(inp, normal)
+
+
+def _cell_crossers(prim, body, xs, x_new):
+    """Particles whose forecast point lies in another table cell than x."""
+    from softmac_tpu_torch.ops import contact, m33
+    qinv = m33.qnorm(m33.qconj(tuple(body[1])))
+
+    def cell(p):
+        return contact.cell_index(prim, m33.qrot(qinv, m33.vsub(
+            tuple(p), tuple(body[0]))))[0]
+    return cell(xs) != cell(x_new)
+
+
+def check_mixed_backward(inp, normal):
+    """collide_mixed_bwd and the split pair (collide_mixed2_bwd ->
+    collide_mixed1_bwd) against collide_mixed_vjp_plain in float64, per
+    body, on the main path's particles and on particles spread over the
+    body's SDF box with seeded velocities (contacts, approaching, soft,
+    penetrating and face-crossing particles counted there)."""
+    import torch
+    from softmac_tpu_torch.ops import contact, m33
+    cfg, x = inp["cfg"], inp["state"].x
+    n = x.shape[1]
+    dt, p_mass = cfg.dt, cfg.p_mass
+    cap = cfg.contact_push_velocity_cap
+    gen = torch.Generator(device=x.device).manual_seed(4)
+    groups = {"dx": 7, "dv": 8, "body_pos": 0, "body_quat": 1, "body_v": 2,
+              "body_w": 3, "friction": 4, "softness": 5, "life": 6}
+    worst = {k: (0.0, 0.0) for k in groups}
+    split_worst = 0.0
+    ms = {"merged": 0.0, "split": 0.0}
+    plain_ms = 0.0
+    nbytes = {"merged": 0, "split": 0}
+    blocks = -(-n // 256)
+    for b, (prim, body, v_in) in enumerate(inp["contacts"]):
+        prim64 = _prim64(prim)
+        body64 = tuple(map(_f64, body))
+        x_box = box_particles(prim, body[0], body[1], n, gen)
+        v_box = (1.5 * torch.randn((3, n), generator=gen, dtype=x.dtype,
+                                   device=x.device)).contiguous()
+        for xs, vs, label in ((x, v_in, "main path"),
+                              (x_box, v_box, "SDF box")):
+            gout, gforce = normal(3, n), normal(3, n)
+            cargs = (prim, *body, xs, vs, dt, p_mass, cap, gout, gforce)
+            merged = contact.collide_mixed_bwd(*cargs)
+            st1 = contact.collide_mixed1(prim, *body, xs, vs, dt)
+            split = contact.collide_mixed_split_bwd(
+                prim, *body, xs, vs, st1, dt, p_mass, cap, gout, gforce)
+            want = contact.collide_mixed_vjp_plain(
+                prim64, *body64, _f64(xs), _f64(vs), dt, p_mass, cap,
+                gout.double(), gforce.double())
+            for name, i in groups.items():
+                (err, rel), = _errors((merged[i],), (want[i],),
+                                      (name,)).values()
+                worst[name] = max(worst[name], (rel, err))
+                (_, rel_s), = _errors((split[i],), (merged[i].double(),),
+                                      (name,)).values()
+                split_worst = max(split_worst, rel_s)
+            st1_p = contact.collide_mixed1_plain(prim64, *body64, _f64(xs),
+                                                 _f64(vs), dt)
+            mask = st1_p[6] <= contact.CONTACT_THRESHOLD
+            sdf2, _ = contact.sample_sdf_normal_world(
+                prim64, tuple(body64[0]), tuple(body64[1]), tuple(st1_p[3:6]))
+            counts = {"contacts": int(mask.sum()),
+                      "approaching": int((mask & (st1_p[0:3] != _f64(vs))
+                                          .any(dim=0)).sum()),
+                      "soft": int((mask & (st1_p[6] > 0)).sum()),
+                      "penetrating": int((mask & (sdf2 < 0)).sum()),
+                      "face_crossing": int((mask & _cell_crossers(
+                          prim64, body64, _f64(xs), st1_p[3:6])).sum())}
+            print(f"collide_mixed_bwd body {b} {label}: {json.dumps(counts)}"
+                  ", worst rel err so far " + json.dumps(
+                      {k: w[0] for k, w in worst.items()})
+                  + f", split vs merged {split_worst}", flush=True)
+            if label == "SDF box" and (counts["contacts"] < MIN_BOX_CONTACTS
+                                       or min(counts.values()) == 0):
+                raise AssertionError(f"collide_mixed_bwd: body {b}'s SDF box "
+                                     f"misses a case: {counts}")
+        gout, gforce = normal(3, n), normal(3, n)
+        cargs = (prim, *body, x, v_in, dt, p_mass, cap, gout, gforce)
+        st1 = contact.collide_mixed1(prim, *body, x, v_in, dt)
+        ms["merged"] += cuda_time_ms(lambda: contact.collide_mixed_bwd(*cargs))
+        ms["split"] += cuda_time_ms(lambda: contact.collide_mixed_split_bwd(
+            prim, *body, x, v_in, st1, dt, p_mass, cap, gout, gforce))
+        plain_ms += cuda_time_ms(
+            lambda: contact.collide_mixed_vjp_plain(*cargs))
+        qinv = m33.qnorm(m33.qconj(tuple(body[1])))
+        p_loc = m33.qrot(qinv, m33.vsub(tuple(x), tuple(body[0])))
+        rows = torch.unique(contact.cell_index(prim, p_loc)[0]).numel()
+        # in: x, v, the two cotangents, the rows, 16 body floats; out: dx,
+        # dv and the (16, blocks) float64 partials
+        nbytes["merged"] += 18 * n * 4 + rows * 128 + 16 * 4 + 16 * blocks * 8
+        # the split also reads stage 1's block, writes its cotangent and
+        # reads it back (7 doubles a particle each), hands dv over in
+        # float, and its second launch reads x, v, the rows and the body
+        # again
+        nbytes["split"] += (24 * n * 4 + 3 * 7 * n * 8 + 2 * rows * 128
+                            + 2 * 16 * 4 + 2 * 16 * blocks * 8)
+    for name, (rel, _) in worst.items():
+        tol = ROW_TOL if name in ("dx", "dv") else BODY_TOL
+        if not rel <= tol:
+            raise AssertionError(f"collide_mixed_bwd: {name} relative error "
+                                 f"{rel} > {tol}")
+    if not split_worst <= 1e-6:
+        raise AssertionError("collide_mixed split backward: differs from the "
+                             f"merged by {split_worst} > 1e-6")
+    note = ("max |kernel - plain| / max |plain| of the dx and dv rows over "
+            "both bodies and both particle sets, the plain vjp in float64; "
+            "the body groups in rel_err_by_output; times and bytes (main "
+            "path's particles) summed over glass + bowl")
+    entries = []
+    for name, key, replaces in (
+            ("collide_mixed_bwd", "merged",
+             "softmac_tpu/ops/pallas_contact.py:277 (_make_mixed12_bwd_kernel "
+             "via _fused12_factory's _bwd, launched :672)"),
+            ("collide_mixed_split_bwd", "split",
+             "softmac_tpu/ops/pallas_contact.py:359 (_make_mixed1_bwd_kernel "
+             "and _make_mixed2_bwd_kernel :375 via _fused_factory's _bwd "
+             ":576-583)")):
+        e = kernel_entry(n, name,
+                         "softmac_tpu_torch/ops/csrc/contact_mixed_bwd.cu",
+                         replaces, max(worst["dx"][1], worst["dv"][1]),
+                         max(worst["dx"][0], worst["dv"][0]), ms[key],
+                         plain_ms, nbytes[key], ROW_TOL)
+        e["rel_err_by_output"] = {k: w[0] for k, w in worst.items()}
+        e["tolerance_by_output"] = {k: ROW_TOL if k in ("dx", "dv")
+                                    else BODY_TOL for k in groups}
+        e["rel_err_is"] = note
+        e["per_substep"] = len(inp["contacts"])
+        entries.append(e)
+    entries[-1]["split_vs_merged_rel_err"] = split_worst
+    entries[-1]["split_vs_merged_tolerance"] = 1e-6
+    entries[-1]["launches_are"] = ("collide_mixed1_bwd launches on the split "
+                                   "gradient path (collide_mixed2_bwd the "
+                                   "same)")
+    return entries
+
+
 def timed_rollout(env, acts):
     import torch
     torch.cuda.synchronize()
@@ -702,7 +932,12 @@ def wrappers():
             "gather": transfer.gather, "splat": transfer.splat,
             "collide_mixed": contact.collide_mixed,
             "collide_mixed1": contact.collide_mixed1,
-            "collide_mixed2": contact.collide_mixed2}
+            "collide_mixed2": contact.collide_mixed2,
+            "gather_bwd": transfer.gather_bwd,
+            "splat_bwd": transfer.splat_bwd,
+            "collide_mixed_bwd": contact.collide_mixed_bwd,
+            "collide_mixed1_bwd": contact.collide_mixed1_bwd,
+            "collide_mixed2_bwd": contact.collide_mixed2_bwd}
 
 
 def reset_launches():
@@ -718,14 +953,14 @@ def run_slice(env):
     """The main path: one rollout with the launches counted from zero, then
     SLICE_REPEATS timed rollouts of the same actions."""
     import torch
-    acts = actions(SLICE_STEPS)
+    acts = actions(VEL_STEPS)
     reset_launches()
     out, secs = timed_rollout(env, acts)
     launches = read_launches()
     loss = out["loss"].item()
     terms = {k: float(v) for k, v in out["terms"].items()}
     state = out["carry"][0]
-    n_sub = SLICE_STEPS * env.substeps
+    n_sub = VEL_STEPS * env.substeps
     rates, repeat_diff = [], 0.0
     for _ in range(SLICE_REPEATS):
         rep, rep_secs = timed_rollout(env, acts)
@@ -733,7 +968,7 @@ def run_slice(env):
         repeat_diff = max(repeat_diff,
                           (rep["carry"][0].x - state.x).abs().max().item())
     res = {"n_particles": env.n_particles, "window": list(WINDOW),
-           "env_steps": SLICE_STEPS, "substeps": n_sub,
+           "env_steps": VEL_STEPS, "substeps": n_sub,
            "substeps_per_s": statistics.median(rates),
            "substeps_per_s_min": min(rates), "substeps_per_s_max": max(rates),
            "substeps_per_s_runs": rates,
@@ -766,18 +1001,14 @@ def timed_grad(env, acts, remat):
     return out, time.perf_counter() - t0
 
 
-def run_grad(env):
-    """The gradient main path: rollout_and_grad of the slice phase's
-    actions under remat "step" and "none", each one counted call (launches
-    from zero, peak memory) and GRAD_REPEATS timed ones."""
+def run_gradient(tag, env, acts, expect, glass, window):
+    """A gradient main path: rollout_and_grad of ``acts`` under remat
+    "step" and "none", each one counted call (launches from zero, peak
+    memory) and GRAD_REPEATS timed ones. ``expect(remat)`` gives the
+    launch counts, ``glass`` the action columns whose gradient may not be
+    all zero."""
     import torch
-    acts = actions(SLICE_STEPS)
-    n_sub = SLICE_STEPS * env.substeps
-    # the first env step's state does not depend on the actions (the first
-    # action sets the bodies' velocities at its end), so autograd records
-    # nothing there: no replay under remat "step", no backward launches
-    graded = (SLICE_STEPS - 1) * env.substeps
-    per_step = {"p2g": 1, "g2p": 1, "collide_particle": env.n_primitives}
+    n_sub = len(acts) * env.substeps
     res, launches, grads = {}, {}, {}
     for remat in ("step", "none"):
         reset_launches()
@@ -787,23 +1018,18 @@ def run_grad(env):
         peak = torch.cuda.max_memory_allocated()
         g = out["action_grad"]
         loss = out["loss"].item()
-        replays = graded if remat == "step" else 0   # checkpoint replays
-        expect = dict.fromkeys(wrappers(), 0)
-        for k, c in per_step.items():
-            expect[k] = c * (n_sub + replays)
-            expect[k + "_bwd"] = c * graded
-        if launches[remat] != expect:
-            raise AssertionError(f"grad ({remat}): launch counts "
-                                 f"{launches[remat]}, expected {expect}")
+        if launches[remat] != expect(remat):
+            raise AssertionError(f"{tag} ({remat}): launch counts "
+                                 f"{launches[remat]}, expected "
+                                 f"{expect(remat)}")
         if not math.isfinite(loss) or not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"grad ({remat}): non-finite loss {loss} "
+            raise AssertionError(f"{tag} ({remat}): non-finite loss {loss} "
                                  "or action gradient")
         if bool(out["terms"]["window_overflow"]):
-            raise AssertionError(f"grad ({remat}): window overflow")
-        glass = g[:, [2, 3, 4]]   # the glass's wz, vx, vy
-        if not bool((glass != 0).any()):
-            raise AssertionError(f"grad ({remat}): the glass's (wz, vx, vy) "
-                                 "columns of action_grad are all zero")
+            raise AssertionError(f"{tag} ({remat}): window overflow")
+        if not bool((g[:, glass] != 0).any()):
+            raise AssertionError(f"{tag} ({remat}): the glass's columns "
+                                 f"{glass} of action_grad are all zero")
         gmax = g.abs().max().item()
         rates, rep_diff = [], 0.0
         for _ in range(GRAD_REPEATS):
@@ -820,25 +1046,46 @@ def run_grad(env):
             "counted_run_substeps_per_s": n_sub / secs,
             "max_memory_allocated_bytes": peak,
             "loss": loss, "action_grad_max_abs": gmax,
-            "glass_grad_max_abs": glass.abs().max().item(),
+            "glass_grad_max_abs": g[:, glass].abs().max().item(),
             "repeat_grad_max_abs_diff": rep_diff,
             "repeat_grad_rel_diff": rep_diff / gmax,
             "launches": launches[remat]}
         if not rep_diff <= GRAD_TOL * gmax:
-            raise AssertionError(f"grad ({remat}): repeats differ by "
+            raise AssertionError(f"{tag} ({remat}): repeats differ by "
                                  f"{rep_diff} > {GRAD_TOL} x {gmax}")
     diff = (grads["step"] - grads["none"]).abs().max().item()
     gmax = grads["none"].abs().max().item()
-    out = {"n_particles": env.n_particles, "window": list(WINDOW),
-           "env_steps": SLICE_STEPS, "substeps": n_sub,
+    out = {"n_particles": env.n_particles, "window": list(window),
+           "env_steps": len(acts), "substeps": n_sub,
            "loss_start_frame": 0, "loss_stride": 20,
            "step_vs_none_grad_max_abs_diff": diff,
            "step_vs_none_grad_rel_diff": diff / gmax,
            "tolerance": GRAD_TOL, **res}
     if not diff <= GRAD_TOL * gmax:
-        raise AssertionError(f"grad: step and none differ by {diff} > "
+        raise AssertionError(f"{tag}: step and none differ by {diff} > "
                              f"{GRAD_TOL} x {gmax}")
     return out, launches
+
+
+def run_grad(env):
+    """pour_vel's gradient path on the slice phase's actions."""
+    # the first env step's state does not depend on the actions (the first
+    # action sets the bodies' velocities at its end), so autograd records
+    # nothing there: no replay under remat "step", no backward launches
+    n_sub = VEL_STEPS * env.substeps
+    graded = (VEL_STEPS - 1) * env.substeps
+    per_step = {"p2g": 1, "g2p": 1, "collide_particle": env.n_primitives}
+
+    def expect(remat):
+        replays = graded if remat == "step" else 0   # checkpoint replays
+        counts = dict.fromkeys(wrappers(), 0)
+        for k, c in per_step.items():
+            counts[k] = c * (n_sub + replays)
+            counts[k + "_bwd"] = c * graded
+        return counts
+    # the glass's wz, vx, vy
+    return run_gradient("grad", env, actions(VEL_STEPS), expect, [2, 3, 4],
+                        WINDOW)
 
 
 def run_pour(env):
@@ -927,20 +1174,75 @@ def run_pour_split(env):
     return res, launches
 
 
-def run_pour_grad_guard(env):
-    """rollout_and_grad of the flagship scene on the card must raise: the
-    gather, splat and mixed-contact kernels have no backward yet, and a
-    ctypes launch under autograd would return a tensor cut off from the
-    graph (a silently wrong gradient)."""
+def pour_grad_expect(env, steps, remat, split=False):
+    """Launches of every kernel in rollout_and_grad of the pour scene over
+    ``steps`` env steps of one substep each. The first env step records
+    nothing for autograd (the bodies take their first action at its end):
+    its kernels run once, with no backward. In the second only the bodies
+    carry a gradient: gather and P2G still see no input that requires one,
+    so their Functions (and backwards) start with the third step. Under
+    remat "step" every env step is replayed once in the backward: the
+    first too, because its rigid step, which saves tensors for the
+    backward, takes the first action."""
+    b = env.n_primitives
+    replays = steps if remat == "step" else 0
+    expect = dict.fromkeys(wrappers(), 0)
+    for k in ("p2g", "g2p", "gather", "splat"):
+        expect[k] = steps + replays
+    contact = ("collide_mixed1", "collide_mixed2") if split \
+        else ("collide_mixed",)
+    for k in contact:
+        expect[k] = b * (steps + replays)
+    expect.update({"p2g_bwd": steps - 2, "gather_bwd": steps - 2,
+                   "g2p_bwd": steps - 1, "splat_bwd": steps - 1})
+    for k in (("collide_mixed1_bwd", "collide_mixed2_bwd") if split
+              else ("collide_mixed_bwd",)):
+        expect[k] = b * (steps - 1)
+    return expect
+
+
+def run_pour_grad(env):
+    """The flagship's gradient main path: rollout_and_grad of SLICE_STEPS
+    env steps of zero actions (loss_start_frame 0, loss_stride 20)."""
     import numpy as np
+    out, launches = run_gradient(
+        "pour_grad", env, np.zeros((SLICE_STEPS, env.action_dim)),
+        lambda remat: pour_grad_expect(env, SLICE_STEPS, remat),
+        list(range(6)), POUR_WINDOW)      # the glass's torque and force
+    return {"scene": "demo_pour", "actions": "zero", **out}, launches
+
+
+def run_pour_split_grad(env):
+    """rollout_and_grad of SPLIT_STEPS env steps of the pour scene under
+    SOFTMAC_TPU_CONTACT_SPLIT (remat "none"), launches counted from zero
+    (the split backward pair, no merged backward), against the merged
+    kernels' gradient of the same steps."""
+    import os
+    import numpy as np
+    acts = np.zeros((SPLIT_STEPS, env.action_dim))
+    merged, _ = timed_grad(env, acts, "none")
+    os.environ["SOFTMAC_TPU_CONTACT_SPLIT"] = "1"
     try:
-        out = env.rollout_and_grad(np.zeros((3, env.action_dim)),
-                                   loss_stride=1)
-    except NotImplementedError as e:
-        return {"raised": "NotImplementedError", "message": str(e)}
-    raise AssertionError("pour rollout_and_grad on CUDA returned a gradient "
-                         f"(max |g| {out['action_grad'].abs().max().item()}) "
-                         "instead of raising")
+        reset_launches()
+        split, secs = timed_grad(env, acts, "none")
+        launches = read_launches()
+    finally:
+        del os.environ["SOFTMAC_TPU_CONTACT_SPLIT"]
+    expect = pour_grad_expect(env, SPLIT_STEPS, "none", split=True)
+    if launches != expect:
+        raise AssertionError(f"pour_split_grad: launch counts {launches}, "
+                             f"expected {expect}")
+    gm, gs = merged["action_grad"], split["action_grad"]
+    gmax = gm.abs().max().item()
+    res = {"env_steps": SPLIT_STEPS, "remat": "none", "launches": launches,
+           "seconds": secs, "loss_merged": merged["loss"].item(),
+           "loss_split": split["loss"].item(),
+           "grad_max_abs_diff_vs_merged": (gs - gm).abs().max().item(),
+           "grad_max_abs": gmax, "tolerance": GRAD_TOL}
+    if not (gmax > 0 and res["grad_max_abs_diff_vs_merged"]
+            <= GRAD_TOL * gmax):
+        raise AssertionError(f"split and merged gradients differ: {res}")
+    return res, launches
 
 
 def run_profile(env, acts, grad=False):
@@ -1073,6 +1375,64 @@ def run_pour_parity():
             and res["qd_max_abs_err"] <= 1e-4 and res["loss_rel_err"] <= 1e-4
             and not res["window_overflow"]):
         raise AssertionError(f"pour GPU/CPU parity failed: {res}")
+    # rollout_and_grad of the same steps (loss frames 0 and 20)
+    reset_launches()
+    grads = {"cuda": SoftMacEnv(pour_cfg(), device="cuda").rollout_and_grad(
+        acts)}
+    launches = read_launches()
+    grads["cpu"] = SoftMacEnv(pour_cfg(), device="cpu").rollout_and_grad(acts)
+    gg = grads["cuda"]["action_grad"].double().cpu()
+    gc = grads["cpu"]["action_grad"]
+    lg, lc = grads["cuda"]["loss"].item(), grads["cpu"]["loss"].item()
+    res["grad"] = {"loss_gpu": lg, "loss_cpu": lc,
+                   "loss_rel_err": abs(lg - lc) / abs(lc),
+                   "loss_tolerance": 1e-4,
+                   "action_grad_rel_l2_err": ((gg - gc).norm().item()
+                                              / gc.norm().item()),
+                   "action_grad_tolerance": 1e-3,
+                   "action_grad_cpu_max_abs": gc.abs().max().item(),
+                   "gpu_launches": launches}
+    if not all(launches[k] > 0 for k in POUR + POUR_BWD):
+        raise AssertionError("pour gradient parity: the card's run missed a "
+                             f"kernel {launches}")
+    if not (res["grad"]["loss_rel_err"] <= 1e-4
+            and res["grad"]["action_grad_rel_l2_err"] <= 1e-3):
+        raise AssertionError(f"pour GPU/CPU gradient parity failed: {res}")
+    return res
+
+
+def run_demo():
+    """The ported trainer on the card: softmac_tpu_torch.demos.demo_pour for
+    DEMO_EPOCHS epochs of DEMO_STEPS env steps on the demo's own scene, logs
+    in a temporary directory. Every epoch's loss finite, losses.npy and a
+    checkpoint per epoch written, the actions moved, every kernel of the
+    pour's forward and backward launched."""
+    import tempfile
+    import numpy as np
+    from softmac_tpu_torch.demos import demo_pour
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = demo_pour.main(["--steps", str(DEMO_STEPS), "--epochs",
+                              str(DEMO_EPOCHS), "--log-root", tmp])
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        log = Path(tmp) / "pour"
+        ckpts = sorted(p.name for p in (log / "ckpt").glob("actions_*.npy"))
+        saved = np.load(log / "losses.npy").tolist()
+        a0 = np.load(log / "ckpt/actions_0.npy")
+        a_last = np.load(log / f"ckpt/actions_{DEMO_EPOCHS - 1}.npy")
+    res = {"epochs": DEMO_EPOCHS, "env_steps": DEMO_STEPS,
+           "losses": out["losses"], "epoch_seconds": out["epoch_seconds"],
+           "seconds_with_setup": secs, "checkpoints": ckpts,
+           "actions_max_abs_change": float(np.abs(a_last - a0).max()),
+           "launches": launches}
+    if not (all(math.isfinite(v) for v in out["losses"])
+            and saved == out["losses"] and len(ckpts) == DEMO_EPOCHS
+            and res["actions_max_abs_change"] > 0
+            and all(launches[k] > 0 for k in POUR + POUR_BWD
+                    + ("p2g", "g2p", "p2g_bwd", "g2p_bwd"))):
+        raise AssertionError(f"demo_pour on the card failed: {res}")
     return res
 
 
@@ -1114,7 +1474,9 @@ def main():
                           init_particles=tiled_pour_particles(N_MAIN))
     zeros10 = np.zeros((STATE_STEPS, pour_env.action_dim))
     pour10 = pour_env.rollout(zeros10)["carry"]
-    kernels += check_pour_kernels(pour_kernel_inputs(pour_env, pour10))
+    pour_inp = pour_kernel_inputs(pour_env, pour10)
+    kernels += check_pour_kernels(pour_inp)
+    kernels += check_pour_backward_kernels(pour_inp)
 
     paths = {}
     slice_res, paths["slice"] = run_slice(env)
@@ -1123,16 +1485,24 @@ def main():
                                               grad_launches["none"])
     pour_res, paths["pour"] = run_pour(pour_env)
     split_res, paths["pour_split"] = run_pour_split(pour_env)
-    guard_res = run_pour_grad_guard(pour_env)
+    pour_grad_res, pour_grad_launches = run_pour_grad(pour_env)
+    paths["pour_grad_step"], paths["pour_grad_none"] = (
+        pour_grad_launches["step"], pour_grad_launches["none"])
+    split_grad_res, paths["pour_split_grad"] = run_pour_split_grad(pour_env)
     for k in kernels:
         # each kernel's main path: the forward kernels of pour_vel on its
-        # rollout, the backward kernels on its gradient path with the
-        # default remat ("step"), this slice's kernels on the flagship
-        # pour's rollout, the split pair on that scene under the switch
+        # rollout, their backwards on its gradient path with the default
+        # remat ("step"), the pour's forward kernels on the flagship pour's
+        # rollout and their backwards on its gradient path ("step"), the
+        # split pair and its backward pair on that scene under the switch
         name = k["name"]
-        counter = "collide_mixed1" if name == "collide_mixed_split" else name
+        counter = {"collide_mixed_split": "collide_mixed1",
+                   "collide_mixed_split_bwd": "collide_mixed1_bwd"}.get(
+                       name, name)
         path = ("slice" if name in FORWARD else "pour" if name in POUR
                 else "pour_split" if counter == "collide_mixed1"
+                else "pour_split_grad" if counter == "collide_mixed1_bwd"
+                else "pour_grad_step" if name in POUR_BWD
                 else "grad_step")
         k["launches"] = paths[path][counter]
         k["main_path"] = path
@@ -1145,14 +1515,18 @@ def main():
     emit("grad", grad_res)
     emit("pour", pour_res)
     emit("pour_split", split_res)
-    emit("pour_grad_guard", guard_res)
+    emit("pour_grad", pour_grad_res)
+    emit("pour_split_grad", split_grad_res)
     emit("profile", run_profile(env, actions(20, seed=3)))
     profile_pour = run_profile(pour_env, np.zeros((20, pour_env.action_dim)))
     profile_pour["rigid_step_launches_per_env_step"] = rigid_step_launches(
         pour_env)
     emit("profile_pour", profile_pour)
     emit("profile_grad", run_profile(env, actions(10, seed=3), grad=True))
+    emit("profile_pour_grad", run_profile(
+        pour_env, np.zeros((10, pour_env.action_dim)), grad=True))
     emit("parity", run_parity())
+    emit("demo", run_demo())
     print(smi, flush=True)      # the card again, next to the result
     emit(None, {"ok": True, "device": {"platform": "gpu", "kind": kind,
                                       "count": torch.cuda.device_count()}})

@@ -294,11 +294,25 @@ class SoftMacEnv:
         ``unsort_perm``); zero weights are skipped."""
         params = self.mpm_params if params is None else params
         mpm, bodies, rigid = carry
-        cfg = self.mpm_cfg
         if self.rigid_model is not None:
             # the bodies stay frozen over the substeps; their cotangents
             # from the MPM side are damped by ext_grad_scale
             bodies = grad_scale(bodies, self.ext_grad_scale)
+        mpm, bodies, ext_f, overflow, terms = self._substeps(
+            mpm, bodies, params, loss_weights, unsort_perm)
+        bodies, rigid = self._rigid_step(bodies, rigid, action, ext_f)
+        out = (overflow, ext_f)
+        if loss_weights is not None:
+            out = out + (terms,)
+        return (mpm, bodies, rigid), out
+
+    def _substeps(self, mpm, bodies, params, loss_weights=None,
+                  unsort_perm=None):
+        """The env step's MPM half: ``substeps`` substeps against the
+        bodies. Returns (mpm, bodies, ext_f, overflow, loss terms): ext_f
+        is the window-averaged wrench, overflow whether the active window
+        missed a particle."""
+        cfg = self.mpm_cfg
         ext, ovf, terms = [], [], {}
         for k in range(cfg.substeps):
             mpm, extf, aux = mpm_mod.substep(cfg, params, self.prims, mpm,
@@ -313,17 +327,62 @@ class SoftMacEnv:
                 for name, v in self.loss.terms(sample).items():
                     terms[name] = terms.get(name, 0.0) + loss_weights[k] * v
         ext_f = torch.stack(ext).sum(dim=0) / cfg.substeps
-        overflow = torch.stack(ovf).any()
+        return mpm, bodies, ext_f, torch.stack(ovf).any(), terms
+
+    def _rigid_step(self, bodies, rigid, action, ext_f):
+        """The env step's rigid half: the action and the wrench ext_f move
+        the bodies. Returns (bodies, rigid)."""
         if self.rigid_vel_model is not None:
             bodies = self.rigid_vel_model.apply_action(bodies, action)
         elif self.rigid_model is not None:
             rigid_action = action if self.control_mode == "rigid" else None
             rigid = self.rigid_model.step(rigid, rigid_action, ext_f)
             bodies = self.rigid_model.body_states(rigid)
-        out = (overflow, ext_f)
-        if loss_weights is not None:
-            out = out + (terms,)
-        return (mpm, bodies, rigid), out
+        return bodies, rigid
+
+    @torch.no_grad()
+    def adjust_action_with_ext_force(self, actions):
+        """Compensate an action trajectory (T, action_dim) for gravity and
+        the measured contact wrench, so that the floating bodies hold their
+        intended motion (reference ``softmac/utils.py:76-119``; the JAX
+        ``SoftMacEnv.adjust_action_with_ext_force``). A forward rollout from
+        the initial carry: each env step's window-averaged wrench ext_f and
+        each gravity-affected body's weight are subtracted from its action,
+        and the rigid step takes the adjusted action. An active-window
+        overflow warns, as in the rollouts. Returns the adjusted actions as
+        a numpy array. The port's bodies are all floating, so
+        there is no weld wrench to fold onto a carrier (welds raise when
+        the RigidModel is built)."""
+        if self.control_mode != "rigid" or self.rigid_model is None:
+            raise ValueError("adjust_action_with_ext_force needs "
+                             "force-controlled rigid bodies (control_mode "
+                             "'rigid')")
+        model = self.rigid_model
+        cfg = self.mpm_cfg
+        g = torch.as_tensor(model.gravity, dtype=self.dtype,
+                            device=self.device)
+        acts = torch.as_tensor(np.asarray(actions), dtype=self.dtype,
+                               device=self.device)
+        mpm, bodies, rigid = self._initial_carry()
+        # the y-sorted order the kernels read best; the wrench is a sum
+        q, _ = mpm_mod.sort_perm(cfg, mpm.x)
+        mpm = mpm_mod.permute_state(mpm, q)
+        params = mpm_mod.permute_params(self.mpm_params, q)
+        overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        adjusted = []
+        for action in acts:
+            mpm, bodies, ext_f, ovf, _ = self._substeps(mpm, bodies, params)
+            overflow = overflow | ovf
+            adj = action.clone()
+            for i, b in enumerate(model.bodies):
+                if b.gravity_on:
+                    o, mass = b.q_offset, model.compensation_mass(i)
+                    adj[o:o + 3] -= ext_f[i, 3:]
+                    adj[o + 3:o + 6] -= ext_f[i, :3] + mass * g
+            bodies, rigid = self._rigid_step(bodies, rigid, adj, ext_f)
+            adjusted.append(adj)
+        self._check_overflow({"window_overflow": overflow})
+        return torch.stack(adjusted).cpu().numpy()
 
     # ==================================================================
     # functional rollout

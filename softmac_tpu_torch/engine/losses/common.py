@@ -67,11 +67,15 @@ class Chamfer(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b, ic, it = ctx.saved_tensors
-        # d/da sum_i |a_i - b_ic(i)|^2 plus the per-target terms, scattered
-        da = 2.0 * (a - b[ic])
-        da = da.index_add(0, it, 2.0 * (a[it] - b))
-        db = 2.0 * (b - a[it])
-        db = db.index_add(0, ic, 2.0 * (b[ic] - a))
+        # d/da sum_i |a_i - b_ic(i)|^2 plus the per-target terms, scattered;
+        # the scatter sums in float64 and rounds once, so that the card's
+        # atomics, which add in another order on every run, give the same
+        # float32 gradient each time
+        wide = torch.float64
+        da = (2.0 * (a - b[ic])).to(wide).index_add(
+            0, it, (2.0 * (a[it] - b)).to(wide)).to(a.dtype)
+        db = (2.0 * (b - a[it])).to(wide).index_add(
+            0, ic, (2.0 * (b[ic] - a)).to(wide)).to(b.dtype)
         return g * da, g * db
 
 

@@ -229,6 +229,12 @@ class RigidModel:
         self._support = dev([b.support_points for b in bs]).reshape(-1, 8, 3)
         self._g = dev(self.gravity)
 
+    def compensation_mass(self, slot: int) -> float:
+        """The gravity-affected mass the free joint of body ``slot`` holds
+        (``adjust_action_with_ext_force``): the body's own mass, every body
+        being floating here."""
+        return self.bodies[slot].mass
+
     # ------------------------------------------------------------------
     def init_state(self) -> RigidState:
         def dev(a):

@@ -26,8 +26,13 @@ anything else raises. Under autograd it goes through ``CollideParticle``
 (the custom_vjp of ``pallas_contact._particle_factory``): cotangents reach
 x, v and the 14 body floats (position, quaternion, velocity, angular
 velocity, friction); the backward launches ``collide_particle_bwd`` on
-CUDA and runs ``collide_particle_vjp_plain`` on the CPU. The SDF table gets
-no gradient, as in the JAX package.
+CUDA and runs ``collide_particle_vjp_plain`` on the CPU. ``collide_mixed``
+does the same through ``CollideMixed`` (``collide_mixed_bwd`` /
+``collide_mixed_vjp_plain``) or, under the split switch,
+``CollideMixedSplit`` (``collide_mixed2_bwd`` -> ``collide_mixed1_bwd`` /
+``collide_mixed_vjp_plain``), with cotangents for the 16 body floats
+(adding softness and life). The SDF table gets no gradient, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -433,11 +438,6 @@ def _check_mixed(name, prim, args, x, v):
             or prim.neighborhood.shape != (res[0] * res[1] * res[2], 32)
             or prim.neighborhood.data_ptr() % 16):
         raise ValueError(f"{name}: bad shapes or table alignment")
-    if torch.is_grad_enabled() and any(
-            torch.is_tensor(t) and t.requires_grad for t in args + (x, v)):
-        raise NotImplementedError(
-            f"{name}: no CUDA backward yet; the backward kernel comes with "
-            "slice 4 of the port (use device='cpu' for gradients)")
     return body, n
 
 
@@ -496,18 +496,11 @@ def _mixed_outputs(x):
             torch.empty((n,), dtype=torch.bool, device=x.device))
 
 
-def collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
-                  softness, life, x, v, dt, p_mass, push_cap=None):
-    """Forecast mixed contact; see ``collide_mixed_plain``. CUDA tensors
-    launch the merged kernel (stages 1+2 in one launch), or the two split
-    kernels when ``SOFTMAC_TPU_CONTACT_SPLIT`` is set; there is no CUDA
-    backward yet, so a CUDA call under autograd with an input that
-    requires grad raises. CPU tensors run the plain version (autograd
-    differentiates it)."""
+def _collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
+                   softness, life, x, v, dt, p_mass, push_cap=None):
+    """The merged forward; see ``collide_mixed_plain``. CUDA tensors launch
+    the kernel (stages 1+2 in one launch)."""
     args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
-    if _split_mode():
-        st1 = collide_mixed1(prim, *args, x, v, dt)
-        return collide_mixed2(prim, *args, x, v, st1, dt, p_mass, push_cap)
     if build.on_cpu(x, "collide_mixed"):
         return collide_mixed_plain(prim, *args, x, v, dt, p_mass, push_cap)
     body, n = _check_mixed("collide_mixed", prim, args, x, v)
@@ -522,6 +515,233 @@ def collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
     return p_v_out, force, mask
 
 
+def _collide_mixed_split(prim, args, x, v, dt, p_mass, push_cap):
+    st1 = collide_mixed1(prim, *args, x, v, dt)
+    return collide_mixed2(prim, *args, x, v, st1, dt, p_mass, push_cap), st1
+
+
+def _as_tensor(life, like):
+    if torch.is_tensor(life):
+        return life
+    return torch.full((), float(life), dtype=like.dtype, device=like.device)
+
+
+def collide_mixed_vjp_plain(prim, body_pos, body_quat, body_v, body_w,
+                            friction, softness, life, x, v, dt, p_mass,
+                            push_cap, gout, gforce):
+    """Cotangents (d body_pos, d body_quat, d body_v, d body_w, d friction,
+    d softness, d life, dx, dv) of ``collide_mixed_plain``'s p_v_out and
+    force for the cotangents gout, gforce (3, N): autograd of the plain
+    version, recomputed."""
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_() for t in (
+            body_pos, body_quat, body_v, body_w, friction, softness,
+            _as_tensor(life, x), x, v))
+        out = collide_mixed_plain(prim, *ins, dt, p_mass, push_cap)
+        return torch.autograd.grad(out[:2], ins, (gout, gforce))
+
+
+def _body_cotangents(part, dtype):
+    """(16, blocks) float64 per-block partials -> the seven body cotangents
+    (bp, bq, bv, bw, friction, softness, life), summed in a fixed order."""
+    db = part.sum(dim=1).to(dtype)
+    return (db[0:3], db[3:7], db[7:10], db[10:13], db[13].reshape(()),
+            db[14].reshape(()), db[15].reshape(()))
+
+
+def _check_cotangents(name, x, *gs):
+    for g in gs:
+        if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
+                or not g.is_contiguous()):
+            raise ValueError(f"{name}: cotangents must be contiguous (3, N) "
+                             "tensors like x")
+
+
+def _part(x, n):
+    blocks = -(-n // 256)     # the kernels' block count (kThreads = 256)
+    return torch.empty((16, blocks), dtype=torch.float64, device=x.device)
+
+
+def collide_mixed_bwd(prim, body_pos, body_quat, body_v, body_w, friction,
+                      softness, life, x, v, dt, p_mass, push_cap, gout,
+                      gforce):
+    """The merged mixed-contact backward kernel: the cotangents
+    ``collide_mixed_vjp_plain`` returns, on CUDA float32 tensors. The body
+    cotangents are summed in a fixed order (per-block float64 partials,
+    then ``torch.sum``), so they are the same on every run."""
+    args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
+    body, n = _check_mixed("collide_mixed_bwd", prim, args, x, v)
+    _check_cotangents("collide_mixed_bwd", x, gout, gforce)
+    dx = torch.empty_like(x)
+    dv = torch.empty_like(x)
+    part = _part(x, n)
+    rc = build.library().softmac_collide_mixed_bwd(
+        x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
+        body.data_ptr(), gout.data_ptr(), gforce.data_ptr(), dx.data_ptr(),
+        dv.data_ptr(), part.data_ptr(), n, *prim.res, *prim.geom, float(dt),
+        float(p_mass), _cap(push_cap),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "collide_mixed_bwd")
+    collide_mixed_bwd.launches += 1
+    return _body_cotangents(part, x.dtype) + (dx, dv)
+
+
+def collide_mixed2_bwd(prim, body_pos, body_quat, body_v, body_w, friction,
+                       softness, life, x, v, st1, dt, p_mass, push_cap, gout,
+                       gforce):
+    """The split stage 2's backward kernel (k2b): (gst1, the (7, N) float64
+    cotangent of stage 1's block; stage 2's share of dv (3, N); its share
+    of the body cotangents as (16, blocks) float64 partials)."""
+    args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
+    body, n = _check_mixed("collide_mixed2_bwd", prim, args, x, v)
+    _check_cotangents("collide_mixed2_bwd", x, gout, gforce)
+    if (st1.shape != (7, n) or st1.dtype != torch.float64
+            or st1.device != x.device or not st1.is_contiguous()):
+        raise ValueError("collide_mixed2_bwd: st1 must be collide_mixed1's "
+                         "contiguous (7, N) float64 block")
+    gst1 = torch.empty_like(st1)
+    dv = torch.empty_like(x)
+    part = _part(x, n)
+    rc = build.library().softmac_collide_mixed2_bwd(
+        x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
+        body.data_ptr(), st1.data_ptr(), gout.data_ptr(), gforce.data_ptr(),
+        gst1.data_ptr(), dv.data_ptr(), part.data_ptr(), n, *prim.res,
+        *prim.geom, float(dt), float(p_mass), _cap(push_cap),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "collide_mixed2_bwd")
+    collide_mixed2_bwd.launches += 1
+    return gst1, dv, part
+
+
+def collide_mixed1_bwd(prim, body_pos, body_quat, body_v, body_w, friction,
+                       softness, life, x, v, gst1, dv, dt):
+    """The split stage 1's backward kernel (k1b) from ``collide_mixed2_bwd``'s
+    gst1 and share of dv: (dx, the whole dv, stage 1's share of the body
+    cotangents as (16, blocks) float64 partials)."""
+    args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
+    body, n = _check_mixed("collide_mixed1_bwd", prim, args, x, v)
+    _check_cotangents("collide_mixed1_bwd", x, dv)
+    if (gst1.shape != (7, n) or gst1.dtype != torch.float64
+            or gst1.device != x.device or not gst1.is_contiguous()):
+        raise ValueError("collide_mixed1_bwd: gst1 must be a contiguous "
+                         "(7, N) float64 block")
+    dx = torch.empty_like(x)
+    dv = dv.clone()
+    part = _part(x, n)
+    rc = build.library().softmac_collide_mixed1_bwd(
+        x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
+        body.data_ptr(), gst1.data_ptr(), dx.data_ptr(), dv.data_ptr(),
+        part.data_ptr(), n, *prim.res, *prim.geom, float(dt),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "collide_mixed1_bwd")
+    collide_mixed1_bwd.launches += 1
+    return dx, dv, part
+
+
+def collide_mixed_split_bwd(prim, body_pos, body_quat, body_v, body_w,
+                            friction, softness, life, x, v, st1, dt, p_mass,
+                            push_cap, gout, gforce):
+    """The split backward: ``collide_mixed2_bwd`` then ``collide_mixed1_bwd``,
+    chained through gst1 as ``pallas_contact._fused_factory``'s _bwd chains
+    k2b -> k1b. Returns what ``collide_mixed_bwd`` does."""
+    args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
+    gst1, dv2, part2 = collide_mixed2_bwd(prim, *args, x, v, st1, dt, p_mass,
+                                          push_cap, gout, gforce)
+    dx, dv, part1 = collide_mixed1_bwd(prim, *args, x, v, gst1, dv2, dt)
+    return _body_cotangents(torch.cat([part2, part1], dim=1), x.dtype) \
+        + (dx, dv)
+
+
+class CollideMixed(torch.autograd.Function):
+    """Merged mixed contact with its backward kernel
+    (``pallas_contact._fused12_factory``'s custom_vjp). Outputs p_v_out,
+    the unmasked reaction force (3, N) and the mask (N,), which is not
+    differentiable. Cotangents reach the body tensors (so autograd routes
+    the rigid carry's), x and v; the SDF table gets none."""
+
+    @staticmethod
+    def forward(ctx, prim, body_pos, body_quat, body_v, body_w, friction,
+                softness, life, x, v, dt, p_mass, push_cap):
+        out = _collide_mixed(prim, body_pos, body_quat, body_v, body_w,
+                             friction, softness, life, x, v, dt, p_mass,
+                             push_cap)
+        ctx.mark_non_differentiable(out[2])
+        ctx.save_for_backward(body_pos, body_quat, body_v, body_w, friction,
+                              softness, life, x, v)
+        ctx.prim, ctx.dt, ctx.p_mass, ctx.push_cap = prim, dt, p_mass, push_cap
+        return out
+
+    @staticmethod
+    def backward(ctx, gout, gforce, _gmask):
+        saved = ctx.saved_tensors
+        vjp = (collide_mixed_vjp_plain
+               if build.on_cpu(saved[7], "collide_mixed")
+               else collide_mixed_bwd)
+        grads = vjp(ctx.prim, *saved, ctx.dt, ctx.p_mass, ctx.push_cap,
+                    gout.contiguous(), gforce.contiguous())
+        return ((None,) + tuple(g if need else None for g, need in
+                                zip(grads, ctx.needs_input_grad[1:10]))
+                + (None, None, None))
+
+
+class CollideMixedSplit(torch.autograd.Function):
+    """The two-launch split of ``CollideMixed`` (``pallas_contact.
+    _fused_factory``'s custom_vjp): forward ``collide_mixed1`` ->
+    ``collide_mixed2``, backward ``collide_mixed2_bwd`` ->
+    ``collide_mixed1_bwd`` through the (7, N) float64 block and its
+    cotangent. On the CPU the split stages compute the merged function, so
+    the backward there is ``collide_mixed_vjp_plain``."""
+
+    @staticmethod
+    def forward(ctx, prim, body_pos, body_quat, body_v, body_w, friction,
+                softness, life, x, v, dt, p_mass, push_cap):
+        args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
+        out, st1 = _collide_mixed_split(prim, args, x, v, dt, p_mass,
+                                        push_cap)
+        ctx.mark_non_differentiable(out[2])
+        ctx.save_for_backward(*args, x, v, st1)
+        ctx.prim, ctx.dt, ctx.p_mass, ctx.push_cap = prim, dt, p_mass, push_cap
+        return out
+
+    @staticmethod
+    def backward(ctx, gout, gforce, _gmask):
+        *saved, st1 = ctx.saved_tensors
+        grads_in = (ctx.prim, *saved)
+        rest = (ctx.dt, ctx.p_mass, ctx.push_cap, gout.contiguous(),
+                gforce.contiguous())
+        if build.on_cpu(saved[7], "collide_mixed"):
+            grads = collide_mixed_vjp_plain(*grads_in, *rest)
+        else:
+            grads = collide_mixed_split_bwd(*grads_in, st1, *rest)
+        return ((None,) + tuple(g if need else None for g, need in
+                                zip(grads, ctx.needs_input_grad[1:10]))
+                + (None, None, None))
+
+
+def collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
+                  softness, life, x, v, dt, p_mass, push_cap=None):
+    """Forecast mixed contact; see ``collide_mixed_plain``. CUDA tensors
+    launch the merged kernel (stages 1+2 in one launch), or the two split
+    kernels when ``SOFTMAC_TPU_CONTACT_SPLIT`` is set; CPU tensors run the
+    plain version. Under autograd it goes through ``CollideMixed`` (or
+    ``CollideMixedSplit``), whose backward launches the backward kernels on
+    CUDA and runs the plain vjp on the CPU."""
+    life = _as_tensor(life, x)
+    args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
+    split = _split_mode()
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in args + (x, v)):
+        fn = CollideMixedSplit if split else CollideMixed
+        return fn.apply(prim, *args, x, v, dt, p_mass, push_cap)
+    if split:
+        return _collide_mixed_split(prim, args, x, v, dt, p_mass,
+                                    push_cap)[0]
+    return _collide_mixed(prim, *args, x, v, dt, p_mass, push_cap)
+
+
 collide_mixed.launches = 0
 collide_mixed1.launches = 0
 collide_mixed2.launches = 0
+collide_mixed_bwd.launches = 0
+collide_mixed1_bwd.launches = 0
+collide_mixed2_bwd.launches = 0

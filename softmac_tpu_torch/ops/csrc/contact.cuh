@@ -466,4 +466,240 @@ __device__ __forceinline__ void mixed_stage2(const Body<T>& b, T life,
   force = (vp - pv_out) * (p_mass / dt);
 }
 
+// ---------------------------------------------------------------------------
+// Reverse sweeps of mixed_stage1 / mixed_stage2, written by hand (the JAX
+// package traces jax.vjp of _mixed12_math inside its backward kernel). Each
+// recomputes its stage's forward from the stencil row and walks it back.
+// The tie rules are the plain version's under torch autograd:
+// max(vt_norm + nc friction, 0) splits its cotangent in half at 0, the
+// clamped stage-1 fractions pass it where unclamped (bounds included), the
+// push cap passes it where push <= cap, and an untaken where() branch gets
+// none. Body cotangents accumulate in BodyGrad: the raw quaternion (D and
+// n2 rotate by it) and the normalised one (p_loc and the collider velocity)
+// apart, folded into the 16 body floats by finish_body_grad.
+// ---------------------------------------------------------------------------
+
+template <class T>
+struct BodyGrad {
+  V3<T> bp;
+  T qw;          // raw quaternion
+  V3<T> qv;
+  T nw;          // normalised quaternion
+  V3<T> nv;
+  V3<T> bv, bw;
+  T friction, softness, life;
+};
+
+template <class T>
+__device__ __forceinline__ BodyGrad<T> zero_body_grad() {
+  const V3<T> z = {T(0), T(0), T(0)};
+  return {z, T(0), z, T(0), z, z, z, T(0), T(0), T(0)};
+}
+
+// The 16 body cotangents [bp, bq wxyz, bv, bw, friction, softness, life]:
+// the normalised quaternion's cotangent taken back through
+// (nw, nv) = q / sqrt(|q|^2 + 1e-12) and added to the raw one's.
+template <class T>
+__device__ __forceinline__ void finish_body_grad(const Body<T>& b,
+                                                 const BodyGrad<T>& gb,
+                                                 T out[16]) {
+  const T qg = b.qw * gb.nw + dot(b.qv, gb.nv);
+  const T inv3 = b.qn_inv * b.qn_inv * b.qn_inv;
+  const V3<T> gqv = gb.qv + gb.nv * b.qn_inv - b.qv * (qg * inv3);
+  const T v[16] = {gb.bp.x, gb.bp.y, gb.bp.z,
+                   gb.qw + gb.nw * b.qn_inv - b.qw * qg * inv3,
+                   gqv.x, gqv.y, gqv.z,
+                   gb.bv.x, gb.bv.y, gb.bv.z, gb.bw.x, gb.bw.y, gb.bw.z,
+                   gb.friction, gb.softness, gb.life};
+  for (int i = 0; i < 16; ++i) out[i] = v[i];
+}
+
+// Cotangents of the fractions fx (gf) from those of trilinear's sdf (gsdf)
+// and unnormalised normal (gu).
+template <class T>
+__device__ __forceinline__ void trilinear_adjoint(const float4 e[8],
+                                                  const T fx[3], T gsdf,
+                                                  V3<T> gu, T gf[3]) {
+  gf[0] = gf[1] = gf[2] = T(0);
+  for (int c = 0; c < 8; ++c) {
+    const int i = c >> 2, j = (c >> 1) & 1, l = c & 1;
+    const T wi = i ? fx[0] : T(1) - fx[0];
+    const T wj = j ? fx[1] : T(1) - fx[1];
+    const T wl = l ? fx[2] : T(1) - fx[2];
+    const T gw = gsdf * T(e[c].x) + gu.x * T(e[c].y) + gu.y * T(e[c].z)
+                 + gu.z * T(e[c].w);
+    gf[0] += gw * (i ? T(1) : T(-1)) * wj * wl;
+    gf[1] += gw * wi * (j ? T(1) : T(-1)) * wl;
+    gf[2] += gw * wi * wj * (l ? T(1) : T(-1));
+  }
+}
+
+// n = u / sqrt(|u|^2 + 1e-14): the cotangent of u from that of n.
+template <class T>
+__device__ __forceinline__ V3<T> normalize_adjoint(V3<T> u, T nrm, V3<T> gn) {
+  const T inv = T(1) / nrm;
+  return gn * inv - u * (dot(u, gn) * inv * inv * inv);
+}
+
+// p_loc = rot(qnorm(conj(q)), r), r = xp - bp: adds the cotangents of xp
+// (returned) and of bp and the normalised quaternion to gb.
+template <class T>
+__device__ __forceinline__ V3<T> to_local_adjoint(const Body<T>& b, V3<T> r,
+                                                  V3<T> gpl, BodyGrad<T>& gb) {
+  T gnw = T(0);
+  V3<T> gnvc = {T(0), T(0), T(0)};
+  V3<T> gr = {T(0), T(0), T(0)};
+  const V3<T> nv_conj = {-b.nv.x, -b.nv.y, -b.nv.z};
+  qrot_adjoint(b.nw, nv_conj, r, gpl, gnw, gnvc, gr);
+  gb.nw += gnw;
+  gb.nv = gb.nv - gnvc;
+  gb.bp = gb.bp - gr;
+  return gr;
+}
+
+// Reverse of mixed_stage2 for the cotangents of p_v_out (gout) and of the
+// unmasked force (gforce): adds the cotangents of v, p_v1 and x_new (the
+// forecast point) and of the body floats.
+template <class T>
+__device__ __forceinline__ void mixed_stage2_backward(
+    const Body<T>& b, T life, V3<T> vp, const Mixed1<T>& m,
+    const Cell<T>& cell, const float4 e[8], const Geom& g, T dt, T p_mass,
+    T push_cap, V3<T> gout, V3<T> gforce, V3<T>& gv, V3<T>& gpv1,
+    V3<T>& gxnew, BodyGrad<T>& gb) {
+  // force = (v - p_v_out) p_mass / dt
+  const T k = p_mass / dt;
+  gv = gv + gforce * k;
+  const V3<T> gpo = gout - gforce * k;
+  if (!(m.dist <= T(kThreshold))) {     // p_v_out = v
+    gv = gv + gpo;
+    return;
+  }
+  const V3<T> nv_conj = {-b.nv.x, -b.nv.y, -b.nv.z};
+  const V3<T> r2 = m.xnew - b.bp;
+  const V3<T> pl2 = qrot(b.nw, nv_conj, r2);
+  const T lp[3] = {pl2.x, pl2.y, pl2.z};
+  T fx[3];
+  bool in_box = true;
+  for (int d = 0; d < 3; ++d) {
+    const T lower = T(g.lower[d]);
+    in_box = in_box && (lp[d] >= lower) && (lp[d] < T(g.upper[d]));
+    fx[d] = (lp[d] - lower) * T(g.inv_dx) - cell.basef[d];   // unclamped
+  }
+  V3<T> u, n_loc;
+  T nrm;
+  const T sdf2 = finish_sample(trilinear(e, fx, u), u, in_box, n_loc, nrm);
+  const V3<T> n2 = qrot(b.qw, b.qv, n_loc);
+  const bool pen = sdf2 < T(0);
+  const T sdf2_s = pen ? sdf2 : T(0);
+  const T push_raw = -(sdf2_s / dt) * life;
+  const bool capped = isfinite(push_cap) && push_raw > push_cap;
+  const T push = capped ? push_cap : push_raw;
+
+  // p_v_out = p_v1 + n2 push
+  gpv1 = gpv1 + gpo;
+  const V3<T> gn2 = gpo * push;
+  const T gpush = capped ? T(0) : dot(gpo, n2);
+  gb.life += -gpush * sdf2_s / dt;
+  const T gsdf = pen ? -gpush * life / dt : T(0);
+  // n2 = rot(q, n_loc), the raw quaternion
+  V3<T> gn = {T(0), T(0), T(0)};
+  qrot_adjoint(b.qw, b.qv, n_loc, gn2, gb.qw, gb.qv, gn);
+  if (!in_box) return;                  // BIG and (0, 1, 0): constants
+  T gf[3];
+  trilinear_adjoint(e, fx, gsdf, normalize_adjoint(u, nrm, gn), gf);
+  const T inv_dx = T(g.inv_dx);
+  const V3<T> gpl = {gf[0] * inv_dx, gf[1] * inv_dx, gf[2] * inv_dx};
+  gxnew = gxnew + to_local_adjoint(b, r2, gpl, gb);
+}
+
+// Reverse of mixed_stage1 for the cotangent of p_v1 (gpv1): adds the
+// cotangents of x, v and the body floats. x_new's cotangent is the
+// caller's (x_new = x + dt p_v1).
+template <class T>
+__device__ __forceinline__ void mixed_stage1_backward(
+    const Body<T>& b, T softness, V3<T> xp, V3<T> vp, const Cell<T>& cell,
+    const float4 e[8], const Geom& g, V3<T> gpv1, V3<T>& gx, V3<T>& gv,
+    BodyGrad<T>& gb) {
+  V3<T> u, n_loc;
+  T nrm;
+  const T sdf = trilinear(e, cell.fx, u);
+  const T dist = finish_sample(sdf, u, cell.in_box, n_loc, nrm);
+  const V3<T> D = qrot(b.qw, b.qv, n_loc);
+  const V3<T> nv_conj = {-b.nv.x, -b.nv.y, -b.nv.z};
+  const V3<T> r = xp - b.bp;
+  const V3<T> pl = qrot(b.nw, nv_conj, r);
+  const V3<T> vl = b.bv + cross(b.bw, pl);
+  const V3<T> cv = qrot(b.nw, b.nv, vl);
+  const V3<T> in_v = vp - cv;
+  const T nc = dot(in_v, D);
+  if (!(dist <= T(kThreshold) && nc < T(0))) {     // p_v1 = v
+    gv = gv + gpv1;
+    return;
+  }
+  const V3<T> pvt = in_v - D * nc;
+  const T pvt2 = dot(pvt, pvt);
+  const T vt_norm = r_sqrt(pvt2 + T(1e-8));
+  const bool flag = pvt2 > T(1e-60);
+  const T a = vt_norm + nc * b.friction;
+  const T ra = r_max(a, T(0));
+  const T sc = ra / vt_norm;
+  const V3<T> pvtf = flag ? pvt * sc : pvt;
+
+  // p_v1 = cv + in_v (1 - infl) + pvtf infl  (soft band, dist > 0), or
+  //        cv + pvtf
+  V3<T> gcv = gpv1;
+  V3<T> gin_v = {T(0), T(0), T(0)};
+  V3<T> gpvtf = gpv1;
+  T gdist = T(0);
+  if (dist > T(0)) {
+    // infl = exp(-max(dist, 0) softness): max passes all of it at dist > 0
+    const T infl = r_exp(-dist * softness);
+    gin_v = gpv1 * (T(1) - infl);
+    gpvtf = gpv1 * infl;
+    const T garg = dot(gpv1, pvtf - in_v) * infl;
+    gdist = -garg * softness;
+    gb.softness += -garg * dist;
+  }
+  // pvtf = pvt max(a, 0) / vt_norm where flag, a = vt_norm + nc friction
+  V3<T> gpvt = gpvtf;
+  T gnc = T(0);
+  if (flag) {
+    gpvt = gpvtf * sc;
+    const T gsc = dot(gpvtf, pvt);
+    const T gra = gsc / vt_norm;
+    T gvt = -gsc * ra / (vt_norm * vt_norm);
+    const T ga = a > T(0) ? gra : (a < T(0) ? T(0) : T(0.5) * gra);
+    gvt += ga;
+    gnc += ga * b.friction;
+    gb.friction += ga * nc;
+    gpvt = gpvt + pvt * (gvt / vt_norm);          // vt_norm = |pvt|_1e-8
+  }
+  // pvt = in_v - D nc, nc = in_v . D
+  gin_v = gin_v + gpvt;
+  V3<T> gD = V3<T>{T(0), T(0), T(0)} - gpvt * nc;
+  gnc -= dot(gpvt, D);
+  gin_v = gin_v + D * gnc;
+  gD = gD + in_v * gnc;
+  // in_v = v - cv
+  gv = gv + gin_v;
+  gcv = gcv - gin_v;
+  // cv = rot(qnorm(q), vl), vl = bv + bw x pl
+  V3<T> gvl = {T(0), T(0), T(0)};
+  qrot_adjoint(b.nw, b.nv, vl, gcv, gb.nw, gb.nv, gvl);
+  gb.bv = gb.bv + gvl;
+  gb.bw = gb.bw + cross(pl, gvl);
+  V3<T> gpl = cross(gvl, b.bw);
+  // D = rot(q, n_loc), the raw quaternion; n_loc = u / |u| (in the box:
+  // the mask holds)
+  V3<T> gn = {T(0), T(0), T(0)};
+  qrot_adjoint(b.qw, b.qv, n_loc, gD, gb.qw, gb.qv, gn);
+  T gf[3];
+  trilinear_adjoint(e, cell.fx, gdist, normalize_adjoint(u, nrm, gn), gf);
+  const T inv_dx = T(g.inv_dx);
+  gpl.x += cell.fx_free[0] ? gf[0] * inv_dx : T(0);
+  gpl.y += cell.fx_free[1] ? gf[1] * inv_dx : T(0);
+  gpl.z += cell.fx_free[2] ? gf[2] * inv_dx : T(0);
+  gx = gx + to_local_adjoint(b, r, gpl, gb);
+}
+
 }  // namespace softmac

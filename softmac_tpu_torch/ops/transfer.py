@@ -14,13 +14,13 @@ from CUDA to the plain version: the plain version runs on a CUDA tensor
 only when called by name (``chip_smoke.py`` does, to hold the kernel
 against it).
 
-Under autograd (grad enabled and an input that requires grad) P2G and G2P
-go through the ``P2G`` / ``G2P`` autograd Functions (the custom_vjp of
-``pallas_chunked.family``): the backward launches ``p2g_bwd`` / ``g2p_bwd``
-on CUDA and runs ``p2g_vjp_plain`` / ``g2p_vjp_plain`` on the CPU. The
-window corner is an int tensor and gets no gradient. Gather and splat have
-no CUDA backward yet: on CUDA under autograd they raise, on the CPU autograd
-differentiates their plain versions.
+Under autograd (grad enabled and an input that requires grad) each goes
+through its autograd Function (``P2G``, ``G2P``, ``Gather``, ``Splat``: the
+custom_vjps of ``pallas_chunked.family``): the backward launches
+``p2g_bwd`` / ``g2p_bwd`` / ``gather_bwd`` / ``splat_bwd`` on CUDA and runs
+the plain vjp (``p2g_vjp_plain`` and its kin: autograd of the plain
+version, recomputed) on the CPU. The window corner is an int tensor and
+gets no gradient.
 
 Window semantics differ from the TPU kernels on purpose: those truncate each
 particle tile to a 16-row y-window and report ``window_overflow`` when a tile
@@ -149,6 +149,26 @@ def g2p_vjp_plain(x, gv0, gv1, gv2, corner, window, inv_dx, g):
         ins = tuple(t.detach().requires_grad_() for t in (x, gv0, gv1, gv2))
         out = g2p_plain(*ins, corner, window, inv_dx)
         return torch.autograd.grad(out, ins, g)
+
+
+def gather_vjp_plain(x, gv0, gv1, gv2, corner, window, inv_dx, dv):
+    """Cotangents (dx (3, N), dgv0, dgv1, dgv2 (wy*wz, wx)) of
+    ``gather_plain`` for the output cotangent dv (3, N): autograd of the
+    plain version, recomputed."""
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_() for t in (x, gv0, gv1, gv2))
+        out = gather_plain(*ins, corner, window, inv_dx)
+        return torch.autograd.grad(out, ins, dv)
+
+
+def splat_vjp_plain(x, vals, corner, window, inv_dx, dout):
+    """Cotangents (dx (3, N), dvals (3, N)) of ``splat_plain`` for the
+    window cotangent dout (wy*wz, 3*wx): autograd of the plain version,
+    recomputed."""
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_() for t in (x, vals))
+        out = splat_plain(*ins, corner, window, inv_dx)
+        return torch.autograd.grad(out, ins, dout)
 
 
 def _check_cuda(name, tensors, corner):
@@ -297,23 +317,102 @@ class G2P(torch.autograd.Function):
             + (None, None, None)
 
 
+def gather_bwd(x, gv0, gv1, gv2, corner, window, inv_dx, dv):
+    """The gather backward kernel: (dx, dgv0, dgv1, dgv2) as
+    ``gather_vjp_plain`` computes them, on CUDA float32 tensors. The grid
+    cotangents are summed in float64 and rounded once, as G2P's backward."""
+    wx, wy, wz = (int(w) for w in window)
+    n = x.shape[1]
+    _check_cuda("gather_bwd", (x, gv0, gv1, gv2, dv), corner)
+    _check_grids("gather_bwd", x, (gv0, gv1, gv2), window)
+    if dv.shape != (3, n):
+        raise ValueError(f"gather_bwd: cotangent {tuple(dv.shape)}")
+    cells = wx * wy * wz
+    dx = torch.empty((3, n), dtype=x.dtype, device=x.device)
+    acc = torch.zeros(3 * cells, dtype=torch.float64, device=x.device)
+    out = torch.empty(3 * cells, dtype=x.dtype, device=x.device)
+    rc = build.library().softmac_gather_bwd(
+        x.data_ptr(), gv0.data_ptr(), gv1.data_ptr(), gv2.data_ptr(),
+        corner.data_ptr(), dv.data_ptr(), dx.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), n, wx, wy, wz, float(inv_dx),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "gather_bwd")
+    gather_bwd.launches += 1
+    return (dx,) + tuple(out[d * cells:(d + 1) * cells].view(wy * wz, wx)
+                         for d in range(3))
+
+
+def splat_bwd(x, vals, corner, window, inv_dx, dout):
+    """The splat backward kernel: (dx, dvals) as ``splat_vjp_plain``
+    computes them, on CUDA float32 tensors (a gather: no atomics)."""
+    wx, wy, wz = (int(w) for w in window)
+    n = x.shape[1]
+    _check_cuda("splat_bwd", (x, vals, dout), corner)
+    if (x.shape != (3, n) or vals.shape != (3, n)
+            or dout.shape != (wy * wz, 3 * wx)):
+        raise ValueError("splat_bwd: bad shapes")
+    dx = torch.empty((3, n), dtype=x.dtype, device=x.device)
+    dvals = torch.empty((3, n), dtype=x.dtype, device=x.device)
+    rc = build.library().softmac_splat_bwd(
+        x.data_ptr(), vals.data_ptr(), corner.data_ptr(), dout.data_ptr(),
+        dx.data_ptr(), dvals.data_ptr(), n, wx, wy, wz, float(inv_dx),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "splat_bwd")
+    splat_bwd.launches += 1
+    return dx, dvals
+
+
+class Gather(torch.autograd.Function):
+    """Gather with its backward kernel
+    (``pallas_chunked.family().gather_c``)."""
+
+    @staticmethod
+    def forward(ctx, x, gv0, gv1, gv2, corner, window, inv_dx):
+        ctx.save_for_backward(x, gv0, gv1, gv2, corner)
+        ctx.window, ctx.inv_dx = window, inv_dx
+        return _gather(x, gv0, gv1, gv2, corner, window, inv_dx)
+
+    @staticmethod
+    def backward(ctx, dv):
+        x, gv0, gv1, gv2, corner = ctx.saved_tensors
+        vjp = gather_vjp_plain if build.on_cpu(x, "gather") else gather_bwd
+        grads = vjp(x, gv0, gv1, gv2, corner, ctx.window, ctx.inv_dx,
+                    dv.contiguous())
+        return tuple(gr if need else None
+                     for gr, need in zip(grads, ctx.needs_input_grad)) \
+            + (None, None, None)
+
+
+class Splat(torch.autograd.Function):
+    """Splat with its backward kernel
+    (``pallas_chunked.family().splat_c``)."""
+
+    @staticmethod
+    def forward(ctx, x, vals, corner, window, inv_dx):
+        ctx.save_for_backward(x, vals, corner)
+        ctx.window, ctx.inv_dx = window, inv_dx
+        return _splat(x, vals, corner, window, inv_dx)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, vals, corner = ctx.saved_tensors
+        vjp = splat_vjp_plain if build.on_cpu(x, "splat") else splat_bwd
+        dx, dvals = vjp(x, vals, corner, ctx.window, ctx.inv_dx,
+                        dout.contiguous())
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dvals if need[1] else None,
+                None, None, None)
+
+
 def _needs_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _no_cuda_grad(name, *tensors):
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{name}: no CUDA backward yet; the backward kernel comes with "
-            "slice 4 of the port (use device='cpu' for gradients)")
-
-
-def gather(x, gv0, gv1, gv2, corner, window, inv_dx):
-    """Gather of the grid velocity at the particles, (3, N); see
-    ``gather_plain``. CUDA tensors launch the kernel."""
+def _gather(x, gv0, gv1, gv2, corner, window, inv_dx):
+    """Gather of the grid velocity at the particles; see ``gather_plain``.
+    CUDA tensors launch the kernel."""
     if build.on_cpu(x, "gather"):
         return gather_plain(x, gv0, gv1, gv2, corner, window, inv_dx)
-    _no_cuda_grad("gather", x, gv0, gv1, gv2)
     wx, wy, wz = (int(w) for w in window)
     n = x.shape[1]
     _check_cuda("gather", (x, gv0, gv1, gv2), corner)
@@ -328,13 +427,11 @@ def gather(x, gv0, gv1, gv2, corner, window, inv_dx):
     return out
 
 
-def splat(x, vals, corner, window, inv_dx):
-    """Splat of vals (3, N) onto the window, (wy*wz, 3*wx); see
-    ``splat_plain``. CUDA tensors launch the kernel (float64 accumulation,
-    rounded once)."""
+def _splat(x, vals, corner, window, inv_dx):
+    """Splat of vals onto the window; see ``splat_plain``. CUDA tensors
+    launch the kernel (float64 accumulation, rounded once)."""
     if build.on_cpu(x, "splat"):
         return splat_plain(x, vals, corner, window, inv_dx)
-    _no_cuda_grad("splat", x, vals)
     wx, wy, wz = (int(w) for w in window)
     n = x.shape[1]
     _check_cuda("splat", (x, vals), corner)
@@ -351,6 +448,24 @@ def splat(x, vals, corner, window, inv_dx):
     build.check(rc, "splat")
     splat.launches += 1
     return out
+
+
+def gather(x, gv0, gv1, gv2, corner, window, inv_dx):
+    """Gather of the grid velocity at the particles, (3, N); see
+    ``gather_plain``. CUDA tensors launch the kernel; under autograd the
+    backward launches ``gather_bwd``."""
+    if _needs_grad(x, gv0, gv1, gv2):
+        return Gather.apply(x, gv0, gv1, gv2, corner, window, inv_dx)
+    return _gather(x, gv0, gv1, gv2, corner, window, inv_dx)
+
+
+def splat(x, vals, corner, window, inv_dx):
+    """Splat of vals (3, N) onto the window, (wy*wz, 3*wx); see
+    ``splat_plain``. CUDA tensors launch the kernel; under autograd the
+    backward launches ``splat_bwd``."""
+    if _needs_grad(x, vals):
+        return Splat.apply(x, vals, corner, window, inv_dx)
+    return _splat(x, vals, corner, window, inv_dx)
 
 
 def p2g(x, chan, corner, window, inv_dx):
@@ -375,3 +490,5 @@ gather.launches = 0
 splat.launches = 0
 p2g_bwd.launches = 0
 g2p_bwd.launches = 0
+gather_bwd.launches = 0
+splat_bwd.launches = 0

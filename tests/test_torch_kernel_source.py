@@ -3,16 +3,20 @@ host. There is no card and no nvcc here, so the kernel bodies of
 softmac_tpu_torch/ops/csrc (each .cu file above its C entry point, and the
 headers) are compiled with the host C++ compiler over a small stand-in for
 the CUDA runtime header; each kernel runs one thread at a time. The block
-reduction of the contact backward (shared memory and barriers) is left to
-chip_smoke.py; here the per-particle reverse sweep is summed on the host.
+reductions of the contact backwards (shared memory and barriers) are left
+to chip_smoke.py; here the per-particle reverse sweeps are summed on the
+host.
 
 Held against the plain versions in float64 on the same float32 inputs:
-P2G (its splat is shared with G2P's backward) and the P2G / G2P backward
-kernels, which compute in float32, within 2e-6 of the largest |value| of
-each output; the contact backward, which computes in double on its float
-inputs, within 1e-6 (float literals and the float dt / p_mass set that
-floor). The contact check runs on the real glass table, with particles
-spread over its SDF box."""
+P2G (its splat is shared with G2P's backward), gather, splat and the P2G /
+G2P / gather / splat backward kernels, which compute in float32, within
+2e-6 of the largest |value| of each output; the penalty contact backward,
+which computes in double on its float inputs, within 1e-6 (float literals
+and the float dt / p_mass set that floor); the mixed contact backward
+(merged and split), also double math, within 1e-12 given the float dt and
+p_mass it sees. The contact checks run on the real glass table, with
+particles spread over its SDF box (contact, soft band, penetration and
+face-crossing forecasts counted)."""
 import ctypes
 import shutil
 import subprocess
@@ -48,6 +52,8 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline double atomicAdd(double* p, double v) { double o = *p; *p = o + v; return o; }
+#define __shared__ static
+inline void __syncthreads() {}
 """
 
 DRIVER = r"""
@@ -104,6 +110,63 @@ void h_mixed(int split, const float* x, const float* v, const float* table,
         x, v, t, body, pv, force, mask, n, g, dt, p_mass, cap); });
   }
 }
+void h_gather_bwd(const float* x, const float* g0, const float* g1,
+                  const float* g2, const int* corner, const float* dv,
+                  float* dx, double* acc, int n, int wx, int wy, int wz,
+                  float inv_dx) {
+  launch(n, [&] { k_gather_bwd::gather_bwd_kernel(x, g0, g1, g2, corner, dv,
+                                                  dx, acc, n, wx, wy, wz,
+                                                  inv_dx); });
+}
+void h_splat_bwd(const float* x, const float* vals, const int* corner,
+                 const float* dout, float* dx, float* dvals, int n, int wx,
+                 int wy, int wz, float inv_dx) {
+  launch(n, [&] { k_splat_bwd::splat_bwd_kernel(x, vals, corner, dout, dx,
+                                                dvals, n, wx, wy, wz,
+                                                inv_dx); });
+}
+// The mixed backward one particle at a time (merged, or the split's k2b
+// over all particles then k1b, dv passed between them in float as the
+// kernels pass it); dx, dv and the body cotangents (summed here) in double.
+void h_mixed_bwd(int split, const float* x, const float* v,
+                 const float* table, const float* body, double* st1,
+                 const float* gout, const float* gforce, double* gst1,
+                 float* dv2, double* dx, double* dv, double* dbody, int n,
+                 int r0, int r1, int r2, float l0, float l1, float l2,
+                 float u0, float u1, float u2, float inv_dx, float dt,
+                 float p_mass, float cap) {
+  using softmac::V3;
+  softmac::Geom g = {{l0, l1, l2}, {u0, u1, u2}, inv_dx, {r0, r1, r2}};
+  const float4* t = (const float4*)table;
+  for (int i = 0; i < 16; ++i) dbody[i] = 0.0;
+  double gb[16];
+  V3<double> gx, gv;
+  if (split) {
+    launch(n, [&] { k_contact_mixed::collide_mixed1_kernel(x, v, t, body, st1,
+                                                           n, g, dt); });
+    for (int p = 0; p < n; ++p) {
+      k_contact_mixed_bwd::mixed2_bwd_particle(x, v, t, body, st1, gout,
+                                               gforce, gst1, n, p, g, dt,
+                                               p_mass, cap, gv, gb);
+      dv2[p] = float(gv.x); dv2[n + p] = float(gv.y); dv2[2 * n + p] = float(gv.z);
+      for (int i = 0; i < 16; ++i) dbody[i] += gb[i];
+    }
+  }
+  for (int p = 0; p < n; ++p) {
+    if (split) {
+      gv = {dv2[p], dv2[n + p], dv2[2 * n + p]};
+      k_contact_mixed_bwd::mixed1_bwd_particle(x, v, t, body, gst1, n, p, g,
+                                               dt, gx, gv, gb);
+    } else {
+      k_contact_mixed_bwd::mixed_bwd_particle(x, v, t, body, gout, gforce, n,
+                                              p, g, dt, p_mass, cap, gx, gv,
+                                              gb);
+    }
+    dx[p] = gx.x; dx[n + p] = gx.y; dx[2 * n + p] = gx.z;
+    dv[p] = gv.x; dv[n + p] = gv.y; dv[2 * n + p] = gv.z;
+    for (int i = 0; i < 16; ++i) dbody[i] += gb[i];
+  }
+}
 void h_contact_bwd(const float* x, const float* v, const float* table,
                    const float* body, const float* gimp, double* dx,
                    double* dv, double* dbody, int n, int r0, int r1, int r2,
@@ -148,7 +211,8 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_STANDIN)
     src = "".join(_kernel_bodies(n) for n in (
         "p2g", "p2g_bwd", "g2p_bwd", "gather", "splat", "contact",
-        "contact_mixed")) + DRIVER
+        "contact_mixed", "gather_bwd", "splat_bwd", "contact_mixed_bwd")) \
+        + DRIVER
     (d / "driver.cpp").write_text(src)
     so = d / "libkernels_host.so"
     subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
@@ -268,13 +332,37 @@ def test_gather_and_splat_sources(lib, shift):
     assert _rel(acc, ref.reshape(-1)) < 2e-6
 
 
-@pytest.mark.parametrize("cap", [float("inf"), 2.0])
-def test_mixed_contact_source(lib, cap):
-    """The merged kernel and the split pair on particles over the glass's
-    SDF box with velocities of up to a few m/s: the contact, soft,
-    penetrating and face-crossing cases all occur (counted)."""
+@pytest.mark.parametrize("shift", [0, 2])
+def test_gather_and_splat_backward_sources(lib, shift):
+    x, corner, rng = _scene(shift, seed=3)
+    wx, wy, wz = WINDOW
+    gv = [_f32(rng, wy * wz, wx) for _ in range(3)]
+    dv = _f32(rng, 3, N)
+    dx = torch.zeros(3, N)
+    acc = torch.zeros(3 * wx * wy * wz, dtype=torch.float64)
+    lib.h_gather_bwd(_p(x), *map(_p, gv), _p(corner), _p(dv), _p(dx),
+                     _p(acc), *_dims(WINDOW))
+    ref = transfer.gather_vjp_plain(x.double(), *(g.double() for g in gv),
+                                    corner, WINDOW, INV_DX, dv.double())
+    assert _rel(dx, ref[0]) < 2e-6
+    for d in range(3):
+        assert _rel(acc.reshape(3, -1)[d], ref[1 + d].reshape(-1)) < 2e-6
+
+    vals, dout = _f32(rng, 3, N), _f32(rng, wy * wz, 3 * wx)
+    dx, dvals = torch.zeros(3, N), torch.zeros(3, N)
+    lib.h_splat_bwd(_p(x), _p(vals), _p(corner), _p(dout), _p(dx), _p(dvals),
+                    *_dims(WINDOW))
+    ref = transfer.splat_vjp_plain(x.double(), vals.double(), corner, WINDOW,
+                                   INV_DX, dout.double())
+    assert _rel(dx, ref[0]) < 2e-6 and _rel(dvals, ref[1]) < 2e-6
+
+
+def _mixed_scene(seed):
+    """The glass, a pose slightly off unit quaternion, 4000 particles over
+    its SDF box with velocities of up to a few m/s (every branch of the
+    mixed contact occurs: test_mixed_contact_source counts them)."""
     prim, prim64 = _glass()
-    rng = np.random.RandomState(4)
+    rng = np.random.RandomState(seed)
     n = 4000
     q = np.array([0.9, 0.1, -0.2, 0.15])
     q *= 1.001 / np.linalg.norm(q)        # slightly off unit, as |q| may be
@@ -284,6 +372,16 @@ def test_mixed_contact_source(lib, cap):
     b64 = body.double()
     x = _box_particles(prim64, b64, n, rng)
     v = _f32(rng, 3, n) * 1.5
+    return prim, prim64, body, b64, x, v, rng
+
+
+@pytest.mark.parametrize("cap", [float("inf"), 2.0])
+def test_mixed_contact_source(lib, cap):
+    """The merged kernel and the split pair on particles over the glass's
+    SDF box with velocities of up to a few m/s: the contact, soft,
+    penetrating and face-crossing cases all occur (counted)."""
+    prim, prim64, body, b64, x, v, _ = _mixed_scene(4)
+    n = x.shape[1]
     dt, p_mass = 1e-3, 1.5e-5
     outs = {}
     for split in (0, 1):
@@ -312,9 +410,20 @@ def test_mixed_contact_source(lib, cap):
     same = mask == mask_p
     assert _rel(pv * same, pv_p * same) < 1e-6
     assert _rel(force * same, f_p * same) < 1e-6
-    # the cases the kernel must cover
+    counts = _mixed_cases(prim64, b64, x, v, dt)
+    assert min(counts.values()) > 20, counts
+
+
+def _mixed_cases(prim64, b64, x, v, dt):
+    """Counts of the mixed contact's cases among the particles (float64
+    plain version): in contact, in the soft band, penetrating at the
+    forecast point, forecast across a table cell's face."""
+    parts = (b64[0:3], b64[3:7], b64[7:10], b64[10:13], b64[13], b64[14],
+             b64[15])
+    xs = tuple(x.double())
     st1 = contact.collide_mixed1_plain(prim64, *parts, x.double(), v.double(),
                                        dt)
+    mask = st1[6] <= contact.CONTACT_THRESHOLD
     qinv = m33.qnorm(m33.qconj(tuple(b64[3:7])))
     base1 = contact.cell_index(prim64, m33.qrot(qinv, m33.vsub(
         xs, tuple(b64[0:3]))))[0]
@@ -322,11 +431,10 @@ def test_mixed_contact_source(lib, cap):
         tuple(st1[3:6]), tuple(b64[0:3]))))[0]
     sdf2, _ = contact.sample_sdf_normal_world(prim64, tuple(b64[0:3]),
                                               tuple(b64[3:7]), tuple(st1[3:6]))
-    counts = {"contact": int(mask_p.sum()),
-              "soft": int((mask_p & (dist > 0)).sum()),
-              "penetrating": int((mask_p & (sdf2 < 0)).sum()),
-              "face-crossing": int((mask_p & (base1 != base2)).sum())}
-    assert min(counts.values()) > 20, counts
+    return {"contact": int(mask.sum()),
+            "soft": int((mask & (st1[6] > 0)).sum()),
+            "penetrating": int((mask & (sdf2 < 0)).sum()),
+            "face-crossing": int((mask & (base1 != base2)).sum())}
 
 
 def test_contact_backward_source(lib):
@@ -361,3 +469,46 @@ def test_contact_backward_source(lib):
     for (a, b), r in zip(((0, 3), (3, 7), (7, 10), (10, 13), (13, 14)),
                          ref[:5]):
         assert _rel(db[a:b], r.reshape(-1)) < 1e-6
+
+
+@pytest.mark.parametrize("cap", [float("inf"), 0.5])
+def test_mixed_contact_backward_source(lib, cap):
+    """The merged backward and the split pair (k2b -> k1b) on the glass's
+    SDF box particles against the float64 plain vjp, given the dt and
+    p_mass the kernel sees (float32 values): dx, dv and each body group
+    within 1e-12 of its largest |value| (the kernels' double math is the
+    plain vjp's, summed in another order); the split's dv within 1e-6 (k2b
+    hands its share to k1b in float)."""
+    prim, prim64, body, b64, x, v, rng = _mixed_scene(5)
+    n = x.shape[1]
+    gout, gforce = _f32(rng, 3, n), _f32(rng, 3, n)
+    dt, p_mass = float(np.float32(1e-3)), float(np.float32(1.5e-5))
+    f = ctypes.c_float
+    got = {}
+    for split in (0, 1):
+        st1 = torch.zeros(7, n, dtype=torch.float64)
+        gst1 = torch.zeros(7, n, dtype=torch.float64)
+        dv2 = torch.zeros(3, n)
+        dx = torch.zeros(3, n, dtype=torch.float64)
+        dv = torch.zeros(3, n, dtype=torch.float64)
+        db = torch.zeros(16, dtype=torch.float64)
+        lib.h_mixed_bwd(ctypes.c_int(split), _p(x), _p(v),
+                        _p(prim.neighborhood), _p(body), _p(st1), _p(gout),
+                        _p(gforce), _p(gst1), _p(dv2), _p(dx), _p(dv), _p(db),
+                        ctypes.c_int(n), *_geom(prim), f(dt), f(p_mass),
+                        f(cap))
+        got[split] = (dx, dv, db)
+    parts = (b64[0:3], b64[3:7], b64[7:10], b64[10:13], b64[13], b64[14],
+             b64[15])
+    ref = contact.collide_mixed_vjp_plain(
+        prim64, *parts, x.double(), v.double(), dt, p_mass,
+        None if cap == float("inf") else cap, gout.double(), gforce.double())
+    groups = ((0, 3), (3, 7), (7, 10), (10, 13), (13, 14), (14, 15),
+              (15, 16))
+    for split, (dx, dv, db) in got.items():
+        assert _rel(dx, ref[7]) < 1e-12
+        assert _rel(dv, ref[8]) < (1e-6 if split else 1e-12)
+        for (a, b), r in zip(groups, ref[:7]):
+            assert _rel(db[a:b], r.reshape(-1)) < 1e-12, (a, b)
+    counts = _mixed_cases(prim64, b64, x, v, dt)
+    assert min(counts.values()) > 20, counts

@@ -199,3 +199,62 @@ def test_collide_mixed_vjp_matches_jax(scene):
     assert np.abs(ref[6]).max() > 0 and np.abs(ref[1]).max() > 0
     for got, want in zip(grads, ref):
         _close(got.numpy(), want)
+
+
+def _mixed_grads(tprim, body, x, v, g_v, g_w, push_cap=None):
+    """Cotangents of x, v and the body floats through engine.contact.
+    collide_mixed (the CollideMixed / CollideMixedSplit Function under
+    autograd) for cotangents of the velocity and the wrench."""
+    ins = [torch.as_tensor(a).requires_grad_() for a in body + [x, v]]
+    pv, wr = tcontact.collide_mixed(tprim, *ins[:6], ins[6], ins[7], P_MASS,
+                                    DT, LIFE, push_cap=push_cap)
+    return torch.autograd.grad((pv, wr), ins, (torch.as_tensor(g_v),
+                                               torch.as_tensor(g_w)))
+
+
+@pytest.mark.parametrize("push_cap", [None, 2.0])
+def test_split_function_cotangents_equal_merged(scene, monkeypatch,
+                                                push_cap):
+    """The CollideMixedSplit Function (stage 1 -> stage 2, its backward the
+    split plain vjp on the CPU) gives the merged Function's cotangents, and
+    both give jax.vjp's of the XLA function (1e-12)."""
+    _, jprim, tprim, x, v, body = scene
+    rng = np.random.RandomState(10)
+    g_v, g_w = rng.randn(3, N), rng.randn(6)
+    merged = _mixed_grads(tprim, body, x, v, g_v, g_w, push_cap)
+    monkeypatch.setenv("SOFTMAC_TPU_CONTACT_SPLIT", "1")
+    split = _mixed_grads(tprim, body, x, v, g_v, g_w, push_cap)
+    for a, b in zip(merged, split):
+        _close(b.numpy(), a.numpy())
+
+    def jfn(bp, bq, bv, bw, fr, so, xs, vs):
+        pv, wr = jcontact._collide_mixed_xla(
+            jprim, bp, bq, bv, bw, fr, so, xs, vs, jnp.asarray(LIFE),
+            p_mass=P_MASS, dt=DT, push_cap=push_cap)
+        return jnp.stack(pv), wr
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(b) for b in body),
+                     tuple(jnp.asarray(x)), tuple(jnp.asarray(v)))
+    ref = vjp((jnp.asarray(g_v), jnp.asarray(g_w)))
+    ref = [np.asarray(r) for r in ref[:6]] + [
+        np.stack([np.asarray(c) for c in r]) for r in ref[6:]]
+    for got, want in zip(split, ref):
+        _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("split", ["", "1"])
+def test_mixed_functions_gradcheck(scene, monkeypatch, split):
+    """torch.autograd.gradcheck of CollideMixed and CollideMixedSplit (their
+    backward the plain vjp on the CPU) on 50 of the scene's particles, with
+    respect to the 16 body floats (life included), x and v."""
+    _, _, tprim, x, v, body = scene
+    monkeypatch.setenv("SOFTMAC_TPU_CONTACT_SPLIT", split)
+    fn = ops.CollideMixedSplit if split else ops.CollideMixed
+    pick = slice(0, 50)
+    ins = tuple(torch.as_tensor(a).requires_grad_() for a in body + [
+        np.float64(LIFE), x[:, pick].copy(), v[:, pick].copy()])
+
+    def f(*a):
+        return fn.apply(tprim, *a, DT, P_MASS, None)[:2]
+    assert torch.autograd.gradcheck(f, ins, eps=1e-7, atol=1e-6, rtol=1e-5,
+                                    fast_mode=True)

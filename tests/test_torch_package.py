@@ -157,7 +157,10 @@ def test_kernel_library_is_keyed_by_sources():
         "softmac_p2g", "softmac_g2p", "softmac_collide_particle",
         "softmac_p2g_bwd", "softmac_g2p_bwd", "softmac_collide_particle_bwd",
         "softmac_gather", "softmac_splat", "softmac_collide_mixed",
-        "softmac_collide_mixed1", "softmac_collide_mixed2"}
+        "softmac_collide_mixed1", "softmac_collide_mixed2",
+        "softmac_gather_bwd", "softmac_splat_bwd",
+        "softmac_collide_mixed_bwd", "softmac_collide_mixed1_bwd",
+        "softmac_collide_mixed2_bwd"}
     sources = " ".join(p.read_text() for p in build.CSRC.glob("*.cu"))
     for name in build.SIGNATURES:
         assert f'extern "C" int {name}(' in sources

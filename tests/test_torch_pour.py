@@ -13,8 +13,11 @@ on the CPU.
   each term agree to 1e-8 relative, the end state to 1e-8 absolute.
 - Gradient: rollout_and_grad of the same steps (loss_stride 1), the action
   gradient to 1e-8 of its largest |value|. On the CPU the port's gather,
-  splat and mixed contact are plain PyTorch that autograd differentiates:
-  this is the yardstick their backward kernels will be held to.
+  splat and mixed contact run through their autograd Functions (Gather,
+  Splat, CollideMixed) whose backward is the plain vjp: the yardstick of
+  their backward kernels on the card. The same under
+  SOFTMAC_TPU_CONTACT_SPLIT (CollideMixedSplit) against JAX's merged
+  gradient.
 """
 from pathlib import Path
 
@@ -121,3 +124,23 @@ def test_action_grad_matches_jax(runs):
     assert g.shape == jg.shape and not g.requires_grad
     assert np.abs(jg).max() > 0
     assert np.abs(g.numpy() - jg).max() <= RTOL * np.abs(jg).max()
+
+
+def test_split_action_grad_matches_jax(runs, monkeypatch):
+    """The split contact (CollideMixedSplit) under rollout_and_grad: loss
+    and action gradient as JAX's merged run, and the Function was used."""
+    from softmac_tpu_torch.ops import contact
+    monkeypatch.setenv("SOFTMAC_TPU_CONTACT_SPLIT", "1")
+    calls = []
+    apply = contact.CollideMixedSplit.apply
+    monkeypatch.setattr(contact.CollideMixedSplit, "apply",
+                        lambda *a: calls.append(1) or apply(*a))
+    tenv = _torch_env(WINDOW)
+    out = tenv.rollout_and_grad(_actions(tenv.action_dim), loss_stride=1)
+    jout = runs[0]
+    assert calls
+    ref = float(jout["loss"])
+    assert abs(float(out["loss"]) - ref) <= RTOL * abs(ref)
+    jg = np.asarray(jout["action_grad"])
+    assert np.abs(out["action_grad"].numpy() - jg).max() \
+        <= RTOL * np.abs(jg).max()

@@ -311,3 +311,130 @@ def test_splat_plain_matches_jax(shift):
     for d in range(3):
         _close(out[:, d * WX:(d + 1) * WX].numpy(), ref[d])
     assert np.abs(np.asarray(ref[0])).max() > 0
+
+
+# ---------------------------------------------------------------------------
+# Gather and splat cotangents: the plain vjps and autograd through the
+# Gather / Splat Functions against jax.vjp of mpm.gather_dense /
+# mpm.splat_channels composed with axis_weights and hyz_family (1e-12,
+# shifts 0 and 2), and at shift 0 against jax.vjp of the chunked kernels'
+# CPU reference (pallas_chunked.family().gather_ref / splat_ref, the custom
+# vjp's XLA branch), whose dots round to float32 (F32_RTOL).
+# ---------------------------------------------------------------------------
+
+def _chunked_meta(x, corner, tcfg):
+    meta, c_ovf = pallas_chunked.chunk_meta(
+        jnp.asarray(x[1] * tcfg.inv_dx), corner, WY)
+    assert not bool(c_ovf)
+    return meta
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_gather_vjp_matches_jax(shift):
+    x, jcfg, tcfg, sizes, corner, t_corner, rng = _vjp_inputs(shift)
+    gv = [rng.randn(WY * WZ, WX) for _ in range(3)]
+    dv = rng.randn(3, N)
+
+    def jax_gather(xs, g0, g1, g2):
+        W, WD = jmpm.axis_weights(jcfg, xs, sizes, corner)
+        H, _, _ = jmpm.hyz_family(jcfg, W, WD)
+        return jnp.stack(jmpm.gather_dense(jcfg, W, H, (g0, g1, g2)))
+
+    xs = tuple(jnp.asarray(x[d]) for d in range(3))
+    _, vjp = jax.vjp(jax_gather, xs, *(jnp.asarray(a) for a in gv))
+    dxs, *dgv = vjp(jnp.asarray(dv))
+    ref = [np.stack([np.asarray(d) for d in dxs])] + [np.asarray(d)
+                                                      for d in dgv]
+    assert np.abs(ref[0]).max() > 0
+
+    args = (torch.as_tensor(x), *(torch.as_tensor(a) for a in gv), t_corner,
+            WINDOW, tcfg.inv_dx)
+    plain = transfer.gather_vjp_plain(*args, torch.as_tensor(dv))
+    through = _grad_through_function(
+        lambda xx, a, b, c: transfer.gather(xx, a, b, c, t_corner, WINDOW,
+                                            tcfg.inv_dx),
+        (x, *gv), (dv,))
+    for grads in (plain, through):
+        assert [tuple(t.shape) for t in grads] == [(3, N)] + [(WY * WZ, WX)] * 3
+        for got, want in zip(grads, ref):
+            _close(got.numpy(), want)
+
+    if shift == 0:
+        meta = _chunked_meta(x, corner, tcfg)
+        pv = jnp.zeros((8, N)).at[0:3].set(jnp.asarray(x * tcfg.inv_dx))
+        fam = pallas_chunked.family(WINDOW)
+        _, vjp = jax.vjp(lambda p, a, b, c: fam.gather_ref(p, a, b, c, meta),
+                         pv, *(jnp.asarray(a) for a in gv))
+        dpv, *dgv = vjp(jnp.asarray(dv))
+        _close(plain[0].numpy(), np.asarray(dpv)[0:3] * tcfg.inv_dx,
+               F32_RTOL)
+        for got, want in zip(plain[1:], dgv):
+            _close(got.numpy(), want, F32_RTOL)
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_splat_vjp_matches_jax(shift):
+    x, jcfg, tcfg, sizes, corner, t_corner, rng = _vjp_inputs(shift)
+    vals = rng.randn(3, N)
+    dout = rng.randn(WY * WZ, 3 * WX)
+
+    def jax_splat(xs, vv):
+        W, WD = jmpm.axis_weights(jcfg, xs, sizes, corner)
+        H, _, _ = jmpm.hyz_family(jcfg, W, WD)
+        return jnp.concatenate(jmpm.splat_channels(jcfg, W, H, list(vv)),
+                               axis=1)
+
+    xs = tuple(jnp.asarray(x[d]) for d in range(3))
+    _, vjp = jax.vjp(jax_splat, xs, jnp.asarray(vals))
+    dxs, dvals = vjp(jnp.asarray(dout))
+    ref = [np.stack([np.asarray(d) for d in dxs]), np.asarray(dvals)]
+    assert np.abs(ref[0]).max() > 0
+
+    args = (torch.as_tensor(x), torch.as_tensor(vals), t_corner, WINDOW,
+            tcfg.inv_dx)
+    plain = transfer.splat_vjp_plain(*args, torch.as_tensor(dout))
+    through = _grad_through_function(
+        lambda xx, vv: transfer.splat(xx, vv, t_corner, WINDOW, tcfg.inv_dx),
+        (x, vals), (dout,))
+    for grads in (plain, through):
+        assert [tuple(t.shape) for t in grads] == [(3, N), (3, N)]
+        for got, want in zip(grads, ref):
+            _close(got.numpy(), want)
+
+    if shift == 0:
+        meta = _chunked_meta(x, corner, tcfg)
+        vals8 = jnp.zeros((8, N)).at[0:3].set(jnp.asarray(vals)) \
+            .at[3:6].set(jnp.asarray(x * tcfg.inv_dx))
+        fam = pallas_chunked.family(WINDOW)
+        _, vjp = jax.vjp(lambda v8: fam.splat_ref(v8, meta), vals8)
+        dv8, = vjp(jnp.asarray(dout, jnp.float32))
+        dv8 = np.asarray(dv8)
+        _close(plain[0].numpy(), dv8[3:6] * tcfg.inv_dx, F32_RTOL)
+        _close(plain[1].numpy(), dv8[0:3], F32_RTOL)
+
+
+@pytest.mark.parametrize("fn", ["gather", "splat"])
+def test_gather_splat_functions_gradcheck(fn):
+    """torch.autograd.gradcheck of the Gather / Splat Functions (their
+    backward the plain vjp on the CPU) at 50 particles in an (8, 8, 8)
+    window that holds every stencil (fast mode: the Jacobian along random
+    directions)."""
+    rng = np.random.RandomState(13)
+    inv_dx, window = 128.0, (8, 8, 8)
+    x = torch.tensor(0.5 + 0.015 * rng.rand(3, 50), requires_grad=True)
+    corner = torch.tensor([int(np.floor(0.5 * inv_dx - 0.5)) - 1] * 3,
+                          dtype=torch.int32)
+    if fn == "gather":
+        grids = [torch.tensor(rng.randn(64, 8), requires_grad=True)
+                 for _ in range(3)]
+        ins = (x, *grids)
+
+        def f(xx, a, b, c):
+            return transfer.Gather.apply(xx, a, b, c, corner, window, inv_dx)
+    else:
+        ins = (x, torch.tensor(rng.randn(3, 50), requires_grad=True))
+
+        def f(xx, vv):
+            return transfer.Splat.apply(xx, vv, corner, window, inv_dx)
+    assert torch.autograd.gradcheck(f, ins, eps=1e-6, atol=1e-7, rtol=1e-6,
+                                    fast_mode=True)
