@@ -62,6 +62,25 @@ script exits non-zero:
            card, 3 epochs of 60 env steps on its own scene: finite losses,
            losses.npy and the checkpoints written, the actions moved, every
            kernel launched, the epoch times
+  door     the door's main path (demo_door_config.py: 5400 particles in
+           three corotated-elastic boxes, window (32, 16, 32), one particle
+           controller, the revolute door): the dense-weight transfer
+           kernels (fused_p2g, fused_g2p, fused_splat, fused_gather) are
+           first held against their float64 plain versions on the door's
+           state after 10 env steps and on fully dense random weights
+           (window (16, 8, 16)), and timed there and on that state tiled to
+           1e5 particles, beside their plain versions and one torch.einsum
+           over the dense weights (the library call); then SoftMacEnv.rollout
+           of the demo's initial actions for 300 env steps with launches
+           counted, its end state against a zero-action rollout of the same
+           300 steps (the controller acts), 5 timed rollouts of 50 steps,
+           the demo's 3000-step horizon with its loss frames (from 2000,
+           stride 20), and rollout_and_grad refused on the card (the
+           backward kernels are not ported)
+  door_parity  the door, card (float32, kernels) against the CPU (float64,
+           plain versions), 20 env steps
+  profile_door  torch.profiler over 20 env steps of the door: busy share,
+           launches per substep, the SVD's share of them, top kernels
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -134,6 +153,18 @@ POUR = ("gather", "splat", "collide_mixed")
 POUR_BWD = ("gather_bwd", "splat_bwd", "collide_mixed_bwd")
 DEMO_STEPS = 60
 DEMO_EPOCHS = 3
+DOOR_STEPS = 300           # the counted door rollout
+DOOR_TIMED_STEPS = 50      # each timed door rollout (cut to keep the time)
+DOOR_REPEATS = 5
+DOOR_HORIZON = 3000        # demos/demo_door.py --steps
+DENSE_WINDOW = (16, 8, 16)
+N_DENSE = 4000
+FUSED = ("fused_p2g", "fused_g2p", "fused_splat", "fused_gather")
+# float operations per visited window cell (the kernels work in double,
+# counted at the float32 rate, the least time for the same work): the
+# three weight products and the cell's terms
+FLOPS_PER_CELL = {"fused_p2g": 6 + 1 + 3 * 7, "fused_g2p": 6 + 3 * 8,
+                  "fused_splat": 2 + 3 * 2, "fused_gather": 2 + 3 * 2}
 
 
 T0 = time.perf_counter()
@@ -201,17 +232,22 @@ def cuda_time_ms(fn, iters=TIME_ITERS):
     return start.elapsed_time(end) / iters
 
 
-def bound(name, n, bytes_moved):
+def bound(name, n, bytes_moved, flops=None):
+    """The least time for the work: bytes over the memory rate or float
+    operations (``flops``, else the per-particle count) over the float32
+    rate, whichever is larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = n * FLOPS_PER_PARTICLE[name] / FP32_FLOPS * 1e3
+    if flops is None:
+        flops = n * FLOPS_PER_PARTICLE[name]
+    t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernel_entry(n, name, src, replaces, abs_err, rel_err, ms, plain_ms,
-                 bytes_moved, tolerance=1e-5):
+                 bytes_moved, tolerance=1e-5, flops=None):
     """One kernel's JSON entry (launches filled in by the caller); raises
     when the kernel disagrees with its plain version."""
-    b_ms, b_by = bound(name, n, bytes_moved)
+    b_ms, b_by = bound(name, n, bytes_moved, flops)
     replaces, tpu_function = replaces.split(" ", 1)
     if not rel_err <= tolerance:
         raise AssertionError(f"{name}: relative error {rel_err} > "
@@ -924,7 +960,7 @@ def timed_rollout(env, acts):
 
 
 def wrappers():
-    from softmac_tpu_torch.ops import contact, transfer
+    from softmac_tpu_torch.ops import contact, fused, transfer
     return {"p2g": transfer.p2g, "g2p": transfer.g2p,
             "collide_particle": contact.collide_particle,
             "p2g_bwd": transfer.p2g_bwd, "g2p_bwd": transfer.g2p_bwd,
@@ -937,7 +973,9 @@ def wrappers():
             "splat_bwd": transfer.splat_bwd,
             "collide_mixed_bwd": contact.collide_mixed_bwd,
             "collide_mixed1_bwd": contact.collide_mixed1_bwd,
-            "collide_mixed2_bwd": contact.collide_mixed2_bwd}
+            "collide_mixed2_bwd": contact.collide_mixed2_bwd,
+            "fused_p2g": fused.p2g, "fused_g2p": fused.g2p,
+            "fused_splat": fused.splat, "fused_gather": fused.gather}
 
 
 def reset_launches():
@@ -1436,6 +1474,431 @@ def run_demo():
     return res
 
 
+def door_cfg():
+    from softmac_tpu_torch import load
+    return load(str(ROOT / "softmac_tpu_torch/config/demo_door_config.py"))
+
+
+def door_env(device=None, init_particles=None):
+    """The door scene with every particle on controller 0
+    (demos/demo_door.py:49)."""
+    import numpy as np
+    from softmac_tpu_torch import SoftMacEnv
+    env = SoftMacEnv(door_cfg(), device=device, init_particles=init_particles)
+    env.set_control_idx(np.zeros(env.n_particles, np.int32))
+    return env
+
+
+def door_actions(n_steps):
+    """The demo's initial actions: 0.1 on z (demos/demo_door.py:38-42)."""
+    import numpy as np
+    acts = np.zeros((n_steps, 3))
+    acts[:, 2] = 0.1
+    return acts
+
+
+def tiled_carry(carry, n, seed=0):
+    """An MPM carry tiled to n particles with 1e-4 jitter on x."""
+    import numpy as np
+    import torch
+    from softmac_tpu_torch.engine.types import MPMState
+    mpm, bodies, rigid = carry
+    idx = torch.arange(n, device=mpm.x.device) % mpm.x.shape[1]
+    jitter = torch.as_tensor(np.random.RandomState(seed).randn(3, n) * 1e-4,
+                             dtype=mpm.x.dtype, device=mpm.x.device)
+    return (MPMState(x=(mpm.x[:, idx] + jitter).contiguous(),
+                     v=mpm.v[:, idx].contiguous(),
+                     C=mpm.C[:, :, idx].contiguous(),
+                     F=mpm.F[:, :, idx].contiguous()), bodies, rigid)
+
+
+def door_kernel_inputs(env, carry, action):
+    """The inputs the door's first substep from ``carry`` hands the four
+    dense-weight transfers (y-sorted, as the rollout keeps them), built
+    with the port's own substep stages and the kernels, so that they are
+    the same on every run."""
+    import torch
+    from softmac_tpu_torch.engine import mpm
+    from softmac_tpu_torch.ops import contact, fused
+    from softmac_tpu_torch.ops import m33
+    cfg = env.mpm_cfg
+    state, bodies, _ = carry
+    q, _ = mpm.sort_perm(cfg, state.x)
+    state = mpm.permute_state(state, q)
+    params = mpm.permute_params(env.mpm_params, q)
+    stress, _ = mpm.stress_and_F(cfg, params, state)
+    impulse, _ = mpm.contact_impulse(cfg, params, env.prims, state, bodies)
+    act = torch.as_tensor(action, dtype=state.x.dtype,
+                          device=state.x.device).reshape(-1, 3)
+    impulse = mpm.control_impulse(cfg, params, impulse, act)
+    tr = mpm.Transfers(cfg, state.x)
+    if tr.route != "fused" or bool(tr.overflow):
+        raise AssertionError(f"door kernel-check state: route {tr.route}, "
+                             f"overflow {bool(tr.overflow)}")
+    chan = mpm._p2g_channels(cfg, tuple(state.v), m33.from_mat_array(state.C),
+                             stress, impulse)
+    gm, gmom = fused.p2g(*tr.ws6, chan)
+    gvm, mask = mpm._bounded_velocity(cfg, params, gm, gmom, tr.sizes,
+                                      tr.corner)
+    gvm = tuple(g.contiguous() for g in gvm)
+    v_tmp = fused.gather(*tr.W, *gvm)
+    life = torch.full((), 1.0 / cfg.substeps, dtype=state.x.dtype,
+                      device=state.x.device)      # substep k = 0
+    v_tgt = v_tmp
+    for i, prim in enumerate(env.prims):
+        v_tgt = contact.collide_mixed(
+            prim, bodies.pos[i], bodies.quat[i], bodies.v[i], bodies.w[i],
+            params.friction[i], params.softness[i], life, state.x, v_tgt,
+            cfg.dt, cfg.p_mass, cfg.contact_push_velocity_cap)[0]
+    vals = (-2.0 * (v_tmp - v_tgt)).contiguous()
+    corr = fused.splat(*tr.W, vals)
+    wx = tr.sizes[0]
+    gv = tuple(g.contiguous() for g in mpm.cfl_clamp(cfg, tuple(
+        torch.where(mask, gvm[d] + corr[:, d * wx:(d + 1) * wx], 0.0)
+        for d in range(3))))
+    return dict(n=state.x.shape[1], sizes=tr.sizes, ws6=tr.ws6, chan=chan,
+                gvm=gvm, vals=vals, gv=gv)
+
+
+def dense_kernel_inputs(device):
+    """Fully dense seeded normal weights at DENSE_WINDOW with N_DENSE
+    particles, and seeded channels, grids and values: the general function
+    the kernels compute, beyond B-spline weights."""
+    import torch
+    wx, wy, wz = DENSE_WINDOW
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    ws6 = tuple(normal(w, N_DENSE) for w in (wx, wx, wy, wy, wz, wz))
+    gv = tuple(normal(wy * wz, wx) for _ in range(3))
+    return dict(n=N_DENSE, sizes=DENSE_WINDOW, ws6=ws6,
+                chan=normal(13, N_DENSE), gvm=gv, vals=normal(3, N_DENSE),
+                gv=gv)
+
+
+def fused_einsums(inp, dtype=None):
+    """One torch.einsum per function over the dense weights (TF32 off):
+    the library yardstick of each kernel, used nowhere in the port. The
+    stacked operands are built here, outside the timed call; ``dtype``
+    casts them (float64 to check the formulas)."""
+    import torch
+    cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))  # noqa: E731
+    Wx, WxD, Wy, WDy, Wz, WDz = map(cast, inp["ws6"])
+    wx, wy, wz = inp["sizes"]
+    chan = cast(inp["chan"])
+    # the four weight combinations of P2G and G2P: (Wy Wz Wx), (Wy Wz WxD),
+    # (WDy Wz Wx), (Wy WDz Wx)
+    Y4 = torch.stack([Wy, Wy, WDy, Wy])
+    Z4 = torch.stack([Wz, Wz, Wz, WDz])
+    X4 = torch.stack([Wx, WxD, Wx, Wx])
+    zero = torch.zeros_like(chan[0])
+    ch = torch.stack([chan[0:4]] + [torch.stack([zero, chan[4 + j],
+                                                 chan[7 + j], chan[10 + j]])
+                                    for j in range(3)])      # (k, c, N)
+    G = lambda grids: cast(torch.stack(grids)).reshape(3, wy, wz, wx)  # noqa: E731
+    gv, gvm, vals = G(inp["gv"]), G(inp["gvm"]), cast(inp["vals"])
+    return {
+        "fused_p2g": lambda: torch.einsum("kyp,kzp,kcp,kxp->yzcx", Y4, Z4,
+                                          ch, X4),
+        "fused_g2p": lambda: torch.einsum("kyp,kzp,dyzx,kxp->kdp", Y4, Z4,
+                                          gv, X4),
+        "fused_splat": lambda: torch.einsum("yp,zp,dp,xp->yzdx", Wy, Wz,
+                                            vals, Wx),
+        "fused_gather": lambda: torch.einsum("yp,zp,dyzx,xp->dp", Wy, Wz,
+                                             gvm, Wx)}
+
+
+def _einsum_rows(name, out, sizes):
+    """An einsum's result in the rows form of ``_fused_rows``; G2P's
+    (k, d, N) becomes the kernel's (12, N): v, then C[d][j] in row
+    3 + 3d + j."""
+    import torch
+    wx, wy, wz = sizes
+    if name == "fused_p2g":
+        return out.reshape(wy * wz, 4, wx).transpose(0, 1).reshape(4, -1)
+    if name == "fused_g2p":
+        return torch.cat([out[0], out[1:].transpose(0, 1).reshape(9, -1)])
+    if name == "fused_splat":
+        return out.reshape(wy * wz, 3, wx).transpose(0, 1).reshape(3, -1)
+    return out
+
+
+def _fused_rows(name, out, sizes):
+    """Each function's output as rows compared one by one: P2G's mass and
+    three momentum windows, G2P's 12 particle rows, the splat's three
+    component windows, the gather's three rows."""
+    import torch
+    wx, wy, wz = sizes
+    if name == "fused_p2g":
+        gm, gmom = out
+        return torch.cat([gm.reshape(1, -1), gmom.reshape(
+            wy * wz, 3, wx).transpose(0, 1).reshape(3, -1)])
+    if name == "fused_splat":
+        return out.reshape(wy * wz, 3, wx).transpose(0, 1).reshape(3, -1)
+    return out
+
+
+def fused_calls(inp):
+    """name -> (kernel call, plain call on the same float32 inputs, float64
+    plain call)."""
+    from softmac_tpu_torch.ops import fused
+    ws6, chan, gv, gvm, vals = (inp[k] for k in ("ws6", "chan", "gv", "gvm",
+                                                "vals"))
+    W = ws6[0::2]
+    w64 = [w.double() for w in ws6]
+    d = lambda ts: [t.double() for t in ts]  # noqa: E731
+    return {
+        "fused_p2g": (lambda: fused.p2g(*ws6, chan),
+                      lambda: fused.p2g_plain(*ws6, chan),
+                      lambda: fused.p2g_plain(*w64, chan.double())),
+        "fused_g2p": (lambda: fused.g2p(*ws6, *gv),
+                      lambda: fused.g2p_plain(*ws6, *gv),
+                      lambda: fused.g2p_plain(*w64, *d(gv))),
+        "fused_splat": (lambda: fused.splat(*W, vals),
+                        lambda: fused.splat_plain(*W, vals),
+                        lambda: fused.splat_plain(*w64[0::2], vals.double())),
+        "fused_gather": (lambda: fused.gather(*W, *gvm),
+                         lambda: fused.gather_plain(*W, *gvm),
+                         lambda: fused.gather_plain(*w64[0::2], *d(gvm)))}
+
+
+def _rows_rel(got, want):
+    """max |got - want| and the largest of that over each row's max |want|."""
+    diff = (got.double() - want.double()).abs()
+    scale = want.double().abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    return diff.max().item(), (diff / scale).max().item()
+
+
+def fused_work(name, inp):
+    """(bytes, visited cells, dense cells) of one call: each input read
+    once and each output written once; the cells inside each particle's
+    nonzero row ranges (what the kernel visits), and wx*wy*wz a particle
+    (the dense contraction)."""
+    import torch
+    n, (wx, wy, wz) = inp["n"], inp["sizes"]
+    cells = wx * wy * wz
+    ws6 = inp["ws6"]
+    deriv = name in ("fused_p2g", "fused_g2p")
+    lengths = []
+    for a, b in zip(ws6[0::2], ws6[1::2]):
+        nz = (a != 0) | (b != 0) if deriv else a != 0
+        rows = torch.arange(a.shape[0], device=a.device)[:, None]
+        lo = torch.where(nz, rows, a.shape[0]).amin(dim=0)
+        hi = torch.where(nz, rows, -1).amax(dim=0)
+        lengths.append((hi - lo + 1).clamp(min=0).double())
+    visited = int((lengths[0] * lengths[1] * lengths[2]).sum().item())
+    w_rows = (2 if deriv else 1) * (wx + wy + wz)
+    per_particle = {"fused_p2g": 13, "fused_g2p": 12, "fused_splat": 3,
+                    "fused_gather": 3}[name]
+    nbytes = (w_rows + per_particle) * n * 4 + (4 if name == "fused_p2g"
+                                                else 3) * cells * 4
+    return nbytes, visited, n * cells
+
+
+def check_fused_kernels(door_inp, big_inp, dense_inp):
+    """The four dense-weight transfer kernels against their float64 plain
+    versions on the door's state and on dense random weights (1e-5 of each
+    output row's largest |value|), timed with CUDA events on the door's
+    state and on it tiled to 1e5 particles, beside the plain version and
+    one torch.einsum over the dense weights; bounds from each run's
+    inputs."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    srcs = {
+        "fused_p2g": ("fused_p2g.cu", ":627 (_p2g_pallas, pallas_call :641, "
+                      "kernel _p2g_kernel :256)"),
+        "fused_g2p": ("fused_g2p.cu", ":660 (_g2p_pallas, pallas_call :672, "
+                      "kernel _g2p_kernel :295)"),
+        "fused_splat": ("fused_splat.cu", ":689 (_splat_pallas, pallas_call "
+                        ":700, kernel _splat_kernel :505)"),
+        "fused_gather": ("fused_gather.cu", ":714 (_gather_pallas, "
+                         "pallas_call :725, kernel _gather_kernel :520)")}
+    calls = {k: fused_calls(inp) for k, inp in
+             (("door", door_inp), ("big", big_inp), ("dense", dense_inp))}
+    libs = {k: fused_einsums(inp) for k, inp in
+            (("door", door_inp), ("big", big_inp))}
+    entries = []
+    for name, (src, where) in srcs.items():
+        errs = {}
+        for case, inp in (("door", door_inp), ("dense", dense_inp)):
+            kern, _, ref = calls[case][name]
+            errs[case] = _rows_rel(_fused_rows(name, kern(), inp["sizes"]),
+                                   _fused_rows(name, ref(), inp["sizes"]))
+        # the einsum's formula, run in float64, against the plain version
+        lib_err = _rows_rel(
+            _einsum_rows(name, fused_einsums(door_inp, torch.float64)[name](),
+                         door_inp["sizes"]),
+            _fused_rows(name, calls["door"][name][2](), door_inp["sizes"]))[1]
+        if not lib_err <= 1e-8:
+            raise AssertionError(f"{name}: the einsum yardstick differs by "
+                                 f"{lib_err}")
+        times = {}
+        for case in ("door", "big"):
+            kern, plain, _ = calls[case][name]
+            times[case] = (cuda_time_ms(kern), cuda_time_ms(plain),
+                           cuda_time_ms(libs[case][name], iters=5))
+        nbytes, visited, dense = fused_work(name, door_inp)
+        e = kernel_entry(door_inp["n"], name,
+                         "softmac_tpu_torch/ops/csrc/" + src,
+                         "softmac_tpu/ops/pallas_fused.py" + where,
+                         max(v[0] for v in errs.values()),
+                         max(v[1] for v in errs.values()), times["door"][0],
+                         times["door"][1], nbytes,
+                         flops=visited * FLOPS_PER_CELL[name])
+        e["library_ms"] = times["door"][2]
+        e["library_is"] = ("one torch.einsum over the dense weights, TF32 "
+                           "off (operands stacked outside the timed call)")
+        e["library_float64_rel_err"] = lib_err
+        e["rel_err_is"] = ("max |kernel - plain| / max |plain| per output "
+                           "row (window components for P2G and the splat), "
+                           "the plain version in float64, over the door's "
+                           "state and the dense random weights")
+        e["rel_err_by_input"] = {k: v[1] for k, v in errs.items()}
+        e["dense_input"] = {"window": list(DENSE_WINDOW), "n": N_DENSE}
+        e["n_particles"] = door_inp["n"]
+        e["visited_cells"] = visited
+        e["dense_flops"] = dense * FLOPS_PER_CELL[name]
+        nb, vis, _ = fused_work(name, big_inp)
+        b_ms, b_by = bound(name, big_inp["n"], nb,
+                           vis * FLOPS_PER_CELL[name])
+        e["at_1e5"] = {"n_particles": big_inp["n"], "ms": times["big"][0],
+                       "plain_ms": times["big"][1],
+                       "library_ms": times["big"][2], "bound_ms": b_ms,
+                       "bound_by": b_by, "bytes": nb, "visited_cells": vis}
+        entries.append(e)
+    return entries
+
+
+def run_door(env):
+    """The door's main path: one rollout of DOOR_STEPS env steps of the
+    demo's initial actions with the launches counted from zero (each
+    dense-weight transfer and the mixed contact once a substep, no
+    ops/transfer.py kernel), its end state against a zero-action rollout
+    of the same length, DOOR_REPEATS timed rollouts of DOOR_TIMED_STEPS,
+    the demo's full horizon once with its loss frames, and
+    rollout_and_grad refused on the card."""
+    import numpy as np
+    import torch
+    acts = door_actions(DOOR_STEPS)
+    reset_launches()
+    out, secs = timed_rollout(env, acts)
+    launches = read_launches()
+    n_sub = DOOR_STEPS * env.substeps
+    expect = dict.fromkeys(wrappers(), 0)
+    expect.update(dict.fromkeys(FUSED, n_sub))
+    expect["collide_mixed"] = n_sub * env.n_primitives
+    if launches != expect:
+        raise AssertionError(f"door launch counts {launches}, expected "
+                             f"{expect}")
+    zero = env.rollout(np.zeros((DOOR_STEPS, env.action_dim)))
+    rates = []
+    timed = door_actions(DOOR_TIMED_STEPS)
+    for _ in range(DOOR_REPEATS):
+        _, rep_secs = timed_rollout(env, timed)
+        rates.append(DOOR_TIMED_STEPS * env.substeps / rep_secs)
+    start = (2 * DOOR_HORIZON * env.substeps // 3) // 20 * 20
+    t0 = time.perf_counter()
+    full = env.rollout(door_actions(DOOR_HORIZON), loss_start_frame=start,
+                       loss_stride=20)
+    torch.cuda.synchronize()
+    full_secs = time.perf_counter() - t0
+    (m, _, r), (mc, _, rc) = full["carry"], out["carry"]
+    mz, _, rz = zero["carry"]
+    try:
+        env.rollout_and_grad(door_actions(2))
+        refused = None
+    except NotImplementedError as err:
+        refused = str(err)
+    res = {"scene": "demo_door", "n_particles": env.n_particles,
+           "window": list(env.mpm_cfg.active_window), "actions": "z = 0.1",
+           "counted": {"env_steps": DOOR_STEPS, "substeps": n_sub,
+                       "substeps_per_s": n_sub / secs,
+                       "loss": out["loss"].item(), "launches": launches,
+                       "window_overflow": bool(
+                           out["terms"]["window_overflow"]),
+                       "hinge_angle": rc.q.tolist(),
+                       "zero_action_loss": zero["loss"].item(),
+                       "zero_action_hinge_angle": rz.q.tolist(),
+                       "x_max_abs_diff_vs_zero_action":
+                           (mc.x - mz.x).abs().max().item()},
+           "timed": {"env_steps": DOOR_TIMED_STEPS, "runs": rates,
+                     "substeps_per_s": statistics.median(rates),
+                     "substeps_per_s_min": min(rates),
+                     "substeps_per_s_max": max(rates)},
+           "horizon": {"env_steps": DOOR_HORIZON, "loss_start_frame": start,
+                       "loss_stride": 20, "seconds": full_secs,
+                       "substeps_per_s": DOOR_HORIZON * env.substeps
+                       / full_secs,
+                       "loss": full["loss"].item(),
+                       "terms": {k: float(v)
+                                 for k, v in full["terms"].items()},
+                       "hinge_angle": r.q.tolist(),
+                       "hinge_rate": r.qd.tolist(),
+                       "x_finite": bool(torch.isfinite(m.x).all())},
+           "rollout_and_grad_refused": refused}
+    h, c = res["horizon"], res["counted"]
+    if (h["terms"]["window_overflow"] or c["window_overflow"]
+            or bool(zero["terms"]["window_overflow"])
+            or not math.isfinite(h["loss"]) or not h["x_finite"]
+            or not all(math.isfinite(v) for v in h["hinge_angle"])
+            or not c["x_max_abs_diff_vs_zero_action"] > 0):
+        raise AssertionError(f"door output wrong: {res}")
+    if refused is None or "row 18" not in refused:
+        raise AssertionError(f"door rollout_and_grad on the card was not "
+                             f"refused naming row 18: {refused}")
+    return res, launches
+
+
+def run_door_parity():
+    """The door's own 5400-particle scene, 20 env steps of the demo's
+    initial actions: card (float32, kernels) against the CPU (float64,
+    plain versions); x, the hinge's q and qd within 1e-4 absolute, the loss
+    within 1e-4 relative."""
+    steps = 20
+    acts = door_actions(steps)
+    reset_launches()
+    outs = {"cuda": door_env().rollout(acts)}
+    launches = read_launches()
+    outs["cpu"] = door_env("cpu").rollout(acts)
+    (mg, _, rg), (mc, _, rc) = outs["cuda"]["carry"], outs["cpu"]["carry"]
+    lg, lc = outs["cuda"]["loss"].item(), outs["cpu"]["loss"].item()
+    res = {"n_particles": mc.x.shape[1], "env_steps": steps,
+           "x_max_abs_err": (mg.x.double().cpu() - mc.x).abs().max().item(),
+           "q_max_abs_err": (rg.q.double().cpu() - rc.q).abs().max().item(),
+           "qd_max_abs_err": (rg.qd.double().cpu() - rc.qd).abs().max().item(),
+           "hinge_angle_cpu": rc.q.tolist(), "loss_gpu": lg, "loss_cpu": lc,
+           "loss_rel_err": abs(lg - lc) / abs(lc), "tolerance": 1e-4,
+           "gpu_launches": {k: launches[k] for k in FUSED}}
+    if not all(launches[k] > 0 for k in FUSED):
+        raise AssertionError(f"door parity: the card's run missed a kernel "
+                             f"{launches}")
+    if not (res["x_max_abs_err"] <= 1e-4 and res["q_max_abs_err"] <= 1e-4
+            and res["qd_max_abs_err"] <= 1e-4
+            and res["loss_rel_err"] <= 1e-4):
+        raise AssertionError(f"door GPU/CPU parity failed: {res}")
+    return res
+
+
+def svd_launches(env, carry):
+    """Device kernels one svd3_soa of the door's F launches (once per
+    substep), counted with torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from softmac_tpu_torch.engine.svd3 import svd3_soa
+    from softmac_tpu_torch.ops import m33
+    F = m33.from_mat_array(carry[0].F)
+    svd3_soa(F)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        svd3_soa(F)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1477,6 +1940,16 @@ def main():
     pour_inp = pour_kernel_inputs(pour_env, pour10)
     kernels += check_pour_kernels(pour_inp)
     kernels += check_pour_backward_kernels(pour_inp)
+    denv = door_env()
+    door10 = denv.rollout(door_actions(STATE_STEPS))["carry"]
+    door_inp = door_kernel_inputs(denv, door10, door_actions(1)[0])
+    big = tiled_carry(door10, N_MAIN)
+    big_inp = door_kernel_inputs(
+        door_env(init_particles=big[0].x.T.cpu().numpy()), big,
+        door_actions(1)[0])
+    kernels += check_fused_kernels(door_inp, big_inp,
+                                   dense_kernel_inputs(denv.device))
+    del big, big_inp
 
     paths = {}
     slice_res, paths["slice"] = run_slice(env)
@@ -1489,17 +1962,20 @@ def main():
     paths["pour_grad_step"], paths["pour_grad_none"] = (
         pour_grad_launches["step"], pour_grad_launches["none"])
     split_grad_res, paths["pour_split_grad"] = run_pour_split_grad(pour_env)
+    door_res, paths["door"] = run_door(denv)
     for k in kernels:
         # each kernel's main path: the forward kernels of pour_vel on its
         # rollout, their backwards on its gradient path with the default
         # remat ("step"), the pour's forward kernels on the flagship pour's
         # rollout and their backwards on its gradient path ("step"), the
-        # split pair and its backward pair on that scene under the switch
+        # split pair and its backward pair on that scene under the switch,
+        # the dense-weight transfers on the door's rollout
         name = k["name"]
         counter = {"collide_mixed_split": "collide_mixed1",
                    "collide_mixed_split_bwd": "collide_mixed1_bwd"}.get(
                        name, name)
-        path = ("slice" if name in FORWARD else "pour" if name in POUR
+        path = ("slice" if name in FORWARD else "door" if name in FUSED
+                else "pour" if name in POUR
                 else "pour_split" if counter == "collide_mixed1"
                 else "pour_split_grad" if counter == "collide_mixed1_bwd"
                 else "pour_grad_step" if name in POUR_BWD
@@ -1527,6 +2003,16 @@ def main():
         pour_env, np.zeros((10, pour_env.action_dim)), grad=True))
     emit("parity", run_parity())
     emit("demo", run_demo())
+    emit("door", door_res)
+    profile_door = run_profile(denv, door_actions(20))
+    profile_door["svd_launches_per_substep"] = svd_launches(denv, door10)
+    profile_door["svd_share_of_launches"] = (
+        profile_door["svd_launches_per_substep"]
+        / profile_door["kernel_launches_per_substep"])
+    profile_door["rigid_step_launches_per_env_step"] = rigid_step_launches(
+        denv)
+    emit("profile_door", profile_door)
+    emit("door_parity", run_door_parity())
     print(smi, flush=True)      # the card again, next to the result
     emit(None, {"ok": True, "device": {"platform": "gpu", "kind": kind,
                                       "count": torch.cuda.device_count()}})

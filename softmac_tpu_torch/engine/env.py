@@ -1,13 +1,15 @@
 """Scene building, the forward rollout and its gradient.
 
-Counterpart of ``softmac_tpu/engine/env.py`` for the rigid-coupled scenes
-of the pour family: the velocity-controlled pour_vel (particle contact
-against SDF primitives whose (w, v) the actions set) and the flagship pour
-(forecast mixed contact against floating, force-controlled bodies that the
-``RigidModel`` steps once per env step with the window-averaged contact
-wrench). ``rollout`` (under ``torch.no_grad()``) and ``rollout_and_grad``
-(autograd, then ``torch.autograd.grad`` of the loss with respect to the
-actions) run one loop, eagerly on ``device`` (CUDA by default):
+Counterpart of ``softmac_tpu/engine/env.py`` for the rigid-coupled scenes:
+the velocity-controlled pour_vel (particle contact against SDF primitives
+whose (w, v) the actions set), the flagship pour (forecast mixed contact
+against floating, force-controlled bodies that the ``RigidModel`` steps
+once per env step with the window-averaged contact wrench) and the door
+(``control_mode`` "mpm": the actions drive particle controllers, and the
+``RigidModel`` steps the revolute door with no action). ``rollout``
+(under ``torch.no_grad()``) and ``rollout_and_grad`` (autograd, then
+``torch.autograd.grad`` of the loss with respect to the actions) run one
+loop, eagerly on ``device`` (CUDA by default):
 
     sort particles by y-cell
     for each loss block:   clip the carry's cotangent (``grad_clip``),
@@ -144,8 +146,6 @@ class SoftMacEnv:
         self.search_dirs = [".", str(REPO_ROOT)]
         if cfg.get("CLOTH") and cfg.CLOTH.get("sceneConfig"):
             raise NotImplementedError("cloth scenes are not ported yet")
-        if cfg.control_mode == "mpm" and cfg.SIMULATOR.n_controllers > 0:
-            raise NotImplementedError("MPM particle control is not ported yet")
 
         # ---------------- particles ----------------------------------------
         # init_particles overrides SHAPES with an explicit (N, 3) position
@@ -203,6 +203,7 @@ class SoftMacEnv:
             collision_type=sim.collision_type,
             ground_friction=sim.ground_friction,
             n_primitives=self.n_primitives,
+            n_controllers=int(sim.n_controllers),
             primitives_contact=(True,) * self.n_primitives,
             mpm_scale=mpm_scale,
             contact_push_velocity_cap=float(
@@ -246,7 +247,9 @@ class SoftMacEnv:
                     f"loss {cfg.ENV.loss_type} is not ported yet")
             self.loss = LOSS_REGISTRY[cfg.ENV.loss_type](cfg.ENV.loss, self)
 
-        if self.rigid_model is not None:
+        if self.control_mode == "mpm":
+            self.action_dim = 3 * self.mpm_cfg.n_controllers
+        elif self.rigid_model is not None:
             self.action_dim = self.rigid_model.action_dim
         else:
             self.action_dim = 6 * self.n_primitives
@@ -261,6 +264,12 @@ class SoftMacEnv:
             if cand.exists():
                 return cand
         raise FileNotFoundError(f"{path} not found in {self.search_dirs}")
+
+    def set_control_idx(self, idx):
+        """Assign each particle to a controller (-1: none), (N,) ints."""
+        self.mpm_params = self.mpm_params.replace(
+            control_idx=torch.as_tensor(np.asarray(idx), dtype=torch.int32,
+                                        device=self.device))
 
     # ==================================================================
     # initial state and one env step
@@ -284,7 +293,7 @@ class SoftMacEnv:
         return (mpm0, bodies0, rigid0)
 
     def _env_step_fn(self, carry, action, params=None, loss_weights=None,
-                  unsort_perm=None):
+                     unsort_perm=None):
         """(carry, action) -> (carry, (overflow, ext_f[, loss_terms])).
 
         ``params`` are the per-particle parameters in the carry's particle
@@ -298,8 +307,12 @@ class SoftMacEnv:
             # the bodies stay frozen over the substeps; their cotangents
             # from the MPM side are damped by ext_grad_scale
             bodies = grad_scale(bodies, self.ext_grad_scale)
+        mpm_action = None
+        if self.control_mode == "mpm" and self.action_dim > 0:
+            mpm_action = action.reshape(self.mpm_cfg.n_controllers, 3).to(
+                self.dtype)
         mpm, bodies, ext_f, overflow, terms = self._substeps(
-            mpm, bodies, params, loss_weights, unsort_perm)
+            mpm, bodies, params, loss_weights, unsort_perm, mpm_action)
         bodies, rigid = self._rigid_step(bodies, rigid, action, ext_f)
         out = (overflow, ext_f)
         if loss_weights is not None:
@@ -307,16 +320,17 @@ class SoftMacEnv:
         return (mpm, bodies, rigid), out
 
     def _substeps(self, mpm, bodies, params, loss_weights=None,
-                  unsort_perm=None):
+                  unsort_perm=None, mpm_action=None):
         """The env step's MPM half: ``substeps`` substeps against the
-        bodies. Returns (mpm, bodies, ext_f, overflow, loss terms): ext_f
-        is the window-averaged wrench, overflow whether the active window
-        missed a particle."""
+        bodies, with the particle controllers' ``mpm_action``. Returns
+        (mpm, bodies, ext_f, overflow, loss terms): ext_f is the
+        window-averaged wrench, overflow whether the active window missed a
+        particle."""
         cfg = self.mpm_cfg
         ext, ovf, terms = [], [], {}
         for k in range(cfg.substeps):
             mpm, extf, aux = mpm_mod.substep(cfg, params, self.prims, mpm,
-                                             bodies, k)
+                                             bodies, k, mpm_action)
             if self.rigid_vel_model is not None:
                 bodies = RigidVelocityModel.forward_kinematics(bodies, cfg.dt)
             ext.append(extf)

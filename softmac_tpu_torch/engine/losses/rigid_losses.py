@@ -1,9 +1,12 @@
 """Task losses of the rigid-coupled scenes
-(``softmac_tpu/engine/losses/rigid_losses.py``). ``PourLoss`` is ported
-(reference ``softmac/engine/losses/loss_pour.py``: chamfer + pose +
-velocity); the grip, door and transport losses come with their scenes."""
+(``softmac_tpu/engine/losses/rigid_losses.py``): ``PourLoss`` (reference
+``softmac/engine/losses/loss_pour.py``: chamfer + pose + velocity) and
+``DoorLoss`` (``loss_door.py``: pose on the door's quaternion + velocity +
+min contact distance); the grip and transport losses come with their
+scenes."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from softmac_tpu_torch.engine.losses.common import (
@@ -41,4 +44,25 @@ class PourLoss(LossBase):
         out["pose_loss"] = self.pose_weight * 10.0 * (s.bodies.pos[0, 1] - 0.4) ** 2
         out["vel_loss"] = self.velocity_weight * (
             torch.sum(s.bodies.v[0] ** 2) + 0.1 * torch.sum(s.bodies.w[0] ** 2))
+        return out
+
+
+class DoorLoss(LossBase):
+    term_names = ("pose_loss", "vel_loss", "contact_loss")
+
+    def __init__(self, cfg, scene):
+        super().__init__(cfg, scene)
+        w = cfg.weight
+        self.pose_weight, self.velocity_weight, self.contact_weight = w[0], w[1], w[2]
+
+    def terms(self, s: FrameSample) -> dict:
+        out = {}
+        # loss_door.py:36-37: door quaternion w pulled to cos(pi/8)
+        out["pose_loss"] = self.pose_weight * (
+            s.bodies.quat[0, 0] - np.cos(np.pi / 8)) ** 2
+        out["vel_loss"] = self.velocity_weight * torch.sum(s.bodies.v[0] ** 2)
+        # loss_door.py:53-61: squared min over particles of hinged distance
+        d2 = torch.sum((s.x - s.bodies.pos[0]) ** 2, dim=-1)
+        min_dist = torch.min(torch.clamp(d2 - 0.01, min=0.0))
+        out["contact_loss"] = self.contact_weight * min_dist ** 2
         return out

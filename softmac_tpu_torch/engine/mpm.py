@@ -1,13 +1,29 @@
 """MLS-MPM core: one substep with particle contact or forecast mixed
-contact.
+contact, and particle controllers.
 
 Counterpart of ``softmac_tpu/engine/mpm.py`` (reference
 ``softmac/engine/mpm_simulator.py``: compute_F_tmp :126, p2g :199,
 grid_op :284, boundary_condition :269, grid_op_mixed1-4, g2p :300).
 Particles are ``(3, N)`` struct-of-arrays; the grid is the active window in
-the ``(wy*wz, wx)`` form of ``grid_coords``. The transfers are the P2G, G2P,
-gather and splat of ``ops.transfer`` (CUDA kernels on the card, plain
-PyTorch on the CPU).
+the ``(wy*wz, wx)`` form of ``grid_coords``.
+
+The P2G, G2P, gather and splat of a substep take one of two routes, chosen
+by ``transfer_route`` from the window alone (not the dtype, so the CPU's
+float64 runs take the route the card's float32 runs take):
+- "fused": ``ops/fused.py`` over the dense per-axis weights of
+  ``axis_weights`` when the window passes ``pallas_fused.kernel_wanted``
+  and not ``pallas_chunked.kernel_wanted`` (the door's (32, 16, 32):
+  wy < 24), as the JAX package's ``_Transfers`` (mpm.py:416-533) picks it;
+- "transfer": ``ops/transfer.py``'s x-based kernels (the y-chunked
+  family's counterpart) for every other window: the pour scenes, which the
+  JAX package runs on the chunked family, and no window or a window
+  neither rule takes, where it runs XLA matmuls over the Khatri-Rao pairs
+  (the ``pallas_kr`` kernel on the TPU). Until that kernel is ported the
+  x-based kernels, which compute the same function, stand for it: a
+  static rule, not a runtime fallback.
+The x-based kernels read each particle's own position, so unlike the JAX
+chunked family they need no y-sorted order. Each route runs its CUDA
+kernels on the card and their plain PyTorch versions on the CPU.
 
 The window corner stays a device tensor, so a substep never waits on the
 host; ``window_overflow`` comes back as a 0-d bool tensor. A substep is
@@ -34,7 +50,7 @@ from softmac_tpu_torch.engine.types import (
     MPMState,
     SDFParams,
 )
-from softmac_tpu_torch.ops import m33, transfer
+from softmac_tpu_torch.ops import fused, m33, transfer
 
 
 def window_geometry(cfg: MPMConfig, x: torch.Tensor):
@@ -85,6 +101,97 @@ def permute_params(params: MPMParams, perm) -> MPMParams:
         mu=params.mu[perm], lam=params.lam[perm],
         yield_stress=params.yield_stress[perm],
         control_idx=params.control_idx[perm])
+
+
+def axis_weights(cfg: MPMConfig, x: torch.Tensor, sizes, corner):
+    """Dense per-axis B-spline weight matrices over the active window
+    (``mpm.axis_weights`` of the JAX package). Returns (W, WD): lists of 3
+    contiguous tensors (w_d, N); W[d][r, p] is the weight of particle p on
+    window row r along axis d (zero off its 3 stencil rows), WD[d] the same
+    times the unscaled (offset - fx) factor. The weights of all three axes
+    are computed at once; each row picks its offset's weight."""
+    pos = x * cfg.inv_dx
+    b = torch.floor(pos - 0.5).to(torch.int32)
+    fx = pos - b.to(pos.dtype)
+    w = torch.stack((0.5 * (1.5 - fx) ** 2, 0.75 - (fx - 1.0) ** 2,
+                     0.5 * (fx - 0.5) ** 2))                    # (3, 3, N)
+    offs = torch.arange(3, dtype=pos.dtype, device=x.device)[:, None, None]
+    wd = w * (offs - fx)
+    W, WD = [], []
+    for d in range(3):
+        rel = (corner[d] + torch.arange(sizes[d], dtype=torch.int32,
+                                        device=x.device))[:, None] - b[d]
+        hit = (rel >= 0) & (rel < 3)
+        idx = rel.clamp(0, 2).to(torch.int64)
+        W.append(torch.where(hit, torch.gather(w[:, d], 0, idx), 0.0))
+        WD.append(torch.where(hit, torch.gather(wd[:, d], 0, idx), 0.0))
+    return W, WD
+
+
+def _chunked_wanted(window) -> bool:
+    """``pallas_chunked.kernel_wanted``: wy >= 24, wy and wz multiples of
+    8."""
+    wx, wy, wz = window
+    return wy >= 24 and wy % 8 == 0 and wz % 8 == 0
+
+
+def _fused_wanted(window) -> bool:
+    """``pallas_fused.kernel_wanted``: wz and wx multiples of 8, wy * wz <=
+    1280."""
+    wx, wy, wz = (int(w) for w in window)
+    return wz % 8 == 0 and wy * wz <= 1280 and wx % 8 == 0
+
+
+def transfer_route(cfg: MPMConfig) -> str:
+    """"fused" or "transfer" for this config's window (see the module
+    docstring)."""
+    window = cfg.active_window
+    if window and _fused_wanted(window) and not _chunked_wanted(window):
+        return "fused"
+    return "transfer"
+
+
+class Transfers:
+    """One substep's transfers on its route: the window (sizes, corner,
+    overflow) from the particles x and, on the fused route, the dense
+    per-axis weights, built once and shared by the four transfers."""
+
+    def __init__(self, cfg: MPMConfig, x: torch.Tensor):
+        self.cfg, self.x = cfg, x
+        self.sizes, self.corner, self.overflow = window_geometry(cfg, x)
+        self.route = transfer_route(cfg)
+        if self.route == "fused":
+            W, WD = axis_weights(cfg, x, self.sizes, self.corner)
+            self.W = W
+            self.ws6 = (W[0], WD[0], W[1], WD[1], W[2], WD[2])
+
+    def p2g(self, chan):
+        """(gm (wy*wz, wx), gmom (wy*wz, 3*wx))."""
+        if self.route == "fused":
+            return fused.p2g(*self.ws6, chan)
+        return transfer.p2g(self.x, chan, self.corner, self.sizes,
+                            self.cfg.inv_dx)
+
+    def gather(self, gv):
+        """The grid velocity at the particles, (3, N)."""
+        if self.route == "fused":
+            return fused.gather(*self.W, *gv)
+        return transfer.gather(self.x, *gv, self.corner, self.sizes,
+                               self.cfg.inv_dx)
+
+    def splat(self, vals):
+        """vals (3, N) onto the window, (wy*wz, 3*wx)."""
+        if self.route == "fused":
+            return fused.splat(*self.W, vals)
+        return transfer.splat(self.x, vals, self.corner, self.sizes,
+                              self.cfg.inv_dx)
+
+    def g2p(self, gv):
+        """(12, N): v, then the unscaled C[d][j] in row 3 + 3d + j."""
+        if self.route == "fused":
+            return fused.g2p(*self.ws6, *gv)
+        return transfer.g2p(self.x, *gv, self.corner, self.sizes,
+                            self.cfg.inv_dx)
 
 
 def _p2g_channels(cfg: MPMConfig, v_vec, C, stress, impulse) -> torch.Tensor:
@@ -152,7 +259,8 @@ def stress_and_F(cfg: MPMConfig, params: MPMParams, state: MPMState):
     C = m33.from_mat_array(state.C)
     F = m33.from_mat_array(state.F)
     F_tmp = m33.mmul(m33.madd_diag(m33.mscale(C, cfg.dt), 1.0), F)
-    return compute_stress_and_F(cfg, F_tmp, params.mu, params.lam)
+    return compute_stress_and_F(cfg, F_tmp, params.mu, params.lam,
+                                params.yield_stress)
 
 
 def contact_impulse(cfg: MPMConfig, params: MPMParams,
@@ -200,9 +308,21 @@ def grid_velocity(cfg: MPMConfig, params: MPMParams, gm, gmom, sizes, corner):
     return tuple(g.contiguous() for g in cfl_clamp(cfg, gv))
 
 
+def control_impulse(cfg: MPMConfig, params: MPMParams, impulse, mpm_action):
+    """The particle controllers' impulse added to ``impulse``: a particle
+    with control_idx c >= 0 takes 6e-4 * mpm_action[c] * dt."""
+    if cfg.n_controllers == 0 or mpm_action is None:
+        return impulse
+    cidx = params.control_idx
+    act = mpm_action[cidx.clamp(0, cfg.n_controllers - 1).to(torch.int64)]
+    on = cidx >= 0
+    return tuple(impulse[d] + torch.where(on, 6e-4 * act[:, d] * cfg.dt, 0.0)
+                 for d in range(3))
+
+
 def grid_velocity_mixed(cfg: MPMConfig, params: MPMParams,
                         prims: Tuple[SDFParams, ...], state: MPMState,
-                        bodies: BodyState, gm, gmom, sizes, corner, k: int,
+                        bodies: BodyState, gm, gmom, tr: Transfers, k: int,
                         wrenches):
     """P2G grids -> grid velocity under forecast mixed contact
     (grid_op_mixed1-4): normalize, add gravity, apply the boundary, gather
@@ -211,10 +331,10 @@ def grid_velocity_mixed(cfg: MPMConfig, params: MPMParams,
     target velocity), splat the correction -2 (v_tmp - v_tgt) back onto
     the non-empty cells and apply the optional CFL clamp (the boundary is
     not applied again). Adds each primitive's wrench to ``wrenches[i]``."""
-    wx = sizes[0]
-    gvm, mask = _bounded_velocity(cfg, params, gm, gmom, sizes, corner)
+    wx = tr.sizes[0]
+    gvm, mask = _bounded_velocity(cfg, params, gm, gmom, tr.sizes, tr.corner)
     x = state.x
-    v_tmp = transfer.gather(x, *gvm, corner, sizes, cfg.inv_dx)
+    v_tmp = tr.gather(tuple(g.contiguous() for g in gvm))
     v_tgt = v_tmp
     # the remaining-window factor, a device scalar: no host round trip
     life = torch.full((), 1.0 / (cfg.substeps - k), dtype=x.dtype,
@@ -227,8 +347,7 @@ def grid_velocity_mixed(cfg: MPMConfig, params: MPMParams,
             params.friction[i], params.softness[i], x, v_tgt, cfg.p_mass,
             cfg.dt, life, push_cap=cfg.contact_push_velocity_cap)
         wrenches[i] = wrenches[i] + wr
-    corr = transfer.splat(x, -2.0 * (v_tmp - v_tgt), corner, sizes,
-                          cfg.inv_dx)
+    corr = tr.splat(-2.0 * (v_tmp - v_tgt))
     gv = tuple(torch.where(mask, gvm[d] + corr[:, d * wx:(d + 1) * wx], 0.0)
                for d in range(3))
     return tuple(g.contiguous() for g in cfl_clamp(cfg, gv))
@@ -236,24 +355,26 @@ def grid_velocity_mixed(cfg: MPMConfig, params: MPMParams,
 
 def substep(cfg: MPMConfig, params: MPMParams,
             prims: Tuple[SDFParams, ...], state: MPMState, bodies: BodyState,
-            k: int):
+            k: int, mpm_action=None):
     """One MLS-MPM substep (k-th of the env step) with particle contact,
-    mixed contact or none. Returns (new_state, ext_f (B, 6),
+    mixed contact or none, and the particle controllers' ``mpm_action``
+    (n_controllers, 3). Returns (new_state, ext_f (B, 6),
     {"window_overflow": 0-d bool tensor})."""
     stress, F_new = stress_and_F(cfg, params, state)
     impulse, wrenches = contact_impulse(cfg, params, prims, state, bodies)
+    impulse = control_impulse(cfg, params, impulse, mpm_action)
 
     # --- P2G into the active window, grid ops, G2P + advection ------------
-    sizes, corner, overflow = window_geometry(cfg, state.x)
+    tr = Transfers(cfg, state.x)
     chan = _p2g_channels(cfg, tuple(state.v), m33.from_mat_array(state.C),
                          stress, impulse)
-    gm, gmom = transfer.p2g(state.x, chan, corner, sizes, cfg.inv_dx)
+    gm, gmom = tr.p2g(chan)
     if cfg.collision_type == CONTACT_MIXED:
         gv = grid_velocity_mixed(cfg, params, prims, state, bodies, gm, gmom,
-                                 sizes, corner, k, wrenches)
+                                 tr, k, wrenches)
     else:
-        gv = grid_velocity(cfg, params, gm, gmom, sizes, corner)
-    vc = transfer.g2p(state.x, *gv, corner, sizes, cfg.inv_dx)
+        gv = grid_velocity(cfg, params, gm, gmom, tr.sizes, tr.corner)
+    vc = tr.g2p(gv)
     v_new = vc[0:3]
     new_state = MPMState(
         x=state.x + cfg.dt * v_new,
@@ -261,4 +382,4 @@ def substep(cfg: MPMConfig, params: MPMParams,
         C=(4.0 * cfg.inv_dx) * vc[3:12].reshape(3, 3, -1),
         F=m33.to_mat_array(F_new),
     )
-    return new_state, torch.stack(wrenches), {"window_overflow": overflow}
+    return new_state, torch.stack(wrenches), {"window_overflow": tr.overflow}

@@ -1,7 +1,8 @@
 """Quaternion helpers on batched tensors, ``(w, x, y, z)`` order.
 
-What the velocity-controlled and the floating rigid bodies need, with the
-semantics of ``softmac_tpu/engine/quat.py`` (reference
+What the velocity-controlled, floating and revolute rigid bodies need
+(``mat2quat`` for a joint frame), with the semantics of
+``softmac_tpu/engine/quat.py`` (reference
 ``primitive_utils.py:8-47`` and the rotation conversions of
 ``rigid_simulator.py:274-353``). All functions broadcast over leading batch
 dimensions; ``rpy2mat`` is host-side NumPy for the URDF joint frames.
@@ -81,6 +82,39 @@ def quat2mat(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def mat2quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) to quaternion (Shepperd's method): the
+    four candidate solutions, the numerically best picked by ``torch.where``.
+    Each candidate's root is clamped away from zero, so an untaken branch
+    stays finite and sends no NaN into the gradient."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(a):
+        return torch.sqrt(torch.clamp(a, min=_EPS))
+
+    qw0 = root(1.0 + tr) / 2.0
+    c0 = torch.stack([qw0, (m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0)], dim=-1)
+    s1 = root(1.0 + m00 - m11 - m22) * 2.0
+    c1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1,
+                      (m02 + m20) / s1], dim=-1)
+    s2 = root(1.0 + m11 - m00 - m22) * 2.0
+    c2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2,
+                      (m12 + m21) / s2], dim=-1)
+    s3 = root(1.0 + m22 - m00 - m11) * 2.0
+    c3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3,
+                      0.25 * s3], dim=-1)
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    q = torch.where(cond0, c0, torch.where(cond1, c1,
+                                           torch.where(cond2, c2, c3)))
+    return qnormalize(q)
 
 
 def rpy2mat(rpy) -> np.ndarray:

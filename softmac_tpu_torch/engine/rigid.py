@@ -6,17 +6,23 @@ has no dynamics: actions set each body's (w, v) for the next window and
 poses integrate kinematically every substep.
 
 ``RigidModel`` is the force-controlled simulator built from URDFs
-(reference ``rigid_simulator.py``, Jade free joints), here for bodies on a
-floating joint to the world, as in the pour scene: a semi-implicit
-Newton-Euler step about the centre of mass with the window-averaged contact
-wrench, the actions (a world-frame torque and force at the body origin),
-gravity where the primitive's ``enable_external_force`` flag is set, and a
-spring-damper floor penalty at the mesh's bounding-box corners. State
-layout as the JAX package's: ``q`` = per body [exp(3), pos(3)], ``qd`` =
-[w(3), v(3)] world-frame. Every body is floating, so the step runs batched
-over the bodies, with no host sync. Revolute, prismatic, fixed and
-articulated bodies, welds and body-body contact come with the grip/door
-slice of the port.
+(reference ``rigid_simulator.py``, Jade joints) for bodies jointed to the
+world (through fixed joints only) in one of two ways:
+- floating, as in the pour scene: a semi-implicit Newton-Euler step about
+  the centre of mass with the window-averaged contact wrench, the actions
+  (a world-frame torque and force at the body origin), gravity where the
+  primitive's ``enable_external_force`` flag is set, and a spring-damper
+  floor penalty at the mesh's bounding-box corners;
+- revolute (or continuous), as the door's hinge: the torque about the
+  joint axis from the action, the wrench and gravity, the parallel-axis
+  inertia about the axis, implicit viscous ``joint_damping``, and the
+  URDF's velocity and position limits.
+State layout as the JAX package's: ``q`` = per floating body [exp(3),
+pos(3)] and per revolute body [angle], ``qd`` = [w(3), v(3)] world-frame
+and [angular rate]. A model's bodies are all of one kind (every reference
+scene's are), stepped batched, with no host sync. Prismatic, fixed and
+articulated bodies, mixed kinds, welds and body-body contact come with the
+grip slice of the port.
 """
 from __future__ import annotations
 
@@ -30,8 +36,8 @@ from softmac_tpu_torch.engine import quat as Q
 from softmac_tpu_torch.engine.meshio import UrdfModel, load_obj
 from softmac_tpu_torch.engine.types import BodyState, _Replace
 
-_LATER = ("is not ported yet; it comes with the grip/door slice of the port "
-          "(the port's RigidModel steps floating bodies)")
+_LATER = ("is not ported yet; it comes with the grip slice of the port "
+          "(the port's RigidModel steps floating and revolute bodies)")
 
 
 @dataclasses.dataclass
@@ -103,7 +109,7 @@ def grad_scale(bodies: BodyState, s: float) -> BodyState:
 @dataclasses.dataclass
 class _BodyDef:
     """One moving collision body = one contact primitive."""
-    jtype: str                  # floating (the only type ported)
+    jtype: str                  # floating | revolute
     q_offset: int               # dof offset into the global q vector
     mass: float
     inertia: np.ndarray         # (3,3) about the COM, inertial frame
@@ -112,6 +118,10 @@ class _BodyDef:
     joint_rot: np.ndarray       # (3,3) world joint frame
     gravity_on: bool
     support_points: np.ndarray  # (8,3) body-frame points for floor penalty
+    axis: np.ndarray            # (3,) unit joint axis, joint frame (revolute)
+    limit_lower: float = -np.inf
+    limit_upper: float = np.inf
+    limit_velocity: float = np.inf
 
 
 def _solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -137,7 +147,8 @@ def _support_points(verts: np.ndarray) -> np.ndarray:
 
 
 class RigidModel:
-    """Force-controlled rigid simulator built from URDFs (floating bodies).
+    """Force-controlled rigid simulator built from URDFs (floating and
+    revolute bodies).
 
     ``step(state, action, ext_f) -> state`` and
     ``body_states(state) -> BodyState``, as the JAX package's."""
@@ -153,6 +164,8 @@ class RigidModel:
         self.floor_height = float(cfg.get("floor_height", -0.08))
         self.floor_stiffness = float(cfg.get("floor_stiffness", 1e4))
         self.floor_damping = float(cfg.get("floor_damping", 10.0))
+        # viscous damping of 1-DoF joints, applied implicitly in the step
+        self.joint_damping = float(cfg.get("joint_damping", 0.0))
         if cfg.get("body_contact", False):
             raise NotImplementedError(f"RIGID.body_contact {_LATER}")
 
@@ -166,7 +179,8 @@ class RigidModel:
                 link = links[j.child]
                 if link.mesh_path is None:
                     continue
-                if j.jtype != "floating":
+                jtype = "revolute" if j.jtype == "continuous" else j.jtype
+                if jtype not in ("floating", "revolute"):
                     raise NotImplementedError(
                         f"a {j.jtype} joint ({j.name}) {_LATER}")
                 # the joint frame through the fixed joints above it; a
@@ -184,15 +198,20 @@ class RigidModel:
                     name = up.parent
                 verts, _ = load_obj(link.mesh_path)
                 self.bodies.append(_BodyDef(
-                    jtype="floating", q_offset=offset + ndof_skel,
+                    jtype=jtype, q_offset=offset + ndof_skel,
                     mass=float(link.mass),
                     inertia=np.asarray(link.inertia, np.float64),
                     com=np.asarray(link.inertial_origin, np.float64),
                     joint_pos=pos + rot @ j.origin_xyz,
                     joint_rot=rot @ Q.rpy2mat(j.origin_rpy),
                     gravity_on=True,
-                    support_points=_support_points(verts)))
-                ndof_skel += 6
+                    support_points=_support_points(verts),
+                    axis=(np.asarray(j.axis, np.float64)
+                          / np.linalg.norm(j.axis)),
+                    limit_lower=float(j.limit_lower),
+                    limit_upper=float(j.limit_upper),
+                    limit_velocity=float(j.limit_velocity)))
+                ndof_skel += 6 if jtype == "floating" else 1
             offset += ndof_skel
         if ext_force_flags:
             for b, flag in zip(self.bodies, ext_force_flags):
@@ -214,26 +233,55 @@ class RigidModel:
             self._q0 = np.zeros(self.state_dim_half)
             self._qd0 = np.zeros(self.state_dim_half)
 
-        # per-body constants, batched over the bodies (each body owns the
-        # six dofs at 6 * its slot: q.view(B, 6) is [exp, pos] per body)
+        kinds = {b.jtype for b in self.bodies}
+        if len(kinds) > 1:
+            raise NotImplementedError(f"floating and revolute bodies in one "
+                                      f"model {_LATER}")
+        self.floating = kinds != {"revolute"}
+
+        # per-body constants, batched over the bodies (q.view(B, 6) is
+        # [exp, pos] per floating body, q[i] the angle of revolute body i)
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.float64)).to(
                 dtype=dtype, device=self.device)
         bs = self.bodies
         self._com = dev([b.com for b in bs]).reshape(-1, 3)
-        self._inertia = dev([b.inertia for b in bs]).reshape(-1, 3, 3)
-        self._mass = dev([b.mass for b in bs]).reshape(-1, 1)
+        self._g = dev(self.gravity)
+        self._gravity_masked = not all(b.gravity_on for b in bs)
         self._gravity_on = dev([1.0 if b.gravity_on else 0.0
                                 for b in bs]).reshape(-1, 1)
-        self._gravity_masked = not all(b.gravity_on for b in bs)
-        self._support = dev([b.support_points for b in bs]).reshape(-1, 8, 3)
-        self._g = dev(self.gravity)
+        if self.floating:
+            self._inertia = dev([b.inertia for b in bs]).reshape(-1, 3, 3)
+            self._mass = dev([b.mass for b in bs]).reshape(-1, 1)
+            self._support = dev([b.support_points
+                                 for b in bs]).reshape(-1, 8, 3)
+            return
+        self._axis = dev([b.axis for b in bs]).reshape(-1, 3)
+        self._axis_w = dev([b.joint_rot @ b.axis for b in bs]).reshape(-1, 3)
+        self._joint_quat = Q.mat2quat(dev([b.joint_rot
+                                           for b in bs]).reshape(-1, 3, 3))
+        self._joint_pos = dev([b.joint_pos for b in bs]).reshape(-1, 3)
+        self._weight = dev([b.mass * self.gravity for b in bs]).reshape(-1, 3)
+        # parallel axis: the URDF inertia is about the COM and the joint
+        # axis passes through the body origin, |c - (c.a)a| from the COM
+        i_a = [float(b.axis @ b.inertia @ b.axis
+                     + b.mass * (b.com @ b.com - (b.com @ b.axis) ** 2))
+               for b in bs]
+        self._i_axis = dev(i_a)
+        self._damp = dev([1.0 + self.dt * self.joint_damping / v for v in i_a])
+        lo, hi, vmax = (np.array([getattr(b, k) for b in bs], np.float64)
+                        for k in ("limit_lower", "limit_upper",
+                                  "limit_velocity"))
+        self._vmax = dev(vmax) if np.isfinite(vmax).any() else None
+        self._range = ((dev(lo), dev(hi))
+                       if np.isfinite(np.r_[lo, hi]).any() else None)
 
-    def compensation_mass(self, slot: int) -> float:
+    def compensation_mass(self, slot: int) -> Optional[float]:
         """The gravity-affected mass the free joint of body ``slot`` holds
-        (``adjust_action_with_ext_force``): the body's own mass, every body
-        being floating here."""
-        return self.bodies[slot].mass
+        (``adjust_action_with_ext_force``): a floating body's own mass;
+        None for a revolute body, which has no free joint."""
+        b = self.bodies[slot]
+        return b.mass if b.jtype == "floating" else None
 
     # ------------------------------------------------------------------
     def init_state(self) -> RigidState:
@@ -241,10 +289,22 @@ class RigidModel:
             return torch.as_tensor(a).to(dtype=self.dtype, device=self.device)
         return RigidState(q=dev(self._q0), qd=dev(self._qd0))
 
+    def _revolute_quat(self, angle):
+        """Link frame of each revolute body: the joint frame composed with
+        the rotation by ``angle`` about the joint axis."""
+        return Q.qmul(self._joint_quat, Q.w2quat(self._axis * angle[:, None]))
+
     def body_states(self, state: RigidState) -> BodyState:
         """Per-primitive world pose + BODY-frame COM spatial velocity (the
         reference exports DART's ``getCOMSpatialVelocity()``, in body
         coordinates; the contact collider rotates it body -> world)."""
+        if not self.floating:
+            # the axis is invariant under its own rotation: the link-frame
+            # angular velocity is axis * qd
+            w_b = self._axis * state.qd[:, None]
+            return BodyState(pos=self._joint_pos,
+                             quat=self._revolute_quat(state.q),
+                             v=torch.cross(w_b, self._com, dim=-1), w=w_b)
         q = state.q.reshape(-1, 6)
         qd = state.qd.reshape(-1, 6)
         bq = Q.w2quat(q[:, :3])
@@ -279,18 +339,26 @@ class RigidModel:
     def step(self, state: RigidState, action: Optional[torch.Tensor],
              ext_f: torch.Tensor) -> RigidState:
         """Semi-implicit Euler step. ext_f: (B, 6) window-averaged wrench
-        [force, torque about the body origin] per primitive; action: the
-        [torque(3), force(3)] per free joint, world frame, at the origin."""
+        [force, torque about the body origin] per primitive; action: per
+        free joint the [torque(3), force(3)], world frame, at the origin,
+        per revolute joint the torque about its axis."""
         if action is None:
             action = torch.zeros((self.action_dim,), dtype=self.dtype,
                                  device=self.device)
-        a = action.reshape(-1)[:self.action_dim].reshape(-1, 6)
-        q = state.q.reshape(-1, 6)
-        qd = state.qd.reshape(-1, 6)
+        action = action.reshape(-1)[:self.action_dim]
         # each primitive's measured wrench is gated by its own ext-force
         # flag; the floor penalty below acts regardless of the flag
         if self._gravity_masked:
             ext_f = ext_f * self._gravity_on
+        if not self.floating:
+            return self._revolute_step(state.q, state.qd, action, ext_f)
+        q, qd = self._floating_step(state.q.reshape(-1, 6),
+                                    state.qd.reshape(-1, 6),
+                                    action.reshape(-1, 6), ext_f)
+        return RigidState(q=q.reshape(-1), qd=qd.reshape(-1))
+
+    def _floating_step(self, q, qd, a, ext_f):
+        """The floating bodies' step; q, qd, a, ext_f: (B_floating, 6)."""
         exp, pos = q[:, :3], q[:, 3:]
         w, v = qd[:, :3], qd[:, 3:]
         bq = Q.w2quat(exp)
@@ -322,5 +390,32 @@ class RigidModel:
         pos_new = (pos + r_c) + self.dt * v_c_new - r_c_new
         v_new = v_c_new - torch.cross(w_new, r_c_new, dim=-1)
         exp_new = Q.quat2w(bq_new)
-        return RigidState(q=torch.cat([exp_new, pos_new], dim=-1).reshape(-1),
-                          qd=torch.cat([w_new, v_new], dim=-1).reshape(-1))
+        return (torch.cat([exp_new, pos_new], dim=-1),
+                torch.cat([w_new, v_new], dim=-1))
+
+    def _revolute_step(self, q, qd, a, ext_f):
+        """The revolute bodies' step; q, qd, a: (B,), ext_f: (B, 6). The
+        torque about the joint axis from the body-origin wrench (body
+        origin = joint origin in the reference's URDFs) and gravity about
+        the hinge, then implicit viscous damping (explicit -c qd is
+        unstable once dt c / I > 2, which a gram-scale hinge hits at once)
+        and the joint limits."""
+        tau = a + torch.sum(self._axis_w * ext_f[:, 3:], dim=-1)
+        com_w = Q.qrot(self._revolute_quat(q), self._com)
+        tau = tau + self._gravity_on[:, 0] * torch.sum(
+            self._axis_w * torch.cross(com_w, self._weight, dim=-1), dim=-1)
+        qd_new = (qd + self.dt * tau / self._i_axis) / self._damp
+        # URDF joint limits (the reference's Jade/DART enforces the
+        # declared <limit> tags, e.g. door.urdf velocity 6.545, position
+        # +-3.14): velocity clamp, then position clamp with qd zeroed at
+        # the stops
+        if self._vmax is not None:
+            qd_new = torch.minimum(torch.maximum(qd_new, -self._vmax),
+                                   self._vmax)
+        q_new = q + self.dt * qd_new
+        if self._range is not None:
+            lo, hi = self._range
+            q_clamped = torch.minimum(torch.maximum(q_new, lo), hi)
+            qd_new = torch.where(q_clamped != q_new, 0.0, qd_new)
+            q_new = q_clamped
+        return RigidState(q=q_new, qd=qd_new)

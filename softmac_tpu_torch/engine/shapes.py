@@ -1,8 +1,13 @@
 """Particle shapes of a scene (``softmac_tpu/engine/shapes.py``).
 
-Only the ``"predefined"`` shape is ported: a particle set (positions, or a
-packed ``(N, 24)`` state) loaded from a ``.npy`` file. The sampled shapes
-(box, sphere, cylinder) come with the slice that ports the scenes using them.
+Two shapes are ported: ``"predefined"``, a particle set (positions, or a
+packed ``(N, 24)`` state) loaded from a ``.npy`` file, and ``"box"``,
+uniform samples in an axis-aligned box, optionally rotated about its mean
+by ``init_rot`` (a wxyz quaternion). Sampling is seeded with NumPy seed 0
+as in the reference (``shape_maker.py:20``), and the global NumPy random
+state is restored afterwards, so the particles match the JAX package's
+``Shapes`` bit for bit. The sphere and cylinder come with the scenes that
+use them.
 """
 from __future__ import annotations
 
@@ -10,6 +15,9 @@ import ast
 from pathlib import Path
 
 import numpy as np
+import torch
+
+from softmac_tpu_torch.engine import quat as Q
 
 
 def _parse(key, value):
@@ -24,13 +32,21 @@ class Shapes:
         self.objects = []
         self.dim = 3
         self.search_dirs = [str(d) for d in search_dirs]
-        for spec in cfg:
-            if spec["shape"] != "predefined":
-                raise NotImplementedError(
-                    f"shape {spec['shape']!r} is not ported yet; the PyTorch "
-                    "port supports 'predefined' shapes only")
-            self.add_predefined(**{k: _parse(k, v) for k, v in spec.items()
-                                   if k != "shape"})
+        samplers = {"box": self.add_box, "predefined": self.add_predefined}
+        state = np.random.get_state()
+        np.random.seed(0)  # fixed seed, reference parity
+        try:
+            for spec in cfg:
+                if spec["shape"] not in samplers:
+                    raise NotImplementedError(
+                        f"shape {spec['shape']!r} is not ported yet; the "
+                        "PyTorch port samples 'box' and loads 'predefined' "
+                        "shapes")
+                samplers[spec["shape"]](**{k: _parse(k, v)
+                                           for k, v in spec.items()
+                                           if k != "shape"})
+        finally:
+            np.random.set_state(state)
 
     def _resolve(self, path):
         p = Path(path)
@@ -43,13 +59,33 @@ class Shapes:
         raise FileNotFoundError(
             f"shape data file {path} not found in {self.search_dirs}")
 
+    def add_object(self, particles, init_rot=None):
+        if init_rot is not None:
+            m = Q.quat2mat(torch.as_tensor(init_rot, dtype=torch.float64))
+            m = m.numpy()
+            origin = particles[:, :self.dim].mean(axis=0)
+            particles[:, :self.dim] = ((particles[:, :self.dim] - origin)
+                                       @ m.T + origin)
+        self.objects.append(particles)
+
+    def add_box(self, init_pos, width, n_particles=10000, color=None,
+                init_rot=None):
+        """``color`` is for the renderer, which is not ported yet."""
+        width = (np.array([width] * self.dim)
+                 if isinstance(width, (int, float)) else np.array(width))
+        if n_particles is None:
+            n_particles = max(int(np.prod(width) / 0.2 ** 3) * 10000, 1)
+        p = ((np.random.random((n_particles, self.dim)) * 2 - 1)
+             * (0.5 * width) + np.array(init_pos))
+        self.add_object(p, init_rot=init_rot)
+
     def add_predefined(self, path, offset=None, color=None):
         """``color`` is for the renderer, which is not ported yet."""
         if offset is None:
             offset = np.zeros(self.dim)
         p = np.load(self._resolve(path))
         p[:, : self.dim] += offset
-        self.objects.append(p)
+        self.add_object(p)
 
     def get(self) -> np.ndarray:
         """All particles, (N, 3) positions or (N, 24) packed states."""

@@ -104,6 +104,10 @@ class MPMConfig:
     collision_type: int = CONTACT_MIXED
     ground_friction: float = 1.5
     n_primitives: int = 0
+    # particle controllers: a particle with control_idx c >= 0 takes the
+    # impulse of mpm_action[c] every substep
+    n_controllers: int = 0
+    plastic_mode: str = "clip"   # "clip" (reference runtime) | "von_mises"
     # Static-size active grid window (wx, wy, wz) in cells whose corner
     # tracks the particle centroid each substep; None = full grid.
     active_window: Any = None

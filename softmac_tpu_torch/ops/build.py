@@ -48,6 +48,10 @@ SIGNATURES = {
     "softmac_collide_mixed_bwd": [_P] * 9 + [_I] * 4 + [_F] * 10 + [_P],
     "softmac_collide_mixed1_bwd": [_P] * 8 + [_I] * 4 + [_F] * 8 + [_P],
     "softmac_collide_mixed2_bwd": [_P] * 10 + [_I] * 4 + [_F] * 10 + [_P],
+    "softmac_fused_p2g": [_P] * 9 + [_I] * 4 + [_P],
+    "softmac_fused_g2p": [_P] * 10 + [_I] * 4 + [_P],
+    "softmac_fused_splat": [_P] * 6 + [_I] * 4 + [_P],
+    "softmac_fused_gather": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 

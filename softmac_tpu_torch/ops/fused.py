@@ -1,0 +1,211 @@
+"""The dense-weight transfer family: P2G, G2P, gather and splat over
+per-axis weight matrices, as CUDA kernels and plain PyTorch versions.
+
+Counterpart of ``softmac_tpu/ops/pallas_fused.py`` (``p2g``, ``g2p``,
+``splat``, ``gather``, :878-945), the transfers of windows the y-chunked
+family does not take (``engine/mpm.py``'s route: the door's window (32, 16,
+32)). Their inputs are the dense per-axis matrices of ``mpm.axis_weights``:
+``Wx``, ``WxD`` (wx, N), ``Wy``, ``WDy`` (wy, N), ``Wz``, ``WDz`` (wz, N), row
+r of W_d the weight of each particle on window row r along axis d and WD_d
+the same times (r - base - fx). With H = Wy * Wz (the Khatri-Rao pair over
+(y, z), row y * wz + z) and HDy, HDz its derivative variants:
+
+    p2g     chan (13, N) [mass, mom(3), dx*affine(9)] ->
+            gm (wy*wz, wx), gmom (wy*wz, 3*wx):
+            gm = H (Wx mass)^T, gmom_d = H (Wx mom_d + WxD a_d0)^T
+                 + HDy (Wx a_d1)^T + HDz (Wx a_d2)^T
+    g2p     grids gv_d (wy*wz, wx) -> (12, N): v_d = sum H * (gv_d Wx),
+            C[d][0] = sum H * (gv_d WxD), C[d][1] = sum HDy * (gv_d Wx),
+            C[d][2] = sum HDz * (gv_d Wx) (C unscaled: times 4 inv_dx
+            outside, as ``mpm._Transfers.g2p``)
+    splat   vals (3, N) -> (wy*wz, 3*wx): H (Wx vals_d)^T per component
+    gather  grids gv_d -> (3, N): sum H * (gv_d Wx)
+
+for any dense weights, not only B-spline-sparse ones. The plain versions
+(``p2g_plain`` ...) are those definitions (``pallas_fused._p2g_ref`` :181,
+``_g2p_ref`` :207, ``_splat_ref`` :232, ``_gather_ref`` :241), in the dtype
+of their inputs; their products run in full precision (TF32 is off on the
+card, as ``SoftMacEnv`` sets it).
+
+``p2g``, ``g2p``, ``splat`` and ``gather`` dispatch through
+``build.on_cpu``: on the CPU they run the plain version (under autograd
+too, so gradients flow through it and through ``axis_weights`` to x), on
+CUDA they launch the kernel and count the launch, anything else raises.
+The backward kernels of this family are not ported yet: on CUDA a call
+that needs a gradient raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from softmac_tpu_torch.ops import build
+
+_NO_BACKWARD = ("the dense-weight transfers' backward kernels "
+                "(pallas_fused _p2g_bwd_pallas, _g2p_bwd_pallas, "
+                "_splat_bwd_pallas, _gather_bwd_pallas: row 18 of the kernel "
+                "table) are not ported yet; the door's gradient runs on the "
+                "CPU only")
+
+
+def _kr(a, b):
+    """Khatri-Rao pair (wy*wz, N): row y * wz + z = a[y] * b[z]."""
+    return (a[:, None, :] * b[None, :, :]).reshape(a.shape[0] * b.shape[0], -1)
+
+
+def p2g_plain(Wx, WxD, Wy, WDy, Wz, WDz, chan):
+    """Plain PyTorch P2G over dense weights: (gm (wy*wz, wx),
+    gmom (wy*wz, 3*wx))."""
+    wx = Wx.shape[0]
+    H, HDy, HDz = _kr(Wy, Wz), _kr(WDy, Wz), _kr(Wy, WDz)
+    r_h = torch.cat([Wx * chan[0]] + [Wx * chan[1 + d] + WxD * chan[4 + 3 * d]
+                                      for d in range(3)])
+    r_dy = torch.cat([Wx * chan[5 + 3 * d] for d in range(3)])
+    r_dz = torch.cat([Wx * chan[6 + 3 * d] for d in range(3)])
+    o1 = H @ r_h.T
+    return o1[:, :wx], o1[:, wx:] + HDy @ r_dy.T + HDz @ r_dz.T
+
+
+def g2p_plain(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2):
+    """Plain PyTorch G2P over dense weights: (12, N), v in rows 0-2, the
+    unscaled C[d][j] in row 3 + 3d + j."""
+    H, HDy, HDz = _kr(Wy, Wz), _kr(WDy, Wz), _kr(Wy, WDz)
+    rows, m_rows = [], []
+    for g in (gv0, gv1, gv2):
+        A, B = g @ Wx, g @ WxD
+        rows.append(torch.sum(H * A, dim=0))
+        m_rows += [torch.sum(H * B, dim=0), torch.sum(HDy * A, dim=0),
+                   torch.sum(HDz * A, dim=0)]
+    return torch.stack(rows + m_rows)
+
+
+def splat_plain(Wx, Wy, Wz, vals):
+    """Plain PyTorch splat of vals (3, N): (wy*wz, 3*wx)."""
+    r = torch.cat([Wx * vals[d] for d in range(3)])
+    return _kr(Wy, Wz) @ r.T
+
+
+def gather_plain(Wx, Wy, Wz, gv0, gv1, gv2):
+    """Plain PyTorch gather of the grids at the particles: (3, N)."""
+    H = _kr(Wy, Wz)
+    return torch.stack([torch.sum(H * (g @ Wx), dim=0)
+                        for g in (gv0, gv1, gv2)])
+
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _check(name, weights, others, window):
+    """Float32 contiguous CUDA tensors; the weights (w_d, N) for the window
+    (wx, wy, wz), one N for all."""
+    if _needs_grad(*weights, *others):
+        raise NotImplementedError(f"{name}: {_NO_BACKWARD}")
+    for t in weights + others:
+        if t.device.type != "cuda" or t.dtype != torch.float32:
+            raise TypeError(f"{name}: CUDA kernel takes float32 CUDA tensors, "
+                            f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    n = weights[0].shape[1]
+    if any(w.dim() != 2 or w.shape[1] != n for w in weights) or \
+            [w.shape[0] for w in weights] != list(window):
+        raise ValueError(f"{name}: weights "
+                         f"{[tuple(w.shape) for w in weights]}, window "
+                         f"{tuple(window)}")
+    return n
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def p2g(Wx, WxD, Wy, WDy, Wz, WDz, chan):
+    """P2G over dense weights; see ``p2g_plain``. CUDA tensors launch the
+    kernel (float64 accumulation, rounded once)."""
+    if build.on_cpu(Wx, "fused p2g"):
+        return p2g_plain(Wx, WxD, Wy, WDy, Wz, WDz, chan)
+    wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
+    n = _check("fused p2g", (Wx, Wy, Wz), (WxD, WDy, WDz, chan), (wx, wy, wz))
+    if (WxD.shape, WDy.shape, WDz.shape, chan.shape) != (
+            Wx.shape, Wy.shape, Wz.shape, (13, n)):
+        raise ValueError("fused p2g: derivative weights or chan mis-shaped")
+    cells = wx * wy * wz
+    acc = torch.zeros(4 * cells, dtype=torch.float64, device=Wx.device)
+    out = torch.empty(4 * cells, dtype=Wx.dtype, device=Wx.device)
+    rc = build.library().softmac_fused_p2g(
+        Wx.data_ptr(), WxD.data_ptr(), Wy.data_ptr(), WDy.data_ptr(),
+        Wz.data_ptr(), WDz.data_ptr(), chan.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), n, wx, wy, wz, _stream(Wx))
+    build.check(rc, "fused p2g")
+    p2g.launches += 1
+    return out[:cells].view(wy * wz, wx), out[cells:].view(wy * wz, 3 * wx)
+
+
+def _check_grids(name, grids, wx, wy, wz):
+    if any(g.shape != (wy * wz, wx) for g in grids):
+        raise ValueError(f"{name}: grids {[tuple(g.shape) for g in grids]}")
+
+
+def g2p(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2):
+    """G2P over dense weights; see ``g2p_plain``. CUDA tensors launch the
+    kernel."""
+    if build.on_cpu(Wx, "fused g2p"):
+        return g2p_plain(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2)
+    wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
+    n = _check("fused g2p", (Wx, Wy, Wz), (WxD, WDy, WDz, gv0, gv1, gv2),
+               (wx, wy, wz))
+    if (WxD.shape, WDy.shape, WDz.shape) != (Wx.shape, Wy.shape, Wz.shape):
+        raise ValueError("fused g2p: derivative weights mis-shaped")
+    _check_grids("fused g2p", (gv0, gv1, gv2), wx, wy, wz)
+    out = torch.empty((12, n), dtype=Wx.dtype, device=Wx.device)
+    rc = build.library().softmac_fused_g2p(
+        Wx.data_ptr(), WxD.data_ptr(), Wy.data_ptr(), WDy.data_ptr(),
+        Wz.data_ptr(), WDz.data_ptr(), gv0.data_ptr(), gv1.data_ptr(),
+        gv2.data_ptr(), out.data_ptr(), n, wx, wy, wz, _stream(Wx))
+    build.check(rc, "fused g2p")
+    g2p.launches += 1
+    return out
+
+
+def splat(Wx, Wy, Wz, vals):
+    """Splat of vals (3, N) over dense weights; see ``splat_plain``. CUDA
+    tensors launch the kernel (float64 accumulation, rounded once)."""
+    if build.on_cpu(Wx, "fused splat"):
+        return splat_plain(Wx, Wy, Wz, vals)
+    wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
+    n = _check("fused splat", (Wx, Wy, Wz), (vals,), (wx, wy, wz))
+    if vals.shape != (3, n):
+        raise ValueError(f"fused splat: vals {tuple(vals.shape)}")
+    cells = wx * wy * wz
+    acc = torch.zeros(3 * cells, dtype=torch.float64, device=Wx.device)
+    out = torch.empty((wy * wz, 3 * wx), dtype=Wx.dtype, device=Wx.device)
+    rc = build.library().softmac_fused_splat(
+        Wx.data_ptr(), Wy.data_ptr(), Wz.data_ptr(), vals.data_ptr(),
+        acc.data_ptr(), out.data_ptr(), n, wx, wy, wz, _stream(Wx))
+    build.check(rc, "fused splat")
+    splat.launches += 1
+    return out
+
+
+def gather(Wx, Wy, Wz, gv0, gv1, gv2):
+    """Gather of the grids at the particles over dense weights; see
+    ``gather_plain``. CUDA tensors launch the kernel."""
+    if build.on_cpu(Wx, "fused gather"):
+        return gather_plain(Wx, Wy, Wz, gv0, gv1, gv2)
+    wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
+    n = _check("fused gather", (Wx, Wy, Wz), (gv0, gv1, gv2), (wx, wy, wz))
+    _check_grids("fused gather", (gv0, gv1, gv2), wx, wy, wz)
+    out = torch.empty((3, n), dtype=Wx.dtype, device=Wx.device)
+    rc = build.library().softmac_fused_gather(
+        Wx.data_ptr(), Wy.data_ptr(), Wz.data_ptr(), gv0.data_ptr(),
+        gv1.data_ptr(), gv2.data_ptr(), out.data_ptr(), n, wx, wy, wz,
+        _stream(Wx))
+    build.check(rc, "fused gather")
+    gather.launches += 1
+    return out
+
+
+p2g.launches = 0
+g2p.launches = 0
+splat.launches = 0
+gather.launches = 0

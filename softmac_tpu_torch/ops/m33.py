@@ -46,6 +46,10 @@ def cross(a, b):
     )
 
 
+def norm(a, eps=0.0):
+    return torch.sqrt(dot(a, a) + eps)
+
+
 def vwhere(c, a, b):
     return tuple(torch.where(c, x, y) for x, y in zip(a, b))
 
@@ -69,8 +73,29 @@ def madd(A, B):
     return tuple(tuple(A[i][j] + B[i][j] for j in range(3)) for i in range(3))
 
 
+def msub(A, B):
+    return tuple(tuple(A[i][j] - B[i][j] for j in range(3)) for i in range(3))
+
+
 def mscale(A, s):
     return tuple(tuple(A[i][j] * s for j in range(3)) for i in range(3))
+
+
+def mwhere(c, A, B):
+    return tuple(tuple(torch.where(c, A[i][j], B[i][j]) for j in range(3))
+                 for i in range(3))
+
+
+def col(A, j):
+    return (A[0][j], A[1][j], A[2][j])
+
+
+def from_cols(c0, c1, c2):
+    return tuple((c0[i], c1[i], c2[i]) for i in range(3))
+
+
+def diag_mat(d):
+    return ((d[0], 0.0, 0.0), (0.0, d[1], 0.0), (0.0, 0.0, d[2]))
 
 
 def madd_diag(A, s):

@@ -10,7 +10,12 @@ host.
 Held against the plain versions in float64 on the same float32 inputs:
 P2G (its splat is shared with G2P's backward), gather, splat and the P2G /
 G2P / gather / splat backward kernels, which compute in float32, within
-2e-6 of the largest |value| of each output; the penalty contact backward,
+2e-6 of the largest |value| of each output; the dense-weight transfers
+(fused_p2g, fused_g2p, fused_splat, fused_gather), which compute in double
+on float inputs, on B-spline weights of a scene (some particles' stencils
+leaving the window) and on fully dense random weights: their float64
+windows within 1e-12, their float32 particle rows within 1e-6 (one
+rounding); the penalty contact backward,
 which computes in double on its float inputs, within 1e-6 (float literals
 and the float dt / p_mass set that floor); the mixed contact backward
 (merged and split), also double math, within 1e-12 given the float dt and
@@ -26,9 +31,11 @@ import numpy as np
 import pytest
 import torch
 
+from softmac_tpu_torch.engine import mpm as tmpm
 from softmac_tpu_torch.engine import sdf as tsdf
 from softmac_tpu_torch.engine.meshio import load_obj
-from softmac_tpu_torch.ops import build, contact, m33, transfer
+from softmac_tpu_torch.engine.types import MPMConfig
+from softmac_tpu_torch.ops import build, contact, fused, m33, transfer
 
 torch.set_num_threads(1)
 
@@ -167,6 +174,34 @@ void h_mixed_bwd(int split, const float* x, const float* v,
     for (int i = 0; i < 16; ++i) dbody[i] += gb[i];
   }
 }
+void h_fused_p2g(const float* Wx, const float* WxD, const float* Wy,
+                 const float* WDy, const float* Wz, const float* WDz,
+                 const float* chan, double* acc, int n, int wx, int wy,
+                 int wz) {
+  int cells = wx * wy * wz;
+  launch(n, [&] { k_fused_p2g::fused_p2g_kernel(Wx, WxD, Wy, WDy, Wz, WDz,
+                                                chan, acc, acc + cells, n, wx,
+                                                wy, wz); });
+}
+void h_fused_g2p(const float* Wx, const float* WxD, const float* Wy,
+                 const float* WDy, const float* Wz, const float* WDz,
+                 const float* g0, const float* g1, const float* g2,
+                 float* out, int n, int wx, int wy, int wz) {
+  launch(n, [&] { k_fused_g2p::fused_g2p_kernel(Wx, WxD, Wy, WDy, Wz, WDz, g0,
+                                                g1, g2, out, n, wx, wy, wz); });
+}
+void h_fused_splat(const float* Wx, const float* Wy, const float* Wz,
+                   const float* vals, double* acc, int n, int wx, int wy,
+                   int wz) {
+  launch(n, [&] { k_fused_splat::fused_splat_kernel(Wx, Wy, Wz, vals, acc, n,
+                                                    wx, wy, wz); });
+}
+void h_fused_gather(const float* Wx, const float* Wy, const float* Wz,
+                    const float* g0, const float* g1, const float* g2,
+                    float* out, int n, int wx, int wy, int wz) {
+  launch(n, [&] { k_fused_gather::fused_gather_kernel(Wx, Wy, Wz, g0, g1, g2,
+                                                      out, n, wx, wy, wz); });
+}
 void h_contact_bwd(const float* x, const float* v, const float* table,
                    const float* body, const float* gimp, double* dx,
                    double* dv, double* dbody, int n, int r0, int r1, int r2,
@@ -211,7 +246,8 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_STANDIN)
     src = "".join(_kernel_bodies(n) for n in (
         "p2g", "p2g_bwd", "g2p_bwd", "gather", "splat", "contact",
-        "contact_mixed", "gather_bwd", "splat_bwd", "contact_mixed_bwd")) \
+        "contact_mixed", "gather_bwd", "splat_bwd", "contact_mixed_bwd",
+        "fused_p2g", "fused_g2p", "fused_splat", "fused_gather")) \
         + DRIVER
     (d / "driver.cpp").write_text(src)
     so = d / "libkernels_host.so"
@@ -512,3 +548,59 @@ def test_mixed_contact_backward_source(lib, cap):
             assert _rel(db[a:b], r.reshape(-1)) < 1e-12, (a, b)
     counts = _mixed_cases(prim64, b64, x, v, dt)
     assert min(counts.values()) > 20, counts
+
+
+def _fused_weights(case):
+    """Six float32 weight matrices (wx, wx, wy, wy, wz, wz rows by N) and
+    the window: the B-spline weights of mpm.axis_weights on a scene whose
+    window is shifted so that some stencils leave it, or fully dense
+    seeded normal weights on a small window."""
+    if case == "dense":
+        rng = np.random.RandomState(6)
+        window = (8, 4, 8)
+        ws = [_f32(rng, w, N) for w in (8, 8, 4, 4, 8, 8)]
+        return ws, window, rng
+    x, corner, rng = _scene(8, seed=7)
+    cfg = MPMConfig(n_particles=N, n_grid=int(INV_DX))
+    W, WD = tmpm.axis_weights(cfg, x, WINDOW, corner)
+    outside = int(sum((w == 0).all(dim=0) for w in W).bool().sum())
+    cut = int(sum(w.sum(dim=0) < 1 - 1e-6 for w in W).bool().sum())
+    assert 0 < outside < cut < N, "want stencils inside, cut and outside"
+    return [W[0], WD[0], W[1], WD[1], W[2], WD[2]], WINDOW, rng
+
+
+def _fdims(window):
+    return [ctypes.c_int(N)] + [ctypes.c_int(w) for w in window]
+
+
+@pytest.mark.parametrize("case", ["bspline", "dense"])
+def test_fused_transfer_sources(lib, case):
+    ws, window, rng = _fused_weights(case)
+    wx, wy, wz = window
+    cells = wx * wy * wz
+    w64 = [w.double() for w in ws]
+    chan = _f32(rng, 13, N)
+    acc = torch.zeros(4 * cells, dtype=torch.float64)
+    lib.h_fused_p2g(*map(_p, ws), _p(chan), _p(acc), *_fdims(window))
+    gm, gmom = fused.p2g_plain(*w64, chan.double())
+    assert _rel(acc, torch.cat([gm.reshape(-1), gmom.reshape(-1)])) < 1e-12
+
+    gv = [_f32(rng, wy * wz, wx) for _ in range(3)]
+    out = torch.zeros(12, N)
+    lib.h_fused_g2p(*map(_p, ws), *map(_p, gv), _p(out), *_fdims(window))
+    ref = fused.g2p_plain(*w64, *(g.double() for g in gv))
+    for r in range(12):
+        assert _rel(out[r], ref[r]) < 1e-6
+
+    W, W64 = ws[0::2], w64[0::2]
+    vals = _f32(rng, 3, N)
+    acc = torch.zeros(3 * cells, dtype=torch.float64)
+    lib.h_fused_splat(*map(_p, W), _p(vals), _p(acc), *_fdims(window))
+    ref = fused.splat_plain(*W64, vals.double())
+    assert _rel(acc, ref.reshape(-1)) < 1e-12
+
+    out = torch.zeros(3, N)
+    lib.h_fused_gather(*map(_p, W), *map(_p, gv), _p(out), *_fdims(window))
+    ref = fused.gather_plain(*W64, *(g.double() for g in gv))
+    for d in range(3):
+        assert _rel(out[d], ref[d]) < 1e-6

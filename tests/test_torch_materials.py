@@ -1,9 +1,10 @@
-"""PyTorch port: the constitutive models that need no SVD
-(softmac_tpu_torch.engine.materials) against the JAX package's
-compute_stress_and_F, in float64. The SVD-driven models raise until the
-SVD is ported. Tolerance 1e-13 relative (the port's cube root is a power,
-JAX's is cbrt), for the values and for the gradients of the corotated
-liquid's sign-safe cube root."""
+"""PyTorch port: the constitutive models (softmac_tpu_torch.engine.
+materials) against the JAX package's compute_stress_and_F, in float64.
+Tolerance 1e-13 relative for the models that need no SVD (the port's cube
+root is a power, JAX's is cbrt), for the values and for the gradients of
+the corotated liquid's sign-safe cube root; 1e-12 for the corotated
+plastic (clip and von Mises) and elastic models, which take the 3x3 SVD,
+values and gradients."""
 import numpy as np
 import pytest
 import torch
@@ -53,11 +54,49 @@ def test_stress_and_F_match_jax(model, ptype):
 
 @pytest.mark.parametrize("ptype", [0, 1])
 def test_svd_models_raise(ptype):
-    cfg = TConfig(n_particles=N, material_model=0, ptype=ptype)
-    assert tmat.needs_svd(cfg)
-    F = m33.from_mat_array(torch.eye(3)[:, :, None].expand(3, 3, N))
-    with pytest.raises(NotImplementedError, match="SVD"):
-        tmat.compute_stress_and_F(cfg, F, torch.ones(N), torch.ones(N))
+    """The corotated plastic (ptype 0) and elastic (1) models need the SVD
+    and now compute it: stress and new F against JAX's (the SVD from JAX's
+    svd3_soa), values and the cotangent of F_tmp, at 1e-12; the plastic
+    model under both plastic modes, with a yield stress that some
+    particles exceed."""
+    from softmac_tpu.engine.svd3 import svd3_soa
+    rng = np.random.RandomState(5)
+    F = np.eye(3)[:, :, None] + 0.05 * rng.randn(3, 3, N)
+    mu, lam = jmat.lame_parameters(50.0, 0.2, ptype)
+    ys = np.full(N, 0.12 * mu)
+    g_s, g_F = rng.randn(3, 3, N), rng.randn(3, 3, N)
+    for mode in (("clip", "von_mises") if ptype == 0 else ("clip",)):
+        jcfg = JConfig(n_particles=N, material_model=0, ptype=ptype,
+                       plastic_mode=mode, dtype=jnp.float64)
+        tcfg = TConfig(n_particles=N, material_model=0, ptype=ptype,
+                       plastic_mode=mode, dtype=torch.float64)
+        assert jmat.needs_svd(jcfg) and tmat.needs_svd(tcfg)
+
+        def jfn(Fa):
+            Ft = tuple(tuple(Fa[i, j] for j in range(3)) for i in range(3))
+            U, sig, V = svd3_soa(Ft)
+            s, nF = jmat.compute_stress_and_F(
+                jcfg, Ft, U, sig, V, jnp.full(N, mu), jnp.full(N, lam),
+                jnp.asarray(ys))
+            return jnp.stack([jnp.stack(r) for r in s]), \
+                jnp.stack([jnp.stack(r) for r in nF])
+        (js, jF), vjp = jax.vjp(jfn, jnp.asarray(F))
+        jg, = vjp((jnp.asarray(g_s), jnp.asarray(g_F)))
+        Ft = torch.as_tensor(F).requires_grad_()
+        ts, tF = tmat.compute_stress_and_F(
+            tcfg, m33.from_mat_array(Ft),
+            torch.full((N,), mu, dtype=torch.float64),
+            torch.full((N,), lam, dtype=torch.float64), torch.as_tensor(ys))
+        ts, tF = m33.to_mat_array(ts), m33.to_mat_array(tF)
+        tg, = torch.autograd.grad((ts, tF), Ft, (torch.as_tensor(g_s),
+                                                 torch.as_tensor(g_F)))
+        for got, ref in ((ts, js), (tF, jF), (tg, jg)):
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(got.detach().numpy(), ref, rtol=0,
+                                       atol=1e-12 * np.abs(ref).max())
+        if mode == "von_mises":
+            assert 0 < int((np.abs(np.asarray(jF) - F) > 1e-9).any(
+                axis=(0, 1)).sum()) < N
 
 
 def test_cube_root_gradient_matches_cbrt():

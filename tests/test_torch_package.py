@@ -1,7 +1,8 @@
 """PyTorch port: package boundaries. The port and chip_smoke.py import
-neither JAX nor the JAX package; the port loads configs to the same dicts;
-its entry points refuse to fall back to the CPU and its kernel wrappers
-refuse devices they have no implementation for."""
+neither JAX nor the JAX package (every module of the port is checked, the
+new ones included); the port loads configs to the same dicts; its entry
+points refuse to fall back to the CPU and its kernel wrappers refuse
+devices they have no implementation for."""
 import ast
 from pathlib import Path
 
@@ -16,7 +17,7 @@ from softmac_tpu_torch.engine import env as torch_env
 from softmac_tpu_torch.engine import mpm as tmpm
 from softmac_tpu_torch.engine import sdf as tsdf
 from softmac_tpu_torch.engine.types import MPMConfig
-from softmac_tpu_torch.ops import build, contact, transfer
+from softmac_tpu_torch.ops import build, contact, fused, transfer
 
 torch.set_num_threads(1)
 
@@ -65,7 +66,8 @@ def _plain(node):
 
 
 @pytest.mark.parametrize("name", [None, "demo_pour_vel_config.py",
-                                  "demo_pour_config.py"])
+                                  "demo_pour_config.py",
+                                  "demo_door_config.py"])
 def test_config_loads_to_same_dict(name):
     jpath = tpath = None
     if name is not None:
@@ -115,9 +117,19 @@ def test_wrappers_refuse_other_devices(monkeypatch):
     with pytest.raises(TypeError, match="no implementation"):
         contact.collide_mixed2(prim, *body, x, x,
                                torch.empty((7, n), device="meta"), 1e-3, 1e-5)
+    w8 = torch.empty((8, n), **meta)
+    with pytest.raises(TypeError, match="no implementation"):
+        fused.p2g(*[w8] * 6, torch.empty((13, n), **meta))
+    with pytest.raises(TypeError, match="no implementation"):
+        fused.g2p(*[w8] * 6, g, g, g)
+    with pytest.raises(TypeError, match="no implementation"):
+        fused.splat(w8, w8, w8, x)
+    with pytest.raises(TypeError, match="no implementation"):
+        fused.gather(w8, w8, w8, g, g, g)
     for w in (transfer.p2g, transfer.g2p, transfer.gather, transfer.splat,
               contact.collide_particle, contact.collide_mixed,
-              contact.collide_mixed1, contact.collide_mixed2):
+              contact.collide_mixed1, contact.collide_mixed2, fused.p2g,
+              fused.g2p, fused.splat, fused.gather):
         assert w.launches == 0
 
 
@@ -160,7 +172,8 @@ def test_kernel_library_is_keyed_by_sources():
         "softmac_collide_mixed1", "softmac_collide_mixed2",
         "softmac_gather_bwd", "softmac_splat_bwd",
         "softmac_collide_mixed_bwd", "softmac_collide_mixed1_bwd",
-        "softmac_collide_mixed2_bwd"}
+        "softmac_collide_mixed2_bwd", "softmac_fused_p2g",
+        "softmac_fused_g2p", "softmac_fused_splat", "softmac_fused_gather"}
     sources = " ".join(p.read_text() for p in build.CSRC.glob("*.cu"))
     for name in build.SIGNATURES:
         assert f'extern "C" int {name}(' in sources

@@ -218,14 +218,21 @@ def test_quat_functions_match_jax():
 
 
 def test_unported_bodies_raise():
+    """The gripper's prismatic fingers and body-body contact raise, naming
+    the grip slice; the door's revolute hinge builds (test_torch_door.py
+    holds it to JAX)."""
     tcfg = softmac_tpu_torch.load(
         str(ROOT / "softmac_tpu_torch/config/demo_pour_config.py"))
-    for name in ("door", "gripper"):
-        with pytest.raises(NotImplementedError, match="grip/door slice"):
-            trigid.RigidModel([tload_urdf(str(ROOT / f"assets/{name}/"
-                                              f"{name}.urdf"))], tcfg.RIGID,
-                              1e-3, torch.float64)
+    with pytest.raises(NotImplementedError, match="grip slice"):
+        trigid.RigidModel([tload_urdf(str(ROOT / "assets/gripper/"
+                                          "gripper.urdf"))], tcfg.RIGID,
+                          1e-3, torch.float64)
+    dcfg = softmac_tpu_torch.load(
+        str(ROOT / "softmac_tpu_torch/config/demo_door_config.py"))
+    door = trigid.RigidModel([tload_urdf(str(ROOT / "assets/door/door.urdf"))],
+                             dcfg.RIGID, 1e-3, torch.float64)
+    assert [b.jtype for b in door.bodies] == ["revolute"]
     tcfg.defrost()
     tcfg.RIGID.body_contact = True
-    with pytest.raises(NotImplementedError, match="grip/door slice"):
+    with pytest.raises(NotImplementedError, match="grip slice"):
         trigid.RigidModel([], tcfg.RIGID, 1e-3, torch.float64)
