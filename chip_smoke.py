@@ -7,7 +7,9 @@ Phases, each printed on a line of its own; any failed phase raises and the
 script exits non-zero:
 
   device   the card as nvidia-smi reports it (name, power limit)
-  build    nvcc builds the CUDA kernels from softmac_tpu_torch/ops/csrc
+  build    nvcc builds the CUDA kernels from softmac_tpu_torch/ops/csrc;
+           each kernel's registers and spills from the ptxas log (also in
+           its entry of the kernels line)
   kernels  each kernel against its plain PyTorch version at the main path's
            shapes: max error, time over 20+ calls (CUDA events), the plain
            version's time, the least time the card needs for the same work,
@@ -65,22 +67,35 @@ script exits non-zero:
   door     the door's main path (demo_door_config.py: 5400 particles in
            three corotated-elastic boxes, window (32, 16, 32), one particle
            controller, the revolute door): the dense-weight transfer
-           kernels (fused_p2g, fused_g2p, fused_splat, fused_gather) are
-           first held against their float64 plain versions on the door's
-           state after 10 env steps and on fully dense random weights
-           (window (16, 8, 16)), and timed there and on that state tiled to
-           1e5 particles, beside their plain versions and one torch.einsum
-           over the dense weights (the library call); then SoftMacEnv.rollout
-           of the demo's initial actions for 300 env steps with launches
-           counted, its end state against a zero-action rollout of the same
-           300 steps (the controller acts), 5 timed rollouts of 50 steps,
-           the demo's 3000-step horizon with its loss frames (from 2000,
-           stride 20), and rollout_and_grad refused on the card (the
-           backward kernels are not ported)
+           kernels (fused_p2g, fused_g2p, fused_splat, fused_gather) and
+           their backward kernels (fused_*_bwd) are first held against
+           their float64 plain versions and plain vjps (seeded normal
+           cotangents) on the door's state after 10 env steps and on fully
+           dense random weights (window (16, 8, 16)), and timed there and
+           on that state tiled to 1e5 particles, beside their plain
+           versions and one torch.einsum over the dense weights, or one
+           torch.autograd.grad through it (the library calls); then
+           SoftMacEnv.rollout of the demo's initial actions for 300 env
+           steps with launches counted, its end state against a
+           zero-action rollout of the same 300 steps (the controller
+           acts), 5 timed rollouts of 50 steps, and a 500-step horizon
+           (cut from the demo's 3000) with the demo's loss frames
+  door_grad  the door's gradient main path: rollout_and_grad of 100 env
+           steps of the demo's initial actions with its loss frames and
+           grad_clip 1.0, under remat "step" and "none": one counted call
+           and one timed repeat each, exact launch counts of every forward
+           and backward kernel (door_grad_expect), a finite nonzero
+           gradient, step against none and the repeat within GRAD_TOL
+  profile_door, profile_door_grad  torch.profiler over 20 env steps of the
+           door's rollout (busy share, launches per substep, the SVD's share
+           of them, top kernels) and 5 of its rollout_and_grad
   door_parity  the door, card (float32, kernels) against the CPU (float64,
-           plain versions), 20 env steps
-  profile_door  torch.profiler over 20 env steps of the door: busy share,
-           launches per substep, the SVD's share of them, top kernels
+           plain versions), 20 env steps of rollout and of rollout_and_grad
+  demo_door  the ported door trainer softmac_tpu_torch.demos.demo_door on
+           the card, 2 epochs of 100 env steps with 2 jittered replicas on
+           its own scene: finite non-increasing losses, losses.npy and the
+           checkpoints written, the actions moved, every fused forward and
+           backward kernel launched
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -156,15 +171,29 @@ DEMO_EPOCHS = 3
 DOOR_STEPS = 300           # the counted door rollout
 DOOR_TIMED_STEPS = 50      # each timed door rollout (cut to keep the time)
 DOOR_REPEATS = 5
-DOOR_HORIZON = 3000        # demos/demo_door.py --steps
+DOOR_HORIZON = 500         # cut from demos/demo_door.py's 3000 steps
+DOOR_GRAD_STEPS = 100      # the door's rollout_and_grad (cut from 3000)
+DOOR_GRAD_REPEATS = 1
+DEMO_DOOR_STEPS = 100      # the door trainer (cut from 3000)
+DEMO_DOOR_EPOCHS = 2
+DEMO_DOOR_REPLICAS = 2
 DENSE_WINDOW = (16, 8, 16)
 N_DENSE = 4000
 FUSED = ("fused_p2g", "fused_g2p", "fused_splat", "fused_gather")
+FUSED_BWD = tuple(k + "_bwd" for k in FUSED)
 # float operations per visited window cell (the kernels work in double,
 # counted at the float32 rate, the least time for the same work): the
 # three weight products and the cell's terms
 FLOPS_PER_CELL = {"fused_p2g": 6 + 1 + 3 * 7, "fused_g2p": 6 + 3 * 8,
                   "fused_splat": 2 + 3 * 2, "fused_gather": 2 + 3 * 2}
+# the backward kernels: (float ops per cell of a weight-row sum, per cell of
+# the particle's box). A row sum forms the cell's coefficients (P2G: 22, G2P:
+# 20, splat and gather: 5) and adds them with its weights (14, 3); a box
+# cell adds the channel or grid terms (P2G 32, G2P 27, splat and gather 8)
+FLOPS_PER_BWD_CELL = {"fused_p2g_bwd": (22 + 14, 32),
+                      "fused_g2p_bwd": (20 + 14, 27),
+                      "fused_splat_bwd": (5 + 3, 8),
+                      "fused_gather_bwd": (5 + 3, 8)}
 
 
 T0 = time.perf_counter()
@@ -241,6 +270,26 @@ def bound(name, n, bytes_moved, flops=None):
         flops = n * FLOPS_PER_PARTICLE[name]
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_by_source(log):
+    """{source file: [{"function", "registers", "spill_stores"}]} of every
+    kernel, from the ``nvcc -Xptxas -v`` log of ``build.build()``."""
+    import re
+    out, src, fn, spill = {}, None, None, 0
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            src = ln[3:].strip()
+            out[src] = []
+        elif "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
+        elif "Used" in ln and "registers" in ln and src and fn:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            out[src].append({"function": fn, "registers": regs,
+                             "spill_stores": spill})
+    return out
 
 
 def kernel_entry(n, name, src, replaces, abs_err, rel_err, ms, plain_ms,
@@ -975,7 +1024,10 @@ def wrappers():
             "collide_mixed1_bwd": contact.collide_mixed1_bwd,
             "collide_mixed2_bwd": contact.collide_mixed2_bwd,
             "fused_p2g": fused.p2g, "fused_g2p": fused.g2p,
-            "fused_splat": fused.splat, "fused_gather": fused.gather}
+            "fused_splat": fused.splat, "fused_gather": fused.gather,
+            "fused_p2g_bwd": fused.p2g_bwd, "fused_g2p_bwd": fused.g2p_bwd,
+            "fused_splat_bwd": fused.splat_bwd,
+            "fused_gather_bwd": fused.gather_bwd}
 
 
 def reset_launches():
@@ -1029,29 +1081,32 @@ def run_slice(env):
     return res, launches
 
 
-def timed_grad(env, acts, remat):
+def timed_grad(env, acts, remat, loss_start_frame=0, grad_clip=None):
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = env.rollout_and_grad(acts, loss_start_frame=0, loss_stride=20,
+    out = env.rollout_and_grad(acts, loss_start_frame=loss_start_frame,
+                               loss_stride=20, grad_clip=grad_clip,
                                remat=remat)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
 
-def run_gradient(tag, env, acts, expect, glass, window):
+def run_gradient(tag, env, acts, expect, glass, window, repeats=GRAD_REPEATS,
+                 loss_start_frame=0, grad_clip=None):
     """A gradient main path: rollout_and_grad of ``acts`` under remat
     "step" and "none", each one counted call (launches from zero, peak
-    memory) and GRAD_REPEATS timed ones. ``expect(remat)`` gives the
+    memory) and ``repeats`` timed ones. ``expect(remat)`` gives the
     launch counts, ``glass`` the action columns whose gradient may not be
     all zero."""
+    kw = dict(loss_start_frame=loss_start_frame, grad_clip=grad_clip)
     import torch
     n_sub = len(acts) * env.substeps
     res, launches, grads = {}, {}, {}
     for remat in ("step", "none"):
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        out, secs = timed_grad(env, acts, remat)
+        out, secs = timed_grad(env, acts, remat, **kw)
         launches[remat] = read_launches()
         peak = torch.cuda.max_memory_allocated()
         g = out["action_grad"]
@@ -1066,12 +1121,12 @@ def run_gradient(tag, env, acts, expect, glass, window):
         if bool(out["terms"]["window_overflow"]):
             raise AssertionError(f"{tag} ({remat}): window overflow")
         if not bool((g[:, glass] != 0).any()):
-            raise AssertionError(f"{tag} ({remat}): the glass's columns "
+            raise AssertionError(f"{tag} ({remat}): the action columns "
                                  f"{glass} of action_grad are all zero")
         gmax = g.abs().max().item()
         rates, rep_diff = [], 0.0
-        for _ in range(GRAD_REPEATS):
-            rep, rep_secs = timed_grad(env, acts, remat)
+        for _ in range(repeats):
+            rep, rep_secs = timed_grad(env, acts, remat, **kw)
             rates.append(n_sub / rep_secs)
             rep_diff = max(rep_diff,
                            (rep["action_grad"] - g).abs().max().item())
@@ -1095,7 +1150,8 @@ def run_gradient(tag, env, acts, expect, glass, window):
     gmax = grads["none"].abs().max().item()
     out = {"n_particles": env.n_particles, "window": list(window),
            "env_steps": len(acts), "substeps": n_sub,
-           "loss_start_frame": 0, "loss_stride": 20,
+           "loss_start_frame": loss_start_frame, "loss_stride": 20,
+           "grad_clip": grad_clip,
            "step_vs_none_grad_max_abs_diff": diff,
            "step_vs_none_grad_rel_diff": diff / gmax,
            "tolerance": GRAD_TOL, **res}
@@ -1771,14 +1827,282 @@ def check_fused_kernels(door_inp, big_inp, dense_inp):
     return entries
 
 
+def fused_cotangents(inp, seed=9):
+    """Seeded normal cotangents of the four transfers' outputs at ``inp``'s
+    shapes: dgm, dgmom (P2G), g12 (G2P's rows), dout (the splat's window),
+    dv (the gather)."""
+    import torch
+    n, (wx, wy, wz) = inp["n"], inp["sizes"]
+    dev = inp["chan"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return dict(dgm=normal(wy * wz, wx), dgmom=normal(wy * wz, 3 * wx),
+                g12=normal(12, n), dout=normal(wy * wz, 3 * wx),
+                dv=normal(3, n))
+
+
+def fused_bwd_calls(inp, cts):
+    """name -> (backward kernel call, plain vjp on the same float32 inputs,
+    float64 plain vjp)."""
+    from softmac_tpu_torch.ops import fused
+    ws6, chan, gv, gvm, vals = (inp[k] for k in ("ws6", "chan", "gv", "gvm",
+                                                "vals"))
+    W = ws6[0::2]
+    args = {"fused_p2g_bwd": (fused.p2g_bwd, fused.p2g_vjp_plain,
+                              (*ws6, chan, cts["dgm"], cts["dgmom"])),
+            "fused_g2p_bwd": (fused.g2p_bwd, fused.g2p_vjp_plain,
+                              (*ws6, *gv, cts["g12"])),
+            "fused_splat_bwd": (fused.splat_bwd, fused.splat_vjp_plain,
+                                (*W, vals, cts["dout"])),
+            "fused_gather_bwd": (fused.gather_bwd, fused.gather_vjp_plain,
+                                 (*W, *gvm, cts["dv"]))}
+    return {k: (lambda f=f, a=a: f(*a), lambda v=v, a=a: v(*a),
+                lambda v=v, a=a: v(*(t.double() for t in a)))
+            for k, (f, v, a) in args.items()}
+
+
+def fused_einsum_vjps(inp, cts, dtype=None):
+    """name -> one call of torch.autograd.grad through the einsum yardstick
+    of ``fused_einsums`` (its forward run once here, outside the timed
+    call): the cotangents of the same inputs as the backward kernel's, the
+    library yardstick of each backward ("einsum vjp"), used nowhere in the
+    port. ``dtype`` casts the inputs (float64 to check the formulas)."""
+    import torch
+    cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))  # noqa: E731
+
+    def leaf(t):
+        return cast(t).detach().requires_grad_()
+    lin = dict(inp, ws6=tuple(leaf(w) for w in inp["ws6"]),
+               chan=leaf(inp["chan"]), vals=leaf(inp["vals"]),
+               gv=tuple(leaf(g) for g in inp["gv"]),
+               gvm=tuple(leaf(g) for g in inp["gvm"]))
+    with torch.enable_grad():
+        outs = {k: f() for k, f in fused_einsums(lin).items()}
+    wx, wy, wz = inp["sizes"]
+    c = {k: cast(v) for k, v in cts.items()}
+    cot = {"fused_p2g": torch.cat([c["dgm"].reshape(wy, wz, 1, wx),
+                                   c["dgmom"].reshape(wy, wz, 3, wx)], dim=2),
+           "fused_g2p": torch.stack([c["g12"][0:3]] + [c["g12"][3 + j:12:3]
+                                                       for j in range(3)]),
+           "fused_splat": c["dout"].reshape(wy, wz, 3, wx),
+           "fused_gather": c["dv"]}
+    ws6 = lin["ws6"]
+    leaves = {"fused_p2g": (*ws6, lin["chan"]),
+              "fused_g2p": (*ws6, *lin["gv"]),
+              "fused_splat": (*ws6[0::2], lin["vals"]),
+              "fused_gather": (*ws6[0::2], *lin["gvm"])}
+    return {k + "_bwd": (lambda k=k: torch.autograd.grad(
+        outs[k], leaves[k], cot[k], retain_graph=True)) for k in outs}
+
+
+def _bwd_rel(got, want):
+    """(max |got - want|, the largest of it over each row's max |want|)
+    over every output of a backward: the weight, channel and value
+    cotangents row by row, each grid cotangent as one row."""
+    worst = (0.0, 0.0)
+    for g, w in zip(got, want):
+        if w.shape[1] != want[0].shape[1]:      # a grid cotangent
+            g, w = g.reshape(1, -1), w.reshape(1, -1)
+        a, r = _rows_rel(g, w)
+        worst = (max(worst[0], a), max(worst[1], r))
+    return worst
+
+
+def fused_bwd_work(name, inp):
+    """(bytes, weight-row cells, box cells) of one backward call: each
+    input read once and each output written once; the cells the function
+    needs for these inputs: every row of each weight cotangent sums over
+    the particle's box on the other two axes, and the channel or grid
+    terms over the box."""
+    import torch
+    n, (wx, wy, wz) = inp["n"], inp["sizes"]
+    cells = wx * wy * wz
+    ws6 = inp["ws6"]
+    deriv = name in ("fused_p2g_bwd", "fused_g2p_bwd")
+    lx, ly, lz = [], [], []
+    for lens, a, b in zip((lx, ly, lz), ws6[0::2], ws6[1::2]):
+        nz = (a != 0) | (b != 0) if deriv else a != 0
+        rows = torch.arange(a.shape[0], device=a.device)[:, None]
+        lo = torch.where(nz, rows, a.shape[0]).amin(dim=0)
+        hi = torch.where(nz, rows, -1).amax(dim=0)
+        lens.append((hi - lo + 1).clamp(min=0).double())
+    lx, ly, lz = lx[0], ly[0], lz[0]
+    row_cells = int((wx * ly * lz + wy * lz * lx + wz * ly * lx).sum().item())
+    box_cells = int((lx * ly * lz).sum().item())
+    w_rows = (2 if deriv else 1) * (wx + wy + wz)
+    per_particle, grid_cells = {
+        "fused_p2g_bwd": (13 + 13, 4 * cells),     # chan, dchan; dgm, dgmom
+        "fused_g2p_bwd": (12, 6 * cells),          # g; gv and dgv
+        "fused_splat_bwd": (3 + 3, 3 * cells),     # vals, dvals; dout
+        "fused_gather_bwd": (3, 6 * cells)}[name]  # dv; gv and dgv
+    nbytes = (2 * w_rows + per_particle) * n * 4 + grid_cells * 4
+    return nbytes, row_cells, box_cells
+
+
+def check_fused_backward_kernels(door_inp, big_inp, dense_inp):
+    """The four backward kernels of the dense-weight transfers (row 18)
+    against their float64 plain vjps on the door's state and on dense
+    random weights with seeded normal cotangents (ROW_TOL of each output
+    row's largest |value|), timed with CUDA events on the door's state and
+    on it tiled to 1e5 particles, beside the float32 plain vjp and one
+    torch.autograd.grad through the einsum yardstick; bounds from each
+    run's inputs."""
+    import torch
+    srcs = {
+        "fused_p2g_bwd": ("fused_p2g_bwd.cu", ":740 (_p2g_bwd_pallas, "
+                          "pallas_call :758, kernel _p2g_bwd_kernel :330)"),
+        "fused_g2p_bwd": ("fused_g2p_bwd.cu", ":774 (_g2p_bwd_pallas, "
+                          "pallas_call :794, kernel _g2p_bwd_kernel :423)"),
+        "fused_splat_bwd": ("fused_splat_bwd.cu", ":811 (_splat_bwd_pallas, "
+                            "pallas_call :828, kernel _splat_bwd_kernel "
+                            ":534)"),
+        "fused_gather_bwd": ("fused_gather_bwd.cu", ":840 "
+                             "(_gather_bwd_pallas, pallas_call :858, kernel "
+                             "_gather_bwd_kernel :570)")}
+    cts = {k: fused_cotangents(inp) for k, inp in
+           (("door", door_inp), ("big", big_inp), ("dense", dense_inp))}
+    calls = {k: fused_bwd_calls(inp, cts[k]) for k, inp in
+             (("door", door_inp), ("big", big_inp), ("dense", dense_inp))}
+    libs = {k: fused_einsum_vjps(inp, cts[k]) for k, inp in
+            (("door", door_inp), ("big", big_inp))}
+    lib64 = fused_einsum_vjps(door_inp, cts["door"], torch.float64)
+    entries = []
+    for name, (src, where) in srcs.items():
+        errs = {}
+        for case, inp in (("door", door_inp), ("dense", dense_inp)):
+            kern, _, ref = calls[case][name]
+            errs[case] = _bwd_rel(kern(), ref())
+        lib_err = _bwd_rel(lib64[name](), calls["door"][name][2]())[1]
+        if not lib_err <= 1e-8:
+            raise AssertionError(f"{name}: the einsum vjp yardstick differs "
+                                 f"by {lib_err}")
+        times = {}
+        for case in ("door", "big"):
+            kern, plain, _ = calls[case][name]
+            times[case] = (cuda_time_ms(kern), cuda_time_ms(plain, iters=5),
+                           cuda_time_ms(libs[case][name], iters=5))
+        f_row, f_box = FLOPS_PER_BWD_CELL[name]
+        nbytes, row_cells, box_cells = fused_bwd_work(name, door_inp)
+        e = kernel_entry(door_inp["n"], name,
+                         "softmac_tpu_torch/ops/csrc/" + src,
+                         "softmac_tpu/ops/pallas_fused.py" + where,
+                         max(v[0] for v in errs.values()),
+                         max(v[1] for v in errs.values()), times["door"][0],
+                         times["door"][1], nbytes,
+                         tolerance=ROW_TOL,
+                         flops=row_cells * f_row + box_cells * f_box)
+        e["library_ms"] = times["door"][2]
+        e["library_is"] = ("einsum vjp: one torch.autograd.grad through the "
+                           "einsum of the forward over the dense weights "
+                           "(its forward outside the timed call), TF32 off")
+        e["library_float64_rel_err"] = lib_err
+        e["rel_err_is"] = ("max |kernel - plain vjp| / max |plain vjp| per "
+                           "output row (each grid cotangent one row), the "
+                           "plain vjp in float64, seeded normal "
+                           "cotangents, over the door's state and the dense "
+                           "random weights")
+        e["rel_err_by_input"] = {k: v[1] for k, v in errs.items()}
+        e["dense_input"] = {"window": list(DENSE_WINDOW), "n": N_DENSE}
+        e["n_particles"] = door_inp["n"]
+        e["row_cells"], e["box_cells"] = row_cells, box_cells
+        nb, rc, bc = fused_bwd_work(name, big_inp)
+        b_ms, b_by = bound(name, big_inp["n"], nb, rc * f_row + bc * f_box)
+        e["at_1e5"] = {"n_particles": big_inp["n"], "ms": times["big"][0],
+                       "plain_ms": times["big"][1],
+                       "library_ms": times["big"][2], "bound_ms": b_ms,
+                       "bound_by": b_by, "bytes": nb, "row_cells": rc,
+                       "box_cells": bc}
+        entries.append(e)
+    return entries
+
+
+def door_grad_expect(env, steps, remat):
+    """Launches of every kernel in the door's rollout_and_grad over
+    ``steps`` env steps whose last loss frame ends the rollout. Every step
+    records autograd (its P2G channels carry the controller's action, and
+    the rest of the substep follows from them), so each forward kernel runs
+    once a substep and once more under remat "step" (the backward replays
+    every step), and each backward kernel once a substep; no ops/transfer.py
+    kernel."""
+    n_sub = steps * env.substeps
+    b = env.n_primitives
+    fwd = n_sub * (2 if remat == "step" else 1)
+    expect = dict.fromkeys(wrappers(), 0)
+    expect.update(dict.fromkeys(FUSED, fwd))
+    expect.update(dict.fromkeys(FUSED_BWD, n_sub))
+    expect["collide_mixed"] = b * fwd
+    expect["collide_mixed_bwd"] = b * n_sub
+    return expect
+
+
+def door_loss_start(env, steps):
+    """The demo's first loss frame (demos/demo_door.py:53)."""
+    return (2 * steps * env.substeps // 3) // 20 * 20
+
+
+def run_door_grad(env):
+    """The door's gradient main path: rollout_and_grad of DOOR_GRAD_STEPS
+    env steps of the demo's initial actions with its loss frames and
+    grad_clip 1.0, under remat "step" and "none" (exact launch counts, a
+    repeat of each, step against none)."""
+    steps = DOOR_GRAD_STEPS
+    out, launches = run_gradient(
+        "door_grad", env, door_actions(steps),
+        lambda remat: door_grad_expect(env, steps, remat), [0, 1, 2],
+        env.mpm_cfg.active_window, repeats=DOOR_GRAD_REPEATS,
+        loss_start_frame=door_loss_start(env, steps), grad_clip=1.0)
+    return {"scene": "demo_door", "actions": "z = 0.1", **out}, launches
+
+
+def run_demo_door():
+    """The door trainer on the card: softmac_tpu_torch.demos.demo_door for
+    DEMO_DOOR_EPOCHS epochs of DEMO_DOOR_STEPS env steps with
+    DEMO_DOOR_REPLICAS jittered replicas on the demo's own scene, logs in a
+    temporary directory. Losses finite and non-increasing, losses.npy and a
+    checkpoint an epoch written, the actions moved, every fused forward and
+    backward kernel and the mixed contact and its backward launched."""
+    import tempfile
+    import numpy as np
+    from softmac_tpu_torch.demos import demo_door
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = demo_door.main(["--steps", str(DEMO_DOOR_STEPS), "--epochs",
+                              str(DEMO_DOOR_EPOCHS), "--replicas",
+                              str(DEMO_DOOR_REPLICAS), "--log-root", tmp])
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        log = Path(tmp) / "door"
+        ckpts = sorted(p.name for p in (log / "ckpt").glob("actions_*.npy"))
+        saved = np.load(log / "losses.npy").tolist()
+        a_last = np.load(log / f"ckpt/actions_{DEMO_DOOR_EPOCHS - 1}.npy")
+    losses = out["losses"]
+    res = {"epochs": DEMO_DOOR_EPOCHS, "env_steps": DEMO_DOOR_STEPS,
+           "replicas": DEMO_DOOR_REPLICAS, "losses": losses,
+           "epoch_seconds": out["epoch_seconds"],
+           "seconds_with_setup": secs, "checkpoints": ckpts,
+           "actions_max_abs_change": float(np.abs(
+               a_last - door_actions(DEMO_DOOR_STEPS)).max()),
+           "launches": launches}
+    if not (all(math.isfinite(v) for v in losses) and saved == losses
+            and all(b <= a for a, b in zip(losses, losses[1:]))
+            and len(ckpts) == DEMO_DOOR_EPOCHS
+            and res["actions_max_abs_change"] > 0
+            and all(launches[k] > 0 for k in FUSED + FUSED_BWD
+                    + ("collide_mixed", "collide_mixed_bwd"))):
+        raise AssertionError(f"demo_door on the card failed: {res}")
+    return res
+
+
 def run_door(env):
     """The door's main path: one rollout of DOOR_STEPS env steps of the
     demo's initial actions with the launches counted from zero (each
     dense-weight transfer and the mixed contact once a substep, no
     ops/transfer.py kernel), its end state against a zero-action rollout
     of the same length, DOOR_REPEATS timed rollouts of DOOR_TIMED_STEPS,
-    the demo's full horizon once with its loss frames, and
-    rollout_and_grad refused on the card."""
+    and the demo's horizon (DOOR_HORIZON) once with its loss frames."""
     import numpy as np
     import torch
     acts = door_actions(DOOR_STEPS)
@@ -1806,11 +2130,6 @@ def run_door(env):
     full_secs = time.perf_counter() - t0
     (m, _, r), (mc, _, rc) = full["carry"], out["carry"]
     mz, _, rz = zero["carry"]
-    try:
-        env.rollout_and_grad(door_actions(2))
-        refused = None
-    except NotImplementedError as err:
-        refused = str(err)
     res = {"scene": "demo_door", "n_particles": env.n_particles,
            "window": list(env.mpm_cfg.active_window), "actions": "z = 0.1",
            "counted": {"env_steps": DOOR_STEPS, "substeps": n_sub,
@@ -1836,8 +2155,7 @@ def run_door(env):
                                  for k, v in full["terms"].items()},
                        "hinge_angle": r.q.tolist(),
                        "hinge_rate": r.qd.tolist(),
-                       "x_finite": bool(torch.isfinite(m.x).all())},
-           "rollout_and_grad_refused": refused}
+                       "x_finite": bool(torch.isfinite(m.x).all())}}
     h, c = res["horizon"], res["counted"]
     if (h["terms"]["window_overflow"] or c["window_overflow"]
             or bool(zero["terms"]["window_overflow"])
@@ -1845,9 +2163,6 @@ def run_door(env):
             or not all(math.isfinite(v) for v in h["hinge_angle"])
             or not c["x_max_abs_diff_vs_zero_action"] > 0):
         raise AssertionError(f"door output wrong: {res}")
-    if refused is None or "row 18" not in refused:
-        raise AssertionError(f"door rollout_and_grad on the card was not "
-                             f"refused naming row 18: {refused}")
     return res, launches
 
 
@@ -1855,13 +2170,18 @@ def run_door_parity():
     """The door's own 5400-particle scene, 20 env steps of the demo's
     initial actions: card (float32, kernels) against the CPU (float64,
     plain versions); x, the hinge's q and qd within 1e-4 absolute, the loss
-    within 1e-4 relative."""
+    within 1e-4 relative. Then rollout_and_grad of 20 env steps with the
+    demo's loss frames and grad_clip 1.0, pushing at ten times the demo's
+    initial actions (z = 1.0, so that the contact engages within the 20
+    steps: the demo's own 0.1 moves the door 9e-5 rad by then): the loss
+    within 1e-4, the action gradient within 1e-3 relative L2."""
     steps = 20
     acts = door_actions(steps)
+    envs = {"cuda": door_env(), "cpu": door_env("cpu")}
     reset_launches()
-    outs = {"cuda": door_env().rollout(acts)}
+    outs = {"cuda": envs["cuda"].rollout(acts)}
     launches = read_launches()
-    outs["cpu"] = door_env("cpu").rollout(acts)
+    outs["cpu"] = envs["cpu"].rollout(acts)
     (mg, _, rg), (mc, _, rc) = outs["cuda"]["carry"], outs["cpu"]["carry"]
     lg, lc = outs["cuda"]["loss"].item(), outs["cpu"]["loss"].item()
     res = {"n_particles": mc.x.shape[1], "env_steps": steps,
@@ -1878,6 +2198,31 @@ def run_door_parity():
             and res["qd_max_abs_err"] <= 1e-4
             and res["loss_rel_err"] <= 1e-4):
         raise AssertionError(f"door GPU/CPU parity failed: {res}")
+    acts = 10.0 * door_actions(steps)
+    kw = dict(loss_start_frame=door_loss_start(envs["cpu"], steps),
+              loss_stride=20, grad_clip=1.0)
+    reset_launches()
+    grads = {"cuda": envs["cuda"].rollout_and_grad(acts, **kw)}
+    launches = read_launches()
+    grads["cpu"] = envs["cpu"].rollout_and_grad(acts, **kw)
+    gg = grads["cuda"]["action_grad"].double().cpu()
+    gc = grads["cpu"]["action_grad"]
+    lg, lc = grads["cuda"]["loss"].item(), grads["cpu"]["loss"].item()
+    res["grad"] = {"actions": "z = 1.0", **kw, "loss_gpu": lg, "loss_cpu": lc,
+                   "loss_rel_err": abs(lg - lc) / abs(lc),
+                   "loss_tolerance": 1e-4,
+                   "action_grad_rel_l2_err": ((gg - gc).norm().item()
+                                              / gc.norm().item()),
+                   "action_grad_tolerance": 1e-3,
+                   "action_grad_cpu_max_abs": gc.abs().max().item(),
+                   "gpu_launches": {k: launches[k] for k in FUSED_BWD}}
+    if not all(launches[k] > 0 for k in FUSED + FUSED_BWD):
+        raise AssertionError("door gradient parity: the card's run missed a "
+                             f"kernel {launches}")
+    if not (gc.abs().max().item() > 0
+            and res["grad"]["loss_rel_err"] <= 1e-4
+            and res["grad"]["action_grad_rel_l2_err"] <= 1e-3):
+        raise AssertionError(f"door GPU/CPU gradient parity failed: {res}")
     return res
 
 
@@ -1925,8 +2270,8 @@ def main():
 
     so, log, secs = build.build()
     build.library()
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    emit("build", {"seconds": secs, "library": so.name, "ptxas": regs})
+    ptxas = ptxas_by_source(log)
+    emit("build", {"seconds": secs, "library": so.name, "ptxas": ptxas})
 
     env = SoftMacEnv(pour_vel_cfg(WINDOW),
                      init_particles=tiled_pour_particles(N_MAIN))
@@ -1947,8 +2292,9 @@ def main():
     big_inp = door_kernel_inputs(
         door_env(init_particles=big[0].x.T.cpu().numpy()), big,
         door_actions(1)[0])
-    kernels += check_fused_kernels(door_inp, big_inp,
-                                   dense_kernel_inputs(denv.device))
+    dense_inp = dense_kernel_inputs(denv.device)
+    kernels += check_fused_kernels(door_inp, big_inp, dense_inp)
+    kernels += check_fused_backward_kernels(door_inp, big_inp, dense_inp)
     del big, big_inp
 
     paths = {}
@@ -1963,18 +2309,23 @@ def main():
         pour_grad_launches["step"], pour_grad_launches["none"])
     split_grad_res, paths["pour_split_grad"] = run_pour_split_grad(pour_env)
     door_res, paths["door"] = run_door(denv)
+    door_grad_res, door_grad_launches = run_door_grad(denv)
+    paths["door_grad_step"], paths["door_grad_none"] = (
+        door_grad_launches["step"], door_grad_launches["none"])
     for k in kernels:
         # each kernel's main path: the forward kernels of pour_vel on its
         # rollout, their backwards on its gradient path with the default
         # remat ("step"), the pour's forward kernels on the flagship pour's
         # rollout and their backwards on its gradient path ("step"), the
         # split pair and its backward pair on that scene under the switch,
-        # the dense-weight transfers on the door's rollout
+        # the dense-weight transfers on the door's rollout and their
+        # backwards on its gradient path ("step")
         name = k["name"]
         counter = {"collide_mixed_split": "collide_mixed1",
                    "collide_mixed_split_bwd": "collide_mixed1_bwd"}.get(
                        name, name)
         path = ("slice" if name in FORWARD else "door" if name in FUSED
+                else "door_grad_step" if name in FUSED_BWD
                 else "pour" if name in POUR
                 else "pour_split" if counter == "collide_mixed1"
                 else "pour_split_grad" if counter == "collide_mixed1_bwd"
@@ -1982,6 +2333,8 @@ def main():
                 else "grad_step")
         k["launches"] = paths[path][counter]
         k["main_path"] = path
+        k["ptxas"] = [f for f in ptxas.get(Path(k["source"]).name, [])
+                      if "round_to_float" not in f["function"]]
         k["launches_by_path"] = {p: c[counter] for p, c in paths.items()}
         if not k["launches"] > 0:
             raise AssertionError(f"{name} was not launched on its main path "
@@ -2004,6 +2357,7 @@ def main():
     emit("parity", run_parity())
     emit("demo", run_demo())
     emit("door", door_res)
+    emit("door_grad", door_grad_res)
     profile_door = run_profile(denv, door_actions(20))
     profile_door["svd_launches_per_substep"] = svd_launches(denv, door10)
     profile_door["svd_share_of_launches"] = (
@@ -2012,7 +2366,9 @@ def main():
     profile_door["rigid_step_launches_per_env_step"] = rigid_step_launches(
         denv)
     emit("profile_door", profile_door)
+    emit("profile_door_grad", run_profile(denv, door_actions(5), grad=True))
     emit("door_parity", run_door_parity())
+    emit("demo_door", run_demo_door())
     print(smi, flush=True)      # the card again, next to the result
     emit(None, {"ok": True, "device": {"platform": "gpu", "kind": kind,
                                       "count": torch.cuda.device_count()}})

@@ -21,8 +21,12 @@ loop, eagerly on ``device`` (CUDA by default):
     unsort the exit carry
 
 with the same loss-frame sampling as the JAX rollout (``_sample_mask``).
-The imperative facade, batching and the other scene families come with
-later slices of the port.
+``batched_rollout`` and ``batched_rollout_and_grad`` run B trajectories
+(a batched carry: the carry with a leading B on every tensor, from
+``jittered_carry`` or the initial state broadcast B ways) one after
+another through the same loop, which gives what JAX's vmap over the
+rollout gives. The imperative facade and the other scene families are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -109,6 +113,13 @@ def _carry_from(t):
     return (MPMState(x=t[0], v=t[1], C=t[2], F=t[3]),
             BodyState(pos=t[4], quat=t[5], v=t[6], w=t[7]),
             RigidState(q=t[8], qd=t[9]))
+
+
+def map_carry(fn, carry):
+    """``fn`` applied to every tensor of a carry (``jax.tree.map`` over the
+    port's (mpm, bodies, rigid) carry), e.g. to tile or slice a batched
+    carry along its leading axis."""
+    return _carry_from([fn(t) for t in _carry_tensors(carry)])
 
 
 def _remat_group(remat, block):
@@ -435,18 +446,22 @@ class SoftMacEnv:
         return torch.as_tensor(v, dtype=self.dtype, device=self.device)
 
     @torch.no_grad()
-    def rollout(self, actions, loss_start_frame=None, loss_stride=20):
+    def rollout(self, actions, loss_start_frame=None, loss_stride=20,
+                carry0=None):
         """Forward rollout of ``actions`` (T, action_dim). Returns
         {"loss", "terms", "carry"} as the JAX ``SoftMacEnv.rollout`` does;
         the exit carry is in the original particle order. Nothing is saved
-        for autograd."""
+        for autograd. ``carry0``: the initial carry (original particle
+        order), by default the scene's initial state."""
         actions = torch.as_tensor(actions, dtype=self.dtype, device=self.device)
-        loss, terms, carry = self._run(actions, loss_start_frame, loss_stride)
+        loss, terms, carry = self._run(actions, loss_start_frame, loss_stride,
+                                       carry0=carry0)
         self._check_overflow(terms)
         return {"loss": loss, "terms": terms, "carry": carry}
 
     def rollout_and_grad(self, actions, loss_start_frame=None, loss_stride=20,
-                         bptt_window=None, grad_clip=None, remat="step"):
+                         bptt_window=None, grad_clip=None, remat="step",
+                         carry0=None):
         """Rollout and the gradient of its loss with respect to the actions:
         {"loss", "terms", "carry", "action_grad"}, as the JAX
         ``SoftMacEnv.rollout_and_grad``. ``remat``: "step" checkpoints each
@@ -454,13 +469,14 @@ class SoftMacEnv:
         forward), "none" keeps every step's tensors, "window:K" checkpoints
         every K env steps. ``bptt_window``: the carry is detached every
         ~bptt_window env steps. ``grad_clip``: the carry's cotangent is
-        clipped to that global L2 norm at every loss block start."""
+        clipped to that global L2 norm at every loss block start.
+        ``carry0`` as for ``rollout``."""
         actions = torch.as_tensor(actions, dtype=self.dtype, device=self.device)
         actions = actions.detach().requires_grad_()
         with torch.enable_grad():
             loss, terms, carry = self._run(
                 actions, loss_start_frame, loss_stride, bptt_window,
-                grad_clip, remat)
+                grad_clip, remat, carry0)
             if loss.requires_grad:
                 grad, = torch.autograd.grad(loss, actions, allow_unused=True)
             else:
@@ -473,6 +489,83 @@ class SoftMacEnv:
         self._check_overflow(terms)
         return {"loss": loss.detach(), "terms": terms, "carry": carry,
                 "action_grad": grad.detach()}
+
+    # ------------------------------------------------------------------
+    # batched multi-trajectory API (JAX env.py:1151-1205: a vmap there)
+    # ------------------------------------------------------------------
+    def _batched_carry(self, actions, carry0):
+        """``carry0``, or the initial carry broadcast B ways."""
+        if carry0 is None:
+            B = actions.shape[0]
+            carry0 = map_carry(lambda t: t.expand((B,) + t.shape),
+                               self._initial_carry())
+        return carry0
+
+    def jittered_carry(self, n_replicas, sigma=3e-4, seed=0):
+        """Batched initial carry whose particle positions are independently
+        jittered per replica (replica 0 stays exact): the noise
+        ``RandomState(seed).randn(B, 3, N) * sigma``, added to x in the
+        env's dtype, the same draw as JAX's ``jittered_carry``. The
+        robustification harness of demo_door ``--replicas``: the mean loss
+        over replicas is not an artifact of one trajectory's reduction
+        order. Compose with ``batched_rollout(_and_grad)`` by tiling the
+        actions n_replicas ways."""
+        c = self._initial_carry()
+        B = int(n_replicas)
+        carry = map_carry(lambda t: t.expand((B,) + t.shape), c)
+        noise = np.random.RandomState(seed).randn(B, *c[0].x.shape) \
+            * float(sigma)
+        noise[0] = 0.0
+        mpm = carry[0]
+        mpm = MPMState(x=mpm.x + torch.as_tensor(noise, dtype=self.dtype,
+                                                 device=self.device),
+                       v=mpm.v, C=mpm.C, F=mpm.F)
+        return (mpm,) + tuple(carry[1:])
+
+    def _batched(self, run, actions, carry0, **kw):
+        """``run`` (``rollout`` or ``rollout_and_grad``) of each trajectory
+        from its replica of the batched carry, one after another; the
+        results stacked along a leading B."""
+        actions = torch.as_tensor(actions, dtype=self.dtype, device=self.device)
+        carry0 = self._batched_carry(actions, carry0)
+        outs = [run(actions[b], carry0=map_carry(lambda t, b=b: t[b], carry0),
+                    **kw) for b in range(actions.shape[0])]
+        res = {"loss": torch.stack([o["loss"] for o in outs]),
+               "terms": {k: torch.stack([torch.as_tensor(o["terms"][k])
+                                         for o in outs])
+                         for k in outs[0]["terms"]},
+               "carry": _carry_from([torch.stack(ts) for ts in zip(
+                   *(_carry_tensors(o["carry"]) for o in outs))])}
+        if "action_grad" in outs[0]:
+            res["action_grad"] = torch.stack([o["action_grad"] for o in outs])
+        return res
+
+    def batched_rollout(self, actions, carry0=None, loss_start_frame=None,
+                        loss_stride=20, bptt_window=None, grad_clip=None,
+                        remat="step"):
+        """Roll out B independent trajectories: actions (B, T, action_dim);
+        ``carry0`` an optional batched carry (leading B on every tensor),
+        by default the initial state broadcast B ways. Returns {"loss" (B,),
+        "terms" {k: (B,)}, "carry" batched}, as JAX's ``batched_rollout``.
+        The trajectories run one after another through ``rollout``: the
+        same function as JAX's vmap. ``bptt_window``, ``grad_clip`` and
+        ``remat`` shape only a backward; a forward rollout ignores them,
+        as JAX's does."""
+        del bptt_window, grad_clip, remat
+        return self._batched(self.rollout, actions, carry0,
+                             loss_start_frame=loss_start_frame,
+                             loss_stride=loss_stride)
+
+    def batched_rollout_and_grad(self, actions, carry0=None,
+                                 loss_start_frame=None, loss_stride=20,
+                                 bptt_window=None, grad_clip=None,
+                                 remat="step"):
+        """Like ``batched_rollout``, plus each trajectory's "action_grad"
+        (B, T, action_dim), through ``rollout_and_grad``."""
+        return self._batched(self.rollout_and_grad, actions, carry0,
+                             loss_start_frame=loss_start_frame,
+                             loss_stride=loss_stride, bptt_window=bptt_window,
+                             grad_clip=grad_clip, remat=remat)
 
     def _steps(self, carry, acts, params_s, weights, perm):
         """Env steps ``acts`` from ``carry`` (one checkpointed unit)."""
@@ -488,10 +581,11 @@ class SoftMacEnv:
         return carry, overflow, terms
 
     def _run(self, actions, loss_start_frame, loss_stride, bptt_window=None,
-             grad_clip=None, remat=None):
-        """The rollout loop of both entry points. ``remat`` None runs each
-        loss block's steps in one piece without checkpoints (the forward
-        rollout under no_grad). Returns (loss, terms, exit carry)."""
+             grad_clip=None, remat=None, carry0=None):
+        """The rollout loop of both entry points, from ``carry0`` (default
+        the scene's initial carry). ``remat`` None runs each loss block's
+        steps in one piece without checkpoints (the forward rollout under
+        no_grad). Returns (loss, terms, exit carry)."""
         n_steps = actions.shape[0]
         block, n_blocks, mask_np, include_f0, sub_w = self._sample_mask(
             n_steps, loss_start_frame, loss_stride)
@@ -507,7 +601,8 @@ class SoftMacEnv:
                 seg_blocks -= 1
         cfg = self.mpm_cfg
 
-        carry0 = self._initial_carry()
+        if carry0 is None:
+            carry0 = self._initial_carry()
         carry = carry0
         params_s = self.mpm_params
         perm = torch.arange(self.n_particles, device=self.device)

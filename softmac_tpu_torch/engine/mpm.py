@@ -23,7 +23,10 @@ float64 runs take the route the card's float32 runs take):
   static rule, not a runtime fallback.
 The x-based kernels read each particle's own position, so unlike the JAX
 chunked family they need no y-sorted order. Each route runs its CUDA
-kernels on the card and their plain PyTorch versions on the CPU.
+kernels on the card and their plain PyTorch versions on the CPU, forward
+and backward: on the fused route the backward kernels return the
+cotangents of the dense weights, which flow on through ``axis_weights``
+to x.
 
 The window corner stays a device tensor, so a substep never waits on the
 host; ``window_overflow`` comes back as a 0-d bool tensor. A substep is

@@ -1,0 +1,141 @@
+// Shared by the dense-weight transfers' backward kernels (fused_p2g_bwd.cu,
+// fused_g2p_bwd.cu, fused_splat_bwd.cu, fused_gather_bwd.cu).
+//
+// For one particle, each of the four forwards, dotted with its output
+// cotangent, is a sum over the window cells c = (x, y, z) (row y * wz + z,
+// column x) of a form that is linear in each axis's weights:
+//   f = sum_c  Wx[x]  Wy[y]  Wz[z]  s.h(c)  + WxD[x] Wy[y]  Wz[z]  s.d0(c)
+//            + Wx[x]  WDy[y] Wz[z]  s.d1(c) + Wx[x]  Wy[y]  WDz[z] s.d2(c)
+// where the cell coefficients s(c) pair the output cotangent at c with the
+// particle's own channels (P2G, splat), or the grids at c with the
+// particle's output cotangent (G2P, gather). The splat and the gather have
+// no derivative weights (s.d0 = s.d1 = s.d2 = 0).
+//
+// The cotangent of a weight entry is the partial derivative of f. It is
+// dense in the row: dWx[r] sums over the particle's box on y and z for
+// every r < wx, whether Wx[r] is zero or not, and it is zero for every r
+// when the box on y or on z is empty (a stencil that left the window
+// there). The box on each axis is the union of the nonzero rows of W and
+// WD (fused.cuh nonzero_rows), so it covers every weight a term reads.
+// Every row of every output is written, zeros included: no memset.
+#pragma once
+
+#include "fused.cuh"
+
+namespace softmac {
+
+struct Box {
+  int x0, x1, y0, y1, z0, z1;
+  __device__ __forceinline__ bool empty() const {
+    return x0 > x1 || y0 > y1 || z0 > z1;
+  }
+};
+
+// The particle's box: its nonzero row range on each axis, over W and (with
+// derivative weights) WD.
+__device__ __forceinline__ Box particle_box(const float* Wx, const float* WxD,
+                                            const float* Wy, const float* WDy,
+                                            const float* Wz, const float* WDz,
+                                            int n, int p, int wx, int wy,
+                                            int wz) {
+  Box b;
+  nonzero_rows(Wx, WxD, wx, n, p, &b.x0, &b.x1);
+  nonzero_rows(Wy, WDy, wy, n, p, &b.y0, &b.y1);
+  nonzero_rows(Wz, WDz, wz, n, p, &b.z0, &b.z1);
+  return b;
+}
+
+// Coefficients of one cell in the form above.
+struct CellCoef {
+  double h, d0, d1, d2;
+};
+
+template <bool kDeriv>
+__device__ __forceinline__ double deriv_at(const float* __restrict__ w, int r,
+                                           int n, int p) {
+  if constexpr (kDeriv) {
+    return at(w, r, n, p);
+  } else {
+    return 0.0;
+  }
+}
+
+// Writes the weight cotangents of f, dWx (wx, n) ... dWDz (wz, n) at column
+// p, from cell(row, x) -> CellCoef. Sums in double, rounded once. Without
+// derivative weights (kDeriv false) WxD, WDy, WDz and dWxD, dWDy, dWDz are
+// not read or written.
+template <bool kDeriv, class Cell>
+__device__ __forceinline__ void weight_adjoint(
+    const float* __restrict__ Wx, const float* __restrict__ WxD,
+    const float* __restrict__ Wy, const float* __restrict__ WDy,
+    const float* __restrict__ Wz, const float* __restrict__ WDz, int n, int p,
+    int wx, int wy, int wz, const Box& b, Cell cell, float* __restrict__ dWx,
+    float* __restrict__ dWxD, float* __restrict__ dWy,
+    float* __restrict__ dWDy, float* __restrict__ dWz,
+    float* __restrict__ dWDz) {
+  // x rows: over the (y, z) box
+  for (int x = 0; x < wx; ++x) {
+    double g = 0.0, gd = 0.0;
+    for (int y = b.y0; y <= b.y1; ++y) {
+      const double wy_ = at(Wy, y, n, p);
+      const double dy = deriv_at<kDeriv>(WDy, y, n, p);
+      for (int z = b.z0; z <= b.z1; ++z) {
+        const double wz_ = at(Wz, z, n, p);
+        const double dz = deriv_at<kDeriv>(WDz, z, n, p);
+        const CellCoef s = cell(y * wz + z, x);
+        g += wy_ * wz_ * s.h;
+        if constexpr (kDeriv) {
+          g += dy * wz_ * s.d1 + wy_ * dz * s.d2;
+          gd += wy_ * wz_ * s.d0;
+        }
+      }
+    }
+    const size_t i = static_cast<size_t>(x) * n + p;
+    dWx[i] = static_cast<float>(g);
+    if constexpr (kDeriv) dWxD[i] = static_cast<float>(gd);
+  }
+  // y rows: over the (z, x) box
+  for (int y = 0; y < wy; ++y) {
+    double g = 0.0, gd = 0.0;
+    for (int z = b.z0; z <= b.z1; ++z) {
+      const double wz_ = at(Wz, z, n, p);
+      const double dz = deriv_at<kDeriv>(WDz, z, n, p);
+      for (int x = b.x0; x <= b.x1; ++x) {
+        const double wx_ = at(Wx, x, n, p);
+        const double dx = deriv_at<kDeriv>(WxD, x, n, p);
+        const CellCoef s = cell(y * wz + z, x);
+        g += wz_ * wx_ * s.h;
+        if constexpr (kDeriv) {
+          g += wz_ * dx * s.d0 + dz * wx_ * s.d2;
+          gd += wz_ * wx_ * s.d1;
+        }
+      }
+    }
+    const size_t i = static_cast<size_t>(y) * n + p;
+    dWy[i] = static_cast<float>(g);
+    if constexpr (kDeriv) dWDy[i] = static_cast<float>(gd);
+  }
+  // z rows: over the (y, x) box
+  for (int z = 0; z < wz; ++z) {
+    double g = 0.0, gd = 0.0;
+    for (int y = b.y0; y <= b.y1; ++y) {
+      const double wy_ = at(Wy, y, n, p);
+      const double dy = deriv_at<kDeriv>(WDy, y, n, p);
+      for (int x = b.x0; x <= b.x1; ++x) {
+        const double wx_ = at(Wx, x, n, p);
+        const double dx = deriv_at<kDeriv>(WxD, x, n, p);
+        const CellCoef s = cell(y * wz + z, x);
+        g += wy_ * wx_ * s.h;
+        if constexpr (kDeriv) {
+          g += wy_ * dx * s.d0 + dy * wx_ * s.d1;
+          gd += wy_ * wx_ * s.d2;
+        }
+      }
+    }
+    const size_t i = static_cast<size_t>(z) * n + p;
+    dWz[i] = static_cast<float>(g);
+    if constexpr (kDeriv) dWDz[i] = static_cast<float>(gd);
+  }
+}
+
+}  // namespace softmac

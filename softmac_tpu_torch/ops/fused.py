@@ -28,23 +28,25 @@ of their inputs; their products run in full precision (TF32 is off on the
 card, as ``SoftMacEnv`` sets it).
 
 ``p2g``, ``g2p``, ``splat`` and ``gather`` dispatch through
-``build.on_cpu``: on the CPU they run the plain version (under autograd
-too, so gradients flow through it and through ``axis_weights`` to x), on
-CUDA they launch the kernel and count the launch, anything else raises.
-The backward kernels of this family are not ported yet: on CUDA a call
-that needs a gradient raises.
+``build.on_cpu``: on the CPU they run the plain version, on CUDA they
+launch the kernel and count the launch, anything else raises. There is no
+fallback from CUDA to the plain version.
+
+Under autograd (grad enabled and an input that requires grad) each goes
+through its autograd Function (``FusedP2G``, ``FusedG2P``, ``FusedSplat``,
+``FusedGather``: the custom_vjps of ``pallas_fused`` :878-945), whose
+backward returns the cotangents of every weight matrix and of the
+channels, grids or values through ``p2g_bwd`` / ``g2p_bwd`` /
+``splat_bwd`` / ``gather_bwd``, which dispatch the same way: on CUDA they
+launch the backward kernel (dense in every weight row), on the CPU they
+run the plain vjp (``p2g_vjp_plain`` and its kin: autograd of the plain
+version, recomputed, in the dtype of its inputs). The weight cotangents flow on through ``mpm.axis_weights`` to x.
 """
 from __future__ import annotations
 
 import torch
 
 from softmac_tpu_torch.ops import build
-
-_NO_BACKWARD = ("the dense-weight transfers' backward kernels "
-                "(pallas_fused _p2g_bwd_pallas, _g2p_bwd_pallas, "
-                "_splat_bwd_pallas, _gather_bwd_pallas: row 18 of the kernel "
-                "table) are not ported yet; the door's gradient runs on the "
-                "CPU only")
 
 
 def _kr(a, b):
@@ -91,6 +93,41 @@ def gather_plain(Wx, Wy, Wz, gv0, gv1, gv2):
                         for g in (gv0, gv1, gv2)])
 
 
+def _vjp(fn, ins, cts):
+    """Cotangents of ``fn(*ins)`` for the output cotangents ``cts``:
+    autograd of the plain version, recomputed."""
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_() for t in ins)
+        return torch.autograd.grad(fn(*ins), ins, cts)
+
+
+def p2g_vjp_plain(Wx, WxD, Wy, WDy, Wz, WDz, chan, dgm, dgmom):
+    """Cotangents (dWx, dWxD, dWy, dWDy, dWz, dWDz, dchan) of ``p2g_plain``
+    for the window cotangents dgm (wy*wz, wx), dgmom (wy*wz, 3*wx)
+    (``jax.vjp`` of ``pallas_fused._p2g_ref``)."""
+    return _vjp(p2g_plain, (Wx, WxD, Wy, WDy, Wz, WDz, chan), (dgm, dgmom))
+
+
+def g2p_vjp_plain(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2, g):
+    """Cotangents of the six weights and of gv0, gv1, gv2 of ``g2p_plain``
+    for the cotangent g (12, N) of its rows (``jax.vjp`` of
+    ``pallas_fused._g2p_ref``, its pad rows given zero cotangent)."""
+    return _vjp(g2p_plain, (Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2), g)
+
+
+def splat_vjp_plain(Wx, Wy, Wz, vals, dout):
+    """Cotangents (dWx, dWy, dWz, dvals) of ``splat_plain`` for the window
+    cotangent dout (wy*wz, 3*wx) (``jax.vjp`` of
+    ``pallas_fused._splat_ref``)."""
+    return _vjp(splat_plain, (Wx, Wy, Wz, vals), dout)
+
+
+def gather_vjp_plain(Wx, Wy, Wz, gv0, gv1, gv2, dv):
+    """Cotangents (dWx, dWy, dWz, dgv0, dgv1, dgv2) of ``gather_plain`` for
+    the cotangent dv (3, N) (``jax.vjp`` of ``pallas_fused._gather_ref``)."""
+    return _vjp(gather_plain, (Wx, Wy, Wz, gv0, gv1, gv2), dv)
+
+
 def _needs_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -98,8 +135,6 @@ def _needs_grad(*tensors):
 def _check(name, weights, others, window):
     """Float32 contiguous CUDA tensors; the weights (w_d, N) for the window
     (wx, wy, wz), one N for all."""
-    if _needs_grad(*weights, *others):
-        raise NotImplementedError(f"{name}: {_NO_BACKWARD}")
     for t in weights + others:
         if t.device.type != "cuda" or t.dtype != torch.float32:
             raise TypeError(f"{name}: CUDA kernel takes float32 CUDA tensors, "
@@ -119,7 +154,7 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def p2g(Wx, WxD, Wy, WDy, Wz, WDz, chan):
+def _p2g(Wx, WxD, Wy, WDy, Wz, WDz, chan):
     """P2G over dense weights; see ``p2g_plain``. CUDA tensors launch the
     kernel (float64 accumulation, rounded once)."""
     if build.on_cpu(Wx, "fused p2g"):
@@ -146,7 +181,7 @@ def _check_grids(name, grids, wx, wy, wz):
         raise ValueError(f"{name}: grids {[tuple(g.shape) for g in grids]}")
 
 
-def g2p(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2):
+def _g2p(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2):
     """G2P over dense weights; see ``g2p_plain``. CUDA tensors launch the
     kernel."""
     if build.on_cpu(Wx, "fused g2p"):
@@ -167,7 +202,7 @@ def g2p(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2):
     return out
 
 
-def splat(Wx, Wy, Wz, vals):
+def _splat(Wx, Wy, Wz, vals):
     """Splat of vals (3, N) over dense weights; see ``splat_plain``. CUDA
     tensors launch the kernel (float64 accumulation, rounded once)."""
     if build.on_cpu(Wx, "fused splat"):
@@ -187,7 +222,7 @@ def splat(Wx, Wy, Wz, vals):
     return out
 
 
-def gather(Wx, Wy, Wz, gv0, gv1, gv2):
+def _gather(Wx, Wy, Wz, gv0, gv1, gv2):
     """Gather of the grids at the particles over dense weights; see
     ``gather_plain``. CUDA tensors launch the kernel."""
     if build.on_cpu(Wx, "fused gather"):
@@ -205,7 +240,205 @@ def gather(Wx, Wy, Wz, gv0, gv1, gv2):
     return out
 
 
+def p2g_bwd(Wx, WxD, Wy, WDy, Wz, WDz, chan, dgm, dgmom):
+    """The P2G backward: (dWx, dWxD, dWy, dWDy, dWz, dWDz, dchan) as
+    ``p2g_vjp_plain`` computes them. CUDA tensors launch the kernel (a
+    gather over the window cotangents: no atomics)."""
+    if build.on_cpu(Wx, "fused p2g_bwd"):
+        return p2g_vjp_plain(Wx, WxD, Wy, WDy, Wz, WDz, chan, dgm, dgmom)
+    wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
+    n = _check("fused p2g_bwd", (Wx, Wy, Wz),
+               (WxD, WDy, WDz, chan, dgm, dgmom), (wx, wy, wz))
+    if (WxD.shape, WDy.shape, WDz.shape, chan.shape, dgm.shape,
+            dgmom.shape) != (Wx.shape, Wy.shape, Wz.shape, (13, n),
+                             (wy * wz, wx), (wy * wz, 3 * wx)):
+        raise ValueError("fused p2g_bwd: derivative weights, chan or "
+                         "cotangents mis-shaped")
+    rows = (wx, wx, wy, wy, wz, wz, 13)
+    out = torch.empty((sum(rows), n), dtype=Wx.dtype, device=Wx.device)
+    rc = build.library().softmac_fused_p2g_bwd(
+        Wx.data_ptr(), WxD.data_ptr(), Wy.data_ptr(), WDy.data_ptr(),
+        Wz.data_ptr(), WDz.data_ptr(), chan.data_ptr(), dgm.data_ptr(),
+        dgmom.data_ptr(), out.data_ptr(), n, wx, wy, wz, _stream(Wx))
+    build.check(rc, "fused p2g_bwd")
+    p2g_bwd.launches += 1
+    return torch.split(out, rows)
+
+
+def g2p_bwd(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2, g):
+    """The G2P backward: the six weight cotangents and dgv0, dgv1, dgv2 as
+    ``g2p_vjp_plain`` computes them. CUDA tensors launch the kernel (the
+    grid cotangents summed in float64 and rounded once)."""
+    if build.on_cpu(Wx, "fused g2p_bwd"):
+        return g2p_vjp_plain(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2, g)
+    wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
+    n = _check("fused g2p_bwd", (Wx, Wy, Wz),
+               (WxD, WDy, WDz, gv0, gv1, gv2, g), (wx, wy, wz))
+    if (WxD.shape, WDy.shape, WDz.shape, g.shape) != (
+            Wx.shape, Wy.shape, Wz.shape, (12, n)):
+        raise ValueError("fused g2p_bwd: derivative weights or cotangent "
+                         "mis-shaped")
+    _check_grids("fused g2p_bwd", (gv0, gv1, gv2), wx, wy, wz)
+    rows = (wx, wx, wy, wy, wz, wz)
+    cells = wx * wy * wz
+    out = torch.empty((sum(rows), n), dtype=Wx.dtype, device=Wx.device)
+    acc = torch.zeros(3 * cells, dtype=torch.float64, device=Wx.device)
+    gout = torch.empty((3, wy * wz, wx), dtype=Wx.dtype, device=Wx.device)
+    rc = build.library().softmac_fused_g2p_bwd(
+        Wx.data_ptr(), WxD.data_ptr(), Wy.data_ptr(), WDy.data_ptr(),
+        Wz.data_ptr(), WDz.data_ptr(), gv0.data_ptr(), gv1.data_ptr(),
+        gv2.data_ptr(), g.data_ptr(), out.data_ptr(), acc.data_ptr(),
+        gout.data_ptr(), n, wx, wy, wz, _stream(Wx))
+    build.check(rc, "fused g2p_bwd")
+    g2p_bwd.launches += 1
+    return torch.split(out, rows) + tuple(gout)
+
+
+def splat_bwd(Wx, Wy, Wz, vals, dout):
+    """The splat backward: (dWx, dWy, dWz, dvals) as ``splat_vjp_plain``
+    computes them. CUDA tensors launch the kernel (a gather: no
+    atomics)."""
+    if build.on_cpu(Wx, "fused splat_bwd"):
+        return splat_vjp_plain(Wx, Wy, Wz, vals, dout)
+    wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
+    n = _check("fused splat_bwd", (Wx, Wy, Wz), (vals, dout), (wx, wy, wz))
+    if vals.shape != (3, n) or dout.shape != (wy * wz, 3 * wx):
+        raise ValueError(f"fused splat_bwd: vals {tuple(vals.shape)}, "
+                         f"cotangent {tuple(dout.shape)}")
+    rows = (wx, wy, wz, 3)
+    out = torch.empty((sum(rows), n), dtype=Wx.dtype, device=Wx.device)
+    rc = build.library().softmac_fused_splat_bwd(
+        Wx.data_ptr(), Wy.data_ptr(), Wz.data_ptr(), vals.data_ptr(),
+        dout.data_ptr(), out.data_ptr(), n, wx, wy, wz, _stream(Wx))
+    build.check(rc, "fused splat_bwd")
+    splat_bwd.launches += 1
+    return torch.split(out, rows)
+
+
+def gather_bwd(Wx, Wy, Wz, gv0, gv1, gv2, dv):
+    """The gather backward: (dWx, dWy, dWz, dgv0, dgv1, dgv2) as
+    ``gather_vjp_plain`` computes them. CUDA tensors launch the kernel (the
+    grid cotangents summed in float64 and rounded once)."""
+    if build.on_cpu(Wx, "fused gather_bwd"):
+        return gather_vjp_plain(Wx, Wy, Wz, gv0, gv1, gv2, dv)
+    wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
+    n = _check("fused gather_bwd", (Wx, Wy, Wz), (gv0, gv1, gv2, dv),
+               (wx, wy, wz))
+    if dv.shape != (3, n):
+        raise ValueError(f"fused gather_bwd: cotangent {tuple(dv.shape)}")
+    _check_grids("fused gather_bwd", (gv0, gv1, gv2), wx, wy, wz)
+    rows = (wx, wy, wz)
+    cells = wx * wy * wz
+    out = torch.empty((sum(rows), n), dtype=Wx.dtype, device=Wx.device)
+    acc = torch.zeros(3 * cells, dtype=torch.float64, device=Wx.device)
+    gout = torch.empty((3, wy * wz, wx), dtype=Wx.dtype, device=Wx.device)
+    rc = build.library().softmac_fused_gather_bwd(
+        Wx.data_ptr(), Wy.data_ptr(), Wz.data_ptr(), gv0.data_ptr(),
+        gv1.data_ptr(), gv2.data_ptr(), dv.data_ptr(), out.data_ptr(),
+        acc.data_ptr(), gout.data_ptr(), n, wx, wy, wz, _stream(Wx))
+    build.check(rc, "fused gather_bwd")
+    gather_bwd.launches += 1
+    return torch.split(out, rows) + tuple(gout)
+
+
+def _backward(ctx, bwd, *cts):
+    """The cotangents of a Function's saved inputs through its backward
+    wrapper; None where no input needs one."""
+    grads = bwd(*ctx.saved_tensors, *(c.contiguous() for c in cts))
+    return tuple(g if need else None
+                 for g, need in zip(grads, ctx.needs_input_grad))
+
+
+class FusedP2G(torch.autograd.Function):
+    """P2G with its backward kernel (``pallas_fused.p2g``'s custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, *ins):
+        ctx.save_for_backward(*ins)
+        return _p2g(*ins)
+
+    @staticmethod
+    def backward(ctx, dgm, dgmom):
+        return _backward(ctx, p2g_bwd, dgm, dgmom)
+
+
+class FusedG2P(torch.autograd.Function):
+    """G2P with its backward kernel (``pallas_fused.g2p``'s custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, *ins):
+        ctx.save_for_backward(*ins)
+        return _g2p(*ins)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _backward(ctx, g2p_bwd, g)
+
+
+class FusedSplat(torch.autograd.Function):
+    """Splat with its backward kernel (``pallas_fused.splat``'s
+    custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, *ins):
+        ctx.save_for_backward(*ins)
+        return _splat(*ins)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return _backward(ctx, splat_bwd, dout)
+
+
+class FusedGather(torch.autograd.Function):
+    """Gather with its backward kernel (``pallas_fused.gather``'s
+    custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, *ins):
+        ctx.save_for_backward(*ins)
+        return _gather(*ins)
+
+    @staticmethod
+    def backward(ctx, dv):
+        return _backward(ctx, gather_bwd, dv)
+
+
+def p2g(Wx, WxD, Wy, WDy, Wz, WDz, chan):
+    """P2G over dense weights, (gm (wy*wz, wx), gmom (wy*wz, 3*wx)); see
+    ``p2g_plain``. CUDA tensors launch the kernel; under autograd the
+    backward launches ``p2g_bwd``."""
+    ins = (Wx, WxD, Wy, WDy, Wz, WDz, chan)
+    return FusedP2G.apply(*ins) if _needs_grad(*ins) else _p2g(*ins)
+
+
+def g2p(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2):
+    """G2P over dense weights, (12, N); see ``g2p_plain``. CUDA tensors
+    launch the kernel; under autograd the backward launches ``g2p_bwd``."""
+    ins = (Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2)
+    return FusedG2P.apply(*ins) if _needs_grad(*ins) else _g2p(*ins)
+
+
+def splat(Wx, Wy, Wz, vals):
+    """Splat of vals (3, N) over dense weights, (wy*wz, 3*wx); see
+    ``splat_plain``. CUDA tensors launch the kernel; under autograd the
+    backward launches ``splat_bwd``."""
+    ins = (Wx, Wy, Wz, vals)
+    return FusedSplat.apply(*ins) if _needs_grad(*ins) else _splat(*ins)
+
+
+def gather(Wx, Wy, Wz, gv0, gv1, gv2):
+    """Gather of the grids at the particles over dense weights, (3, N); see
+    ``gather_plain``. CUDA tensors launch the kernel; under autograd the
+    backward launches ``gather_bwd``."""
+    ins = (Wx, Wy, Wz, gv0, gv1, gv2)
+    return FusedGather.apply(*ins) if _needs_grad(*ins) else _gather(*ins)
+
+
 p2g.launches = 0
 g2p.launches = 0
 splat.launches = 0
 gather.launches = 0
+p2g_bwd.launches = 0
+g2p_bwd.launches = 0
+splat_bwd.launches = 0
+gather_bwd.launches = 0

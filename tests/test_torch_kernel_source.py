@@ -11,11 +11,14 @@ Held against the plain versions in float64 on the same float32 inputs:
 P2G (its splat is shared with G2P's backward), gather, splat and the P2G /
 G2P / gather / splat backward kernels, which compute in float32, within
 2e-6 of the largest |value| of each output; the dense-weight transfers
-(fused_p2g, fused_g2p, fused_splat, fused_gather), which compute in double
-on float inputs, on B-spline weights of a scene (some particles' stencils
-leaving the window) and on fully dense random weights: their float64
-windows within 1e-12, their float32 particle rows within 1e-6 (one
-rounding); the penalty contact backward,
+(fused_p2g, fused_g2p, fused_splat, fused_gather) and their backward
+kernels (fused_p2g_bwd, fused_g2p_bwd, fused_splat_bwd, fused_gather_bwd,
+against the float64 plain vjps), which compute in double on float inputs,
+on B-spline weights of a scene (some particles' stencils leaving the
+window) and on fully dense random weights: their float64 windows and grid
+cotangents within 1e-12, their float32 particle rows (outputs, weight
+cotangents, channel and value cotangents) within 1e-6 of each row's
+largest |value| (one rounding); the penalty contact backward,
 which computes in double on its float inputs, within 1e-6 (float literals
 and the float dt / p_mass set that floor); the mixed contact backward
 (merged and split), also double math, within 1e-12 given the float dt and
@@ -202,6 +205,34 @@ void h_fused_gather(const float* Wx, const float* Wy, const float* Wz,
   launch(n, [&] { k_fused_gather::fused_gather_kernel(Wx, Wy, Wz, g0, g1, g2,
                                                       out, n, wx, wy, wz); });
 }
+void h_fused_p2g_bwd(const float* Wx, const float* WxD, const float* Wy,
+                     const float* WDy, const float* Wz, const float* WDz,
+                     const float* chan, const float* dgm, const float* dgmom,
+                     float* out, int n, int wx, int wy, int wz) {
+  launch(n, [&] { k_fused_p2g_bwd::fused_p2g_bwd_kernel(
+      Wx, WxD, Wy, WDy, Wz, WDz, chan, dgm, dgmom, out, n, wx, wy, wz); });
+}
+void h_fused_g2p_bwd(const float* Wx, const float* WxD, const float* Wy,
+                     const float* WDy, const float* Wz, const float* WDz,
+                     const float* g0, const float* g1, const float* g2,
+                     const float* g, float* out, double* acc, int n, int wx,
+                     int wy, int wz) {
+  launch(n, [&] { k_fused_g2p_bwd::fused_g2p_bwd_kernel(
+      Wx, WxD, Wy, WDy, Wz, WDz, g0, g1, g2, g, out, acc, n, wx, wy, wz); });
+}
+void h_fused_splat_bwd(const float* Wx, const float* Wy, const float* Wz,
+                       const float* vals, const float* dout, float* out,
+                       int n, int wx, int wy, int wz) {
+  launch(n, [&] { k_fused_splat_bwd::fused_splat_bwd_kernel(
+      Wx, Wy, Wz, vals, dout, out, n, wx, wy, wz); });
+}
+void h_fused_gather_bwd(const float* Wx, const float* Wy, const float* Wz,
+                        const float* g0, const float* g1, const float* g2,
+                        const float* dv, float* out, double* acc, int n,
+                        int wx, int wy, int wz) {
+  launch(n, [&] { k_fused_gather_bwd::fused_gather_bwd_kernel(
+      Wx, Wy, Wz, g0, g1, g2, dv, out, acc, n, wx, wy, wz); });
+}
 void h_contact_bwd(const float* x, const float* v, const float* table,
                    const float* body, const float* gimp, double* dx,
                    double* dv, double* dbody, int n, int r0, int r1, int r2,
@@ -247,7 +278,9 @@ def lib(tmp_path_factory):
     src = "".join(_kernel_bodies(n) for n in (
         "p2g", "p2g_bwd", "g2p_bwd", "gather", "splat", "contact",
         "contact_mixed", "gather_bwd", "splat_bwd", "contact_mixed_bwd",
-        "fused_p2g", "fused_g2p", "fused_splat", "fused_gather")) \
+        "fused_p2g", "fused_g2p", "fused_splat", "fused_gather",
+        "fused_p2g_bwd", "fused_g2p_bwd", "fused_splat_bwd",
+        "fused_gather_bwd")) \
         + DRIVER
     (d / "driver.cpp").write_text(src)
     so = d / "libkernels_host.so"
@@ -604,3 +637,71 @@ def test_fused_transfer_sources(lib, case):
     ref = fused.gather_plain(*W64, *(g.double() for g in gv))
     for d in range(3):
         assert _rel(out[d], ref[d]) < 1e-6
+
+
+def _rows_rel(got, want):
+    """The largest |got - want| of each row over that row's largest
+    |want|, the worst row."""
+    diff = (got.double() - want).abs().amax(dim=1)
+    return (diff / want.abs().amax(dim=1).clamp(min=1e-300)).max().item()
+
+
+@pytest.mark.parametrize("case", ["bspline", "dense"])
+def test_fused_backward_sources(lib, case):
+    """The four backward kernels against the float64 plain vjps on the
+    same float32 inputs and seeded cotangents: every row of every weight
+    cotangent (dense in the row: rows outside a particle's box too), the
+    channel and value cotangents, and the float64 grid cotangents."""
+    ws, window, rng = _fused_weights(case)
+    wx, wy, wz = window
+    w64 = [w.double() for w in ws]
+    W, W64 = ws[0::2], w64[0::2]
+    chan, vals, gv = _f32(rng, 13, N), _f32(rng, 3, N), \
+        [_f32(rng, wy * wz, wx) for _ in range(3)]
+    gv64 = [g.double() for g in gv]
+    dgm, dgmom = _f32(rng, wy * wz, wx), _f32(rng, wy * wz, 3 * wx)
+    g12, dout, dv = _f32(rng, 12, N), _f32(rng, wy * wz, 3 * wx), \
+        _f32(rng, 3, N)
+    rows6 = 2 * (wx + wy + wz)
+    cells = wx * wy * wz
+
+    def split(out, rows):
+        return torch.split(out, list(rows))
+
+    out = torch.zeros(rows6 + 13, N)
+    lib.h_fused_p2g_bwd(*map(_p, ws), _p(chan), _p(dgm), _p(dgmom), _p(out),
+                        *_fdims(window))
+    ref = fused.p2g_vjp_plain(*w64, chan.double(), dgm.double(),
+                              dgmom.double())
+    for got, want in zip(split(out, (wx, wx, wy, wy, wz, wz, 13)), ref):
+        assert _rows_rel(got, want) < 1e-6
+    # a weight cotangent is dense in the row: rows off the stencil too
+    off = (out[:wx] != 0) & (ws[0] == 0) & (ws[1] == 0)
+    assert case == "dense" or bool(off.any())
+
+    out = torch.zeros(rows6, N)
+    acc = torch.zeros(3 * cells, dtype=torch.float64)
+    lib.h_fused_g2p_bwd(*map(_p, ws), *map(_p, gv), _p(g12), _p(out),
+                        _p(acc), *_fdims(window))
+    ref = fused.g2p_vjp_plain(*w64, *gv64, g12.double())
+    for got, want in zip(split(out, (wx, wx, wy, wy, wz, wz)), ref[:6]):
+        assert _rows_rel(got, want) < 1e-6
+    for d in range(3):
+        assert _rel(acc.reshape(3, -1)[d], ref[6 + d].reshape(-1)) < 1e-12
+
+    out = torch.zeros(wx + wy + wz + 3, N)
+    lib.h_fused_splat_bwd(*map(_p, W), _p(vals), _p(dout), _p(out),
+                          *_fdims(window))
+    ref = fused.splat_vjp_plain(*W64, vals.double(), dout.double())
+    for got, want in zip(split(out, (wx, wy, wz, 3)), ref):
+        assert _rows_rel(got, want) < 1e-6
+
+    out = torch.zeros(wx + wy + wz, N)
+    acc = torch.zeros(3 * cells, dtype=torch.float64)
+    lib.h_fused_gather_bwd(*map(_p, W), *map(_p, gv), _p(dv), _p(out),
+                           _p(acc), *_fdims(window))
+    ref = fused.gather_vjp_plain(*W64, *gv64, dv.double())
+    for got, want in zip(split(out, (wx, wy, wz)), ref[:3]):
+        assert _rows_rel(got, want) < 1e-6
+    for d in range(3):
+        assert _rel(acc.reshape(3, -1)[d], ref[3 + d].reshape(-1)) < 1e-12

@@ -173,7 +173,9 @@ def test_kernel_library_is_keyed_by_sources():
         "softmac_gather_bwd", "softmac_splat_bwd",
         "softmac_collide_mixed_bwd", "softmac_collide_mixed1_bwd",
         "softmac_collide_mixed2_bwd", "softmac_fused_p2g",
-        "softmac_fused_g2p", "softmac_fused_splat", "softmac_fused_gather"}
+        "softmac_fused_g2p", "softmac_fused_splat", "softmac_fused_gather",
+        "softmac_fused_p2g_bwd", "softmac_fused_g2p_bwd",
+        "softmac_fused_splat_bwd", "softmac_fused_gather_bwd"}
     sources = " ".join(p.read_text() for p in build.CSRC.glob("*.cu"))
     for name in build.SIGNATURES:
         assert f'extern "C" int {name}(' in sources
