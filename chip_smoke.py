@@ -96,6 +96,30 @@ script exits non-zero:
            its own scene: finite non-increasing losses, losses.npy and the
            checkpoints written, the actions moved, every fused forward and
            backward kernel launched
+  dense    the full-grid pour (demo_pour_config.py with TPU.active_window
+           cleared: the 64^3 grid, the dense route) at 1e5 particles: the
+           Khatri-Rao pair build kr3 is first held against its float32
+           plain version (bit for bit) and its float64 plain version (1e-7
+           relative) on the pour's state after 10 env steps over the full
+           grid and over the (40, 32, 16) window, and on seeded normal
+           weights (8, 16, N = 300), timed beside its plain version and
+           three torch.mul into preallocated outputs; then SoftMacEnv.
+           rollout of 20 zero-action env steps with launches counted (one
+           kr3 a substep, the mixed contact, no ops/transfer.py or
+           ops/fused.py kernel), peak memory, 3 timed repeats;
+           rollout_and_grad of 10 steps (loss frames 5 and 10) under remat
+           "step" only (the pair matrices take ~4.9 GB a substep), exact
+           counts, a repeat; and the same rollout and gradient through the
+           x-based route (mpm.transfer_route swapped within the phase) held
+           to the dense route's (x 1e-4, action gradient 1e-3 relative L2)
+  profile_dense  torch.profiler over 5 env steps of the full-grid rollout
+  dense_parity  the full-grid pour at the demo's own 5000 particles, card
+           (float32) against the CPU (float64), 10 env steps of rollout
+           and of rollout_and_grad (remat "none")
+  grid     the same scene under grid contact (SIMULATOR.collision_type 0):
+           20 env steps on the card (one kr3 a substep, no contact kernel),
+           the glass's wrench in the first env step nonzero, the glass
+           moved; then card against CPU over 10 steps, forward and gradient
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -179,6 +203,16 @@ DEMO_DOOR_EPOCHS = 2
 DEMO_DOOR_REPLICAS = 2
 DENSE_WINDOW = (16, 8, 16)
 N_DENSE = 4000
+KR_WINDOW = (40, 32, 16)   # the window pallas_kr.py's docstring measured
+KR_RANDOM = (8, 16, 300)   # wy, wz, N of tests/test_pallas_kr.py
+FULL_STEPS = 20            # the full-grid pour's counted and timed rollouts
+FULL_REPEATS = 3
+FULL_GRAD_STEPS = 10       # its rollout_and_grad, remat "step" only
+FULL_LOSS_STRIDE = 5       # loss frames 5 and 10 within those 10 steps
+FULL_PROFILE_STEPS = 5
+FULL_PARITY_STEPS = 10
+GRID_STEPS = 20
+KR3_TOL = 1e-7
 FUSED = ("fused_p2g", "fused_g2p", "fused_splat", "fused_gather")
 FUSED_BWD = tuple(k + "_bwd" for k in FUSED)
 # float operations per visited window cell (the kernels work in double,
@@ -1009,7 +1043,7 @@ def timed_rollout(env, acts):
 
 
 def wrappers():
-    from softmac_tpu_torch.ops import contact, fused, transfer
+    from softmac_tpu_torch.ops import contact, fused, kr, transfer
     return {"p2g": transfer.p2g, "g2p": transfer.g2p,
             "collide_particle": contact.collide_particle,
             "p2g_bwd": transfer.p2g_bwd, "g2p_bwd": transfer.g2p_bwd,
@@ -1027,7 +1061,7 @@ def wrappers():
             "fused_splat": fused.splat, "fused_gather": fused.gather,
             "fused_p2g_bwd": fused.p2g_bwd, "fused_g2p_bwd": fused.g2p_bwd,
             "fused_splat_bwd": fused.splat_bwd,
-            "fused_gather_bwd": fused.gather_bwd}
+            "fused_gather_bwd": fused.gather_bwd, "kr3": kr.kr3}
 
 
 def reset_launches():
@@ -1081,29 +1115,32 @@ def run_slice(env):
     return res, launches
 
 
-def timed_grad(env, acts, remat, loss_start_frame=0, grad_clip=None):
+def timed_grad(env, acts, remat, loss_start_frame=0, grad_clip=None,
+               loss_stride=20):
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = env.rollout_and_grad(acts, loss_start_frame=loss_start_frame,
-                               loss_stride=20, grad_clip=grad_clip,
+                               loss_stride=loss_stride, grad_clip=grad_clip,
                                remat=remat)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
 
 def run_gradient(tag, env, acts, expect, glass, window, repeats=GRAD_REPEATS,
-                 loss_start_frame=0, grad_clip=None):
-    """A gradient main path: rollout_and_grad of ``acts`` under remat
-    "step" and "none", each one counted call (launches from zero, peak
-    memory) and ``repeats`` timed ones. ``expect(remat)`` gives the
-    launch counts, ``glass`` the action columns whose gradient may not be
-    all zero."""
-    kw = dict(loss_start_frame=loss_start_frame, grad_clip=grad_clip)
+                 loss_start_frame=0, grad_clip=None, loss_stride=20,
+                 remats=("step", "none")):
+    """A gradient main path: rollout_and_grad of ``acts`` under each remat
+    of ``remats``, each one counted call (launches from zero, peak memory)
+    and ``repeats`` timed ones, and "step" against "none" where both run.
+    ``expect(remat)`` gives the launch counts, ``glass`` the action columns
+    whose gradient may not be all zero."""
+    kw = dict(loss_start_frame=loss_start_frame, grad_clip=grad_clip,
+              loss_stride=loss_stride)
     import torch
     n_sub = len(acts) * env.substeps
     res, launches, grads = {}, {}, {}
-    for remat in ("step", "none"):
+    for remat in remats:
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         out, secs = timed_grad(env, acts, remat, **kw)
@@ -1146,18 +1183,19 @@ def run_gradient(tag, env, acts, expect, glass, window, repeats=GRAD_REPEATS,
         if not rep_diff <= GRAD_TOL * gmax:
             raise AssertionError(f"{tag} ({remat}): repeats differ by "
                                  f"{rep_diff} > {GRAD_TOL} x {gmax}")
-    diff = (grads["step"] - grads["none"]).abs().max().item()
-    gmax = grads["none"].abs().max().item()
-    out = {"n_particles": env.n_particles, "window": list(window),
+    out = {"n_particles": env.n_particles,
+           "window": list(window) if window else None,
            "env_steps": len(acts), "substeps": n_sub,
-           "loss_start_frame": loss_start_frame, "loss_stride": 20,
-           "grad_clip": grad_clip,
-           "step_vs_none_grad_max_abs_diff": diff,
-           "step_vs_none_grad_rel_diff": diff / gmax,
-           "tolerance": GRAD_TOL, **res}
-    if not diff <= GRAD_TOL * gmax:
-        raise AssertionError(f"{tag}: step and none differ by {diff} > "
-                             f"{GRAD_TOL} x {gmax}")
+           "loss_start_frame": loss_start_frame, "loss_stride": loss_stride,
+           "grad_clip": grad_clip, "tolerance": GRAD_TOL, **res}
+    if "none" in grads and "step" in grads:
+        diff = (grads["step"] - grads["none"]).abs().max().item()
+        gmax = grads["none"].abs().max().item()
+        out["step_vs_none_grad_max_abs_diff"] = diff
+        out["step_vs_none_grad_rel_diff"] = diff / gmax
+        if not diff <= GRAD_TOL * gmax:
+            raise AssertionError(f"{tag}: step and none differ by {diff} > "
+                                 f"{GRAD_TOL} x {gmax}")
     return out, launches
 
 
@@ -2226,6 +2264,318 @@ def run_door_parity():
     return res
 
 
+def full_grid_cfg(collision_type=None):
+    """The flagship pour's config with TPU.active_window cleared: the full
+    64^3 grid, the dense route (and, with ``collision_type``, another
+    contact model)."""
+    cfg = pour_cfg()
+    cfg.defrost()
+    cfg.TPU.active_window = None
+    if collision_type is not None:
+        cfg.SIMULATOR.collision_type = collision_type
+    cfg.freeze()
+    return cfg
+
+
+def kr3_inputs(cfg, x, window):
+    """The pair build's inputs (Wy, Wz, WDy, WDz) from the particles x over
+    ``window`` (None: the full grid), as the dense route's Transfers builds
+    them."""
+    import dataclasses
+    from softmac_tpu_torch.engine import mpm
+    cfg = dataclasses.replace(cfg, active_window=window)
+    sizes, corner, overflow = mpm.window_geometry(cfg, x)
+    if bool(overflow):
+        raise AssertionError(f"kr3 inputs: window {window} overflows")
+    W, WD = mpm.axis_weights(cfg, x, sizes, corner)
+    return W[1], W[2], WD[1], WD[2]
+
+
+def kr3_case(ins):
+    """The kernel against the float32 plain version (bit for bit) and the
+    float64 plain version (max |err| / max |plain| of each output), its
+    time, the plain version's, three torch.mul into preallocated outputs
+    (the library calls), and the bound: every input float read once, every
+    output float written once, one multiply an output float."""
+    import torch
+    from softmac_tpu_torch.ops import kr
+    got = kr.kr3(*ins)
+    exact = all(torch.equal(g, p) for g, p in zip(got, kr.kr3_plain(*ins)))
+    abs_err, rel_err = 0.0, 0.0
+    for g, ref in zip(got, kr.kr3_plain(*(t.double() for t in ins))):
+        d = (g.double() - ref).abs().max().item()
+        abs_err = max(abs_err, d)
+        rel_err = max(rel_err, d / max(ref.abs().max().item(), 1e-300))
+    del got, g, ref
+    wy, n = ins[0].shape
+    wz = ins[1].shape[0]
+    Wy, Wz, WDy, WDz = ins
+    outs = [torch.empty((wy, wz, n), device=Wy.device) for _ in range(3)]
+    pairs = ((Wy, Wz), (WDy, Wz), (Wy, WDz))
+
+    def library():
+        for o, (a, b) in zip(outs, pairs):
+            torch.mul(a[:, None, :], b[None, :, :], out=o)
+    nbytes = (2 * (wy + wz) + 3 * wy * wz) * n * 4
+    b_ms, b_by = bound("kr3", n, nbytes, flops=3 * wy * wz * n)
+    res = {"n": n, "wy": wy, "wz": wz, "equal_to_float32_plain": exact,
+           "max_abs_err": abs_err, "max_rel_err": rel_err,
+           "ms": cuda_time_ms(lambda: kr.kr3(*ins)),
+           "plain_ms": cuda_time_ms(lambda: kr.kr3_plain(*ins)),
+           "library_ms": cuda_time_ms(library), "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": nbytes}
+    del outs
+    print(f"kr3 ({wy} x {wz}, N {n}): {res}", flush=True)
+    if not (exact and rel_err <= KR3_TOL):
+        raise AssertionError(f"kr3 disagrees with its plain version: {res}")
+    return res
+
+
+def check_kr3_kernel(pour_env, carry):
+    """Row 19: the Khatri-Rao pair build against its plain versions on the
+    1e5-particle pour's state after 10 env steps over the full grid (the
+    dense phase's shapes) and over the (40, 32, 16) window, and on seeded
+    normal weights (8, 16, N = 300)."""
+    import torch
+    x = carry[0].x
+    cases = {"full_grid": kr3_case(kr3_inputs(pour_env.mpm_cfg, x, None)),
+             "window": kr3_case(kr3_inputs(pour_env.mpm_cfg, x, KR_WINDOW))}
+    wy, wz, n = KR_RANDOM
+    gen = torch.Generator(device=x.device).manual_seed(7)
+    cases["random"] = kr3_case(tuple(
+        torch.randn((r, n), generator=gen, device=x.device)
+        for r in (wy, wz, wy, wz)))
+    full = cases["full_grid"]
+    e = kernel_entry(full["n"], "kr3", "softmac_tpu_torch/ops/csrc/kr3.cu",
+                     "softmac_tpu/ops/pallas_kr.py:56 (_kr3_fwd_pallas, "
+                     "pallas_call :73, kernel _kernel :40)",
+                     max(c["max_abs_err"] for c in cases.values()),
+                     max(c["max_rel_err"] for c in cases.values()),
+                     full["ms"], full["plain_ms"], full["bytes"],
+                     tolerance=KR3_TOL, flops=3 * full["wy"] * full["wz"]
+                     * full["n"])
+    e["library_ms"] = full["library_ms"]
+    e["library_is"] = ("three torch.mul (one a pair matrix) into "
+                       "preallocated outputs")
+    e["rel_err_is"] = ("max |kernel - plain| / max |plain| of each output, "
+                       "the plain version in float64, over the three inputs;"
+                       " the kernel also equals the float32 plain version "
+                       "bit for bit")
+    e["by_input"] = {k: {kk: v for kk, v in c.items()
+                         if kk not in ("n", "wy", "wz")} | {
+                             "shape": [c["wy"], c["wz"], c["n"]]}
+                     for k, c in cases.items()}
+    return [e]
+
+
+def dense_grad_expect(env, steps, remat):
+    """Launches of rollout_and_grad of the full-grid pour: the pour's
+    accounting (``pour_grad_expect``) with the pair build once a substep
+    where the pour runs P2G, and no ops/transfer.py kernel, forward or
+    backward (the dense route's products are torch.matmul, its pair
+    build's backward plain PyTorch)."""
+    expect = pour_grad_expect(env, steps, remat)
+    expect["kr3"] = expect["p2g"]
+    for k in ("p2g", "g2p", "gather", "splat"):
+        expect[k] = expect[k + "_bwd"] = 0
+    return expect
+
+
+def run_full_grid(env):
+    """The full-grid pour (no window: the dense route) at 1e5 particles:
+    one rollout of FULL_STEPS zero-action env steps with the launches
+    counted from zero (one kr3 a substep, the mixed contact, nothing of
+    ops/transfer.py or ops/fused.py) and peak memory, FULL_REPEATS timed
+    repeats; rollout_and_grad of FULL_GRAD_STEPS steps under remat "step"
+    (the pair matrices, ~4.9 GB a substep, rule "none" out at 1e5) with
+    exact counts and a repeat; then the same rollout and gradient through
+    the x-based route (transfer_route swapped within this phase) against
+    the dense route's."""
+    import numpy as np
+    import torch
+    from softmac_tpu_torch.engine import mpm
+    if mpm.transfer_route(env.mpm_cfg) != "dense":
+        raise AssertionError("the full-grid pour does not take the dense "
+                             "route")
+    acts = np.zeros((FULL_STEPS, env.action_dim))
+    n_sub = FULL_STEPS * env.substeps
+    q0 = env._initial_carry()[2].q
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out, secs = timed_rollout(env, acts)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    expect = dict.fromkeys(wrappers(), 0)
+    expect.update({"kr3": n_sub, "collide_mixed": n_sub * env.n_primitives})
+    if launches != expect:
+        raise AssertionError(f"full-grid launch counts {launches}, expected "
+                             f"{expect}")
+    state, _, rigid = out["carry"]
+    loss = out["loss"].item()
+    rates = []
+    for _ in range(FULL_REPEATS):
+        rates.append(n_sub / timed_rollout(env, acts)[1])
+    res = {"scene": "demo_pour, no window", "n_particles": env.n_particles,
+           "grid": [env.mpm_cfg.n_grid] * 3, "env_steps": FULL_STEPS,
+           "substeps": n_sub, "actions": "zero",
+           "substeps_per_s": statistics.median(rates),
+           "substeps_per_s_min": min(rates), "substeps_per_s_max": max(rates),
+           "substeps_per_s_runs": rates,
+           "counted_run_substeps_per_s": n_sub / secs,
+           "max_memory_allocated_bytes": peak, "loss": loss,
+           "glass_q_moved": (rigid.q[0:6] - q0[0:6]).abs().max().item(),
+           "launches": launches,
+           "x_finite": bool(torch.isfinite(state.x).all())}
+    if not (math.isfinite(loss) and res["x_finite"]
+            and res["glass_q_moved"] > 0
+            and not bool(out["terms"]["window_overflow"])):
+        raise AssertionError(f"full-grid output wrong: {res}")
+
+    gacts = np.zeros((FULL_GRAD_STEPS, env.action_dim))
+    grad, grad_launches = run_gradient(
+        "full_grid_grad", env, gacts,
+        lambda remat: dense_grad_expect(env, FULL_GRAD_STEPS, remat),
+        list(range(6)), None, repeats=1, loss_stride=FULL_LOSS_STRIDE,
+        remats=("step",))
+    res["grad"] = grad
+    dense_g = timed_grad(env, gacts, "step", loss_stride=FULL_LOSS_STRIDE)[0]
+
+    route = mpm.transfer_route
+    mpm.transfer_route = lambda cfg: "transfer"
+    try:
+        reset_launches()
+        x_out, x_secs = timed_rollout(env, acts)
+        x_grad = timed_grad(env, gacts, "step",
+                            loss_stride=FULL_LOSS_STRIDE)[0]
+        x_launches = read_launches()
+    finally:
+        mpm.transfer_route = route
+    gd, gx = dense_g["action_grad"], x_grad["action_grad"]
+    res["vs_x_based_route"] = {
+        "x_max_abs_diff": (x_out["carry"][0].x - state.x).abs().max().item(),
+        "q_max_abs_diff": (x_out["carry"][2].q - rigid.q).abs().max().item(),
+        "x_tolerance": 1e-4,
+        "action_grad_rel_l2_diff": ((gd - gx).norm() / gx.norm()).item(),
+        "grad_tolerance": 1e-3, "x_based_launches": x_launches,
+        "x_based_substeps_per_s": n_sub / x_secs}
+    cmp = res["vs_x_based_route"]
+    if not (x_launches["kr3"] == 0 and x_launches["p2g"] > 0
+            and cmp["x_max_abs_diff"] <= 1e-4
+            and cmp["action_grad_rel_l2_diff"] <= 1e-3):
+        raise AssertionError(f"dense and x-based routes differ: {cmp}")
+    return res, launches, grad_launches["step"]
+
+
+def gpu_cpu_parity(cfg_fn, steps, acts, loss_stride, kernels, bwd=()):
+    """A scene of ``cfg_fn()`` with the demo's own particles on the card
+    (float32, kernels) and on the CPU (float64, plain versions), loss
+    frames every ``loss_stride`` from 0: rollout (x, the bodies' q and qd
+    within 1e-4, the loss within 1e-4 relative)
+    and rollout_and_grad under remat "none" (loss within 1e-4, the action
+    gradient within 1e-3 relative L2); ``kernels`` must each launch on both
+    of the card's runs, ``bwd`` on its gradient run."""
+    from softmac_tpu_torch import SoftMacEnv
+    envs = {dev: SoftMacEnv(cfg_fn(), device=dev) for dev in ("cuda", "cpu")}
+    frames = dict(loss_start_frame=0, loss_stride=loss_stride)
+    reset_launches()
+    outs = {"cuda": envs["cuda"].rollout(acts, **frames)}
+    launches = read_launches()
+    outs["cpu"] = envs["cpu"].rollout(acts, **frames)
+    (mg, _, rg), (mc, _, rc) = outs["cuda"]["carry"], outs["cpu"]["carry"]
+    lg, lc = outs["cuda"]["loss"].item(), outs["cpu"]["loss"].item()
+    res = {"n_particles": mc.x.shape[1], "env_steps": steps,
+           "x_max_abs_err": (mg.x.double().cpu() - mc.x).abs().max().item(),
+           "q_max_abs_err": (rg.q.double().cpu() - rc.q).abs().max().item(),
+           "qd_max_abs_err": (rg.qd.double().cpu() - rc.qd).abs().max().item(),
+           "glass_qd_cpu_max_abs": rc.qd[0:6].abs().max().item(),
+           "loss_gpu": lg, "loss_cpu": lc,
+           "loss_rel_err": abs(lg - lc) / abs(lc), "tolerance": 1e-4,
+           "gpu_launches": launches}
+    kw = dict(frames, remat="none")
+    reset_launches()
+    grads = {"cuda": envs["cuda"].rollout_and_grad(acts, **kw)}
+    glaunches = read_launches()
+    grads["cpu"] = envs["cpu"].rollout_and_grad(acts, **kw)
+    gg = grads["cuda"]["action_grad"].double().cpu()
+    gc = grads["cpu"]["action_grad"]
+    lg, lc = grads["cuda"]["loss"].item(), grads["cpu"]["loss"].item()
+    res["grad"] = {**kw, "loss_gpu": lg, "loss_cpu": lc,
+                   "loss_rel_err": abs(lg - lc) / abs(lc),
+                   "loss_tolerance": 1e-4,
+                   "action_grad_rel_l2_err": ((gg - gc).norm().item()
+                                              / gc.norm().item()),
+                   "action_grad_tolerance": 1e-3,
+                   "action_grad_cpu_max_abs": gc.abs().max().item(),
+                   "gpu_launches": glaunches}
+    if not (all(launches[k] > 0 for k in kernels)
+            and all(glaunches[k] > 0 for k in kernels + bwd)):
+        raise AssertionError(f"parity: the card's runs missed a kernel "
+                             f"{launches} {glaunches}")
+    if not (res["x_max_abs_err"] <= 1e-4 and res["q_max_abs_err"] <= 1e-4
+            and res["qd_max_abs_err"] <= 1e-4 and res["loss_rel_err"] <= 1e-4
+            and gc.abs().max().item() > 0
+            and res["grad"]["loss_rel_err"] <= 1e-4
+            and res["grad"]["action_grad_rel_l2_err"] <= 1e-3):
+        raise AssertionError(f"GPU/CPU parity failed: {res}")
+    return res
+
+
+def run_full_grid_parity():
+    """The flagship pour's own 5000 particles on the full grid (the dense
+    route), FULL_PARITY_STEPS env steps of seeded actions, card against
+    CPU."""
+    import numpy as np
+    acts = np.random.RandomState(2).randn(FULL_PARITY_STEPS, 12) * 0.05
+    return gpu_cpu_parity(full_grid_cfg, FULL_PARITY_STEPS, acts,
+                          FULL_LOSS_STRIDE, ("kr3", "collide_mixed"),
+                          ("collide_mixed_bwd",))
+
+
+def run_grid_contact():
+    """The same 5000-particle scene under grid contact
+    (SIMULATOR.collision_type 0, the full grid): GRID_STEPS env steps of
+    zero actions on the card, counted (one kr3 a substep, no contact
+    kernel: grid contact is plain PyTorch), the glass's wrench in the first
+    env step nonzero (it holds the liquid from the start), the glass moved;
+    then card against CPU over FULL_PARITY_STEPS steps of seeded
+    actions."""
+    import numpy as np
+    import torch
+    from softmac_tpu_torch import SoftMacEnv
+    from softmac_tpu_torch.engine.types import CONTACT_GRID
+    env = SoftMacEnv(full_grid_cfg(CONTACT_GRID))
+    mpm0, bodies0, rigid0 = env._initial_carry()
+    with torch.no_grad():
+        ext_f = env._substeps(mpm0, bodies0, env.mpm_params)[2]
+    acts = np.zeros((GRID_STEPS, env.action_dim))
+    n_sub = GRID_STEPS * env.substeps
+    reset_launches()
+    out, secs = timed_rollout(env, acts)
+    launches = read_launches()
+    expect = dict.fromkeys(wrappers(), 0)
+    expect["kr3"] = n_sub
+    rigid = out["carry"][2]
+    res = {"scene": "demo_pour, collision_type 0, no window",
+           "n_particles": env.n_particles, "env_steps": GRID_STEPS,
+           "substeps_per_s": n_sub / secs, "launches": launches,
+           "glass_wrench_first_step": ext_f[0].tolist(),
+           "bowl_wrench_first_step": ext_f[1].tolist(),
+           "glass_q_moved": (rigid.q[0:6] - rigid0.q[0:6]).abs().max().item(),
+           "loss": out["loss"].item()}
+    if launches != expect:
+        raise AssertionError(f"grid contact launch counts {launches}, "
+                             f"expected {expect}")
+    if not (bool((ext_f[0] != 0).any()) and res["glass_q_moved"] > 0
+            and math.isfinite(res["loss"])
+            and bool(torch.isfinite(out["carry"][0].x).all())):
+        raise AssertionError(f"grid contact output wrong: {res}")
+    acts = np.random.RandomState(2).randn(FULL_PARITY_STEPS, 12) * 0.05
+    res["parity"] = gpu_cpu_parity(lambda: full_grid_cfg(CONTACT_GRID),
+                                   FULL_PARITY_STEPS, acts, FULL_LOSS_STRIDE,
+                                   ("kr3",))
+    return res
+
+
 def svd_launches(env, carry):
     """Device kernels one svd3_soa of the door's F launches (once per
     substep), counted with torch.profiler."""
@@ -2296,6 +2646,9 @@ def main():
     kernels += check_fused_kernels(door_inp, big_inp, dense_inp)
     kernels += check_fused_backward_kernels(door_inp, big_inp, dense_inp)
     del big, big_inp
+    kernels += check_kr3_kernel(pour_env, pour10)
+    full_env = SoftMacEnv(full_grid_cfg(),
+                          init_particles=tiled_pour_particles(N_MAIN))
 
     paths = {}
     slice_res, paths["slice"] = run_slice(env)
@@ -2312,6 +2665,8 @@ def main():
     door_grad_res, door_grad_launches = run_door_grad(denv)
     paths["door_grad_step"], paths["door_grad_none"] = (
         door_grad_launches["step"], door_grad_launches["none"])
+    full_res, paths["dense"], paths["dense_grad_step"] = run_full_grid(
+        full_env)
     for k in kernels:
         # each kernel's main path: the forward kernels of pour_vel on its
         # rollout, their backwards on its gradient path with the default
@@ -2319,12 +2674,14 @@ def main():
         # rollout and their backwards on its gradient path ("step"), the
         # split pair and its backward pair on that scene under the switch,
         # the dense-weight transfers on the door's rollout and their
-        # backwards on its gradient path ("step")
+        # backwards on its gradient path ("step"), the pair build on the
+        # full-grid pour's rollout
         name = k["name"]
         counter = {"collide_mixed_split": "collide_mixed1",
                    "collide_mixed_split_bwd": "collide_mixed1_bwd"}.get(
                        name, name)
         path = ("slice" if name in FORWARD else "door" if name in FUSED
+                else "dense" if name == "kr3"
                 else "door_grad_step" if name in FUSED_BWD
                 else "pour" if name in POUR
                 else "pour_split" if counter == "collide_mixed1"
@@ -2369,6 +2726,12 @@ def main():
     emit("profile_door_grad", run_profile(denv, door_actions(5), grad=True))
     emit("door_parity", run_door_parity())
     emit("demo_door", run_demo_door())
+    emit("dense", full_res)
+    emit("profile_dense", run_profile(
+        full_env, np.zeros((FULL_PROFILE_STEPS, full_env.action_dim))))
+    del full_env
+    emit("dense_parity", run_full_grid_parity())
+    emit("grid", run_grid_contact())
     print(smi, flush=True)      # the card again, next to the result
     emit(None, {"ok": True, "device": {"platform": "gpu", "kind": kind,
                                       "count": torch.cuda.device_count()}})

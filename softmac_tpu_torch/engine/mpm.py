@@ -1,32 +1,35 @@
-"""MLS-MPM core: one substep with particle contact or forecast mixed
-contact, and particle controllers.
+"""MLS-MPM core: one substep with grid, particle or forecast mixed contact,
+and particle controllers.
 
 Counterpart of ``softmac_tpu/engine/mpm.py`` (reference
 ``softmac/engine/mpm_simulator.py``: compute_F_tmp :126, p2g :199,
 grid_op :284, boundary_condition :269, grid_op_mixed1-4, g2p :300).
 Particles are ``(3, N)`` struct-of-arrays; the grid is the active window in
-the ``(wy*wz, wx)`` form of ``grid_coords``.
+the ``(wy*wz, wx)`` form of ``grid_coords`` (the full ``n_grid`` cube when
+no window is configured).
 
-The P2G, G2P, gather and splat of a substep take one of two routes, chosen
-by ``transfer_route`` from the window alone (not the dtype, so the CPU's
-float64 runs take the route the card's float32 runs take):
-- "fused": ``ops/fused.py`` over the dense per-axis weights of
-  ``axis_weights`` when the window passes ``pallas_fused.kernel_wanted``
-  and not ``pallas_chunked.kernel_wanted`` (the door's (32, 16, 32):
-  wy < 24), as the JAX package's ``_Transfers`` (mpm.py:416-533) picks it;
+The P2G, G2P, gather and splat of a substep take one of three routes,
+chosen by ``transfer_route`` from the window alone (not the dtype, so the
+CPU's float64 runs take the route the card's float32 runs take), where the
+JAX package's ``_Transfers`` (mpm.py:416-533) takes its three branches:
 - "transfer": ``ops/transfer.py``'s x-based kernels (the y-chunked
-  family's counterpart) for every other window: the pour scenes, which the
-  JAX package runs on the chunked family, and no window or a window
-  neither rule takes, where it runs XLA matmuls over the Khatri-Rao pairs
-  (the ``pallas_kr`` kernel on the TPU). Until that kernel is ported the
-  x-based kernels, which compute the same function, stand for it: a
-  static rule, not a runtime fallback.
-The x-based kernels read each particle's own position, so unlike the JAX
-chunked family they need no y-sorted order. Each route runs its CUDA
-kernels on the card and their plain PyTorch versions on the CPU, forward
-and backward: on the fused route the backward kernels return the
-cotangents of the dense weights, which flow on through ``axis_weights``
-to x.
+  family's counterpart) when the window passes both
+  ``pallas_fused.kernel_wanted`` and ``pallas_chunked.kernel_wanted``: the
+  pour scenes. They read each particle's own position, so unlike the JAX
+  chunked family they need no y-sorted order;
+- "fused": ``ops/fused.py`` over the dense per-axis weights of
+  ``axis_weights`` when the window passes the fused rule and not the
+  chunked one (the door's (32, 16, 32): wy < 24);
+- "dense": no window (the full grid, the reference's own semantics), or a
+  window the fused rule refuses: matrix products over the Khatri-Rao pair
+  matrices of ``hyz_family`` (``ops/kr.py``'s kernel builds them;
+  ``p2g_dense``, ``g2p_dense``, ``gather_dense``, ``splat_channels``).
+Each route runs its CUDA kernels on the card and their plain PyTorch
+versions on the CPU, forward and backward; the dense route's products are
+``torch.matmul`` on both, in full precision (TF32 stays off, as
+``SoftMacEnv`` sets it), as the JAX package leaves them to XLA. On the
+fused and dense routes the cotangents of the dense weights flow on through
+``axis_weights`` to x.
 
 The window corner stays a device tensor, so a substep never waits on the
 host; ``window_overflow`` comes back as a 0-d bool tensor. A substep is
@@ -53,7 +56,7 @@ from softmac_tpu_torch.engine.types import (
     MPMState,
     SDFParams,
 )
-from softmac_tpu_torch.ops import fused, m33, transfer
+from softmac_tpu_torch.ops import fused, kr, m33, transfer
 
 
 def window_geometry(cfg: MPMConfig, x: torch.Tensor):
@@ -146,30 +149,89 @@ def _fused_wanted(window) -> bool:
 
 
 def transfer_route(cfg: MPMConfig) -> str:
-    """"fused" or "transfer" for this config's window (see the module
-    docstring)."""
+    """"transfer", "fused" or "dense" for this config's window (see the
+    module docstring)."""
     window = cfg.active_window
-    if window and _fused_wanted(window) and not _chunked_wanted(window):
-        return "fused"
-    return "transfer"
+    if not window or not _fused_wanted(window):
+        return "dense"
+    return "transfer" if _chunked_wanted(window) else "fused"
+
+
+def hyz_family(W, WD):
+    """The three Khatri-Rao (y, z) pair matrices (H, HDy, HDz), each
+    (wy*wz, N), from ``axis_weights``' W, WD (``mpm.hyz_family``): the
+    ``ops/kr.py`` kernel on the card, its plain version on the CPU."""
+    return kr.kr3(W[1], W[2], WD[1], WD[2])
+
+
+def p2g_dense(W, WD, H, HDy, HDz, chan):
+    """Dense P2G of the (13, N) channel block of ``_p2g_channels`` (the
+    function of ``mpm.p2g_dense``): (gm (wy*wz, wx), gmom (wy*wz, 3*wx)).
+    The momentum's x-derivative terms ride the H product (4 wx columns),
+    its y and z terms the HDy and HDz products."""
+    wx = W[0].shape[0]
+    Wx, WxD = W[0], WD[0]
+    r_h = torch.cat([Wx * chan[0]] + [Wx * chan[1 + d] + WxD * chan[4 + 3 * d]
+                                      for d in range(3)])
+    r_dy = torch.cat([Wx * chan[5 + 3 * d] for d in range(3)])
+    r_dz = torch.cat([Wx * chan[6 + 3 * d] for d in range(3)])
+    o1 = H @ r_h.T
+    return o1[:, :wx], o1[:, wx:] + HDy @ r_dy.T + HDz @ r_dz.T
+
+
+def splat_channels(W, H, vals):
+    """Dense splat of vals (3, N) (``mpm.splat_channels``): (wy*wz, 3*wx),
+    component d in columns d*wx .. (d+1)*wx."""
+    return H @ torch.cat([W[0] * vals[d] for d in range(3)]).T
+
+
+def _rows(M, Wt, wx):
+    """The three per-component row sums sum_x M[p, d wx + x] Wt[p, x]."""
+    return [(M[:, d * wx:(d + 1) * wx] * Wt).sum(dim=1) for d in range(3)]
+
+
+def g2p_dense(W, WD, H, HDy, HDz, gv):
+    """Dense G2P of the three grids gv (wy*wz, wx) (``mpm.g2p_dense``):
+    (12, N), v in rows 0-2, the unscaled C[d][j] in row 3 + 3d + j."""
+    wx = W[0].shape[0]
+    G = torch.cat(gv, dim=1)                  # (wy*wz, 3*wx)
+    WxT, WxDT = W[0].T, WD[0].T               # (N, wx) views
+    M = H.T @ G
+    c0 = _rows(M, WxDT, wx)
+    c1 = _rows(HDy.T @ G, WxT, wx)
+    c2 = _rows(HDz.T @ G, WxT, wx)
+    return torch.stack(_rows(M, WxT, wx)
+                       + [c[d] for d in range(3) for c in (c0, c1, c2)])
+
+
+def gather_dense(W, H, gv):
+    """Dense gather of the three grids gv at the particles
+    (``mpm.gather_dense``): (3, N)."""
+    return torch.stack(_rows(H.T @ torch.cat(gv, dim=1), W[0].T,
+                             W[0].shape[0]))
 
 
 class Transfers:
     """One substep's transfers on its route: the window (sizes, corner,
-    overflow) from the particles x and, on the fused route, the dense
-    per-axis weights, built once and shared by the four transfers."""
+    overflow) from the particles x and, on the fused and dense routes, the
+    dense per-axis weights (and on the dense route their pair matrices),
+    built once and shared by the four transfers."""
 
     def __init__(self, cfg: MPMConfig, x: torch.Tensor):
         self.cfg, self.x = cfg, x
         self.sizes, self.corner, self.overflow = window_geometry(cfg, x)
         self.route = transfer_route(cfg)
-        if self.route == "fused":
+        if self.route != "transfer":
             W, WD = axis_weights(cfg, x, self.sizes, self.corner)
-            self.W = W
+            self.W, self.WD = W, WD
             self.ws6 = (W[0], WD[0], W[1], WD[1], W[2], WD[2])
+        if self.route == "dense":
+            self.H = hyz_family(W, WD)
 
     def p2g(self, chan):
         """(gm (wy*wz, wx), gmom (wy*wz, 3*wx))."""
+        if self.route == "dense":
+            return p2g_dense(self.W, self.WD, *self.H, chan)
         if self.route == "fused":
             return fused.p2g(*self.ws6, chan)
         return transfer.p2g(self.x, chan, self.corner, self.sizes,
@@ -177,6 +239,8 @@ class Transfers:
 
     def gather(self, gv):
         """The grid velocity at the particles, (3, N)."""
+        if self.route == "dense":
+            return gather_dense(self.W, self.H[0], gv)
         if self.route == "fused":
             return fused.gather(*self.W, *gv)
         return transfer.gather(self.x, *gv, self.corner, self.sizes,
@@ -184,6 +248,8 @@ class Transfers:
 
     def splat(self, vals):
         """vals (3, N) onto the window, (wy*wz, 3*wx)."""
+        if self.route == "dense":
+            return splat_channels(self.W, self.H[0], vals)
         if self.route == "fused":
             return fused.splat(*self.W, vals)
         return transfer.splat(self.x, vals, self.corner, self.sizes,
@@ -191,6 +257,8 @@ class Transfers:
 
     def g2p(self, gv):
         """(12, N): v, then the unscaled C[d][j] in row 3 + 3d + j."""
+        if self.route == "dense":
+            return g2p_dense(self.W, self.WD, *self.H, gv)
         if self.route == "fused":
             return fused.g2p(*self.ws6, *gv)
         return transfer.g2p(self.x, *gv, self.corner, self.sizes,
@@ -270,12 +338,9 @@ def contact_impulse(cfg: MPMConfig, params: MPMParams,
                     prims: Tuple[SDFParams, ...], state: MPMState,
                     bodies: BodyState):
     """Particle-contact impulse (3-tuple of (N,)) and per-primitive wrenches
-    (list of (6,)); zero impulse and wrenches under mixed contact, whose
-    wrenches come from ``grid_velocity_mixed``."""
-    if cfg.collision_type == CONTACT_GRID and prims:
-        raise NotImplementedError(
-            "grid contact (collision_type 0) is not ported yet; the PyTorch "
-            "port runs particle and mixed contact (collision_types 1, 2)")
+    (list of (6,)); zero impulse and wrenches under grid and mixed contact,
+    whose wrenches come from ``grid_velocity_grid`` and
+    ``grid_velocity_mixed``."""
     zero = torch.zeros_like(state.x[0])
     impulse = (zero, zero, zero)
     wrenches = [torch.zeros((6,), dtype=state.x.dtype, device=state.x.device)
@@ -308,6 +373,35 @@ def grid_velocity(cfg: MPMConfig, params: MPMParams, gm, gmom, sizes, corner):
     """P2G grids -> the three grid velocity channels G2P reads: normalize,
     add gravity, apply the boundary and the optional CFL clamp."""
     gv, _ = _bounded_velocity(cfg, params, gm, gmom, sizes, corner)
+    return tuple(g.contiguous() for g in cfl_clamp(cfg, gv))
+
+
+def grid_velocity_grid(cfg: MPMConfig, params: MPMParams,
+                       prims: Tuple[SDFParams, ...], bodies: BodyState, gm,
+                       gmom, sizes, corner, wrenches):
+    """P2G grids -> grid velocity under grid contact (grid_op :284-296):
+    normalize and add gravity, run each contacting primitive's contact on
+    the non-empty nodes in turn, then the boundary, zero the empty nodes
+    and apply the optional CFL clamp. Adds each primitive's wrench to
+    ``wrenches[i]``."""
+    wx = sizes[0]
+    grid = (gm, gmom[:, :wx], gmom[:, wx:2 * wx], gmom[:, 2 * wx:])
+    g_v, mask, grid_m = grid_normalize(cfg, grid, params.gravity)
+    coords = grid_coords(cfg, sizes, corner)
+    grid_pos = tuple((c.to(gm.dtype) * cfg.dx).expand(gm.shape)
+                     for c in coords)
+    v_out = g_v      # contact first, the boundary after (grid_op :290-296)
+    for i, prim in enumerate(prims):
+        if not cfg.primitives_contact[i]:
+            continue
+        v_new, wr = contact_mod.collide_grid(
+            prim, bodies.pos[i], bodies.quat[i], bodies.v[i], bodies.w[i],
+            params.friction[i], params.softness[i], grid_pos, v_out, cfg.dt,
+            grid_m)
+        v_out = tuple(torch.where(mask, v_new[d], v_out[d]) for d in range(3))
+        wrenches[i] = wrenches[i] + wr
+    gv = boundary_condition(cfg, coords, v_out)
+    gv = tuple(torch.where(mask, g, 0.0) for g in gv)
     return tuple(g.contiguous() for g in cfl_clamp(cfg, gv))
 
 
@@ -359,9 +453,9 @@ def grid_velocity_mixed(cfg: MPMConfig, params: MPMParams,
 def substep(cfg: MPMConfig, params: MPMParams,
             prims: Tuple[SDFParams, ...], state: MPMState, bodies: BodyState,
             k: int, mpm_action=None):
-    """One MLS-MPM substep (k-th of the env step) with particle contact,
-    mixed contact or none, and the particle controllers' ``mpm_action``
-    (n_controllers, 3). Returns (new_state, ext_f (B, 6),
+    """One MLS-MPM substep (k-th of the env step) with grid, particle or
+    mixed contact (or no primitive), and the particle controllers'
+    ``mpm_action`` (n_controllers, 3). Returns (new_state, ext_f (B, 6),
     {"window_overflow": 0-d bool tensor})."""
     stress, F_new = stress_and_F(cfg, params, state)
     impulse, wrenches = contact_impulse(cfg, params, prims, state, bodies)
@@ -375,6 +469,9 @@ def substep(cfg: MPMConfig, params: MPMParams,
     if cfg.collision_type == CONTACT_MIXED:
         gv = grid_velocity_mixed(cfg, params, prims, state, bodies, gm, gmom,
                                  tr, k, wrenches)
+    elif cfg.collision_type == CONTACT_GRID:
+        gv = grid_velocity_grid(cfg, params, prims, bodies, gm, gmom,
+                                tr.sizes, tr.corner, wrenches)
     else:
         gv = grid_velocity(cfg, params, gm, gmom, tr.sizes, tr.corner)
     vc = tr.g2p(gv)

@@ -46,19 +46,14 @@ from __future__ import annotations
 
 import torch
 
-from softmac_tpu_torch.ops import build
-
-
-def _kr(a, b):
-    """Khatri-Rao pair (wy*wz, N): row y * wz + z = a[y] * b[z]."""
-    return (a[:, None, :] * b[None, :, :]).reshape(a.shape[0] * b.shape[0], -1)
+from softmac_tpu_torch.ops import build, kr
 
 
 def p2g_plain(Wx, WxD, Wy, WDy, Wz, WDz, chan):
     """Plain PyTorch P2G over dense weights: (gm (wy*wz, wx),
     gmom (wy*wz, 3*wx))."""
     wx = Wx.shape[0]
-    H, HDy, HDz = _kr(Wy, Wz), _kr(WDy, Wz), _kr(Wy, WDz)
+    H, HDy, HDz = kr.kr3_plain(Wy, Wz, WDy, WDz)
     r_h = torch.cat([Wx * chan[0]] + [Wx * chan[1 + d] + WxD * chan[4 + 3 * d]
                                       for d in range(3)])
     r_dy = torch.cat([Wx * chan[5 + 3 * d] for d in range(3)])
@@ -70,7 +65,7 @@ def p2g_plain(Wx, WxD, Wy, WDy, Wz, WDz, chan):
 def g2p_plain(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2):
     """Plain PyTorch G2P over dense weights: (12, N), v in rows 0-2, the
     unscaled C[d][j] in row 3 + 3d + j."""
-    H, HDy, HDz = _kr(Wy, Wz), _kr(WDy, Wz), _kr(Wy, WDz)
+    H, HDy, HDz = kr.kr3_plain(Wy, Wz, WDy, WDz)
     rows, m_rows = [], []
     for g in (gv0, gv1, gv2):
         A, B = g @ Wx, g @ WxD
@@ -83,12 +78,12 @@ def g2p_plain(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2):
 def splat_plain(Wx, Wy, Wz, vals):
     """Plain PyTorch splat of vals (3, N): (wy*wz, 3*wx)."""
     r = torch.cat([Wx * vals[d] for d in range(3)])
-    return _kr(Wy, Wz) @ r.T
+    return kr.pair(Wy, Wz) @ r.T
 
 
 def gather_plain(Wx, Wy, Wz, gv0, gv1, gv2):
     """Plain PyTorch gather of the grids at the particles: (3, N)."""
-    H = _kr(Wy, Wz)
+    H = kr.pair(Wy, Wz)
     return torch.stack([torch.sum(H * (g @ Wx), dim=0)
                         for g in (gv0, gv1, gv2)])
 

@@ -18,8 +18,8 @@ against the JAX package and the NumPy oracle, in float64 on the CPU.
   test_torch_door_rollout.py.
 - The route, from the window alone: the door's substep takes the fused
   family (one call of each of its four transfers), while the pour's
-  rollout, and a scene with no window or a window the fused rule refuses,
-  keeps ops/transfer.py.
+  rollout keeps ops/transfer.py; a scene with no window or a window the
+  fused rule refuses takes the dense route.
 """
 import sys
 from pathlib import Path
@@ -271,9 +271,9 @@ def _counting(monkeypatch, module, names):
     ((32, 16, 32), "fused"),          # the door: wy < 24
     ((32, 32, 16), "transfer"),       # the pour: the chunked rule holds
     ((40, 32, 16), "transfer"),       # pour_vel
-    ((36, 16, 32), "transfer"),       # wx not a multiple of 8
-    ((32, 48, 32), "transfer"),       # wy * wz > 1280
-    (None, "transfer"),               # no window
+    ((36, 16, 32), "dense"),          # wx not a multiple of 8
+    ((32, 48, 32), "dense"),          # wy * wz > 1280
+    (None, "dense"),                  # no window: the full grid
 ])
 def test_route_rule(window, route):
     cfg = MPMConfig(n_particles=8, active_window=window)

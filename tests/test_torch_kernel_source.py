@@ -18,8 +18,10 @@ on B-spline weights of a scene (some particles' stencils leaving the
 window) and on fully dense random weights: their float64 windows and grid
 cotangents within 1e-12, their float32 particle rows (outputs, weight
 cotangents, channel and value cotangents) within 1e-6 of each row's
-largest |value| (one rounding); the penalty contact backward,
-which computes in double on its float inputs, within 1e-6 (float literals
+largest |value| (one rounding); the Khatri-Rao pair build (kr3) bit for
+bit against its float32 plain version on the same weights; the penalty
+contact backward, which computes in double on its float inputs, within
+1e-6 (float literals
 and the float dt / p_mass set that floor); the mixed contact backward
 (merged and split), also double math, within 1e-12 given the float dt and
 p_mass it sees. The contact checks run on the real glass table, with
@@ -38,7 +40,7 @@ from softmac_tpu_torch.engine import mpm as tmpm
 from softmac_tpu_torch.engine import sdf as tsdf
 from softmac_tpu_torch.engine.meshio import load_obj
 from softmac_tpu_torch.engine.types import MPMConfig
-from softmac_tpu_torch.ops import build, contact, fused, m33, transfer
+from softmac_tpu_torch.ops import build, contact, fused, kr, m33, transfer
 
 torch.set_num_threads(1)
 
@@ -233,6 +235,18 @@ void h_fused_gather_bwd(const float* Wx, const float* Wy, const float* Wz,
   launch(n, [&] { k_fused_gather_bwd::fused_gather_bwd_kernel(
       Wx, Wy, Wz, g0, g1, g2, dv, out, acc, n, wx, wy, wz); });
 }
+// The pair build's grid: one block per particle tile and y row.
+void h_kr3(const float* Wy, const float* Wz, const float* WDy,
+           const float* WDz, float* H, float* HDy, float* HDz, int n, int wy,
+           int wz) {
+  blockDim.x = 256;
+  gridDim.x = (n + 255) / 256 * wy;
+  for (unsigned b = 0; b < gridDim.x; ++b)
+    for (unsigned t = 0; t < 256; ++t) {
+      blockIdx.x = b; threadIdx.x = t;
+      k_kr3::kr3_kernel(Wy, Wz, WDy, WDz, H, HDy, HDz, n, wy, wz);
+    }
+}
 void h_contact_bwd(const float* x, const float* v, const float* table,
                    const float* body, const float* gimp, double* dx,
                    double* dv, double* dbody, int n, int r0, int r1, int r2,
@@ -280,7 +294,7 @@ def lib(tmp_path_factory):
         "contact_mixed", "gather_bwd", "splat_bwd", "contact_mixed_bwd",
         "fused_p2g", "fused_g2p", "fused_splat", "fused_gather",
         "fused_p2g_bwd", "fused_g2p_bwd", "fused_splat_bwd",
-        "fused_gather_bwd")) \
+        "fused_gather_bwd", "kr3")) \
         + DRIVER
     (d / "driver.cpp").write_text(src)
     so = d / "libkernels_host.so"
@@ -705,3 +719,18 @@ def test_fused_backward_sources(lib, case):
         assert _rows_rel(got, want) < 1e-6
     for d in range(3):
         assert _rel(acc.reshape(3, -1)[d], ref[3 + d].reshape(-1)) < 1e-12
+
+
+@pytest.mark.parametrize("case", ["bspline", "dense"])
+def test_kr3_source(lib, case):
+    """The pair build bit for bit against the float32 plain version, with N
+    (400) not a multiple of the 256-thread block: every output element
+    written, the ragged last tile masked."""
+    ws, window, _ = _fused_weights(case)
+    Wy, WDy, Wz, WDz = ws[2], ws[3], ws[4], ws[5]
+    rows = window[1] * window[2]
+    outs = [torch.full((rows, N), float("nan")) for _ in range(3)]
+    lib.h_kr3(*map(_p, (Wy, Wz, WDy, WDz)), *map(_p, outs), ctypes.c_int(N),
+              ctypes.c_int(window[1]), ctypes.c_int(window[2]))
+    for got, want in zip(outs, kr.kr3_plain(Wy, Wz, WDy, WDz)):
+        assert torch.equal(got, want)

@@ -17,7 +17,7 @@ from softmac_tpu_torch.engine import env as torch_env
 from softmac_tpu_torch.engine import mpm as tmpm
 from softmac_tpu_torch.engine import sdf as tsdf
 from softmac_tpu_torch.engine.types import MPMConfig
-from softmac_tpu_torch.ops import build, contact, fused, transfer
+from softmac_tpu_torch.ops import build, contact, fused, kr, transfer
 
 torch.set_num_threads(1)
 
@@ -126,10 +126,12 @@ def test_wrappers_refuse_other_devices(monkeypatch):
         fused.splat(w8, w8, w8, x)
     with pytest.raises(TypeError, match="no implementation"):
         fused.gather(w8, w8, w8, g, g, g)
+    with pytest.raises(TypeError, match="no implementation"):
+        kr.kr3(w8, w8, w8, w8)
     for w in (transfer.p2g, transfer.g2p, transfer.gather, transfer.splat,
               contact.collide_particle, contact.collide_mixed,
               contact.collide_mixed1, contact.collide_mixed2, fused.p2g,
-              fused.g2p, fused.splat, fused.gather):
+              fused.g2p, fused.splat, fused.gather, kr.kr3):
         assert w.launches == 0
 
 
@@ -175,7 +177,8 @@ def test_kernel_library_is_keyed_by_sources():
         "softmac_collide_mixed2_bwd", "softmac_fused_p2g",
         "softmac_fused_g2p", "softmac_fused_splat", "softmac_fused_gather",
         "softmac_fused_p2g_bwd", "softmac_fused_g2p_bwd",
-        "softmac_fused_splat_bwd", "softmac_fused_gather_bwd"}
+        "softmac_fused_splat_bwd", "softmac_fused_gather_bwd",
+        "softmac_kr3"}
     sources = " ".join(p.read_text() for p in build.CSRC.glob("*.cu"))
     for name in build.SIGNATURES:
         assert f'extern "C" int {name}(' in sources
