@@ -8,8 +8,8 @@ script exits non-zero:
 
   device   the card as nvidia-smi reports it (name, power limit)
   build    nvcc builds the CUDA kernels from softmac_tpu_torch/ops/csrc;
-           each kernel's registers and spills from the ptxas log (also in
-           its entry of the kernels line)
+           each kernel's registers, spills and static shared memory from
+           the ptxas log (also in its entry of the kernels line)
   kernels  each kernel against its plain PyTorch version at the main path's
            shapes: max error, time over 20+ calls (CUDA events), the plain
            version's time, the least time the card needs for the same work,
@@ -28,7 +28,15 @@ script exits non-zero:
            also held on particles spread over each body's SDF box, so that
            both bodies have many contacts (and, for the mixed contact,
            particles that approach, lie in the soft band, penetrate and
-           forecast across a cell face)
+           forecast across a cell face). The y-slab P2G and splat
+           (ops/csrc/slab.cuh) are also held on the pour_vel and pour
+           states, on a random permutation of each, and over the full 64^3
+           grid: within 1e-5 of the float64 plain version, the particles
+           that spilled off their tile's slab counted (none in the sorted
+           order; some permuted order of each must spill), 10 calls
+           bit-identical; on the two windowed states the first design's
+           kernel (softmac_*_atomic) and the new one timed in turns (old,
+           new, new, old: the new one must be faster)
   slice    the pour_vel main path: SoftMacEnv.rollout of that scene for 50
            env steps on the card, launches counted; then 7 more timed
            rollouts of the same actions: substeps/s (median and spread),
@@ -213,6 +221,7 @@ FULL_PROFILE_STEPS = 5
 FULL_PARITY_STEPS = 10
 GRID_STEPS = 20
 KR3_TOL = 1e-7
+SLAB_REPEATS = 10          # P2G / splat calls that must agree bit for bit
 FUSED = ("fused_p2g", "fused_g2p", "fused_splat", "fused_gather")
 FUSED_BWD = tuple(k + "_bwd" for k in FUSED)
 # float operations per visited window cell (the kernels work in double,
@@ -307,8 +316,10 @@ def bound(name, n, bytes_moved, flops=None):
 
 
 def ptxas_by_source(log):
-    """{source file: [{"function", "registers", "spill_stores"}]} of every
-    kernel, from the ``nvcc -Xptxas -v`` log of ``build.build()``."""
+    """{source file: [{"function", "registers", "spill_stores",
+    "smem_bytes"}]} of every kernel, from the ``nvcc -Xptxas -v`` log of
+    ``build.build()`` (static shared memory; the y-slab kernels' dynamic
+    slab is in their ``slab`` checks)."""
     import re
     out, src, fn, spill = {}, None, None, 0
     for ln in log.splitlines():
@@ -321,8 +332,10 @@ def ptxas_by_source(log):
             spill = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
         elif "Used" in ln and "registers" in ln and src and fn:
             regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
             out[src].append({"function": fn, "registers": regs,
-                             "spill_stores": spill})
+                             "spill_stores": spill,
+                             "smem_bytes": int(smem.group(1)) if smem else 0})
     return out
 
 
@@ -662,7 +675,7 @@ def pour_kernel_inputs(env, carry):
             prim, *body, state.x, v_in, cfg.dt, cfg.p_mass,
             cfg.contact_push_velocity_cap)[0]
     return dict(cfg=cfg, state=state, corner=corner, sizes=sizes, gvm=gvm,
-                contacts=contacts,
+                contacts=contacts, chan=chan,
                 vals=(-2.0 * (v_tmp - v_in)).contiguous())
 
 
@@ -724,6 +737,112 @@ def check_pour_kernels(inp):
     entries[-1]["nonzero_vals"] = int((inp["vals"] != 0).any(dim=0).sum())
     entries += check_mixed_kernels(inp)
     return entries
+
+
+def _slab_flat(name, out):
+    """A P2G result (gm, gmom) or a splat window as one flat tensor."""
+    import torch
+    if name == "p2g":
+        return torch.cat([out[0].reshape(-1), out[1].reshape(-1)])
+    return out.reshape(-1)
+
+
+def _slab_rel(name, got, want, wx):
+    """(max |kernel - plain|, that over the scale the kernel's entry uses:
+    the largest |plain| of gm and gmom together for P2G, of each
+    component's window for the splat)."""
+    diff = (got.double() - want).abs()
+    if name == "p2g":
+        return (diff.max().item(),
+                diff.max().item() / max(want.abs().max().item(), 1e-30))
+
+    def by_component(t):
+        return t.reshape(-1, 3, wx).transpose(0, 1).reshape(3, -1)
+    scale = by_component(want).abs().amax(dim=1, keepdim=True)
+    return (diff.max().item(),
+            (by_component(diff) / scale.clamp(min=1e-30)).max().item())
+
+
+def check_slab(name, args, gen, time_it):
+    """The y-slab kernel ``name`` ("p2g" or "splat") on ``args`` (a y-sorted
+    state and its window) and on a random permutation of its particles:
+    within 1e-5 of the float64 plain version (as the kernel's entry
+    measures it), the spilled-particle count of each order (0 sorted),
+    SLAB_REPEATS calls bit-identical, and the plan (tiles, slab rows,
+    dynamic shared bytes); with ``time_it`` the first design's kernel and
+    this one timed in turns (old, new, new, old: this one must be
+    faster)."""
+    import torch
+    from softmac_tpu_torch.ops import transfer
+    kernel, wrapper = getattr(transfer, "_" + name), getattr(transfer, name)
+    x, src, corner, sizes, inv_dx = args
+    want = _slab_flat(name, getattr(transfer, name + "_plain")(
+        *map(_f64, args)))
+    plan = transfer.slab_plan(*((4, 13) if name == "p2g" else (3, 3)),
+                              x.shape[1], transfer.SLAB_TILE, tuple(sizes))
+    res = {"plan": dict(zip(("tiles", "tile", "rows", "smem_bytes",
+                             "tile_doubles"), plan)),
+           "window": list(sizes)}
+    perm = torch.randperm(x.shape[1], generator=gen, device=x.device)
+    for order, xs, ss in (("sorted", x, src),
+                          ("permuted", x[:, perm].contiguous(),
+                           src[:, perm].contiguous())):
+        outs = [_slab_flat(name, kernel(xs, ss, corner, sizes, inv_dx))
+                for _ in range(SLAB_REPEATS)]
+        torch.cuda.synchronize()
+        err, rel = _slab_rel(name, outs[0], want, sizes[0])
+        res[order] = {"max_abs_err": err, "max_rel_err": rel,
+                      "spilled": int(wrapper.spilled),
+                      "repeats_bit_identical": all(
+                          torch.equal(o, outs[0]) for o in outs[1:])}
+    if time_it:
+        old = getattr(transfer, name + "_atomic")
+        turns = [cuda_time_ms(lambda: f(*args))
+                 for f in (old, kernel, kernel, old)]
+        res["atomic_ms"], res["slab_ms"] = turns[0::3], turns[1:3]
+    if not (res["sorted"]["spilled"] == 0
+            and all(res[o]["max_rel_err"] <= 1e-5
+                    and res[o]["repeats_bit_identical"]
+                    for o in ("sorted", "permuted"))
+            and (not time_it or max(res["slab_ms"]) < min(res["atomic_ms"]))):
+        raise AssertionError(f"{name} y-slab check: {res}")
+    return res
+
+
+def check_slab_kernels(inp, pour_inp):
+    """check_slab of P2G and the splat on the pour_vel and the pour states
+    (the main paths' y-sorted particles and windows; the splat on pour_vel
+    with seeded normal values, every particle active) and on the pour's
+    particles over the full 64^3 grid (no window: the widest rows). The
+    permuted orders must spill somewhere for each kernel (the spill path
+    ran). Returns {kernel: {state: result}}."""
+    import torch
+    x_v, x_p = inp["state"].x, pour_inp["state"].x
+    gen = torch.Generator(device=x_v.device).manual_seed(11)
+    vals_v = torch.randn((3, x_v.shape[1]), generator=gen, device=x_v.device)
+    ng = pour_inp["cfg"].n_grid
+    zero = torch.zeros(3, dtype=torch.int32, device=x_p.device)
+    cases = (("pour_vel", inp, x_v, inp["chan"], vals_v, inp["corner"],
+              inp["sizes"], True),
+             ("pour", pour_inp, x_p, pour_inp["chan"], pour_inp["vals"],
+              pour_inp["corner"], pour_inp["sizes"], True),
+             ("full_grid", pour_inp, x_p, pour_inp["chan"], pour_inp["vals"],
+              zero, (ng, ng, ng), False))
+    res = {"p2g": {}, "splat": {}}
+    for state, src, x, chan, vals, corner, sizes, time_it in cases:
+        inv_dx = src["cfg"].inv_dx
+        res["p2g"][state] = check_slab(
+            "p2g", (x, chan, corner, sizes, inv_dx), gen, time_it)
+        res["splat"][state] = check_slab(
+            "splat", (x, vals, corner, sizes, inv_dx), gen, time_it)
+    for name, by_state in res.items():
+        spilled = {k: (v["sorted"]["spilled"], v["permuted"]["spilled"])
+                   for k, v in by_state.items()}
+        print(f"{name} y-slab: spilled (sorted, permuted) {spilled}",
+              flush=True)
+        if not any(p > 0 for _, p in spilled.values()):
+            raise AssertionError(f"{name}: no permuted order spilled")
+    return res
 
 
 def check_mixed_kernels(inp):
@@ -1225,6 +1344,7 @@ def run_pour(env):
     counted from zero, then SLICE_REPEATS timed rollouts of the same."""
     import numpy as np
     import torch
+    from softmac_tpu_torch.ops import transfer
     acts = np.zeros((SLICE_STEPS, env.action_dim))
     q0 = env._initial_carry()[2].q
     reset_launches()
@@ -1260,7 +1380,12 @@ def run_pour(env):
            "rigid_q": rigid.q.tolist(), "rigid_qd": rigid.qd.tolist(),
            "glass_q_moved": glass_moved, "launches": launches,
            "x_finite": bool(torch.isfinite(state.x).all()),
-           "x_shape": list(state.x.shape)}
+           "x_shape": list(state.x.shape),
+           # particles off their tile's y-slab in the last substep (the
+           # sort is up to 20 env steps old there)
+           "spilled_last_substep": {
+               "p2g": int(transfer.p2g.spilled),
+               "splat": int(transfer.splat.spilled)}}
     if out["loss"].requires_grad or state.x.requires_grad:
         raise AssertionError("pour rollout kept an autograd graph")
     if (res["terms"]["window_overflow"] or not math.isfinite(loss)
@@ -1405,7 +1530,13 @@ def run_profile(env, acts, grad=False):
     busy_us = sum(t for t, _ in by_name.values())
     n_sub = steps * env.substeps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    # the y-slab P2G and splat: scatter and reduce launches (their names
+    # carry the template argument)
+    scatter = {k: sum(t for name, (t, _) in by_name.items() if tag in name)
+               / 1e3 / n_sub
+               for k, tag in (("p2g", "P2GValues"), ("splat", "SplatValues"))}
     return {"env_steps": steps, "grad": grad,
+            "slab_kernels_ms_per_substep": scatter,
             "wall_ms_per_substep": wall * 1e3 / n_sub,
             "device_busy_ms_per_substep": busy_us / 1e3 / n_sub,
             "device_busy_share": busy_us / 1e6 / wall,
@@ -2635,6 +2766,10 @@ def main():
     pour_inp = pour_kernel_inputs(pour_env, pour10)
     kernels += check_pour_kernels(pour_inp)
     kernels += check_pour_backward_kernels(pour_inp)
+    slab = check_slab_kernels(inp, pour_inp)
+    for k in kernels:
+        if k["name"] in slab:
+            k["slab"] = slab[k["name"]]
     denv = door_env()
     door10 = denv.rollout(door_actions(STATE_STEPS))["carry"]
     door_inp = door_kernel_inputs(denv, door10, door_actions(1)[0])

@@ -31,7 +31,9 @@ COMPILE_FLAGS = ARCH + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every kernel entry point (argument types, in order)
 SIGNATURES = {
-    "softmac_p2g": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "softmac_p2g": [_P] * 7 + [_I] * 5 + [_F, _P],
+    "softmac_p2g_atomic": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "softmac_slab_plan": [_I] * 7 + [_P],
     "softmac_g2p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "softmac_collide_particle": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
@@ -39,7 +41,8 @@ SIGNATURES = {
     "softmac_g2p_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
     "softmac_collide_particle_bwd": [_P] * 8 + [_I] * 4 + [_F] * 9 + [_P],
     "softmac_gather": [_P] * 6 + [_I] * 4 + [_F, _P],
-    "softmac_splat": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "softmac_splat": [_P] * 7 + [_I] * 5 + [_F, _P],
+    "softmac_splat_atomic": [_P] * 5 + [_I] * 4 + [_F, _P],
     "softmac_collide_mixed": [_P] * 7 + [_I] * 4 + [_F] * 10 + [_P],
     "softmac_collide_mixed1": [_P] * 5 + [_I] * 4 + [_F] * 8 + [_P],
     "softmac_collide_mixed2": [_P] * 8 + [_I] * 4 + [_F] * 10 + [_P],

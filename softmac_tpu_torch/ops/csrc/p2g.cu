@@ -16,28 +16,75 @@
 //
 // What bounds it on the H100: by bytes it reads 16 floats a particle
 // (13 channels + 3 positions, 6.4 MB at 1e5 particles) and writes the
-// window once, about 2 us at 3.35 TB/s. In practice it is bound by the
-// 108 atomics a particle performs on a grid of ~20k cells that many
-// neighbouring particles hit at once.
+// window once, about 2 us at 3.35 TB/s. What held the first design back
+// was the 108 float64 atomics a particle performed in device memory: the
+// rollout keeps the particles sorted by y-cell, so neighbouring threads
+// hit the same ~16k cells and their atomics queue in L2 (0.29 ms at 1e5
+// particles on an H100, where the gather, the same stencil without
+// atomics, takes 0.04).
 //
-// Simple design: one thread per particle, global atomicAdd straight into
-// a zeroed window, no shared memory. The sorted-by-y particle order of
-// the rollout keeps a warp's atomics on a few nearby cache lines. A
-// block-local shared-memory grid tile is the later optimisation. The
-// splat itself (bspline.cuh splat_stencil) is shared with G2P's backward.
+// Design (slab.cuh): the TPU kernel's idea on Hopper's shared memory. A
+// block takes a tile of consecutive sorted particles and the y rows their
+// stencils reach; it stages the particles in shared memory, sorts them by
+// base cell, and one thread a slab cell gathers the cell's mass and
+// momentum from the particles of its 27 base cells, without atomics. The
+// slab goes once to the tile's own partial buffer; a second launch sums
+// the partials of each cell in tile order, adds the spill window and
+// rounds to float32 once. The spill path (global float64 atomics for cells
+// of a row outside the block's slab, its particles counted) keeps the
+// kernel exact for any particle order, and the count shows whether the
+// sorted order held.
 //
-// Accumulation is in float64 (atomicAdd(double*)), then one more launch
-// rounds the window to float32. This is kept for reproducibility: float32
-// atomics sum the ~1e3 terms a cell gathers in another order on every run,
-// so two rollouts of the same actions drift apart; in float64 the order
-// shows in the float32 result only where a sum lies within ~1e-15 of a
-// rounding boundary, and repeated rollouts in practice end bit-identical
-// (chip_smoke.py's slice phase reports it). It also keeps the
-// kernel within 3e-8 of the exact sum, where float32 atomics came to
-// 5-7e-6 of the largest cell on the 1e5-particle pour scene (H100).
-#include "bspline.cuh"
+// Accumulation is in float64, rounded to float32 once, and without spills
+// every sum is taken in a fixed order, so repeated rollouts end
+// bit-identical (float32 atomics summed the ~1e3 terms a cell gathers in
+// another order on every run, and two rollouts of the same actions drifted
+// apart). It also keeps the kernel within 3e-8 of the exact sum, where
+// float32 atomics came to 5-7e-6 of the largest cell on the 1e5-particle
+// pour scene (H100).
+//
+// The first design, one thread per particle with float64 atomicAdd into a
+// zeroed window (bspline.cuh splat_stencil, shared with G2P's backward),
+// stays as softmac_p2g_atomic, which only chip_smoke.py calls to time the
+// two in turns.
+#include "slab.cuh"
 
 namespace {
+
+// one particle's mass, momentum and dx * affine; channel 0 is the mass,
+// 1 + d the momentum component d
+struct P2GValues {
+  static constexpr int kChannels = 4, kInputs = 13;
+  float mass, mom[3], a[3][3];
+
+  __device__ static bool active(const float*, int, int) { return true; }
+
+  // the 13 channel rows of stride n at column p
+  __device__ P2GValues(const float* chan, int n, int p) {
+    mass = chan[p];
+    for (int d = 0; d < 3; ++d) {
+      mom[d] = chan[(1 + d) * n + p];
+      for (int j = 0; j < 3; ++j) a[d][j] = chan[(4 + 3 * d + j) * n + p];
+    }
+  }
+
+  // the same 13 floats staged in four float4s
+  __device__ explicit P2GValues(const float4* v) {
+    const float4 f0 = v[0], f1 = v[1], f2 = v[2], f3 = v[3];
+    mass = f0.x;
+    mom[0] = f0.y, mom[1] = f0.z, mom[2] = f0.w;
+    a[0][0] = f1.x, a[0][1] = f1.y, a[0][2] = f1.z, a[1][0] = f1.w;
+    a[1][1] = f2.x, a[1][2] = f2.y, a[2][0] = f2.z, a[2][1] = f2.w;
+    a[2][2] = f3.x;
+  }
+
+  __device__ float value(int c, float wgt, float dwx, float dwy,
+                         float dwz) const {
+    if (c == 0) return wgt * mass;
+    const int d = c - 1;
+    return wgt * mom[d] + dwx * a[d][0] + dwy * a[d][1] + dwz * a[d][2];
+  }
+};
 
 __global__ void p2g_kernel(const float* __restrict__ x,
                            const float* __restrict__ chan,
@@ -63,14 +110,48 @@ __global__ void p2g_kernel(const float* __restrict__ x,
 
 }  // namespace
 
+// The cut of one call for `channels` channels of `inputs` rows (P2G 4 of
+// 13, the splat 3 of 3) at a requested tile: out[0..4] = tiles, the tile,
+// slab rows, dynamic shared bytes a block, doubles of one tile's partial
+// slab. Host only.
+extern "C" int softmac_slab_plan(int channels, int inputs, int n, int tile,
+                                 int wx, int wy, int wz, long long* out) {
+  const softmac::SlabPlan p = softmac::slab_plan(channels, inputs, n, tile,
+                                                 wx, wy, wz);
+  out[0] = p.tiles;
+  out[1] = p.tile;
+  out[2] = p.rows;
+  out[3] = p.smem;
+  out[4] = p.tile_doubles;
+  return 0;
+}
+
 // x (3, n) positions, chan (13, n) [mass, mom(3), dx*affine(9) row-major],
-// corner (3,) int32 on the device. acc: 4 * wy*wz*wx doubles zeroed by the
-// caller (the mass window, then the momentum window); out: the same
-// layout in float32, gm (wy*wz, wx) followed by gmom (wy*wz, 3*wx).
-// Returns cudaGetLastError() after the launches.
+// corner (3,) int32 on the device. spill: 4 * wy*wz*wx + 1 doubles zeroed
+// by the caller (the spill window, then the count of spilled particles as
+// an unsigned 64-bit integer); partial: tiles * tile_doubles doubles and
+// meta: 2 * tiles ints (softmac_slab_plan); out: gm (wy*wz, wx) followed
+// by gmom (wy*wz, 3*wx) in float32. `tile` particles a block, a power of
+// two up to kSlabMaxTile. Returns cudaGetLastError() after the launches.
 extern "C" int softmac_p2g(const float* x, const float* chan, const int* corner,
-                           double* acc, float* out, int n, int wx, int wy,
-                           int wz, float inv_dx, void* stream) {
+                           double* spill, double* partial, int* meta,
+                           float* out, int n, int tile, int wx, int wy, int wz,
+                           float inv_dx, void* stream) {
+  if (!softmac::slab_tile_ok(tile)) return cudaErrorInvalidValue;
+  const softmac::SlabPlan plan = softmac::slab_plan(
+      P2GValues::kChannels, P2GValues::kInputs, n, tile, wx, wy, wz);
+  const softmac::SlabArgs a = {x, chan, corner, spill, partial, meta, n,
+                               plan.tile, 1, wx, wy, wz, inv_dx, plan};
+  return softmac::slab_launch<P2GValues>(a, out,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+// The first design (see above): acc 4 * wy*wz*wx doubles zeroed by the
+// caller (the mass window, then the momentum window); out as softmac_p2g.
+extern "C" int softmac_p2g_atomic(const float* x, const float* chan,
+                                  const int* corner, double* acc, float* out,
+                                  int n, int wx, int wy, int wz, float inv_dx,
+                                  void* stream) {
   const int cells = wx * wy * wz;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0) {

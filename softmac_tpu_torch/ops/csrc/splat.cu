@@ -14,20 +14,55 @@
 //
 // What bounds it on the H100: by bytes it reads 6 floats a particle (x and
 // the values, 2.4 MB at 1e5 particles) and writes the window once, about
-// 0.8 us at 3.35 TB/s. In practice it is bound by the 81 float64 atomics a
-// particle performs on a window of ~16k cells that neighbouring particles
-// hit at once, like G2P's backward.
+// 0.8 us at 3.35 TB/s. What held the first design back was the 81 float64
+// atomics in device memory that every particle performed, in contact or
+// not, onto a window of ~16k cells that neighbouring sorted particles hit
+// at once (0.28 ms at 1e5 particles on an H100).
 //
-// Simple design: P2G's splat (bspline.cuh splat_stencil) with the values in
-// place of the momentum and no mass or affine term: one thread per
-// particle, float64 atomicAdd into a zeroed accumulator, then one more
-// launch rounds the window to float32 once. As for P2G, this keeps
-// repeated rollouts bit-identical, where float32 atomics would sum each
-// cell in another order on every run. A shared-memory window tile is the
-// later optimisation.
-#include "bspline.cuh"
+// Design: P2G's shared-memory y-slab tiles (slab.cuh) with three channels:
+// stage, sort by base cell, gather each slab cell without atomics, sum the
+// tiles' partials in tile order in a second launch. The values are zero
+// for every particle out of contact, and such a particle adds nothing:
+// W >= 0 and every sum starts at +0, so skipping it is exact to the bit.
+// Skipped particles do not widen their tile's slab either, so a tile with
+// no particle in contact stages, sorts and writes nothing. Cells of a row
+// outside the slab go to the spill window by global float64 atomics
+// (exact for any order, the particles counted). The sums are float64,
+// rounded to float32 once, in a fixed order: repeated rollouts end
+// bit-identical as with P2G.
+//
+// The first design, one thread per particle with float64 atomicAdd into a
+// zeroed window, stays as softmac_splat_atomic, which only chip_smoke.py
+// calls to time the two in turns.
+#include "slab.cuh"
 
 namespace {
+
+// one particle's three values; a particle whose values are all zero is
+// skipped
+struct SplatValues {
+  static constexpr int kChannels = 3, kInputs = 3;
+  float v[3];
+
+  __device__ static bool active(const float* vals, int n, int p) {
+    return vals[p] != 0.f || vals[n + p] != 0.f || vals[2 * n + p] != 0.f;
+  }
+
+  // the 3 value rows of stride n at column p
+  __device__ SplatValues(const float* vals, int n, int p) {
+    for (int d = 0; d < 3; ++d) v[d] = vals[d * n + p];
+  }
+
+  // the same values staged in a float4
+  __device__ explicit SplatValues(const float4* f) {
+    const float4 f0 = f[0];
+    v[0] = f0.x, v[1] = f0.y, v[2] = f0.z;
+  }
+
+  __device__ float value(int c, float wgt, float, float, float) const {
+    return wgt * v[c];
+  }
+};
 
 __global__ void splat_kernel(const float* __restrict__ x,
                              const float* __restrict__ vals,
@@ -48,14 +83,33 @@ __global__ void splat_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// x (3, n) positions, vals (3, n), corner (3,) int32 on the device. acc:
-// 3 * wy*wz*wx doubles zeroed by the caller; out: the same window in
+// x (3, n) positions, vals (3, n), corner (3,) int32 on the device. spill:
+// 3 * wy*wz*wx + 1 doubles zeroed by the caller (the spill window, then
+// the count of spilled particles as an unsigned 64-bit integer); partial
+// and meta as softmac_slab_plan (3 channels) gives them; out: the window in
 // float32, (wy*wz, 3*wx) with component d in columns d*wx .. (d+1)*wx.
-// Returns cudaGetLastError() after the launches.
+// `tile` particles a block, a power of two up to kSlabMaxTile. Returns
+// cudaGetLastError() after the launches.
 extern "C" int softmac_splat(const float* x, const float* vals,
-                             const int* corner, double* acc, float* out,
-                             int n, int wx, int wy, int wz, float inv_dx,
+                             const int* corner, double* spill,
+                             double* partial, int* meta, float* out, int n,
+                             int tile, int wx, int wy, int wz, float inv_dx,
                              void* stream) {
+  if (!softmac::slab_tile_ok(tile)) return cudaErrorInvalidValue;
+  const softmac::SlabPlan plan = softmac::slab_plan(
+      SplatValues::kChannels, SplatValues::kInputs, n, tile, wx, wy, wz);
+  const softmac::SlabArgs a = {x, vals, corner, spill, partial, meta, n,
+                               plan.tile, 0, wx, wy, wz, inv_dx, plan};
+  return softmac::slab_launch<SplatValues>(a, out,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+// The first design (see above): acc 3 * wy*wz*wx doubles zeroed by the
+// caller; out as softmac_splat.
+extern "C" int softmac_splat_atomic(const float* x, const float* vals,
+                                    const int* corner, double* acc,
+                                    float* out, int n, int wx, int wy, int wz,
+                                    float inv_dx, void* stream) {
   const int cells = wx * wy * wz;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0) {

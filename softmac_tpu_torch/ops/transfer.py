@@ -12,7 +12,12 @@ tensors: on the CPU they run the plain version, on CUDA they launch the
 kernel (and count the launch), anything else raises. There is no fallback
 from CUDA to the plain version: the plain version runs on a CUDA tensor
 only when called by name (``chip_smoke.py`` does, to hold the kernel
-against it).
+against it). The P2G and splat kernels keep a sorted particle tile's y rows
+in shared memory (``ops/csrc/slab.cuh``); particles whose cells fall outside
+their tile's rows go by global atomics instead and are counted in
+``p2g.spilled`` / ``splat.spilled`` (0 when the particles are sorted by y,
+as the rollout keeps them). ``p2g_atomic`` and ``splat_atomic`` run the
+first design's kernels, to time the two.
 
 Under autograd (grad enabled and an input that requires grad) each goes
 through its autograd Function (``P2G``, ``G2P``, ``Gather``, ``Splat``: the
@@ -30,9 +35,18 @@ the whole active window, so the only overflow is the window's own
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+
 import torch
 
 from softmac_tpu_torch.ops import build
+
+# particles a block of the y-slab P2G and splat kernels (ops/csrc/slab.cuh),
+# a power of two up to 1024; scripts/slab_phases.py times 256, 512 and 1024
+# on the main paths' states
+SLAB_TILE = 512
 
 
 def stencil(x: torch.Tensor, corner: torch.Tensor, window, inv_dx: float):
@@ -185,7 +199,8 @@ def _check_cuda(name, tensors, corner):
 
 
 def _p2g(x, chan, corner, window, inv_dx):
-    """P2G splat; see ``p2g_plain``. CUDA tensors launch the kernel."""
+    """P2G splat; see ``p2g_plain``. CUDA tensors launch the kernel;
+    ``p2g.spilled`` then holds the call's count of spilled particles."""
     if build.on_cpu(x, "p2g"):
         return p2g_plain(x, chan, corner, window, inv_dx)
     wx, wy, wz = (int(w) for w in window)
@@ -193,17 +208,76 @@ def _p2g(x, chan, corner, window, inv_dx):
     _check_cuda("p2g", (x, chan), corner)
     if x.shape != (3, n) or chan.shape != (13, n):
         raise ValueError(f"p2g: x {tuple(x.shape)}, chan {tuple(chan.shape)}")
-    cells = wx * wy * wz
-    # float64 accumulators, rounded into `out` by the same entry point
-    acc = torch.zeros(4 * cells, dtype=torch.float64, device=x.device)
-    out = torch.empty(4 * cells, dtype=x.dtype, device=x.device)
-    rc = build.library().softmac_p2g(
-        x.data_ptr(), chan.data_ptr(), corner.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), n, wx, wy, wz, float(inv_dx),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "p2g")
+    out, p2g.spilled = _slab("p2g", 4, 13, x, chan, corner, (wx, wy, wz),
+                             inv_dx)
     p2g.launches += 1
+    cells = wx * wy * wz
     return out[:cells].view(wy * wz, wx), out[cells:].view(wy * wz, 3 * wx)
+
+
+def _slab(name, channels, inputs, x, src, corner, window, inv_dx):
+    """One launch of the y-slab P2G (4 channels of 13 input rows) or splat
+    (3 of 3) kernel: the float32 window (channels * cells) and the call's
+    spilled-particle count (a one-element int64 tensor on the card, read
+    after a synchronize)."""
+    n = x.shape[1]
+    tiles, _, _, _, tile_doubles = slab_plan(channels, inputs, n, SLAB_TILE,
+                                             window)
+    cells = math.prod(window)
+    dev = x.device
+    spill = torch.zeros(channels * cells + 1, dtype=torch.float64, device=dev)
+    partial = torch.empty(tiles * tile_doubles, dtype=torch.float64,
+                          device=dev)
+    meta = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
+    out = torch.empty(channels * cells, dtype=x.dtype, device=dev)
+    rc = getattr(build.library(), "softmac_" + name)(
+        x.data_ptr(), src.data_ptr(), corner.data_ptr(), spill.data_ptr(),
+        partial.data_ptr(), meta.data_ptr(), out.data_ptr(), n, SLAB_TILE,
+        *window, float(inv_dx), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, name)
+    return out, spill[-1:].view(torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def slab_plan(channels, inputs, n, tile, window):
+    """How the y-slab kernel cuts one call (``softmac_slab_plan``): (tiles,
+    particles a tile, slab rows, dynamic shared bytes a block, doubles of
+    one tile's partial slab)."""
+    out = (ctypes.c_longlong * 5)()
+    build.library().softmac_slab_plan(channels, inputs, n, tile, *window,
+                                      ctypes.addressof(out))
+    return tuple(out)
+
+
+def _atomic(name, channels, x, src, corner, window, inv_dx):
+    """The first design of the P2G and splat kernels (one thread a
+    particle, float64 atomics into a zeroed window), kept to time against
+    the y-slab kernels: float32 window (channels * cells). CUDA only."""
+    _check_cuda(name, (x, src), corner)
+    cells = math.prod(window)
+    acc = torch.zeros(channels * cells, dtype=torch.float64, device=x.device)
+    out = torch.empty(channels * cells, dtype=x.dtype, device=x.device)
+    rc = getattr(build.library(), f"softmac_{name}_atomic")(
+        x.data_ptr(), src.data_ptr(), corner.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), x.shape[1], *window, float(inv_dx),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, name + "_atomic")
+    return out
+
+
+def p2g_atomic(x, chan, corner, window, inv_dx):
+    """``p2g`` through the first design's kernel (see ``_atomic``)."""
+    wx, wy, wz = (int(w) for w in window)
+    out = _atomic("p2g", 4, x, chan, corner, (wx, wy, wz), inv_dx)
+    cells = wx * wy * wz
+    return out[:cells].view(wy * wz, wx), out[cells:].view(wy * wz, 3 * wx)
+
+
+def splat_atomic(x, vals, corner, window, inv_dx):
+    """``splat`` through the first design's kernel (see ``_atomic``)."""
+    wx, wy, wz = (int(w) for w in window)
+    out = _atomic("splat", 3, x, vals, corner, (wx, wy, wz), inv_dx)
+    return out.view(wy * wz, 3 * wx)
 
 
 def _g2p(x, gv0, gv1, gv2, corner, window, inv_dx):
@@ -429,7 +503,8 @@ def _gather(x, gv0, gv1, gv2, corner, window, inv_dx):
 
 def _splat(x, vals, corner, window, inv_dx):
     """Splat of vals onto the window; see ``splat_plain``. CUDA tensors
-    launch the kernel (float64 accumulation, rounded once)."""
+    launch the kernel (float64 sums, rounded once); ``splat.spilled`` then
+    holds the call's count of spilled particles."""
     if build.on_cpu(x, "splat"):
         return splat_plain(x, vals, corner, window, inv_dx)
     wx, wy, wz = (int(w) for w in window)
@@ -438,16 +513,10 @@ def _splat(x, vals, corner, window, inv_dx):
     if x.shape != (3, n) or vals.shape != (3, n):
         raise ValueError(f"splat: x {tuple(x.shape)}, vals "
                          f"{tuple(vals.shape)}")
-    cells = wx * wy * wz
-    acc = torch.zeros(3 * cells, dtype=torch.float64, device=x.device)
-    out = torch.empty((wy * wz, 3 * wx), dtype=x.dtype, device=x.device)
-    rc = build.library().softmac_splat(
-        x.data_ptr(), vals.data_ptr(), corner.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), n, wx, wy, wz, float(inv_dx),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "splat")
+    out, splat.spilled = _slab("splat", 3, 3, x, vals, corner, (wx, wy, wz),
+                               inv_dx)
     splat.launches += 1
-    return out
+    return out.view(wy * wz, 3 * wx)
 
 
 def gather(x, gv0, gv1, gv2, corner, window, inv_dx):
@@ -492,3 +561,5 @@ p2g_bwd.launches = 0
 g2p_bwd.launches = 0
 gather_bwd.launches = 0
 splat_bwd.launches = 0
+p2g.spilled = None
+splat.spilled = None

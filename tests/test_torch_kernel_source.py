@@ -5,7 +5,9 @@ headers) are compiled with the host C++ compiler over a small stand-in for
 the CUDA runtime header; each kernel runs one thread at a time. The block
 reductions of the contact backwards (shared memory and barriers) are left
 to chip_smoke.py; here the per-particle reverse sweeps are summed on the
-host.
+host. The y-slab P2G and splat (slab.cuh), block kernels with barriers,
+run phase by phase: each phase over all threads of a block before the
+next, as the barriers order them on the card.
 
 Held against the plain versions in float64 on the same float32 inputs:
 P2G (its splat is shared with G2P's backward), gather, splat and the P2G /
@@ -28,6 +30,7 @@ p_mass it sees. The contact checks run on the real glass table, with
 particles spread over its SDF box (contact, soft band, penetration and
 face-crossing forecasts counted)."""
 import ctypes
+import math
 import shutil
 import subprocess
 from pathlib import Path
@@ -58,24 +61,116 @@ CUDA_STANDIN = r"""
 #define __global__
 #define __forceinline__ inline
 struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+struct int2 { int x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct dim3s { unsigned x, y, z; };
 extern dim3s blockIdx, threadIdx, blockDim, gridDim;
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline double atomicAdd(double* p, double v) { double o = *p; *p = o + v; return o; }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned o = *p; *p = o + v; return o; }
+inline int atomicAdd(int* p, int v) { int o = *p; *p = o + v; return o; }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  unsigned long long o = *p; *p = o + v; return o;
+}
+inline int atomicMin(int* p, int v) { int o = *p; if (v < o) *p = v; return o; }
+inline int atomicMax(int* p, int v) { int o = *p; if (v > o) *p = v; return o; }
+inline unsigned atomicOr(unsigned* p, unsigned v) { unsigned o = *p; *p = o | v; return o; }
+inline int __ffs(int v) { return __builtin_ffs(v); }
 #define __shared__ static
 inline void __syncthreads() {}
 """
 
 DRIVER = r"""
+#include <algorithm>
+#include <limits>
+#include <vector>
 dim3s blockIdx, threadIdx, blockDim, gridDim;
+// The y-slab scatter of slab.cuh: each block's phases, each over all the
+// block's threads before the next (the barriers' order on the card, the
+// bitonic sort one step a phase), with the shared memory and the partials
+// poisoned (NaN, all ones); then the reduce over every output element.
+// plan: tiles, rows, and the slab rows the tiles used (summed).
+template <class Values>
+static void slab(const float* x, const float* src, const int* corner,
+                 double* spill, float* out, int n, int tile, int lead, int wx,
+                 int wy, int wz, float inv_dx, long long* plan) {
+  const softmac::SlabPlan pl = softmac::slab_plan(
+      Values::kChannels, Values::kInputs, n, tile, wx, wy, wz);
+  std::vector<double> partial(pl.tiles * pl.tile_doubles,
+                              std::numeric_limits<double>::quiet_NaN());
+  std::vector<int> meta(2 * pl.tiles, -1);
+  const softmac::SlabArgs a = {x, src, corner, spill, partial.data(),
+                               meta.data(), n, pl.tile, lead, wx, wy, wz,
+                               inv_dx, pl};
+  blockDim.x = softmac::kSlabThreads;
+  auto phase = [&](auto f) {
+    for (unsigned t = 0; t < blockDim.x; ++t) { threadIdx.x = t; f(); }
+  };
+  for (int tl = 0; tl < pl.tiles; ++tl) {
+    std::vector<unsigned> smem(pl.smem / 4 + 4, 0xffffffffu);
+    softmac::SlabShared sh;
+    softmac::SlabTile t;
+    phase([&] { softmac::slab_begin(a, &sh); });
+    phase([&] { softmac::slab_bounds<Values>(a, tl, &sh); });
+    phase([&] {
+      t = softmac::slab_tile(a, tl, &sh, smem.data());
+      softmac::slab_stage<Values>(a, tl, t, &sh);
+    });
+    if (t.rows == 0) continue;
+    for (int k = 2; k <= pl.tile; k <<= 1)
+      for (int j = k >> 1; j > 0; j >>= 1)
+        phase([&] { softmac::slab_sort_step(a, t, k, j); });
+    phase([&] { softmac::slab_offsets(a, t); });
+    phase([&] {
+      for (;;) {
+        const int cell = atomicAdd(&sh.next, 1);
+        if (cell >= t.rows * wz * wx) break;
+        double acc[Values::kChannels] = {};
+        softmac::slab_cell<Values>(a, t, cell, acc);
+        softmac::slab_put<Values>(a, tl, cell, acc);
+      }
+    });
+    softmac::slab_count<Values>(a, &sh);
+  }
+  // the second launch: blocks of 256 indices, three phases each
+  const int count = pl.channels * wx * wy * wz;
+  std::vector<unsigned> bits(2 * softmac::slab_words(a) + 1, 0xffffffffu);
+  blockDim.x = 256;
+  for (int first = 0; first < count; first += 256) {
+    const int last = std::min(first + 256, count) - 1;
+    phase([&] { softmac::slab_reduce_clear(a, bits.data()); });
+    phase([&] { softmac::slab_reduce_mark(a, first, last, bits.data()); });
+    phase([&] {
+      const int e = first + threadIdx.x;
+      if (e <= last) softmac::slab_reduce(a, first, e, bits.data(), out);
+    });
+  }
+  plan[0] = pl.tiles;
+  plan[1] = pl.rows;
+  plan[2] = 0;
+  for (int tl = 0; tl < pl.tiles; ++tl) plan[2] += meta[2 * tl + 1];
+}
 template <class F> static void launch(int n, F f) {
   blockDim.x = 256; gridDim.x = (n + 255) / 256;
   for (unsigned b = 0; b < gridDim.x; ++b)
     for (unsigned t = 0; t < 256; ++t) { blockIdx.x = b; threadIdx.x = t; f(); }
 }
 extern "C" {
+void h_p2g_slab(const float* x, const float* chan, const int* corner,
+                double* spill, float* out, int n, int tile, int wx, int wy,
+                int wz, float inv_dx, long long* plan) {
+  slab<k_p2g::P2GValues>(x, chan, corner, spill, out, n, tile, 1, wx, wy, wz,
+                         inv_dx, plan);
+}
+void h_splat_slab(const float* x, const float* vals, const int* corner,
+                  double* spill, float* out, int n, int tile, int wx, int wy,
+                  int wz, float inv_dx, long long* plan) {
+  slab<k_splat::SplatValues>(x, vals, corner, spill, out, n, tile, 0, wx, wy,
+                             wz, inv_dx, plan);
+}
 void h_p2g(const float* x, const float* chan, const int* corner, double* acc,
            int n, int wx, int wy, int wz, float inv_dx) {
   int cells = wx * wy * wz;
@@ -323,10 +418,16 @@ def _scene(shift, seed=0):
     rng = np.random.RandomState(seed)
     x = np.stack([0.45 + 0.09 * rng.rand(N), 0.30 + 0.06 * rng.rand(N),
                   0.50 + 0.05 * rng.rand(N)])
-    corner = [int(np.round((x[d] * INV_DX - 0.5).mean())) - w // 2 + shift
-              for d, w in enumerate(WINDOW)]
-    return (torch.tensor(x, dtype=torch.float32),
-            torch.tensor(corner, dtype=torch.int32), rng)
+    return (torch.tensor(x, dtype=torch.float32), _corner(x, WINDOW, shift),
+            rng)
+
+
+def _corner(x, window, shift):
+    """The window centred on the particles, moved by ``shift`` cells on
+    every axis (some stencils then leave it)."""
+    corner = [int(np.round((np.asarray(x[d]) * INV_DX - 0.5).mean()))
+              - w // 2 + shift for d, w in enumerate(window)]
+    return torch.tensor(corner, dtype=torch.int32)
 
 
 def _f32(rng, *shape):
@@ -413,6 +514,116 @@ def test_gather_and_splat_sources(lib, shift):
     ref = transfer.splat_plain(x.double(), vals.double(), corner, WINDOW,
                                INV_DX)
     assert _rel(acc, ref.reshape(-1)) < 2e-6
+
+
+SLAB_TILE = 64           # 400 particles: 7 tiles, the last one ragged
+WIDE = (64, 8, 48)       # wide rows: fewer slab rows fit a block
+
+
+def _y_sorted(x, *rows):
+    """The particles in the rollout's order (stable by base y-cell, as
+    mpm.sort_perm), and per-particle rows with them."""
+    perm = torch.argsort(torch.floor(x[1] * INV_DX - 0.5), stable=True)
+    return [t[:, perm].contiguous() for t in (x,) + rows]
+
+
+def _slab_call(lib, name, x, src, corner, window, tile):
+    """One y-slab P2G or splat on the host: (float32 window, spilled
+    particles, plan (tiles, slab rows, slab rows used))."""
+    channels = 4 if name == "p2g" else 3
+    cells = math.prod(window)
+    out = torch.full((channels * cells,), float("nan"))
+    spill = torch.zeros(channels * cells + 1, dtype=torch.float64)
+    plan = (ctypes.c_longlong * 3)()
+    getattr(lib, f"h_{name}_slab")(
+        _p(x), _p(src), _p(corner), _p(spill), _p(out),
+        ctypes.c_int(x.shape[1]), ctypes.c_int(tile),
+        *[ctypes.c_int(w) for w in window], ctypes.c_float(INV_DX), plan)
+    return out, int(spill[-1:].view(torch.int64)), tuple(plan)
+
+
+def _plain_window(name, x, src, corner, window):
+    if name == "p2g":
+        gm, gmom = transfer.p2g_plain(x.double(), src.double(), corner,
+                                      window, INV_DX)
+        return torch.cat([gm.reshape(-1), gmom.reshape(-1)])
+    return transfer.splat_plain(x.double(), src.double(), corner, window,
+                                INV_DX).reshape(-1)
+
+
+def _expected_tiles(x, active, corner, window, tile, rows):
+    """(particles with a stencil row inside the window but outside their
+    tile's slab, slab rows the tiles use): a tile's slab holds the rows
+    [lo, lo + min(hi - lo, rows)) from the lowest and highest rows its
+    active particles reach."""
+    base = torch.floor(x[1] * INV_DX - 0.5).long() - int(corner[1])
+    r0, r1 = base.clamp(min=0), (base + 3).clamp(max=window[1])
+    reach = active & (r0 < r1)
+    spills = used = 0
+    for t0 in range(0, x.shape[1], tile):
+        m, lo, hi = reach[t0:t0 + tile], r0[t0:t0 + tile], r1[t0:t0 + tile]
+        if m.any():
+            lo_t, hi_t = int(lo[m].min()), int(hi[m].max())
+            used += min(hi_t - lo_t, rows)
+            spills += int((m & (hi > lo_t + min(hi_t - lo_t, rows))).sum())
+    return spills, used
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+@pytest.mark.parametrize("shift", [0, 2])
+@pytest.mark.parametrize("window", [WINDOW, WIDE], ids=["window", "wide"])
+def test_slab_sources(lib, window, shift, order):
+    """The y-slab P2G and splat (slab.cuh) against the float64 plain
+    versions. In the rollout's y-sorted order every stencil row lies in its
+    tile's slab: no particle spills. On the wide window a slab holds fewer
+    rows than the scene spans, so in the scene's random order particles
+    spill, and the spilled cells' global atomics keep the window exact; the
+    spill count and the slab rows used are those the tiles' rows give."""
+    x, _, rng = _scene(shift, seed=10)
+    corner = _corner(x, window, shift)
+    chan, vals = _f32(rng, 13, N), _f32(rng, 3, N)
+    if order == "sorted":
+        x, chan, vals = _y_sorted(x, chan, vals)
+    for name, src in (("p2g", chan), ("splat", vals)):
+        out, spilled, plan = _slab_call(lib, name, x, src, corner, window,
+                                        SLAB_TILE)
+        assert _rel(out, _plain_window(name, x, src, corner, window)) < 2e-6
+        assert plan[0] == 7 and (plan[1] < 8) == (window == WIDE), plan
+        want = _expected_tiles(x, torch.ones(N, dtype=torch.bool), corner,
+                               window, SLAB_TILE, plan[1])
+        assert (spilled, plan[2]) == want, (name, spilled, plan, want)
+        assert (spilled > 0) == (order == "unsorted" and window == WIDE)
+
+
+@pytest.mark.parametrize("tile", [SLAB_TILE, 1024])
+@pytest.mark.parametrize("shift", [0, 2])
+def test_slab_splat_mostly_zero_source(lib, shift, tile):
+    """The splat in the rollout's order with nine particles in ten at zero
+    (out of contact), over 800 particles (at a tile of 1024 a thread takes
+    two): the zero particles are skipped and do not widen their tile's slab
+    (the window within 2e-6 of the plain version; the spill count and the
+    slab rows used are those the active particles' rows give), and with
+    every value -0.0 no tile uses a row and the window is +0.0 to the
+    bit."""
+    parts = [_scene(shift, seed=s) for s in (11, 12)]
+    x = torch.cat([p[0] for p in parts], dim=1)
+    corner, rng = parts[0][1], parts[0][2]
+    vals = _f32(rng, 3, x.shape[1])
+    vals[:, torch.as_tensor(rng.rand(x.shape[1]) < 0.9)] = 0.0
+    x, vals = _y_sorted(x, vals)
+    out, spilled, plan = _slab_call(lib, "splat", x, vals, corner, WINDOW,
+                                    tile)
+    assert _rel(out, _plain_window("splat", x, vals, corner, WINDOW)) < 2e-6
+    active = (vals != 0).any(dim=0)
+    assert 40 < int(active.sum()) < 120
+    assert (spilled, plan[2]) == _expected_tiles(x, active, corner, WINDOW,
+                                                 tile, plan[1])
+    out, spilled, plan = _slab_call(lib, "splat", x,
+                                    torch.full_like(vals, -0.0), corner,
+                                    WINDOW, tile)
+    assert spilled == plan[2] == 0
+    assert torch.equal(out, torch.zeros_like(out))
+    assert not bool(torch.signbit(out).any())
 
 
 @pytest.mark.parametrize("shift", [0, 2])
