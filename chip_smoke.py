@@ -11,32 +11,42 @@ script exits non-zero:
            each kernel's registers, spills and static shared memory from
            the ptxas log (also in its entry of the kernels line)
   kernels  each kernel against its plain PyTorch version at the main path's
-           shapes: max error, time over 20+ calls (CUDA events), the plain
-           version's time, the least time the card needs for the same work,
-           launches on the main paths. P2G, G2P and the particle contact on
-           the 1e5-particle pour_vel scene, window (40, 32, 16), the state
-           after 10 env steps; the three backward kernels (p2g_bwd, g2p_bwd,
-           collide_particle_bwd) against the plain vjps in float64 on the
-           same inputs with seeded normal cotangents; gather, splat and the
-           mixed contact (merged and split) against their plain versions in
-           float64 on the flagship pour scene's state after 10 env steps
-           (1e5 particles, window (32, 32, 16)), their inputs built by the
-           kernels so that they repeat; the backward kernels of those
-           (gather_bwd, splat_bwd, collide_mixed_bwd and the split pair
-           collide_mixed2_bwd -> collide_mixed1_bwd) against their plain
-           vjps in float64 on the same inputs. Both contact families are
-           also held on particles spread over each body's SDF box, so that
-           both bodies have many contacts (and, for the mixed contact,
-           particles that approach, lie in the soft band, penetrate and
-           forecast across a cell face). The y-slab P2G and splat
-           (ops/csrc/slab.cuh) are also held on the pour_vel and pour
-           states, on a random permutation of each, and over the full 64^3
-           grid: within 1e-5 of the float64 plain version, the particles
-           that spilled off their tile's slab counted (none in the sorted
-           order; some permuted order of each must spill), 10 calls
-           bit-identical; on the two windowed states the first design's
-           kernel (softmac_*_atomic) and the new one timed in turns (old,
-           new, new, old: the new one must be faster)
+           shapes: max error, time over 20+ calls (CUDA events: the call,
+           the wrapper's host time included), its device-only time
+           (torch.profiler over 10 calls: the device kernels a call
+           launched), the plain version's time, the least time the card
+           needs for the same work, launches on the main paths. P2G, G2P
+           and the particle contact on the 1e5-particle pour_vel scene,
+           window (40, 32, 16), the state after 10 env steps; the three
+           backward kernels (p2g_bwd, g2p_bwd, collide_particle_bwd)
+           against the plain vjps in float64 on the same inputs with seeded
+           normal cotangents; gather, splat and the mixed contact (the
+           tiled kernel, which returns p_v_out and the wrench, and the
+           split pair with the wrench's PyTorch reduction) against their
+           plain versions in float64 on the flagship pour scene's state
+           after 10 env steps (1e5 particles, window (32, 32, 16)), their
+           inputs built by the kernels so that they repeat; the backward
+           kernels of those (gather_bwd, splat_bwd, the tiled
+           collide_mixed_bwd, which takes the wrench's cotangent, and the
+           split pair collide_mixed2_bwd -> collide_mixed1_bwd after the
+           tail's autograd) against their plain vjps in float64 on the same
+           inputs. Both contact families are also held on particles spread
+           over each body's SDF box, so that both bodies have many contacts
+           (and, for the mixed contact, particles that approach, lie in the
+           soft band, penetrate and forecast across a cell face), and the
+           mixed contact on 1e5 particles of the glass's box all in the
+           contact band: the band's particles and the fullest tile's
+           counted, 10 calls bit-identical, the tiled pair timed in turns
+           with the first design's pair (softmac_collide_mixed*_v1) and the
+           eager wrench tail and its autograd (tiled, first, first, tiled).
+           The y-slab P2G and splat (ops/csrc/slab.cuh) are also held on
+           the pour_vel and pour states, on a random permutation of each,
+           and over the full 64^3 grid: within 1e-5 of the float64 plain
+           version, the particles that spilled off their tile's slab
+           counted (none in the sorted order; some permuted order of each
+           must spill), 10 calls bit-identical; on the two windowed states
+           the first design's kernel (softmac_*_atomic) and the new one
+           timed in turns (old, new, new, old: the new one must be faster)
   slice    the pour_vel main path: SoftMacEnv.rollout of that scene for 50
            env steps on the card, launches counted; then 7 more timed
            rollouts of the same actions: substeps/s (median and spread),
@@ -64,7 +74,8 @@ script exits non-zero:
   profile  torch.profiler over 20 env steps of each rollout and 10 of each
            rollout_and_grad (remat "none"): device busy share of the wall
            time, kernel launches per substep, the kernels that take the
-           most device time
+           most device time, and each of the port's own kernels' device
+           time a launch and launches a substep
   parity   each demo's own 5000-particle scene, card (float32, kernels)
            against the CPU (float64, plain versions): 20 steps of rollout
            and of rollout_and_grad
@@ -191,6 +202,15 @@ FLOPS_PER_PARTICLE = {"p2g": 57 + 27 + 27 * 30, "g2p": 57 + 27 + 27 * 28,
                       # cone, soft band and push-out) ~470, in double,
                       # counted at the float32 rate; the split pair the same
                       "collide_mixed_bwd": 900, "collide_mixed_split_bwd": 900}
+# the tiled mixed-contact kernels: every particle's classification (the
+# body-frame rotation ~30, the cell ~20, the trilinear SDF lane 8 x 4),
+# the band's particles the whole contact above
+MIXED_CLASSIFY_FLOPS = 30 + 20 + 32
+MIXED_REPEATS = 10         # tiled mixed-contact calls agreeing bit for bit
+DEVICE_MS = {}             # device_ms: device-only ms a call, by kernel row
+# the names of the port's kernels in a profile (ops/csrc/*.cu)
+PORT_KERNEL = (r"(p2g|g2p|gather|splat|collide|kr3|slab_|round_to_float)"
+               r"\w*(<[^>]*>)?\(")
 GRAD_REPEATS = 5
 GRAD_TOL = 1e-6           # step vs none, repeats vs the counted call
 ROW_TOL = 1e-5            # backward rows and grids
@@ -304,6 +324,35 @@ def cuda_time_ms(fn, iters=TIME_ITERS):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(name, fn, iters=10):
+    """Device-only time of one call of ``fn`` in ms: the summed time of the
+    device kernels it launched, from torch.profiler over ``iters`` calls
+    after a warm-up. Added to DEVICE_MS[name] (a row that covers glass and
+    bowl sums its two calls, as its event-timed ``ms`` does), beside the
+    kernels a call launched."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):      # a profile now and then holds no device event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+        if kern:
+            break
+    else:
+        raise AssertionError(f"{name}: the profiler saw no device kernel")
+    ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / iters
+    ms0, launches = DEVICE_MS.get(name, (0.0, 0.0))
+    DEVICE_MS[name] = (ms0 + ms, launches + len(kern) / iters)
+    return ms
+
+
 def bound(name, n, bytes_moved, flops=None):
     """The least time for the work: bytes over the memory rate or float
     operations (``flops``, else the per-particle count) over the float32
@@ -402,6 +451,7 @@ def check_kernels(inp):
     # --- p2g: held against the plain version on the same inputs in
     # float64, so that the yardstick's own float32 rounding does not count --
     args = (x, inp["chan"], corner, sizes, cfg.inv_dx)
+    device_ms("p2g", lambda: transfer.p2g(*args))
     gm_k, gmom_k = transfer.p2g(*args)
     gm_p, gmom_p = transfer.p2g_plain(x.double(), inp["chan"].double(),
                                       corner, sizes, cfg.inv_dx)
@@ -417,6 +467,7 @@ def check_kernels(inp):
 
     # --- g2p: relative to each output row's largest value ------------------
     args = (x, *inp["grids"], corner, sizes, cfg.inv_dx)
+    device_ms("g2p", lambda: transfer.g2p(*args))
     out_k, out_p = transfer.g2p(*args), transfer.g2p_plain(*args)
     row_scale = out_p.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
     rel = ((out_k - out_p).abs() / row_scale).max().item()
@@ -461,6 +512,7 @@ def check_kernels(inp):
             raise AssertionError(f"collide_particle: only {n_contacts} "
                                  f"contacts in body {b}'s SDF box")
         ms += cuda_time_ms(lambda: contact.collide_particle(*cargs))
+        device_ms("collide_particle", lambda: contact.collide_particle(*cargs))
         plain_ms += cuda_time_ms(lambda: contact.collide_particle_plain(*cargs))
         qinv = m33.qnorm(m33.qconj(tuple(bq)))
         p_loc = m33.qrot(qinv, m33.vsub(tuple(x), tuple(bp)))
@@ -530,6 +582,7 @@ def check_backward_kernels(inp):
     # --- p2g_bwd -----------------------------------------------------------
     args = (x, inp["chan"], corner, sizes, cfg.inv_dx,
             normal(wy * wz, wx), normal(wy * wz, 3 * wx))
+    device_ms("p2g_bwd", lambda: transfer.p2g_bwd(*args))
     errs = _errors(transfer.p2g_bwd(*args),
                    transfer.p2g_vjp_plain(*map(_f64, args)), ("dx", "dchan"))
     entries.append(kernel_entry(
@@ -544,6 +597,7 @@ def check_backward_kernels(inp):
 
     # --- g2p_bwd -----------------------------------------------------------
     args = (x, *inp["grids"], corner, sizes, cfg.inv_dx, normal(12, n))
+    device_ms("g2p_bwd", lambda: transfer.g2p_bwd(*args))
     errs = _errors(transfer.g2p_bwd(*args),
                    transfer.g2p_vjp_plain(*map(_f64, args)),
                    ("dx", "dgv0", "dgv1", "dgv2"))
@@ -607,6 +661,8 @@ def check_contact_backward(inp, normal):
         cargs = (prim, bp, bq, bv, bw, fr, x, v, cfg.dt, cfg.p_mass)
         dimp = normal(3, n)
         ms += cuda_time_ms(lambda: contact.collide_particle_bwd(*cargs, dimp))
+        device_ms("collide_particle_bwd",
+                  lambda: contact.collide_particle_bwd(*cargs, dimp))
         plain_ms += cuda_time_ms(
             lambda: contact.collide_particle_vjp_plain(*cargs, dimp))
         qinv = m33.qnorm(m33.qconj(tuple(bq)))
@@ -707,6 +763,7 @@ def check_pour_kernels(inp):
 
     # --- gather: each velocity component against its largest |value| ------
     args = (x, *inp["gvm"], corner, sizes, cfg.inv_dx)
+    device_ms("gather", lambda: transfer.gather(*args))
     err, rel = _row_rel(transfer.gather(*args),
                         transfer.gather_plain(*map(_f64, args)))
     entries.append(kernel_entry(
@@ -723,6 +780,7 @@ def check_pour_kernels(inp):
 
     def by_component(out):
         return out.reshape(wy * wz, 3, wx).transpose(0, 1).reshape(3, -1)
+    device_ms("splat", lambda: transfer.splat(*args))
     err, rel = _row_rel(by_component(transfer.splat(*args)),
                         by_component(transfer.splat_plain(*map(_f64, args))))
     entries.append(kernel_entry(
@@ -845,13 +903,127 @@ def check_slab_kernels(inp, pour_inp):
     return res
 
 
+def band_particles(prim, body, n, gen):
+    """n world points over the body's SDF box with dist(x) <= 5e-3 (every
+    one in the mixed contact's band), drawn from box_particles."""
+    import torch
+    from softmac_tpu_torch.ops import contact
+    prim64, body64 = _prim64(prim), tuple(map(_f64, body))
+    picked, have = [], 0
+    for _ in range(64):
+        xs = box_particles(prim, body[0], body[1], n, gen)
+        dist, _ = contact.sample_sdf_normal_world(
+            prim64, tuple(body64[0]), tuple(body64[1]), tuple(_f64(xs)))
+        keep = xs[:, dist <= contact.CONTACT_THRESHOLD]
+        picked.append(keep)
+        have += keep.shape[1]
+        if have >= n:
+            break
+    if have < n:
+        raise AssertionError(f"band_particles: {have} of {n} in the band")
+    return torch.cat(picked, dim=1)[:, :n].contiguous()
+
+
+def band_counts(prim64, body64, xs, tile):
+    """The particles the tiled kernels classify into the band (the sdf of
+    x's cell within the threshold plus the margin, near the SDF box; the
+    float64 plain sample stands in for the kernels' own), over all and in
+    the fullest tile of ``tile`` particles."""
+    import torch
+    from softmac_tpu_torch.ops import contact
+    dist, _ = contact.sample_sdf_normal_world(
+        prim64, tuple(body64[0]), tuple(body64[1]), tuple(_f64(xs)))
+    band = dist <= contact.CONTACT_THRESHOLD + 1e-6
+    pad = -band.numel() % tile
+    per_tile = torch.cat([band, band.new_zeros(pad)]).reshape(-1, tile)
+    return int(band.sum()), int(per_tile.sum(dim=1).max())
+
+
+def tail_grads(x, body_pos, force, mask, gwrench):
+    """The eager wrench tail's autograd (ops.contact._mixed_tail): the
+    cotangents of the force rows, x and body_pos for the wrench's."""
+    import torch
+    from softmac_tpu_torch.ops import contact
+    with torch.enable_grad():
+        f, xl, bp = (t.detach().requires_grad_() for t in (force, x,
+                                                            body_pos))
+        _, wr = contact._mixed_tail((None, f, mask), xl, bp)
+        return torch.autograd.grad(wr, (f, xl, bp), gwrench)
+
+
+def v1_forward(cargs):
+    """The first design's forward as the main path ran it: its kernel,
+    then the wrench tail in PyTorch."""
+    from softmac_tpu_torch.ops import contact
+    x, body_pos = cargs[8], cargs[1]
+    return contact._mixed_tail(contact.collide_mixed_v1(*cargs), x, body_pos)
+
+
+def v1_backward(cargs, gout, gwrench):
+    """The first design's backward as the main path ran it: the eager
+    tail's autograd (its forward recorded again), then the kernel; the
+    tail's shares of x and body_pos added."""
+    from softmac_tpu_torch.ops import contact
+    x, body_pos = cargs[8], cargs[1]
+    _, force, mask = contact.collide_mixed_v1(*cargs)
+    gforce, gx, gbp = tail_grads(x, body_pos, force, mask, gwrench)
+    g = contact.collide_mixed_bwd_v1(*cargs, gout, gforce.contiguous())
+    return (g[0] + gbp,) + g[1:7] + (g[7] + gx, g[8])
+
+
+def split_backward(cargs, gout, gwrench):
+    """The split path's backward: the eager tail's autograd, then the
+    split pair (collide_mixed2_bwd -> collide_mixed1_bwd)."""
+    from softmac_tpu_torch.ops import contact
+    prim, body, (x, v, dt, p_mass, cap) = cargs[0], cargs[1:8], cargs[8:]
+    st1 = contact.collide_mixed1(prim, *body, x, v, dt)
+    _, force, mask = contact.collide_mixed2(prim, *body, x, v, st1, dt,
+                                            p_mass, cap)
+    gforce, gx, gbp = tail_grads(x, body[0], force, mask, gwrench)
+    g = contact.collide_mixed_split_bwd(prim, *body, x, v, st1, dt, p_mass,
+                                        cap, gout, gforce.contiguous())
+    return (g[0] + gbp,) + g[1:7] + (g[7] + gx, g[8])
+
+
+def _wrench_rel(got, want):
+    """max |kernel - plain| of the wrench over the largest |plain| of its
+    force and of its torque, the worse of the two."""
+    diff = (got.double() - want).abs()
+    return max((diff[a:b].max() / want[a:b].abs().max().clamp(min=1e-30))
+               .item() for a, b in ((0, 3), (3, 6)))
+
+
+def same_on_two_streams(fn, want):
+    """fn() on two side streams at once, MIXED_REPEATS calls on each in
+    turns with no wait between them: whether every result equals ``want``
+    bit for bit (the tiled mixed-contact kernels count their finished
+    blocks on a counter of the stream's own)."""
+    import torch
+    cur = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for s in streams:
+        s.wait_stream(cur)
+    outs = []
+    for _ in range(MIXED_REPEATS):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(fn())
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for o in outs for a, b in zip(o, want))
+
+
 def check_mixed_kernels(inp):
-    """The merged mixed contact and its split pair, per body, on the main
-    path's particles and on particles spread over the body's SDF box with
-    seeded velocities; against collide_mixed_plain in float64 (p_v_out and
-    the reaction force within 1e-5 of their largest |value| where the masks
-    agree, masks equal away from the threshold), and split against merged
-    within 1e-6."""
+    """The tiled mixed contact (p_v_out and the wrench, one launch) and the
+    split pair with the wrench's PyTorch reduction, per body, on the main
+    path's particles, on particles spread over the body's SDF box with
+    seeded velocities and (the glass) on particles all in the contact
+    band; against collide_mixed_wrench_plain in float64: p_v_out within
+    ROW_TOL of its largest |value| away from the threshold, the wrench
+    within BODY_TOL of its force's and its torque's; MIXED_REPEATS calls
+    bit-identical, also on two streams at once (forward and backward, the
+    main path's particles); split against tiled within 1e-6. Timed in
+    turns with the first design's kernel and the eager tail (tiled,
+    first, first, tiled), call and device time."""
     import torch
     from softmac_tpu_torch.ops import contact, m33
     cfg, x = inp["cfg"], inp["state"].x
@@ -859,104 +1031,178 @@ def check_mixed_kernels(inp):
     dt, p_mass = cfg.dt, cfg.p_mass
     cap = cfg.contact_push_velocity_cap
     gen = torch.Generator(device=x.device).manual_seed(2)
-    worst = {k: (0.0, 0.0) for k in ("merged", "split", "split_vs_merged")}
-    ms = {"merged": 0.0, "split": 0.0}
+    worst = {k: 0.0 for k in ("tiled_rows", "tiled_wrench", "split_rows",
+                              "split_wrench", "split_vs_tiled")}
+    abs_err = {"tiled": 0.0, "split": 0.0}
+    ms = {"merged": 0.0, "split": 0.0, "v1": 0.0}
+    turns = []
     plain_ms = 0.0
     nbytes = {"merged": 0, "split": 0}
+    flops = 0
+    bands = {}
     for b, (prim, body, v_in) in enumerate(inp["contacts"]):
         prim64 = _prim64(prim)
         body64 = tuple(map(_f64, body))
         x_box = box_particles(prim, body[0], body[1], n, gen)
         v_box = (1.5 * torch.randn((3, n), generator=gen, dtype=x.dtype,
                                    device=x.device)).contiguous()
-        for xs, vs, label in ((x, v_in, "main path"),
-                              (x_box, v_box, "SDF box")):
-            merged = contact.collide_mixed(prim, *body, xs, vs, dt, p_mass,
-                                           cap)
+        sets = [(x, v_in, "main path"), (x_box, v_box, "SDF box")]
+        if b == 0:
+            sets.append((band_particles(prim, body, n, gen), v_box,
+                         "all in band"))
+        for xs, vs, label in sets:
+            cargs = (prim, *body, xs, vs, dt, p_mass, cap)
+            outs = [contact.collide_mixed(*cargs)
+                    for _ in range(MIXED_REPEATS)]
+            pv, wr = outs[0]
+            if not all(torch.equal(o[0], pv) and torch.equal(o[1], wr)
+                       for o in outs[1:]):
+                raise AssertionError(f"collide_mixed ({label}, body {b}): "
+                                     "repeated calls differ")
+            if label == "main path":
+                gen_g = torch.Generator(device=x.device).manual_seed(3)
+                gout = torch.randn((3, n), generator=gen_g, device=x.device)
+                gwr = torch.randn((6,), generator=gen_g, device=x.device)
+                grads = contact.collide_mixed_bwd(*cargs, gout, gwr)
+                if not (same_on_two_streams(
+                        lambda: contact.collide_mixed(*cargs), (pv, wr))
+                        and same_on_two_streams(
+                            lambda: contact.collide_mixed_bwd(*cargs, gout,
+                                                              gwr), grads)):
+                    raise AssertionError(f"collide_mixed (body {b}): calls "
+                                         "on two streams differ")
             st1 = contact.collide_mixed1(prim, *body, xs, vs, dt)
-            split = contact.collide_mixed2(prim, *body, xs, vs, st1, dt,
-                                           p_mass, cap)
-            want = contact.collide_mixed_plain(prim64, *body64, _f64(xs),
-                                               _f64(vs), dt, p_mass, cap)
+            spv, swr = contact._mixed_tail(contact.collide_mixed2(
+                prim, *body, xs, vs, st1, dt, p_mass, cap), xs, body[0])
+            want = contact.collide_mixed_wrench_plain(
+                prim64, *body64, _f64(xs), _f64(vs), dt, p_mass, cap)
             st1_p = contact.collide_mixed1_plain(prim64, *body64, _f64(xs),
                                                  _f64(vs), dt)
             dist = st1_p[6]
-            edge = (dist - contact.CONTACT_THRESHOLD).abs() < 1e-6
-            for key, got, ref in (("merged", merged, want),
-                                  ("split", split, want),
-                                  ("split_vs_merged", split, merged)):
-                if bool(((got[2] != ref[2]) & ~edge).any()):
-                    raise AssertionError(f"collide_mixed {key} ({label}, body "
-                                         f"{b}): masks differ away from the "
-                                         "threshold")
-                same = got[2] == ref[2]
-                for k in range(2):      # p_v_out, reaction force
-                    err = ((got[k].double() - ref[k].double()).abs()
-                           * same).max().item()
-                    rel = err / max(ref[k].abs().max().item(), 1e-30)
-                    worst[key] = max(worst[key], (rel, err))
-            mask = want[2]
+            keep = (dist - contact.CONTACT_THRESHOLD).abs() >= 1e-6
+            for key, got, ref in (("tiled", (pv, wr), want),
+                                  ("split", (spv, swr), want),
+                                  ("split_vs_tiled", (spv, swr), (pv, wr))):
+                scale = ref[0].abs().max().item()
+                err = ((got[0].double() - ref[0].double()).abs()
+                       * keep).max().item()
+                rows = err / max(scale, 1e-30)
+                if key in abs_err:
+                    abs_err[key] = max(abs_err[key], err)
+                wrel = _wrench_rel(got[1], ref[1].double())
+                if key == "split_vs_tiled":
+                    worst[key] = max(worst[key], rows, wrel)
+                else:
+                    worst[key + "_rows"] = max(worst[key + "_rows"], rows)
+                    worst[key + "_wrench"] = max(worst[key + "_wrench"], wrel)
+            mask = dist <= contact.CONTACT_THRESHOLD
             sdf2, _ = contact.sample_sdf_normal_world(
                 prim64, tuple(body64[0]), tuple(body64[1]), tuple(st1_p[3:6]))
+            band, worst_tile = band_counts(prim64, body64, xs,
+                                           contact.MIXED_TILE)
             counts = {"contacts": int(mask.sum()),
                       "approaching": int((mask & (st1_p[0:3] != _f64(vs))
                                           .any(dim=0)).sum()),
                       "soft": int((mask & (dist > 0)).sum()),
                       "penetrating": int((mask & (sdf2 < 0)).sum()),
-                      "mask_mismatch_at_threshold": int(
-                          (merged[2] != mask).sum())}
+                      "band": band, "worst_tile_band": worst_tile,
+                      "tile": contact.MIXED_TILE}
+            bands[f"body {b} {label}"] = counts
             print(f"collide_mixed body {b} {label}: {json.dumps(counts)}, "
-                  "worst rel err so far "
-                  + json.dumps({k: w[0] for k, w in worst.items()}),
-                  flush=True)
+                  "worst rel err so far " + json.dumps(worst), flush=True)
             if label == "SDF box" and (
                     counts["contacts"] < MIN_BOX_CONTACTS
                     or min(counts["approaching"], counts["soft"],
                            counts["penetrating"]) == 0):
                 raise AssertionError(f"collide_mixed: body {b}'s SDF box "
                                      f"misses a case: {counts}")
-        cargs = (prim, *body, x, v_in, dt, p_mass, cap)
-        ms["merged"] += cuda_time_ms(lambda: contact.collide_mixed(*cargs))
-        ms["split"] += cuda_time_ms(lambda: contact.collide_mixed2(
-            prim, *body, x, v_in,
-            contact.collide_mixed1(prim, *body, x, v_in, dt), dt, p_mass,
-            cap))
-        plain_ms += cuda_time_ms(lambda: contact.collide_mixed_plain(*cargs))
-        qinv = m33.qnorm(m33.qconj(tuple(body[1])))
-        p_loc = m33.qrot(qinv, m33.vsub(tuple(x), tuple(body[0])))
-        rows = torch.unique(contact.cell_index(prim, p_loc)[0]).numel()
-        # in: x, v, the rows, 16 body floats; out: p_v_out, force, mask
-        nbytes["merged"] += 12 * n * 4 + rows * 128 + 16 * 4 + n
-        # the split also writes 7 doubles a particle and reads them back,
-        # and its second stage reads x, v, the rows and the body again
-        nbytes["split"] += (18 * n * 4 + 2 * rows * 128 + 2 * 16 * 4
-                            + 2 * 7 * n * 8 + n)
-        print(f"collide_mixed body {b}: distinct table rows {rows}",
-              flush=True)
-    if not worst["split_vs_merged"][0] <= 1e-6:
-        raise AssertionError("collide_mixed: split and merged differ by "
-                             f"{worst['split_vs_merged'][0]} > 1e-6")
-    note = ("max |kernel - plain| / max |plain| of p_v_out and the reaction "
-            "force where the masks agree, over both bodies and both particle "
-            "sets, the plain version in float64; times and bytes (main "
-            "path's particles) summed over glass + bowl")
+            if label == "all in band" and counts["contacts"] != n:
+                raise AssertionError(f"collide_mixed: {counts}")
+            # tiled, first design + tail, first design + tail, tiled
+            t = [cuda_time_ms(lambda: contact.collide_mixed(*cargs)),
+                 cuda_time_ms(lambda: v1_forward(cargs)),
+                 cuda_time_ms(lambda: v1_forward(cargs)),
+                 cuda_time_ms(lambda: contact.collide_mixed(*cargs))]
+            main = label == "main path"
+            dev = (device_ms("collide_mixed" if main
+                             else f"collide_mixed {b} {label}",
+                             lambda: contact.collide_mixed(*cargs)),
+                   device_ms(f"collide_mixed_v1 {b} {label}",
+                             lambda: v1_forward(cargs)))
+            turns.append({"body": b, "particles": label, "tiled_ms": t[0::3],
+                          "v1_and_tail_ms": t[1:3],
+                          "tiled_device_ms": dev[0],
+                          "v1_and_tail_device_ms": dev[1],
+                          "band": band})
+            if label != "main path":
+                continue
+            ms["merged"] += t[0]
+            ms["v1"] += t[1]
+            ms["split"] += cuda_time_ms(lambda: contact.collide_mixed2(
+                prim, *body, xs, vs,
+                contact.collide_mixed1(prim, *body, xs, vs, dt), dt, p_mass,
+                cap))
+            device_ms("collide_mixed_split", lambda: contact.collide_mixed2(
+                prim, *body, xs, vs,
+                contact.collide_mixed1(prim, *body, xs, vs, dt), dt, p_mass,
+                cap))
+            plain_ms += cuda_time_ms(
+                lambda: contact.collide_mixed_wrench_plain(*cargs))
+            qinv = m33.qnorm(m33.qconj(tuple(body[1])))
+            p_loc = m33.qrot(qinv, m33.vsub(tuple(xs), tuple(body[0])))
+            rows = torch.unique(contact.cell_index(prim, p_loc)[0]).numel()
+            # in: x, v, the rows, 16 body floats; out: p_v_out, the wrench
+            nbytes["merged"] += 9 * n * 4 + rows * 128 + 16 * 4 + 6 * 4
+            flops += n * MIXED_CLASSIFY_FLOPS + band * FLOPS_PER_PARTICLE[
+                "collide_mixed"]
+            # the split writes 7 doubles a particle and reads them back, its
+            # second stage reads x, v, the rows and the body again and
+            # writes the force and mask
+            nbytes["split"] += (18 * n * 4 + 2 * rows * 128 + 2 * 16 * 4
+                                + 2 * 7 * n * 8 + n)
+            print(f"collide_mixed body {b}: distinct table rows {rows}",
+                  flush=True)
+    for key, tol in (("tiled_rows", ROW_TOL), ("tiled_wrench", BODY_TOL),
+                     ("split_rows", ROW_TOL), ("split_wrench", BODY_TOL),
+                     ("split_vs_tiled", 1e-6)):
+        if not worst[key] <= tol:
+            raise AssertionError(f"collide_mixed: {key} relative error "
+                                 f"{worst[key]} > {tol}")
+    note = ("max |kernel - plain| / max |plain| of p_v_out (away from the "
+            "threshold) over both bodies and all particle sets, the plain "
+            "version in float64; the wrench's in rel_err_by_output (force "
+            "and torque each against its largest |value|); times and bytes "
+            "(main path's particles) summed over glass + bowl")
     entries = []
     for name, key, replaces in (
-            ("collide_mixed", "merged",
+            ("collide_mixed", "tiled",
              "softmac_tpu/ops/pallas_contact.py:269 (_make_mixed12_kernel via "
              "_fused12_factory :612, pallas_call in _run_kernel :472, call "
-             "site :635)"),
+             "site :635; the wrench tail _tail12 :601)"),
             ("collide_mixed_split", "split",
              "softmac_tpu/ops/pallas_contact.py:339 (_make_mixed1_kernel and "
              "_make_mixed2_kernel :346 via _fused_factory :511, call sites "
              ":530, :534)")):
-        e = kernel_entry(n, name, "softmac_tpu_torch/ops/csrc/contact_mixed.cu",
-                         replaces, worst[key][1], worst[key][0], ms[key],
-                         plain_ms, nbytes[key])
+        merged = key == "tiled"
+        e = kernel_entry(n, name,
+                         "softmac_tpu_torch/ops/csrc/contact_mixed.cu",
+                         replaces, abs_err[key], worst[key + "_rows"],
+                         ms["merged" if merged else "split"], plain_ms,
+                         nbytes["merged" if merged else "split"], ROW_TOL,
+                         flops=flops if merged else None)
+        e["rel_err_by_output"] = {"p_v_out": worst[key + "_rows"],
+                                  "wrench": worst[key + "_wrench"]}
+        e["tolerance_by_output"] = {"p_v_out": ROW_TOL, "wrench": BODY_TOL}
         e["rel_err_is"] = note
         e["per_substep"] = len(inp["contacts"])
         entries.append(e)
-    entries[-1]["split_vs_merged_rel_err"] = worst["split_vs_merged"][0]
+    entries[0]["repeats_bit_identical"] = MIXED_REPEATS
+    entries[0]["two_streams_bit_identical"] = MIXED_REPEATS
+    entries[0]["band"] = bands
+    entries[0]["v1_and_tail_ms"] = ms["v1"]
+    entries[0]["turns"] = turns
+    entries[0]["plain_is"] = "collide_mixed_wrench_plain in float32"
+    entries[-1]["split_vs_merged_rel_err"] = worst["split_vs_tiled"]
     entries[-1]["split_vs_merged_tolerance"] = 1e-6
     entries[-1]["launches_are"] = ("collide_mixed1 launches on the split "
                                    "path (collide_mixed2 the same)")
@@ -985,6 +1231,7 @@ def check_pour_backward_kernels(inp):
     entries = []
     # --- gather_bwd --------------------------------------------------------
     args = (x, *inp["gvm"], corner, sizes, cfg.inv_dx, normal(3, n))
+    device_ms("gather_bwd", lambda: transfer.gather_bwd(*args))
     errs = _errors(transfer.gather_bwd(*args),
                    transfer.gather_vjp_plain(*map(_f64, args)),
                    ("dx", "dgv0", "dgv1", "dgv2"))
@@ -1001,6 +1248,7 @@ def check_pour_backward_kernels(inp):
     # --- splat_bwd ---------------------------------------------------------
     args = (x, inp["vals"], corner, sizes, cfg.inv_dx,
             normal(wy * wz, 3 * wx))
+    device_ms("splat_bwd", lambda: transfer.splat_bwd(*args))
     errs = _errors(transfer.splat_bwd(*args),
                    transfer.splat_vjp_plain(*map(_f64, args)),
                    ("dx", "dvals"))
@@ -1028,11 +1276,17 @@ def _cell_crossers(prim, body, xs, x_new):
 
 
 def check_mixed_backward(inp, normal):
-    """collide_mixed_bwd and the split pair (collide_mixed2_bwd ->
-    collide_mixed1_bwd) against collide_mixed_vjp_plain in float64, per
-    body, on the main path's particles and on particles spread over the
-    body's SDF box with seeded velocities (contacts, approaching, soft,
-    penetrating and face-crossing particles counted there)."""
+    """The tiled mixed-contact backward (cotangents of p_v_out and of the
+    wrench in, one launch) and the split path's (the eager tail's autograd,
+    collide_mixed2_bwd -> collide_mixed1_bwd) against
+    collide_mixed_wrench_vjp_plain in float64, per body, on the main
+    path's particles, on particles spread over the body's SDF box with
+    seeded velocities (contacts, approaching, soft, penetrating and
+    face-crossing particles counted there) and (the glass) on particles
+    all in the band: dx, dv within ROW_TOL, the 16 body floats within
+    BODY_TOL of their group's largest |value|; MIXED_REPEATS calls
+    bit-identical; the split within 1e-6 of the tiled. Timed in turns with
+    the first design's backward and the eager tail's autograd."""
     import torch
     from softmac_tpu_torch.ops import contact, m33
     cfg, x = inp["cfg"], inp["state"].x
@@ -1044,9 +1298,11 @@ def check_mixed_backward(inp, normal):
               "body_w": 3, "friction": 4, "softness": 5, "life": 6}
     worst = {k: (0.0, 0.0) for k in groups}
     split_worst = 0.0
-    ms = {"merged": 0.0, "split": 0.0}
+    ms = {"merged": 0.0, "split": 0.0, "v1": 0.0}
+    turns = []
     plain_ms = 0.0
     nbytes = {"merged": 0, "split": 0}
+    flops = 0
     blocks = -(-n // 256)
     for b, (prim, body, v_in) in enumerate(inp["contacts"]):
         prim64 = _prim64(prim)
@@ -1054,17 +1310,24 @@ def check_mixed_backward(inp, normal):
         x_box = box_particles(prim, body[0], body[1], n, gen)
         v_box = (1.5 * torch.randn((3, n), generator=gen, dtype=x.dtype,
                                    device=x.device)).contiguous()
-        for xs, vs, label in ((x, v_in, "main path"),
-                              (x_box, v_box, "SDF box")):
-            gout, gforce = normal(3, n), normal(3, n)
-            cargs = (prim, *body, xs, vs, dt, p_mass, cap, gout, gforce)
-            merged = contact.collide_mixed_bwd(*cargs)
-            st1 = contact.collide_mixed1(prim, *body, xs, vs, dt)
-            split = contact.collide_mixed_split_bwd(
-                prim, *body, xs, vs, st1, dt, p_mass, cap, gout, gforce)
-            want = contact.collide_mixed_vjp_plain(
+        sets = [(x, v_in, "main path"), (x_box, v_box, "SDF box")]
+        if b == 0:
+            sets.append((band_particles(prim, body, n, gen), v_box,
+                         "all in band"))
+        for xs, vs, label in sets:
+            gout, gwrench = normal(3, n), normal(6)
+            cargs = (prim, *body, xs, vs, dt, p_mass, cap)
+            outs = [contact.collide_mixed_bwd(*cargs, gout, gwrench)
+                    for _ in range(MIXED_REPEATS)]
+            merged = outs[0]
+            if not all(all(torch.equal(a, c) for a, c in zip(o, merged))
+                       for o in outs[1:]):
+                raise AssertionError(f"collide_mixed_bwd ({label}, body "
+                                     f"{b}): repeated calls differ")
+            split = split_backward(cargs, gout, gwrench)
+            want = contact.collide_mixed_wrench_vjp_plain(
                 prim64, *body64, _f64(xs), _f64(vs), dt, p_mass, cap,
-                gout.double(), gforce.double())
+                gout.double(), gwrench.double())
             for name, i in groups.items():
                 (err, rel), = _errors((merged[i],), (want[i],),
                                       (name,)).values()
@@ -1077,41 +1340,81 @@ def check_mixed_backward(inp, normal):
             mask = st1_p[6] <= contact.CONTACT_THRESHOLD
             sdf2, _ = contact.sample_sdf_normal_world(
                 prim64, tuple(body64[0]), tuple(body64[1]), tuple(st1_p[3:6]))
+            band, worst_tile = band_counts(prim64, body64, xs,
+                                           contact.MIXED_BWD_TILE)
             counts = {"contacts": int(mask.sum()),
                       "approaching": int((mask & (st1_p[0:3] != _f64(vs))
                                           .any(dim=0)).sum()),
                       "soft": int((mask & (st1_p[6] > 0)).sum()),
                       "penetrating": int((mask & (sdf2 < 0)).sum()),
                       "face_crossing": int((mask & _cell_crossers(
-                          prim64, body64, _f64(xs), st1_p[3:6])).sum())}
+                          prim64, body64, _f64(xs), st1_p[3:6])).sum()),
+                      "band": band, "worst_tile_band": worst_tile,
+                      "tile": contact.MIXED_BWD_TILE}
             print(f"collide_mixed_bwd body {b} {label}: {json.dumps(counts)}"
                   ", worst rel err so far " + json.dumps(
                       {k: w[0] for k, w in worst.items()})
-                  + f", split vs merged {split_worst}", flush=True)
-            if label == "SDF box" and (counts["contacts"] < MIN_BOX_CONTACTS
-                                       or min(counts.values()) == 0):
+                  + f", split vs tiled {split_worst}", flush=True)
+            if label == "SDF box" and (
+                    counts["contacts"] < MIN_BOX_CONTACTS
+                    or min(counts[k] for k in ("approaching", "soft",
+                                               "penetrating",
+                                               "face_crossing")) == 0):
                 raise AssertionError(f"collide_mixed_bwd: body {b}'s SDF box "
                                      f"misses a case: {counts}")
-        gout, gforce = normal(3, n), normal(3, n)
-        cargs = (prim, *body, x, v_in, dt, p_mass, cap, gout, gforce)
-        st1 = contact.collide_mixed1(prim, *body, x, v_in, dt)
-        ms["merged"] += cuda_time_ms(lambda: contact.collide_mixed_bwd(*cargs))
-        ms["split"] += cuda_time_ms(lambda: contact.collide_mixed_split_bwd(
-            prim, *body, x, v_in, st1, dt, p_mass, cap, gout, gforce))
-        plain_ms += cuda_time_ms(
-            lambda: contact.collide_mixed_vjp_plain(*cargs))
-        qinv = m33.qnorm(m33.qconj(tuple(body[1])))
-        p_loc = m33.qrot(qinv, m33.vsub(tuple(x), tuple(body[0])))
-        rows = torch.unique(contact.cell_index(prim, p_loc)[0]).numel()
-        # in: x, v, the two cotangents, the rows, 16 body floats; out: dx,
-        # dv and the (16, blocks) float64 partials
-        nbytes["merged"] += 18 * n * 4 + rows * 128 + 16 * 4 + 16 * blocks * 8
-        # the split also reads stage 1's block, writes its cotangent and
-        # reads it back (7 doubles a particle each), hands dv over in
-        # float, and its second launch reads x, v, the rows and the body
-        # again
-        nbytes["split"] += (24 * n * 4 + 3 * 7 * n * 8 + 2 * rows * 128
-                            + 2 * 16 * 4 + 2 * 16 * blocks * 8)
+            # tiled, first design + tail, first design + tail, tiled
+            t = [cuda_time_ms(lambda: contact.collide_mixed_bwd(
+                     *cargs, gout, gwrench)),
+                 cuda_time_ms(lambda: v1_backward(cargs, gout, gwrench)),
+                 cuda_time_ms(lambda: v1_backward(cargs, gout, gwrench)),
+                 cuda_time_ms(lambda: contact.collide_mixed_bwd(
+                     *cargs, gout, gwrench))]
+            main = label == "main path"
+            dev = (device_ms("collide_mixed_bwd" if main
+                             else f"collide_mixed_bwd {b} {label}",
+                             lambda: contact.collide_mixed_bwd(
+                                 *cargs, gout, gwrench)),
+                   device_ms(f"collide_mixed_bwd_v1 {b} {label}",
+                             lambda: v1_backward(cargs, gout, gwrench)))
+            turns.append({"body": b, "particles": label, "tiled_ms": t[0::3],
+                          "v1_and_tail_ms": t[1:3],
+                          "tiled_device_ms": dev[0],
+                          "v1_and_tail_device_ms": dev[1],
+                          "band": band})
+            if label != "main path":
+                continue
+            ms["merged"] += t[0]
+            ms["v1"] += t[1]
+            st1 = contact.collide_mixed1(prim, *body, xs, vs, dt)
+            _, force, fmask = contact.collide_mixed2(prim, *body, xs, vs, st1,
+                                                     dt, p_mass, cap)
+            gforce = tail_grads(xs, body[0], force, fmask, gwrench)[0] \
+                .contiguous()
+            ms["split"] += cuda_time_ms(
+                lambda: contact.collide_mixed_split_bwd(
+                    prim, *body, xs, vs, st1, dt, p_mass, cap, gout, gforce))
+            device_ms("collide_mixed_split_bwd",
+                      lambda: contact.collide_mixed_split_bwd(
+                          prim, *body, xs, vs, st1, dt, p_mass, cap, gout,
+                          gforce))
+            plain_ms += cuda_time_ms(
+                lambda: contact.collide_mixed_wrench_vjp_plain(
+                    *cargs, gout, gwrench))
+            qinv = m33.qnorm(m33.qconj(tuple(body[1])))
+            p_loc = m33.qrot(qinv, m33.vsub(tuple(xs), tuple(body[0])))
+            rows = torch.unique(contact.cell_index(prim, p_loc)[0]).numel()
+            # in: x, v, gout, the rows, the 16 body floats and the wrench's
+            # cotangent; out: dx, dv and the 16 body cotangents
+            nbytes["merged"] += (15 * n * 4 + rows * 128 + 16 * 4 + 6 * 4
+                                 + 16 * 4)
+            flops += n * MIXED_CLASSIFY_FLOPS + band * FLOPS_PER_PARTICLE[
+                "collide_mixed_bwd"]
+            # the split also reads stage 1's block and the force's
+            # cotangent, writes its cotangent and reads it back (7 doubles
+            # a particle each), hands dv over in float, and its second
+            # launch reads x, v, the rows and the body again
+            nbytes["split"] += (24 * n * 4 + 3 * 7 * n * 8 + 2 * rows * 128
+                                + 2 * 16 * 4 + 2 * 16 * blocks * 8)
     for name, (rel, _) in worst.items():
         tol = ROW_TOL if name in ("dx", "dv") else BODY_TOL
         if not rel <= tol:
@@ -1119,16 +1422,17 @@ def check_mixed_backward(inp, normal):
                                  f"{rel} > {tol}")
     if not split_worst <= 1e-6:
         raise AssertionError("collide_mixed split backward: differs from the "
-                             f"merged by {split_worst} > 1e-6")
+                             f"tiled by {split_worst} > 1e-6")
     note = ("max |kernel - plain| / max |plain| of the dx and dv rows over "
-            "both bodies and both particle sets, the plain vjp in float64; "
+            "both bodies and all particle sets, the plain vjp in float64; "
             "the body groups in rel_err_by_output; times and bytes (main "
             "path's particles) summed over glass + bowl")
     entries = []
     for name, key, replaces in (
             ("collide_mixed_bwd", "merged",
              "softmac_tpu/ops/pallas_contact.py:277 (_make_mixed12_bwd_kernel "
-             "via _fused12_factory's _bwd, launched :672)"),
+             "via _fused12_factory's _bwd, launched :672, with jax.vjp of "
+             "_tail12 :667)"),
             ("collide_mixed_split_bwd", "split",
              "softmac_tpu/ops/pallas_contact.py:359 (_make_mixed1_bwd_kernel "
              "and _make_mixed2_bwd_kernel :375 via _fused_factory's _bwd "
@@ -1137,15 +1441,22 @@ def check_mixed_backward(inp, normal):
                          "softmac_tpu_torch/ops/csrc/contact_mixed_bwd.cu",
                          replaces, max(worst["dx"][1], worst["dv"][1]),
                          max(worst["dx"][0], worst["dv"][0]), ms[key],
-                         plain_ms, nbytes[key], ROW_TOL)
+                         plain_ms, nbytes[key], ROW_TOL,
+                         flops=flops if key == "merged" else None)
         e["rel_err_by_output"] = {k: w[0] for k, w in worst.items()}
         e["tolerance_by_output"] = {k: ROW_TOL if k in ("dx", "dv")
                                     else BODY_TOL for k in groups}
         e["rel_err_is"] = note
         e["per_substep"] = len(inp["contacts"])
         entries.append(e)
+    entries[0]["repeats_bit_identical"] = MIXED_REPEATS
+    entries[0]["v1_and_tail_ms"] = ms["v1"]
+    entries[0]["turns"] = turns
+    entries[0]["plain_is"] = "collide_mixed_wrench_vjp_plain in float32"
     entries[-1]["split_vs_merged_rel_err"] = split_worst
     entries[-1]["split_vs_merged_tolerance"] = 1e-6
+    entries[-1]["split_is"] = ("the split pair; the eager tail's autograd "
+                               "outside the timed call")
     entries[-1]["launches_are"] = ("collide_mixed1_bwd launches on the split "
                                    "gradient path (collide_mixed2_bwd the "
                                    "same)")
@@ -1535,7 +1846,14 @@ def run_profile(env, acts, grad=False):
     scatter = {k: sum(t for name, (t, _) in by_name.items() if tag in name)
                / 1e3 / n_sub
                for k, tag in (("p2g", "P2GValues"), ("splat", "SplatValues"))}
+    import re
+    # the port's own kernels: device ms a launch and launches a substep
+    ours = {k[:90]: {"device_ms_per_launch": t / 1e3 / c,
+                     "launches_per_substep": c / n_sub}
+            for k, (t, c) in by_name.items()
+            if re.search(PORT_KERNEL, k)}
     return {"env_steps": steps, "grad": grad,
+            "port_kernels": ours,
             "slab_kernels_ms_per_substep": scatter,
             "wall_ms_per_substep": wall * 1e3 / n_sub,
             "device_busy_ms_per_substep": busy_us / 1e3 / n_sub,
@@ -1963,7 +2281,9 @@ def check_fused_kernels(door_inp, big_inp, dense_inp):
         for case in ("door", "big"):
             kern, plain, _ = calls[case][name]
             times[case] = (cuda_time_ms(kern), cuda_time_ms(plain),
-                           cuda_time_ms(libs[case][name], iters=5))
+                           cuda_time_ms(libs[case][name], iters=5),
+                           device_ms(name + ("@1e5" if case == "big" else ""),
+                                     kern))
         nbytes, visited, dense = fused_work(name, door_inp)
         e = kernel_entry(door_inp["n"], name,
                          "softmac_tpu_torch/ops/csrc/" + src,
@@ -1989,6 +2309,7 @@ def check_fused_kernels(door_inp, big_inp, dense_inp):
         b_ms, b_by = bound(name, big_inp["n"], nb,
                            vis * FLOPS_PER_CELL[name])
         e["at_1e5"] = {"n_particles": big_inp["n"], "ms": times["big"][0],
+                       "device_ms": times["big"][3],
                        "plain_ms": times["big"][1],
                        "library_ms": times["big"][2], "bound_ms": b_ms,
                        "bound_by": b_by, "bytes": nb, "visited_cells": vis}
@@ -2151,7 +2472,9 @@ def check_fused_backward_kernels(door_inp, big_inp, dense_inp):
         for case in ("door", "big"):
             kern, plain, _ = calls[case][name]
             times[case] = (cuda_time_ms(kern), cuda_time_ms(plain, iters=5),
-                           cuda_time_ms(libs[case][name], iters=5))
+                           cuda_time_ms(libs[case][name], iters=5),
+                           device_ms(name + ("@1e5" if case == "big" else ""),
+                                     kern))
         f_row, f_box = FLOPS_PER_BWD_CELL[name]
         nbytes, row_cells, box_cells = fused_bwd_work(name, door_inp)
         e = kernel_entry(door_inp["n"], name,
@@ -2179,6 +2502,7 @@ def check_fused_backward_kernels(door_inp, big_inp, dense_inp):
         nb, rc, bc = fused_bwd_work(name, big_inp)
         b_ms, b_by = bound(name, big_inp["n"], nb, rc * f_row + bc * f_box)
         e["at_1e5"] = {"n_particles": big_inp["n"], "ms": times["big"][0],
+                       "device_ms": times["big"][3],
                        "plain_ms": times["big"][1],
                        "library_ms": times["big"][2], "bound_ms": b_ms,
                        "bound_by": b_by, "bytes": nb, "row_cells": rc,
@@ -2452,6 +2776,8 @@ def kr3_case(ins):
     res = {"n": n, "wy": wy, "wz": wz, "equal_to_float32_plain": exact,
            "max_abs_err": abs_err, "max_rel_err": rel_err,
            "ms": cuda_time_ms(lambda: kr.kr3(*ins)),
+           "device_ms": device_ms(f"kr3@{wy}x{wz}x{n}",
+                                  lambda: kr.kr3(*ins)),
            "plain_ms": cuda_time_ms(lambda: kr.kr3_plain(*ins)),
            "library_ms": cuda_time_ms(library), "bound_ms": b_ms,
            "bound_by": b_by, "bytes": nbytes}
@@ -2486,6 +2812,7 @@ def check_kr3_kernel(pour_env, carry):
                      tolerance=KR3_TOL, flops=3 * full["wy"] * full["wz"]
                      * full["n"])
     e["library_ms"] = full["library_ms"]
+    e["device_ms"] = full["device_ms"]
     e["library_is"] = ("three torch.mul (one a pair matrix) into "
                        "preallocated outputs")
     e["rel_err_is"] = ("max |kernel - plain| / max |plain| of each output, "
@@ -2828,9 +3155,15 @@ def main():
         k["ptxas"] = [f for f in ptxas.get(Path(k["source"]).name, [])
                       if "round_to_float" not in f["function"]]
         k["launches_by_path"] = {p: c[counter] for p, c in paths.items()}
+        if name in DEVICE_MS:
+            k["device_ms"], k["device_launches_per_call"] = DEVICE_MS[name]
         if not k["launches"] > 0:
             raise AssertionError(f"{name} was not launched on its main path "
                                  f"({path})")
+    for k in kernels:
+        print(f"{k['name']}: call ms {k['ms']}, device ms "
+              f"{k.get('device_ms')}, bound ms {k['bound_ms']}, launches "
+              f"{k['launches']}", flush=True)
     emit(None, {"kernels": kernels})
     emit("slice", slice_res)
     emit("grad", grad_res)

@@ -6,9 +6,14 @@ The three models of the reference: grid contact (``collide_grid``,
 (``collide_mixed``, :139-181). The per-particle part of the last two comes
 from ``ops.contact`` (CUDA kernels on the card, plain PyTorch on the CPU);
 grid contact is plain PyTorch on both devices, as the JAX package leaves it
-to XLA. The 6-DoF wrench on the body (force, torque about the body origin)
-is a masked sum here. The SDF sample, ``collider_velocity`` and the
-contact threshold live beside the kernels in ``ops.contact``.
+to XLA. The 6-DoF wrench on the body (force, torque about the body
+origin) is, for grid and particle contact, a masked sum here
+(``ops.contact.wrench_plain``). For mixed contact ``ops.contact``'s
+``collide_mixed`` returns it: summed on the card by the tiled kernel,
+by ``collide_mixed_wrench_plain`` on the CPU, and by ``wrench_plain``
+over the split kernels' forces under ``SOFTMAC_TPU_CONTACT_SPLIT``. The
+SDF sample, ``collider_velocity`` and the contact threshold live beside
+the kernels in ``ops.contact``.
 """
 from __future__ import annotations
 
@@ -16,13 +21,6 @@ import torch
 
 from softmac_tpu_torch.ops import contact as contact_ops
 from softmac_tpu_torch.ops import m33
-
-
-def _wrench(b_f, r, mask):
-    """(6,) force and torque sums of per-particle forces b_f at offsets r."""
-    b_f = tuple(torch.where(mask, f, 0.0) for f in b_f)
-    b_t = m33.cross(r, b_f)
-    return torch.stack(b_f + b_t).flatten(1).sum(dim=1)
 
 
 def collide_particle(prim, body_pos, body_quat, body_v, body_w, friction,
@@ -37,7 +35,7 @@ def collide_particle(prim, body_pos, body_quat, body_v, body_w, friction,
         p_mass)
     b_f = (imp[0] * (-1.0 / dt), imp[1] * (-1.0 / dt), imp[2] * (-1.0 / dt))
     r = m33.vsub((x[0], x[1], x[2]), (body_pos[0], body_pos[1], body_pos[2]))
-    return imp, _wrench(b_f, r, mask)
+    return imp, contact_ops.wrench_plain(b_f, r, mask)
 
 
 def _length(v, eps=1e-8):
@@ -76,7 +74,7 @@ def collide_grid(prim, body_pos, body_quat, body_v, body_w, friction,
                                   m33.vscale(v_t, influence)))
     v_out = m33.vwhere(mask, v_new, v_in)
     b_f = m33.vscale(m33.vsub(v_in, v_out), grid_m / dt)
-    return v_out, _wrench(b_f, r, mask)
+    return v_out, contact_ops.wrench_plain(b_f, r, mask)
 
 
 def collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
@@ -85,8 +83,6 @@ def collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
     the remaining-window factor 1 / (substeps - k); ``push_cap`` bounds the
     penetration push-out speed (None / inf: the reference's uncapped
     (sdf / dt) * life). Returns (p_v' (3, N), wrench (6,))."""
-    p_v_out, force, mask = contact_ops.collide_mixed(
+    return contact_ops.collide_mixed(
         prim, body_pos, body_quat, body_v, body_w, friction, softness, life,
         x, p_v, dt, p_mass, push_cap)
-    r = m33.vsub((x[0], x[1], x[2]), (body_pos[0], body_pos[1], body_pos[2]))
-    return p_v_out, _wrench((force[0], force[1], force[2]), r, mask)

@@ -9,9 +9,10 @@ contact mask (N,); the wrench reduction is done by the caller
 (``engine.contact.collide_particle``).
 
 Forecast mixed contact (``collide_mixed``, further below): counterpart of
-the merged kernel ``_make_mixed12_kernel`` (``_mixed12_math``) and of its
-two-launch split ``_make_mixed1_kernel`` / ``_make_mixed2_kernel``, with the
-semantics of ``contact._collide_mixed_xla``.
+the merged kernel ``_make_mixed12_kernel`` (``_mixed12_math``) with the
+wrench tail ``_tail12`` of its custom_vjp, and of its two-launch split
+``_make_mixed1_kernel`` / ``_make_mixed2_kernel``, with the semantics of
+``contact._collide_mixed_xla``.
 
 The plain version's SDF sample (clamped base cell, one 32-float stencil row,
 trilinear sdf and normal; BIG and normal (0, 1, 0) outside the table's box)
@@ -27,12 +28,13 @@ anything else raises. Under autograd it goes through ``CollideParticle``
 x, v and the 14 body floats (position, quaternion, velocity, angular
 velocity, friction); the backward launches ``collide_particle_bwd`` on
 CUDA and runs ``collide_particle_vjp_plain`` on the CPU. ``collide_mixed``
-does the same through ``CollideMixed`` (``collide_mixed_bwd`` /
-``collide_mixed_vjp_plain``) or, under the split switch,
+returns (p_v_out, wrench) and does the same through ``CollideMixed`` (the
+tiled kernels with the wrench folded in, ``collide_mixed_bwd`` /
+``collide_mixed_wrench_vjp_plain``) or, under the split switch,
 ``CollideMixedSplit`` (``collide_mixed2_bwd`` -> ``collide_mixed1_bwd`` /
-``collide_mixed_vjp_plain``), with cotangents for the 16 body floats
-(adding softness and life). The SDF table gets no gradient, as in the JAX
-package.
+``collide_mixed_vjp_plain``) and the wrench's PyTorch reduction, with
+cotangents for the 16 body floats (adding softness and life). The SDF
+table gets no gradient, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -46,6 +48,9 @@ from softmac_tpu_torch.ops import build, m33
 BIG = 1e10
 CONTACT_THRESHOLD = 5e-3
 K1 = 50.0
+MIXED_TILE = 512        # particles a block of the tiled mixed contact
+MIXED_BWD_TILE = 1024   # and of its backward (contact_mixed.cuh's tiles)
+_DONE = {}              # the tiled kernels' block counter of each stream
 
 
 def _in_box(prim, p):
@@ -279,11 +284,16 @@ collide_particle_bwd.launches = 0
 # and forecasts x_new = x + dt * p_v1. Stage 2 samples the SDF at x_new
 # against the SAME stencil row (``forecast_fx``: fractions relative to
 # base(x), unclamped) and pushes penetrating particles out along the
-# forecast normal over the remaining window (``life``). Both versions
-# return p_v_out (3, N), the unmasked reaction force (v - p_v_out) p_mass /
-# dt (3, N) and the contact mask dist(x) <= threshold (N,); the wrench is a
-# masked reduction in the caller (``engine.contact.collide_mixed``), as
-# ``pallas_contact._tail12`` is plain XLA.
+# forecast normal over the remaining window (``life``). The wrench on the
+# body (force and torque about its position, summed over the particles in
+# contact) comes with p_v_out, as ``pallas_contact._fused12_factory``'s
+# custom_vjp returns them: the tiled kernel sums it on the card
+# (``collide_mixed``, ``CollideMixed``); its plain version is
+# ``collide_mixed_wrench_plain``. ``collide_mixed_plain``, the split stages
+# and the first design's kernel (``collide_mixed_v1``) return p_v_out
+# (3, N), the unmasked reaction force (v - p_v_out) p_mass / dt (3, N) and
+# the contact mask dist(x) <= threshold (N,); on the split path the wrench
+# is ``_mixed_tail``'s PyTorch reduction of those.
 # ---------------------------------------------------------------------------
 
 def forecast_fx(prim, base, p2):
@@ -411,6 +421,35 @@ def collide_mixed2_plain(prim, body_pos, body_quat, body_v, body_w, friction,
                          st1[6], rows, base, dt, p_mass, push_cap)
 
 
+def wrench_plain(b_f, r, mask):
+    """(6,) force and torque sums of per-point forces b_f at offsets r
+    (3-tuples of tensors of one shape), where ``mask`` holds."""
+    b_f = tuple(torch.where(mask, f, 0.0) for f in b_f)
+    b_t = m33.cross(r, b_f)
+    return torch.stack(b_f + b_t).flatten(1).sum(dim=1)
+
+
+def _mixed_tail(out, x, body_pos):
+    """(p_v_out, force, mask) -> (p_v_out, wrench about body_pos): the
+    wrench tail (``pallas_contact._tail12`` / ``_tail``) in PyTorch."""
+    p_v_out, force, mask = out
+    r = m33.vsub((x[0], x[1], x[2]), (body_pos[0], body_pos[1], body_pos[2]))
+    return p_v_out, wrench_plain((force[0], force[1], force[2]), r, mask)
+
+
+def collide_mixed_wrench_plain(prim, body_pos, body_quat, body_v, body_w,
+                               friction, softness, life, x, v, dt, p_mass,
+                               push_cap=None):
+    """The plain version of the tiled kernel: ``collide_mixed_plain``
+    followed by the wrench tail. Returns (p_v_out (3, N), wrench (6,):
+    force and torque about body_pos of the reaction forces summed over the
+    particles in contact), the outputs of ``contact._collide_mixed_xla``."""
+    out = collide_mixed_plain(prim, body_pos, body_quat, body_v, body_w,
+                              friction, softness, life, x, v, dt, p_mass,
+                              push_cap)
+    return _mixed_tail(out, x, body_pos)
+
+
 def _mixed_floats(body_pos, body_quat, body_v, body_w, friction, softness,
                   life):
     """The 16 body floats the mixed kernels read: bp, bq, bv, bw,
@@ -496,22 +535,95 @@ def _mixed_outputs(x):
             torch.empty((n,), dtype=torch.bool, device=x.device))
 
 
+def _mixed_call(name, prim, args, x, v, check=True):
+    """The pointers of a tiled mixed-contact launch: (pointers of x, v, the
+    table and the seven body tensors, N, the body tensors made contiguous
+    (no copy where they are), which must outlive the launch). With
+    ``check`` it checks what the kernels take: float32 tensors on x's
+    device, x and v contiguous (3, N), body tensors of 3, 4, 3, 3, 1, 1
+    and 1 floats, the table 16-byte aligned. ``CollideMixed`` checks in
+    its forward only, and takes the pointers again in its backward from
+    the saved tensors (a checkpoint may have recomputed them)."""
+    table = prim.neighborhood
+    body = tuple(t.contiguous() for t in args)
+    n = x.shape[1]
+    ptrs = (x.data_ptr(), v.data_ptr(), table.data_ptr()) + tuple(
+        t.data_ptr() for t in body)
+    if not check:
+        return ptrs, n, body
+    for t in (x, v, table) + body:
+        if t.device != x.device or t.dtype != torch.float32:
+            raise TypeError(f"{name}: CUDA kernel takes float32 tensors on "
+                            f"one device, got {t.dtype} on {t.device}")
+    res = prim.res
+    if (x.shape != (3, n) or v.shape != (3, n) or not x.is_contiguous()
+            or not v.is_contiguous() or not table.is_contiguous()
+            or tuple(t.numel() for t in body) != (3, 4, 3, 3, 1, 1, 1)
+            or table.shape != (res[0] * res[1] * res[2], 32)
+            or table.data_ptr() % 16):
+        raise ValueError(f"{name}: bad shapes, strides or table alignment")
+    return ptrs, n, body
+
+
+def _done(x):
+    """(the finished-block counter of the tiled kernels on x's current
+    stream, the stream's handle). A launch's last block sets its counter
+    back to zero, so launches that share one must not overlap: each
+    stream has its own, and a stream runs its launches in order."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    key = (x.device, stream)
+    if key not in _DONE:
+        _DONE[key] = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    return _DONE[key].data_ptr(), stream
+
+
+def _mixed_launch(call, prim, x, dt, p_mass, push_cap):
+    """One launch of the tiled forward on a checked call: (p_v_out (3, N),
+    wrench (6,))."""
+    ptrs, n, _ = call
+    p_v_out = torch.empty((3, n), dtype=x.dtype, device=x.device)
+    wrench = torch.zeros((6,), dtype=x.dtype, device=x.device) if n == 0 \
+        else torch.empty((6,), dtype=x.dtype, device=x.device)
+    partial = torch.empty((6, -(-n // MIXED_TILE)), dtype=torch.float64,
+                          device=x.device)
+    done, stream = _done(x)
+    rc = build.library().softmac_collide_mixed(
+        *ptrs, p_v_out.data_ptr(), wrench.data_ptr(), partial.data_ptr(),
+        done, n, *prim.res, *prim.geom, float(dt), float(p_mass),
+        _cap(push_cap), stream)
+    build.check(rc, "collide_mixed")
+    collide_mixed.launches += 1
+    return p_v_out, wrench
+
+
 def _collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
                    softness, life, x, v, dt, p_mass, push_cap=None):
-    """The merged forward; see ``collide_mixed_plain``. CUDA tensors launch
-    the kernel (stages 1+2 in one launch)."""
+    """The merged forward with its wrench; see
+    ``collide_mixed_wrench_plain``. CUDA tensors launch the tiled kernel
+    (one launch: the contact, the wrench and its reduction)."""
     args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
     if build.on_cpu(x, "collide_mixed"):
-        return collide_mixed_plain(prim, *args, x, v, dt, p_mass, push_cap)
-    body, n = _check_mixed("collide_mixed", prim, args, x, v)
+        return collide_mixed_wrench_plain(prim, *args, x, v, dt, p_mass,
+                                          push_cap)
+    return _mixed_launch(_mixed_call("collide_mixed", prim, args, x, v), prim,
+                         x, dt, p_mass, push_cap)
+
+
+def collide_mixed_v1(prim, body_pos, body_quat, body_v, body_w, friction,
+                     softness, life, x, v, dt, p_mass, push_cap=None):
+    """The first design's merged forward (``contact_mixed_v1.cu``, one
+    thread a particle), kept for timing against the tiled kernel: the
+    outputs of ``collide_mixed_plain`` on CUDA float32 tensors."""
+    args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
+    body, n = _check_mixed("collide_mixed_v1", prim, args, x, v)
     p_v_out, force, mask = _mixed_outputs(x)
-    rc = build.library().softmac_collide_mixed(
+    rc = build.library().softmac_collide_mixed_v1(
         x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
         body.data_ptr(), p_v_out.data_ptr(), force.data_ptr(),
         mask.data_ptr(), n, *prim.res, *prim.geom, float(dt), float(p_mass),
         _cap(push_cap), torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "collide_mixed")
-    collide_mixed.launches += 1
+    build.check(rc, "collide_mixed_v1")
+    collide_mixed_v1.launches += 1
     return p_v_out, force, mask
 
 
@@ -541,6 +653,21 @@ def collide_mixed_vjp_plain(prim, body_pos, body_quat, body_v, body_w,
         return torch.autograd.grad(out[:2], ins, (gout, gforce))
 
 
+def collide_mixed_wrench_vjp_plain(prim, body_pos, body_quat, body_v,
+                                   body_w, friction, softness, life, x, v,
+                                   dt, p_mass, push_cap, gout, gwrench):
+    """Cotangents (d body_pos, d body_quat, d body_v, d body_w, d friction,
+    d softness, d life, dx, dv) of ``collide_mixed_wrench_plain``'s p_v_out
+    and wrench for the cotangents gout (3, N) and gwrench (6,): autograd of
+    the plain version, recomputed."""
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_() for t in (
+            body_pos, body_quat, body_v, body_w, friction, softness,
+            _as_tensor(life, x), x, v))
+        out = collide_mixed_wrench_plain(prim, *ins, dt, p_mass, push_cap)
+        return torch.autograd.grad(out, ins, (gout, gwrench))
+
+
 def _body_cotangents(part, dtype):
     """(16, blocks) float64 per-block partials -> the seven body cotangents
     (bp, bq, bv, bw, friction, softness, life), summed in a fixed order."""
@@ -562,27 +689,68 @@ def _part(x, n):
     return torch.empty((16, blocks), dtype=torch.float64, device=x.device)
 
 
+def _mixed_bwd_launch(call, prim, x, dt, p_mass, push_cap, gout, gwrench):
+    """One launch of the tiled backward on a checked call (cotangents
+    checked here): the seven body cotangents (views of one float32 (16,)
+    tensor), dx and dv."""
+    ptrs, n, _ = call
+    _check_cotangents("collide_mixed_bwd", x, gout)
+    if (gwrench.shape != (6,) or gwrench.dtype != x.dtype
+            or gwrench.device != x.device or not gwrench.is_contiguous()):
+        raise ValueError("collide_mixed_bwd: the wrench cotangent must be a "
+                         "contiguous (6,) tensor like x")
+    dx = torch.empty_like(x)
+    dv = torch.empty_like(x)
+    db = torch.zeros((16,), dtype=x.dtype, device=x.device) if n == 0 \
+        else torch.empty((16,), dtype=x.dtype, device=x.device)
+    partial = torch.empty((16, -(-n // MIXED_BWD_TILE)), dtype=torch.float64,
+                          device=x.device)
+    done, stream = _done(x)
+    rc = build.library().softmac_collide_mixed_bwd(
+        *ptrs, gout.data_ptr(), gwrench.data_ptr(), dx.data_ptr(),
+        dv.data_ptr(), db.data_ptr(), partial.data_ptr(), done, n, *prim.res,
+        *prim.geom, float(dt), float(p_mass), _cap(push_cap), stream)
+    build.check(rc, "collide_mixed_bwd")
+    collide_mixed_bwd.launches += 1
+    return (db[0:3], db[3:7], db[7:10], db[10:13], db[13], db[14], db[15],
+            dx, dv)
+
+
 def collide_mixed_bwd(prim, body_pos, body_quat, body_v, body_w, friction,
                       softness, life, x, v, dt, p_mass, push_cap, gout,
-                      gforce):
-    """The merged mixed-contact backward kernel: the cotangents
-    ``collide_mixed_vjp_plain`` returns, on CUDA float32 tensors. The body
-    cotangents are summed in a fixed order (per-block float64 partials,
-    then ``torch.sum``), so they are the same on every run."""
+                      gwrench):
+    """The tiled mixed-contact backward kernel: the cotangents
+    ``collide_mixed_wrench_vjp_plain`` returns for the cotangents gout (3,
+    N) of p_v_out and gwrench (6,) of the wrench, on CUDA float32 tensors,
+    in one launch. The body cotangents are summed in a fixed order on the
+    card (block partials, then the last block over them), so they are the
+    same on every run."""
     args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
-    body, n = _check_mixed("collide_mixed_bwd", prim, args, x, v)
-    _check_cotangents("collide_mixed_bwd", x, gout, gforce)
+    call = _mixed_call("collide_mixed_bwd", prim, args, x, v)
+    return _mixed_bwd_launch(call, prim, x, dt, p_mass, push_cap, gout,
+                             gwrench)
+
+
+def collide_mixed_bwd_v1(prim, body_pos, body_quat, body_v, body_w,
+                         friction, softness, life, x, v, dt, p_mass,
+                         push_cap, gout, gforce):
+    """The first design's merged backward (``contact_mixed_v1.cu``), kept
+    for timing: the cotangents ``collide_mixed_vjp_plain`` returns, the
+    body's from (16, blocks) float64 block sums and ``torch.sum``."""
+    args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
+    body, n = _check_mixed("collide_mixed_bwd_v1", prim, args, x, v)
+    _check_cotangents("collide_mixed_bwd_v1", x, gout, gforce)
     dx = torch.empty_like(x)
     dv = torch.empty_like(x)
     part = _part(x, n)
-    rc = build.library().softmac_collide_mixed_bwd(
+    rc = build.library().softmac_collide_mixed_bwd_v1(
         x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
         body.data_ptr(), gout.data_ptr(), gforce.data_ptr(), dx.data_ptr(),
         dv.data_ptr(), part.data_ptr(), n, *prim.res, *prim.geom, float(dt),
         float(p_mass), _cap(push_cap),
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "collide_mixed_bwd")
-    collide_mixed_bwd.launches += 1
+    build.check(rc, "collide_mixed_bwd_v1")
+    collide_mixed_bwd_v1.launches += 1
     return _body_cotangents(part, x.dtype) + (dx, dv)
 
 
@@ -653,32 +821,36 @@ def collide_mixed_split_bwd(prim, body_pos, body_quat, body_v, body_w,
 
 
 class CollideMixed(torch.autograd.Function):
-    """Merged mixed contact with its backward kernel
-    (``pallas_contact._fused12_factory``'s custom_vjp). Outputs p_v_out,
-    the unmasked reaction force (3, N) and the mask (N,), which is not
-    differentiable. Cotangents reach the body tensors (so autograd routes
-    the rigid carry's), x and v; the SDF table gets none."""
+    """Merged mixed contact with its wrench and its backward kernel
+    (``pallas_contact._fused12_factory``'s custom_vjp, whose outputs are
+    (p_v_out, wrench)). Outputs p_v_out (3, N) and the wrench (6,): force
+    and torque about body_pos over the particles in contact. Cotangents
+    reach the body tensors (so autograd routes the rigid carry's), x and
+    v; the SDF table gets none. On CUDA the forward and the backward are
+    one launch each, the launch's checks made in the forward only; on the
+    CPU they are ``collide_mixed_wrench_plain`` and its plain vjp."""
 
     @staticmethod
     def forward(ctx, prim, body_pos, body_quat, body_v, body_w, friction,
                 softness, life, x, v, dt, p_mass, push_cap):
-        out = _collide_mixed(prim, body_pos, body_quat, body_v, body_w,
-                             friction, softness, life, x, v, dt, p_mass,
-                             push_cap)
-        ctx.mark_non_differentiable(out[2])
-        ctx.save_for_backward(body_pos, body_quat, body_v, body_w, friction,
-                              softness, life, x, v)
+        args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
+        out = _collide_mixed(prim, *args, x, v, dt, p_mass, push_cap)
+        ctx.save_for_backward(*args, x, v)
         ctx.prim, ctx.dt, ctx.p_mass, ctx.push_cap = prim, dt, p_mass, push_cap
         return out
 
     @staticmethod
-    def backward(ctx, gout, gforce, _gmask):
+    def backward(ctx, gout, gwrench):
         saved = ctx.saved_tensors
-        vjp = (collide_mixed_vjp_plain
-               if build.on_cpu(saved[7], "collide_mixed")
-               else collide_mixed_bwd)
-        grads = vjp(ctx.prim, *saved, ctx.dt, ctx.p_mass, ctx.push_cap,
-                    gout.contiguous(), gforce.contiguous())
+        rest = (ctx.dt, ctx.p_mass, ctx.push_cap, gout.contiguous(),
+                gwrench.contiguous())
+        x, v = saved[7], saved[8]
+        if build.on_cpu(x, "collide_mixed"):
+            grads = collide_mixed_wrench_vjp_plain(ctx.prim, *saved, *rest)
+        else:
+            call = _mixed_call("collide_mixed_bwd", ctx.prim, saved[:7], x, v,
+                               check=False)
+            grads = _mixed_bwd_launch(call, ctx.prim, x, *rest)
         return ((None,) + tuple(g if need else None for g, need in
                                 zip(grads, ctx.needs_input_grad[1:10]))
                 + (None, None, None))
@@ -720,22 +892,26 @@ class CollideMixedSplit(torch.autograd.Function):
 
 def collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
                   softness, life, x, v, dt, p_mass, push_cap=None):
-    """Forecast mixed contact; see ``collide_mixed_plain``. CUDA tensors
-    launch the merged kernel (stages 1+2 in one launch), or the two split
-    kernels when ``SOFTMAC_TPU_CONTACT_SPLIT`` is set; CPU tensors run the
-    plain version. Under autograd it goes through ``CollideMixed`` (or
-    ``CollideMixedSplit``), whose backward launches the backward kernels on
-    CUDA and runs the plain vjp on the CPU."""
+    """Forecast mixed contact and its wrench on the body; see
+    ``collide_mixed_wrench_plain``. Returns (p_v_out (3, N), wrench (6,)).
+    CUDA tensors launch the tiled kernel (stages 1+2 and the wrench in one
+    launch), or the two split kernels followed by the wrench's PyTorch
+    reduction when ``SOFTMAC_TPU_CONTACT_SPLIT`` is set; CPU tensors run
+    the plain version. Under autograd it goes through ``CollideMixed`` (or
+    ``CollideMixedSplit`` and the reduction), whose backward launches the
+    backward kernels on CUDA and runs the plain vjp on the CPU."""
     life = _as_tensor(life, x)
     args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
-    split = _split_mode()
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in args + (x, v)):
-        fn = CollideMixedSplit if split else CollideMixed
-        return fn.apply(prim, *args, x, v, dt, p_mass, push_cap)
-    if split:
-        return _collide_mixed_split(prim, args, x, v, dt, p_mass,
-                                    push_cap)[0]
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in args + (x, v))
+    if _split_mode():
+        out = (CollideMixedSplit.apply(prim, *args, x, v, dt, p_mass,
+                                       push_cap) if grad
+               else _collide_mixed_split(prim, args, x, v, dt, p_mass,
+                                         push_cap)[0])
+        return _mixed_tail(out, x, body_pos)
+    if grad:
+        return CollideMixed.apply(prim, *args, x, v, dt, p_mass, push_cap)
     return _collide_mixed(prim, *args, x, v, dt, p_mass, push_cap)
 
 
@@ -745,3 +921,5 @@ collide_mixed2.launches = 0
 collide_mixed_bwd.launches = 0
 collide_mixed1_bwd.launches = 0
 collide_mixed2_bwd.launches = 0
+collide_mixed_v1.launches = 0
+collide_mixed_bwd_v1.launches = 0

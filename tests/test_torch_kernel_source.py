@@ -25,12 +25,20 @@ bit against its float32 plain version on the same weights; the penalty
 contact backward, which computes in double on its float inputs, within
 1e-6 (float literals
 and the float dt / p_mass set that floor); the mixed contact backward
-(merged and split), also double math, within 1e-12 given the float dt and
-p_mass it sees. The contact checks run on the real glass table, with
-particles spread over its SDF box (contact, soft band, penetration and
-face-crossing forecasts counted)."""
+(the first design's merged kernel and the split), also double math, within
+1e-12 given the float dt and p_mass it sees. The tiled mixed-contact
+kernels (contact_mixed.cuh, the wrench folded in) run phase by phase, as
+the y-slab kernels do, with double outputs: the classification against
+its rule in float64 (and every particle in contact kept, also particles
+placed within the band margin), the compacted lists, p_v_out, dx, dv,
+each block's partial wrench and body cotangents and the last block's sum,
+within 1e-12 of the float64 plain version and its vjp, on the glass's box
+particles, with every particle in the band and with none. The contact
+checks run on the real glass table, with particles spread over its SDF box
+(contact, soft band, penetration and face-crossing forecasts counted)."""
 import ctypes
 import math
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -69,6 +77,8 @@ extern dim3s blockIdx, threadIdx, blockDim, gridDim;
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline double atomicAdd(double* p, double v) { double o = *p; *p = o + v; return o; }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned o = *p; *p = o + v; return o; }
 inline int atomicAdd(int* p, int v) { int o = *p; *p = o + v; return o; }
@@ -85,6 +95,7 @@ inline void __syncthreads() {}
 
 DRIVER = r"""
 #include <algorithm>
+#include <cstring>
 #include <limits>
 #include <vector>
 dim3s blockIdx, threadIdx, blockDim, gridDim;
@@ -153,6 +164,104 @@ static void slab(const float* x, const float* src, const int* corner,
   plan[2] = 0;
   for (int tl = 0; tl < pl.tiles; ++tl) plan[2] += meta[2 * tl + 1];
 }
+// The tiled mixed contact of contact_mixed.cuh (K = 6 forward, 16
+// backward; outputs in double, SOFTMAC_MIXED_OUT): each block's phases in
+// order, each over all the block's threads, with the shared memory
+// poisoned (all ones); the warp ballots and shuffle trees taken as the card
+// takes them (a chunk's mask from its 32 lanes' flags; lane l < off adds
+// lane l + off). band gets each particle's classification, lists each
+// tile's list (-1 past its count); then the last block's sum.
+template <int K>
+static void warp_trees(const std::vector<double>& acc, softmac::MixedShared* sh) {
+  const int threads = softmac::kMixedThreads;
+  for (int w = 0; w < softmac::kMixedWarps; ++w) {
+    for (int k = 0; k < K; ++k) {
+      double v[32];
+      for (int l = 0; l < 32; ++l) v[l] = acc[k * threads + 32 * w + l];
+      for (int off = 16; off > 0; off >>= 1)
+        for (int l = 0; l < off; ++l) v[l] += v[l + off];
+      sh->red[w][k] = v[0];
+    }
+  }
+}
+template <int K>
+static void mixed_tiled(const softmac::MixedArgs& a, int tile,
+                        unsigned char* band, int* lists) {
+  const int threads = softmac::kMixedThreads, chunks = tile / 32;
+  const int per = tile / threads;
+  const int blocks = softmac::mixed_blocks(a.n, tile);
+  blockDim.x = threads;
+  gridDim.x = blocks;
+  auto phase = [&](auto f) {
+    for (int t = 0; t < threads; ++t) { threadIdx.x = t; f(t); }
+  };
+  softmac::MixedShared sh;
+  std::vector<double> acc(K * threads);
+  for (int blk = 0; blk < blocks; ++blk) {
+    blockIdx.x = blk;
+    memset(&sh, 0xff, sizeof sh);
+    std::fill(acc.begin(), acc.end(), 0.0);
+    const int p0 = blk * tile;
+    std::vector<unsigned char> flag(tile, 0);
+    phase([&](int t) {
+      bool band[4];
+      float keep[4][3];
+      switch (per) {
+        case 1:
+          softmac::mixed_classify<K, 1>(a, &sh, p0 + t, threads, band,
+                                        (float(*)[3])keep);
+          break;
+        case 2:
+          softmac::mixed_classify<K, 2>(a, &sh, p0 + t, threads, band,
+                                        (float(*)[3])keep);
+          break;
+        default:
+          softmac::mixed_classify<K, 4>(a, &sh, p0 + t, threads, band,
+                                        (float(*)[3])keep);
+      }
+      for (int j = 0; j < per; ++j) {
+        flag[j * threads + t] = band[j];
+        if (!band[j])
+          softmac::mixed_out_of_band<K>(a, p0 + j * threads + t, keep[j]);
+      }
+    });
+    for (int c = 0; c < chunks; ++c) {
+      unsigned m = 0;
+      for (int l = 0; l < 32; ++l) m |= unsigned(flag[32 * c + l]) << l;
+      sh.mask[c] = m;
+    }
+    threadIdx.x = 0;
+    softmac::mixed_scan(&sh, chunks);
+    phase([&](int t) {
+      for (int c = t >> 5; c < chunks; c += softmac::kMixedWarps)
+        softmac::mixed_place(&sh, c, t & 31);
+    });
+    phase([&](int t) {
+      for (int i = t; i < sh.count; i += threads) {
+        if constexpr (K == 6) {
+          softmac::mixed_particle_fwd(a, sh.body, p0 + sh.list[i], &acc[t],
+                                      threads);
+        } else {
+          softmac::mixed_particle_bwd(a, sh.body, p0 + sh.list[i], &acc[t],
+                                      threads);
+        }
+      }
+    });
+    warp_trees<K>(acc, &sh);
+    phase([&](int) { softmac::mixed_block_sum<K>(a, &sh, blk, blocks); });
+    for (int q = 0; q < tile; ++q) {
+      if (p0 + q < a.n) band[p0 + q] = flag[q];
+      lists[p0 + q] = q < sh.count ? sh.list[q] : -1;
+    }
+  }
+  // the last block
+  memset(&sh, 0xff, sizeof sh);
+  phase([&](int t) {
+    softmac::mixed_gather_partials<K>(a, blocks, &acc[t], threads);
+  });
+  warp_trees<K>(acc, &sh);
+  phase([&](int) { softmac::mixed_total<K>(a, &sh); });
+}
 template <class F> static void launch(int n, F f) {
   blockDim.x = 256; gridDim.x = (n + 255) / 256;
   for (unsigned b = 0; b < gridDim.x; ++b)
@@ -213,7 +322,7 @@ void h_mixed(int split, const float* x, const float* v, const float* table,
     launch(n, [&] { k_contact_mixed::collide_mixed2_kernel(
         x, v, t, body, st1, pv, force, mask, n, g, dt, p_mass, cap); });
   } else {
-    launch(n, [&] { k_contact_mixed::collide_mixed_kernel(
+    launch(n, [&] { k_contact_mixed_v1::collide_mixed_kernel(
         x, v, t, body, pv, force, mask, n, g, dt, p_mass, cap); });
   }
 }
@@ -265,14 +374,29 @@ void h_mixed_bwd(int split, const float* x, const float* v,
       k_contact_mixed_bwd::mixed1_bwd_particle(x, v, t, body, gst1, n, p, g,
                                                dt, gx, gv, gb);
     } else {
-      k_contact_mixed_bwd::mixed_bwd_particle(x, v, t, body, gout, gforce, n,
-                                              p, g, dt, p_mass, cap, gx, gv,
-                                              gb);
+      k_contact_mixed_v1::mixed_bwd_particle(x, v, t, body, gout, gforce, n,
+                                             p, g, dt, p_mass, cap, gx, gv,
+                                             gb);
     }
     dx[p] = gx.x; dx[n + p] = gx.y; dx[2 * n + p] = gx.z;
     dv[p] = gv.x; dv[n + p] = gv.y; dv[2 * n + p] = gv.z;
     for (int i = 0; i < 16; ++i) dbody[i] += gb[i];
   }
+}
+void h_mixed_tiled(int backward, int tile, const float* x, const float* v,
+                   const float* table, const float* body, const float* gout,
+                   const float* gwrench, double* out0, double* out1,
+                   double* total, double* partial, unsigned char* band,
+                   int* lists, int n, int r0, int r1, int r2, float l0,
+                   float l1, float l2, float u0, float u1, float u2,
+                   float inv_dx, float dt, float p_mass, float cap) {
+  softmac::MixedArgs a = {
+      x, v, (const float4*)table,
+      {body, body + 3, body + 7, body + 10, body + 13, body + 14, body + 15},
+      gout, gwrench, out0, out1, total, partial, nullptr, n,
+      {{l0, l1, l2}, {u0, u1, u2}, inv_dx, {r0, r1, r2}}, dt, p_mass, cap};
+  if (backward) mixed_tiled<16>(a, tile, band, lists);
+  else mixed_tiled<6>(a, tile, band, lists);
 }
 void h_fused_p2g(const float* Wx, const float* WxD, const float* Wy,
                  const float* WDy, const float* Wz, const float* WDz,
@@ -386,7 +510,8 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_STANDIN)
     src = "".join(_kernel_bodies(n) for n in (
         "p2g", "p2g_bwd", "g2p_bwd", "gather", "splat", "contact",
-        "contact_mixed", "gather_bwd", "splat_bwd", "contact_mixed_bwd",
+        "contact_mixed", "contact_mixed_v1", "gather_bwd", "splat_bwd",
+        "contact_mixed_bwd",
         "fused_p2g", "fused_g2p", "fused_splat", "fused_gather",
         "fused_p2g_bwd", "fused_g2p_bwd", "fused_splat_bwd",
         "fused_gather_bwd", "kr3")) \
@@ -394,7 +519,8 @@ def lib(tmp_path_factory):
     (d / "driver.cpp").write_text(src)
     so = d / "libkernels_host.so"
     subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-I", str(d), "-I", str(build.CSRC), "-o",
+                    "-fPIC", "-DSOFTMAC_MIXED_OUT=double", "-I", str(d),
+                    "-I", str(build.CSRC), "-o",
                     str(so), str(d / "driver.cpp")], check=True,
                    capture_output=True, text=True)
     return ctypes.CDLL(str(so))
@@ -671,9 +797,10 @@ def _mixed_scene(seed):
 
 @pytest.mark.parametrize("cap", [float("inf"), 2.0])
 def test_mixed_contact_source(lib, cap):
-    """The merged kernel and the split pair on particles over the glass's
-    SDF box with velocities of up to a few m/s: the contact, soft,
-    penetrating and face-crossing cases all occur (counted)."""
+    """The first design's merged kernel (contact_mixed_v1.cu) and the split
+    pair on particles over the glass's SDF box with velocities of up to a
+    few m/s: the contact, soft, penetrating and face-crossing cases all
+    occur (counted)."""
     prim, prim64, body, b64, x, v, _ = _mixed_scene(4)
     n = x.shape[1]
     dt, p_mass = 1e-3, 1.5e-5
@@ -767,9 +894,9 @@ def test_contact_backward_source(lib):
 
 @pytest.mark.parametrize("cap", [float("inf"), 0.5])
 def test_mixed_contact_backward_source(lib, cap):
-    """The merged backward and the split pair (k2b -> k1b) on the glass's
-    SDF box particles against the float64 plain vjp, given the dt and
-    p_mass the kernel sees (float32 values): dx, dv and each body group
+    """The first design's merged backward and the split pair (k2b -> k1b)
+    on the glass's SDF box particles against the float64 plain vjp, given the dt
+    and p_mass the kernel sees (float32 values): dx, dv and each body group
     within 1e-12 of its largest |value| (the kernels' double math is the
     plain vjp's, summed in another order); the split's dv within 1e-6 (k2b
     hands its share to k1b in float)."""
@@ -806,6 +933,239 @@ def test_mixed_contact_backward_source(lib, cap):
             assert _rel(db[a:b], r.reshape(-1)) < 1e-12, (a, b)
     counts = _mixed_cases(prim64, b64, x, v, dt)
     assert min(counts.values()) > 20, counts
+
+
+BAND_MARGIN = float(re.search(
+    r"kBandMargin = ([0-9.e+-]+);",
+    (build.CSRC / "contact_mixed.cuh").read_text()).group(1))
+
+
+def test_mixed_tiles_match_kernels():
+    """The wrappers size the block partials by MIXED_TILE and
+    MIXED_BWD_TILE: they are the tiles the kernels launch with
+    (contact_mixed.cuh's particles a thread times the block)."""
+    src = (build.CSRC / "contact_mixed.cuh").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    threads = const("kMixedThreads")
+    assert contact.MIXED_TILE == const("kMixedPer") * threads
+    assert contact.MIXED_BWD_TILE == const("kMixedBwdPer") * threads
+
+
+def _parts(b64):
+    return (b64[0:3], b64[3:7], b64[7:10], b64[10:13], b64[13], b64[14],
+            b64[15])
+
+
+def _tiled_call(lib, backward, tile, prim, body, x, v, gout, gwrench, dt,
+                p_mass, cap):
+    """One tiled mixed-contact launch run on the host (double outputs)."""
+    n = x.shape[1]
+    blocks, k = -(-n // tile), 16 if backward else 6
+    nan = float("nan")
+    out = {"out0": torch.full((3, n), nan, dtype=torch.float64),
+           "out1": torch.full((3, n), nan, dtype=torch.float64),
+           "total": torch.full((k,), nan, dtype=torch.float64),
+           "partial": torch.full((k, blocks), nan, dtype=torch.float64),
+           "band": torch.zeros(n, dtype=torch.uint8),
+           "lists": torch.zeros(blocks * tile, dtype=torch.int32)}
+    f = ctypes.c_float
+    lib.h_mixed_tiled(ctypes.c_int(backward), ctypes.c_int(tile), _p(x),
+                      _p(v), _p(prim.neighborhood), _p(body), _p(gout),
+                      _p(gwrench), *(_p(out[k]) for k in (
+                          "out0", "out1", "total", "partial", "band",
+                          "lists")),
+                      ctypes.c_int(n), *_geom(prim), f(dt), f(p_mass), f(cap))
+    out["band"] = out["band"].bool()
+    out["lists"] = out["lists"].reshape(blocks, tile)
+    return out
+
+
+def _band_rule(prim64, b64, x):
+    """The classification the kernels make, in float64: the point lies
+    less than the margin outside the SDF box and the trilinear sdf of its
+    (clamped) cell is at most the threshold plus the margin; and how far
+    the sdf lies from that bound."""
+    qinv = m33.qnorm(m33.qconj(tuple(b64[3:7])))
+    p_loc = m33.qrot(qinv, m33.vsub(tuple(x.double()), tuple(b64[0:3])))
+    rows, _, fx = contact.gather_rows(prim64, p_loc)
+    sdf, _ = contact.interp_rows(rows, fx, torch.ones_like(p_loc[0],
+                                                          dtype=torch.bool))
+    near = torch.ones_like(sdf, dtype=torch.bool)
+    for d in range(3):
+        near &= ((p_loc[d] >= prim64.lower[d] - BAND_MARGIN)
+                 & (p_loc[d] < prim64.upper[d] + BAND_MARGIN))
+    bound = contact.CONTACT_THRESHOLD + BAND_MARGIN
+    return near & (sdf <= bound), (sdf - bound).abs()
+
+
+def _close_rows(got, want, tol=1e-12):
+    """|got - want| within tol of want's largest |value| (NaN fails)."""
+    scale = want.abs().max().clamp(min=1e-300)
+    return bool(((got - want).abs() <= tol * scale).all())
+
+
+def _block_order_sum(values, threads=256):
+    """The tiled kernels' sum of per-block values in the last block: thread
+    t adds the values t, t + 256, ... in order; each warp's 32 sums by the
+    shuffle tree (lane l adds lane l + off, off = 16, 8, .., 1); the
+    warps' results in order."""
+    share = [0.0] * threads
+    for i, val in enumerate(values):
+        share[i % threads] += val
+    total = 0.0
+    for w in range(threads // 32):
+        lanes = share[32 * w:32 * w + 32]
+        off = 16
+        while off:
+            for lane in range(off):
+                lanes[lane] += lanes[lane + off]
+            off //= 2
+        total += lanes[0]
+    return total
+
+
+def _check_tiled(lib, prim, prim64, body, b64, x, v, rng, tile, cap):
+    """The tiled forward and backward on (x, v), each phase against the
+    float64 plain version and its vjp (dt and p_mass as the kernels see
+    them): classification (the rule in float64; every particle in contact
+    kept), the tiles' lists, p_v_out, dx, dv, the block partials (each
+    tile's wrench and body cotangents) and the last block's sum. Returns
+    the dist of every particle (float64 plain)."""
+    n = x.shape[1]
+    dt, p_mass = float(np.float32(1e-3)), float(np.float32(1.5e-5))
+    cap_p = None if cap == float("inf") else cap
+    x64, v64 = x.double(), v.double()
+    gout, gwrench = _f32(rng, 3, n), _f32(rng, 6)
+    dist = contact.collide_mixed1_plain(prim64, *_parts(b64), x64, v64, dt)[6]
+    band, gap = _band_rule(prim64, b64, x)
+    fwd = _tiled_call(lib, 0, tile, prim, body, x, v, gout, gwrench, dt,
+                      p_mass, cap)
+    bwd = _tiled_call(lib, 1, tile, prim, body, x, v, gout, gwrench, dt,
+                      p_mass, cap)
+    pv, wrench = contact.collide_mixed_wrench_plain(
+        prim64, *_parts(b64), x64, v64, dt, p_mass, cap_p)
+    grads = contact.collide_mixed_wrench_vjp_plain(
+        prim64, *_parts(b64), x64, v64, dt, p_mass, cap_p, gout.double(),
+        gwrench.double())
+    for out in (fwd, bwd):
+        # classification: the rule, and conservative
+        sure = gap > 1e-12
+        assert torch.equal(out["band"][sure], band[sure])
+        assert bool(out["band"][dist <= contact.CONTACT_THRESHOLD].all())
+        # compaction: each tile's band particles in tile order
+        for b in range(out["lists"].shape[0]):
+            flags = out["band"][b * tile:(b + 1) * tile]
+            want = torch.nonzero(flags).flatten().to(torch.int32)
+            got = out["lists"][b]
+            assert torch.equal(got[:want.numel()], want)
+            assert bool((got[want.numel():] == -1).all())
+    # full math and the particles out of the band
+    out_band = ~fwd["band"]
+    assert torch.equal(fwd["out0"][:, out_band], v64[:, out_band])
+    assert torch.equal(bwd["out0"][:, out_band],
+                       torch.zeros_like(x64)[:, out_band])
+    assert torch.equal(bwd["out1"][:, out_band], gout.double()[:, out_band])
+    assert _close_rows(fwd["out0"], pv)
+    assert _close_rows(bwd["out0"], grads[7])
+    assert _close_rows(bwd["out1"], grads[8])
+    # block partials: each tile's own wrench and body cotangents
+    groups = ((0, 3), (3, 7), (7, 10), (10, 13), (13, 14), (14, 15),
+              (15, 16))
+    parts_f, parts_b = [], []
+    for b in range(fwd["partial"].shape[1]):
+        sl = slice(b * tile, min((b + 1) * tile, n))
+        xs, vs = x64[:, sl].contiguous(), v64[:, sl].contiguous()
+        parts_f.append(contact.collide_mixed_wrench_plain(
+            prim64, *_parts(b64), xs, vs, dt, p_mass, cap_p)[1])
+        g = contact.collide_mixed_wrench_vjp_plain(
+            prim64, *_parts(b64), xs, vs, dt, p_mass, cap_p,
+            gout.double()[:, sl].contiguous(), gwrench.double())
+        parts_b.append(torch.cat([t.reshape(-1) for t in g[:7]]))
+    parts_f, parts_b = torch.stack(parts_f, 1), torch.stack(parts_b, 1)
+    body_grad = torch.cat([t.reshape(-1) for t in grads[:7]])
+    for got, want, total, rows in (
+            (fwd["partial"], parts_f, wrench, ((0, 3), (3, 6))),
+            (bwd["partial"], parts_b, body_grad, groups)):
+        for a, c in rows:
+            assert _close_rows(got[a:c], want[a:c]), (a, c)
+    # the last block: the partials summed in the block's fixed order, then
+    # the total against the plain version's
+    for out, want, rows in ((fwd, wrench, ((0, 3), (3, 6))),
+                            (bwd, body_grad, groups)):
+        for k in range(out["total"].numel()):
+            assert float(out["total"][k]) == _block_order_sum(
+                out["partial"][k].tolist())
+        for a, c in rows:
+            assert _close_rows(out["total"][a:c], want[a:c]), (a, c)
+    return dist, fwd["band"]
+
+
+@pytest.mark.parametrize("tile,cap", [(1024, float("inf")), (256, 2.0),
+                                      (512, float("inf"))])
+def test_mixed_tiled_source(lib, tile, cap):
+    """The tiled kernels (contact_mixed.cuh) on particles over the glass's
+    SDF box (contact, soft band, penetration and face-crossing all
+    occur): every phase within 1e-12 of the float64 plain version and its
+    vjp; the band is a few particles in ten, so most take the short way."""
+    prim, prim64, body, b64, x, v, rng = _mixed_scene(6)
+    dist, band = _check_tiled(lib, prim, prim64, body, b64, x, v, rng, tile,
+                              cap)
+    counts = _mixed_cases(prim64, b64, x, v, 1e-3)
+    assert min(counts.values()) > 20, counts
+    assert 0 < int(band.sum()) < x.shape[1] // 2
+
+
+@pytest.mark.parametrize("case", ["all", "none"])
+def test_mixed_tiled_all_or_none_source(lib, case):
+    """Every particle in the contact band (500 drawn from the glass's SDF
+    box, tile 256: two tiles, the last one ragged), or none (1000 more
+    than 1 cm from the glass, tile 512: two tiles, the last one ragged)."""
+    prim, prim64, body, b64, x, v, rng = _mixed_scene(7)
+    dist = contact.collide_mixed1_plain(prim64, *_parts(b64), x.double(),
+                                        v.double(), 1e-3)[6]
+    pick = (dist <= contact.CONTACT_THRESHOLD if case == "all"
+            else dist > 0.01)
+    count, tile = (500, 256) if case == "all" else (1000, 512)
+    idx = torch.nonzero(pick).flatten()[:count]
+    assert idx.numel() == count
+    x, v = x[:, idx].contiguous(), v[:, idx].contiguous()
+    _, band = _check_tiled(lib, prim, prim64, body, b64, x, v, rng, tile,
+                           float("inf"))
+    assert int(band.sum()) == (count if case == "all" else 0)
+
+
+def test_mixed_tiled_margin_source(lib):
+    """Particles moved along the SDF normal to dist = 5e-3 + (-0.5, 0.5,
+    1.5, 3) x the band margin: those in contact and those within the
+    margin above it are kept (the full math then finds the latter out of
+    contact: p_v_out = v), those past it are not."""
+    prim, prim64, body, b64, x, v, rng = _mixed_scene(8)
+    bp, bq = tuple(b64[0:3]), tuple(b64[3:7])
+    dist, _ = contact.sample_sdf_normal_world(prim64, bp, bq,
+                                              tuple(x.double()))
+    idx = torch.nonzero((dist > 0.001) & (dist < 0.01)).flatten()[:400]
+    offsets = torch.tensor([-0.5, 0.5, 1.5, 3.0], dtype=torch.float64)
+    target = contact.CONTACT_THRESHOLD + BAND_MARGIN * offsets.repeat(100)
+    xs = x[:, idx].double()
+    for _ in range(4):
+        d, normal = contact.sample_sdf_normal_world(prim64, bp, bq,
+                                                    tuple(xs))
+        xs = (xs - (d - target) * torch.stack(normal)).float().double()
+    d, _ = contact.sample_sdf_normal_world(prim64, bp, bq, tuple(xs))
+    keep = ((d - target).abs() < 0.2 * BAND_MARGIN).nonzero().flatten()
+    x, v = xs[:, keep].float().contiguous(), v[:, idx[keep]].contiguous()
+    d, target = d[keep], target[keep]
+    dist, band = _check_tiled(lib, prim, prim64, body, b64, x, v, rng, 256,
+                              float("inf"))
+    off = ((target - contact.CONTACT_THRESHOLD) / BAND_MARGIN).round(
+        decimals=1)
+    for o, kept in ((-0.5, True), (0.5, True), (1.5, False), (3.0, False)):
+        sel = off == o
+        assert int(sel.sum()) >= 5, (o, int(sel.sum()))
+        assert bool((band[sel] == kept).all()), o
+    assert bool((dist[off == 0.5] > contact.CONTACT_THRESHOLD).all())
 
 
 def _fused_weights(case):

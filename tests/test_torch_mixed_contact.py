@@ -163,10 +163,17 @@ def test_split_stages_equal_merged(scene, monkeypatch):
     assert st1.shape == (7, N)
     split = ops.collide_mixed2_plain(tprim, *tb, LIFE, tx, tv, st1, DT,
                                      P_MASS)
+    for a, b in zip(merged, split):
+        assert torch.equal(a, b)
+    # collide_mixed returns (p_v_out, wrench) on both paths: the split
+    # stages' wrench is the same reduction of the same forces
     monkeypatch.setenv("SOFTMAC_TPU_CONTACT_SPLIT", "yes")
     through = ops.collide_mixed(tprim, *tb, LIFE, tx, tv, DT, P_MASS)
-    for a, b, c in zip(merged, split, through):
-        assert torch.equal(a, b) and torch.equal(a, c)
+    want = ops.collide_mixed_wrench_plain(tprim, *tb, LIFE, tx, tv, DT,
+                                          P_MASS)
+    assert torch.equal(through[0], merged[0])
+    assert torch.equal(through[0], want[0]) and torch.equal(through[1],
+                                                            want[1])
 
 
 def test_collide_mixed_vjp_matches_jax(scene):
