@@ -36,17 +36,17 @@ script exits non-zero:
            soft band, penetrate and forecast across a cell face), and the
            mixed contact on 1e5 particles of the glass's box all in the
            contact band: the band's particles and the fullest tile's
-           counted, 10 calls bit-identical, the tiled pair timed in turns
-           with the first design's pair (softmac_collide_mixed*_v1) and the
-           eager wrench tail and its autograd (tiled, first, first, tiled).
-           The y-slab P2G and splat (ops/csrc/slab.cuh) are also held on
+           counted, 10 calls bit-identical, call and device time on each
+           set of particles. The y-slab kernels (ops/csrc/slab.cuh: P2G,
+           the splat and the G2P and gather backwards) are also held on
            the pour_vel and pour states, on a random permutation of each,
            and over the full 64^3 grid: within 1e-5 of the float64 plain
-           version, the particles that spilled off their tile's slab
-           counted (none in the sorted order; some permuted order of each
-           must spill), 10 calls bit-identical; on the two windowed states
-           the first design's kernel (softmac_*_atomic) and the new one
-           timed in turns (old, new, new, old: the new one must be faster)
+           version or vjp, the particles that spilled off their tile's
+           slab counted (none in the sorted order; some permuted order of
+           each must spill), 10 calls bit-identical; on the two windowed
+           states the backwards' first design (softmac_*_bwd_atomic, one
+           thread a particle with float64 atomics) and the new one timed in
+           turns (old, new, new, old), call and device time, recorded
   slice    the pour_vel main path: SoftMacEnv.rollout of that scene for 50
            env steps on the card, launches counted; then 7 more timed
            rollouts of the same actions: substeps/s (median and spread),
@@ -70,7 +70,12 @@ script exits non-zero:
            forward and backward kernel, a finite nonzero gradient, step
            against none and the repeats within GRAD_TOL; then 20 steps
            under SOFTMAC_TPU_CONTACT_SPLIT (the split backward pair,
-           counted) against the merged gradient
+           counted) against the merged gradient. The counted "step" call
+           keeps the inputs of three real calls of gather_bwd and g2p_bwd
+           and counts each call's nonzero cotangent columns; on the kept
+           inputs both kernels are held to the float64 plain vjps (10
+           calls bit-identical) and timed beside their first designs in
+           turns (the "real" field of their kernel entries)
   profile  torch.profiler over 20 env steps of each rollout and 10 of each
            rollout_and_grad (remat "none"): device busy share of the wall
            time, kernel launches per substep, the kernels that take the
@@ -172,8 +177,10 @@ FLOPS_PER_PARTICLE = {"p2g": 57 + 27 + 27 * 30, "g2p": 57 + 27 + 27 * 28,
                       # backward: weights and their derivatives ~80, per
                       # (y, z) pair 9; per cell p2g_bwd 13 channel sums +
                       # 4 weight cotangents + 3 position terms ~82, g2p_bwd
-                      # the splat ~25 + 4 weight cotangents + 3 position
-                      # terms ~55; contact: the forward again + the reverse
+                      # the three grid channels' terms (4 products and 3
+                      # adds each, summed per slab cell) ~25 + dx's 4
+                      # weight cotangents + 3 position terms ~55; contact:
+                      # the forward again + the reverse
                       # sweep (3 rotation adjoints, trilinear 8 x 12) ~310,
                       # in double in the kernel, counted at the float32
                       # rate (the least time for the same work)
@@ -192,8 +199,11 @@ FLOPS_PER_PARTICLE = {"p2g": 57 + 27 + 27 * 30, "g2p": 57 + 27 + 27 * 28,
                       "collide_mixed": 430, "collide_mixed_split": 430,
                       # gather / splat backward: weights and their
                       # derivatives ~80, per (y, z) pair 9, per cell the
-                      # splat or gather of 3 values (6), the weight
-                      # cotangent (6) and 3 position terms (12)
+                      # 3 grid cotangent terms (gather_bwd, summed per slab
+                      # cell) or the gather of 3 values (splat_bwd) (6),
+                      # the weight cotangent (6) and 3 position terms (12);
+                      # a gather_bwd particle whose cotangent is zero needs
+                      # none of it (check_real_backward counts those apart)
                       "gather_bwd": 80 + 81 + 27 * 24,
                       "splat_bwd": 80 + 81 + 27 * 24,
                       # mixed backward: the forward again ~430 and its
@@ -241,7 +251,13 @@ FULL_PROFILE_STEPS = 5
 FULL_PARITY_STEPS = 10
 GRID_STEPS = 20
 KR3_TOL = 1e-7
-SLAB_REPEATS = 10          # P2G / splat calls that must agree bit for bit
+SLAB_REPEATS = 10          # y-slab calls that must agree bit for bit
+# the backwards whose inputs pour_grad keeps from real calls: the calls
+# CAPTURE_CALLS (from 1) of its first counted rollout_and_grad (remat
+# "step": the backward walks from the last env step back, so these come
+# late, mid-way and early in the rollout)
+REAL_BWD = ("gather_bwd", "g2p_bwd")
+CAPTURE_CALLS = (10, 50, 90)
 FUSED = ("fused_p2g", "fused_g2p", "fused_splat", "fused_gather")
 FUSED_BWD = tuple(k + "_bwd" for k in FUSED)
 # float operations per visited window cell (the kernels work in double,
@@ -797,6 +813,28 @@ def check_pour_kernels(inp):
     return entries
 
 
+# (channels, input rows) of each y-slab kernel (ops/csrc/slab.cuh)
+SLAB_SHAPES = {"p2g": (4, 13), "splat": (3, 3), "g2p_bwd": (3, 12),
+               "gather_bwd": (3, 3)}
+BWD_OUTPUTS = ("dx", "dgv0", "dgv1", "dgv2")
+
+
+def slab_fns(name):
+    """(kernel, the wrapper that holds its .spilled, float64 reference, the
+    first design or None) of the y-slab kernel ``name``."""
+    from softmac_tpu_torch.ops import transfer
+    if name in ("p2g", "splat"):
+        return (getattr(transfer, "_" + name), getattr(transfer, name),
+                getattr(transfer, name + "_plain"), None)
+    fn = getattr(transfer, name)
+    return (fn, fn, getattr(transfer, name.replace("_bwd", "_vjp_plain")),
+            getattr(transfer, name + "_atomic"))
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
 def _slab_flat(name, out):
     """A P2G result (gm, gmom) or a splat window as one flat tensor."""
     import torch
@@ -808,7 +846,13 @@ def _slab_flat(name, out):
 def _slab_rel(name, got, want, wx):
     """(max |kernel - plain|, that over the scale the kernel's entry uses:
     the largest |plain| of gm and gmom together for P2G, of each
-    component's window for the splat)."""
+    component's window for the splat, of each output (dx and each grid
+    cotangent) for the backwards)."""
+    if name in ("g2p_bwd", "gather_bwd"):
+        errs = _errors(got, want, BWD_OUTPUTS)
+        return (max(e[0] for e in errs.values()),
+                max(e[1] for e in errs.values()))
+    got, want = _slab_flat(name, got), _slab_flat(name, want)
     diff = (got.double() - want).abs()
     if name == "p2g":
         return (diff.max().item(),
@@ -821,78 +865,114 @@ def _slab_rel(name, got, want, wx):
             (by_component(diff) / scale.clamp(min=1e-30)).max().item())
 
 
+def _particle_cols(name, args):
+    """The positions of ``args`` that hold one column a particle: x and
+    the values (P2G, splat: (x, src, corner, window, inv_dx)) or x and the
+    cotangent (the backwards: (x, gv0, gv1, gv2, corner, window, inv_dx,
+    cot))."""
+    return (0, 1) if name in ("p2g", "splat") else (0, 7)
+
+
+def slab_turns(name, args, label):
+    """The first design and the y-slab kernel ``name`` (a backward) on the
+    same ``args`` in turns (old, new, new, old), call ms (CUDA events) and
+    device ms (torch.profiler) each; recorded, not a gate."""
+    kernel, _, _, old = slab_fns(name)
+    turns = [cuda_time_ms(lambda: f(*args))
+             for f in (old, kernel, kernel, old)]
+    return {"atomic_ms": turns[0::3], "slab_ms": turns[1:3],
+            "atomic_device_ms": device_ms(f"{name}_atomic {label}",
+                                          lambda: old(*args)),
+            "slab_device_ms": device_ms(f"{name} slab {label}",
+                                        lambda: kernel(*args))}
+
+
 def check_slab(name, args, gen, time_it):
-    """The y-slab kernel ``name`` ("p2g" or "splat") on ``args`` (a y-sorted
-    state and its window) and on a random permutation of its particles:
-    within 1e-5 of the float64 plain version (as the kernel's entry
-    measures it), the spilled-particle count of each order (0 sorted),
-    SLAB_REPEATS calls bit-identical, and the plan (tiles, slab rows,
-    dynamic shared bytes); with ``time_it`` the first design's kernel and
-    this one timed in turns (old, new, new, old: this one must be
-    faster)."""
+    """The y-slab kernel ``name`` (a key of SLAB_SHAPES) on ``args`` (a
+    y-sorted state and its window) and on a random permutation of its
+    particles: within 1e-5 of the float64 plain version or vjp (as the
+    kernel's entry measures it), the spilled-particle count of each order
+    (0 sorted), SLAB_REPEATS calls bit-identical, and the plan (tiles, slab
+    rows, dynamic shared bytes); for a backward the particles whose
+    cotangent is nonzero, and with ``time_it`` its first design timed
+    beside it (slab_turns)."""
     import torch
     from softmac_tpu_torch.ops import transfer
-    kernel, wrapper = getattr(transfer, "_" + name), getattr(transfer, name)
-    x, src, corner, sizes, inv_dx = args
-    want = _slab_flat(name, getattr(transfer, name + "_plain")(
-        *map(_f64, args)))
-    plan = transfer.slab_plan(*((4, 13) if name == "p2g" else (3, 3)),
-                              x.shape[1], transfer.SLAB_TILE, tuple(sizes))
+    kernel, wrapper, plain, _ = slab_fns(name)
+    x, sizes = args[0], args[-2] if name in ("p2g", "splat") else args[5]
+    bwd = name.endswith("_bwd")
+    want = plain(*map(_f64, args))
+    plan = transfer.slab_plan(*SLAB_SHAPES[name], x.shape[1],
+                              transfer.SLAB_TILE, tuple(sizes))
     res = {"plan": dict(zip(("tiles", "tile", "rows", "smem_bytes",
                              "tile_doubles"), plan)),
            "window": list(sizes)}
+    cols = _particle_cols(name, args)
+    if bwd:
+        res["active"] = int((args[cols[1]] != 0).any(dim=0).sum())
     perm = torch.randperm(x.shape[1], generator=gen, device=x.device)
-    for order, xs, ss in (("sorted", x, src),
-                          ("permuted", x[:, perm].contiguous(),
-                           src[:, perm].contiguous())):
-        outs = [_slab_flat(name, kernel(xs, ss, corner, sizes, inv_dx))
-                for _ in range(SLAB_REPEATS)]
+    permuted = tuple(a[:, perm].contiguous() if i in cols else a
+                     for i, a in enumerate(args))
+    # the backwards' dx follows the particles; the windows do not
+    want_perm = (want[0][:, perm],) + tuple(want[1:]) if bwd else want
+    for order, a, w in (("sorted", args, want),
+                        ("permuted", permuted, want_perm)):
+        outs = [kernel(*a) for _ in range(SLAB_REPEATS)]
         torch.cuda.synchronize()
-        err, rel = _slab_rel(name, outs[0], want, sizes[0])
+        err, rel = _slab_rel(name, outs[0], w, sizes[0])
         res[order] = {"max_abs_err": err, "max_rel_err": rel,
                       "spilled": int(wrapper.spilled),
                       "repeats_bit_identical": all(
-                          torch.equal(o, outs[0]) for o in outs[1:])}
+                          all(torch.equal(p, q) for p, q in
+                              zip(_as_tuple(o), _as_tuple(outs[0])))
+                          for o in outs[1:])}
     if time_it:
-        old = getattr(transfer, name + "_atomic")
-        turns = [cuda_time_ms(lambda: f(*args))
-                 for f in (old, kernel, kernel, old)]
-        res["atomic_ms"], res["slab_ms"] = turns[0::3], turns[1:3]
+        res.update(slab_turns(name, args, f"seeded {sizes}"))
     if not (res["sorted"]["spilled"] == 0
-            and all(res[o]["max_rel_err"] <= 1e-5
+            and all(res[o]["max_rel_err"] <= ROW_TOL
                     and res[o]["repeats_bit_identical"]
-                    for o in ("sorted", "permuted"))
-            and (not time_it or max(res["slab_ms"]) < min(res["atomic_ms"]))):
+                    for o in ("sorted", "permuted"))):
         raise AssertionError(f"{name} y-slab check: {res}")
     return res
 
 
 def check_slab_kernels(inp, pour_inp):
-    """check_slab of P2G and the splat on the pour_vel and the pour states
-    (the main paths' y-sorted particles and windows; the splat on pour_vel
-    with seeded normal values, every particle active) and on the pour's
-    particles over the full 64^3 grid (no window: the widest rows). The
-    permuted orders must spill somewhere for each kernel (the spill path
-    ran). Returns {kernel: {state: result}}."""
+    """check_slab of P2G, the splat and the G2P and gather backwards on the
+    pour_vel and the pour states (the main paths' y-sorted particles,
+    windows and grids; the splat on pour_vel with seeded normal values,
+    every particle active; the backwards with seeded normal cotangents,
+    timed beside their first designs there) and on the pour's particles
+    over the full 64^3 grid (no window: the widest rows; seeded normal
+    grids for the backwards). The permuted orders must spill somewhere for
+    each kernel (the spill path ran). Returns {kernel: {state: result}}."""
     import torch
     x_v, x_p = inp["state"].x, pour_inp["state"].x
     gen = torch.Generator(device=x_v.device).manual_seed(11)
-    vals_v = torch.randn((3, x_v.shape[1]), generator=gen, device=x_v.device)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=x_v.device)
+    vals_v = normal(3, x_v.shape[1])
     ng = pour_inp["cfg"].n_grid
     zero = torch.zeros(3, dtype=torch.int32, device=x_p.device)
+    full_grids = tuple(normal(ng * ng, ng) for _ in range(3))
     cases = (("pour_vel", inp, x_v, inp["chan"], vals_v, inp["corner"],
-              inp["sizes"], True),
+              inp["sizes"], inp["grids"], True),
              ("pour", pour_inp, x_p, pour_inp["chan"], pour_inp["vals"],
-              pour_inp["corner"], pour_inp["sizes"], True),
+              pour_inp["corner"], pour_inp["sizes"], pour_inp["gvm"], True),
              ("full_grid", pour_inp, x_p, pour_inp["chan"], pour_inp["vals"],
-              zero, (ng, ng, ng), False))
-    res = {"p2g": {}, "splat": {}}
-    for state, src, x, chan, vals, corner, sizes, time_it in cases:
+              zero, (ng, ng, ng), full_grids, False))
+    res = {name: {} for name in SLAB_SHAPES}
+    for state, src, x, chan, vals, corner, sizes, grids, time_it in cases:
         inv_dx = src["cfg"].inv_dx
-        res["p2g"][state] = check_slab(
-            "p2g", (x, chan, corner, sizes, inv_dx), gen, time_it)
-        res["splat"][state] = check_slab(
-            "splat", (x, vals, corner, sizes, inv_dx), gen, time_it)
+        n = x.shape[1]
+        args = {"p2g": (x, chan, corner, sizes, inv_dx),
+                "splat": (x, vals, corner, sizes, inv_dx),
+                "g2p_bwd": (x, *grids, corner, sizes, inv_dx, normal(12, n)),
+                "gather_bwd": (x, *grids, corner, sizes, inv_dx,
+                               normal(3, n))}
+        for name, a in args.items():
+            res[name][state] = check_slab(
+                name, a, gen, time_it and name.endswith("_bwd"))
     for name, by_state in res.items():
         spilled = {k: (v["sorted"]["spilled"], v["permuted"]["spilled"])
                    for k, v in by_state.items()}
@@ -901,6 +981,59 @@ def check_slab_kernels(inp, pour_inp):
         if not any(p > 0 for _, p in spilled.values()):
             raise AssertionError(f"{name}: no permuted order spilled")
     return res
+
+
+def check_real_backward(keep, kernels):
+    """g2p_bwd and gather_bwd on the inputs kept from real calls of the
+    pour's gradient path (run_pour_grad's KeepCalls): the particles whose
+    cotangent is nonzero in every call of the counted run, and in each
+    kept call those particles and the SLAB_TILE tiles that hold any; the
+    kernel within ROW_TOL of the float64 plain vjp, its spills,
+    SLAB_REPEATS calls bit-identical, its first design timed beside it
+    (slab_turns) and the bound of what these inputs need (the particles
+    at zero read their cotangent and write dx only). Added to each
+    kernel's entry under "real"."""
+    import torch
+    from softmac_tpu_torch.ops import transfer
+    by_name = {k["name"]: k for k in kernels}
+    for name, k in keep.items():
+        kernel, _, plain, _ = slab_fns(name)
+        active = [int(a) for a in torch.stack(k.active).tolist()]
+        res = {"calls": len(active), "active_by_call": active,
+               "calls_with_active": sum(a > 0 for a in active),
+               "active_max": max(active),
+               "active_mean": statistics.mean(active), "kept": {}}
+        for call, args in sorted(k.kept.items()):
+            x, cot = args[0], args[-1]
+            n = x.shape[1]
+            wx, wy, wz = args[5]
+            cells = wx * wy * wz
+            nz = (cot != 0).any(dim=0)
+            tiles = torch.cat([nz, nz.new_zeros(-n % transfer.SLAB_TILE)]) \
+                .reshape(-1, transfer.SLAB_TILE).any(dim=1)
+            outs = [kernel(*args) for _ in range(SLAB_REPEATS)]
+            torch.cuda.synchronize()
+            err, rel = _slab_rel(name, outs[0], plain(*map(_f64, args)), wx)
+            n_act = int(nz.sum())
+            rows = cot.shape[0]
+            # every particle's cotangent read and dx written; x and the
+            # stencil's work only for the particles whose cotangent is
+            # nonzero; the grids read and their cotangents written once
+            b_ms, b_by = bound(name, n_act,
+                               4 * (rows * n + 3 * n_act + 3 * n + 6 * cells))
+            r = {"active": n_act, "tiles_with_active": int(tiles.sum()),
+                 "tiles": tiles.numel(), "max_abs_err": err,
+                 "max_rel_err": rel, "spilled": int(kernel.spilled),
+                 "repeats_bit_identical": all(
+                     all(torch.equal(p, q) for p, q in zip(o, outs[0]))
+                     for o in outs[1:]),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 **slab_turns(name, args, f"real {call}")}
+            res["kept"][call] = r
+            print(f"{name} real call {call}: {json.dumps(r)}", flush=True)
+            if not (rel <= ROW_TOL and r["repeats_bit_identical"]):
+                raise AssertionError(f"{name} on real inputs: {r}")
+        by_name[name]["real"] = res
 
 
 def band_particles(prim, body, n, gen):
@@ -949,26 +1082,6 @@ def tail_grads(x, body_pos, force, mask, gwrench):
                                                             body_pos))
         _, wr = contact._mixed_tail((None, f, mask), xl, bp)
         return torch.autograd.grad(wr, (f, xl, bp), gwrench)
-
-
-def v1_forward(cargs):
-    """The first design's forward as the main path ran it: its kernel,
-    then the wrench tail in PyTorch."""
-    from softmac_tpu_torch.ops import contact
-    x, body_pos = cargs[8], cargs[1]
-    return contact._mixed_tail(contact.collide_mixed_v1(*cargs), x, body_pos)
-
-
-def v1_backward(cargs, gout, gwrench):
-    """The first design's backward as the main path ran it: the eager
-    tail's autograd (its forward recorded again), then the kernel; the
-    tail's shares of x and body_pos added."""
-    from softmac_tpu_torch.ops import contact
-    x, body_pos = cargs[8], cargs[1]
-    _, force, mask = contact.collide_mixed_v1(*cargs)
-    gforce, gx, gbp = tail_grads(x, body_pos, force, mask, gwrench)
-    g = contact.collide_mixed_bwd_v1(*cargs, gout, gforce.contiguous())
-    return (g[0] + gbp,) + g[1:7] + (g[7] + gx, g[8])
 
 
 def split_backward(cargs, gout, gwrench):
@@ -1021,9 +1134,8 @@ def check_mixed_kernels(inp):
     ROW_TOL of its largest |value| away from the threshold, the wrench
     within BODY_TOL of its force's and its torque's; MIXED_REPEATS calls
     bit-identical, also on two streams at once (forward and backward, the
-    main path's particles); split against tiled within 1e-6. Timed in
-    turns with the first design's kernel and the eager tail (tiled,
-    first, first, tiled), call and device time."""
+    main path's particles); split against tiled within 1e-6. Call and
+    device time on each particle set."""
     import torch
     from softmac_tpu_torch.ops import contact, m33
     cfg, x = inp["cfg"], inp["state"].x
@@ -1034,8 +1146,8 @@ def check_mixed_kernels(inp):
     worst = {k: 0.0 for k in ("tiled_rows", "tiled_wrench", "split_rows",
                               "split_wrench", "split_vs_tiled")}
     abs_err = {"tiled": 0.0, "split": 0.0}
-    ms = {"merged": 0.0, "split": 0.0, "v1": 0.0}
-    turns = []
+    ms = {"merged": 0.0, "split": 0.0}
+    by_set = []
     plain_ms = 0.0
     nbytes = {"merged": 0, "split": 0}
     flops = 0
@@ -1118,26 +1230,16 @@ def check_mixed_kernels(inp):
                                      f"misses a case: {counts}")
             if label == "all in band" and counts["contacts"] != n:
                 raise AssertionError(f"collide_mixed: {counts}")
-            # tiled, first design + tail, first design + tail, tiled
-            t = [cuda_time_ms(lambda: contact.collide_mixed(*cargs)),
-                 cuda_time_ms(lambda: v1_forward(cargs)),
-                 cuda_time_ms(lambda: v1_forward(cargs)),
-                 cuda_time_ms(lambda: contact.collide_mixed(*cargs))]
             main = label == "main path"
-            dev = (device_ms("collide_mixed" if main
-                             else f"collide_mixed {b} {label}",
-                             lambda: contact.collide_mixed(*cargs)),
-                   device_ms(f"collide_mixed_v1 {b} {label}",
-                             lambda: v1_forward(cargs)))
-            turns.append({"body": b, "particles": label, "tiled_ms": t[0::3],
-                          "v1_and_tail_ms": t[1:3],
-                          "tiled_device_ms": dev[0],
-                          "v1_and_tail_device_ms": dev[1],
-                          "band": band})
+            t = cuda_time_ms(lambda: contact.collide_mixed(*cargs))
+            dev = device_ms("collide_mixed" if main
+                            else f"collide_mixed {b} {label}",
+                            lambda: contact.collide_mixed(*cargs))
+            by_set.append({"body": b, "particles": label, "tiled_ms": t,
+                           "tiled_device_ms": dev, "band": band})
             if label != "main path":
                 continue
-            ms["merged"] += t[0]
-            ms["v1"] += t[1]
+            ms["merged"] += t
             ms["split"] += cuda_time_ms(lambda: contact.collide_mixed2(
                 prim, *body, xs, vs,
                 contact.collide_mixed1(prim, *body, xs, vs, dt), dt, p_mass,
@@ -1199,8 +1301,7 @@ def check_mixed_kernels(inp):
     entries[0]["repeats_bit_identical"] = MIXED_REPEATS
     entries[0]["two_streams_bit_identical"] = MIXED_REPEATS
     entries[0]["band"] = bands
-    entries[0]["v1_and_tail_ms"] = ms["v1"]
-    entries[0]["turns"] = turns
+    entries[0]["by_particle_set"] = by_set
     entries[0]["plain_is"] = "collide_mixed_wrench_plain in float32"
     entries[-1]["split_vs_merged_rel_err"] = worst["split_vs_tiled"]
     entries[-1]["split_vs_merged_tolerance"] = 1e-6
@@ -1285,8 +1386,8 @@ def check_mixed_backward(inp, normal):
     face-crossing particles counted there) and (the glass) on particles
     all in the band: dx, dv within ROW_TOL, the 16 body floats within
     BODY_TOL of their group's largest |value|; MIXED_REPEATS calls
-    bit-identical; the split within 1e-6 of the tiled. Timed in turns with
-    the first design's backward and the eager tail's autograd."""
+    bit-identical; the split within 1e-6 of the tiled. Call and device
+    time on each particle set."""
     import torch
     from softmac_tpu_torch.ops import contact, m33
     cfg, x = inp["cfg"], inp["state"].x
@@ -1298,8 +1399,8 @@ def check_mixed_backward(inp, normal):
               "body_w": 3, "friction": 4, "softness": 5, "life": 6}
     worst = {k: (0.0, 0.0) for k in groups}
     split_worst = 0.0
-    ms = {"merged": 0.0, "split": 0.0, "v1": 0.0}
-    turns = []
+    ms = {"merged": 0.0, "split": 0.0}
+    by_set = []
     plain_ms = 0.0
     nbytes = {"merged": 0, "split": 0}
     flops = 0
@@ -1362,29 +1463,18 @@ def check_mixed_backward(inp, normal):
                                                "face_crossing")) == 0):
                 raise AssertionError(f"collide_mixed_bwd: body {b}'s SDF box "
                                      f"misses a case: {counts}")
-            # tiled, first design + tail, first design + tail, tiled
-            t = [cuda_time_ms(lambda: contact.collide_mixed_bwd(
-                     *cargs, gout, gwrench)),
-                 cuda_time_ms(lambda: v1_backward(cargs, gout, gwrench)),
-                 cuda_time_ms(lambda: v1_backward(cargs, gout, gwrench)),
-                 cuda_time_ms(lambda: contact.collide_mixed_bwd(
-                     *cargs, gout, gwrench))]
             main = label == "main path"
-            dev = (device_ms("collide_mixed_bwd" if main
-                             else f"collide_mixed_bwd {b} {label}",
-                             lambda: contact.collide_mixed_bwd(
-                                 *cargs, gout, gwrench)),
-                   device_ms(f"collide_mixed_bwd_v1 {b} {label}",
-                             lambda: v1_backward(cargs, gout, gwrench)))
-            turns.append({"body": b, "particles": label, "tiled_ms": t[0::3],
-                          "v1_and_tail_ms": t[1:3],
-                          "tiled_device_ms": dev[0],
-                          "v1_and_tail_device_ms": dev[1],
-                          "band": band})
+            t = cuda_time_ms(lambda: contact.collide_mixed_bwd(
+                *cargs, gout, gwrench))
+            dev = device_ms("collide_mixed_bwd" if main
+                            else f"collide_mixed_bwd {b} {label}",
+                            lambda: contact.collide_mixed_bwd(
+                                *cargs, gout, gwrench))
+            by_set.append({"body": b, "particles": label, "tiled_ms": t,
+                           "tiled_device_ms": dev, "band": band})
             if label != "main path":
                 continue
-            ms["merged"] += t[0]
-            ms["v1"] += t[1]
+            ms["merged"] += t
             st1 = contact.collide_mixed1(prim, *body, xs, vs, dt)
             _, force, fmask = contact.collide_mixed2(prim, *body, xs, vs, st1,
                                                      dt, p_mass, cap)
@@ -1450,8 +1540,7 @@ def check_mixed_backward(inp, normal):
         e["per_substep"] = len(inp["contacts"])
         entries.append(e)
     entries[0]["repeats_bit_identical"] = MIXED_REPEATS
-    entries[0]["v1_and_tail_ms"] = ms["v1"]
-    entries[0]["turns"] = turns
+    entries[0]["by_particle_set"] = by_set
     entries[0]["plain_is"] = "collide_mixed_wrench_vjp_plain in float32"
     entries[-1]["split_vs_merged_rel_err"] = split_worst
     entries[-1]["split_vs_merged_tolerance"] = 1e-6
@@ -1769,15 +1858,60 @@ def pour_grad_expect(env, steps, remat, split=False):
     return expect
 
 
+class KeepCall:
+    """Stands in for a backward wrapper of ops/transfer.py: passes every
+    call on, keeps a copy of the inputs of the calls numbered in ``keep``
+    (from 1), and counts, on the card, the particles whose cotangent (the
+    last argument) is nonzero in each of the first ``first`` calls. Its
+    ``launches`` is the wrapped function's, so the launch counts read
+    through it stay exact."""
+
+    def __init__(self, fn, keep, first):
+        self.fn, self.keep, self.first = fn, keep, first
+        self.calls, self.kept, self.active = 0, {}, []
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+    def __call__(self, *args):
+        import torch
+        self.calls += 1
+        if self.calls in self.keep:
+            self.kept[self.calls] = tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args)
+        if self.calls <= self.first:
+            self.active.append((args[-1] != 0).any(dim=0).sum())
+        return self.fn(*args)
+
+
 def run_pour_grad(env):
     """The flagship's gradient main path: rollout_and_grad of SLICE_STEPS
-    env steps of zero actions (loss_start_frame 0, loss_stride 20)."""
+    env steps of zero actions (loss_start_frame 0, loss_stride 20). The
+    inputs of the CAPTURE_CALLS of gather_bwd and of g2p_bwd in
+    the first counted call (remat "step") are kept, with the count of
+    nonzero cotangent columns of each of its calls: the KeepCall of each
+    kernel is returned, by name."""
     import numpy as np
-    out, launches = run_gradient(
-        "pour_grad", env, np.zeros((SLICE_STEPS, env.action_dim)),
-        lambda remat: pour_grad_expect(env, SLICE_STEPS, remat),
-        list(range(6)), POUR_WINDOW)      # the glass's torque and force
-    return {"scene": "demo_pour", "actions": "zero", **out}, launches
+    from softmac_tpu_torch.ops import transfer
+    first = pour_grad_expect(env, SLICE_STEPS, "step")
+    keep = {name: KeepCall(getattr(transfer, name), CAPTURE_CALLS,
+                           first[name]) for name in REAL_BWD}
+    for name, k in keep.items():
+        setattr(transfer, name, k)
+    try:
+        out, launches = run_gradient(
+            "pour_grad", env, np.zeros((SLICE_STEPS, env.action_dim)),
+            lambda remat: pour_grad_expect(env, SLICE_STEPS, remat),
+            list(range(6)), POUR_WINDOW)      # the glass's torque and force
+    finally:
+        for name, k in keep.items():
+            setattr(transfer, name, k.fn)
+    return {"scene": "demo_pour", "actions": "zero", **out}, launches, keep
 
 
 def run_pour_split_grad(env):
@@ -1841,11 +1975,13 @@ def run_profile(env, acts, grad=False):
     busy_us = sum(t for t, _ in by_name.values())
     n_sub = steps * env.substeps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    # the y-slab P2G and splat: scatter and reduce launches (their names
-    # carry the template argument)
+    # the y-slab kernels: scatter and reduce launches (their names carry
+    # the template argument)
     scatter = {k: sum(t for name, (t, _) in by_name.items() if tag in name)
                / 1e3 / n_sub
-               for k, tag in (("p2g", "P2GValues"), ("splat", "SplatValues"))}
+               for k, tag in (("p2g", "P2GValues"), ("splat", "SplatValues"),
+                              ("g2p_bwd", "G2PBwdValues"),
+                              ("gather_bwd", "GatherBwdValues"))}
     import re
     # the port's own kernels: device ms a launch and launches a substep
     ours = {k[:90]: {"device_ms_per_launch": t / 1e3 / c,
@@ -3119,7 +3255,9 @@ def main():
                                               grad_launches["none"])
     pour_res, paths["pour"] = run_pour(pour_env)
     split_res, paths["pour_split"] = run_pour_split(pour_env)
-    pour_grad_res, pour_grad_launches = run_pour_grad(pour_env)
+    pour_grad_res, pour_grad_launches, real_bwd = run_pour_grad(pour_env)
+    check_real_backward(real_bwd, kernels)
+    del real_bwd
     paths["pour_grad_step"], paths["pour_grad_none"] = (
         pour_grad_launches["step"], pour_grad_launches["none"])
     split_grad_res, paths["pour_split_grad"] = run_pour_split_grad(pour_env)

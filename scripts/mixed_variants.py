@@ -19,9 +19,7 @@ bowl, and 1e5 particles of the glass's SDF box all in the contact band) it
 holds the library's tiled forward and backward against the float64 plain
 version and its vjp, counts the band's particles (all and in the fullest
 tile), and times every build with CUDA events (call time, 50 calls after
-a warm-up) and torch.profiler (device time); beside them the first
-design's kernels with the eager wrench tail and its autograd, as the main
-path ran them before.
+a warm-up) and torch.profiler (device time).
 Prints one JSON object; the card's name and power limit on the lines
 around it. Needs a card and nvcc; exits non-zero without them.
 """
@@ -205,13 +203,10 @@ def case(cs, contact, copies, cargs, gout, gwrench):
         tile = int(name.split()[-1])
         timed[name] = copy_calls(contact, lib, cargs, gout, gwrench, tile,
                                  tile)
-    timed["v1 and tail"] = (lambda: cs.v1_forward(cargs),
-                            lambda: cs.v1_backward(cargs, gout, gwrench))
     for key, (fwd, bwd) in timed.items():
         got = fwd()
         out[key] = {"equal_to_default": bool(
-            torch.equal(got[0], pv) and torch.equal(got[1], wr))} \
-            if not key.startswith("v1") else {}
+            torch.equal(got[0], pv) and torch.equal(got[1], wr))}
         out[key].update({
             "fwd_ms": cs.cuda_time_ms(fwd, 50),
             "fwd_device_ms": cs.device_ms("fwd " + key, fwd),

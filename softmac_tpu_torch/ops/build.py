@@ -32,25 +32,23 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every kernel entry point (argument types, in order)
 SIGNATURES = {
     "softmac_p2g": [_P] * 7 + [_I] * 5 + [_F, _P],
-    "softmac_p2g_atomic": [_P] * 5 + [_I] * 4 + [_F, _P],
     "softmac_slab_plan": [_I] * 7 + [_P],
     "softmac_g2p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "softmac_collide_particle": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "softmac_p2g_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
-    "softmac_g2p_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
+    "softmac_g2p_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "softmac_g2p_bwd_atomic": [_P] * 9 + [_I] * 4 + [_F, _P],
     "softmac_collide_particle_bwd": [_P] * 8 + [_I] * 4 + [_F] * 9 + [_P],
     "softmac_gather": [_P] * 6 + [_I] * 4 + [_F, _P],
     "softmac_splat": [_P] * 7 + [_I] * 5 + [_F, _P],
-    "softmac_splat_atomic": [_P] * 5 + [_I] * 4 + [_F, _P],
     "softmac_collide_mixed": [_P] * 14 + [_I] * 4 + [_F] * 10 + [_P],
-    "softmac_collide_mixed_v1": [_P] * 7 + [_I] * 4 + [_F] * 10 + [_P],
     "softmac_collide_mixed1": [_P] * 5 + [_I] * 4 + [_F] * 8 + [_P],
     "softmac_collide_mixed2": [_P] * 8 + [_I] * 4 + [_F] * 10 + [_P],
-    "softmac_gather_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
+    "softmac_gather_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "softmac_gather_bwd_atomic": [_P] * 9 + [_I] * 4 + [_F, _P],
     "softmac_splat_bwd": [_P] * 6 + [_I] * 4 + [_F, _P],
     "softmac_collide_mixed_bwd": [_P] * 17 + [_I] * 4 + [_F] * 10 + [_P],
-    "softmac_collide_mixed_bwd_v1": [_P] * 9 + [_I] * 4 + [_F] * 10 + [_P],
     "softmac_collide_mixed1_bwd": [_P] * 8 + [_I] * 4 + [_F] * 8 + [_P],
     "softmac_collide_mixed2_bwd": [_P] * 10 + [_I] * 4 + [_F] * 10 + [_P],
     "softmac_fused_p2g": [_P] * 9 + [_I] * 4 + [_P],

@@ -289,9 +289,8 @@ collide_particle_bwd.launches = 0
 # contact) comes with p_v_out, as ``pallas_contact._fused12_factory``'s
 # custom_vjp returns them: the tiled kernel sums it on the card
 # (``collide_mixed``, ``CollideMixed``); its plain version is
-# ``collide_mixed_wrench_plain``. ``collide_mixed_plain``, the split stages
-# and the first design's kernel (``collide_mixed_v1``) return p_v_out
-# (3, N), the unmasked reaction force (v - p_v_out) p_mass / dt (3, N) and
+# ``collide_mixed_wrench_plain``. ``collide_mixed_plain`` and the split
+# stages return p_v_out (3, N), the unmasked reaction force (v - p_v_out) p_mass / dt (3, N) and
 # the contact mask dist(x) <= threshold (N,); on the split path the wrench
 # is ``_mixed_tail``'s PyTorch reduction of those.
 # ---------------------------------------------------------------------------
@@ -609,24 +608,6 @@ def _collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
                          x, dt, p_mass, push_cap)
 
 
-def collide_mixed_v1(prim, body_pos, body_quat, body_v, body_w, friction,
-                     softness, life, x, v, dt, p_mass, push_cap=None):
-    """The first design's merged forward (``contact_mixed_v1.cu``, one
-    thread a particle), kept for timing against the tiled kernel: the
-    outputs of ``collide_mixed_plain`` on CUDA float32 tensors."""
-    args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
-    body, n = _check_mixed("collide_mixed_v1", prim, args, x, v)
-    p_v_out, force, mask = _mixed_outputs(x)
-    rc = build.library().softmac_collide_mixed_v1(
-        x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
-        body.data_ptr(), p_v_out.data_ptr(), force.data_ptr(),
-        mask.data_ptr(), n, *prim.res, *prim.geom, float(dt), float(p_mass),
-        _cap(push_cap), torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "collide_mixed_v1")
-    collide_mixed_v1.launches += 1
-    return p_v_out, force, mask
-
-
 def _collide_mixed_split(prim, args, x, v, dt, p_mass, push_cap):
     st1 = collide_mixed1(prim, *args, x, v, dt)
     return collide_mixed2(prim, *args, x, v, st1, dt, p_mass, push_cap), st1
@@ -729,29 +710,6 @@ def collide_mixed_bwd(prim, body_pos, body_quat, body_v, body_w, friction,
     call = _mixed_call("collide_mixed_bwd", prim, args, x, v)
     return _mixed_bwd_launch(call, prim, x, dt, p_mass, push_cap, gout,
                              gwrench)
-
-
-def collide_mixed_bwd_v1(prim, body_pos, body_quat, body_v, body_w,
-                         friction, softness, life, x, v, dt, p_mass,
-                         push_cap, gout, gforce):
-    """The first design's merged backward (``contact_mixed_v1.cu``), kept
-    for timing: the cotangents ``collide_mixed_vjp_plain`` returns, the
-    body's from (16, blocks) float64 block sums and ``torch.sum``."""
-    args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
-    body, n = _check_mixed("collide_mixed_bwd_v1", prim, args, x, v)
-    _check_cotangents("collide_mixed_bwd_v1", x, gout, gforce)
-    dx = torch.empty_like(x)
-    dv = torch.empty_like(x)
-    part = _part(x, n)
-    rc = build.library().softmac_collide_mixed_bwd_v1(
-        x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
-        body.data_ptr(), gout.data_ptr(), gforce.data_ptr(), dx.data_ptr(),
-        dv.data_ptr(), part.data_ptr(), n, *prim.res, *prim.geom, float(dt),
-        float(p_mass), _cap(push_cap),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "collide_mixed_bwd_v1")
-    collide_mixed_bwd_v1.launches += 1
-    return _body_cotangents(part, x.dtype) + (dx, dv)
 
 
 def collide_mixed2_bwd(prim, body_pos, body_quat, body_v, body_w, friction,
@@ -921,5 +879,3 @@ collide_mixed2.launches = 0
 collide_mixed_bwd.launches = 0
 collide_mixed1_bwd.launches = 0
 collide_mixed2_bwd.launches = 0
-collide_mixed_v1.launches = 0
-collide_mixed_bwd_v1.launches = 0

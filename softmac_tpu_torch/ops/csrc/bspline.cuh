@@ -1,5 +1,6 @@
-// Quadratic B-spline stencil code shared by the P2G and G2P kernels and
-// their backward kernels. Same math as mpm.axis_weights and the Pallas
+// Quadratic B-spline stencil code shared by the x-based transfer kernels
+// (P2G, G2P, gather, splat, their backwards and the y-slab scatter of
+// slab.cuh). Same math as mpm.axis_weights and the Pallas
 // weight construction in pallas_chunked._waxis of the JAX package:
 //   p = x * inv_dx, base = floor(p - 0.5), fx = p - base,
 //   w  = (0.5 (1.5 - fx)^2, 0.75 - (fx - 1)^2, 0.5 (fx - 0.5)^2),
@@ -75,14 +76,15 @@ __device__ __forceinline__ void particle_stencil(const float* __restrict__ x,
   }
 }
 
-// Momentum-type splat of one particle into float64 window accumulators:
-// for every stencil cell inside the window
+// Momentum-type splat of one particle into float64 window accumulators by
+// atomics in device memory: for every stencil cell inside the window
 //   gm[row * wx + cx]                          += W * mass   (gm != nullptr)
 //   gmom[row * row_stride + d * comp_stride + cx] += W mom_d + WxD a_d0
 //                                                  + WDy a_d1 + WDz a_d2
-// with row = cy * wz + cz. P2G splats (mass, momentum, dx * affine) into
-// the (wy*wz, 3*wx) momentum layout; G2P's backward splats the velocity
-// and C cotangents into three (wy*wz, wx) grids.
+// with row = cy * wz + cz. Only the first designs of the G2P and gather
+// backwards (softmac_g2p_bwd_atomic, softmac_gather_bwd_atomic) still use
+// it: they splat the velocity (and C) cotangents into three (wy*wz, wx)
+// grids. The kernels the port runs scatter through slab.cuh.
 __device__ __forceinline__ void splat_stencil(const Axis ax[3], const int rel[3],
                                               int wx, int wy, int wz,
                                               double* gm, float mass,

@@ -1,8 +1,7 @@
 // Forecast mixed contact against one SDF primitive: what the tiled kernels
-// (contact_mixed.cu, contact_mixed_bwd.cu), the split pair and the first
-// design (contact_mixed_v1.cu) share. The math is contact.cuh's
-// mixed_stage1 / mixed_stage2 and their reverse sweeps, in double on the
-// float inputs (contact_mixed.cu says why).
+// (contact_mixed.cu, contact_mixed_bwd.cu) and the split pair share. The
+// math is contact.cuh's mixed_stage1 / mixed_stage2 and their reverse
+// sweeps, in double on the float inputs (contact_mixed.cu says why).
 //
 // The tiled design. A block of kMixedThreads threads takes a tile of
 // consecutive particles (kMixedPer a thread, 512, for the forward, whose
@@ -485,8 +484,8 @@ __device__ __forceinline__ void mixed_tiled(const MixedArgs& a) {
 inline int mixed_blocks(int n, int tile) { return (n + tile - 1) / tile; }
 
 // Fixed-order tree reduction of the block's 16 body cotangents into
-// part[i * gridDim.x + blockIdx.x] (the split's and the first design's
-// backward kernels, one thread a particle). Every thread of the block
+// part[i * gridDim.x + blockIdx.x] (the split's backward kernels, one
+// thread a particle). Every thread of the block
 // calls it.
 __device__ __forceinline__ void reduce_body(const double gb[16],
                                             double* __restrict__ part) {

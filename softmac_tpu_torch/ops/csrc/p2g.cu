@@ -16,12 +16,12 @@
 //
 // What bounds it on the H100: by bytes it reads 16 floats a particle
 // (13 channels + 3 positions, 6.4 MB at 1e5 particles) and writes the
-// window once, about 2 us at 3.35 TB/s. What held the first design back
-// was the 108 float64 atomics a particle performed in device memory: the
-// rollout keeps the particles sorted by y-cell, so neighbouring threads
-// hit the same ~16k cells and their atomics queue in L2 (0.29 ms at 1e5
-// particles on an H100, where the gather, the same stencil without
-// atomics, takes 0.04).
+// window once, about 2 us at 3.35 TB/s. What held the first design (one
+// thread a particle) back was the 108 float64 atomics a particle
+// performed in device memory: the rollout keeps the particles sorted by
+// y-cell, so neighbouring threads hit the same ~16k cells and their
+// atomics queue in L2 (0.29 ms at 1e5 particles on an H100, where the
+// gather, the same stencil without atomics, takes 0.04).
 //
 // Design (slab.cuh): the TPU kernel's idea on Hopper's shared memory. A
 // block takes a tile of consecutive sorted particles and the y rows their
@@ -42,18 +42,13 @@
 // apart). It also keeps the kernel within 3e-8 of the exact sum, where
 // float32 atomics came to 5-7e-6 of the largest cell on the 1e5-particle
 // pour scene (H100).
-//
-// The first design, one thread per particle with float64 atomicAdd into a
-// zeroed window (bspline.cuh splat_stencil, shared with G2P's backward),
-// stays as softmac_p2g_atomic, which only chip_smoke.py calls to time the
-// two in turns.
 #include "slab.cuh"
 
 namespace {
 
 // one particle's mass, momentum and dx * affine; channel 0 is the mass,
 // 1 + d the momentum component d
-struct P2GValues {
+struct P2GValues : softmac::SlabNoParticleOutput {
   static constexpr int kChannels = 4, kInputs = 13;
   float mass, mom[3], a[3][3];
 
@@ -86,32 +81,11 @@ struct P2GValues {
   }
 };
 
-__global__ void p2g_kernel(const float* __restrict__ x,
-                           const float* __restrict__ chan,
-                           const int* __restrict__ corner,
-                           double* __restrict__ gm,
-                           double* __restrict__ gmom,
-                           int n, int wx, int wy, int wz, float inv_dx) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-
-  softmac::Axis ax[3];
-  int rel[3];
-  softmac::particle_stencil(x, n, p, corner, inv_dx, ax, rel);
-  const float mass = chan[p];
-  float mom[3], a[3][3];
-  for (int d = 0; d < 3; ++d) {
-    mom[d] = chan[(1 + d) * n + p];
-    for (int j = 0; j < 3; ++j) a[d][j] = chan[(4 + 3 * d + j) * n + p];
-  }
-  softmac::splat_stencil(ax, rel, wx, wy, wz, gm, mass, gmom, 3 * wx, wx,
-                         mom, a);
-}
-
 }  // namespace
 
 // The cut of one call for `channels` channels of `inputs` rows (P2G 4 of
-// 13, the splat 3 of 3) at a requested tile: out[0..4] = tiles, the tile,
+// 13, the splat 3 of 3, G2P's backward 3 of 12, the gather's backward 3
+// of 3) at a requested tile: out[0..4] = tiles, the tile,
 // slab rows, dynamic shared bytes a block, doubles of one tile's partial
 // slab. Host only.
 extern "C" int softmac_slab_plan(int channels, int inputs, int n, int tile,
@@ -144,21 +118,4 @@ extern "C" int softmac_p2g(const float* x, const float* chan, const int* corner,
                                plan.tile, 1, wx, wy, wz, inv_dx, plan};
   return softmac::slab_launch<P2GValues>(a, out,
                                          static_cast<cudaStream_t>(stream));
-}
-
-// The first design (see above): acc 4 * wy*wz*wx doubles zeroed by the
-// caller (the mass window, then the momentum window); out as softmac_p2g.
-extern "C" int softmac_p2g_atomic(const float* x, const float* chan,
-                                  const int* corner, double* acc, float* out,
-                                  int n, int wx, int wy, int wz, float inv_dx,
-                                  void* stream) {
-  const int cells = wx * wy * wz;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    p2g_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0, s>>>(
-        x, chan, corner, acc, acc + cells, n, wx, wy, wz, inv_dx);
-  }
-  softmac::round_to_float<<<softmac::blocks_for(4 * cells), softmac::kThreads,
-                            0, s>>>(acc, out, 4 * cells);
-  return static_cast<int>(cudaGetLastError());
 }

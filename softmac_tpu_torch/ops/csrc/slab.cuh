@@ -1,9 +1,11 @@
-// Shared-memory y-slab tiles: the scatter of P2G and the splat, without
-// atomics inside a block.
+// Shared-memory y-slab tiles: the scatter of P2G, the splat and the grid
+// halves of G2P's and the gather's backwards, without atomics inside a
+// block.
 //
-// The TPU kernels these replace (pallas_chunked._p2g_c_kernel and
-// _splat_c_kernel) keep a sorted particle tile's 16-row y-window of the
-// grid in VMEM and add it to the grid once. Here a block takes `tile`
+// The TPU kernels these replace (pallas_chunked._p2g_c_kernel,
+// _splat_c_kernel, _g2p_c_bwd_kernel and _gather_c_bwd_kernel) keep a
+// sorted particle tile's 16-row y-window of the grid (or of the grid
+// cotangent) in VMEM and add it to the grid once. Here a block takes `tile`
 // consecutive particles of the rollout's y-sorted order and finds the
 // window rows their stencils reach; up to `rows` of them form its slab.
 // It stages the particles' values in shared
@@ -40,21 +42,29 @@
 // first row ylo_t: partial[t * tile_doubles + e - ylo_t * wz * C * wx].
 // A particle's base cell (bx, by, bz) relative to the window has the key
 // ((by - ylo + 2) * (wz + 2) + bz + 2) * (wx + 2) + bx + 2. The output
-// has `lead` channels in a first array (wy*wz, lead*wx) and the others in
-// a second one after it (wy*wz, (C-lead)*wx): P2G's gm and gmom (lead 1),
-// the splat's one window (lead 0).
+// holds the first `lead` channels each in a (wy*wz, wx) grid of its own,
+// one after the other, and the others interleaved in one (wy*wz,
+// (C-lead)*wx) array after them: P2G's gm and gmom (lead 1), the splat's
+// one window (lead 0), the backwards' three grid cotangents (lead 3).
 //
 // A block runs its phases in order with a barrier between each (the host
 // tests run them the same way, one phase over all threads at a time):
 //   slab_begin, slab_bounds, slab_stage, slab_sort_step for each (k, j)
 //   of the bitonic network, slab_offsets, slab_cell + slab_put for each
 //   slab cell, and slab_count;
-// then, in the second launch, slab_reduce_clear, slab_reduce_mark and
-// slab_reduce once per output element. `Values` gives a particle's
-// channel values (P2GValues in p2g.cu, SplatValues in splat.cu):
+// then, in the second launch, slab_reduce_clear, slab_reduce_mark,
+// slab_reduce_list and slab_reduce once per output element. `Values`
+// gives a particle's channel values (P2GValues in p2g.cu, G2PBwdValues in
+// g2p_bwd.cu, and SplatValues in splat.cu and GatherBwdValues in
+// gather_bwd.cu, both on SlabThreeValues below):
 // kChannels, kInputs (rows of src), active(src, n, p), constructors from
 // (rows, stride, index) and from the staged float4s, and
-// value(c, W, WxD, WDy, WDz).
+// value(c, W, WxD, WDy, WDz); and two hooks of slab_stage for an output a
+// particle (SlabNoParticleOutput where there is none): finish(a, p, ax,
+// rel) for an active particle, whose weights and window-relative base it
+// gets, and skip(a, p) for an inactive one. The backwards write the
+// position cotangent dx there, a gather through the weights (bspline.cuh
+// stencil_adjoint) from the grids a.grid: no atomics either.
 #pragma once
 
 #include "bspline.cuh"
@@ -133,7 +143,9 @@ inline SlabPlan slab_plan(int channels, int inputs, int n, int tile, int wx,
 }
 
 // Everything a scatter launch reads; src holds the particles' values
-// (P2G's 13 channel rows, the splat's 3).
+// (P2G's 13 channel rows, the splat's 3, the backwards' cotangent rows: 12
+// of G2P, 3 of the gather). grid and dx only for the backwards' position
+// half: the three (wy*wz, wx) velocity grids it reads and dx (3, n).
 struct SlabArgs {
   const float* x;
   const float* src;
@@ -144,6 +156,42 @@ struct SlabArgs {
   int n, tile, lead, wx, wy, wz;     // tile: the plan's
   float inv_dx;
   SlabPlan plan;
+  const float* grid[3];
+  float* dx;
+};
+
+// The stage hooks of a Values type with no output a particle (P2G, splat)
+struct SlabNoParticleOutput {
+  __device__ static void finish(const SlabArgs&, int, const Axis*,
+                                const int*) {}
+  __device__ static void skip(const SlabArgs&, int) {}
+};
+
+// Three values a particle, channel c W times value c: the splat's values,
+// the gather backward's cotangent. A particle whose values are all zero is
+// skipped: it would add W x 0 to sums that start at +0.
+struct SlabThreeValues : SlabNoParticleOutput {
+  static constexpr int kChannels = 3, kInputs = 3;
+  float v[3];
+
+  __device__ static bool active(const float* vals, int n, int p) {
+    return vals[p] != 0.f || vals[n + p] != 0.f || vals[2 * n + p] != 0.f;
+  }
+
+  // the 3 value rows of stride n at column p
+  __device__ SlabThreeValues(const float* vals, int n, int p) {
+    for (int d = 0; d < 3; ++d) v[d] = vals[d * n + p];
+  }
+
+  // the same values staged in a float4
+  __device__ explicit SlabThreeValues(const float4* f) {
+    const float4 f0 = f[0];
+    v[0] = f0.x, v[1] = f0.y, v[2] = f0.z;
+  }
+
+  __device__ float value(int c, float wgt, float, float, float) const {
+    return wgt * v[c];
+  }
 };
 
 // A block's shared bookkeeping: the rows [lo, hi) its particles reach, the
@@ -217,8 +265,9 @@ __device__ __forceinline__ SlabTile slab_tile(const SlabArgs& a, int tile,
 }
 
 // phase 2: stage each particle (inputs, weights) and its sort entry; add
-// the cells of its rows outside the slab to the spill window. Thread 0
-// writes the tile's rows.
+// the cells of its rows outside the slab to the spill window; run the
+// Values' hook of the particle (finish, or skip where it is inactive).
+// Thread 0 writes the tile's rows.
 template <class Values>
 __device__ __forceinline__ void slab_stage(const SlabArgs& a, int tile,
                                            const SlabTile& t,
@@ -235,10 +284,14 @@ __device__ __forceinline__ void slab_stage(const SlabArgs& a, int tile,
     t.sorted[q] = 0xffffffffu;
     if (q >= t.count) continue;
     const int p = t.p0 + q;
-    if (!Values::active(a.src, a.n, p)) continue;
+    if (!Values::active(a.src, a.n, p)) {
+      Values::skip(a, p);
+      continue;
+    }
     Axis ax[3];
     int rel[3];
     particle_stencil(a.x, a.n, p, a.corner, a.inv_dx, ax, rel);
+    Values::finish(a, p, ax, rel);
     float* v = reinterpret_cast<float*>(t.vals + q * P);
     for (int c = 0; c < 4 * P; ++c) v[c] = c < I ? a.src[c * a.n + p] : 0.f;
     for (int d = 0; d < 3; ++d) {
@@ -406,10 +459,23 @@ __device__ __forceinline__ void slab_count(const SlabArgs& a,
 // The second launch. A block of it takes consecutive accumulation indices,
 // which lie in at most two y rows (first, last). Phase 0 clears a bit for
 // each tile and row, phase 1 sets those of the tiles whose slab covers the
-// row, phase 2 sums each index's partials over the set bits in tile order,
-// adds the spill window and rounds to float32 once.
+// row, phase 2 lists for each of the two rows the offsets of those tiles'
+// partials in tile order, and phase 3 sums each index's partials over its
+// row's list, adds the spill window and rounds to float32 once. The sum
+// takes kReduceWays partials at a time into as many sums (entry i into sum
+// i mod kReduceWays), added at the end in a fixed tree: a fixed order, with
+// that many loads in flight where one sum would wait for each load in turn
+// (a tile covers a few rows, a row is covered by tens of tiles).
+constexpr int kReduceWays = 8;
+
 __host__ __device__ __forceinline__ int slab_words(const SlabArgs& a) {
   return (a.plan.tiles + 31) / 32;
+}
+
+// Dynamic shared bytes of a reduce block: the two rows' lists (tiles each),
+// then the two rows' bits
+__host__ __device__ __forceinline__ int slab_reduce_smem(const SlabArgs& a) {
+  return 16 * a.plan.tiles + 8 * slab_words(a);
 }
 
 __device__ __forceinline__ void slab_reduce_clear(const SlabArgs& a,
@@ -432,30 +498,63 @@ __device__ __forceinline__ void slab_reduce_mark(const SlabArgs& a, int first,
   }
 }
 
-__device__ __forceinline__ void slab_reduce(const SlabArgs& a, int first,
-                                            int e, const unsigned* bits,
-                                            float* out) {
-  const int C = a.plan.channels, wx = a.wx;
-  const int rowd = C * wx, plane = a.wz * rowd;
-  const int row = e / rowd, cy = row / a.wz;
-  const unsigned* mine = bits + (cy == first / plane ? 0 : slab_words(a));
-  const double* src = a.partial + e - static_cast<long long>(cy) * plane;
+// a tile's partial of index e lies at partial[e + offset], offset =
+// t * tile_doubles - ylo_t * plane; one thread a word of bits writes its
+// tiles' offsets where the words before it in its row end
+__device__ __forceinline__ void slab_reduce_list(const SlabArgs& a,
+                                                 const unsigned* bits,
+                                                 long long* list) {
+  const int words = slab_words(a);
+  const int plane = a.wz * a.plan.channels * a.wx;
   const int2* meta = reinterpret_cast<const int2*>(a.meta);
-  double acc = 0.0;
-  for (int w = 0; w < slab_words(a); ++w) {
-    for (unsigned b = mine[w]; b != 0u; b &= b - 1u) {
-      const int t = 32 * w + __ffs(static_cast<int>(b)) - 1;
-      const int ylo = __ldg(meta + t).x;
-      acc += __ldg(src + t * a.plan.tile_doubles
-                   + static_cast<long long>(cy - ylo) * plane);
+  for (int w = threadIdx.x; w < 2 * words; w += blockDim.x) {
+    const int r = w / words, j = w - r * words;
+    int k = 0;
+    for (int i = 0; i < j; ++i) k += __popc(bits[r * words + i]);
+    long long* mine = list + static_cast<long long>(r) * a.plan.tiles;
+    for (unsigned b = bits[w]; b != 0u; b &= b - 1u) {
+      const int t = 32 * j + __ffs(static_cast<int>(b)) - 1;
+      mine[k++] = t * a.plan.tile_doubles
+                  - static_cast<long long>(__ldg(meta + t).x) * plane;
     }
   }
-  acc += a.spill[e];
+}
+
+__device__ __forceinline__ void slab_reduce(const SlabArgs& a, int first,
+                                            int e, const unsigned* bits,
+                                            const long long* list,
+                                            float* out) {
+  const int C = a.plan.channels, wx = a.wx, words = slab_words(a);
+  const int rowd = C * wx, plane = a.wz * rowd;
+  const int row = e / rowd, cy = row / a.wz;
+  const int r = cy == first / plane ? 0 : 1;
+  int count = 0;
+  for (int w = 0; w < words; ++w) count += __popc(bits[r * words + w]);
+  const long long* offs = list + static_cast<long long>(r) * a.plan.tiles;
+  const double* src = a.partial + e;
+  double sum[kReduceWays];
+#pragma unroll
+  for (int k = 0; k < kReduceWays; ++k) sum[k] = 0.0;
+  for (int i = 0; i < count; i += kReduceWays) {
+    double v[kReduceWays];
+#pragma unroll
+    for (int k = 0; k < kReduceWays; ++k) {
+      v[k] = i + k < count ? __ldg(src + offs[i + k]) : 0.0;
+    }
+#pragma unroll
+    for (int k = 0; k < kReduceWays; ++k) sum[k] += v[k];
+  }
+#pragma unroll
+  for (int h = kReduceWays / 2; h > 0; h >>= 1) {
+#pragma unroll
+    for (int k = 0; k < h; ++k) sum[k] += sum[k + h];
+  }
+  const double acc = sum[0] + a.spill[e];
   const int c = (e - row * rowd) / wx, cx = e - row * rowd - c * wx;
   const int cells = wx * a.wy * a.wz;
   const int lead = a.lead;
   const int idx = c < lead
-      ? (row * lead + c) * wx + cx
+      ? c * cells + row * wx + cx
       : lead * cells + (row * (C - lead) + c - lead) * wx + cx;
   out[idx] = static_cast<float>(acc);
 }
@@ -499,39 +598,48 @@ __global__ void __launch_bounds__(kSlabThreads) slab_scatter(SlabArgs a) {
 
 template <class Values>
 __global__ void slab_reduce_kernel(SlabArgs a, float* __restrict__ out) {
-  extern __shared__ unsigned slab_bits[];
+  extern __shared__ long long slab_list[];
+  unsigned* bits = reinterpret_cast<unsigned*>(slab_list + 2 * a.plan.tiles);
   const int count = a.plan.channels * a.wx * a.wy * a.wz;
   const int first = blockIdx.x * blockDim.x;
   const int last = imin(first + static_cast<int>(blockDim.x), count) - 1;
-  slab_reduce_clear(a, slab_bits);
+  slab_reduce_clear(a, bits);
   __syncthreads();
-  slab_reduce_mark(a, first, last, slab_bits);
+  slab_reduce_mark(a, first, last, bits);
+  __syncthreads();
+  slab_reduce_list(a, bits, slab_list);
   __syncthreads();
   const int e = first + threadIdx.x;
-  if (e <= last) slab_reduce(a, first, e, slab_bits, out);
+  if (e <= last) slab_reduce(a, first, e, bits, slab_list, out);
+}
+
+// Dynamic shared memory above 48 KB only after opting in, once for each
+// device and kernel
+template <class Kernel>
+inline void slab_allow(Kernel kernel, int bytes, unsigned& opted) {
+  if (bytes <= 48 * 1024) return;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(opted >> dev & 1u)) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kSlabSmemMax);
+    opted |= 1u << dev;
+  }
 }
 
 // The two launches of one call; returns cudaGetLastError().
 template <class Values>
 inline int slab_launch(const SlabArgs& a, float* out, cudaStream_t s) {
+  static unsigned scatter_opted = 0, reduce_opted = 0;
   if (a.plan.tiles > 0) {
-    if (a.plan.smem > 48 * 1024) {
-      // above 48 KB only after opting in, once for each device
-      static unsigned opted = 0;
-      int dev = 0;
-      cudaGetDevice(&dev);
-      if (!(opted >> dev & 1u)) {
-        cudaFuncSetAttribute(slab_scatter<Values>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSlabSmemMax);
-        opted |= 1u << dev;
-      }
-    }
+    slab_allow(slab_scatter<Values>, a.plan.smem, scatter_opted);
     slab_scatter<Values><<<a.plan.tiles, kSlabThreads, a.plan.smem, s>>>(a);
   }
   const int count = a.plan.channels * a.wx * a.wy * a.wz;
-  slab_reduce_kernel<Values><<<blocks_for(count), kThreads,
-                               8 * slab_words(a), s>>>(a, out);
+  const int smem = slab_reduce_smem(a);
+  slab_allow(slab_reduce_kernel<Values>, smem, reduce_opted);
+  slab_reduce_kernel<Values><<<blocks_for(count), kThreads, smem, s>>>(a,
+                                                                       out);
   return static_cast<int>(cudaGetLastError());
 }
 #endif

@@ -14,10 +14,11 @@
 //
 // What bounds it on the H100: by bytes it reads 6 floats a particle (x and
 // the values, 2.4 MB at 1e5 particles) and writes the window once, about
-// 0.8 us at 3.35 TB/s. What held the first design back was the 81 float64
-// atomics in device memory that every particle performed, in contact or
-// not, onto a window of ~16k cells that neighbouring sorted particles hit
-// at once (0.28 ms at 1e5 particles on an H100).
+// 0.8 us at 3.35 TB/s. What held the first design (one thread a particle)
+// back was the 81 float64 atomics in device memory that every particle
+// performed, in contact or not, onto a window of ~16k cells that
+// neighbouring sorted particles hit at once (0.28 ms at 1e5 particles on
+// an H100).
 //
 // Design: P2G's shared-memory y-slab tiles (slab.cuh) with three channels:
 // stage, sort by base cell, gather each slab cell without atomics, sum the
@@ -30,56 +31,15 @@
 // (exact for any order, the particles counted). The sums are float64,
 // rounded to float32 once, in a fixed order: repeated rollouts end
 // bit-identical as with P2G.
-//
-// The first design, one thread per particle with float64 atomicAdd into a
-// zeroed window, stays as softmac_splat_atomic, which only chip_smoke.py
-// calls to time the two in turns.
 #include "slab.cuh"
 
 namespace {
 
-// one particle's three values; a particle whose values are all zero is
-// skipped
-struct SplatValues {
-  static constexpr int kChannels = 3, kInputs = 3;
-  float v[3];
-
-  __device__ static bool active(const float* vals, int n, int p) {
-    return vals[p] != 0.f || vals[n + p] != 0.f || vals[2 * n + p] != 0.f;
-  }
-
-  // the 3 value rows of stride n at column p
-  __device__ SplatValues(const float* vals, int n, int p) {
-    for (int d = 0; d < 3; ++d) v[d] = vals[d * n + p];
-  }
-
-  // the same values staged in a float4
-  __device__ explicit SplatValues(const float4* f) {
-    const float4 f0 = f[0];
-    v[0] = f0.x, v[1] = f0.y, v[2] = f0.z;
-  }
-
-  __device__ float value(int c, float wgt, float, float, float) const {
-    return wgt * v[c];
-  }
+// one particle's three values (slab.cuh); a particle whose values are all
+// zero is skipped
+struct SplatValues : softmac::SlabThreeValues {
+  using SlabThreeValues::SlabThreeValues;
 };
-
-__global__ void splat_kernel(const float* __restrict__ x,
-                             const float* __restrict__ vals,
-                             const int* __restrict__ corner,
-                             double* __restrict__ acc,
-                             int n, int wx, int wy, int wz, float inv_dx) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-
-  softmac::Axis ax[3];
-  int rel[3];
-  softmac::particle_stencil(x, n, p, corner, inv_dx, ax, rel);
-  const float val[3] = {vals[p], vals[n + p], vals[2 * n + p]};
-  const float none[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-  softmac::splat_stencil(ax, rel, wx, wy, wz, nullptr, 0.f, acc, 3 * wx, wx,
-                         val, none);
-}
 
 }  // namespace
 
@@ -102,21 +62,4 @@ extern "C" int softmac_splat(const float* x, const float* vals,
                                plan.tile, 0, wx, wy, wz, inv_dx, plan};
   return softmac::slab_launch<SplatValues>(a, out,
                                            static_cast<cudaStream_t>(stream));
-}
-
-// The first design (see above): acc 3 * wy*wz*wx doubles zeroed by the
-// caller; out as softmac_splat.
-extern "C" int softmac_splat_atomic(const float* x, const float* vals,
-                                    const int* corner, double* acc,
-                                    float* out, int n, int wx, int wy, int wz,
-                                    float inv_dx, void* stream) {
-  const int cells = wx * wy * wz;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    splat_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0, s>>>(
-        x, vals, corner, acc, n, wx, wy, wz, inv_dx);
-  }
-  softmac::round_to_float<<<softmac::blocks_for(3 * cells), softmac::kThreads,
-                            0, s>>>(acc, out, 3 * cells);
-  return static_cast<int>(cudaGetLastError());
 }

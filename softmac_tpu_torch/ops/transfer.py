@@ -12,12 +12,15 @@ tensors: on the CPU they run the plain version, on CUDA they launch the
 kernel (and count the launch), anything else raises. There is no fallback
 from CUDA to the plain version: the plain version runs on a CUDA tensor
 only when called by name (``chip_smoke.py`` does, to hold the kernel
-against it). The P2G and splat kernels keep a sorted particle tile's y rows
-in shared memory (``ops/csrc/slab.cuh``); particles whose cells fall outside
-their tile's rows go by global atomics instead and are counted in
-``p2g.spilled`` / ``splat.spilled`` (0 when the particles are sorted by y,
-as the rollout keeps them). ``p2g_atomic`` and ``splat_atomic`` run the
-first design's kernels, to time the two.
+against it). The P2G and splat kernels, and the grid halves of the G2P
+and gather backwards, keep a sorted particle tile's y rows in shared
+memory (``ops/csrc/slab.cuh``); particles whose cells fall outside their
+tile's rows go by global atomics instead and are counted in
+``p2g.spilled``, ``splat.spilled``, ``g2p_bwd.spilled`` and
+``gather_bwd.spilled`` (0 when the particles are sorted by y, as the
+rollout keeps them). ``g2p_bwd_atomic`` and ``gather_bwd_atomic`` run the
+backwards' first design (one thread a particle, float64 atomics), to time
+the two.
 
 Under autograd (grad enabled and an input that requires grad) each goes
 through its autograd Function (``P2G``, ``G2P``, ``Gather``, ``Splat``: the
@@ -43,9 +46,9 @@ import torch
 
 from softmac_tpu_torch.ops import build
 
-# particles a block of the y-slab P2G and splat kernels (ops/csrc/slab.cuh),
-# a power of two up to 1024; scripts/slab_phases.py times 256, 512 and 1024
-# on the main paths' states
+# particles a block of the y-slab kernels (ops/csrc/slab.cuh), a power of
+# two up to 1024; scripts/slab_phases.py times 256, 512 and 1024 on the
+# main paths' states
 SLAB_TILE = 512
 
 
@@ -208,18 +211,21 @@ def _p2g(x, chan, corner, window, inv_dx):
     _check_cuda("p2g", (x, chan), corner)
     if x.shape != (3, n) or chan.shape != (13, n):
         raise ValueError(f"p2g: x {tuple(x.shape)}, chan {tuple(chan.shape)}")
-    out, p2g.spilled = _slab("p2g", 4, 13, x, chan, corner, (wx, wy, wz),
-                             inv_dx)
+    out, _, p2g.spilled = _slab("p2g", 4, 13, x, chan, corner, (wx, wy, wz),
+                                inv_dx)
     p2g.launches += 1
     cells = wx * wy * wz
     return out[:cells].view(wy * wz, wx), out[cells:].view(wy * wz, 3 * wx)
 
 
-def _slab(name, channels, inputs, x, src, corner, window, inv_dx):
-    """One launch of the y-slab P2G (4 channels of 13 input rows) or splat
-    (3 of 3) kernel: the float32 window (channels * cells) and the call's
-    spilled-particle count (a one-element int64 tensor on the card, read
-    after a synchronize)."""
+def _slab(name, channels, inputs, x, src, corner, window, inv_dx, grids=()):
+    """One call of a y-slab kernel: P2G (4 channels of 13 input rows), the
+    splat (3 of 3), or the G2P or gather backward (3 of 12 or 3 of 3),
+    which also take the three ``grids`` and gather dx (3, N) in the same
+    launch. Returns the float32 window (channels * cells: P2G's gm then
+    gmom, the splat's one window, the backwards' three grids one after the
+    other), dx (None without grids) and the call's spilled-particle count
+    (a one-element int64 tensor on the card, read after a synchronize)."""
     n = x.shape[1]
     tiles, _, _, _, tile_doubles = slab_plan(channels, inputs, n, SLAB_TILE,
                                              window)
@@ -230,12 +236,14 @@ def _slab(name, channels, inputs, x, src, corner, window, inv_dx):
                           device=dev)
     meta = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
     out = torch.empty(channels * cells, dtype=x.dtype, device=dev)
+    dx = torch.empty((3, n), dtype=x.dtype, device=dev) if grids else None
+    ptrs = (x, src, corner, *grids) + ((dx,) if grids else ()) + (
+        spill, partial, meta, out)
     rc = getattr(build.library(), "softmac_" + name)(
-        x.data_ptr(), src.data_ptr(), corner.data_ptr(), spill.data_ptr(),
-        partial.data_ptr(), meta.data_ptr(), out.data_ptr(), n, SLAB_TILE,
-        *window, float(inv_dx), torch.cuda.current_stream(dev).cuda_stream)
+        *(t.data_ptr() for t in ptrs), n, SLAB_TILE, *window, float(inv_dx),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, name)
-    return out, spill[-1:].view(torch.int64)
+    return out, dx, spill[-1:].view(torch.int64)
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,35 +257,45 @@ def slab_plan(channels, inputs, n, tile, window):
     return tuple(out)
 
 
-def _atomic(name, channels, x, src, corner, window, inv_dx):
-    """The first design of the P2G and splat kernels (one thread a
-    particle, float64 atomics into a zeroed window), kept to time against
-    the y-slab kernels: float32 window (channels * cells). CUDA only."""
-    _check_cuda(name, (x, src), corner)
-    cells = math.prod(window)
-    acc = torch.zeros(channels * cells, dtype=torch.float64, device=x.device)
-    out = torch.empty(channels * cells, dtype=x.dtype, device=x.device)
+def _grid_views(out, window):
+    """The three (wy*wz, wx) grids of a backward's window, as views."""
+    wx, wy, wz = window
+    cells = wx * wy * wz
+    return tuple(out[d * cells:(d + 1) * cells].view(wy * wz, wx)
+                 for d in range(3))
+
+
+def _bwd_atomic(name, x, grids, corner, window, inv_dx, cot):
+    """The first design of the G2P and gather backward kernels (one thread
+    a particle, float64 atomics into a zeroed window), kept to time against
+    the y-slab kernels: (dx, dgv0, dgv1, dgv2). CUDA only."""
+    _check_cuda(name, (x, *grids, cot), corner)
+    _check_grids(name, x, grids, window)
+    wx, wy, wz = (int(w) for w in window)
+    cells = wx * wy * wz
+    dx = torch.empty_like(x)
+    acc = torch.zeros(3 * cells, dtype=torch.float64, device=x.device)
+    out = torch.empty(3 * cells, dtype=x.dtype, device=x.device)
     rc = getattr(build.library(), f"softmac_{name}_atomic")(
-        x.data_ptr(), src.data_ptr(), corner.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), x.shape[1], *window, float(inv_dx),
+        x.data_ptr(), *(g.data_ptr() for g in grids), corner.data_ptr(),
+        cot.data_ptr(), dx.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        x.shape[1], wx, wy, wz, float(inv_dx),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, name + "_atomic")
-    return out
+    return (dx,) + _grid_views(out, (wx, wy, wz))
 
 
-def p2g_atomic(x, chan, corner, window, inv_dx):
-    """``p2g`` through the first design's kernel (see ``_atomic``)."""
-    wx, wy, wz = (int(w) for w in window)
-    out = _atomic("p2g", 4, x, chan, corner, (wx, wy, wz), inv_dx)
-    cells = wx * wy * wz
-    return out[:cells].view(wy * wz, wx), out[cells:].view(wy * wz, 3 * wx)
+def g2p_bwd_atomic(x, gv0, gv1, gv2, corner, window, inv_dx, g):
+    """``g2p_bwd`` through the first design's kernel (see ``_bwd_atomic``)."""
+    return _bwd_atomic("g2p_bwd", x, (gv0, gv1, gv2), corner, window, inv_dx,
+                       g)
 
 
-def splat_atomic(x, vals, corner, window, inv_dx):
-    """``splat`` through the first design's kernel (see ``_atomic``)."""
-    wx, wy, wz = (int(w) for w in window)
-    out = _atomic("splat", 3, x, vals, corner, (wx, wy, wz), inv_dx)
-    return out.view(wy * wz, 3 * wx)
+def gather_bwd_atomic(x, gv0, gv1, gv2, corner, window, inv_dx, dv):
+    """``gather_bwd`` through the first design's kernel (see
+    ``_bwd_atomic``)."""
+    return _bwd_atomic("gather_bwd", x, (gv0, gv1, gv2), corner, window,
+                       inv_dx, dv)
 
 
 def _g2p(x, gv0, gv1, gv2, corner, window, inv_dx):
@@ -328,27 +346,19 @@ def p2g_bwd(x, chan, corner, window, inv_dx, dgm, dgmom):
 
 def g2p_bwd(x, gv0, gv1, gv2, corner, window, inv_dx, g):
     """The G2P backward kernel: (dx, dgv0, dgv1, dgv2) as ``g2p_vjp_plain``
-    computes them, on CUDA float32 tensors. The grid cotangents are summed
-    in float64 and rounded once, as P2G's window."""
+    computes them, on CUDA float32 tensors. One y-slab call: the grid
+    cotangents are summed per cell in float64, in a fixed order, and
+    rounded once, as P2G's window; dx is gathered in the same launch.
+    ``g2p_bwd.spilled`` then holds the call's count of spilled particles."""
     wx, wy, wz = (int(w) for w in window)
-    n = x.shape[1]
     _check_cuda("g2p_bwd", (x, gv0, gv1, gv2, g), corner)
     _check_grids("g2p_bwd", x, (gv0, gv1, gv2), window)
-    if g.shape != (12, n):
+    if g.shape != (12, x.shape[1]):
         raise ValueError(f"g2p_bwd: cotangent {tuple(g.shape)}")
-    cells = wx * wy * wz
-    dx = torch.empty((3, n), dtype=x.dtype, device=x.device)
-    acc = torch.zeros(3 * cells, dtype=torch.float64, device=x.device)
-    out = torch.empty(3 * cells, dtype=x.dtype, device=x.device)
-    rc = build.library().softmac_g2p_bwd(
-        x.data_ptr(), gv0.data_ptr(), gv1.data_ptr(), gv2.data_ptr(),
-        corner.data_ptr(), g.data_ptr(), dx.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), n, wx, wy, wz, float(inv_dx),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "g2p_bwd")
+    out, dx, g2p_bwd.spilled = _slab("g2p_bwd", 3, 12, x, g, corner,
+                                     (wx, wy, wz), inv_dx, (gv0, gv1, gv2))
     g2p_bwd.launches += 1
-    return (dx,) + tuple(out[d * cells:(d + 1) * cells].view(wy * wz, wx)
-                         for d in range(3))
+    return (dx,) + _grid_views(out, (wx, wy, wz))
 
 
 class P2G(torch.autograd.Function):
@@ -393,27 +403,21 @@ class G2P(torch.autograd.Function):
 
 def gather_bwd(x, gv0, gv1, gv2, corner, window, inv_dx, dv):
     """The gather backward kernel: (dx, dgv0, dgv1, dgv2) as
-    ``gather_vjp_plain`` computes them, on CUDA float32 tensors. The grid
-    cotangents are summed in float64 and rounded once, as G2P's backward."""
+    ``gather_vjp_plain`` computes them, on CUDA float32 tensors. One y-slab
+    call, as ``g2p_bwd``: a particle whose cotangent is all zero adds
+    nothing to the grids and gets dx = 0 (exact to the bit: the splat's
+    skip). ``gather_bwd.spilled`` then holds the call's count of spilled
+    particles."""
     wx, wy, wz = (int(w) for w in window)
-    n = x.shape[1]
     _check_cuda("gather_bwd", (x, gv0, gv1, gv2, dv), corner)
     _check_grids("gather_bwd", x, (gv0, gv1, gv2), window)
-    if dv.shape != (3, n):
+    if dv.shape != (3, x.shape[1]):
         raise ValueError(f"gather_bwd: cotangent {tuple(dv.shape)}")
-    cells = wx * wy * wz
-    dx = torch.empty((3, n), dtype=x.dtype, device=x.device)
-    acc = torch.zeros(3 * cells, dtype=torch.float64, device=x.device)
-    out = torch.empty(3 * cells, dtype=x.dtype, device=x.device)
-    rc = build.library().softmac_gather_bwd(
-        x.data_ptr(), gv0.data_ptr(), gv1.data_ptr(), gv2.data_ptr(),
-        corner.data_ptr(), dv.data_ptr(), dx.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), n, wx, wy, wz, float(inv_dx),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "gather_bwd")
+    out, dx, gather_bwd.spilled = _slab("gather_bwd", 3, 3, x, dv, corner,
+                                        (wx, wy, wz), inv_dx,
+                                        (gv0, gv1, gv2))
     gather_bwd.launches += 1
-    return (dx,) + tuple(out[d * cells:(d + 1) * cells].view(wy * wz, wx)
-                         for d in range(3))
+    return (dx,) + _grid_views(out, (wx, wy, wz))
 
 
 def splat_bwd(x, vals, corner, window, inv_dx, dout):
@@ -513,8 +517,8 @@ def _splat(x, vals, corner, window, inv_dx):
     if x.shape != (3, n) or vals.shape != (3, n):
         raise ValueError(f"splat: x {tuple(x.shape)}, vals "
                          f"{tuple(vals.shape)}")
-    out, splat.spilled = _slab("splat", 3, 3, x, vals, corner, (wx, wy, wz),
-                               inv_dx)
+    out, _, splat.spilled = _slab("splat", 3, 3, x, vals, corner,
+                                  (wx, wy, wz), inv_dx)
     splat.launches += 1
     return out.view(wy * wz, 3 * wx)
 
@@ -563,3 +567,5 @@ gather_bwd.launches = 0
 splat_bwd.launches = 0
 p2g.spilled = None
 splat.spilled = None
+g2p_bwd.spilled = None
+gather_bwd.spilled = None

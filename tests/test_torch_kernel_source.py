@@ -5,14 +5,16 @@ headers) are compiled with the host C++ compiler over a small stand-in for
 the CUDA runtime header; each kernel runs one thread at a time. The block
 reductions of the contact backwards (shared memory and barriers) are left
 to chip_smoke.py; here the per-particle reverse sweeps are summed on the
-host. The y-slab P2G and splat (slab.cuh), block kernels with barriers,
-run phase by phase: each phase over all threads of a block before the
-next, as the barriers order them on the card.
+host. The y-slab kernels (slab.cuh: P2G, the splat and the G2P and gather
+backwards), block kernels with barriers, run phase by phase: each phase
+over all threads of a block before the next, as the barriers order them
+on the card.
 
 Held against the plain versions in float64 on the same float32 inputs:
-P2G (its splat is shared with G2P's backward), gather, splat and the P2G /
-G2P / gather / splat backward kernels, which compute in float32, within
-2e-6 of the largest |value| of each output; the dense-weight transfers
+P2G, gather, splat and the P2G / G2P / gather / splat backward kernels
+(the y-slab ones and the first designs of the G2P and gather backwards,
+one thread a particle with float64 atomics), which compute in float32,
+within 2e-6 of the largest |value| of each output; the dense-weight transfers
 (fused_p2g, fused_g2p, fused_splat, fused_gather) and their backward
 kernels (fused_p2g_bwd, fused_g2p_bwd, fused_splat_bwd, fused_gather_bwd,
 against the float64 plain vjps), which compute in double on float inputs,
@@ -24,9 +26,9 @@ largest |value| (one rounding); the Khatri-Rao pair build (kr3) bit for
 bit against its float32 plain version on the same weights; the penalty
 contact backward, which computes in double on its float inputs, within
 1e-6 (float literals
-and the float dt / p_mass set that floor); the mixed contact backward
-(the first design's merged kernel and the split), also double math, within
-1e-12 given the float dt and p_mass it sees. The tiled mixed-contact
+and the float dt / p_mass set that floor); the split mixed contact and its
+backward pair, also double math, within 1e-6 and 1e-12 given the float dt
+and p_mass they see. The tiled mixed-contact
 kernels (contact_mixed.cuh, the wrench folded in) run phase by phase, as
 the y-slab kernels do, with double outputs: the classification against
 its rule in float64 (and every particle in contact kept, also particles
@@ -103,11 +105,14 @@ dim3s blockIdx, threadIdx, blockDim, gridDim;
 // block's threads before the next (the barriers' order on the card, the
 // bitonic sort one step a phase), with the shared memory and the partials
 // poisoned (NaN, all ones); then the reduce over every output element.
-// plan: tiles, rows, and the slab rows the tiles used (summed).
+// plan: tiles, rows, and the slab rows the tiles used (summed). The
+// backwards also read the three grids and write dx.
 template <class Values>
 static void slab(const float* x, const float* src, const int* corner,
                  double* spill, float* out, int n, int tile, int lead, int wx,
-                 int wy, int wz, float inv_dx, long long* plan) {
+                 int wy, int wz, float inv_dx, long long* plan,
+                 const float* g0 = nullptr, const float* g1 = nullptr,
+                 const float* g2 = nullptr, float* dx = nullptr) {
   const softmac::SlabPlan pl = softmac::slab_plan(
       Values::kChannels, Values::kInputs, n, tile, wx, wy, wz);
   std::vector<double> partial(pl.tiles * pl.tile_doubles,
@@ -115,7 +120,7 @@ static void slab(const float* x, const float* src, const int* corner,
   std::vector<int> meta(2 * pl.tiles, -1);
   const softmac::SlabArgs a = {x, src, corner, spill, partial.data(),
                                meta.data(), n, pl.tile, lead, wx, wy, wz,
-                               inv_dx, pl};
+                               inv_dx, pl, {g0, g1, g2}, dx};
   blockDim.x = softmac::kSlabThreads;
   auto phase = [&](auto f) {
     for (unsigned t = 0; t < blockDim.x; ++t) { threadIdx.x = t; f(); }
@@ -146,17 +151,21 @@ static void slab(const float* x, const float* src, const int* corner,
     });
     softmac::slab_count<Values>(a, &sh);
   }
-  // the second launch: blocks of 256 indices, three phases each
+  // the second launch: blocks of 256 indices, four phases each, over its
+  // shared memory poisoned (all ones): the two rows' lists, then the bits
   const int count = pl.channels * wx * wy * wz;
-  std::vector<unsigned> bits(2 * softmac::slab_words(a) + 1, 0xffffffffu);
+  std::vector<long long> smem(softmac::slab_reduce_smem(a) / 8 + 1, -1);
+  long long* list = smem.data();
+  unsigned* bits = reinterpret_cast<unsigned*>(list + 2 * pl.tiles);
   blockDim.x = 256;
   for (int first = 0; first < count; first += 256) {
     const int last = std::min(first + 256, count) - 1;
-    phase([&] { softmac::slab_reduce_clear(a, bits.data()); });
-    phase([&] { softmac::slab_reduce_mark(a, first, last, bits.data()); });
+    phase([&] { softmac::slab_reduce_clear(a, bits); });
+    phase([&] { softmac::slab_reduce_mark(a, first, last, bits); });
+    phase([&] { softmac::slab_reduce_list(a, bits, list); });
     phase([&] {
       const int e = first + threadIdx.x;
-      if (e <= last) softmac::slab_reduce(a, first, e, bits.data(), out);
+      if (e <= last) softmac::slab_reduce(a, first, e, bits, list, out);
     });
   }
   plan[0] = pl.tiles;
@@ -280,11 +289,22 @@ void h_splat_slab(const float* x, const float* vals, const int* corner,
   slab<k_splat::SplatValues>(x, vals, corner, spill, out, n, tile, 0, wx, wy,
                              wz, inv_dx, plan);
 }
-void h_p2g(const float* x, const float* chan, const int* corner, double* acc,
-           int n, int wx, int wy, int wz, float inv_dx) {
-  int cells = wx * wy * wz;
-  launch(n, [&] { k_p2g::p2g_kernel(x, chan, corner, acc, acc + cells, n, wx,
-                                    wy, wz, inv_dx); });
+void h_g2p_bwd_slab(const float* x, const float* g, const int* corner,
+                    double* spill, float* out, int n, int tile, int wx,
+                    int wy, int wz, float inv_dx, long long* plan,
+                    const float* g0, const float* g1, const float* g2,
+                    float* dx) {
+  slab<k_g2p_bwd::G2PBwdValues>(x, g, corner, spill, out, n, tile, 3, wx, wy,
+                                wz, inv_dx, plan, g0, g1, g2, dx);
+}
+void h_gather_bwd_slab(const float* x, const float* dv, const int* corner,
+                       double* spill, float* out, int n, int tile, int wx,
+                       int wy, int wz, float inv_dx, long long* plan,
+                       const float* g0, const float* g1, const float* g2,
+                       float* dx) {
+  slab<k_gather_bwd::GatherBwdValues>(x, dv, corner, spill, out, n, tile, 3,
+                                      wx, wy, wz, inv_dx, plan, g0, g1, g2,
+                                      dx);
 }
 void h_p2g_bwd(const float* x, const float* chan, const int* corner,
                const float* dgm, const float* dgmom, float* dx, float* dchan,
@@ -304,27 +324,18 @@ void h_gather(const float* x, const float* g0, const float* g1,
   launch(n, [&] { k_gather::gather_kernel(x, g0, g1, g2, corner, out, n, wx,
                                           wy, wz, inv_dx); });
 }
-void h_splat(const float* x, const float* vals, const int* corner,
-             double* acc, int n, int wx, int wy, int wz, float inv_dx) {
-  launch(n, [&] { k_splat::splat_kernel(x, vals, corner, acc, n, wx, wy, wz,
-                                        inv_dx); });
-}
-void h_mixed(int split, const float* x, const float* v, const float* table,
+// The split mixed contact: stage 1 over all particles, then stage 2
+void h_mixed(const float* x, const float* v, const float* table,
              const float* body, double* st1, float* pv, float* force,
              uint8_t* mask, int n, int r0, int r1, int r2, float l0, float l1,
              float l2, float u0, float u1, float u2, float inv_dx, float dt,
              float p_mass, float cap) {
   softmac::Geom g = {{l0, l1, l2}, {u0, u1, u2}, inv_dx, {r0, r1, r2}};
   const float4* t = (const float4*)table;
-  if (split) {
-    launch(n, [&] { k_contact_mixed::collide_mixed1_kernel(x, v, t, body, st1,
-                                                           n, g, dt); });
-    launch(n, [&] { k_contact_mixed::collide_mixed2_kernel(
-        x, v, t, body, st1, pv, force, mask, n, g, dt, p_mass, cap); });
-  } else {
-    launch(n, [&] { k_contact_mixed_v1::collide_mixed_kernel(
-        x, v, t, body, pv, force, mask, n, g, dt, p_mass, cap); });
-  }
+  launch(n, [&] { k_contact_mixed::collide_mixed1_kernel(x, v, t, body, st1,
+                                                         n, g, dt); });
+  launch(n, [&] { k_contact_mixed::collide_mixed2_kernel(
+      x, v, t, body, st1, pv, force, mask, n, g, dt, p_mass, cap); });
 }
 void h_gather_bwd(const float* x, const float* g0, const float* g1,
                   const float* g2, const int* corner, const float* dv,
@@ -341,43 +352,34 @@ void h_splat_bwd(const float* x, const float* vals, const int* corner,
                                                 dvals, n, wx, wy, wz,
                                                 inv_dx); });
 }
-// The mixed backward one particle at a time (merged, or the split's k2b
-// over all particles then k1b, dv passed between them in float as the
-// kernels pass it); dx, dv and the body cotangents (summed here) in double.
-void h_mixed_bwd(int split, const float* x, const float* v,
-                 const float* table, const float* body, double* st1,
-                 const float* gout, const float* gforce, double* gst1,
-                 float* dv2, double* dx, double* dv, double* dbody, int n,
-                 int r0, int r1, int r2, float l0, float l1, float l2,
-                 float u0, float u1, float u2, float inv_dx, float dt,
-                 float p_mass, float cap) {
+// The split mixed backward one particle at a time: k2b over all particles,
+// then k1b, dv passed between them in float as the kernels pass it; dx, dv
+// and the body cotangents (summed here) in double.
+void h_mixed_bwd(const float* x, const float* v, const float* table,
+                 const float* body, double* st1, const float* gout,
+                 const float* gforce, double* gst1, float* dv2, double* dx,
+                 double* dv, double* dbody, int n, int r0, int r1, int r2,
+                 float l0, float l1, float l2, float u0, float u1, float u2,
+                 float inv_dx, float dt, float p_mass, float cap) {
   using softmac::V3;
   softmac::Geom g = {{l0, l1, l2}, {u0, u1, u2}, inv_dx, {r0, r1, r2}};
   const float4* t = (const float4*)table;
   for (int i = 0; i < 16; ++i) dbody[i] = 0.0;
   double gb[16];
   V3<double> gx, gv;
-  if (split) {
-    launch(n, [&] { k_contact_mixed::collide_mixed1_kernel(x, v, t, body, st1,
-                                                           n, g, dt); });
-    for (int p = 0; p < n; ++p) {
-      k_contact_mixed_bwd::mixed2_bwd_particle(x, v, t, body, st1, gout,
-                                               gforce, gst1, n, p, g, dt,
-                                               p_mass, cap, gv, gb);
-      dv2[p] = float(gv.x); dv2[n + p] = float(gv.y); dv2[2 * n + p] = float(gv.z);
-      for (int i = 0; i < 16; ++i) dbody[i] += gb[i];
-    }
+  launch(n, [&] { k_contact_mixed::collide_mixed1_kernel(x, v, t, body, st1,
+                                                         n, g, dt); });
+  for (int p = 0; p < n; ++p) {
+    k_contact_mixed_bwd::mixed2_bwd_particle(x, v, t, body, st1, gout,
+                                             gforce, gst1, n, p, g, dt,
+                                             p_mass, cap, gv, gb);
+    dv2[p] = float(gv.x); dv2[n + p] = float(gv.y); dv2[2 * n + p] = float(gv.z);
+    for (int i = 0; i < 16; ++i) dbody[i] += gb[i];
   }
   for (int p = 0; p < n; ++p) {
-    if (split) {
-      gv = {dv2[p], dv2[n + p], dv2[2 * n + p]};
-      k_contact_mixed_bwd::mixed1_bwd_particle(x, v, t, body, gst1, n, p, g,
-                                               dt, gx, gv, gb);
-    } else {
-      k_contact_mixed_v1::mixed_bwd_particle(x, v, t, body, gout, gforce, n,
-                                             p, g, dt, p_mass, cap, gx, gv,
-                                             gb);
-    }
+    gv = {dv2[p], dv2[n + p], dv2[2 * n + p]};
+    k_contact_mixed_bwd::mixed1_bwd_particle(x, v, t, body, gst1, n, p, g, dt,
+                                             gx, gv, gb);
     dx[p] = gx.x; dx[n + p] = gx.y; dx[2 * n + p] = gx.z;
     dv[p] = gv.x; dv[n + p] = gv.y; dv[2 * n + p] = gv.z;
     for (int i = 0; i < 16; ++i) dbody[i] += gb[i];
@@ -510,8 +512,7 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_STANDIN)
     src = "".join(_kernel_bodies(n) for n in (
         "p2g", "p2g_bwd", "g2p_bwd", "gather", "splat", "contact",
-        "contact_mixed", "contact_mixed_v1", "gather_bwd", "splat_bwd",
-        "contact_mixed_bwd",
+        "contact_mixed", "gather_bwd", "splat_bwd", "contact_mixed_bwd",
         "fused_p2g", "fused_g2p", "fused_splat", "fused_gather",
         "fused_p2g_bwd", "fused_g2p_bwd", "fused_splat_bwd",
         "fused_gather_bwd", "kr3")) \
@@ -566,11 +567,10 @@ def test_p2g_and_backward_sources(lib, shift):
     wx, wy, wz = WINDOW
     chan, dgm, dgmom = _f32(rng, 13, N), _f32(rng, wy * wz, wx), \
         _f32(rng, wy * wz, 3 * wx)
-    acc = torch.zeros(4 * wx * wy * wz, dtype=torch.float64)
-    lib.h_p2g(_p(x), _p(chan), _p(corner), _p(acc), *_dims(WINDOW))
+    out, _, _, _ = _slab_call(lib, "p2g", x, chan, corner, WINDOW, SLAB_TILE)
     gm, gmom = transfer.p2g_plain(x.double(), chan.double(), corner, WINDOW,
                                   INV_DX)
-    assert _rel(acc, torch.cat([gm.reshape(-1), gmom.reshape(-1)])) < 2e-6
+    assert _rel(out, torch.cat([gm.reshape(-1), gmom.reshape(-1)])) < 2e-6
 
     dx, dchan = torch.zeros(3, N), torch.zeros(13, N)
     lib.h_p2g_bwd(_p(x), _p(chan), _p(corner), _p(dgm), _p(dgmom), _p(dx),
@@ -635,11 +635,11 @@ def test_gather_and_splat_sources(lib, shift):
         assert _rel(out[d], ref[d]) < 2e-6
 
     vals = _f32(rng, 3, N)
-    acc = torch.zeros(3 * wx * wy * wz, dtype=torch.float64)
-    lib.h_splat(_p(x), _p(vals), _p(corner), _p(acc), *_dims(WINDOW))
+    out, _, _, _ = _slab_call(lib, "splat", x, vals, corner, WINDOW,
+                              SLAB_TILE)
     ref = transfer.splat_plain(x.double(), vals.double(), corner, WINDOW,
                                INV_DX)
-    assert _rel(acc, ref.reshape(-1)) < 2e-6
+    assert _rel(out, ref.reshape(-1)) < 2e-6
 
 
 SLAB_TILE = 64           # 400 particles: 7 tiles, the last one ragged
@@ -653,19 +653,43 @@ def _y_sorted(x, *rows):
     return [t[:, perm].contiguous() for t in (x,) + rows]
 
 
-def _slab_call(lib, name, x, src, corner, window, tile):
-    """One y-slab P2G or splat on the host: (float32 window, spilled
-    particles, plan (tiles, slab rows, slab rows used))."""
-    channels = 4 if name == "p2g" else 3
+SLAB_CHANNELS = {"p2g": 4, "splat": 3, "g2p_bwd": 3, "gather_bwd": 3}
+SLAB_PAIRS = {"forward": ("p2g", "splat"), "backward": ("g2p_bwd", "gather_bwd")}
+
+
+def _slab_call(lib, name, x, src, corner, window, tile, grids=()):
+    """One y-slab call on the host: P2G, the splat, or (with the three
+    grids) the G2P or gather backward. Returns (float32 window, dx (3, N)
+    or None, spilled particles, plan (tiles, slab rows, slab rows
+    used))."""
+    channels = SLAB_CHANNELS[name]
     cells = math.prod(window)
     out = torch.full((channels * cells,), float("nan"))
     spill = torch.zeros(channels * cells + 1, dtype=torch.float64)
     plan = (ctypes.c_longlong * 3)()
+    dx = torch.full((3, x.shape[1]), float("nan")) if grids else None
+    extra = [_p(g) for g in grids] + ([_p(dx)] if grids else [])
     getattr(lib, f"h_{name}_slab")(
         _p(x), _p(src), _p(corner), _p(spill), _p(out),
         ctypes.c_int(x.shape[1]), ctypes.c_int(tile),
-        *[ctypes.c_int(w) for w in window], ctypes.c_float(INV_DX), plan)
-    return out, int(spill[-1:].view(torch.int64)), tuple(plan)
+        *[ctypes.c_int(w) for w in window], ctypes.c_float(INV_DX), plan,
+        *extra)
+    return out, dx, int(spill[-1:].view(torch.int64)), tuple(plan)
+
+
+def _slab_err(name, x, src, corner, window, out, dx, grids=()):
+    """The worst error of a y-slab call against the float64 plain version
+    (the plain vjp for the backwards: dx and each grid cotangent), each
+    output relative to its largest |value|."""
+    if not grids:
+        return _rel(out, _plain_window(name, x, src, corner, window))
+    vjp = (transfer.g2p_vjp_plain if name == "g2p_bwd"
+           else transfer.gather_vjp_plain)
+    ref = vjp(x.double(), *(g.double() for g in grids), corner, window,
+              INV_DX, src.double())
+    return max([_rel(dx, ref[0])] + [
+        _rel(out.reshape(3, -1)[d], ref[1 + d].reshape(-1))
+        for d in range(3)])
 
 
 def _plain_window(name, x, src, corner, window):
@@ -695,25 +719,33 @@ def _expected_tiles(x, active, corner, window, tile, rows):
     return spills, used
 
 
+@pytest.mark.parametrize("kernels", sorted(SLAB_PAIRS))
 @pytest.mark.parametrize("order", ["sorted", "unsorted"])
 @pytest.mark.parametrize("shift", [0, 2])
 @pytest.mark.parametrize("window", [WINDOW, WIDE], ids=["window", "wide"])
-def test_slab_sources(lib, window, shift, order):
-    """The y-slab P2G and splat (slab.cuh) against the float64 plain
-    versions. In the rollout's y-sorted order every stencil row lies in its
-    tile's slab: no particle spills. On the wide window a slab holds fewer
-    rows than the scene spans, so in the scene's random order particles
-    spill, and the spilled cells' global atomics keep the window exact; the
-    spill count and the slab rows used are those the tiles' rows give."""
+def test_slab_sources(lib, window, shift, order, kernels):
+    """The y-slab kernels (slab.cuh: P2G and the splat, or the G2P and
+    gather backwards, whose grid cotangents it scatters and whose dx it
+    gathers) against the float64 plain versions and vjps. In the rollout's
+    y-sorted order every stencil row lies in its tile's slab: no particle
+    spills. On the wide window a slab holds fewer rows than the scene
+    spans, so in the scene's random order particles spill, and the spilled
+    cells' global atomics keep the window exact; the spill count and the
+    slab rows used are those the tiles' rows give."""
     x, _, rng = _scene(shift, seed=10)
     corner = _corner(x, window, shift)
-    chan, vals = _f32(rng, 13, N), _f32(rng, 3, N)
+    chan, vals, g = _f32(rng, 13, N), _f32(rng, 3, N), _f32(rng, 12, N)
+    wx, wy, wz = window
+    grids = [_f32(rng, wy * wz, wx) for _ in range(3)]
     if order == "sorted":
-        x, chan, vals = _y_sorted(x, chan, vals)
-    for name, src in (("p2g", chan), ("splat", vals)):
-        out, spilled, plan = _slab_call(lib, name, x, src, corner, window,
-                                        SLAB_TILE)
-        assert _rel(out, _plain_window(name, x, src, corner, window)) < 2e-6
+        x, chan, vals, g = _y_sorted(x, chan, vals, g)
+    srcs = {"p2g": chan, "splat": vals, "g2p_bwd": g, "gather_bwd": vals}
+    for name in SLAB_PAIRS[kernels]:
+        gr = grids if kernels == "backward" else ()
+        out, dx, spilled, plan = _slab_call(lib, name, x, srcs[name], corner,
+                                            window, SLAB_TILE, gr)
+        assert _slab_err(name, x, srcs[name], corner, window, out, dx,
+                         gr) < 2e-6
         assert plan[0] == 7 and (plan[1] < 8) == (window == WIDE), plan
         want = _expected_tiles(x, torch.ones(N, dtype=torch.bool), corner,
                                window, SLAB_TILE, plan[1])
@@ -721,35 +753,69 @@ def test_slab_sources(lib, window, shift, order):
         assert (spilled > 0) == (order == "unsorted" and window == WIDE)
 
 
+@pytest.mark.parametrize("name", sorted(SLAB_CHANNELS))
+def test_slab_reduce_long_lists_source(lib, name):
+    """The reduce launch's sum over more tiles a row than it keeps loads in
+    flight (kReduceWays): 400 particles in the scene's random order at the
+    smallest tile, 32, so that the 13 tiles' slabs cover the rows the
+    scene reaches (all but the ragged last one every row); each kernel
+    within 2e-6 of its float64 plain version or vjp."""
+    ways = int(re.search(r"constexpr int kReduceWays = (\d+);",
+                         (build.CSRC / "slab.cuh").read_text()).group(1))
+    x, corner, rng = _scene(0, seed=13)
+    wx, wy, wz = WINDOW
+    src = _f32(rng, {"p2g": 13, "g2p_bwd": 12}.get(name, 3), N)
+    grids = ([_f32(rng, wy * wz, wx) for _ in range(3)]
+             if name.endswith("_bwd") else ())
+    out, dx, spilled, plan = _slab_call(lib, name, x, src, corner, WINDOW,
+                                        32, grids)
+    base = torch.floor(x[1] * INV_DX - 0.5)
+    rows = int(base.max() - base.min()) + 3
+    assert plan[0] == 13 and spilled == 0
+    assert (spilled, plan[2]) == _expected_tiles(
+        x, torch.ones(N, dtype=torch.bool), corner, WINDOW, 32, plan[1])
+    assert plan[2] > ways * rows      # more tiles a row than ways
+    assert _slab_err(name, x, src, corner, WINDOW, out, dx, grids) < 2e-6
+
+
+@pytest.mark.parametrize("name", ["splat", "gather_bwd"])
 @pytest.mark.parametrize("tile", [SLAB_TILE, 1024])
 @pytest.mark.parametrize("shift", [0, 2])
-def test_slab_splat_mostly_zero_source(lib, shift, tile):
-    """The splat in the rollout's order with nine particles in ten at zero
-    (out of contact), over 800 particles (at a tile of 1024 a thread takes
-    two): the zero particles are skipped and do not widen their tile's slab
-    (the window within 2e-6 of the plain version; the spill count and the
-    slab rows used are those the active particles' rows give), and with
-    every value -0.0 no tile uses a row and the window is +0.0 to the
-    bit."""
+def test_slab_splat_mostly_zero_source(lib, shift, tile, name):
+    """The splat, or the gather's backward, in the rollout's order with
+    nine particles in ten at zero (out of contact), over 800 particles (at
+    a tile of 1024 a thread takes two): the zero particles are skipped and
+    do not widen their tile's slab (the window, and the backward's dx and
+    grids, within 2e-6 of the plain version or vjp; the spill count and
+    the slab rows used are those the active particles' rows give; a
+    skipped particle's dx is zero), and with every value -0.0 no tile uses
+    a row, the window is +0.0 to the bit and dx is zero."""
     parts = [_scene(shift, seed=s) for s in (11, 12)]
     x = torch.cat([p[0] for p in parts], dim=1)
     corner, rng = parts[0][1], parts[0][2]
     vals = _f32(rng, 3, x.shape[1])
     vals[:, torch.as_tensor(rng.rand(x.shape[1]) < 0.9)] = 0.0
     x, vals = _y_sorted(x, vals)
-    out, spilled, plan = _slab_call(lib, "splat", x, vals, corner, WINDOW,
-                                    tile)
-    assert _rel(out, _plain_window("splat", x, vals, corner, WINDOW)) < 2e-6
+    wx, wy, wz = WINDOW
+    grids = ([_f32(rng, wy * wz, wx) for _ in range(3)]
+             if name == "gather_bwd" else ())
+    out, dx, spilled, plan = _slab_call(lib, name, x, vals, corner, WINDOW,
+                                        tile, grids)
+    assert _slab_err(name, x, vals, corner, WINDOW, out, dx, grids) < 2e-6
     active = (vals != 0).any(dim=0)
     assert 40 < int(active.sum()) < 120
     assert (spilled, plan[2]) == _expected_tiles(x, active, corner, WINDOW,
                                                  tile, plan[1])
-    out, spilled, plan = _slab_call(lib, "splat", x,
-                                    torch.full_like(vals, -0.0), corner,
-                                    WINDOW, tile)
+    if grids:
+        assert torch.equal(dx[:, ~active], torch.zeros_like(dx[:, ~active]))
+    out, dx, spilled, plan = _slab_call(lib, name, x,
+                                        torch.full_like(vals, -0.0), corner,
+                                        WINDOW, tile, grids)
     assert spilled == plan[2] == 0
     assert torch.equal(out, torch.zeros_like(out))
     assert not bool(torch.signbit(out).any())
+    if grids:
+        assert torch.equal(dx, torch.zeros_like(dx))
 
 
 @pytest.mark.parametrize("shift", [0, 2])
@@ -797,32 +863,26 @@ def _mixed_scene(seed):
 
 @pytest.mark.parametrize("cap", [float("inf"), 2.0])
 def test_mixed_contact_source(lib, cap):
-    """The first design's merged kernel (contact_mixed_v1.cu) and the split
-    pair on particles over the glass's SDF box with velocities of up to a
-    few m/s: the contact, soft, penetrating and face-crossing cases all
-    occur (counted)."""
+    """The split pair (stage 1 over all particles, then stage 2) on
+    particles over the glass's SDF box with velocities of up to a few m/s,
+    against the float64 plain version: the contact, soft, penetrating and
+    face-crossing cases all occur (counted)."""
     prim, prim64, body, b64, x, v, _ = _mixed_scene(4)
     n = x.shape[1]
     dt, p_mass = 1e-3, 1.5e-5
-    outs = {}
-    for split in (0, 1):
-        st1 = torch.zeros(7, n, dtype=torch.float64)
-        pv, force = torch.zeros(3, n), torch.zeros(3, n)
-        mask = torch.zeros(n, dtype=torch.bool)
-        lib.h_mixed(ctypes.c_int(split), _p(x), _p(v), _p(prim.neighborhood),
-                    _p(body), _p(st1), _p(pv), _p(force), _p(mask),
-                    ctypes.c_int(n), *_geom(prim), ctypes.c_float(dt),
-                    ctypes.c_float(p_mass), ctypes.c_float(cap))
-        outs[split] = (pv, force, mask)
-    for a, b in zip(outs[0], outs[1]):
-        assert torch.equal(a, b), "split and merged kernels differ"
+    st1 = torch.zeros(7, n, dtype=torch.float64)
+    pv, force = torch.zeros(3, n), torch.zeros(3, n)
+    mask = torch.zeros(n, dtype=torch.bool)
+    lib.h_mixed(_p(x), _p(v), _p(prim.neighborhood), _p(body), _p(st1),
+                _p(pv), _p(force), _p(mask), ctypes.c_int(n), *_geom(prim),
+                ctypes.c_float(dt), ctypes.c_float(p_mass),
+                ctypes.c_float(cap))
 
     parts = (b64[0:3], b64[3:7], b64[7:10], b64[10:13], b64[13], b64[14],
              b64[15])
     pv_p, f_p, mask_p = contact.collide_mixed_plain(
         prim64, *parts, x.double(), v.double(), dt, p_mass,
         None if cap == float("inf") else cap)
-    pv, force, mask = outs[0]
     xs = tuple(x.double())
     dist, _ = contact.sample_sdf_normal_world(prim64, tuple(b64[0:3]),
                                               tuple(b64[3:7]), xs)
@@ -894,31 +954,27 @@ def test_contact_backward_source(lib):
 
 @pytest.mark.parametrize("cap", [float("inf"), 0.5])
 def test_mixed_contact_backward_source(lib, cap):
-    """The first design's merged backward and the split pair (k2b -> k1b)
-    on the glass's SDF box particles against the float64 plain vjp, given the dt
-    and p_mass the kernel sees (float32 values): dx, dv and each body group
-    within 1e-12 of its largest |value| (the kernels' double math is the
-    plain vjp's, summed in another order); the split's dv within 1e-6 (k2b
-    hands its share to k1b in float)."""
+    """The split backward pair (k2b -> k1b) on the glass's SDF box
+    particles against the float64 plain vjp, given the dt and p_mass the
+    kernels see (float32 values): dx and each body group within 1e-12 of
+    its largest |value| (the kernels' double math is the plain vjp's,
+    summed in another order); dv within 1e-6 (k2b hands its share to k1b
+    in float)."""
     prim, prim64, body, b64, x, v, rng = _mixed_scene(5)
     n = x.shape[1]
     gout, gforce = _f32(rng, 3, n), _f32(rng, 3, n)
     dt, p_mass = float(np.float32(1e-3)), float(np.float32(1.5e-5))
     f = ctypes.c_float
-    got = {}
-    for split in (0, 1):
-        st1 = torch.zeros(7, n, dtype=torch.float64)
-        gst1 = torch.zeros(7, n, dtype=torch.float64)
-        dv2 = torch.zeros(3, n)
-        dx = torch.zeros(3, n, dtype=torch.float64)
-        dv = torch.zeros(3, n, dtype=torch.float64)
-        db = torch.zeros(16, dtype=torch.float64)
-        lib.h_mixed_bwd(ctypes.c_int(split), _p(x), _p(v),
-                        _p(prim.neighborhood), _p(body), _p(st1), _p(gout),
-                        _p(gforce), _p(gst1), _p(dv2), _p(dx), _p(dv), _p(db),
-                        ctypes.c_int(n), *_geom(prim), f(dt), f(p_mass),
-                        f(cap))
-        got[split] = (dx, dv, db)
+    st1 = torch.zeros(7, n, dtype=torch.float64)
+    gst1 = torch.zeros(7, n, dtype=torch.float64)
+    dv2 = torch.zeros(3, n)
+    dx = torch.zeros(3, n, dtype=torch.float64)
+    dv = torch.zeros(3, n, dtype=torch.float64)
+    db = torch.zeros(16, dtype=torch.float64)
+    lib.h_mixed_bwd(_p(x), _p(v), _p(prim.neighborhood), _p(body), _p(st1),
+                    _p(gout), _p(gforce), _p(gst1), _p(dv2), _p(dx), _p(dv),
+                    _p(db), ctypes.c_int(n), *_geom(prim), f(dt), f(p_mass),
+                    f(cap))
     parts = (b64[0:3], b64[3:7], b64[7:10], b64[10:13], b64[13], b64[14],
              b64[15])
     ref = contact.collide_mixed_vjp_plain(
@@ -926,11 +982,10 @@ def test_mixed_contact_backward_source(lib, cap):
         None if cap == float("inf") else cap, gout.double(), gforce.double())
     groups = ((0, 3), (3, 7), (7, 10), (10, 13), (13, 14), (14, 15),
               (15, 16))
-    for split, (dx, dv, db) in got.items():
-        assert _rel(dx, ref[7]) < 1e-12
-        assert _rel(dv, ref[8]) < (1e-6 if split else 1e-12)
-        for (a, b), r in zip(groups, ref[:7]):
-            assert _rel(db[a:b], r.reshape(-1)) < 1e-12, (a, b)
+    assert _rel(dx, ref[7]) < 1e-12
+    assert _rel(dv, ref[8]) < 1e-6
+    for (a, b), r in zip(groups, ref[:7]):
+        assert _rel(db[a:b], r.reshape(-1)) < 1e-12, (a, b)
     counts = _mixed_cases(prim64, b64, x, v, dt)
     assert min(counts.values()) > 20, counts
 

@@ -144,3 +144,30 @@ def test_split_action_grad_matches_jax(runs, monkeypatch):
     jg = np.asarray(jout["action_grad"])
     assert np.abs(out["action_grad"].numpy() - jg).max() \
         <= RTOL * np.abs(jg).max()
+
+
+def test_gather_cotangent_mostly_zero(monkeypatch):
+    """What the gather backward kernel's skip relies on: rollout_and_grad
+    hands Gather.backward a cotangent that is exactly zero for most
+    particles (out of both bodies' contact bands the contact passes it
+    through and the splat's -2 (v_tmp - v_tgt) takes it back), and the
+    plain vjp with those particles dropped gives the same grid cotangents
+    to the bit, and dx zero there."""
+    from softmac_tpu_torch.ops import transfer
+    seen = []
+    vjp = transfer.gather_vjp_plain
+    monkeypatch.setattr(transfer, "gather_vjp_plain",
+                        lambda *a: seen.append(a) or vjp(*a))
+    tenv = _torch_env(WINDOW)
+    tenv.rollout_and_grad(_actions(tenv.action_dim), loss_stride=1)
+    assert seen
+    for x, gv0, gv1, gv2, corner, window, inv_dx, dv in seen:
+        zero = (dv == 0).all(dim=0)
+        assert int(zero.sum()) > x.shape[1] // 2, int(zero.sum())
+        assert bool((dv[:, ~zero] != 0).any())
+        full = vjp(x, gv0, gv1, gv2, corner, window, inv_dx, dv)
+        kept = vjp(x[:, ~zero], gv0, gv1, gv2, corner, window, inv_dx,
+                   dv[:, ~zero])
+        assert torch.equal(full[0][:, zero], torch.zeros_like(x[:, zero]))
+        for a, b in zip(full[1:], kept[1:]):
+            assert torch.equal(a, b)
