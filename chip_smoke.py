@@ -9,7 +9,9 @@ script exits non-zero:
   device   the card as nvidia-smi reports it (name, power limit)
   build    nvcc builds the CUDA kernels from softmac_tpu_torch/ops/csrc;
            each kernel's registers, spills and static shared memory from
-           the ptxas log (also in its entry of the kernels line)
+           the ptxas log (also in its entry of the kernels line); the
+           row-thread backwards of fused_rows.cuh apart ("row_kernels"),
+           which fail the phase if they spill
   kernels  each kernel against its plain PyTorch version at the main path's
            shapes: max error, time over 20+ calls (CUDA events: the call,
            the wrapper's host time included), its device-only time
@@ -44,9 +46,7 @@ script exits non-zero:
            version or vjp, the particles that spilled off their tile's
            slab counted (none in the sorted order; some permuted order of
            each must spill), 10 calls bit-identical; on the two windowed
-           states the backwards' first design (softmac_*_bwd_atomic, one
-           thread a particle with float64 atomics) and the new one timed in
-           turns (old, new, new, old), call and device time, recorded
+           states the backwards' call and device time
   slice    the pour_vel main path: SoftMacEnv.rollout of that scene for 50
            env steps on the card, launches counted; then 7 more timed
            rollouts of the same actions: substeps/s (median and spread),
@@ -74,8 +74,8 @@ script exits non-zero:
            keeps the inputs of three real calls of gather_bwd and g2p_bwd
            and counts each call's nonzero cotangent columns; on the kept
            inputs both kernels are held to the float64 plain vjps (10
-           calls bit-identical) and timed beside their first designs in
-           turns (the "real" field of their kernel entries)
+           calls bit-identical) and timed (the "real" field of their
+           kernel entries)
   profile  torch.profiler over 20 env steps of each rollout and 10 of each
            rollout_and_grad (remat "none"): device busy share of the wall
            time, kernel launches per substep, the kernels that take the
@@ -98,7 +98,9 @@ script exits non-zero:
            dense random weights (window (16, 8, 16)), and timed there and
            on that state tiled to 1e5 particles, beside their plain
            versions and one torch.einsum over the dense weights, or one
-           torch.autograd.grad through it (the library calls); then
+           torch.autograd.grad through it (the library calls); the
+           row-thread P2G and G2P backwards also held at 1e5 particles, and
+           10 calls of each bit-identical on every input; then
            SoftMacEnv.rollout of the demo's initial actions for 300 env
            steps with launches counted, its end state against a
            zero-action rollout of the same 300 steps (the controller
@@ -219,8 +221,8 @@ MIXED_CLASSIFY_FLOPS = 30 + 20 + 32
 MIXED_REPEATS = 10         # tiled mixed-contact calls agreeing bit for bit
 DEVICE_MS = {}             # device_ms: device-only ms a call, by kernel row
 # the names of the port's kernels in a profile (ops/csrc/*.cu)
-PORT_KERNEL = (r"(p2g|g2p|gather|splat|collide|kr3|slab_|round_to_float)"
-               r"\w*(<[^>]*>)?\(")
+PORT_KERNEL = (r"(p2g|g2p|gather|splat|collide|kr3|slab_|rows_"
+               r"|round_to_float)\w*(<[^>]*>)?\(")
 GRAD_REPEATS = 5
 GRAD_TOL = 1e-6           # step vs none, repeats vs the counted call
 ROW_TOL = 1e-5            # backward rows and grids
@@ -260,6 +262,10 @@ REAL_BWD = ("gather_bwd", "g2p_bwd")
 CAPTURE_CALLS = (10, 50, 90)
 FUSED = ("fused_p2g", "fused_g2p", "fused_splat", "fused_gather")
 FUSED_BWD = tuple(k + "_bwd" for k in FUSED)
+# the row-thread backwards (ops/csrc/fused_rows.cuh): also held at 1e5
+# particles, FUSED_REPEATS calls bit-identical, no ptxas spills
+ROW_BWD = ("fused_p2g_bwd", "fused_g2p_bwd")
+FUSED_REPEATS = 10
 # float operations per visited window cell (the kernels work in double,
 # counted at the float32 rate, the least time for the same work): the
 # three weight products and the cell's terms
@@ -820,15 +826,14 @@ BWD_OUTPUTS = ("dx", "dgv0", "dgv1", "dgv2")
 
 
 def slab_fns(name):
-    """(kernel, the wrapper that holds its .spilled, float64 reference, the
-    first design or None) of the y-slab kernel ``name``."""
+    """(kernel, the wrapper that holds its .spilled, float64 reference) of
+    the y-slab kernel ``name``."""
     from softmac_tpu_torch.ops import transfer
     if name in ("p2g", "splat"):
         return (getattr(transfer, "_" + name), getattr(transfer, name),
-                getattr(transfer, name + "_plain"), None)
+                getattr(transfer, name + "_plain"))
     fn = getattr(transfer, name)
-    return (fn, fn, getattr(transfer, name.replace("_bwd", "_vjp_plain")),
-            getattr(transfer, name + "_atomic"))
+    return fn, fn, getattr(transfer, name.replace("_bwd", "_vjp_plain"))
 
 
 def _as_tuple(out):
@@ -873,16 +878,11 @@ def _particle_cols(name, args):
     return (0, 1) if name in ("p2g", "splat") else (0, 7)
 
 
-def slab_turns(name, args, label):
-    """The first design and the y-slab kernel ``name`` (a backward) on the
-    same ``args`` in turns (old, new, new, old), call ms (CUDA events) and
-    device ms (torch.profiler) each; recorded, not a gate."""
-    kernel, _, _, old = slab_fns(name)
-    turns = [cuda_time_ms(lambda: f(*args))
-             for f in (old, kernel, kernel, old)]
-    return {"atomic_ms": turns[0::3], "slab_ms": turns[1:3],
-            "atomic_device_ms": device_ms(f"{name}_atomic {label}",
-                                          lambda: old(*args)),
+def slab_times(name, args, label):
+    """The y-slab kernel ``name`` (a backward) on ``args``: call ms (CUDA
+    events) and device ms (torch.profiler)."""
+    kernel = slab_fns(name)[0]
+    return {"slab_ms": cuda_time_ms(lambda: kernel(*args)),
             "slab_device_ms": device_ms(f"{name} slab {label}",
                                         lambda: kernel(*args))}
 
@@ -894,11 +894,10 @@ def check_slab(name, args, gen, time_it):
     kernel's entry measures it), the spilled-particle count of each order
     (0 sorted), SLAB_REPEATS calls bit-identical, and the plan (tiles, slab
     rows, dynamic shared bytes); for a backward the particles whose
-    cotangent is nonzero, and with ``time_it`` its first design timed
-    beside it (slab_turns)."""
+    cotangent is nonzero, and with ``time_it`` its times (slab_times)."""
     import torch
     from softmac_tpu_torch.ops import transfer
-    kernel, wrapper, plain, _ = slab_fns(name)
+    kernel, wrapper, plain = slab_fns(name)
     x, sizes = args[0], args[-2] if name in ("p2g", "splat") else args[5]
     bwd = name.endswith("_bwd")
     want = plain(*map(_f64, args))
@@ -927,7 +926,7 @@ def check_slab(name, args, gen, time_it):
                               zip(_as_tuple(o), _as_tuple(outs[0])))
                           for o in outs[1:])}
     if time_it:
-        res.update(slab_turns(name, args, f"seeded {sizes}"))
+        res.update(slab_times(name, args, f"seeded {sizes}"))
     if not (res["sorted"]["spilled"] == 0
             and all(res[o]["max_rel_err"] <= ROW_TOL
                     and res[o]["repeats_bit_identical"]
@@ -941,9 +940,8 @@ def check_slab_kernels(inp, pour_inp):
     pour_vel and the pour states (the main paths' y-sorted particles,
     windows and grids; the splat on pour_vel with seeded normal values,
     every particle active; the backwards with seeded normal cotangents,
-    timed beside their first designs there) and on the pour's particles
-    over the full 64^3 grid (no window: the widest rows; seeded normal
-    grids for the backwards). The permuted orders must spill somewhere for
+    timed there) and on the pour's particles over the full 64^3 grid (no
+    window: the widest rows; seeded normal grids for the backwards). The permuted orders must spill somewhere for
     each kernel (the spill path ran). Returns {kernel: {state: result}}."""
     import torch
     x_v, x_p = inp["state"].x, pour_inp["state"].x
@@ -989,15 +987,14 @@ def check_real_backward(keep, kernels):
     cotangent is nonzero in every call of the counted run, and in each
     kept call those particles and the SLAB_TILE tiles that hold any; the
     kernel within ROW_TOL of the float64 plain vjp, its spills,
-    SLAB_REPEATS calls bit-identical, its first design timed beside it
-    (slab_turns) and the bound of what these inputs need (the particles
-    at zero read their cotangent and write dx only). Added to each
-    kernel's entry under "real"."""
+    SLAB_REPEATS calls bit-identical, its times (slab_times) and the bound
+    of what these inputs need (the particles at zero read their cotangent
+    and write dx only). Added to each kernel's entry under "real"."""
     import torch
     from softmac_tpu_torch.ops import transfer
     by_name = {k["name"]: k for k in kernels}
     for name, k in keep.items():
-        kernel, _, plain, _ = slab_fns(name)
+        kernel, _, plain = slab_fns(name)
         active = [int(a) for a in torch.stack(k.active).tolist()]
         res = {"calls": len(active), "active_by_call": active,
                "calls_with_active": sum(a > 0 for a in active),
@@ -1028,7 +1025,7 @@ def check_real_backward(keep, kernels):
                      all(torch.equal(p, q) for p, q in zip(o, outs[0]))
                      for o in outs[1:]),
                  "bound_ms": b_ms, "bound_by": b_by,
-                 **slab_turns(name, args, f"real {call}")}
+                 **slab_times(name, args, f"real {call}")}
             res["kept"][call] = r
             print(f"{name} real call {call}: {json.dumps(r)}", flush=True)
             if not (rel <= ROW_TOL and r["repeats_bit_identical"]):
@@ -2239,6 +2236,21 @@ def door_kernel_inputs(env, carry, action):
                 gvm=gvm, vals=vals, gv=gv)
 
 
+def door_states():
+    """The door env on the card, its carry after STATE_STEPS env steps of
+    the demo's actions, and the dense-weight kernels' inputs of its first
+    substep from that carry: {"door": 5400 particles, "1e5": the carry
+    tiled to N_MAIN particles}."""
+    env = door_env()
+    carry = env.rollout(door_actions(STATE_STEPS))["carry"]
+    big = tiled_carry(carry, N_MAIN)
+    return env, carry, {
+        "door": door_kernel_inputs(env, carry, door_actions(1)[0]),
+        "1e5": door_kernel_inputs(
+            door_env(init_particles=big[0].x.T.cpu().numpy()), big,
+            door_actions(1)[0])}
+
+
 def dense_kernel_inputs(device):
     """Fully dense seeded normal weights at DENSE_WINDOW with N_DENSE
     particles, and seeded channels, grids and values: the general function
@@ -2567,6 +2579,16 @@ def fused_bwd_work(name, inp):
     return nbytes, row_cells, box_cells
 
 
+def bit_identical(fn, repeats=FUSED_REPEATS):
+    """Whether ``repeats`` calls of ``fn`` (a tuple of tensors each) agree
+    bit for bit."""
+    import torch
+    outs = [fn() for _ in range(repeats)]
+    torch.cuda.synchronize()
+    return all(all(torch.equal(p, q) for p, q in zip(o, outs[0]))
+               for o in outs[1:])
+
+
 def check_fused_backward_kernels(door_inp, big_inp, dense_inp):
     """The four backward kernels of the dense-weight transfers (row 18)
     against their float64 plain vjps on the door's state and on dense
@@ -2574,7 +2596,9 @@ def check_fused_backward_kernels(door_inp, big_inp, dense_inp):
     row's largest |value|), timed with CUDA events on the door's state and
     on it tiled to 1e5 particles, beside the float32 plain vjp and one
     torch.autograd.grad through the einsum yardstick; bounds from each
-    run's inputs."""
+    run's inputs. The row-thread kernels (ROW_BWD) are also held on the
+    1e5 particles, and FUSED_REPEATS calls of each on every input must
+    agree bit for bit."""
     import torch
     srcs = {
         "fused_p2g_bwd": ("fused_p2g_bwd.cu", ":740 (_p2g_bwd_pallas, "
@@ -2596,10 +2620,18 @@ def check_fused_backward_kernels(door_inp, big_inp, dense_inp):
     lib64 = fused_einsum_vjps(door_inp, cts["door"], torch.float64)
     entries = []
     for name, (src, where) in srcs.items():
-        errs = {}
-        for case, inp in (("door", door_inp), ("dense", dense_inp)):
+        errs, repeats = {}, {}
+        for case, inp in (("door", door_inp), ("dense", dense_inp),
+                          ("big", big_inp)):
+            if case == "big" and name not in ROW_BWD:
+                continue
             kern, _, ref = calls[case][name]
             errs[case] = _bwd_rel(kern(), ref())
+            if name in ROW_BWD:
+                repeats[case] = bit_identical(kern)
+        if not all(repeats.values()):
+            raise AssertionError(f"{name}: {FUSED_REPEATS} calls differ: "
+                                 f"{repeats}")
         lib_err = _bwd_rel(lib64[name](), calls["door"][name][2]())[1]
         if not lib_err <= 1e-8:
             raise AssertionError(f"{name}: the einsum vjp yardstick differs "
@@ -2632,6 +2664,8 @@ def check_fused_backward_kernels(door_inp, big_inp, dense_inp):
                            "cotangents, over the door's state and the dense "
                            "random weights")
         e["rel_err_by_input"] = {k: v[1] for k, v in errs.items()}
+        if name in ROW_BWD:
+            e["repeats_bit_identical"] = repeats
         e["dense_input"] = {"window": list(DENSE_WINDOW), "n": N_DENSE}
         e["n_particles"] = door_inp["n"]
         e["row_cells"], e["box_cells"] = row_cells, box_cells
@@ -3215,7 +3249,14 @@ def main():
     so, log, secs = build.build()
     build.library()
     ptxas = ptxas_by_source(log)
-    emit("build", {"seconds": secs, "library": so.name, "ptxas": ptxas})
+    rows_ptxas = {k + ".cu": [f for f in ptxas.get(k + ".cu", [])
+                              if "round_to_float" not in f["function"]]
+                  for k in ROW_BWD}
+    emit("build", {"seconds": secs, "library": so.name,
+                   "row_kernels": rows_ptxas, "ptxas": ptxas})
+    if log and not all(fns and all(f["spill_stores"] == 0 for f in fns)
+                       for fns in rows_ptxas.values()):
+        raise AssertionError(f"row-thread kernels: ptxas {rows_ptxas}")
 
     env = SoftMacEnv(pour_vel_cfg(WINDOW),
                      init_particles=tiled_pour_particles(N_MAIN))
@@ -3233,17 +3274,13 @@ def main():
     for k in kernels:
         if k["name"] in slab:
             k["slab"] = slab[k["name"]]
-    denv = door_env()
-    door10 = denv.rollout(door_actions(STATE_STEPS))["carry"]
-    door_inp = door_kernel_inputs(denv, door10, door_actions(1)[0])
-    big = tiled_carry(door10, N_MAIN)
-    big_inp = door_kernel_inputs(
-        door_env(init_particles=big[0].x.T.cpu().numpy()), big,
-        door_actions(1)[0])
+    denv, door10, door_inp = door_states()
+    big_inp = door_inp.pop("1e5")
+    door_inp = door_inp["door"]
     dense_inp = dense_kernel_inputs(denv.device)
     kernels += check_fused_kernels(door_inp, big_inp, dense_inp)
     kernels += check_fused_backward_kernels(door_inp, big_inp, dense_inp)
-    del big, big_inp
+    del big_inp
     kernels += check_kr3_kernel(pour_env, pour10)
     full_env = SoftMacEnv(full_grid_cfg(),
                           init_particles=tiled_pour_particles(N_MAIN))

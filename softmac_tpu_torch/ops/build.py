@@ -38,7 +38,6 @@ SIGNATURES = {
                                  _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "softmac_p2g_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
     "softmac_g2p_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
-    "softmac_g2p_bwd_atomic": [_P] * 9 + [_I] * 4 + [_F, _P],
     "softmac_collide_particle_bwd": [_P] * 8 + [_I] * 4 + [_F] * 9 + [_P],
     "softmac_gather": [_P] * 6 + [_I] * 4 + [_F, _P],
     "softmac_splat": [_P] * 7 + [_I] * 5 + [_F, _P],
@@ -46,7 +45,6 @@ SIGNATURES = {
     "softmac_collide_mixed1": [_P] * 5 + [_I] * 4 + [_F] * 8 + [_P],
     "softmac_collide_mixed2": [_P] * 8 + [_I] * 4 + [_F] * 10 + [_P],
     "softmac_gather_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
-    "softmac_gather_bwd_atomic": [_P] * 9 + [_I] * 4 + [_F, _P],
     "softmac_splat_bwd": [_P] * 6 + [_I] * 4 + [_F, _P],
     "softmac_collide_mixed_bwd": [_P] * 17 + [_I] * 4 + [_F] * 10 + [_P],
     "softmac_collide_mixed1_bwd": [_P] * 8 + [_I] * 4 + [_F] * 8 + [_P],
@@ -55,8 +53,8 @@ SIGNATURES = {
     "softmac_fused_g2p": [_P] * 10 + [_I] * 4 + [_P],
     "softmac_fused_splat": [_P] * 6 + [_I] * 4 + [_P],
     "softmac_fused_gather": [_P] * 7 + [_I] * 4 + [_P],
-    "softmac_fused_p2g_bwd": [_P] * 10 + [_I] * 4 + [_P],
-    "softmac_fused_g2p_bwd": [_P] * 13 + [_I] * 4 + [_P],
+    "softmac_fused_p2g_bwd": [_P] * 11 + [_I] * 4 + [_P],
+    "softmac_fused_g2p_bwd": [_P] * 14 + [_I] * 4 + [_P],
     "softmac_fused_splat_bwd": [_P] * 6 + [_I] * 4 + [_P],
     "softmac_fused_gather_bwd": [_P] * 10 + [_I] * 4 + [_P],
     "softmac_kr3": [_P] * 7 + [_I] * 3 + [_P],

@@ -76,52 +76,6 @@ __device__ __forceinline__ void particle_stencil(const float* __restrict__ x,
   }
 }
 
-// Momentum-type splat of one particle into float64 window accumulators by
-// atomics in device memory: for every stencil cell inside the window
-//   gm[row * wx + cx]                          += W * mass   (gm != nullptr)
-//   gmom[row * row_stride + d * comp_stride + cx] += W mom_d + WxD a_d0
-//                                                  + WDy a_d1 + WDz a_d2
-// with row = cy * wz + cz. Only the first designs of the G2P and gather
-// backwards (softmac_g2p_bwd_atomic, softmac_gather_bwd_atomic) still use
-// it: they splat the velocity (and C) cotangents into three (wy*wz, wx)
-// grids. The kernels the port runs scatter through slab.cuh.
-__device__ __forceinline__ void splat_stencil(const Axis ax[3], const int rel[3],
-                                              int wx, int wy, int wz,
-                                              double* gm, float mass,
-                                              double* gmom, int row_stride,
-                                              int comp_stride,
-                                              const float mom[3],
-                                              const float a[3][3]) {
-  for (int j = 0; j < 3; ++j) {
-    const int cy = rel[1] + j;
-    if (cy < 0 || cy >= wy) continue;
-    for (int k = 0; k < 3; ++k) {
-      const int cz = rel[2] + k;
-      if (cz < 0 || cz >= wz) continue;
-      const int row = cy * wz + cz;
-      const float wyz = ax[1].w[j] * ax[2].w[k];
-      const float dyz = ax[1].wd[j] * ax[2].w[k];
-      const float ydz = ax[1].w[j] * ax[2].wd[k];
-      for (int i = 0; i < 3; ++i) {
-        const int cx = rel[0] + i;
-        if (cx < 0 || cx >= wx) continue;
-        const float wgt = ax[0].w[i] * wyz;
-        const float dwx = ax[0].wd[i] * wyz;
-        const float dwy = ax[0].w[i] * dyz;
-        const float dwz = ax[0].w[i] * ydz;
-        if (gm != nullptr) {
-          atomicAdd(gm + row * wx + cx, static_cast<double>(wgt * mass));
-        }
-        double* g = gmom + row * row_stride + cx;
-        for (int d = 0; d < 3; ++d) {
-          atomicAdd(g + d * comp_stride, static_cast<double>(
-              wgt * mom[d] + dwx * a[d][0] + dwy * a[d][1] + dwz * a[d][2]));
-        }
-      }
-    }
-  }
-}
-
 // Reverse sweep over one particle's stencil. For every cell inside the
 // window, cell(row, cx, W, WxD, WDy, WDz, s) sees the cell's four weights
 // and sets s[0..3] to the cotangents of W, WxD, WDy and WDz at that cell

@@ -1,5 +1,7 @@
-// Shared by the dense-weight transfers' backward kernels (fused_p2g_bwd.cu,
-// fused_g2p_bwd.cu, fused_splat_bwd.cu, fused_gather_bwd.cu).
+// The function of the dense-weight transfers' backward kernels, and the
+// one-thread-a-particle code of the splat and gather backwards
+// (fused_splat_bwd.cu, fused_gather_bwd.cu); the P2G and G2P backwards
+// compute the same function many threads a particle (fused_rows.cuh).
 //
 // For one particle, each of the four forwards, dotted with its output
 // cotangent, is a sum over the window cells c = (x, y, z) (row y * wz + z,

@@ -20,77 +20,79 @@
 // practice the cell reads of the weight rows and the float64 atomics of
 // the grid cotangents, 3 per box cell.
 //
-// Simple design: one thread per particle: its box (fused.cuh), the weight
-// rows (fused_bwd.cuh weight_adjoint), then the grid terms over the box
-// with atomicAdd(double) into a zeroed window, which a second launch rounds
-// to float32 once, so repeated runs agree bit for bit (as g2p_bwd.cu).
-#include "fused_bwd.cuh"
+// Design (fused_rows.cuh): 32 particles a tile, one a lane, on a block
+// of 8 warps (or a few blocks that share its tasks where the tiles are too
+// few to fill the card); their boxes and pair products staged once; one
+// thread a (particle, y or z weight row), one warp a particle's x rows,
+// and one thread a (particle, (y, z) cell of its box) for the grid terms,
+// which it adds along the box's x rows with atomicAdd(double) into the
+// window the first launch zeroed; a last launch rounds the window to
+// float32 once, so repeated runs agree bit for bit. Three launches a
+// call: the grids' y- and z-fastest layouts with the zero fill, the
+// kernel, the round.
+#include "fused_rows.cuh"
 
 namespace {
 
-__global__ void fused_g2p_bwd_kernel(
-    const float* __restrict__ Wx, const float* __restrict__ WxD,
-    const float* __restrict__ Wy, const float* __restrict__ WDy,
-    const float* __restrict__ Wz, const float* __restrict__ WDz,
-    const float* __restrict__ gv0, const float* __restrict__ gv1,
-    const float* __restrict__ gv2, const float* __restrict__ g,
-    float* __restrict__ out, double* __restrict__ dgrid, int n, int wx,
-    int wy, int wz) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const softmac::Box b =
-      softmac::particle_box(Wx, WxD, Wy, WDy, Wz, WDz, n, p, wx, wy, wz);
-  double cv[3], c[3][3];
-  for (int d = 0; d < 3; ++d) {
-    cv[d] = g[d * n + p];
-    for (int j = 0; j < 3; ++j) c[d][j] = g[(3 + 3 * d + j) * n + p];
-  }
-  auto cell = [&](int row, int x) {
-    const int idx = row * wx + x;
-    const double v[3] = {__ldg(gv0 + idx), __ldg(gv1 + idx),
-                         __ldg(gv2 + idx)};
-    softmac::CellCoef s;
-    s.h = cv[0] * v[0] + cv[1] * v[1] + cv[2] * v[2];
-    s.d0 = c[0][0] * v[0] + c[1][0] * v[1] + c[2][0] * v[2];
-    s.d1 = c[0][1] * v[0] + c[1][1] * v[1] + c[2][1] * v[2];
-    s.d2 = c[0][2] * v[0] + c[1][2] * v[1] + c[2][2] * v[2];
-    return s;
-  };
-  float* dW = out;
-  float* dWxD = dW + static_cast<size_t>(wx) * n;
-  float* dWy = dWxD + static_cast<size_t>(wx) * n;
-  float* dWDy = dWy + static_cast<size_t>(wy) * n;
-  float* dWz = dWDy + static_cast<size_t>(wy) * n;
-  float* dWDz = dWz + static_cast<size_t>(wz) * n;
-  softmac::weight_adjoint<true>(Wx, WxD, Wy, WDy, Wz, WDz, n, p, wx, wy, wz,
-                                b, cell, dW, dWxD, dWy, dWDy, dWz, dWDz);
-  if (b.empty()) return;
+using softmac::RowsArgs;
+using softmac::RowsShared;
 
-  const int cells = wx * wy * wz;
-  for (int y = b.y0; y <= b.y1; ++y) {
-    const double wy_ = softmac::at(Wy, y, n, p);
-    const double dy = softmac::at(WDy, y, n, p);
-    for (int z = b.z0; z <= b.z1; ++z) {
-      const double wz_ = softmac::at(Wz, z, n, p);
-      const double dz = softmac::at(WDz, z, n, p);
-      const double wyz = wy_ * wz_, dyz = dy * wz_, ydz = wy_ * dz;
-      if (wyz == 0.0 && dyz == 0.0 && ydz == 0.0) continue;
-      const int row = y * wz + z;
-      for (int x = b.x0; x <= b.x1; ++x) {
-        const double w0 = softmac::at(Wx, x, n, p);
-        const double d0 = softmac::at(WxD, x, n, p);
-        const double wgt = w0 * wyz, dwx = d0 * wyz;
-        const double dwy = w0 * dyz, dwz = w0 * ydz;
-        if (wgt == 0.0 && dwx == 0.0 && dwy == 0.0 && dwz == 0.0) continue;
-        double* dst = dgrid + row * wx + x;
-        for (int d = 0; d < 3; ++d) {
-          atomicAdd(dst + d * cells, wgt * cv[d] + dwx * c[d][0]
-                                         + dwy * c[d][1] + dwz * c[d][2]);
-        }
+// The grid terms: one task a (y, z) cell of the particle's box (task
+// ia * lz + ib), each adding the cell's x rows.
+struct G2PBwd {
+  static constexpr int kGrids = 3;
+
+  __device__ static int extra_tasks(const RowsArgs& a, bool narrow) {
+    return narrow ? softmac::kBoxCells : a.size[1] * a.size[2];
+  }
+
+  __device__ static void extra(const RowsArgs& a, const RowsShared& sh,
+                               bool narrow, int task, int lane, int p) {
+    const int lx = softmac::box_len(sh, 0, lane);
+    const int ly = softmac::box_len(sh, 1, lane);
+    const int lz = softmac::box_len(sh, 2, lane);
+    if (task >= ly * lz || lx == 0) return;
+    const int ia = task / lz, ib = task - ia * lz;
+    double p0, pa, pb;     // Wy Wz, WDy Wz, Wy WDz
+    softmac::plane_pair<0>(a, sh, narrow, lane, p, ia, ib, &p0, &pa, &pb);
+    if (p0 == 0.0 && pa == 0.0 && pb == 0.0) return;
+    const size_t n = a.n;
+    float cv[3], c[3][3];
+    for (int d = 0; d < 3; ++d) {
+      cv[d] = __ldg(a.rows + d * n + p);
+      for (int j = 0; j < 3; ++j) {
+        c[d][j] = __ldg(a.rows + (3 + 3 * d + j) * n + p);
+      }
+    }
+    const int wx = a.size[0];
+    const int cells = wx * a.size[1] * a.size[2];
+    const int row = (sh.lo[1][lane] + ia) * a.size[2] + sh.lo[2][lane] + ib;
+    for (int ix = 0; ix < lx; ++ix) {
+      const int x = sh.lo[0][lane] + ix;
+      const double w0 = softmac::box_weight<0>(a, sh, narrow, 0, x, lane, p);
+      const double d0 = softmac::box_weight<0>(a, sh, narrow, 1, x, lane, p);
+      const double wgt = w0 * p0, dwx = d0 * p0;
+      const double dwy = w0 * pa, dwz = w0 * pb;
+      if (wgt == 0.0 && dwx == 0.0 && dwy == 0.0 && dwz == 0.0) continue;
+      double* dst = a.acc + row * wx + x;
+      for (int d = 0; d < 3; ++d) {
+        atomicAdd(dst + d * cells,
+                  wgt * static_cast<double>(cv[d])
+                      + dwx * static_cast<double>(c[d][0])
+                      + dwy * static_cast<double>(c[d][1])
+                      + dwz * static_cast<double>(c[d][2]));
       }
     }
   }
+};
+
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(softmac::kRowThreads, softmac::kRowBlocks)
+    fused_g2p_bwd_kernel(const RowsArgs a) {
+  __shared__ RowsShared sh;
+  softmac::rows_block<G2PBwd>(a, &sh);
 }
+#endif
 
 }  // namespace
 
@@ -98,8 +100,10 @@ __global__ void fused_g2p_bwd_kernel(
 // gv0..gv2 (wy*wz, wx) as for softmac_fused_g2p; g (12, n) the cotangent of
 // its output. out: (2 (wx + wy + wz), n) float32, the rows dWx, dWxD, dWy,
 // dWDy, dWz, dWDz one after the other, every row written. acc: 3 *
-// wy*wz*wx doubles zeroed by the caller; gout: the three grid cotangents
-// in float32, one (wy*wz, wx) grid after the other. Returns
+// wy*wz*wx doubles (zeroed by the first launch); gout: the three grid
+// cotangents in float32, one (wy*wz, wx) grid after the other; scratch:
+// 6 * wy*wz*wx floats (the grids' two other layouts). Three launches: the
+// layouts and the zero fill, the kernel, the round. Returns
 // cudaGetLastError() after the launches.
 extern "C" int softmac_fused_g2p_bwd(const float* Wx, const float* WxD,
                                      const float* Wy, const float* WDy,
@@ -107,13 +111,22 @@ extern "C" int softmac_fused_g2p_bwd(const float* Wx, const float* WxD,
                                      const float* gv0, const float* gv1,
                                      const float* gv2, const float* g,
                                      float* out, double* acc, float* gout,
-                                     int n, int wx, int wy, int wz,
-                                     void* stream) {
+                                     float* scratch, int n, int wx, int wy,
+                                     int wz, void* stream) {
   const int count = 3 * wx * wy * wz;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RowsArgs a = {{Wx, WxD, Wy, WDy, Wz, WDz},
+                      {gv0, gv1, gv2, nullptr},
+                      {wx, wx, wx, 0},
+                      g, out, acc, scratch, scratch + count,
+                      n, {wx, wy, wz}};
+  softmac::rows_prep<3><<<softmac::blocks_for(count), softmac::kThreads, 0,
+                          s>>>(a);
   if (n > 0) {
-    fused_g2p_bwd_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0, s>>>(
-        Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2, g, out, acc, n, wx, wy, wz);
+    fused_g2p_bwd_kernel<<<dim3(softmac::rows_blocks(n),
+                                softmac::rows_parts(n)),
+                           softmac::kRowThreads, 0,
+                           s>>>(a);
   }
   softmac::round_to_float<<<softmac::blocks_for(count), softmac::kThreads, 0,
                             s>>>(acc, gout, count);

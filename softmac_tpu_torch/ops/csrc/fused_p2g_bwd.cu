@@ -24,88 +24,78 @@
 // ~35 flops each: about the same. In practice the cell reads, 4 floats a
 // visited cell, from L1 and L2.
 //
-// Simple design: one thread per particle, no atomics (every output is the
-// particle's own), so repeated runs are bit-identical. The particle's box
-// (fused.cuh), then the weight rows (fused_bwd.cuh weight_adjoint), then
-// the channels over the box; coalesced row-major stores.
-#include "fused_bwd.cuh"
+// Design (fused_rows.cuh): 32 particles a tile, one a lane, on a block
+// of 8 warps (or a few blocks that share its tasks where the tiles are too
+// few to fill the card); their boxes and pair products staged once; one
+// thread a (particle, y or z weight row), one warp a particle's x rows,
+// and four threads a particle for the channel sums (the mass, and the
+// four sums of each momentum component over the box), each output
+// written by one thread in a fixed order: no atomics, repeated runs are
+// bit-identical. Two launches a call: the grids' y- and z-fastest
+// layouts, then the kernel.
+#include "fused_rows.cuh"
 
 namespace {
 
-__global__ void fused_p2g_bwd_kernel(
-    const float* __restrict__ Wx, const float* __restrict__ WxD,
-    const float* __restrict__ Wy, const float* __restrict__ WDy,
-    const float* __restrict__ Wz, const float* __restrict__ WDz,
-    const float* __restrict__ chan, const float* __restrict__ dgm,
-    const float* __restrict__ dgmom, float* __restrict__ out, int n, int wx,
-    int wy, int wz) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const softmac::Box b =
-      softmac::particle_box(Wx, WxD, Wy, WDy, Wz, WDz, n, p, wx, wy, wz);
-  const double mass = chan[p];
-  double mom[3], a[3][3];
-  for (int d = 0; d < 3; ++d) {
-    mom[d] = chan[(1 + d) * n + p];
-    for (int j = 0; j < 3; ++j) a[d][j] = chan[(4 + 3 * d + j) * n + p];
-  }
-  auto grads = [&](int row, int x, double* g) {
-    const float* gr = dgmom + static_cast<size_t>(row) * 3 * wx + x;
-    g[0] = __ldg(dgm + row * wx + x);
-    for (int d = 0; d < 3; ++d) g[1 + d] = __ldg(gr + d * wx);
-  };
-  auto cell = [&](int row, int x) {
-    double g[4];
-    grads(row, x, g);
-    softmac::CellCoef s;
-    s.h = g[0] * mass + g[1] * mom[0] + g[2] * mom[1] + g[3] * mom[2];
-    s.d0 = g[1] * a[0][0] + g[2] * a[1][0] + g[3] * a[2][0];
-    s.d1 = g[1] * a[0][1] + g[2] * a[1][1] + g[3] * a[2][1];
-    s.d2 = g[1] * a[0][2] + g[2] * a[1][2] + g[3] * a[2][2];
-    return s;
-  };
-  float* dW = out;
-  float* dWxD = dW + static_cast<size_t>(wx) * n;
-  float* dWy = dWxD + static_cast<size_t>(wx) * n;
-  float* dWDy = dWy + static_cast<size_t>(wy) * n;
-  float* dWz = dWDy + static_cast<size_t>(wy) * n;
-  float* dWDz = dWz + static_cast<size_t>(wz) * n;
-  float* dchan = dWDz + static_cast<size_t>(wz) * n;
-  softmac::weight_adjoint<true>(Wx, WxD, Wy, WDy, Wz, WDz, n, p, wx, wy, wz,
-                                b, cell, dW, dWxD, dWy, dWDy, dWz, dWDz);
+using softmac::RowsArgs;
+using softmac::RowsShared;
 
-  double dc[13] = {0.0};
-  if (!b.empty()) {
-    for (int y = b.y0; y <= b.y1; ++y) {
-      const double wy_ = softmac::at(Wy, y, n, p);
-      const double dy = softmac::at(WDy, y, n, p);
-      for (int z = b.z0; z <= b.z1; ++z) {
-        const double wz_ = softmac::at(Wz, z, n, p);
-        const double dz = softmac::at(WDz, z, n, p);
-        const double wyz = wy_ * wz_, dyz = dy * wz_, ydz = wy_ * dz;
-        const int row = y * wz + z;
-        for (int x = b.x0; x <= b.x1; ++x) {
-          const double w0 = softmac::at(Wx, x, n, p);
-          const double d0 = softmac::at(WxD, x, n, p);
-          const double wgt = w0 * wyz, dwx = d0 * wyz;
-          const double dwy = w0 * dyz, dwz = w0 * ydz;
-          double g[4];
-          grads(row, x, g);
-          dc[0] += wgt * g[0];
-          for (int d = 0; d < 3; ++d) {
-            dc[1 + d] += wgt * g[1 + d];
-            dc[4 + 3 * d] += dwx * g[1 + d];
-            dc[5 + 3 * d] += dwy * g[1 + d];
-            dc[6 + 3 * d] += dwz * g[1 + d];
-          }
+// The channel sums: four tasks a particle, task 0 the mass row, task 1 + d
+// the four rows of momentum component d, each over the particle's box.
+struct P2GBwd {
+  static constexpr int kGrids = 4;
+
+  __device__ static int extra_tasks(const RowsArgs&, bool) { return 4; }
+
+  __device__ static void extra(const RowsArgs& a, const RowsShared& sh,
+                               bool narrow, int task, int lane, int p) {
+    const int lx = softmac::box_len(sh, 0, lane);
+    const int ly = softmac::box_len(sh, 1, lane);
+    const int lz = softmac::box_len(sh, 2, lane);
+    const int x0 = sh.lo[0][lane], y0 = sh.lo[1][lane], z0 = sh.lo[2][lane];
+    const int wz = a.size[2];
+    const float* grid = softmac::grid_of(a, task);
+    const int stride = softmac::stride_of(a, task);
+    double s[4] = {0.0, 0.0, 0.0, 0.0};
+    for (int ix = 0; ix < lx; ++ix) {
+      const int x = x0 + ix;
+      const double w0 = softmac::box_weight<0>(a, sh, narrow, 0, x, lane, p);
+      const double d0 = softmac::box_weight<0>(a, sh, narrow, 1, x, lane, p);
+      for (int ia = 0; ia < ly; ++ia) {
+        for (int ib = 0; ib < lz; ++ib) {
+          double p0, pa, pb;
+          softmac::plane_pair<0>(a, sh, narrow, lane, p, ia, ib, &p0, &pa,
+                                 &pb);
+          const double g = __ldg(grid + ((y0 + ia) * wz + z0 + ib) * stride
+                                 + x);
+          s[0] += w0 * p0 * g;
+          s[1] += d0 * p0 * g;
+          s[2] += w0 * pa * g;
+          s[3] += w0 * pb * g;
         }
       }
     }
+    const size_t n = a.n;
+    float* dchan = a.out + 2 * (a.size[0] + a.size[1] + a.size[2]) * n + p;
+    if (task == 0) {
+      dchan[0] = static_cast<float>(s[0]);
+      return;
+    }
+    const int d = task - 1;
+    dchan[(1 + d) * n] = static_cast<float>(s[0]);
+    dchan[(4 + 3 * d) * n] = static_cast<float>(s[1]);
+    dchan[(5 + 3 * d) * n] = static_cast<float>(s[2]);
+    dchan[(6 + 3 * d) * n] = static_cast<float>(s[3]);
   }
-  for (int k = 0; k < 13; ++k) {
-    dchan[static_cast<size_t>(k) * n + p] = static_cast<float>(dc[k]);
-  }
+};
+
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(softmac::kRowThreads, softmac::kRowBlocks)
+    fused_p2g_bwd_kernel(const RowsArgs a) {
+  __shared__ RowsShared sh;
+  softmac::rows_block<P2GBwd>(a, &sh);
 }
+#endif
 
 }  // namespace
 
@@ -113,18 +103,30 @@ __global__ void fused_p2g_bwd_kernel(
 // (13, n) as for softmac_fused_p2g; dgm (wy*wz, wx) and dgmom
 // (wy*wz, 3*wx) the cotangents of its outputs. out: (2 (wx + wy + wz) + 13,
 // n) float32, the rows dWx, dWxD, dWy, dWDy, dWz, dWDz, dchan one after
-// the other, every row written. Returns cudaGetLastError() after the
-// launch.
+// the other, every row written; scratch: 8 * wy*wz*wx floats (the four
+// grids' two other layouts). Two launches: the layouts, the kernel.
+// Returns cudaGetLastError() after the launches.
 extern "C" int softmac_fused_p2g_bwd(const float* Wx, const float* WxD,
                                      const float* Wy, const float* WDy,
                                      const float* Wz, const float* WDz,
                                      const float* chan, const float* dgm,
-                                     const float* dgmom, float* out, int n,
-                                     int wx, int wy, int wz, void* stream) {
+                                     const float* dgmom, float* out,
+                                     float* scratch, int n, int wx, int wy,
+                                     int wz, void* stream) {
   if (n > 0) {
-    fused_p2g_bwd_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        Wx, WxD, Wy, WDy, Wz, WDz, chan, dgm, dgmom, out, n, wx, wy, wz);
+    const int count = 4 * wx * wy * wz;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const RowsArgs a = {{Wx, WxD, Wy, WDy, Wz, WDz},
+                        {dgm, dgmom, dgmom + wx, dgmom + 2 * wx},
+                        {wx, 3 * wx, 3 * wx, 3 * wx},
+                        chan, out, nullptr, scratch, scratch + count,
+                        n, {wx, wy, wz}};
+    softmac::rows_prep<4><<<softmac::blocks_for(count), softmac::kThreads, 0,
+                            s>>>(a);
+    fused_p2g_bwd_kernel<<<dim3(softmac::rows_blocks(n),
+                                softmac::rows_parts(n)),
+                           softmac::kRowThreads, 0,
+                           s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

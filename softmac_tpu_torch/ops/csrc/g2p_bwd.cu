@@ -36,9 +36,6 @@
 // through the read-only cache, in the order of the first design, and
 // writes dx without atomics. Every particle is active (its cotangent rows
 // are dense on the main path).
-//
-// The first design stays as softmac_g2p_bwd_atomic, which only
-// chip_smoke.py calls to time the two in turns.
 #include "slab.cuh"
 
 namespace {
@@ -100,48 +97,6 @@ struct G2PBwdValues {
   __device__ static void skip(const softmac::SlabArgs&, int) {}
 };
 
-// The first design: one thread a particle, both parts in one stencil walk
-// each, the grids by float64 atomics (bspline.cuh splat_stencil)
-__global__ void g2p_bwd_kernel(const float* __restrict__ x,
-                               const float* __restrict__ gv0,
-                               const float* __restrict__ gv1,
-                               const float* __restrict__ gv2,
-                               const int* __restrict__ corner,
-                               const float* __restrict__ g,
-                               float* __restrict__ dx,
-                               double* __restrict__ dgrid,
-                               int n, int wx, int wy, int wz, float inv_dx) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-
-  softmac::Axis ax[3];
-  int rel[3];
-  softmac::particle_stencil(x, n, p, corner, inv_dx, ax, rel);
-  float dv[3], dC[3][3];
-  for (int d = 0; d < 3; ++d) {
-    dv[d] = g[d * n + p];
-    for (int j = 0; j < 3; ++j) dC[d][j] = g[(3 + 3 * d + j) * n + p];
-  }
-  const int cells = wx * wy * wz;
-  softmac::splat_stencil(ax, rel, wx, wy, wz, nullptr, 0.f, dgrid, wx, cells,
-                         dv, dC);
-
-  auto cell = [&](int row, int cx, float, float, float, float, float s[4]) {
-    const int idx = row * wx + cx;
-    const float gc[3] = {__ldg(gv0 + idx), __ldg(gv1 + idx), __ldg(gv2 + idx)};
-    s[0] = s[1] = s[2] = s[3] = 0.f;
-    for (int d = 0; d < 3; ++d) {
-      s[0] += dv[d] * gc[d];
-      s[1] += dC[d][0] * gc[d];
-      s[2] += dC[d][1] * gc[d];
-      s[3] += dC[d][2] * gc[d];
-    }
-  };
-  float gx[3];
-  softmac::stencil_adjoint(ax, rel, wx, wy, wz, inv_dx, cell, gx);
-  for (int d = 0; d < 3; ++d) dx[d * n + p] = gx[d];
-}
-
 }  // namespace
 
 // x (3, n), g (12, n) the cotangent of G2P's output, corner (3,) int32,
@@ -168,21 +123,3 @@ extern "C" int softmac_g2p_bwd(const float* x, const float* g,
       a, out, static_cast<cudaStream_t>(stream));
 }
 
-// The first design (see above): acc 3 * wy*wz*wx doubles zeroed by the
-// caller; the other arguments as softmac_g2p_bwd.
-extern "C" int softmac_g2p_bwd_atomic(const float* x, const float* gv0,
-                                      const float* gv1, const float* gv2,
-                                      const int* corner, const float* g,
-                                      float* dx, double* acc, float* out,
-                                      int n, int wx, int wy, int wz,
-                                      float inv_dx, void* stream) {
-  const int cells = wx * wy * wz;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    g2p_bwd_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0, s>>>(
-        x, gv0, gv1, gv2, corner, g, dx, acc, n, wx, wy, wz, inv_dx);
-  }
-  softmac::round_to_float<<<softmac::blocks_for(3 * cells), softmac::kThreads,
-                            0, s>>>(acc, out, 3 * cells);
-  return static_cast<int>(cudaGetLastError());
-}

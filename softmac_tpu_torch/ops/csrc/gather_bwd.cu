@@ -39,9 +39,6 @@
 // holds its particle's weights and base cell: the adjoint reads the three
 // grids through the read-only cache, in the order of the first design,
 // and writes dx without atomics; a skipped particle writes dx = 0.
-//
-// The first design stays as softmac_gather_bwd_atomic, which only
-// chip_smoke.py calls to time the two in turns.
 #include "slab.cuh"
 
 namespace {
@@ -76,40 +73,6 @@ struct GatherBwdValues : softmac::SlabThreeValues {
   }
 };
 
-// The first design: one thread a particle, both parts in one stencil walk
-// each, the grids by float64 atomics (bspline.cuh splat_stencil)
-__global__ void gather_bwd_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ gv0,
-                                  const float* __restrict__ gv1,
-                                  const float* __restrict__ gv2,
-                                  const int* __restrict__ corner,
-                                  const float* __restrict__ dv,
-                                  float* __restrict__ dx,
-                                  double* __restrict__ dgrid,
-                                  int n, int wx, int wy, int wz, float inv_dx) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-
-  softmac::Axis ax[3];
-  int rel[3];
-  softmac::particle_stencil(x, n, p, corner, inv_dx, ax, rel);
-  const float g[3] = {dv[p], dv[n + p], dv[2 * n + p]};
-  const float none[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-  const int cells = wx * wy * wz;
-  softmac::splat_stencil(ax, rel, wx, wy, wz, nullptr, 0.f, dgrid, wx, cells,
-                         g, none);
-
-  auto cell = [&](int row, int cx, float, float, float, float, float s[4]) {
-    const int idx = row * wx + cx;
-    s[0] = g[0] * __ldg(gv0 + idx) + g[1] * __ldg(gv1 + idx)
-           + g[2] * __ldg(gv2 + idx);
-    s[1] = s[2] = s[3] = 0.f;
-  };
-  float gx[3];
-  softmac::stencil_adjoint(ax, rel, wx, wy, wz, inv_dx, cell, gx);
-  for (int d = 0; d < 3; ++d) dx[d * n + p] = gx[d];
-}
-
 }  // namespace
 
 // x (3, n), dv (3, n) the cotangent of the gather's output, corner (3,)
@@ -138,21 +101,3 @@ extern "C" int softmac_gather_bwd(const float* x, const float* dv,
       a, out, static_cast<cudaStream_t>(stream));
 }
 
-// The first design (see above): acc 3 * wy*wz*wx doubles zeroed by the
-// caller; the other arguments as softmac_gather_bwd.
-extern "C" int softmac_gather_bwd_atomic(const float* x, const float* gv0,
-                                         const float* gv1, const float* gv2,
-                                         const int* corner, const float* dv,
-                                         float* dx, double* acc, float* out,
-                                         int n, int wx, int wy, int wz,
-                                         float inv_dx, void* stream) {
-  const int cells = wx * wy * wz;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    gather_bwd_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0, s>>>(
-        x, gv0, gv1, gv2, corner, dv, dx, acc, n, wx, wy, wz, inv_dx);
-  }
-  softmac::round_to_float<<<softmac::blocks_for(3 * cells), softmac::kThreads,
-                            0, s>>>(acc, out, 3 * cells);
-  return static_cast<int>(cudaGetLastError());
-}

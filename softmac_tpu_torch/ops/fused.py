@@ -238,7 +238,8 @@ def _gather(Wx, Wy, Wz, gv0, gv1, gv2):
 def p2g_bwd(Wx, WxD, Wy, WDy, Wz, WDz, chan, dgm, dgmom):
     """The P2G backward: (dWx, dWxD, dWy, dWDy, dWz, dWDz, dchan) as
     ``p2g_vjp_plain`` computes them. CUDA tensors launch the kernel (a
-    gather over the window cotangents: no atomics)."""
+    gather over the window cotangents: no atomics; two launches, the first
+    writing the cotangents' other layouts into a scratch buffer)."""
     if build.on_cpu(Wx, "fused p2g_bwd"):
         return p2g_vjp_plain(Wx, WxD, Wy, WDy, Wz, WDz, chan, dgm, dgmom)
     wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
@@ -251,10 +252,12 @@ def p2g_bwd(Wx, WxD, Wy, WDy, Wz, WDz, chan, dgm, dgmom):
                          "cotangents mis-shaped")
     rows = (wx, wx, wy, wy, wz, wz, 13)
     out = torch.empty((sum(rows), n), dtype=Wx.dtype, device=Wx.device)
+    scratch = torch.empty(8 * wx * wy * wz, dtype=Wx.dtype, device=Wx.device)
     rc = build.library().softmac_fused_p2g_bwd(
         Wx.data_ptr(), WxD.data_ptr(), Wy.data_ptr(), WDy.data_ptr(),
         Wz.data_ptr(), WDz.data_ptr(), chan.data_ptr(), dgm.data_ptr(),
-        dgmom.data_ptr(), out.data_ptr(), n, wx, wy, wz, _stream(Wx))
+        dgmom.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, wx, wy, wz,
+        _stream(Wx))
     build.check(rc, "fused p2g_bwd")
     p2g_bwd.launches += 1
     return torch.split(out, rows)
@@ -263,7 +266,9 @@ def p2g_bwd(Wx, WxD, Wy, WDy, Wz, WDz, chan, dgm, dgmom):
 def g2p_bwd(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2, g):
     """The G2P backward: the six weight cotangents and dgv0, dgv1, dgv2 as
     ``g2p_vjp_plain`` computes them. CUDA tensors launch the kernel (the
-    grid cotangents summed in float64 and rounded once)."""
+    grid cotangents summed in float64 and rounded once; three launches,
+    the first zeroing the float64 window and writing the grids' other
+    layouts into a scratch buffer)."""
     if build.on_cpu(Wx, "fused g2p_bwd"):
         return g2p_vjp_plain(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2, g)
     wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
@@ -277,13 +282,14 @@ def g2p_bwd(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2, g):
     rows = (wx, wx, wy, wy, wz, wz)
     cells = wx * wy * wz
     out = torch.empty((sum(rows), n), dtype=Wx.dtype, device=Wx.device)
-    acc = torch.zeros(3 * cells, dtype=torch.float64, device=Wx.device)
+    acc = torch.empty(3 * cells, dtype=torch.float64, device=Wx.device)
     gout = torch.empty((3, wy * wz, wx), dtype=Wx.dtype, device=Wx.device)
+    scratch = torch.empty(6 * cells, dtype=Wx.dtype, device=Wx.device)
     rc = build.library().softmac_fused_g2p_bwd(
         Wx.data_ptr(), WxD.data_ptr(), Wy.data_ptr(), WDy.data_ptr(),
         Wz.data_ptr(), WDz.data_ptr(), gv0.data_ptr(), gv1.data_ptr(),
         gv2.data_ptr(), g.data_ptr(), out.data_ptr(), acc.data_ptr(),
-        gout.data_ptr(), n, wx, wy, wz, _stream(Wx))
+        gout.data_ptr(), scratch.data_ptr(), n, wx, wy, wz, _stream(Wx))
     build.check(rc, "fused g2p_bwd")
     g2p_bwd.launches += 1
     return torch.split(out, rows) + tuple(gout)

@@ -18,9 +18,7 @@ memory (``ops/csrc/slab.cuh``); particles whose cells fall outside their
 tile's rows go by global atomics instead and are counted in
 ``p2g.spilled``, ``splat.spilled``, ``g2p_bwd.spilled`` and
 ``gather_bwd.spilled`` (0 when the particles are sorted by y, as the
-rollout keeps them). ``g2p_bwd_atomic`` and ``gather_bwd_atomic`` run the
-backwards' first design (one thread a particle, float64 atomics), to time
-the two.
+rollout keeps them).
 
 Under autograd (grad enabled and an input that requires grad) each goes
 through its autograd Function (``P2G``, ``G2P``, ``Gather``, ``Splat``: the
@@ -263,39 +261,6 @@ def _grid_views(out, window):
     cells = wx * wy * wz
     return tuple(out[d * cells:(d + 1) * cells].view(wy * wz, wx)
                  for d in range(3))
-
-
-def _bwd_atomic(name, x, grids, corner, window, inv_dx, cot):
-    """The first design of the G2P and gather backward kernels (one thread
-    a particle, float64 atomics into a zeroed window), kept to time against
-    the y-slab kernels: (dx, dgv0, dgv1, dgv2). CUDA only."""
-    _check_cuda(name, (x, *grids, cot), corner)
-    _check_grids(name, x, grids, window)
-    wx, wy, wz = (int(w) for w in window)
-    cells = wx * wy * wz
-    dx = torch.empty_like(x)
-    acc = torch.zeros(3 * cells, dtype=torch.float64, device=x.device)
-    out = torch.empty(3 * cells, dtype=x.dtype, device=x.device)
-    rc = getattr(build.library(), f"softmac_{name}_atomic")(
-        x.data_ptr(), *(g.data_ptr() for g in grids), corner.data_ptr(),
-        cot.data_ptr(), dx.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        x.shape[1], wx, wy, wz, float(inv_dx),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, name + "_atomic")
-    return (dx,) + _grid_views(out, (wx, wy, wz))
-
-
-def g2p_bwd_atomic(x, gv0, gv1, gv2, corner, window, inv_dx, g):
-    """``g2p_bwd`` through the first design's kernel (see ``_bwd_atomic``)."""
-    return _bwd_atomic("g2p_bwd", x, (gv0, gv1, gv2), corner, window, inv_dx,
-                       g)
-
-
-def gather_bwd_atomic(x, gv0, gv1, gv2, corner, window, inv_dx, dv):
-    """``gather_bwd`` through the first design's kernel (see
-    ``_bwd_atomic``)."""
-    return _bwd_atomic("gather_bwd", x, (gv0, gv1, gv2), corner, window,
-                       inv_dx, dv)
 
 
 def _g2p(x, gv0, gv1, gv2, corner, window, inv_dx):

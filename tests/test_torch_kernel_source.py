@@ -6,14 +6,15 @@ the CUDA runtime header; each kernel runs one thread at a time. The block
 reductions of the contact backwards (shared memory and barriers) are left
 to chip_smoke.py; here the per-particle reverse sweeps are summed on the
 host. The y-slab kernels (slab.cuh: P2G, the splat and the G2P and gather
-backwards), block kernels with barriers, run phase by phase: each phase
-over all threads of a block before the next, as the barriers order them
-on the card.
+backwards) and the door's row-thread P2G and G2P backwards (fused_rows.cuh:
+their first launch, then each block's box, pair, task and store phases),
+block kernels with barriers, run phase by phase: each phase over all
+threads of a block before the next, as the barriers order them on the
+card.
 
 Held against the plain versions in float64 on the same float32 inputs:
 P2G, gather, splat and the P2G / G2P / gather / splat backward kernels
-(the y-slab ones and the first designs of the G2P and gather backwards,
-one thread a particle with float64 atomics), which compute in float32,
+(the G2P and gather backwards the y-slab ones), which compute in float32,
 within 2e-6 of the largest |value| of each output; the dense-weight transfers
 (fused_p2g, fused_g2p, fused_splat, fused_gather) and their backward
 kernels (fused_p2g_bwd, fused_g2p_bwd, fused_splat_bwd, fused_gather_bwd,
@@ -22,7 +23,10 @@ on B-spline weights of a scene (some particles' stencils leaving the
 window) and on fully dense random weights: their float64 windows and grid
 cotangents within 1e-12, their float32 particle rows (outputs, weight
 cotangents, channel and value cotangents) within 1e-6 of each row's
-largest |value| (one rounding); the Khatri-Rao pair build (kr3) bit for
+largest |value| (one rounding); the row-thread P2G and G2P backwards also
+at the edges of their blocks of 32 particles (a ragged last block, boxes
+empty on one axis, a block whose boxes are too wide to stage, a window
+of more x rows than a block keeps); the Khatri-Rao pair build (kr3) bit for
 bit against its float32 plain version on the same weights; the penalty
 contact backward, which computes in double on its float inputs, within
 1e-6 (float literals
@@ -276,6 +280,43 @@ template <class F> static void launch(int n, F f) {
   for (unsigned b = 0; b < gridDim.x; ++b)
     for (unsigned t = 0; t < 256; ++t) { blockIdx.x = b; threadIdx.x = t; f(); }
 }
+// The row-thread kernels of fused_rows.cuh: the first launch (the grids'
+// layouts, G2P's zero fill) over its `count` elements, then each block of
+// the (tiles, parts) grid, its phases in order, each over all the block's
+// threads, with the shared memory poisoned (all ones); the vote of
+// __syncthreads_and taken over every thread. Returns the tiles that staged
+// their pair products (narrow).
+template <class Kind>
+static int rows(const softmac::RowsArgs& a, int count, int parts) {
+  for (int i = 0; i < count; ++i)
+    softmac::rows_prep_at<Kind::kGrids>(a, i);
+  blockDim.x = softmac::kRowThreads;
+  gridDim.x = softmac::rows_blocks(a.n);
+  gridDim.y = parts;
+  auto phase = [&](auto f) {
+    for (unsigned t = 0; t < blockDim.x; ++t) { threadIdx.x = t; f(); }
+  };
+  int narrow_tiles = 0;
+  for (unsigned b = 0; b < gridDim.x; ++b) {
+    for (unsigned part = 0; part < gridDim.y; ++part) {
+      blockIdx.x = b;
+      blockIdx.y = part;
+      softmac::RowsShared sh;
+      memset(&sh, 0xff, sizeof sh);
+      phase([&] { softmac::rows_begin(&sh); });
+      phase([&] { softmac::rows_box(a, &sh); });
+      bool narrow = true;
+      phase([&] { narrow = softmac::rows_fit(sh) && narrow; });
+      if (narrow) phase([&] { softmac::rows_pairs(a, &sh); });
+      phase([&] { softmac::rows_tasks<Kind>(a, &sh, narrow); });
+      phase([&] { softmac::rows_store_x<Kind>(a, sh, narrow); });
+      if (part == 0) narrow_tiles += narrow;
+    }
+  }
+  gridDim.y = 1;
+  blockIdx.y = 0;
+  return narrow_tiles;
+}
 extern "C" {
 void h_p2g_slab(const float* x, const float* chan, const int* corner,
                 double* spill, float* out, int n, int tile, int wx, int wy,
@@ -312,12 +353,6 @@ void h_p2g_bwd(const float* x, const float* chan, const int* corner,
   launch(n, [&] { k_p2g_bwd::p2g_bwd_kernel(x, chan, corner, dgm, dgmom, dx,
                                             dchan, n, wx, wy, wz, inv_dx); });
 }
-void h_g2p_bwd(const float* x, const float* g0, const float* g1,
-               const float* g2, const int* corner, const float* g, float* dx,
-               double* acc, int n, int wx, int wy, int wz, float inv_dx) {
-  launch(n, [&] { k_g2p_bwd::g2p_bwd_kernel(x, g0, g1, g2, corner, g, dx, acc,
-                                            n, wx, wy, wz, inv_dx); });
-}
 void h_gather(const float* x, const float* g0, const float* g1,
               const float* g2, const int* corner, float* out, int n, int wx,
               int wy, int wz, float inv_dx) {
@@ -336,14 +371,6 @@ void h_mixed(const float* x, const float* v, const float* table,
                                                          n, g, dt); });
   launch(n, [&] { k_contact_mixed::collide_mixed2_kernel(
       x, v, t, body, st1, pv, force, mask, n, g, dt, p_mass, cap); });
-}
-void h_gather_bwd(const float* x, const float* g0, const float* g1,
-                  const float* g2, const int* corner, const float* dv,
-                  float* dx, double* acc, int n, int wx, int wy, int wz,
-                  float inv_dx) {
-  launch(n, [&] { k_gather_bwd::gather_bwd_kernel(x, g0, g1, g2, corner, dv,
-                                                  dx, acc, n, wx, wy, wz,
-                                                  inv_dx); });
 }
 void h_splat_bwd(const float* x, const float* vals, const int* corner,
                  const float* dout, float* dx, float* dvals, int n, int wx,
@@ -431,17 +458,31 @@ void h_fused_gather(const float* Wx, const float* Wy, const float* Wz,
 void h_fused_p2g_bwd(const float* Wx, const float* WxD, const float* Wy,
                      const float* WDy, const float* Wz, const float* WDz,
                      const float* chan, const float* dgm, const float* dgmom,
-                     float* out, int n, int wx, int wy, int wz) {
-  launch(n, [&] { k_fused_p2g_bwd::fused_p2g_bwd_kernel(
-      Wx, WxD, Wy, WDy, Wz, WDz, chan, dgm, dgmom, out, n, wx, wy, wz); });
+                     float* out, int n, int wx, int wy, int wz, int parts,
+                     int* narrow) {
+  const int count = 4 * wx * wy * wz;
+  std::vector<float> scratch(2 * count,
+                             std::numeric_limits<float>::quiet_NaN());
+  const softmac::RowsArgs a = {{Wx, WxD, Wy, WDy, Wz, WDz},
+                               {dgm, dgmom, dgmom + wx, dgmom + 2 * wx},
+                               {wx, 3 * wx, 3 * wx, 3 * wx},
+                               chan, out, nullptr, scratch.data(),
+                               scratch.data() + count, n, {wx, wy, wz}};
+  *narrow = rows<k_fused_p2g_bwd::P2GBwd>(a, count, parts);
 }
 void h_fused_g2p_bwd(const float* Wx, const float* WxD, const float* Wy,
                      const float* WDy, const float* Wz, const float* WDz,
                      const float* g0, const float* g1, const float* g2,
                      const float* g, float* out, double* acc, int n, int wx,
-                     int wy, int wz) {
-  launch(n, [&] { k_fused_g2p_bwd::fused_g2p_bwd_kernel(
-      Wx, WxD, Wy, WDy, Wz, WDz, g0, g1, g2, g, out, acc, n, wx, wy, wz); });
+                     int wy, int wz, int parts, int* narrow) {
+  const int count = 3 * wx * wy * wz;
+  std::vector<float> scratch(2 * count,
+                             std::numeric_limits<float>::quiet_NaN());
+  const softmac::RowsArgs a = {{Wx, WxD, Wy, WDy, Wz, WDz},
+                               {g0, g1, g2, nullptr}, {wx, wx, wx, 0},
+                               g, out, acc, scratch.data(),
+                               scratch.data() + count, n, {wx, wy, wz}};
+  *narrow = rows<k_fused_g2p_bwd::G2PBwd>(a, count, parts);
 }
 void h_fused_splat_bwd(const float* Wx, const float* Wy, const float* Wz,
                        const float* vals, const float* dout, float* out,
@@ -578,23 +619,6 @@ def test_p2g_and_backward_sources(lib, shift):
     ref = transfer.p2g_vjp_plain(x.double(), chan.double(), corner, WINDOW,
                                  INV_DX, dgm.double(), dgmom.double())
     assert _rel(dx, ref[0]) < 2e-6 and _rel(dchan, ref[1]) < 2e-6
-
-
-@pytest.mark.parametrize("shift", [0, 2])
-def test_g2p_backward_source(lib, shift):
-    x, corner, rng = _scene(shift, seed=1)
-    wx, wy, wz = WINDOW
-    gv = [_f32(rng, wy * wz, wx) for _ in range(3)]
-    g = _f32(rng, 12, N)
-    dx = torch.zeros(3, N)
-    acc = torch.zeros(3 * wx * wy * wz, dtype=torch.float64)
-    lib.h_g2p_bwd(_p(x), *map(_p, gv), _p(corner), _p(g), _p(dx), _p(acc),
-                  *_dims(WINDOW))
-    ref = transfer.g2p_vjp_plain(x.double(), *(t.double() for t in gv),
-                                 corner, WINDOW, INV_DX, g.double())
-    assert _rel(dx, ref[0]) < 2e-6
-    for d in range(3):
-        assert _rel(acc.reshape(3, -1)[d], ref[1 + d].reshape(-1)) < 2e-6
 
 
 def _glass():
@@ -820,20 +844,13 @@ def test_slab_splat_mostly_zero_source(lib, shift, tile, name):
 
 @pytest.mark.parametrize("shift", [0, 2])
 def test_gather_and_splat_backward_sources(lib, shift):
+    """The splat backward (one thread a particle, a gather: no atomics)
+    against the float64 plain vjp; the gather backward's kernel is the
+    y-slab one of test_slab_sources."""
     x, corner, rng = _scene(shift, seed=3)
     wx, wy, wz = WINDOW
-    gv = [_f32(rng, wy * wz, wx) for _ in range(3)]
-    dv = _f32(rng, 3, N)
-    dx = torch.zeros(3, N)
-    acc = torch.zeros(3 * wx * wy * wz, dtype=torch.float64)
-    lib.h_gather_bwd(_p(x), *map(_p, gv), _p(corner), _p(dv), _p(dx),
-                     _p(acc), *_dims(WINDOW))
-    ref = transfer.gather_vjp_plain(x.double(), *(g.double() for g in gv),
-                                    corner, WINDOW, INV_DX, dv.double())
-    assert _rel(dx, ref[0]) < 2e-6
-    for d in range(3):
-        assert _rel(acc.reshape(3, -1)[d], ref[1 + d].reshape(-1)) < 2e-6
-
+    for shape in [(wy * wz, wx)] * 3 + [(3, N)]:
+        _f32(rng, *shape)   # the draws of the removed gather half: same vals
     vals, dout = _f32(rng, 3, N), _f32(rng, wy * wz, 3 * wx)
     dx, dvals = torch.zeros(3, N), torch.zeros(3, N)
     lib.h_splat_bwd(_p(x), _p(vals), _p(corner), _p(dout), _p(dx), _p(dvals),
@@ -1286,6 +1303,49 @@ def _rows_rel(got, want):
     return (diff / want.abs().amax(dim=1).clamp(min=1e-300)).max().item()
 
 
+def _rows_bwd_check(lib, ws, window, n, chan, gv, dgm, dgmom, g12):
+    """The row-thread P2G and G2P backward kernels (fused_rows.cuh) on n
+    particles against the float64 plain vjps: every row of every weight
+    cotangent and the channel cotangents within 1e-6 of each row's largest
+    |value|, the float64 grid cotangents within 1e-12; with a tile's tasks
+    on one block and split over three (rows_parts), the weight and channel
+    rows bit for bit the same. Returns the P2G backward's output rows and
+    its count of tiles that staged their pair products (the G2P
+    backward's must be the same)."""
+    wx, wy, wz = window
+    w64 = [w.double() for w in ws]
+    rows6 = (wx, wx, wy, wy, wz, wz)
+    dims = [ctypes.c_int(n)] + [ctypes.c_int(w) for w in window]
+    p2g_ref = fused.p2g_vjp_plain(*w64, chan.double(), dgm.double(),
+                                  dgmom.double())
+    g2p_ref = fused.g2p_vjp_plain(*w64, *(g.double() for g in gv),
+                                  g12.double())
+    outs, narrow = [], (ctypes.c_int * 2)()
+    for parts in (1, 3):
+        out = torch.full((sum(rows6) + 13, n), float("nan"))
+        lib.h_fused_p2g_bwd(*map(_p, ws), _p(chan), _p(dgm), _p(dgmom),
+                            _p(out), *dims, ctypes.c_int(parts),
+                            ctypes.byref(narrow, 0))
+        for got, want in zip(torch.split(out, rows6 + (13,)), p2g_ref):
+            assert _rows_rel(got, want) < 1e-6
+        g_out = torch.full((sum(rows6), n), float("nan"))
+        # the kernels' first launch zeroes the float64 window
+        acc = torch.full((3 * wx * wy * wz,), float("nan"),
+                         dtype=torch.float64)
+        lib.h_fused_g2p_bwd(*map(_p, ws), *map(_p, gv), _p(g12), _p(g_out),
+                            _p(acc), *dims, ctypes.c_int(parts),
+                            ctypes.byref(narrow, 4))
+        for got, want in zip(torch.split(g_out, rows6), g2p_ref[:6]):
+            assert _rows_rel(got, want) < 1e-6
+        for d in range(3):
+            assert _rel(acc.reshape(3, -1)[d],
+                        g2p_ref[6 + d].reshape(-1)) < 1e-12
+        assert narrow[0] == narrow[1]
+        outs.append((out, g_out))
+    assert all(torch.equal(p, q) for p, q in zip(*outs))
+    return outs[0][0], narrow[0]
+
+
 @pytest.mark.parametrize("case", ["bspline", "dense"])
 def test_fused_backward_sources(lib, case):
     """The four backward kernels against the float64 plain vjps on the
@@ -1302,32 +1362,19 @@ def test_fused_backward_sources(lib, case):
     dgm, dgmom = _f32(rng, wy * wz, wx), _f32(rng, wy * wz, 3 * wx)
     g12, dout, dv = _f32(rng, 12, N), _f32(rng, wy * wz, 3 * wx), \
         _f32(rng, 3, N)
-    rows6 = 2 * (wx + wy + wz)
     cells = wx * wy * wz
 
     def split(out, rows):
         return torch.split(out, list(rows))
 
-    out = torch.zeros(rows6 + 13, N)
-    lib.h_fused_p2g_bwd(*map(_p, ws), _p(chan), _p(dgm), _p(dgmom), _p(out),
-                        *_fdims(window))
-    ref = fused.p2g_vjp_plain(*w64, chan.double(), dgm.double(),
-                              dgmom.double())
-    for got, want in zip(split(out, (wx, wx, wy, wy, wz, wz, 13)), ref):
-        assert _rows_rel(got, want) < 1e-6
+    out, narrow = _rows_bwd_check(lib, ws, window, N, chan, gv, dgm, dgmom,
+                                  g12)
+    # the B-spline boxes (at most 3 rows an axis) stage their pair products
+    # in every block; the dense ones (the whole window) read them as they go
+    assert narrow == ((N + 31) // 32 if case == "bspline" else 0)
     # a weight cotangent is dense in the row: rows off the stencil too
     off = (out[:wx] != 0) & (ws[0] == 0) & (ws[1] == 0)
     assert case == "dense" or bool(off.any())
-
-    out = torch.zeros(rows6, N)
-    acc = torch.zeros(3 * cells, dtype=torch.float64)
-    lib.h_fused_g2p_bwd(*map(_p, ws), *map(_p, gv), _p(g12), _p(out),
-                        _p(acc), *_fdims(window))
-    ref = fused.g2p_vjp_plain(*w64, *gv64, g12.double())
-    for got, want in zip(split(out, (wx, wx, wy, wy, wz, wz)), ref[:6]):
-        assert _rows_rel(got, want) < 1e-6
-    for d in range(3):
-        assert _rel(acc.reshape(3, -1)[d], ref[6 + d].reshape(-1)) < 1e-12
 
     out = torch.zeros(wx + wy + wz + 3, N)
     lib.h_fused_splat_bwd(*map(_p, W), _p(vals), _p(dout), _p(out),
@@ -1345,6 +1392,50 @@ def test_fused_backward_sources(lib, case):
         assert _rows_rel(got, want) < 1e-6
     for d in range(3):
         assert _rel(acc.reshape(3, -1)[d], ref[3 + d].reshape(-1)) < 1e-12
+
+
+@pytest.mark.parametrize("case", ["ragged", "empty_axis", "wide_box",
+                                  "wide_x", "long_x"])
+def test_fused_rows_edges_source(lib, case):
+    """The row-thread P2G and G2P backwards at the edges of their blocks of
+    32 particles, on the scene's B-spline weights: n = 37 (a last block of
+    5); particles whose box is empty on one axis (their rows of that axis
+    still sum over the other two, the other axes' rows are zero); one
+    particle whose six columns are dense (its box the whole window: its
+    block reads the pair products from memory, the others stage them); one
+    particle dense on x only; and dense random weights on a window of 70 x
+    rows, more than a block keeps in shared memory (kXTile), 37
+    particles."""
+    ws, window, rng = _fused_weights("bspline")
+    if case == "long_x":
+        window = (70, 3, 4)
+        ws = [_f32(rng, w, 37) for w in (70, 70, 3, 3, 4, 4)]
+    ws = [w.clone() for w in ws]
+    wx, wy, wz = window
+    n = 37 if case in ("ragged", "long_x") else N
+    ws = [w[:, :n].contiguous() for w in ws]
+    empty = {3: 1, 33: 1, 40: 0, 100: 2}       # particle: the empty axis
+    if case == "empty_axis":
+        for q, ax in empty.items():
+            ws[2 * ax][:, q] = ws[2 * ax + 1][:, q] = 0.0
+    elif case == "wide_box":
+        for w in ws:
+            w[:, 70] = _f32(rng, w.shape[0])
+    elif case == "wide_x":
+        ws[0][:, 70] = _f32(rng, wx)
+    chan, gv = _f32(rng, 13, n), [_f32(rng, wy * wz, wx) for _ in range(3)]
+    dgm, dgmom = _f32(rng, wy * wz, wx), _f32(rng, wy * wz, 3 * wx)
+    out, narrow = _rows_bwd_check(lib, ws, window, n, chan, gv, dgm, dgmom,
+                                  _f32(rng, 12, n))
+    blocks = (n + 31) // 32
+    assert narrow == {"wide_box": blocks - 1, "wide_x": blocks - 1,
+                      "long_x": 0}.get(case, blocks)
+    if case == "empty_axis":
+        starts = (0, 2 * wx, 2 * (wx + wy))
+        for q, ax in empty.items():
+            for b, size in enumerate(window):
+                rows = out[starts[b]:starts[b] + 2 * size, q]
+                assert bool((rows != 0).any()) == (b == ax), (q, ax, b)
 
 
 @pytest.mark.parametrize("case", ["bspline", "dense"])
