@@ -10,8 +10,9 @@ script exits non-zero:
   build    nvcc builds the CUDA kernels from softmac_tpu_torch/ops/csrc;
            each kernel's registers, spills and static shared memory from
            the ptxas log (also in its entry of the kernels line); the
-           row-thread backwards of fused_rows.cuh apart ("row_kernels"),
-           which fail the phase if they spill
+           row-thread kernels of fused_rows.cuh (the door's P2G and the
+           P2G, G2P and gather backwards) apart ("row_kernels"), which
+           fail the phase if they spill
   kernels  each kernel against its plain PyTorch version at the main path's
            shapes: max error, time over 20+ calls (CUDA events: the call,
            the wrapper's host time included), its device-only time
@@ -99,8 +100,9 @@ script exits non-zero:
            on that state tiled to 1e5 particles, beside their plain
            versions and one torch.einsum over the dense weights, or one
            torch.autograd.grad through it (the library calls); the
-           row-thread P2G and G2P backwards also held at 1e5 particles, and
-           10 calls of each bit-identical on every input; then
+           row-thread P2G and P2G, G2P and gather backwards also held at
+           1e5 particles, and 10 calls of each bit-identical on every
+           input; then
            SoftMacEnv.rollout of the demo's initial actions for 300 env
            steps with launches counted, its end state against a
            zero-action rollout of the same 300 steps (the controller
@@ -114,7 +116,10 @@ script exits non-zero:
            gradient, step against none and the repeat within GRAD_TOL
   profile_door, profile_door_grad  torch.profiler over 20 env steps of the
            door's rollout (busy share, launches per substep, the SVD's share
-           of them, top kernels) and 5 of its rollout_and_grad
+           of them, top kernels) and 5 of its rollout_and_grad; then
+           (door_index_origin) 2 env steps of rollout_and_grad profiled
+           with Python stacks: the autograd node, forward op and call site
+           of each launch of indexing_backward_kernel
   door_parity  the door, card (float32, kernels) against the CPU (float64,
            plain versions), 20 env steps of rollout and of rollout_and_grad
   demo_door  the ported door trainer softmac_tpu_torch.demos.demo_door on
@@ -262,9 +267,10 @@ REAL_BWD = ("gather_bwd", "g2p_bwd")
 CAPTURE_CALLS = (10, 50, 90)
 FUSED = ("fused_p2g", "fused_g2p", "fused_splat", "fused_gather")
 FUSED_BWD = tuple(k + "_bwd" for k in FUSED)
-# the row-thread backwards (ops/csrc/fused_rows.cuh): also held at 1e5
+# the row-thread kernels (ops/csrc/fused_rows.cuh): also held at 1e5
 # particles, FUSED_REPEATS calls bit-identical, no ptxas spills
-ROW_BWD = ("fused_p2g_bwd", "fused_g2p_bwd")
+ROW_KERNELS = ("fused_p2g", "fused_p2g_bwd", "fused_g2p_bwd",
+               "fused_gather_bwd")
 FUSED_REPEATS = 10
 # float operations per visited window cell (the kernels work in double,
 # counted at the float32 rate, the least time for the same work): the
@@ -1997,6 +2003,85 @@ def run_profile(env, acts, grad=False):
                             for k, (t, c) in top]}
 
 
+def kernel_origin(env, acts, pattern):
+    """Where the device kernels whose name holds ``pattern`` come from:
+    rollout_and_grad over ``acts`` (remat "none") under torch.profiler
+    with Python stacks and input shapes; for each op that launched one
+    (and its input shapes), the autograd node it ran under (autograd's
+    evaluate_function; none for a forward op), the forward op of that
+    node's sequence number with its input shapes and the port's frames
+    above it (from the op's recorded stack and the Python calls around
+    it), with the launches a substep and device ms a launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    steps = len(acts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True, record_shapes=True) as prof:
+        env.rollout_and_grad(acts, loss_start_frame=0, loss_stride=steps,
+                             remat="none")
+        torch.cuda.synchronize()
+    cpu = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CPU),
+                 key=lambda e: e.time_range.start)
+    # a node's forward op: the last outermost op of its thread that took
+    # its sequence number (the ops before it that record no node take the
+    # same number)
+    fwd = {}
+    for e in cpu:
+        key = (e.thread, e.sequence_nr)
+        par = e.cpu_parent
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::") and (
+                par is None or (par.thread, par.sequence_nr) != key):
+            fwd[key] = e
+
+    def up(e, stop):
+        while e is not None and not stop(e):
+            e = e.cpu_parent
+        return e
+
+    def port(name):
+        return ("softmac_tpu_torch/" in name or "chip_smoke.py" in name) \
+            and "(" in name
+
+    def frames(e):
+        out = [f for f in e.stack if port(f)]
+        while e is not None:
+            if port(e.name):
+                out.append(e.name)
+            e = e.cpu_parent
+        return out[:6]
+
+    def shapes(e):
+        return str(e.input_shapes) if e is not None else None
+    sites = {}
+    for e in cpu:
+        hits = [k for k in e.kernels if pattern in k.name]
+        if not hits:
+            continue
+        node = up(e, lambda x: x.name.startswith(
+            "autograd::engine::evaluate_function"))
+        f = (fwd.get((node.fwd_thread, node.sequence_nr))
+             if node is not None else None)
+        key = (e.name, shapes(e), node.name if node else None,
+               f.name if f else None, shapes(f), tuple(frames(f if f else e)))
+        n, us = sites.get(key, (0, 0.0))
+        sites[key] = (n + len(hits), us + sum(k.duration for k in hits))
+    if not sites:
+        raise AssertionError(f"no device kernel named *{pattern}* launched")
+    n_sub = steps * env.substeps
+    return {"pattern": pattern, "env_steps": steps, "substeps": n_sub,
+            "sites": [{"launched_by": k[0], "input_shapes": k[1],
+                       "backward_node": k[2], "forward_op": k[3],
+                       "forward_input_shapes": k[4],
+                       "forward_frames": list(k[5]),
+                       "launches_per_substep": n / n_sub,
+                       "device_ms_per_launch": us / 1e3 / n}
+                      for k, (n, us) in sorted(sites.items(),
+                                               key=lambda kv: -kv[1][1])]}
+
+
 def rigid_step_launches(env):
     """Device kernels one RigidModel step and its body_states launch (once
     per env step of the pour scene), counted with torch.profiler."""
@@ -2393,7 +2478,9 @@ def check_fused_kernels(door_inp, big_inp, dense_inp):
     output row's largest |value|), timed with CUDA events on the door's
     state and on it tiled to 1e5 particles, beside the plain version and
     one torch.einsum over the dense weights; bounds from each run's
-    inputs."""
+    inputs. The row-thread P2G (ROW_KERNELS) is also held on the 1e5
+    particles, and FUSED_REPEATS calls of it on every input must agree bit
+    for bit."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2412,11 +2499,19 @@ def check_fused_kernels(door_inp, big_inp, dense_inp):
             (("door", door_inp), ("big", big_inp))}
     entries = []
     for name, (src, where) in srcs.items():
-        errs = {}
-        for case, inp in (("door", door_inp), ("dense", dense_inp)):
+        errs, repeats = {}, {}
+        for case, inp in (("door", door_inp), ("dense", dense_inp),
+                          ("big", big_inp)):
+            if case == "big" and name not in ROW_KERNELS:
+                continue
             kern, _, ref = calls[case][name]
             errs[case] = _rows_rel(_fused_rows(name, kern(), inp["sizes"]),
                                    _fused_rows(name, ref(), inp["sizes"]))
+            if name in ROW_KERNELS:
+                repeats[case] = bit_identical(kern)
+        if not all(repeats.values()):
+            raise AssertionError(f"{name}: {FUSED_REPEATS} calls differ: "
+                                 f"{repeats}")
         # the einsum's formula, run in float64, against the plain version
         lib_err = _rows_rel(
             _einsum_rows(name, fused_einsums(door_inp, torch.float64)[name](),
@@ -2449,6 +2544,8 @@ def check_fused_kernels(door_inp, big_inp, dense_inp):
                            "the plain version in float64, over the door's "
                            "state and the dense random weights")
         e["rel_err_by_input"] = {k: v[1] for k, v in errs.items()}
+        if name in ROW_KERNELS:
+            e["repeats_bit_identical"] = repeats
         e["dense_input"] = {"window": list(DENSE_WINDOW), "n": N_DENSE}
         e["n_particles"] = door_inp["n"]
         e["visited_cells"] = visited
@@ -2596,7 +2693,7 @@ def check_fused_backward_kernels(door_inp, big_inp, dense_inp):
     row's largest |value|), timed with CUDA events on the door's state and
     on it tiled to 1e5 particles, beside the float32 plain vjp and one
     torch.autograd.grad through the einsum yardstick; bounds from each
-    run's inputs. The row-thread kernels (ROW_BWD) are also held on the
+    run's inputs. The row-thread kernels (ROW_KERNELS) are also held on the
     1e5 particles, and FUSED_REPEATS calls of each on every input must
     agree bit for bit."""
     import torch
@@ -2623,11 +2720,11 @@ def check_fused_backward_kernels(door_inp, big_inp, dense_inp):
         errs, repeats = {}, {}
         for case, inp in (("door", door_inp), ("dense", dense_inp),
                           ("big", big_inp)):
-            if case == "big" and name not in ROW_BWD:
+            if case == "big" and name not in ROW_KERNELS:
                 continue
             kern, _, ref = calls[case][name]
             errs[case] = _bwd_rel(kern(), ref())
-            if name in ROW_BWD:
+            if name in ROW_KERNELS:
                 repeats[case] = bit_identical(kern)
         if not all(repeats.values()):
             raise AssertionError(f"{name}: {FUSED_REPEATS} calls differ: "
@@ -2664,7 +2761,7 @@ def check_fused_backward_kernels(door_inp, big_inp, dense_inp):
                            "cotangents, over the door's state and the dense "
                            "random weights")
         e["rel_err_by_input"] = {k: v[1] for k, v in errs.items()}
-        if name in ROW_BWD:
+        if name in ROW_KERNELS:
             e["repeats_bit_identical"] = repeats
         e["dense_input"] = {"window": list(DENSE_WINDOW), "n": N_DENSE}
         e["n_particles"] = door_inp["n"]
@@ -3251,7 +3348,7 @@ def main():
     ptxas = ptxas_by_source(log)
     rows_ptxas = {k + ".cu": [f for f in ptxas.get(k + ".cu", [])
                               if "round_to_float" not in f["function"]]
-                  for k in ROW_BWD}
+                  for k in ROW_KERNELS}
     emit("build", {"seconds": secs, "library": so.name,
                    "row_kernels": rows_ptxas, "ptxas": ptxas})
     if log and not all(fns and all(f["spill_stores"] == 0 for f in fns)
@@ -3367,6 +3464,8 @@ def main():
         denv)
     emit("profile_door", profile_door)
     emit("profile_door_grad", run_profile(denv, door_actions(5), grad=True))
+    emit("door_index_origin", kernel_origin(denv, door_actions(2),
+                                            "indexing_backward_kernel"))
     emit("door_parity", run_door_parity())
     emit("demo_door", run_demo_door())
     emit("dense", full_res)

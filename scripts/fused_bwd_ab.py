@@ -1,25 +1,26 @@
 #!/usr/bin/env python3
-"""The dense-weight P2G and G2P backwards of two checkouts on one CUDA
-card, in turns.
+"""The door's row-thread kernels (the dense-weight P2G, and the P2G, G2P
+and gather backwards) of two checkouts on one CUDA card, in turns.
 
     python3 scripts/fused_bwd_ab.py PARENT_DIR
 
-Builds ``fused_p2g_bwd.cu`` and ``fused_g2p_bwd.cu`` of PARENT_DIR (a
-checkout of the repository, with its own headers) into a library of their
-own, and loads PARENT_DIR's ``ops/fused.py`` beside this checkout's, its
-kernel library that one and its argument lists its own ``ops/build.py``'s
-(the entry points keep their names; their scratch arguments may differ).
-On the inputs chip_smoke.py checks the kernels on (the door's state after
-10 env steps, 5400 particles, window (32, 16, 32), and that state tiled to
-1e5 particles, with seeded normal cotangents) it calls each tree's
-``p2g_bwd`` and ``g2p_bwd`` wrapper in turns (parent, this, this, parent):
-call ms with CUDA events (50 calls after a warm-up) and device ms with
-torch.profiler (every launch of a call), and the two trees' largest
-difference (the G2P backward's weight rows and grid cotangents together).
-Then the door's rollout_and_grad (40 env steps of the demo's actions, its
-loss frames, remat "step", host clock after a synchronize) with the two
-backwards of each tree in turns (parent, this, this, parent, twice),
-everything else this checkout's. Prints one JSON object; the card's name
+Builds ``fused_p2g.cu``, ``fused_p2g_bwd.cu``, ``fused_g2p_bwd.cu`` and
+``fused_gather_bwd.cu`` of PARENT_DIR (a checkout of the repository, with
+its own headers) into a library of their own, and loads PARENT_DIR's
+``ops/fused.py`` beside this checkout's, its kernel library that one and
+its argument lists its own ``ops/build.py``'s (the entry points keep their
+names; their scratch arguments may differ). On the inputs chip_smoke.py
+checks the kernels on (the door's state after 10 env steps, 5400
+particles, window (32, 16, 32), and that state tiled to 1e5 particles,
+with seeded normal cotangents) it calls each tree's ``p2g``, ``p2g_bwd``,
+``g2p_bwd`` and ``gather_bwd`` wrapper in turns (parent, this, this,
+parent): call ms with CUDA events (50 calls after a warm-up) and device ms
+with torch.profiler (every launch of a call), and the two trees' largest
+difference (a wrapper's outputs together). Then the door's
+rollout_and_grad (40 env steps of the demo's actions, its loss frames,
+remat "step", host clock after a synchronize) with the four kernels of
+each tree in turns (parent, this, this, parent, twice), everything else
+this checkout's. Prints one JSON object; the card's name
 and power limit on the lines around it. Needs a card and nvcc; exits
 non-zero without them.
 """
@@ -33,7 +34,15 @@ import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = ("fused_p2g_bwd", "fused_g2p_bwd")
+KERNELS = ("fused_p2g", "fused_p2g_bwd", "fused_g2p_bwd", "fused_gather_bwd")
+# the door's inputs of each wrapper
+ARGS = {"fused_p2g": lambda inp, cts: (*inp["ws6"], inp["chan"]),
+        "fused_p2g_bwd": lambda inp, cts: (*inp["ws6"], inp["chan"],
+                                           cts["dgm"], cts["dgmom"]),
+        "fused_g2p_bwd": lambda inp, cts: (*inp["ws6"], *inp["gv"],
+                                           cts["g12"]),
+        "fused_gather_bwd": lambda inp, cts: (*inp["ws6"][0::2], *inp["gvm"],
+                                              cts["dv"])}
 GRAD_STEPS = 40
 
 
@@ -46,7 +55,7 @@ def _load(path, name):
 
 def parent_fused(parent, so, build):
     """PARENT_DIR's ops/fused.py, its kernels from the library ``so`` (the
-    two entry points' argument lists from PARENT_DIR's ops/build.py)."""
+    entry points' argument lists from PARENT_DIR's ops/build.py)."""
     ops = parent / "softmac_tpu_torch/ops"
     sigs = _load(ops / "build.py", "parent_build").SIGNATURES
     lib = ctypes.CDLL(str(so))
@@ -95,11 +104,8 @@ def main():
         res = {"card": smi}
         for state, inp in states.items():
             cts = cs.fused_cotangents(inp)
-            ws6 = inp["ws6"]
             for k in KERNELS:
-                args = ((*ws6, inp["chan"], cts["dgm"], cts["dgmom"])
-                        if k == "fused_p2g_bwd"
-                        else (*ws6, *inp["gv"], cts["g12"]))
+                args = ARGS[k](inp, cts)
                 calls = {tree: (lambda f=getattr(m, k[6:]): f(*args))
                          for tree, m in mods.items()}
                 outs = {tree: torch.cat([t.reshape(-1) for t in c()])
@@ -126,9 +132,10 @@ def main():
 
 
 def grad_turns(cs, fused, parent, env):
-    """Substeps/s of the door's rollout_and_grad with the two backwards of
+    """Substeps/s of the door's rollout_and_grad with the four kernels of
     each tree, in turns (parent, this, this, parent, twice)."""
-    own = {k: getattr(fused, k) for k in ("p2g_bwd", "g2p_bwd")}
+    own = {k: getattr(fused, k) for k in ("_p2g", "p2g_bwd", "g2p_bwd",
+                                          "gather_bwd")}
     trees = {"this": own,
              "parent": {k: getattr(parent, k) for k in own}}
     acts = cs.door_actions(GRAD_STEPS)

@@ -1,31 +1,35 @@
 #!/usr/bin/env python3
-"""Where the time of the dense-weight P2G and G2P backwards goes, on one
-CUDA card.
+"""Where the time of the door's row-thread kernels goes: the dense-weight
+P2G, and the P2G, G2P and gather backwards, on one CUDA card.
 
-    python3 scripts/fused_bwd_phases.py [SRC_DIR]
+    python3 scripts/fused_bwd_phases.py [SRC_DIR [KERNEL ...]]
 
-Builds copies of ``fused_p2g_bwd.cu`` and ``fused_g2p_bwd.cu`` (with the
-headers of their ``csrc`` directory) of SRC_DIR, a checkout of the
-repository (default: this one), whose kernel returns after each of its
-phases, and times each copy's C entry point with CUDA events (50 calls
-after a warm-up) and torch.profiler (device ms) on the inputs chip_smoke.py
-checks the kernels on: the door's state after 10 env steps (5400
-particles, window (32, 16, 32)) and that state tiled to 1e5 particles,
-with seeded normal cotangents (``chip_smoke.fused_cotangents``). The
-phases are those of the design the sources hold (``STOPS``): for the
-first design (one thread a particle) the box scan, ``weight_adjoint`` and
-the channel walk or grid scatter, a phase's time the difference to the
-one before it; for the row-thread design of ``fused_rows.cuh`` the first
-launch and the box, then the staged pair products, then the weight rows
-alone or the extra tasks alone (the channel sums or the grid scatter),
+Builds copies of ``fused_p2g.cu``, ``fused_p2g_bwd.cu``, ``fused_g2p_bwd.cu``
+and ``fused_gather_bwd.cu`` (or the KERNELs named, file stems) with the
+headers of the ``csrc`` directory of SRC_DIR, a checkout of the repository
+(default: this one), whose kernel returns after each of its phases, and
+times each copy's C entry point with CUDA events (50 calls after a
+warm-up) and torch.profiler (device ms) on the inputs chip_smoke.py checks
+the kernels on: the door's state after 10 env steps (5400 particles,
+window (32, 16, 32)) and that state tiled to 1e5 particles, with seeded
+normal cotangents (``chip_smoke.fused_cotangents``). The phases are those
+of the design each source holds (``STOPS``): for the first design of P2G
+and of the gather backward (one thread a particle, in checkouts before
+their row-thread design) the box scan, then ``weight_adjoint`` (the
+gather backward), then the full kernel, which adds the scatter, a
+phase's time the difference to the one before it; for the row-thread
+design of ``fused_rows.cuh`` the first launch and the box, then the
+staged pair products and the tile's window, then the weight rows alone
+or the extra tasks alone (the P2G backward's channel sums, or the
+scatter), the scatter by device-memory atomics alone (no tile window),
 the kernel without its first launch, each tile on one block (no split of
 its tasks), and the full block at other warps a block and launch bounds
-(each copy's registers and spills from ptxas).
-The G2P backward's zero fill of its float64 window (``Tensor.zero_``) and
-its launches without the kernel (the entry point called with n = 0: the
-round, after the first launch in the row-thread design) are timed apart.
-Prints one JSON object; the card's name and power limit on the lines
-around it. Needs a card and nvcc; exits non-zero without them.
+(each copy's registers and spills from ptxas). The float64 window's zero
+fill of the kernels that sum into one (``Tensor.zero_``) and their
+launches without the kernel (the entry point called with n = 0: the
+round, after the first launch where there is one) are timed apart. Prints one JSON object;
+the card's name and power limit on the lines around it. Needs a card and
+nvcc; exits non-zero without them.
 """
 import ctypes
 import json
@@ -36,18 +40,26 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = ("fused_p2g_bwd", "fused_g2p_bwd")
+KERNELS = ("fused_p2g", "fused_p2g_bwd", "fused_g2p_bwd", "fused_gather_bwd")
+# the kernels that sum into a float64 window (zeroed, then rounded)
+WINDOWED = ("fused_p2g", "fused_g2p_bwd", "fused_gather_bwd")
 # design -> variant -> ((text, its replacement), ...): a phase's variant
 # returns after it (one that leaves no output behind writes one value, so
-# that the compiler keeps its work); the row-thread design also runs its
+# that the compiler keeps its work); the replacements whose text the
+# kernel's source or headers hold are made, and a variant none of whose
+# texts they hold is not the kernel's. The row-thread design also runs its
 # rows alone, its extra tasks alone, no first launch, and its full block
 # at other warps a block and launch bounds ("w<warps>b<blocks an SM>")
-_ROWS_BOX = "  rows_box(a, sh);\n  __syncthreads();\n"
-_ROWS_PAIRS = "    rows_pairs(a, sh);\n    __syncthreads();\n"
-_ROWS_KEEP = ("  if (rows_particle() < a.n && threadIdx.x < kRowLanes) "
-              "a.out[rows_particle()] = static_cast<float>(%s);\n  return;\n")
-_ROWS_TASKS = ("  const int tasks = extra + kRowLanes + a.size[1] + "
-               "a.size[2];\n")
+_ROWS_BOX = "  rows_box<Kind::kDeriv>(a, sh);\n  __syncthreads();\n"
+_ROWS_PAIRS = ("    rows_pairs<Kind::kDeriv>(a, sh);\n"
+               "    rows_window<Kind::kScatter>(sh);\n    __syncthreads();\n")
+_ROWS_KEEP = ("  if (rows_particle() < a.n && threadIdx.x < kRowLanes) {\n"
+              "    if (a.out) a.out[rows_particle()] = static_cast<float>(%s);"
+              "\n    else a.acc[rows_particle() %% a.size[0]] = %s;\n  }\n"
+              "  return;\n")
+_ROWS_TASKS = ("  const int tasks = extra + (Kind::kRows ? a.size[1] + a.size[2] "
+               ": 0);\n")
+_ROWS_X = "rows_warp(); q < kRowLanes;"
 
 
 def _shape(warps, blocks):
@@ -57,25 +69,33 @@ def _shape(warps, blocks):
              f"constexpr int kRowBlocks = {blocks};"))
 
 
+def _keep(value):
+    return _ROWS_KEEP % (value, value)
+
+
 STOPS = {
     "first": {
-        "box": (("particle_box(Wx, WxD, Wy, WDy, Wz, WDz, n, p, wx, wy, wz);\n",
-                 "particle_box(Wx, WxD, Wy, WDy, Wz, WDz, n, p, wx, wy, wz);\n"
+        "box": (("nullptr, n, p, wx, wy, wz);\n",
+                 "nullptr, n, p, wx, wy, wz);\n"
                  "  out[p] = static_cast<float>(b.x0 + b.x1 + b.y0 + b.y1 + "
-                 "b.z0 + b.z1);\n  return;\n"),),
-        "adjoint": (("b, cell, dW, dWxD, dWy, dWDy, dWz, dWDz);\n",
-                     "b, cell, dW, dWxD, dWy, dWDy, dWz, dWDz);\n"
-                     "  return;\n"),),
+                 "b.z0 + b.z1);\n  return;\n"),
+                ("  if (x0 > x1 || y0 > y1 || z0 > z1) return;\n",
+                 "  gm[p % (wx * wy * wz)] = x0 + x1 + y0 + y1 + z0 + z1;\n"
+                 "  return;\n")),
+        "adjoint": (("nullptr, dWz, nullptr);\n",
+                     "nullptr, dWz, nullptr);\n  return;\n"),),
     },
     "rows": {
-        "box": ((_ROWS_BOX,
-                 _ROWS_BOX + _ROWS_KEEP % "sh->lo[0][rows_lane()]"),),
-        "pairs": ((_ROWS_PAIRS, _ROWS_PAIRS + "  " + _ROWS_KEEP
-                   % "sh->pair[0][0][0][rows_lane()]"),),
+        "box": ((_ROWS_BOX, _ROWS_BOX + _keep("sh->lo[0][rows_lane()]")),),
+        "pairs": ((_ROWS_PAIRS, _ROWS_PAIRS + "  "
+                   + _keep("sh->pair[0][0][0][rows_lane()]")),),
         "rows_only": (("  const int extra = Kind::extra_tasks(a, narrow);\n",
                        "  const int extra = 0;\n"),),
-        "extra_only": ((_ROWS_TASKS, "  const int tasks = extra;\n"),),
+        "extra_only": ((_ROWS_TASKS, "  const int tasks = extra;\n"),
+                       (_ROWS_X, "rows_warp(); q < 0;")),
         "noprep": (("softmac::rows_prep<", "if (false) softmac::rows_prep<"),),
+        "nowindow": (("  return kChan * cells <= kWinDoubles ? cells : 0;",
+                      "  return 0;"),),
         "parts1": (("  return parts < 1 ? 1 : parts > kRowParts ? kRowParts "
                     ": parts;", "  return 1;"),),
         "w16b1": _shape(16, 1),
@@ -83,34 +103,35 @@ STOPS = {
         "w8b4": _shape(8, 4),
     },
 }
+# variants that are no phase of a kernel (P2G has no weight rows, its
+# backward no scatter)
+NOT_OF = {"fused_p2g": ("rows_only", "extra_only"),
+          "fused_p2g_bwd": ("nowindow",)}
 
 
-def design(csrc):
-    """The design whose every text to replace the sources of ``csrc``
-    hold."""
-    text = "".join(p.read_text() for p in sorted(csrc.glob("*.cu*")))
-    for name, stops in STOPS.items():
-        if all(a in text for v in stops.values() for a, _ in v):
-            return name
-    raise RuntimeError(f"no known design in {csrc}")
+def design(csrc, kernel):
+    """The design of a kernel's source: "rows" where it includes
+    fused_rows.cuh, else "first"."""
+    src = (csrc / (kernel + ".cu")).read_text()
+    return "rows" if '#include "fused_rows.cuh"' in src else "first"
 
 
 def stopped_at(d, csrc, source, stop):
     """Copy ``source`` and every header of ``csrc`` into ``d``, with the
-    replacements of ``stop`` (None: the full kernel) made in the files that
-    hold their texts; False where ``source`` and the headers lack one (the
+    replacements of ``stop`` (None: the full kernel) made in the first
+    file that holds each text; False where none of its texts is there (the
     variant is another kernel's)."""
     for f in [csrc / source] + sorted(csrc.glob("*.cuh")):
         (d / f.name).write_text(f.read_text())
+    made = not stop
     for text, replacement in stop or ():
         for f in [d / source] + sorted(d.glob("*.cuh")):
             src = f.read_text()
             if text in src:
                 f.write_text(src.replace(text, replacement, 1))
+                made = True
                 break
-        else:
-            return False
-    return True
+    return made
 
 
 def ptxas(log):
@@ -135,6 +156,7 @@ def main():
         return 2
     csrc = (Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else ROOT) \
         / "softmac_tpu_torch/ops/csrc"
+    kernels = tuple(sys.argv[2:]) or KERNELS
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from softmac_tpu_torch.ops import build
@@ -144,17 +166,18 @@ def main():
     print(smi, flush=True)
     build.library()
     states = cs.door_states()[2]
-    which = design(csrc)
-    stops = dict(STOPS[which], full=None)
-    res = {"card": smi, "design": which, "sources": str(csrc),
-           "phases": list(stops), "ms": {}, "device_ms": {}, "ptxas": {}}
+    designs = {k: design(csrc, k) for k in kernels}
+    res = {"card": smi, "designs": designs, "sources": str(csrc),
+           "ms": {}, "device_ms": {}, "ptxas": {}}
     with tempfile.TemporaryDirectory() as tmp:
         jobs = {}
-        for kernel in KERNELS:
+        for kernel in kernels:
+            stops = dict(STOPS[designs[kernel]], full=None)
             for phase, stop in stops.items():
                 d = Path(tmp) / f"{kernel}_{phase}"
                 d.mkdir()
-                if not stopped_at(d, csrc, kernel + ".cu", stop):
+                if phase in NOT_OF.get(kernel, ()) or not stopped_at(
+                        d, csrc, kernel + ".cu", stop):
                     continue
                 so = d / "lib.so"
                 jobs[kernel, phase] = (so, subprocess.Popen(
@@ -168,19 +191,15 @@ def main():
                 raise RuntimeError(f"nvcc failed ({kernel} {phase}):\n{log}")
             res["ptxas"][f"{kernel} {phase}"] = ptxas(log)
             fn = getattr(ctypes.CDLL(str(so)), "softmac_" + kernel)
-            # the row-thread design's entry points take a scratch buffer
+            # the row-thread backwards' entry points take a scratch buffer
             scratch = "float* scratch" in (csrc / (kernel + ".cu")).read_text()
-            fn.argtypes = ([ctypes.c_void_p] * (10 if kernel == "fused_p2g_bwd"
-                                                else 13)
-                           + [ctypes.c_void_p] * scratch
-                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
             for state, inp in states.items():
                 run = entry_call(fn, kernel, inp, cs.fused_cotangents(inp),
                                  scratch)
                 key = f"{kernel} {phase} {state}"
                 res["ms"][key] = cs.cuda_time_ms(run, 50)
                 res["device_ms"][key] = cs.device_ms(key, run)
-                if kernel == "fused_g2p_bwd" and phase == "full":
+                if kernel in WINDOWED and phase == "full":
                     for part, f in (("zero", run.acc.zero_),
                                     ("round", entry_call(fn, kernel, inp,
                                                          None, scratch))):
@@ -195,43 +214,41 @@ def main():
 
 def entry_call(fn, kernel, inp, cts, scratch):
     """A function that calls a built copy's entry point on ``inp`` with the
-    cotangents ``cts`` (None: n = 0, the G2P backward's launches without
-    its kernel), its buffers made once, as ``ops/fused.py`` makes them
-    (``scratch``: the entry point takes the grids' two other layouts'
-    buffer); the G2P backward's float64 window is ``.acc`` of the function
-    (not zeroed by the first design's call)."""
+    cotangents ``cts`` (None: n = 0, the launches without the kernel), its
+    buffers made once, as ``ops/fused.py`` makes them (``scratch``: the
+    entry point takes the grids' two other layouts' buffer); the float64
+    window, where the kernel has one, is ``.acc`` of the function (zeroed
+    by the first launch of the row-thread backwards, by no launch of the
+    others: their wrappers zero it)."""
     import torch
     n, (wx, wy, wz) = inp["n"], inp["sizes"]
     ws6 = inp["ws6"]
     dev = ws6[0].device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [w.data_ptr() for w in ws6]
-    rows = 2 * (wx + wy + wz)
     cells = wx * wy * wz
-    p2g = kernel == "fused_p2g_bwd"
-    buf = torch.empty((8 if p2g else 6) * cells, device=dev)
-    extra = [buf.data_ptr()] if scratch else []
-    if p2g:
-        out = torch.empty((rows + 13, n), device=dev)
-        args = ptrs + [inp["chan"].data_ptr(), cts["dgm"].data_ptr(),
-                       cts["dgmom"].data_ptr(), out.data_ptr(), *extra, n,
-                       wx, wy, wz, stream]
-
-        def run():
-            build_check(fn(*args), kernel)
-        run.keep = (cts, out, buf)  # the pointers' tensors live with run
-        return run
-    out = torch.empty((rows, n), device=dev)
-    acc = torch.zeros(3 * cells, dtype=torch.float64, device=dev)
-    gout = torch.empty(3 * cells, device=dev)
-    g = cts["g12"].data_ptr() if cts else 0
-    args = ptrs + [t.data_ptr() for t in inp["gv"]] + [
-        g, out.data_ptr(), acc.data_ptr(), gout.data_ptr(), *extra,
-        n if cts else 0, wx, wy, wz, stream]
+    rows = 2 * (wx + wy + wz)
+    f32 = lambda *shape: torch.empty(shape, device=dev)  # noqa: E731
+    acc = torch.zeros(4 * cells, dtype=torch.float64, device=dev)
+    buf = f32((8 if kernel == "fused_p2g_bwd" else 6) * cells)
+    if kernel == "fused_p2g":
+        ins, outs = [*ws6, inp["chan"]], [acc, f32(4 * cells)]
+    elif kernel == "fused_p2g_bwd":
+        ins = [*ws6, inp["chan"], cts["dgm"], cts["dgmom"]]
+        outs = [f32(rows + 13, n)] + [buf] * scratch
+    elif kernel == "fused_g2p_bwd":
+        ins = [*ws6, *inp["gv"], cts["g12"] if cts else acc]
+        outs = [f32(rows, n), acc, f32(3 * cells)] + [buf] * scratch
+    else:
+        ins = [*ws6[0::2], *inp["gvm"], cts["dv"] if cts else acc]
+        outs = [f32(rows // 2, n), acc, f32(3 * cells)] + [buf] * scratch
+    args = [t.data_ptr() for t in ins + outs] + [n if cts else 0, wx, wy,
+                                                   wz, stream]
+    fn.argtypes = ([ctypes.c_void_p] * (len(ins) + len(outs))
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
     def run():
         build_check(fn(*args), kernel)
-    run.acc, run.keep = acc, (cts, out, gout, buf)
+    run.acc, run.keep = acc, (cts, ins, outs)  # the pointers' tensors live
     return run
 
 

@@ -1,9 +1,10 @@
-// Shared by the dense-weight transfer kernels (fused_p2g.cu, fused_g2p.cu,
-// fused_splat.cu, fused_gather.cu): the per-axis weight matrices are
-// (rows, n) row-major, row r of axis d holding every particle's weight on
-// window row r, so reading one particle's column is one float per row,
-// strided by n; across a warp (32 neighbouring particles) each such read is
-// one coalesced 128-byte line.
+// Shared by the dense-weight transfer kernels (fused_g2p.cu,
+// fused_splat.cu, fused_gather.cu, and through fused_bwd.cuh
+// fused_splat_bwd.cu; `at` also by fused_rows.cuh): the per-axis weight
+// matrices are (rows, n) row-major, row r of axis d holding every
+// particle's weight on window row r, so reading one particle's column is
+// one float per row, strided by n; across a warp (32 neighbouring
+// particles) each such read is one coalesced 128-byte line.
 //
 // A kernel first finds, for each axis, the first and the last row on which
 // the particle has a nonzero weight (or derivative weight), then visits only

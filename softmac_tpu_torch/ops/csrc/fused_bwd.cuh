@@ -1,7 +1,7 @@
 // The function of the dense-weight transfers' backward kernels, and the
-// one-thread-a-particle code of the splat and gather backwards
-// (fused_splat_bwd.cu, fused_gather_bwd.cu); the P2G and G2P backwards
-// compute the same function many threads a particle (fused_rows.cuh).
+// one-thread-a-particle code of the splat backward (fused_splat_bwd.cu);
+// the P2G, G2P and gather backwards compute the same function many
+// threads a particle (fused_rows.cuh).
 //
 // For one particle, each of the four forwards, dotted with its output
 // cotangent, is a sum over the window cells c = (x, y, z) (row y * wz + z,
@@ -33,110 +33,59 @@ struct Box {
   }
 };
 
-// The particle's box: its nonzero row range on each axis, over W and (with
-// derivative weights) WD.
-__device__ __forceinline__ Box particle_box(const float* Wx, const float* WxD,
-                                            const float* Wy, const float* WDy,
-                                            const float* Wz, const float* WDz,
-                                            int n, int p, int wx, int wy,
-                                            int wz) {
+// The particle's box without derivative weights: its nonzero row range on
+// each axis.
+__device__ __forceinline__ Box particle_box(const float* Wx, const float* Wy,
+                                            const float* Wz, int n, int p,
+                                            int wx, int wy, int wz) {
   Box b;
-  nonzero_rows(Wx, WxD, wx, n, p, &b.x0, &b.x1);
-  nonzero_rows(Wy, WDy, wy, n, p, &b.y0, &b.y1);
-  nonzero_rows(Wz, WDz, wz, n, p, &b.z0, &b.z1);
+  nonzero_rows(Wx, nullptr, wx, n, p, &b.x0, &b.x1);
+  nonzero_rows(Wy, nullptr, wy, n, p, &b.y0, &b.y1);
+  nonzero_rows(Wz, nullptr, wz, n, p, &b.z0, &b.z1);
   return b;
 }
 
-// Coefficients of one cell in the form above.
-struct CellCoef {
-  double h, d0, d1, d2;
-};
-
-template <bool kDeriv>
-__device__ __forceinline__ double deriv_at(const float* __restrict__ w, int r,
-                                           int n, int p) {
-  if constexpr (kDeriv) {
-    return at(w, r, n, p);
-  } else {
-    return 0.0;
-  }
-}
-
-// Writes the weight cotangents of f, dWx (wx, n) ... dWDz (wz, n) at column
-// p, from cell(row, x) -> CellCoef. Sums in double, rounded once. Without
-// derivative weights (kDeriv false) WxD, WDy, WDz and dWxD, dWDy, dWDz are
-// not read or written.
-template <bool kDeriv, class Cell>
+// Writes the weight cotangents of f without derivative weights, dWx (wx,
+// n), dWy (wy, n), dWz (wz, n) at column p, from cell(row, x) -> s.h(c).
+// Sums in double, rounded once.
+template <class Cell>
 __device__ __forceinline__ void weight_adjoint(
-    const float* __restrict__ Wx, const float* __restrict__ WxD,
-    const float* __restrict__ Wy, const float* __restrict__ WDy,
-    const float* __restrict__ Wz, const float* __restrict__ WDz, int n, int p,
-    int wx, int wy, int wz, const Box& b, Cell cell, float* __restrict__ dWx,
-    float* __restrict__ dWxD, float* __restrict__ dWy,
-    float* __restrict__ dWDy, float* __restrict__ dWz,
-    float* __restrict__ dWDz) {
+    const float* __restrict__ Wx, const float* __restrict__ Wy,
+    const float* __restrict__ Wz, int n, int p, int wx, int wy, int wz,
+    const Box& b, Cell cell, float* __restrict__ dWx,
+    float* __restrict__ dWy, float* __restrict__ dWz) {
   // x rows: over the (y, z) box
   for (int x = 0; x < wx; ++x) {
-    double g = 0.0, gd = 0.0;
+    double g = 0.0;
     for (int y = b.y0; y <= b.y1; ++y) {
       const double wy_ = at(Wy, y, n, p);
-      const double dy = deriv_at<kDeriv>(WDy, y, n, p);
       for (int z = b.z0; z <= b.z1; ++z) {
-        const double wz_ = at(Wz, z, n, p);
-        const double dz = deriv_at<kDeriv>(WDz, z, n, p);
-        const CellCoef s = cell(y * wz + z, x);
-        g += wy_ * wz_ * s.h;
-        if constexpr (kDeriv) {
-          g += dy * wz_ * s.d1 + wy_ * dz * s.d2;
-          gd += wy_ * wz_ * s.d0;
-        }
+        g += wy_ * at(Wz, z, n, p) * cell(y * wz + z, x);
       }
     }
-    const size_t i = static_cast<size_t>(x) * n + p;
-    dWx[i] = static_cast<float>(g);
-    if constexpr (kDeriv) dWxD[i] = static_cast<float>(gd);
+    dWx[static_cast<size_t>(x) * n + p] = static_cast<float>(g);
   }
   // y rows: over the (z, x) box
   for (int y = 0; y < wy; ++y) {
-    double g = 0.0, gd = 0.0;
+    double g = 0.0;
     for (int z = b.z0; z <= b.z1; ++z) {
       const double wz_ = at(Wz, z, n, p);
-      const double dz = deriv_at<kDeriv>(WDz, z, n, p);
       for (int x = b.x0; x <= b.x1; ++x) {
-        const double wx_ = at(Wx, x, n, p);
-        const double dx = deriv_at<kDeriv>(WxD, x, n, p);
-        const CellCoef s = cell(y * wz + z, x);
-        g += wz_ * wx_ * s.h;
-        if constexpr (kDeriv) {
-          g += wz_ * dx * s.d0 + dz * wx_ * s.d2;
-          gd += wz_ * wx_ * s.d1;
-        }
+        g += wz_ * at(Wx, x, n, p) * cell(y * wz + z, x);
       }
     }
-    const size_t i = static_cast<size_t>(y) * n + p;
-    dWy[i] = static_cast<float>(g);
-    if constexpr (kDeriv) dWDy[i] = static_cast<float>(gd);
+    dWy[static_cast<size_t>(y) * n + p] = static_cast<float>(g);
   }
   // z rows: over the (y, x) box
   for (int z = 0; z < wz; ++z) {
-    double g = 0.0, gd = 0.0;
+    double g = 0.0;
     for (int y = b.y0; y <= b.y1; ++y) {
       const double wy_ = at(Wy, y, n, p);
-      const double dy = deriv_at<kDeriv>(WDy, y, n, p);
       for (int x = b.x0; x <= b.x1; ++x) {
-        const double wx_ = at(Wx, x, n, p);
-        const double dx = deriv_at<kDeriv>(WxD, x, n, p);
-        const CellCoef s = cell(y * wz + z, x);
-        g += wy_ * wx_ * s.h;
-        if constexpr (kDeriv) {
-          g += wy_ * dx * s.d0 + dy * wx_ * s.d1;
-          gd += wy_ * wx_ * s.d2;
-        }
+        g += wy_ * at(Wx, x, n, p) * cell(y * wz + z, x);
       }
     }
-    const size_t i = static_cast<size_t>(z) * n + p;
-    dWz[i] = static_cast<float>(g);
-    if constexpr (kDeriv) dWDz[i] = static_cast<float>(gd);
+    dWz[static_cast<size_t>(z) * n + p] = static_cast<float>(g);
   }
 }
 

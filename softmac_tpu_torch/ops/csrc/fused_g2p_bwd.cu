@@ -37,52 +37,20 @@ namespace {
 using softmac::RowsArgs;
 using softmac::RowsShared;
 
-// The grid terms: one task a (y, z) cell of the particle's box (task
-// ia * lz + ib), each adding the cell's x rows.
+// The grid terms: one task a (y, z) cell of the particle's box, each adding
+// the cell's x rows (fused_rows.cuh rows_scatter).
 struct G2PBwd {
   static constexpr int kGrids = 3;
+  static constexpr bool kDeriv = true, kRows = true;
+  static constexpr int kScatter = 3;  // channels of the window
 
   __device__ static int extra_tasks(const RowsArgs& a, bool narrow) {
-    return narrow ? softmac::kBoxCells : a.size[1] * a.size[2];
+    return softmac::scatter_tasks(a, narrow);
   }
 
-  __device__ static void extra(const RowsArgs& a, const RowsShared& sh,
+  __device__ static void extra(const RowsArgs& a, RowsShared* sh,
                                bool narrow, int task, int lane, int p) {
-    const int lx = softmac::box_len(sh, 0, lane);
-    const int ly = softmac::box_len(sh, 1, lane);
-    const int lz = softmac::box_len(sh, 2, lane);
-    if (task >= ly * lz || lx == 0) return;
-    const int ia = task / lz, ib = task - ia * lz;
-    double p0, pa, pb;     // Wy Wz, WDy Wz, Wy WDz
-    softmac::plane_pair<0>(a, sh, narrow, lane, p, ia, ib, &p0, &pa, &pb);
-    if (p0 == 0.0 && pa == 0.0 && pb == 0.0) return;
-    const size_t n = a.n;
-    float cv[3], c[3][3];
-    for (int d = 0; d < 3; ++d) {
-      cv[d] = __ldg(a.rows + d * n + p);
-      for (int j = 0; j < 3; ++j) {
-        c[d][j] = __ldg(a.rows + (3 + 3 * d + j) * n + p);
-      }
-    }
-    const int wx = a.size[0];
-    const int cells = wx * a.size[1] * a.size[2];
-    const int row = (sh.lo[1][lane] + ia) * a.size[2] + sh.lo[2][lane] + ib;
-    for (int ix = 0; ix < lx; ++ix) {
-      const int x = sh.lo[0][lane] + ix;
-      const double w0 = softmac::box_weight<0>(a, sh, narrow, 0, x, lane, p);
-      const double d0 = softmac::box_weight<0>(a, sh, narrow, 1, x, lane, p);
-      const double wgt = w0 * p0, dwx = d0 * p0;
-      const double dwy = w0 * pa, dwz = w0 * pb;
-      if (wgt == 0.0 && dwx == 0.0 && dwy == 0.0 && dwz == 0.0) continue;
-      double* dst = a.acc + row * wx + x;
-      for (int d = 0; d < 3; ++d) {
-        atomicAdd(dst + d * cells,
-                  wgt * static_cast<double>(cv[d])
-                      + dwx * static_cast<double>(c[d][0])
-                      + dwy * static_cast<double>(c[d][1])
-                      + dwz * static_cast<double>(c[d][2]));
-      }
-    }
+    softmac::rows_scatter<3, true>(a, sh, narrow, task, lane, p);
   }
 };
 

@@ -15,66 +15,52 @@
 // What bounds it on the H100: by bytes it reads the six weight matrices
 // (2 (wx + wy + wz) floats a particle) and 13 channels, and writes the
 // window once: 69 MB at 1e5 particles and window (32, 16, 32), 21 us at
-// 3.35 TB/s. In practice it is bound by the float64 atomics, 4 per visited
-// cell: 108 a particle for B-spline weights.
+// 3.35 TB/s. In practice the float64 atomics, 4 per visited cell (108 a
+// particle for B-spline weights), contended where many particles share
+// cells (the door tiled to 1e5), and at the door's 5400 particles the
+// latency of finding each particle's box.
 //
-// Simple design: one thread per particle. It finds the particle's nonzero
-// row range on each axis (fused.cuh), then adds each visited cell's terms
-// with atomicAdd(double) into a zeroed window; one more launch rounds the
-// window to float32. As in p2g.cu, the float64 sums make repeated runs
-// agree, where float32 atomics would add in another order each time.
-#include "fused.cuh"
+// Design (fused_rows.cuh, without weight rows): 32 particles a tile, one
+// a lane, on a block of 8 warps (or a few blocks that share its tasks
+// where the tiles are too few to fill the card); the warps split the
+// window's rows to find the boxes (coalesced) and keep their entries; the
+// pair products Wy Wz, WDy Wz, Wy WDz over each (y, z) box staged once in
+// double; then one thread a (particle, (y, z) cell of its box), which adds
+// the four channels of the cell's x rows with atomicAdd(double) into the
+// zeroed window (rows_scatter). One more launch rounds the window to
+// float32 once: as in p2g.cu, the float64 sums make repeated runs agree,
+// where float32 atomics would add in another order each time.
+#include "fused_rows.cuh"
 
 namespace {
 
-__global__ void fused_p2g_kernel(const float* __restrict__ Wx,
-                                 const float* __restrict__ WxD,
-                                 const float* __restrict__ Wy,
-                                 const float* __restrict__ WDy,
-                                 const float* __restrict__ Wz,
-                                 const float* __restrict__ WDz,
-                                 const float* __restrict__ chan,
-                                 double* __restrict__ gm,
-                                 double* __restrict__ gmom, int n, int wx,
-                                 int wy, int wz) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  int x0, x1, y0, y1, z0, z1;
-  softmac::nonzero_rows(Wx, WxD, wx, n, p, &x0, &x1);
-  softmac::nonzero_rows(Wy, WDy, wy, n, p, &y0, &y1);
-  softmac::nonzero_rows(Wz, WDz, wz, n, p, &z0, &z1);
-  if (x0 > x1 || y0 > y1 || z0 > z1) return;
+using softmac::RowsArgs;
+using softmac::RowsShared;
 
-  const double mass = chan[p];
-  double mom[3], a[3][3];
-  for (int d = 0; d < 3; ++d) {
-    mom[d] = chan[(1 + d) * n + p];
-    for (int j = 0; j < 3; ++j) a[d][j] = chan[(4 + 3 * d + j) * n + p];
+// P2G's work is the extra tasks alone: one a (y, z) cell of the
+// particle's box.
+struct P2G {
+  static constexpr int kGrids = 0;     // no weight rows, no grids to read
+  static constexpr bool kDeriv = true, kRows = false;
+  static constexpr int kScatter = 4;  // channels of the window
+
+  __device__ static int extra_tasks(const RowsArgs& a, bool narrow) {
+    return softmac::scatter_tasks(a, narrow);
   }
-  for (int y = y0; y <= y1; ++y) {
-    const double wy_ = softmac::at(Wy, y, n, p), dy = softmac::at(WDy, y, n, p);
-    for (int z = z0; z <= z1; ++z) {
-      const double wz_ = softmac::at(Wz, z, n, p);
-      const double dz = softmac::at(WDz, z, n, p);
-      const double wyz = wy_ * wz_, dyz = dy * wz_, ydz = wy_ * dz;
-      if (wyz == 0.0 && dyz == 0.0 && ydz == 0.0) continue;
-      const int row = y * wz + z;
-      for (int x = x0; x <= x1; ++x) {
-        const double w0 = softmac::at(Wx, x, n, p);
-        const double d0 = softmac::at(WxD, x, n, p);
-        const double wgt = w0 * wyz, dwx = d0 * wyz;
-        const double dwy = w0 * dyz, dwz = w0 * ydz;
-        if (wgt == 0.0 && dwx == 0.0 && dwy == 0.0 && dwz == 0.0) continue;
-        atomicAdd(gm + row * wx + x, wgt * mass);
-        double* g = gmom + row * 3 * wx + x;
-        for (int d = 0; d < 3; ++d) {
-          atomicAdd(g + d * wx,
-                    wgt * mom[d] + dwx * a[d][0] + dwy * a[d][1] + dwz * a[d][2]);
-        }
-      }
-    }
+
+  __device__ static void extra(const RowsArgs& a, RowsShared* sh,
+                               bool narrow, int task, int lane, int p) {
+    softmac::rows_scatter<4, true>(a, sh, narrow, task, lane, p);
   }
+};
+
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(softmac::kRowThreads, softmac::kRowBlocks)
+    fused_p2g_kernel(const RowsArgs a) {
+  __shared__ RowsShared sh;
+  softmac::rows_block<P2G>(a, &sh);
 }
+#endif
 
 }  // namespace
 
@@ -82,7 +68,8 @@ __global__ void fused_p2g_kernel(const float* __restrict__ Wx,
 // (13, n) [mass, mom(3), dx*affine(9) row-major]. acc: 4 * wy*wz*wx doubles
 // zeroed by the caller (the mass window, then the momentum window); out:
 // the same layout in float32, gm (wy*wz, wx) followed by gmom
-// (wy*wz, 3*wx). Returns cudaGetLastError() after the launches.
+// (wy*wz, 3*wx). Two launches: the kernel (none for n = 0), the round.
+// Returns cudaGetLastError() after the launches.
 extern "C" int softmac_fused_p2g(const float* Wx, const float* WxD,
                                  const float* Wy, const float* WDy,
                                  const float* Wz, const float* WDz,
@@ -90,9 +77,14 @@ extern "C" int softmac_fused_p2g(const float* Wx, const float* WxD,
                                  int n, int wx, int wy, int wz, void* stream) {
   const int cells = wx * wy * wz;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RowsArgs a = {{Wx, WxD, Wy, WDy, Wz, WDz},
+                      {nullptr, nullptr, nullptr, nullptr},
+                      {0, 0, 0, 0},
+                      chan, nullptr, acc, nullptr, nullptr,
+                      n, {wx, wy, wz}};
   if (n > 0) {
-    fused_p2g_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0, s>>>(
-        Wx, WxD, Wy, WDy, Wz, WDz, chan, acc, acc + cells, n, wx, wy, wz);
+    fused_p2g_kernel<<<dim3(softmac::rows_blocks(n), softmac::rows_parts(n)),
+                       softmac::kRowThreads, 0, s>>>(a);
   }
   softmac::round_to_float<<<softmac::blocks_for(4 * cells), softmac::kThreads,
                             0, s>>>(acc, out, 4 * cells);

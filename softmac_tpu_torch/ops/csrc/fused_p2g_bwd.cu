@@ -44,11 +44,14 @@ using softmac::RowsShared;
 // the four rows of momentum component d, each over the particle's box.
 struct P2GBwd {
   static constexpr int kGrids = 4;
+  static constexpr bool kDeriv = true, kRows = true;
+  static constexpr int kScatter = 0;  // channel sums, no window
 
   __device__ static int extra_tasks(const RowsArgs&, bool) { return 4; }
 
-  __device__ static void extra(const RowsArgs& a, const RowsShared& sh,
+  __device__ static void extra(const RowsArgs& a, RowsShared* shp,
                                bool narrow, int task, int lane, int p) {
+    const RowsShared& sh = *shp;
     const int lx = softmac::box_len(sh, 0, lane);
     const int ly = softmac::box_len(sh, 1, lane);
     const int lz = softmac::box_len(sh, 2, lane);
@@ -64,8 +67,8 @@ struct P2GBwd {
       for (int ia = 0; ia < ly; ++ia) {
         for (int ib = 0; ib < lz; ++ib) {
           double p0, pa, pb;
-          softmac::plane_pair<0>(a, sh, narrow, lane, p, ia, ib, &p0, &pa,
-                                 &pb);
+          softmac::plane_pair<0, true>(a, sh, narrow, lane, p, ia, ib, &p0,
+                                       &pa, &pb);
           const double g = __ldg(grid + ((y0 + ia) * wz + z0 + ib) * stride
                                  + x);
           s[0] += w0 * p0 * g;

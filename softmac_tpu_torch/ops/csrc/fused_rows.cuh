@@ -1,47 +1,63 @@
-// The row-thread design of the dense-weight P2G and G2P backwards
-// (fused_p2g_bwd.cu, fused_g2p_bwd.cu): many threads a particle instead of
-// one. fused_bwd.cuh states the function: for one particle, the cotangent
-// of its weight entry on row r of axis A sums the cell coefficients s(c)
-// over the particle's box in the plane of the two other axes (a, b), every
-// row r of the window, zeros included; the box on each axis is the range
-// of the rows where W or WD is nonzero.
+// The row-thread design of the door's dense-weight kernels: the P2G
+// (fused_p2g.cu), and the P2G, G2P and gather backwards (fused_p2g_bwd.cu,
+// fused_g2p_bwd.cu, fused_gather_bwd.cu): many threads a particle instead
+// of one. fused_bwd.cuh states the backwards' function: for one particle,
+// the cotangent of its weight entry on row r of axis A sums the cell
+// coefficients s(c) over the particle's box in the plane of the two other
+// axes (a, b), every row r of the window, zeros included; the box on each
+// axis is the range of the rows where W or WD is nonzero. A kernel's Kind
+// says what it has: kDeriv, derivative weights WD (the gather backward
+// has none: WD is null, never read, and its rows dWD are not written);
+// kRows, weight rows to write (P2G has none: its work is the extra tasks
+// alone); kScatter, the channels its extra tasks add into a float64
+// window (rows_scatter: P2G 4, the G2P and gather backwards 3; 0 for the
+// P2G backward, whose extra tasks are channel sums).
 //
 // A tile of kRowLanes consecutive particles, one a lane, goes to a block
 // of kRowWarps warps, or, where the tiles are too few to fill the card, to
 // up to kRowParts blocks that share its tasks (rows_parts). A first launch
 // writes the grids' other layouts (rows_prep). A block's phases, a
 // barrier between each:
-//   1. begin: empty boxes in shared memory;
+//   1. begin: empty boxes and a window of zeros in shared memory;
 //   2. box: the warps split the window's rows; each thread reads its
-//      particle's W and WD on its rows (coalesced: lanes are consecutive
+//      particle's W (and WD) on its rows (coalesced: lanes are consecutive
 //      particles), widens the particle's box by shared atomicMin / Max and
 //      keeps the nonzero entries in shared memory at row % kBoxCap (exact
 //      for a box at most kBoxCap rows wide, a B-spline stencil's 3);
 //   3. pairs: where every box of the block is that narrow on every axis,
 //      each particle's pair products over its box in each plane,
-//      P0 = W_a W_b, Pa = WD_a W_b, Pb = W_a WD_b, formed once in double
-//      from the kept entries and kept in shared memory; wider boxes (dense
-//      weights) read them from device memory as they go;
-//   4. tasks, shared out among a tile's blocks: one thread a (particle,
-//      y or z weight row); one warp a particle for its x rows, one lane a
-//      row; and one thread a (particle, extra task) of the kernel's own
-//      (P2G: the channel sums; G2P: the grid scatter). A row's thread
-//      visits its box cells in the plane once, reads the cotangent grids
-//      there and keeps, in double, the sums
-//        m0 = sum P0 G_mass (P2G),  B_d = sum P0 G_d,
-//        Ca_d = sum Pa G_d,  Cb_d = sum Pb G_d
-//      of the three component grids G_d, then
-//        dW_A  = mass m0 + sum_d ch_d B_d + m[d][a] Ca_d + m[d][b] Cb_d,
-//        dWD_A = sum_d m[d][A] B_d,
-//      with (ch, m) the particle's own rows: P2G (mom, dx*affine), G2P the
-//      cotangents of (v, C). The x rows read the grids as they are, (y, z)
-//      rows of x: a warp of one particle's x rows reads each box cell's
-//      line once, whole. The y and z rows (lanes: particles, y-sorted in
-//      the rollout) read the first launch's copies with y, or z, fastest;
-//   5. store: the x rows, kept in shared memory (up to kXTile of them),
-//      written a row of 32 consecutive particles at a time.
-// Each output is one thread's, written once, rounded once, in a fixed
-// order.
+//      P0 = W_a W_b, Pa = WD_a W_b, Pb = W_a WD_b (P0 alone without WD),
+//      formed once in double from the kept entries and kept in shared
+//      memory, and the tile's scatter window, the union of its boxes;
+//      wider boxes (dense weights) read the products from device memory
+//      as they go, and scatter to device memory;
+//   4. x rows (with weight rows), shared out among a tile's blocks: one
+//      warp a particle for its x rows, one lane a row, kept in shared
+//      memory (up to kXTile of them);
+//   5. store: the kept x rows written a row of 32 consecutive particles at
+//      a time;
+//   6. tasks, shared out among a tile's blocks: one thread a (particle,
+//      extra task) of the kernel's own (the P2G backward: the channel
+//      sums; P2G, the G2P and gather backwards: the scatter of
+//      rows_scatter, into the tile's window where it fits, in the x rows'
+//      space); then one thread a (particle, y or z weight row);
+//   7. flush: the window added to device memory.
+// A row's thread visits its box cells in the plane once, reads the
+// cotangent grids there and keeps, in double, the sums
+//   m0 = sum P0 G_mass (P2G),  B_d = sum P0 G_d,
+//   Ca_d = sum Pa G_d,  Cb_d = sum Pb G_d
+// of the three component grids G_d, then
+//   dW_A  = mass m0 + sum_d ch_d B_d + m[d][a] Ca_d + m[d][b] Cb_d,
+//   dWD_A = sum_d m[d][A] B_d,
+// with (ch, m) the particle's own rows: P2G (mom, dx*affine), G2P the
+// cotangents of (v, C), the gather its cotangent dv (no m, no Ca, Cb or
+// dWD without WD). The x rows read the grids as they are, (y, z) rows of
+// x: a warp of one particle's x rows reads each box cell's line once,
+// whole. The y and z rows (lanes: particles, y-sorted in the rollout)
+// read the first launch's copies with y, or z, fastest.
+// Each weight or channel output is one thread's, written once, rounded
+// once, in a fixed order; a float64 window takes atomicAdds and is
+// rounded once by a last launch.
 #pragma once
 
 #include "fused.cuh"
@@ -56,16 +72,23 @@ constexpr int kRowParts = 4;       // blocks a tile's tasks go to, at most
 constexpr int kBoxCap = 3;         // box rows a staged axis holds
 constexpr int kBoxCells = kBoxCap * kBoxCap;
 constexpr int kXTile = 64;         // x rows a block keeps for its stores
+// doubles of a tile's scatter window (rows_scatter), in the x rows' space
+constexpr int kWinDoubles = kXTile * (kRowLanes + 1);
 
 inline int rows_blocks(int n) { return (n + kRowLanes - 1) / kRowLanes; }
 
 struct RowsArgs {
   const float* w[6];      // Wx, WxD, Wy, WDy, Wz, WDz, (size[axis], n) each
-  const float* grid[4];   // the cotangent grids (P2G: mass, then momentum)
+                          // (the WD null without derivative weights)
+  const float* grid[4];   // the grids the weight rows read (the P2G
+                          // backward: mass, then momentum cotangents)
   int row_stride[4];      // floats from a grid's (y, z) row to the next
-  const float* rows;      // the particle rows: P2G chan (13, n), G2P g (12, n)
-  float* out;             // (2 (wx + wy + wz) [+ 13], n)
-  double* acc;            // G2P: the float64 grid-cotangent window
+  const float* rows;      // the particle rows: P2G chan (13, n) (and its
+                          // backward's), G2P's g (12, n), the gather's dv
+                          // (3, n)
+  float* out;             // the weight rows (2 (wx + wy + wz) [+ 13], n),
+                          // without WD (wx + wy + wz, n); null for P2G
+  double* acc;            // the float64 window of rows_scatter
   float* yt;              // the grids as (z, x, y), one after the other
   float* zt;              // the grids as (y, x, z)
   int n;
@@ -74,9 +97,13 @@ struct RowsArgs {
 
 struct RowsShared {
   double pair[3][kBoxCells][3][kRowLanes];   // [plane][cell][P0, Pa, Pb]
-  float xout[2 * kXTile][kRowLanes + 1];      // dWx, dWxD rows (padded)
+  union {
+    float xout[2 * kXTile][kRowLanes + 1];    // dWx, dWxD rows (padded)
+    double win[kWinDoubles];                  // the tile's scatter window
+  };
   float ent[3][kBoxCap][2][kRowLanes];        // [axis][row % kBoxCap][W, WD]
   int lo[3][kRowLanes], hi[3][kRowLanes];
+  int wlo[3], whi[3];     // the scatter window's rows on each axis
 };
 
 // the two other axes of axis A, in index order
@@ -95,6 +122,9 @@ __device__ __forceinline__ int box_len(const RowsShared& sh, int ax,
   return l > 0 ? l : 0;
 }
 
+// Phase 1: empty boxes, no kept entries; with a scatter (kScatter
+// channels), an empty window of zeros.
+template <int kScatter>
 __device__ __forceinline__ void rows_begin(RowsShared* sh) {
   const int t = threadIdx.x;
   if (t < 3 * kRowLanes) {
@@ -105,8 +135,12 @@ __device__ __forceinline__ void rows_begin(RowsShared* sh) {
   for (int i = t; i < 3 * kBoxCap * 2 * kRowLanes; i += kRowThreads) {
     ent[i] = 0.0f;
   }
+  if (kScatter > 0) {
+    for (int i = t; i < kWinDoubles; i += kRowThreads) sh->win[i] = 0.0;
+  }
 }
 
+template <bool kDeriv>
 __device__ __forceinline__ void rows_box(const RowsArgs& a, RowsShared* sh) {
   const int lane = rows_lane(), p = rows_particle();
   if (p >= a.n) return;
@@ -114,7 +148,8 @@ __device__ __forceinline__ void rows_box(const RowsArgs& a, RowsShared* sh) {
   for (int ax = 0; ax < 3; ++ax) {
     for (int r = rows_warp(); r < a.size[ax]; r += kRowWarps) {
       const size_t i = static_cast<size_t>(r) * a.n + p;
-      const float w = __ldg(a.w[2 * ax] + i), d = __ldg(a.w[2 * ax + 1] + i);
+      const float w = __ldg(a.w[2 * ax] + i);
+      const float d = kDeriv ? __ldg(a.w[2 * ax + 1] + i) : 0.0f;
       if (w != 0.0f || d != 0.0f) {
         atomicMin(&sh->lo[ax][lane], r);
         atomicMax(&sh->hi[ax][lane], r);
@@ -137,7 +172,8 @@ __device__ __forceinline__ int stride_of(const RowsArgs& a, int q) {
 
 // The first launch, one thread an element i: the kGrids grids again with y
 // fastest (yt) and with z fastest (zt), so that the y and z rows read
-// their box cells' runs of rows whole; and G2P's float64 window zeroed.
+// their box cells' runs of rows whole; and the three-grid float64 window
+// of the G2P and gather backwards zeroed.
 template <int kGrids>
 __device__ __forceinline__ void rows_prep_at(const RowsArgs& a, int i) {
   const int wx = a.size[0], wy = a.size[1], wz = a.size[2];
@@ -161,8 +197,9 @@ __device__ __forceinline__ bool rows_fit(const RowsShared& sh) {
              - sh.lo[t / kRowLanes][t % kRowLanes] < kBoxCap;
 }
 
-// The pair products of plane A at box cell (ia, ib), from device memory.
-template <int A>
+// The pair products of plane A at box cell (ia, ib), from device memory
+// (Pa, Pb zero without derivative weights).
+template <int A, bool kDeriv>
 __device__ __forceinline__ void pair_at(const RowsArgs& a,
                                         const RowsShared& sh, int lane, int p,
                                         int ia, int ib, double* p0,
@@ -170,12 +207,13 @@ __device__ __forceinline__ void pair_at(const RowsArgs& a,
   constexpr int ax = plane_a(A), bx = plane_b(A);
   const int ra = sh.lo[ax][lane] + ia, rb = sh.lo[bx][lane] + ib;
   const double wa = at(a.w[2 * ax], ra, a.n, p);
-  const double da = at(a.w[2 * ax + 1], ra, a.n, p);
   const double wb = at(a.w[2 * bx], rb, a.n, p);
-  const double db = at(a.w[2 * bx + 1], rb, a.n, p);
   *p0 = wa * wb;
-  *pa = da * wb;
-  *pb = wa * db;
+  *pa = *pb = 0.0;
+  if constexpr (kDeriv) {
+    *pa = at(a.w[2 * ax + 1], ra, a.n, p) * wb;
+    *pb = wa * at(a.w[2 * bx + 1], rb, a.n, p);
+  }
 }
 
 // W (k 0) or WD (k 1) of axis ax on row `row` of the block's particle in
@@ -192,7 +230,7 @@ __device__ __forceinline__ double box_weight(const RowsArgs& a,
 
 // The pair products of plane A at box cell (ia, ib): staged (narrow) or
 // from device memory.
-template <int A>
+template <int A, bool kDeriv>
 __device__ __forceinline__ void plane_pair(const RowsArgs& a,
                                            const RowsShared& sh, bool narrow,
                                            int lane, int p, int ia, int ib,
@@ -201,16 +239,16 @@ __device__ __forceinline__ void plane_pair(const RowsArgs& a,
   if (narrow) {
     const int c = ia * kBoxCap + ib;
     *p0 = sh.pair[A][c][0][lane];
-    *pa = sh.pair[A][c][1][lane];
-    *pb = sh.pair[A][c][2][lane];
+    *pa = kDeriv ? sh.pair[A][c][1][lane] : 0.0;
+    *pb = kDeriv ? sh.pair[A][c][2][lane] : 0.0;
   } else {
-    pair_at<A>(a, sh, lane, p, ia, ib, p0, pa, pb);
+    pair_at<A, kDeriv>(a, sh, lane, p, ia, ib, p0, pa, pb);
   }
 }
 
 // The pair products of plane A at box cell c of a narrow box, from the
 // entries the box phase kept.
-template <int A>
+template <int A, bool kDeriv>
 __device__ __forceinline__ void stage_pairs(RowsShared* sh, int lane,
                                             int c) {
   constexpr int ax = plane_a(A), bx = plane_b(A);
@@ -226,10 +264,51 @@ __device__ __forceinline__ void stage_pairs(RowsShared* sh, int lane,
     pb = wa * db;
   }
   sh->pair[A][c][0][lane] = p0;
-  sh->pair[A][c][1][lane] = pa;
-  sh->pair[A][c][2][lane] = pb;
+  if constexpr (kDeriv) {
+    sh->pair[A][c][1][lane] = pa;
+    sh->pair[A][c][2][lane] = pb;
+  }
 }
 
+// The tile's scatter window (phase 3, threads 0-2, one an axis): the
+// rows of the union of its particles' boxes.
+template <int kScatter>
+__device__ __forceinline__ void rows_window(RowsShared* sh) {
+  const int ax = threadIdx.x;
+  if (kScatter == 0 || ax >= 3) return;
+  int lo = 1 << 30, hi = -1;
+  for (int q = 0; q < kRowLanes; ++q) {
+    lo = sh->lo[ax][q] < lo ? sh->lo[ax][q] : lo;
+    hi = sh->hi[ax][q] > hi ? sh->hi[ax][q] : hi;
+  }
+  sh->wlo[ax] = lo;
+  sh->whi[ax] = hi;
+}
+
+// The cells of the tile's window, its rows an axis in n; 0 where its kChan
+// channels do not fit kWinDoubles (the scatter then adds to device
+// memory).
+template <int kChan>
+__device__ __forceinline__ int window_cells(const RowsShared& sh, int n[3]) {
+  int cells = 1;
+  for (int b = 0; b < 3; ++b) {
+    n[b] = sh.whi[b] >= sh.wlo[b] ? sh.whi[b] - sh.wlo[b] + 1 : 0;
+    cells *= n[b];
+  }
+  return kChan * cells <= kWinDoubles ? cells : 0;
+}
+
+// Whether the block's scatter goes through its window: a narrow tile
+// whose window fits.
+template <class Kind>
+__device__ __forceinline__ bool rows_local(const RowsShared& sh,
+                                           bool narrow) {
+  int n[3];
+  return Kind::kScatter > 0 && narrow
+         && window_cells<Kind::kScatter>(sh, n) > 0;
+}
+
+template <bool kDeriv>
 __device__ __forceinline__ void rows_pairs(const RowsArgs& a,
                                            RowsShared* sh) {
   const int lane = rows_lane(), p = rows_particle();
@@ -237,11 +316,11 @@ __device__ __forceinline__ void rows_pairs(const RowsArgs& a,
   for (int t = rows_warp(); t < 3 * kBoxCells; t += kRowWarps) {
     const int c = t % kBoxCells;
     if (t < kBoxCells) {
-      stage_pairs<0>(sh, lane, c);
+      stage_pairs<0, kDeriv>(sh, lane, c);
     } else if (t < 2 * kBoxCells) {
-      stage_pairs<1>(sh, lane, c);
+      stage_pairs<1, kDeriv>(sh, lane, c);
     } else {
-      stage_pairs<2>(sh, lane, c);
+      stage_pairs<2, kDeriv>(sh, lane, c);
     }
   }
 }
@@ -267,16 +346,19 @@ struct RowSums {
 };
 
 // Row `row` of axis A of the weight cotangents of the block's particle in
-// lane `lane` (particle p): the sums of the header comment. kGrids 4: the
-// mass grid first (P2G), else the three component grids only (G2P); the
-// particle rows hold (ch_d, m[d][j]) from row kGrids - 3 on.
-template <int kGrids, int A>
+// lane `lane` (particle p): the sums of the header comment. Kind::kGrids
+// 4: the mass grid first (the P2G backward), else the three component
+// grids only (the G2P and gather backwards); the particle rows hold
+// (ch_d, m[d][j]) from row kGrids - 3 on (no m without derivative
+// weights, Kind::kDeriv false: then only the B_d, and no dWD row).
+template <class Kind, int A>
 __device__ __forceinline__ RowSums weight_row(const RowsArgs& a,
                                               const RowsShared& sh,
                                               bool narrow, int row, int lane,
                                               int p) {
   constexpr int ax = plane_a(A), bx = plane_b(A);
-  constexpr int q0 = kGrids - 3;
+  constexpr int kGrids = Kind::kGrids, q0 = kGrids - 3;
+  constexpr bool kDeriv = Kind::kDeriv;
   const int la = box_len(sh, ax, lane), lb = box_len(sh, bx, lane);
   const int a0 = sh.lo[ax][lane], b0 = sh.lo[bx][lane];
   double m0 = 0.0, B[3] = {0.0, 0.0, 0.0}, Ca[3] = {0.0, 0.0, 0.0},
@@ -284,7 +366,7 @@ __device__ __forceinline__ RowSums weight_row(const RowsArgs& a,
   for (int ia = 0; ia < la; ++ia) {
     for (int ib = 0; ib < lb; ++ib) {
       double p0, pa, pb;
-      plane_pair<A>(a, sh, narrow, lane, p, ia, ib, &p0, &pa, &pb);
+      plane_pair<A, kDeriv>(a, sh, narrow, lane, p, ia, ib, &p0, &pa, &pb);
       const int x = A == 0 ? row : a0 + ia;
       const int y = A == 1 ? row : (A == 0 ? a0 + ia : b0 + ib);
       const int z = A == 2 ? row : b0 + ib;
@@ -293,8 +375,10 @@ __device__ __forceinline__ RowSums weight_row(const RowsArgs& a,
       for (int d = 0; d < 3; ++d) {
         const double g = cell_at<A>(a, q0 + d, x, y, z);
         B[d] += p0 * g;
-        Ca[d] += pa * g;
-        Cb[d] += pb * g;
+        if constexpr (kDeriv) {
+          Ca[d] += pa * g;
+          Cb[d] += pb * g;
+        }
       }
     }
   }
@@ -304,25 +388,37 @@ __device__ __forceinline__ RowSums weight_row(const RowsArgs& a,
   if constexpr (kGrids == 4) r.w = m0 * static_cast<double>(__ldg(ch));
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    const float* m = ch + (q0 + 3 + 3 * d) * n;
-    r.w += B[d] * static_cast<double>(__ldg(ch + (q0 + d) * n))
-           + Ca[d] * static_cast<double>(__ldg(m + ax * n))
-           + Cb[d] * static_cast<double>(__ldg(m + bx * n));
-    r.wd += B[d] * static_cast<double>(__ldg(m + A * n));
+    if constexpr (kDeriv) {
+      const float* m = ch + (q0 + 3 + 3 * d) * n;
+      r.w += B[d] * static_cast<double>(__ldg(ch + (q0 + d) * n))
+             + Ca[d] * static_cast<double>(__ldg(m + ax * n))
+             + Cb[d] * static_cast<double>(__ldg(m + bx * n));
+      r.wd += B[d] * static_cast<double>(__ldg(m + A * n));
+    } else {
+      r.w += B[d] * static_cast<double>(__ldg(ch + (q0 + d) * n));
+    }
   }
   return r;
 }
 
+// Rows a weight axis has in the output: W's, and WD's with derivative
+// weights.
+template <class Kind>
+__host__ __device__ constexpr int row_sets() { return Kind::kDeriv ? 2 : 1; }
+
 // A y or z row (A 1 or 2) of this thread's particle, stored.
-template <int kGrids, int A>
+template <class Kind, int A>
 __device__ __forceinline__ void yz_row(const RowsArgs& a,
                                        const RowsShared& sh, bool narrow,
                                        int row, int lane, int p) {
-  const RowSums r = weight_row<kGrids, A>(a, sh, narrow, row, lane, p);
+  constexpr int k = row_sets<Kind>();
+  const RowSums r = weight_row<Kind, A>(a, sh, narrow, row, lane, p);
   const size_t n = a.n;
-  const int off = 2 * a.size[0] + (A == 2 ? 2 * a.size[1] : 0);
+  const int off = k * a.size[0] + (A == 2 ? k * a.size[1] : 0);
   a.out[(off + row) * n + p] = static_cast<float>(r.w);
-  a.out[(off + a.size[A] + row) * n + p] = static_cast<float>(r.wd);
+  if constexpr (Kind::kDeriv) {
+    a.out[(off + a.size[A] + row) * n + p] = static_cast<float>(r.wd);
+  }
 }
 
 // The x rows of the block's particle in lane q, one a lane of this warp:
@@ -336,61 +432,196 @@ __device__ __forceinline__ void x_rows(const RowsArgs& a, RowsShared* sh,
   const int wx = a.size[0];
   const size_t n = a.n;
   for (int row = rows_lane(); row < wx; row += kRowLanes) {
-    const RowSums r = weight_row<Kind::kGrids, 0>(a, *sh, narrow, row, q, p);
+    const RowSums r = weight_row<Kind, 0>(a, *sh, narrow, row, q, p);
     if (wx <= kXTile) {
       sh->xout[row][q] = static_cast<float>(r.w);
-      sh->xout[wx + row][q] = static_cast<float>(r.wd);
+      if (Kind::kDeriv) sh->xout[wx + row][q] = static_cast<float>(r.wd);
     } else {
       a.out[row * n + p] = static_cast<float>(r.w);
-      a.out[(wx + row) * n + p] = static_cast<float>(r.wd);
+      if (Kind::kDeriv) a.out[(wx + row) * n + p] = static_cast<float>(r.wd);
     }
   }
 }
 
-// Phase 4: the tile's tasks, warps taking them in turn: first the
-// kernel's Kind::extra_tasks (heavier), then one a particle's x rows, then
-// every y and z row. The gridDim.y blocks of a tile (blockIdx.y its part)
-// share them out: part k takes the tasks t with t / kRowWarps = k mod
+// The extra tasks of the kernels whose extra is rows_scatter: one a (y, z)
+// cell of a particle's box (a narrow box's kBoxCells, else the plane).
+__device__ __forceinline__ int scatter_tasks(const RowsArgs& a, bool narrow) {
+  return narrow ? kBoxCells : a.size[1] * a.size[2];
+}
+
+// The destination of component c (of kChan) at window cell (row, x) in
+// the float64 window a.acc: kChan 4 (P2G) the mass grid (wy*wz, wx), then
+// the momentum grid (wy*wz, 3*wx); kChan 3 (the G2P and gather backwards)
+// the three grid cotangents (wy*wz, wx) one after the other.
+template <int kChan>
+__device__ __forceinline__ double* acc_at(const RowsArgs& a, int c, int row,
+                                          int x) {
+  const int wx = a.size[0];
+  if (kChan == 4 && c > 0) {
+    return a.acc + wx * a.size[1] * a.size[2] + (row * 3 + c - 1) * wx + x;
+  }
+  return a.acc + (c * a.size[1] * a.size[2] + row) * wx + x;
+}
+
+// An extra task of the kernels that sum into a.acc (zeroed before the
+// kernel, rounded to float32 once after it): (y, z) cell `task` of the
+// particle's box (task ia * lz + ib), whose x rows' terms it adds. With
+// wgt = Wx Wy Wz at the cell and, with derivative weights, dwx = WxD Wy
+// Wz, dwy = Wx WDy Wz, dwz = Wx Wy WDz, component d adds wgt ch_d + dwx
+// m[d][0] + dwy m[d][1] + dwz m[d][2]: kChan 4 (P2G) with the particle
+// rows (mass, ch_d = mom_d, m[d][j] = (dx*affine)[d][j] in row 4 + 3d +
+// j), and the mass component wgt mass; kChan 3 (the G2P and gather
+// backwards) with the rows (ch_d, m[d][j] in row 3 + 3d + j: the
+// cotangents of G2P's v and C, or the gather's dv). A particle whose rows
+// are all zero adds nothing. The terms go by shared atomicAdd(double) into
+// the tile's window (rows_window) where it has one, flushed to a.acc by
+// rows_flush; else by atomicAdd(double) to a.acc.
+template <int kChan, bool kDeriv>
+__device__ __forceinline__ void rows_scatter(const RowsArgs& a,
+                                             RowsShared* sh, bool narrow,
+                                             int task, int lane, int p) {
+  const int lx = box_len(*sh, 0, lane);
+  const int ly = box_len(*sh, 1, lane);
+  const int lz = box_len(*sh, 2, lane);
+  if (task >= ly * lz || lx == 0) return;
+  const int ia = task / lz, ib = task - ia * lz;
+  double p0, pa, pb;     // Wy Wz, WDy Wz, Wy WDz
+  plane_pair<0, kDeriv>(a, *sh, narrow, lane, p, ia, ib, &p0, &pa, &pb);
+  if (p0 == 0.0 && pa == 0.0 && pb == 0.0) return;
+  constexpr int q0 = kChan - 3;      // the row of ch_0
+  const size_t n = a.n;
+  float ch[kChan], m[3][3] = {};
+  bool any = false;
+#pragma unroll
+  for (int c = 0; c < kChan; ++c) {
+    ch[c] = __ldg(a.rows + c * n + p);
+    any |= ch[c] != 0.0f;
+  }
+  if constexpr (kDeriv) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        m[d][j] = __ldg(a.rows + (kChan + 3 * d + j) * n + p);
+        any |= m[d][j] != 0.0f;
+      }
+    }
+  }
+  if (!any) return;
+  const int y = sh->lo[1][lane] + ia, z = sh->lo[2][lane] + ib;
+  const int row = y * a.size[2] + z;
+  // the tile's window: component c of cell (y, z, x) at
+  // win[c * size + ((y - y0) * nz + z - z0) * nx + x - x0]
+  int wn[3] = {0, 0, 0};
+  const int size = narrow ? window_cells<kChan>(*sh, wn) : 0;
+  const bool local = size > 0;
+  const int wrow = ((y - sh->wlo[1]) * wn[2] + z - sh->wlo[2]) * wn[0]
+                   - sh->wlo[0];
+  for (int ix = 0; ix < lx; ++ix) {
+    const int x = sh->lo[0][lane] + ix;
+    const double w0 = box_weight<0>(a, *sh, narrow, 0, x, lane, p);
+    const double wgt = w0 * p0;
+    double dwx = 0.0, dwy = 0.0, dwz = 0.0;
+    if constexpr (kDeriv) {
+      dwx = box_weight<0>(a, *sh, narrow, 1, x, lane, p) * p0;
+      dwy = w0 * pa;
+      dwz = w0 * pb;
+    }
+    if (wgt == 0.0 && dwx == 0.0 && dwy == 0.0 && dwz == 0.0) continue;
+    double v[kChan];
+    if constexpr (kChan == 4) v[0] = wgt * static_cast<double>(ch[0]);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      if constexpr (kDeriv) {
+        v[q0 + d] = wgt * static_cast<double>(ch[q0 + d])
+                    + dwx * static_cast<double>(m[d][0])
+                    + dwy * static_cast<double>(m[d][1])
+                    + dwz * static_cast<double>(m[d][2]);
+      } else {
+        v[q0 + d] = wgt * static_cast<double>(ch[q0 + d]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kChan; ++c) {
+      atomicAdd(local ? sh->win + c * size + wrow + x
+                      : acc_at<kChan>(a, c, row, x), v[c]);
+    }
+  }
+}
+
+// After the scatter tasks and a barrier: the tile's window added to a.acc
+// by atomicAdd(double), one thread an element, its zeros left out.
+template <int kChan>
+__device__ __forceinline__ void rows_flush(const RowsArgs& a,
+                                           const RowsShared& sh) {
+  int wn[3];
+  const int size = window_cells<kChan>(sh, wn);
+  const int nx = wn[0], nz = wn[2];
+  for (int i = threadIdx.x; i < kChan * size; i += kRowThreads) {
+    const double v = sh.win[i];
+    if (v == 0.0) continue;
+    const int c = i / size, cell = i - c * size;
+    const int line = cell / nx, x = cell - line * nx;
+    const int y = line / nz, z = line - y * nz;
+    atomicAdd(acc_at<kChan>(a, c, (sh.wlo[1] + y) * a.size[2] + sh.wlo[2] + z,
+                            sh.wlo[0] + x), v);
+  }
+}
+
+// Phase 4, with weight rows (Kind::kRows): one task a particle's x rows
+// (task q: the block's particle in lane q), warps taking them in turn. The
+// gridDim.y blocks of a tile (blockIdx.y its part) share out the tasks of
+// each phase: part k takes the tasks t with t / kRowWarps = k mod
 // gridDim.y (rows_parts).
+template <class Kind>
+__device__ __forceinline__ void rows_x(const RowsArgs& a, RowsShared* sh,
+                                       bool narrow) {
+  const int step = gridDim.y * kRowWarps;
+  for (int q = blockIdx.y * kRowWarps + rows_warp(); q < kRowLanes;
+       q += step) {
+    x_rows<Kind>(a, sh, narrow, q);
+  }
+}
+
+// Phase 5: the kept x rows of the particles whose x task was this part's,
+// a row of the block's particles a store; each kept value zeroed as it is
+// read (their space is the scatter window's, zero before phase 6).
+template <class Kind>
+__device__ __forceinline__ void rows_store_x(const RowsArgs& a,
+                                             RowsShared* sh) {
+  const int lane = rows_lane(), p = rows_particle();
+  const int wx = a.size[0];
+  if (p >= a.n || wx > kXTile
+      || (lane / kRowWarps) % gridDim.y != blockIdx.y) {
+    return;
+  }
+  for (int r = rows_warp(); r < row_sets<Kind>() * wx; r += kRowWarps) {
+    a.out[static_cast<size_t>(r) * a.n + p] = sh->xout[r][lane];
+    sh->xout[r][lane] = 0.0f;
+  }
+}
+
+// Phase 6: the kernel's Kind::extra_tasks (heavier) and then, with weight
+// rows, one task every y and z row, warps taking them in turn.
 template <class Kind>
 __device__ __forceinline__ void rows_tasks(const RowsArgs& a, RowsShared* sh,
                                            bool narrow) {
   const int lane = rows_lane(), p = rows_particle();
   const int extra = Kind::extra_tasks(a, narrow);
-  const int tasks = extra + kRowLanes + a.size[1] + a.size[2];
+  const int tasks = extra + (Kind::kRows ? a.size[1] + a.size[2] : 0);
   const int step = gridDim.y * kRowWarps;
-  int t = blockIdx.y * kRowWarps + rows_warp();
-  for (; t < extra; t += step) {
-    if (p < a.n) Kind::extra(a, *sh, narrow, t, lane, p);
-  }
-  for (; t < tasks; t += step) {
-    const int row = t - extra - kRowLanes;
-    if (row < 0) {
-      x_rows<Kind>(a, sh, narrow, t - extra);
-    } else if (p >= a.n) {
-      continue;
-    } else if (row < a.size[1]) {
-      yz_row<Kind::kGrids, 1>(a, *sh, narrow, row, lane, p);
-    } else {
-      yz_row<Kind::kGrids, 2>(a, *sh, narrow, row - a.size[1], lane, p);
+  for (int t = blockIdx.y * kRowWarps + rows_warp(); t < tasks; t += step) {
+    if (p >= a.n) continue;
+    if (t < extra) {
+      Kind::extra(a, sh, narrow, t, lane, p);
+    } else if constexpr (Kind::kRows) {
+      const int row = t - extra;
+      if (row < a.size[1]) {
+        yz_row<Kind, 1>(a, *sh, narrow, row, lane, p);
+      } else {
+        yz_row<Kind, 2>(a, *sh, narrow, row - a.size[1], lane, p);
+      }
     }
-  }
-}
-
-// Phase 5: the kept x rows of the particles whose x task was this part's,
-// a row of the block's particles a store.
-template <class Kind>
-__device__ __forceinline__ void rows_store_x(const RowsArgs& a,
-                                             const RowsShared& sh,
-                                             bool narrow) {
-  const int lane = rows_lane(), p = rows_particle();
-  const int wx = a.size[0];
-  const int t = Kind::extra_tasks(a, narrow) + lane;
-  if (p >= a.n || wx > kXTile || (t / kRowWarps) % gridDim.y != blockIdx.y) {
-    return;
-  }
-  for (int r = rows_warp(); r < 2 * wx; r += kRowWarps) {
-    a.out[static_cast<size_t>(r) * a.n + p] = sh.xout[r][lane];
   }
 }
 
@@ -400,22 +631,33 @@ __global__ void rows_prep(const RowsArgs a) {
   rows_prep_at<kGrids>(a, blockIdx.x * blockDim.x + threadIdx.x);
 }
 
-// The phases of one block, barriers between them.
+// The phases of one block, barriers between them. The scatter window
+// shares its space with the kept x rows: they are stored first.
 template <class Kind>
 __device__ __forceinline__ void rows_block(const RowsArgs& a,
                                            RowsShared* sh) {
-  rows_begin(sh);
+  rows_begin<Kind::kScatter>(sh);
   __syncthreads();
-  rows_box(a, sh);
+  rows_box<Kind::kDeriv>(a, sh);
   __syncthreads();
   const bool narrow = __syncthreads_and(rows_fit(*sh));
   if (narrow) {
-    rows_pairs(a, sh);
+    rows_pairs<Kind::kDeriv>(a, sh);
+    rows_window<Kind::kScatter>(sh);
     __syncthreads();
   }
+  const bool local = rows_local<Kind>(*sh, narrow);
+  if constexpr (Kind::kRows) {
+    rows_x<Kind>(a, sh, narrow);
+    __syncthreads();
+    rows_store_x<Kind>(a, sh);
+    if (local) __syncthreads();
+  }
   rows_tasks<Kind>(a, sh, narrow);
-  __syncthreads();
-  rows_store_x<Kind>(a, *sh, narrow);
+  if (local) {
+    __syncthreads();
+    rows_flush<Kind::kScatter>(a, *sh);
+  }
 }
 
 // Blocks a tile's tasks are split over (gridDim.y): where the tiles alone

@@ -31,23 +31,18 @@ __global__ void fused_splat_bwd_kernel(const float* __restrict__ Wx,
                                        int wy, int wz) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  const softmac::Box b = softmac::particle_box(Wx, nullptr, Wy, nullptr, Wz,
-                                               nullptr, n, p, wx, wy, wz);
+  const softmac::Box b = softmac::particle_box(Wx, Wy, Wz, n, p, wx, wy, wz);
   const double val[3] = {vals[p], vals[n + p], vals[2 * n + p]};
   auto cell = [&](int row, int x) {
     const float* gr = dout + static_cast<size_t>(row) * 3 * wx + x;
-    softmac::CellCoef s;
-    s.h = val[0] * __ldg(gr) + val[1] * __ldg(gr + wx)
-          + val[2] * __ldg(gr + 2 * wx);
-    s.d0 = s.d1 = s.d2 = 0.0;
-    return s;
+    return val[0] * __ldg(gr) + val[1] * __ldg(gr + wx)
+           + val[2] * __ldg(gr + 2 * wx);
   };
   float* dWy = out + static_cast<size_t>(wx) * n;
   float* dWz = dWy + static_cast<size_t>(wy) * n;
   float* dvals = dWz + static_cast<size_t>(wz) * n;
-  softmac::weight_adjoint<false>(Wx, nullptr, Wy, nullptr, Wz, nullptr, n, p,
-                                 wx, wy, wz, b, cell, out, nullptr, dWy,
-                                 nullptr, dWz, nullptr);
+  softmac::weight_adjoint(Wx, Wy, Wz, n, p, wx, wy, wz, b, cell, out, dWy,
+                          dWz);
 
   double dv[3] = {0.0, 0.0, 0.0};
   if (!b.empty()) {

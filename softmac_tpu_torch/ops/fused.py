@@ -151,7 +151,8 @@ def _stream(t):
 
 def _p2g(Wx, WxD, Wy, WDy, Wz, WDz, chan):
     """P2G over dense weights; see ``p2g_plain``. CUDA tensors launch the
-    kernel (float64 accumulation, rounded once)."""
+    kernel (float64 accumulation into a zeroed window, rounded once by a
+    second launch)."""
     if build.on_cpu(Wx, "fused p2g"):
         return p2g_plain(Wx, WxD, Wy, WDy, Wz, WDz, chan)
     wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
@@ -319,7 +320,9 @@ def splat_bwd(Wx, Wy, Wz, vals, dout):
 def gather_bwd(Wx, Wy, Wz, gv0, gv1, gv2, dv):
     """The gather backward: (dWx, dWy, dWz, dgv0, dgv1, dgv2) as
     ``gather_vjp_plain`` computes them. CUDA tensors launch the kernel (the
-    grid cotangents summed in float64 and rounded once)."""
+    grid cotangents summed in float64 and rounded once; three launches,
+    the first zeroing the float64 window and writing the grids' other
+    layouts into a scratch buffer)."""
     if build.on_cpu(Wx, "fused gather_bwd"):
         return gather_vjp_plain(Wx, Wy, Wz, gv0, gv1, gv2, dv)
     wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
@@ -331,12 +334,14 @@ def gather_bwd(Wx, Wy, Wz, gv0, gv1, gv2, dv):
     rows = (wx, wy, wz)
     cells = wx * wy * wz
     out = torch.empty((sum(rows), n), dtype=Wx.dtype, device=Wx.device)
-    acc = torch.zeros(3 * cells, dtype=torch.float64, device=Wx.device)
+    acc = torch.empty(3 * cells, dtype=torch.float64, device=Wx.device)
     gout = torch.empty((3, wy * wz, wx), dtype=Wx.dtype, device=Wx.device)
+    scratch = torch.empty(6 * cells, dtype=Wx.dtype, device=Wx.device)
     rc = build.library().softmac_fused_gather_bwd(
         Wx.data_ptr(), Wy.data_ptr(), Wz.data_ptr(), gv0.data_ptr(),
         gv1.data_ptr(), gv2.data_ptr(), dv.data_ptr(), out.data_ptr(),
-        acc.data_ptr(), gout.data_ptr(), n, wx, wy, wz, _stream(Wx))
+        acc.data_ptr(), gout.data_ptr(), scratch.data_ptr(), n, wx, wy, wz,
+        _stream(Wx))
     build.check(rc, "fused gather_bwd")
     gather_bwd.launches += 1
     return torch.split(out, rows) + tuple(gout)

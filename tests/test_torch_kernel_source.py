@@ -6,9 +6,10 @@ the CUDA runtime header; each kernel runs one thread at a time. The block
 reductions of the contact backwards (shared memory and barriers) are left
 to chip_smoke.py; here the per-particle reverse sweeps are summed on the
 host. The y-slab kernels (slab.cuh: P2G, the splat and the G2P and gather
-backwards) and the door's row-thread P2G and G2P backwards (fused_rows.cuh:
-their first launch, then each block's box, pair, task and store phases),
-block kernels with barriers, run phase by phase: each phase over all
+backwards) and the door's row-thread P2G and P2G, G2P and gather
+backwards (fused_rows.cuh: their first launch, then each block's box, pair
+and window, x row, store, task and flush phases), block kernels with
+barriers, run phase by phase: each phase over all
 threads of a block before the next, as the barriers order them on the
 card.
 
@@ -23,10 +24,11 @@ on B-spline weights of a scene (some particles' stencils leaving the
 window) and on fully dense random weights: their float64 windows and grid
 cotangents within 1e-12, their float32 particle rows (outputs, weight
 cotangents, channel and value cotangents) within 1e-6 of each row's
-largest |value| (one rounding); the row-thread P2G and G2P backwards also
-at the edges of their blocks of 32 particles (a ragged last block, boxes
-empty on one axis, a block whose boxes are too wide to stage, a window
-of more x rows than a block keeps); the Khatri-Rao pair build (kr3) bit for
+largest |value| (one rounding); the row-thread kernels also at the edges
+of their blocks of 32 particles (a ragged last block, boxes empty on one
+axis, a block whose boxes are too wide to stage, a window of more x rows
+than a block keeps, a zero cotangent, no particle, tiles whose scatter
+goes through a shared window and tiles whose does not); the Khatri-Rao pair build (kr3) bit for
 bit against its float32 plain version on the same weights; the penalty
 contact backward, which computes in double on its float inputs, within
 1e-6 (float literals
@@ -281,13 +283,15 @@ template <class F> static void launch(int n, F f) {
     for (unsigned t = 0; t < 256; ++t) { blockIdx.x = b; threadIdx.x = t; f(); }
 }
 // The row-thread kernels of fused_rows.cuh: the first launch (the grids'
-// layouts, G2P's zero fill) over its `count` elements, then each block of
-// the (tiles, parts) grid, its phases in order, each over all the block's
-// threads, with the shared memory poisoned (all ones); the vote of
-// __syncthreads_and taken over every thread. Returns the tiles that staged
-// their pair products (narrow).
+// layouts, the backwards' zero fill) over its `count` elements (none for
+// P2G), then each block of the (tiles, parts) grid, its phases in order,
+// each over all the block's threads, with the shared memory poisoned (all
+// ones); the vote of __syncthreads_and taken over every thread. Returns
+// the tiles that staged their pair products (narrow); `windows` counts
+// those whose scatter went through the tile's window.
 template <class Kind>
-static int rows(const softmac::RowsArgs& a, int count, int parts) {
+static int rows(const softmac::RowsArgs& a, int count, int parts,
+                int& windows) {
   for (int i = 0; i < count; ++i)
     softmac::rows_prep_at<Kind::kGrids>(a, i);
   blockDim.x = softmac::kRowThreads;
@@ -297,19 +301,33 @@ static int rows(const softmac::RowsArgs& a, int count, int parts) {
     for (unsigned t = 0; t < blockDim.x; ++t) { threadIdx.x = t; f(); }
   };
   int narrow_tiles = 0;
+  windows = 0;
   for (unsigned b = 0; b < gridDim.x; ++b) {
     for (unsigned part = 0; part < gridDim.y; ++part) {
       blockIdx.x = b;
       blockIdx.y = part;
       softmac::RowsShared sh;
       memset(&sh, 0xff, sizeof sh);
-      phase([&] { softmac::rows_begin(&sh); });
-      phase([&] { softmac::rows_box(a, &sh); });
+      phase([&] { softmac::rows_begin<Kind::kScatter>(&sh); });
+      phase([&] { softmac::rows_box<Kind::kDeriv>(a, &sh); });
       bool narrow = true;
       phase([&] { narrow = softmac::rows_fit(sh) && narrow; });
-      if (narrow) phase([&] { softmac::rows_pairs(a, &sh); });
+      if (narrow) {
+        phase([&] {
+          softmac::rows_pairs<Kind::kDeriv>(a, &sh);
+          softmac::rows_window<Kind::kScatter>(&sh);
+        });
+      }
+      const bool local = softmac::rows_local<Kind>(sh, narrow);
+      if constexpr (Kind::kRows) {
+        phase([&] { softmac::rows_x<Kind>(a, &sh, narrow); });
+        phase([&] { softmac::rows_store_x<Kind>(a, &sh); });
+      }
       phase([&] { softmac::rows_tasks<Kind>(a, &sh, narrow); });
-      phase([&] { softmac::rows_store_x<Kind>(a, sh, narrow); });
+      if (local) {
+        phase([&] { softmac::rows_flush<Kind::kScatter>(a, sh); });
+        windows += part == 0;
+      }
       if (part == 0) narrow_tiles += narrow;
     }
   }
@@ -427,14 +445,17 @@ void h_mixed_tiled(int backward, int tile, const float* x, const float* v,
   if (backward) mixed_tiled<16>(a, tile, band, lists);
   else mixed_tiled<6>(a, tile, band, lists);
 }
+// The row-thread kernels: narrow[0] the tiles that staged their pair
+// products, narrow[1] those whose scatter went through the tile's window.
 void h_fused_p2g(const float* Wx, const float* WxD, const float* Wy,
                  const float* WDy, const float* Wz, const float* WDz,
                  const float* chan, double* acc, int n, int wx, int wy,
-                 int wz) {
-  int cells = wx * wy * wz;
-  launch(n, [&] { k_fused_p2g::fused_p2g_kernel(Wx, WxD, Wy, WDy, Wz, WDz,
-                                                chan, acc, acc + cells, n, wx,
-                                                wy, wz); });
+                 int wz, int parts, int* narrow) {
+  const softmac::RowsArgs a = {{Wx, WxD, Wy, WDy, Wz, WDz},
+                               {nullptr, nullptr, nullptr, nullptr},
+                               {0, 0, 0, 0}, chan, nullptr, acc, nullptr,
+                               nullptr, n, {wx, wy, wz}};
+  narrow[0] = rows<k_fused_p2g::P2G>(a, 0, parts, narrow[1]);
 }
 void h_fused_g2p(const float* Wx, const float* WxD, const float* Wy,
                  const float* WDy, const float* Wz, const float* WDz,
@@ -468,7 +489,7 @@ void h_fused_p2g_bwd(const float* Wx, const float* WxD, const float* Wy,
                                {wx, 3 * wx, 3 * wx, 3 * wx},
                                chan, out, nullptr, scratch.data(),
                                scratch.data() + count, n, {wx, wy, wz}};
-  *narrow = rows<k_fused_p2g_bwd::P2GBwd>(a, count, parts);
+  narrow[0] = rows<k_fused_p2g_bwd::P2GBwd>(a, count, parts, narrow[1]);
 }
 void h_fused_g2p_bwd(const float* Wx, const float* WxD, const float* Wy,
                      const float* WDy, const float* Wz, const float* WDz,
@@ -482,7 +503,7 @@ void h_fused_g2p_bwd(const float* Wx, const float* WxD, const float* Wy,
                                {g0, g1, g2, nullptr}, {wx, wx, wx, 0},
                                g, out, acc, scratch.data(),
                                scratch.data() + count, n, {wx, wy, wz}};
-  *narrow = rows<k_fused_g2p_bwd::G2PBwd>(a, count, parts);
+  narrow[0] = rows<k_fused_g2p_bwd::G2PBwd>(a, count, parts, narrow[1]);
 }
 void h_fused_splat_bwd(const float* Wx, const float* Wy, const float* Wz,
                        const float* vals, const float* dout, float* out,
@@ -493,9 +514,15 @@ void h_fused_splat_bwd(const float* Wx, const float* Wy, const float* Wz,
 void h_fused_gather_bwd(const float* Wx, const float* Wy, const float* Wz,
                         const float* g0, const float* g1, const float* g2,
                         const float* dv, float* out, double* acc, int n,
-                        int wx, int wy, int wz) {
-  launch(n, [&] { k_fused_gather_bwd::fused_gather_bwd_kernel(
-      Wx, Wy, Wz, g0, g1, g2, dv, out, acc, n, wx, wy, wz); });
+                        int wx, int wy, int wz, int parts, int* narrow) {
+  const int count = 3 * wx * wy * wz;
+  std::vector<float> scratch(2 * count,
+                             std::numeric_limits<float>::quiet_NaN());
+  const softmac::RowsArgs a = {{Wx, nullptr, Wy, nullptr, Wz, nullptr},
+                               {g0, g1, g2, nullptr}, {wx, wx, wx, 0},
+                               dv, out, acc, scratch.data(),
+                               scratch.data() + count, n, {wx, wy, wz}};
+  narrow[0] = rows<k_fused_gather_bwd::GatherBwd>(a, count, parts, narrow[1]);
 }
 // The pair build's grid: one block per particle tile and y row.
 void h_kr3(const float* Wy, const float* Wz, const float* WDy,
@@ -1270,10 +1297,11 @@ def test_fused_transfer_sources(lib, case):
     cells = wx * wy * wz
     w64 = [w.double() for w in ws]
     chan = _f32(rng, 13, N)
-    acc = torch.zeros(4 * cells, dtype=torch.float64)
-    lib.h_fused_p2g(*map(_p, ws), _p(chan), _p(acc), *_fdims(window))
     gm, gmom = fused.p2g_plain(*w64, chan.double())
-    assert _rel(acc, torch.cat([gm.reshape(-1), gmom.reshape(-1)])) < 1e-12
+    for parts in (1, 2):
+        acc, _ = _p2g_rows(lib, ws, window, N, chan, parts)
+        assert _rel(acc, torch.cat([gm.reshape(-1), gmom.reshape(-1)])) \
+            < 1e-12
 
     gv = [_f32(rng, wy * wz, wx) for _ in range(3)]
     out = torch.zeros(12, N)
@@ -1303,47 +1331,91 @@ def _rows_rel(got, want):
     return (diff / want.abs().amax(dim=1).clamp(min=1e-300)).max().item()
 
 
-def _rows_bwd_check(lib, ws, window, n, chan, gv, dgm, dgmom, g12):
-    """The row-thread P2G and G2P backward kernels (fused_rows.cuh) on n
-    particles against the float64 plain vjps: every row of every weight
-    cotangent and the channel cotangents within 1e-6 of each row's largest
-    |value|, the float64 grid cotangents within 1e-12; with a tile's tasks
-    on one block and split over three (rows_parts), the weight and channel
-    rows bit for bit the same. Returns the P2G backward's output rows and
-    its count of tiles that staged their pair products (the G2P
-    backward's must be the same)."""
+def _p2g_rows(lib, ws, window, n, chan, parts):
+    """The row-thread P2G on n particles, a tile's tasks split over
+    ``parts`` blocks: its float64 window (mass, then momentum; zeroed by
+    the caller, as the wrapper zeroes it) and its counts of tiles that
+    staged their pair products and of those whose scatter went through
+    the tile's window."""
+    wx, wy, wz = window
+    acc = torch.zeros(4 * wx * wy * wz, dtype=torch.float64)
+    narrow = (ctypes.c_int * 2)()
+    lib.h_fused_p2g(*map(_p, ws), _p(chan), _p(acc), ctypes.c_int(n),
+                    *map(ctypes.c_int, window), ctypes.c_int(parts), narrow)
+    return acc, tuple(narrow)
+
+
+def _grid_check(acc, refs):
+    """A float64 window, one grid after the other, within 1e-12 of each
+    grid of the plain version or vjp (exactly zero where that is)."""
+    for got, want in zip(torch.split(acc, [r.numel() for r in refs]), refs):
+        want = want.reshape(-1)
+        if bool((want == 0).all()):
+            assert bool((got == 0).all())
+        else:
+            assert _rel(got, want) < 1e-12
+
+
+def _rows_check(lib, ws, window, n, chan, gv, dgm, dgmom, g12, dv):
+    """The row-thread kernels (fused_rows.cuh) on n particles: P2G against
+    the float64 plain version, its float64 window within 1e-12; the P2G,
+    G2P and gather backwards against the float64 plain vjps, every row of
+    every weight cotangent and the channel cotangents within 1e-6 of each
+    row's largest |value| (written where a particle's dv is zero: zeros),
+    the float64 grid cotangents within 1e-12; with a tile's tasks on one
+    block and split over three (rows_parts), the weight and channel rows
+    bit for bit the same. Returns the P2G backward's output rows, its
+    count of tiles that staged their pair products (the other kernels'
+    must be the same) and the scatter kernels' (P2G, the G2P and gather
+    backwards) counts of tiles whose scatter went through the tile's
+    window."""
     wx, wy, wz = window
     w64 = [w.double() for w in ws]
+    gv64 = [g.double() for g in gv]
     rows6 = (wx, wx, wy, wy, wz, wz)
     dims = [ctypes.c_int(n)] + [ctypes.c_int(w) for w in window]
+    gm, gmom = fused.p2g_plain(*w64, chan.double())
     p2g_ref = fused.p2g_vjp_plain(*w64, chan.double(), dgm.double(),
                                   dgmom.double())
-    g2p_ref = fused.g2p_vjp_plain(*w64, *(g.double() for g in gv),
-                                  g12.double())
-    outs, narrow = [], (ctypes.c_int * 2)()
+    g2p_ref = fused.g2p_vjp_plain(*w64, *gv64, g12.double())
+    gather_ref = fused.gather_vjp_plain(*w64[0::2], *gv64, dv.double())
+
+    def rows_ok(out, sizes, refs):
+        for got, want in zip(torch.split(out, sizes), refs):
+            assert not bool(got.isnan().any())
+            if n:
+                assert _rows_rel(got, want) < 1e-6
+    outs, narrow = [], (ctypes.c_int * 6)()
     for parts in (1, 3):
+        acc, p2g_narrow = _p2g_rows(lib, ws, window, n, chan, parts)
+        _grid_check(acc, [gm, gmom])
         out = torch.full((sum(rows6) + 13, n), float("nan"))
         lib.h_fused_p2g_bwd(*map(_p, ws), _p(chan), _p(dgm), _p(dgmom),
                             _p(out), *dims, ctypes.c_int(parts),
                             ctypes.byref(narrow, 0))
-        for got, want in zip(torch.split(out, rows6 + (13,)), p2g_ref):
-            assert _rows_rel(got, want) < 1e-6
+        rows_ok(out, rows6 + (13,), p2g_ref)
         g_out = torch.full((sum(rows6), n), float("nan"))
-        # the kernels' first launch zeroes the float64 window
+        # the backwards' first launch zeroes the float64 window
         acc = torch.full((3 * wx * wy * wz,), float("nan"),
                          dtype=torch.float64)
         lib.h_fused_g2p_bwd(*map(_p, ws), *map(_p, gv), _p(g12), _p(g_out),
                             _p(acc), *dims, ctypes.c_int(parts),
-                            ctypes.byref(narrow, 4))
-        for got, want in zip(torch.split(g_out, rows6), g2p_ref[:6]):
-            assert _rows_rel(got, want) < 1e-6
-        for d in range(3):
-            assert _rel(acc.reshape(3, -1)[d],
-                        g2p_ref[6 + d].reshape(-1)) < 1e-12
-        assert narrow[0] == narrow[1]
-        outs.append((out, g_out))
+                            ctypes.byref(narrow, 8))
+        rows_ok(g_out, rows6, g2p_ref[:6])
+        _grid_check(acc, g2p_ref[6:])
+        d_out = torch.full((wx + wy + wz, n), float("nan"))
+        acc.fill_(float("nan"))
+        lib.h_fused_gather_bwd(*map(_p, ws[0::2]), *map(_p, gv), _p(dv),
+                               _p(d_out), _p(acc), *dims,
+                               ctypes.c_int(parts), ctypes.byref(narrow, 16))
+        rows_ok(d_out, (wx, wy, wz), gather_ref[:3])
+        _grid_check(acc, gather_ref[3:])
+        assert p2g_narrow[0] == narrow[0] == narrow[2] == narrow[4]
+        assert narrow[1] == 0       # the P2G backward has no scatter
+        outs.append((out, g_out, d_out))
     assert all(torch.equal(p, q) for p, q in zip(*outs))
-    return outs[0][0], narrow[0]
+    return outs[0][0], narrow[0], {"p2g": p2g_narrow[1], "g2p_bwd": narrow[3],
+                                   "gather_bwd": narrow[5]}
 
 
 @pytest.mark.parametrize("case", ["bspline", "dense"])
@@ -1351,27 +1423,27 @@ def test_fused_backward_sources(lib, case):
     """The four backward kernels against the float64 plain vjps on the
     same float32 inputs and seeded cotangents: every row of every weight
     cotangent (dense in the row: rows outside a particle's box too), the
-    channel and value cotangents, and the float64 grid cotangents."""
+    channel and value cotangents, and the float64 grid cotangents (the
+    row-thread ones with P2G, ``_rows_check``)."""
     ws, window, rng = _fused_weights(case)
     wx, wy, wz = window
-    w64 = [w.double() for w in ws]
-    W, W64 = ws[0::2], w64[0::2]
+    W, W64 = ws[0::2], [w.double() for w in ws[0::2]]
     chan, vals, gv = _f32(rng, 13, N), _f32(rng, 3, N), \
         [_f32(rng, wy * wz, wx) for _ in range(3)]
-    gv64 = [g.double() for g in gv]
     dgm, dgmom = _f32(rng, wy * wz, wx), _f32(rng, wy * wz, 3 * wx)
     g12, dout, dv = _f32(rng, 12, N), _f32(rng, wy * wz, 3 * wx), \
         _f32(rng, 3, N)
-    cells = wx * wy * wz
-
-    def split(out, rows):
-        return torch.split(out, list(rows))
-
-    out, narrow = _rows_bwd_check(lib, ws, window, N, chan, gv, dgm, dgmom,
-                                  g12)
+    out, narrow, windows = _rows_check(lib, ws, window, N, chan, gv, dgm,
+                                       dgmom, g12, dv)
     # the B-spline boxes (at most 3 rows an axis) stage their pair products
     # in every block; the dense ones (the whole window) read them as they go
     assert narrow == ((N + 31) // 32 if case == "bspline" else 0)
+    # the scatter of a narrow tile goes through its window where that fits:
+    # every tile of the G2P and gather backwards (3 channels), none of
+    # P2G's (4 channels: the boxes of a tile of the scene's random order
+    # span too much; test_fused_rows_edges_source sorts them)
+    assert windows["g2p_bwd"] == windows["gather_bwd"] == narrow
+    assert windows["p2g"] == 0
     # a weight cotangent is dense in the row: rows off the stencil too
     off = (out[:wx] != 0) & (ws[0] == 0) & (ws[1] == 0)
     assert case == "dense" or bool(off.any())
@@ -1380,39 +1452,43 @@ def test_fused_backward_sources(lib, case):
     lib.h_fused_splat_bwd(*map(_p, W), _p(vals), _p(dout), _p(out),
                           *_fdims(window))
     ref = fused.splat_vjp_plain(*W64, vals.double(), dout.double())
-    for got, want in zip(split(out, (wx, wy, wz, 3)), ref):
+    for got, want in zip(torch.split(out, [wx, wy, wz, 3]), ref):
         assert _rows_rel(got, want) < 1e-6
-
-    out = torch.zeros(wx + wy + wz, N)
-    acc = torch.zeros(3 * cells, dtype=torch.float64)
-    lib.h_fused_gather_bwd(*map(_p, W), *map(_p, gv), _p(dv), _p(out),
-                           _p(acc), *_fdims(window))
-    ref = fused.gather_vjp_plain(*W64, *gv64, dv.double())
-    for got, want in zip(split(out, (wx, wy, wz)), ref[:3]):
-        assert _rows_rel(got, want) < 1e-6
-    for d in range(3):
-        assert _rel(acc.reshape(3, -1)[d], ref[3 + d].reshape(-1)) < 1e-12
 
 
 @pytest.mark.parametrize("case", ["ragged", "empty_axis", "wide_box",
-                                  "wide_x", "long_x"])
+                                  "wide_x", "long_x", "zero_dv", "none",
+                                  "sorted"])
 def test_fused_rows_edges_source(lib, case):
-    """The row-thread P2G and G2P backwards at the edges of their blocks of
-    32 particles, on the scene's B-spline weights: n = 37 (a last block of
-    5); particles whose box is empty on one axis (their rows of that axis
-    still sum over the other two, the other axes' rows are zero); one
-    particle whose six columns are dense (its box the whole window: its
-    block reads the pair products from memory, the others stage them); one
-    particle dense on x only; and dense random weights on a window of 70 x
-    rows, more than a block keeps in shared memory (kXTile), 37
-    particles."""
+    """The row-thread kernels (P2G, the P2G, G2P and gather backwards) at
+    the edges of their blocks of 32 particles, on the scene's B-spline
+    weights: n = 37 (a last block of 5); particles whose box is empty on
+    one axis (their rows of that axis still sum over the other two, the
+    other axes' rows are zero); one particle whose six columns are dense
+    (its box the whole window: its block reads the pair products from
+    memory, the others stage them); one particle dense on x only; dense
+    random weights on a window of 70 x rows, more than a block keeps in
+    shared memory (kXTile), 37 particles; the gather's cotangent dv zero
+    for every particle (no grid terms; its weight rows written, zeros); and
+    n = 0 (no block: the backwards' first launch alone, windows of zeros);
+    the particles sorted by their stencil's base cell (y, z, x), so that
+    every tile's boxes span few cells and even P2G's scatter goes through
+    the tile's window (the scene's random order leaves it too wide). In
+    every case a few particles' dv is zero."""
     ws, window, rng = _fused_weights("bspline")
     if case == "long_x":
         window = (70, 3, 4)
         ws = [_f32(rng, w, 37) for w in (70, 70, 3, 3, 4, 4)]
     ws = [w.clone() for w in ws]
+    if case == "sorted":
+        rows = [torch.arange(w.shape[0])[:, None] for w in ws[0::2]]
+        base = [torch.where(w != 0, r, 1 << 20).amin(dim=0)
+                for w, r in zip(ws[0::2], rows)]
+        order = torch.argsort((base[1] * 64 + base[2]) * 64 + base[0],
+                              stable=True)
+        ws = [w[:, order] for w in ws]
     wx, wy, wz = window
-    n = 37 if case in ("ragged", "long_x") else N
+    n = {"ragged": 37, "long_x": 37, "none": 0}.get(case, N)
     ws = [w[:, :n].contiguous() for w in ws]
     empty = {3: 1, 33: 1, 40: 0, 100: 2}       # particle: the empty axis
     if case == "empty_axis":
@@ -1425,9 +1501,20 @@ def test_fused_rows_edges_source(lib, case):
         ws[0][:, 70] = _f32(rng, wx)
     chan, gv = _f32(rng, 13, n), [_f32(rng, wy * wz, wx) for _ in range(3)]
     dgm, dgmom = _f32(rng, wy * wz, wx), _f32(rng, wy * wz, 3 * wx)
-    out, narrow = _rows_bwd_check(lib, ws, window, n, chan, gv, dgm, dgmom,
-                                  _f32(rng, 12, n))
+    dv = _f32(rng, 3, n)
+    dv[:, [q for q in (5, 33, 36) if q < n]] = 0.0
+    if case == "zero_dv":
+        dv.zero_()
+    out, narrow, windows = _rows_check(lib, ws, window, n, chan, gv, dgm,
+                                       dgmom,
+                              _f32(rng, 12, n), dv)
     blocks = (n + 31) // 32
+    # the windows fit where the tiles' boxes span few cells, P2G's (4
+    # channels) no more often than the backwards' (3); sorted, both ways
+    # occur among the narrow tiles
+    assert windows["p2g"] <= windows["g2p_bwd"] == windows["gather_bwd"] \
+        <= narrow
+    assert case != "sorted" or 0 < windows["p2g"] < narrow
     assert narrow == {"wide_box": blocks - 1, "wide_x": blocks - 1,
                       "long_x": 0}.get(case, blocks)
     if case == "empty_axis":
