@@ -10,9 +10,9 @@ script exits non-zero:
   build    nvcc builds the CUDA kernels from softmac_tpu_torch/ops/csrc;
            each kernel's registers, spills and static shared memory from
            the ptxas log (also in its entry of the kernels line); the
-           row-thread kernels of fused_rows.cuh (the door's P2G and the
-           P2G, G2P and gather backwards) apart ("row_kernels"), which
-           fail the phase if they spill
+           row-thread kernels of fused_rows.cuh (the door's P2G and G2P
+           and the P2G, G2P, splat and gather backwards) apart
+           ("row_kernels"), which fail the phase if they spill
   kernels  each kernel against its plain PyTorch version at the main path's
            shapes: max error, time over 20+ calls (CUDA events: the call,
            the wrapper's host time included), its device-only time
@@ -100,9 +100,9 @@ script exits non-zero:
            on that state tiled to 1e5 particles, beside their plain
            versions and one torch.einsum over the dense weights, or one
            torch.autograd.grad through it (the library calls); the
-           row-thread P2G and P2G, G2P and gather backwards also held at
-           1e5 particles, and 10 calls of each bit-identical on every
-           input; then
+           row-thread P2G and G2P and P2G, G2P, splat and gather
+           backwards also held at 1e5 particles, and 10 calls of each
+           bit-identical on every input; then
            SoftMacEnv.rollout of the demo's initial actions for 300 env
            steps with launches counted, its end state against a
            zero-action rollout of the same 300 steps (the controller
@@ -269,8 +269,8 @@ FUSED = ("fused_p2g", "fused_g2p", "fused_splat", "fused_gather")
 FUSED_BWD = tuple(k + "_bwd" for k in FUSED)
 # the row-thread kernels (ops/csrc/fused_rows.cuh): also held at 1e5
 # particles, FUSED_REPEATS calls bit-identical, no ptxas spills
-ROW_KERNELS = ("fused_p2g", "fused_p2g_bwd", "fused_g2p_bwd",
-               "fused_gather_bwd")
+ROW_KERNELS = ("fused_p2g", "fused_g2p", "fused_p2g_bwd", "fused_g2p_bwd",
+               "fused_splat_bwd", "fused_gather_bwd")
 FUSED_REPEATS = 10
 # float operations per visited window cell (the kernels work in double,
 # counted at the float32 rate, the least time for the same work): the
@@ -2478,9 +2478,9 @@ def check_fused_kernels(door_inp, big_inp, dense_inp):
     output row's largest |value|), timed with CUDA events on the door's
     state and on it tiled to 1e5 particles, beside the plain version and
     one torch.einsum over the dense weights; bounds from each run's
-    inputs. The row-thread P2G (ROW_KERNELS) is also held on the 1e5
-    particles, and FUSED_REPEATS calls of it on every input must agree bit
-    for bit."""
+    inputs. The row-thread P2G and G2P (ROW_KERNELS) are also held on the
+    1e5 particles, and FUSED_REPEATS calls of each on every input must
+    agree bit for bit."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

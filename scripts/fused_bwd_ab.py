@@ -1,28 +1,34 @@
 #!/usr/bin/env python3
-"""The door's row-thread kernels (the dense-weight P2G, and the P2G, G2P
-and gather backwards) of two checkouts on one CUDA card, in turns.
+"""The door's row-thread kernels (the dense-weight P2G and G2P, and the
+P2G, G2P, splat and gather backwards) of two checkouts on one CUDA card,
+in turns.
 
     python3 scripts/fused_bwd_ab.py PARENT_DIR
 
-Builds ``fused_p2g.cu``, ``fused_p2g_bwd.cu``, ``fused_g2p_bwd.cu`` and
-``fused_gather_bwd.cu`` of PARENT_DIR (a checkout of the repository, with
-its own headers) into a library of their own, and loads PARENT_DIR's
-``ops/fused.py`` beside this checkout's, its kernel library that one and
-its argument lists its own ``ops/build.py``'s (the entry points keep their
-names; their scratch arguments may differ). On the inputs chip_smoke.py
-checks the kernels on (the door's state after 10 env steps, 5400
-particles, window (32, 16, 32), and that state tiled to 1e5 particles,
-with seeded normal cotangents) it calls each tree's ``p2g``, ``p2g_bwd``,
-``g2p_bwd`` and ``gather_bwd`` wrapper in turns (parent, this, this,
-parent): call ms with CUDA events (50 calls after a warm-up) and device ms
-with torch.profiler (every launch of a call), and the two trees' largest
-difference (a wrapper's outputs together). Then the door's
-rollout_and_grad (40 env steps of the demo's actions, its loss frames,
-remat "step", host clock after a synchronize) with the four kernels of
-each tree in turns (parent, this, this, parent, twice), everything else
-this checkout's. Prints one JSON object; the card's name
-and power limit on the lines around it. Needs a card and nvcc; exits
-non-zero without them.
+Builds ``fused_p2g.cu``, ``fused_g2p.cu``, ``fused_p2g_bwd.cu``,
+``fused_g2p_bwd.cu``, ``fused_splat_bwd.cu`` and ``fused_gather_bwd.cu`` of
+PARENT_DIR (a checkout of the repository, with its own headers) into a
+library of their own, and loads PARENT_DIR's ``ops/fused.py`` beside this
+checkout's, its kernel library that one and its argument lists its own
+``ops/build.py``'s (the entry points keep their names; their scratch
+arguments may differ). On the inputs chip_smoke.py checks the kernels on
+(the door's state after 10 env steps, 5400 particles, window (32, 16,
+32), and that state tiled to 1e5 particles, with seeded normal
+cotangents) it calls each tree's ``p2g``, ``g2p``, ``p2g_bwd``,
+``g2p_bwd``, ``splat_bwd`` and ``gather_bwd`` wrapper in turns (parent,
+this, this, parent): call ms with CUDA events (50 calls after a warm-up)
+and device ms with torch.profiler (every launch of a call), and the two
+trees' largest difference (a wrapper's outputs together). Then the
+door's rollout_and_grad (40 env steps of the demo's actions, its loss
+frames, remat "step", host clock after a synchronize) with the six
+kernels of each tree in turns (parent, this, this, parent, twice),
+everything else this checkout's; and the device launches a substep of
+the door's fwd+bwd as chip_smoke.py's profile_door_grad profiles it (5
+env steps, remat "none") with each tree's kernels in turns (parent,
+this, this, parent), by kernel name with torch.profiler: each run's
+total, and each name whose count is not the same in every run. Prints
+one JSON object; the card's name and power limit on the lines around
+it. Needs a card and nvcc; exits non-zero without them.
 """
 import ctypes
 import importlib.util
@@ -34,16 +40,23 @@ import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = ("fused_p2g", "fused_p2g_bwd", "fused_g2p_bwd", "fused_gather_bwd")
+KERNELS = ("fused_p2g", "fused_g2p", "fused_p2g_bwd", "fused_g2p_bwd",
+           "fused_splat_bwd", "fused_gather_bwd")
 # the door's inputs of each wrapper
 ARGS = {"fused_p2g": lambda inp, cts: (*inp["ws6"], inp["chan"]),
+        "fused_g2p": lambda inp, cts: (*inp["ws6"], *inp["gv"]),
         "fused_p2g_bwd": lambda inp, cts: (*inp["ws6"], inp["chan"],
                                            cts["dgm"], cts["dgmom"]),
         "fused_g2p_bwd": lambda inp, cts: (*inp["ws6"], *inp["gv"],
                                            cts["g12"]),
+        "fused_splat_bwd": lambda inp, cts: (*inp["ws6"][0::2], inp["vals"],
+                                             cts["dout"]),
         "fused_gather_bwd": lambda inp, cts: (*inp["ws6"][0::2], *inp["gvm"],
                                               cts["dv"])}
 GRAD_STEPS = 40
+PROFILE_STEPS = 5
+# the wrappers of the six kernels in ops/fused.py
+WRAPPERS = ("_p2g", "_g2p", "p2g_bwd", "g2p_bwd", "splat_bwd", "gather_bwd")
 
 
 def _load(path, name):
@@ -125,19 +138,18 @@ def main():
                                                        outs["parent"]))}
                 res[f"{k} {state}"] = r
                 print(json.dumps({f"{k} {state}": r}), flush=True)
-        res["door_grad"] = grad_turns(cs, fused, mods["parent"], env)
+        trees = {t: {k: getattr(m, k) for k in WRAPPERS}
+                 for t, m in mods.items()}
+        res["door_grad"] = grad_turns(cs, fused, trees, env)
+        res["door_launches"] = launch_turns(cs, fused, trees, env)
     print(json.dumps(res), flush=True)
     print(smi, flush=True)
     return 0
 
 
-def grad_turns(cs, fused, parent, env):
-    """Substeps/s of the door's rollout_and_grad with the four kernels of
+def grad_turns(cs, fused, trees, env):
+    """Substeps/s of the door's rollout_and_grad with the six kernels of
     each tree, in turns (parent, this, this, parent, twice)."""
-    own = {k: getattr(fused, k) for k in ("_p2g", "p2g_bwd", "g2p_bwd",
-                                          "gather_bwd")}
-    trees = {"this": own,
-             "parent": {k: getattr(parent, k) for k in own}}
     acts = cs.door_actions(GRAD_STEPS)
     kw = dict(loss_start_frame=cs.door_loss_start(env, GRAD_STEPS),
               grad_clip=1.0)
@@ -153,9 +165,49 @@ def grad_turns(cs, fused, parent, env):
             print(json.dumps({"door_grad": tree, "rate": runs[tree][-1]}),
                   flush=True)
     finally:
-        for k, f in own.items():
+        for k, f in trees["this"].items():
             setattr(fused, k, f)
     return runs
+
+
+def launch_turns(cs, fused, trees, env):
+    """Device launches a substep of the door's fwd+bwd (rollout_and_grad
+    over PROFILE_STEPS env steps, remat "none", as chip_smoke.py's
+    profile_door_grad) with the six kernels of each tree, in turns
+    (parent, this, this, parent), counted by kernel name with
+    torch.profiler: each run's total, and the names whose count differs
+    between runs, with their count in each."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = cs.door_actions(PROFILE_STEPS)
+    n_sub = PROFILE_STEPS * env.substeps
+    order = ("parent", "this", "this", "parent")
+    runs = []
+    try:
+        for tree in order:
+            for k, f in trees[tree].items():
+                setattr(fused, k, f)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                env.rollout_and_grad(acts, loss_start_frame=0,
+                                     loss_stride=PROFILE_STEPS, remat="none")
+                torch.cuda.synchronize()
+            count = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    count[e.name] = count.get(e.name, 0) + 1
+            runs.append(count)
+    finally:
+        for k, f in trees["this"].items():
+            setattr(fused, k, f)
+    names = sorted(set().union(*runs))
+    return {"runs": order,
+            "launches_per_substep": [sum(c.values()) / n_sub for c in runs],
+            "differ": {name[:120]: [c.get(name, 0) / n_sub for c in runs]
+                       for name in names
+                       if len({c.get(name, 0) for c in runs}) > 1}}
 
 
 if __name__ == "__main__":

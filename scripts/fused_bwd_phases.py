@@ -1,35 +1,40 @@
 #!/usr/bin/env python3
 """Where the time of the door's row-thread kernels goes: the dense-weight
-P2G, and the P2G, G2P and gather backwards, on one CUDA card.
+P2G and G2P, and the P2G, G2P, splat and gather backwards, on one CUDA
+card.
 
     python3 scripts/fused_bwd_phases.py [SRC_DIR [KERNEL ...]]
 
-Builds copies of ``fused_p2g.cu``, ``fused_p2g_bwd.cu``, ``fused_g2p_bwd.cu``
-and ``fused_gather_bwd.cu`` (or the KERNELs named, file stems) with the
-headers of the ``csrc`` directory of SRC_DIR, a checkout of the repository
-(default: this one), whose kernel returns after each of its phases, and
-times each copy's C entry point with CUDA events (50 calls after a
-warm-up) and torch.profiler (device ms) on the inputs chip_smoke.py checks
-the kernels on: the door's state after 10 env steps (5400 particles,
-window (32, 16, 32)) and that state tiled to 1e5 particles, with seeded
-normal cotangents (``chip_smoke.fused_cotangents``). The phases are those
-of the design each source holds (``STOPS``): for the first design of P2G
-and of the gather backward (one thread a particle, in checkouts before
-their row-thread design) the box scan, then ``weight_adjoint`` (the
-gather backward), then the full kernel, which adds the scatter, a
-phase's time the difference to the one before it; for the row-thread
-design of ``fused_rows.cuh`` the first launch and the box, then the
-staged pair products and the tile's window, then the weight rows alone
-or the extra tasks alone (the P2G backward's channel sums, or the
-scatter), the scatter by device-memory atomics alone (no tile window),
-the kernel without its first launch, each tile on one block (no split of
-its tasks), and the full block at other warps a block and launch bounds
-(each copy's registers and spills from ptxas). The float64 window's zero
-fill of the kernels that sum into one (``Tensor.zero_``) and their
-launches without the kernel (the entry point called with n = 0: the
-round, after the first launch where there is one) are timed apart. Prints one JSON object;
-the card's name and power limit on the lines around it. Needs a card and
-nvcc; exits non-zero without them.
+Builds copies of ``fused_p2g.cu``, ``fused_g2p.cu``, ``fused_p2g_bwd.cu``,
+``fused_g2p_bwd.cu``, ``fused_splat_bwd.cu`` and ``fused_gather_bwd.cu``
+(or the KERNELs named, file stems) with the headers of the ``csrc``
+directory of SRC_DIR, a checkout of the repository (default: this one),
+whose kernel returns after each of its phases, and times each copy's C
+entry point with CUDA events (50 calls after a warm-up) and
+torch.profiler (device ms) on the inputs chip_smoke.py checks the kernels
+on: the door's state after 10 env steps (5400 particles, window (32, 16,
+32)) and that state tiled to 1e5 particles, with seeded normal
+cotangents (``chip_smoke.fused_cotangents``). The phases are those of
+the design each source holds (``STOPS``), each a copy's time the
+difference to the one before it: for a first design (one thread a
+particle: G2P and the splat backward in checkouts before their
+row-thread design) the box scan, then ``weight_adjoint`` (the splat
+backward), then the full kernel; for the row-thread design of
+``fused_rows.cuh`` the first launch and the box, then the staged pair
+products and the tile's window, then the weight rows alone or the extra
+tasks alone (the channel or value sums, G2P's output sums, or the
+scatter); and variants of the full kernel: the scatter by device-memory
+atomics alone (no tile window), no first launch, each tile on one block
+(no split of its tasks), G2P with one task an output row (12 a
+particle) instead of one a component (3), the box scan one row a load
+instead of ``kBoxBatch``, and the full block at other warps a block and
+launch bounds (each copy's registers and spills from ptxas). The
+float64 window's zero fill of the kernels that sum into one
+(``Tensor.zero_``) and their launches without the kernel (the entry
+point called with n = 0: the round, after the first launch where there
+is one) are timed apart. Prints one JSON object; the card's name and
+power limit on the lines around it. Needs a card and nvcc; exits
+non-zero without them.
 """
 import ctypes
 import json
@@ -40,18 +45,20 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = ("fused_p2g", "fused_p2g_bwd", "fused_g2p_bwd", "fused_gather_bwd")
+KERNELS = ("fused_p2g", "fused_g2p", "fused_p2g_bwd", "fused_g2p_bwd",
+           "fused_splat_bwd", "fused_gather_bwd")
 # the kernels that sum into a float64 window (zeroed, then rounded)
 WINDOWED = ("fused_p2g", "fused_g2p_bwd", "fused_gather_bwd")
-# design -> variant -> ((text, its replacement), ...): a phase's variant
-# returns after it (one that leaves no output behind writes one value, so
-# that the compiler keeps its work); the replacements whose text the
-# kernel's source or headers hold are made, and a variant none of whose
-# texts they hold is not the kernel's. The row-thread design also runs its
-# rows alone, its extra tasks alone, no first launch, and its full block
-# at other warps a block and launch bounds ("w<warps>b<blocks an SM>")
+# A phase's variant returns after it (one that leaves no output behind
+# writes one value, so that the compiler keeps its work); the
+# replacements whose text the kernel's source or headers hold are made,
+# and a variant none of whose texts they hold is not the kernel's.
+# Besides the row-thread phases: the rows alone, the extra tasks alone,
+# no first launch, one block a tile, G2P at 12 tasks a particle, the box
+# scan one row a load, and the full block at other warps a block and
+# launch bounds ("w<warps>b<blocks an SM>")
 _ROWS_BOX = "  rows_box<Kind::kDeriv>(a, sh);\n  __syncthreads();\n"
-_ROWS_PAIRS = ("    rows_pairs<Kind::kDeriv>(a, sh);\n"
+_ROWS_PAIRS = ("    rows_pairs<Kind::kDeriv, row_planes<Kind>()>(a, sh);\n"
                "    rows_window<Kind::kScatter>(sh);\n    __syncthreads();\n")
 _ROWS_KEEP = ("  if (rows_particle() < a.n && threadIdx.x < kRowLanes) {\n"
               "    if (a.out) a.out[rows_particle()] = static_cast<float>(%s);"
@@ -73,7 +80,26 @@ def _keep(value):
     return _ROWS_KEEP % (value, value)
 
 
+# G2P at one task an output row (12 a particle, a tile's tasks on up to 2
+# blocks) instead of one a component (3)
+_G2P_TASKS12 = (
+    ("extra_tasks(const RowsArgs&, bool) { return 3; }",
+     "extra_tasks(const RowsArgs&, bool) { return 12; }"),
+    ("bool narrow, int d, int lane, int p) {\n",
+     "bool narrow, int task, int lane, int p) {\n"
+     "    const int d = task / 4;\n"),
+    ("      a.out[rows[k] * n + p] = static_cast<float>(s[k]);",
+     "      if (k == task % 4) a.out[rows[k] * n + p] = "
+     "static_cast<float>(s[k]);"),
+    ("fused_g2p_kernel<<<softmac::rows_blocks(n), softmac::kRowThreads, 0,",
+     "fused_g2p_kernel<<<dim3(softmac::rows_blocks(n), "
+     "softmac::rows_parts(n) < 2 ? softmac::rows_parts(n) : 2), "
+     "softmac::kRowThreads, 0,"))
+
+# design -> variant -> ((text, its replacement), ...)
 STOPS = {
+    # one thread a particle (G2P and the splat backward in checkouts
+    # before their row-thread design)
     "first": {
         "box": (("nullptr, n, p, wx, wy, wz);\n",
                  "nullptr, n, p, wx, wy, wz);\n"
@@ -81,9 +107,20 @@ STOPS = {
                  "b.z0 + b.z1);\n  return;\n"),
                 ("  if (x0 > x1 || y0 > y1 || z0 > z1) return;\n",
                  "  gm[p % (wx * wy * wz)] = x0 + x1 + y0 + y1 + z0 + z1;\n"
-                 "  return;\n")),
+                 "  return;\n"),
+                ("particle_box(Wx, Wy, Wz, n, p, wx, wy, wz);\n",
+                 "particle_box(Wx, Wy, Wz, n, p, wx, wy, wz);\n"
+                 "  out[p] = static_cast<float>(b.x0 + b.x1 + b.y0 + b.y1 + "
+                 "b.z0 + b.z1);\n  return;\n"),
+                ("  softmac::nonzero_rows(Wz, WDz, wz, n, p, &z0, &z1);\n",
+                 "  softmac::nonzero_rows(Wz, WDz, wz, n, p, &z0, &z1);\n"
+                 "  out[p] = static_cast<float>(x0 + x1 + y0 + y1 + z0 + "
+                 "z1);\n  return;\n")),
         "adjoint": (("nullptr, dWz, nullptr);\n",
-                     "nullptr, dWz, nullptr);\n  return;\n"),),
+                     "nullptr, dWz, nullptr);\n  return;\n"),
+                    ("out, dWy,\n                          dWz);\n",
+                     "out, dWy,\n                          dWz);\n"
+                     "  return;\n")),
     },
     "rows": {
         "box": ((_ROWS_BOX, _ROWS_BOX + _keep("sh->lo[0][rows_lane()]")),),
@@ -98,15 +135,20 @@ STOPS = {
                       "  return 0;"),),
         "parts1": (("  return parts < 1 ? 1 : parts > kRowParts ? kRowParts "
                     ": parts;", "  return 1;"),),
+        "tasks12": _G2P_TASKS12,
+        "box1": (("constexpr int kBoxBatch = 4;",
+                  "constexpr int kBoxBatch = 1;"),),
         "w16b1": _shape(16, 1),
         "w16b2": _shape(16, 2),
         "w8b4": _shape(8, 4),
     },
 }
-# variants that are no phase of a kernel (P2G has no weight rows, its
-# backward no scatter)
+# variants that are no phase of a kernel (P2G and G2P have no weight rows,
+# G2P and the P2G and splat backwards no scatter; G2P has one block a tile)
 NOT_OF = {"fused_p2g": ("rows_only", "extra_only"),
-          "fused_p2g_bwd": ("nowindow",)}
+          "fused_g2p": ("rows_only", "extra_only", "nowindow", "parts1"),
+          "fused_p2g_bwd": ("nowindow",),
+          "fused_splat_bwd": ("nowindow",)}
 
 
 def design(csrc, kernel):
@@ -232,12 +274,17 @@ def entry_call(fn, kernel, inp, cts, scratch):
     buf = f32((8 if kernel == "fused_p2g_bwd" else 6) * cells)
     if kernel == "fused_p2g":
         ins, outs = [*ws6, inp["chan"]], [acc, f32(4 * cells)]
+    elif kernel == "fused_g2p":
+        ins, outs = [*ws6, *inp["gv"]], [f32(12, n)]
     elif kernel == "fused_p2g_bwd":
         ins = [*ws6, inp["chan"], cts["dgm"], cts["dgmom"]]
         outs = [f32(rows + 13, n)] + [buf] * scratch
     elif kernel == "fused_g2p_bwd":
         ins = [*ws6, *inp["gv"], cts["g12"] if cts else acc]
         outs = [f32(rows, n), acc, f32(3 * cells)] + [buf] * scratch
+    elif kernel == "fused_splat_bwd":
+        ins = [*ws6[0::2], inp["vals"], cts["dout"]]
+        outs = [f32(rows // 2 + 3, n)] + [buf] * scratch
     else:
         ins = [*ws6[0::2], *inp["gvm"], cts["dv"] if cts else acc]
         outs = [f32(rows // 2, n), acc, f32(3 * cells)] + [buf] * scratch

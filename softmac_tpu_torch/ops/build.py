@@ -55,7 +55,7 @@ SIGNATURES = {
     "softmac_fused_gather": [_P] * 7 + [_I] * 4 + [_P],
     "softmac_fused_p2g_bwd": [_P] * 11 + [_I] * 4 + [_P],
     "softmac_fused_g2p_bwd": [_P] * 14 + [_I] * 4 + [_P],
-    "softmac_fused_splat_bwd": [_P] * 6 + [_I] * 4 + [_P],
+    "softmac_fused_splat_bwd": [_P] * 7 + [_I] * 4 + [_P],
     "softmac_fused_gather_bwd": [_P] * 11 + [_I] * 4 + [_P],
     "softmac_kr3": [_P] * 7 + [_I] * 3 + [_P],
 }

@@ -1,15 +1,15 @@
-// Shared by the dense-weight transfer kernels (fused_g2p.cu,
-// fused_splat.cu, fused_gather.cu, and through fused_bwd.cuh
-// fused_splat_bwd.cu; `at` also by fused_rows.cuh): the per-axis weight
-// matrices are (rows, n) row-major, row r of axis d holding every
-// particle's weight on window row r, so reading one particle's column is
-// one float per row, strided by n; across a warp (32 neighbouring
-// particles) each such read is one coalesced 128-byte line.
+// Shared by the forward dense-weight splat and gather (fused_splat.cu,
+// fused_gather.cu; `at` also by fused_rows.cuh, the row-thread design of
+// the other dense-weight kernels): the per-axis weight matrices are
+// (rows, n) row-major, row r of axis d holding every particle's weight on
+// window row r, so reading one particle's column is one float per row,
+// strided by n; across a warp (32 neighbouring particles) each such read
+// is one coalesced 128-byte line.
 //
 // A kernel first finds, for each axis, the first and the last row on which
-// the particle has a nonzero weight (or derivative weight), then visits only
-// the cells inside those three row ranges. For B-spline weights that is the
-// particle's 3 x 3 x 3 stencil; for dense weights, the whole window. A
+// the particle has a nonzero weight, then visits only the cells inside
+// those three row ranges. For B-spline weights that is the particle's
+// 3 x 3 x 3 stencil; for dense weights, the whole window. A
 // particle whose stencil leaves the window has an all-zero column on some
 // axis (mpm.axis_weights zeroes rows outside the window), so its range is
 // empty and it contributes nothing. N is any size: no padding to a tile.
@@ -19,17 +19,14 @@
 
 namespace softmac {
 
-// Range [*lo, *hi] of the rows r with a[r, p] != 0 or b[r, p] != 0 (b may
-// be null); *lo > *hi when there is none.
+// Range [*lo, *hi] of the rows r with a[r, p] != 0; *lo > *hi when there
+// is none.
 __device__ __forceinline__ void nonzero_rows(const float* __restrict__ a,
-                                             const float* __restrict__ b,
                                              int rows, int n, int p, int* lo,
                                              int* hi) {
   int l = rows, h = -1;
   for (int r = 0; r < rows; ++r) {
-    const size_t i = static_cast<size_t>(r) * n + p;
-    const bool on = __ldg(a + i) != 0.0f || (b != nullptr && __ldg(b + i) != 0.0f);
-    if (on) {
+    if (__ldg(a + static_cast<size_t>(r) * n + p) != 0.0f) {
       if (r < l) l = r;
       h = r;
     }

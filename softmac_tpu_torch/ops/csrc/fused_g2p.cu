@@ -15,73 +15,64 @@
 // What bounds it on the H100: bytes. It reads the six weight matrices
 // (2 (wx + wy + wz) floats a particle) and the three grids (196 KB at
 // (32, 16, 32), L2-resident), and writes 12 floats a particle: 69 MB at
-// 1e5 particles, 21 us at 3.35 TB/s.
+// 1e5 particles, 21 us at 3.35 TB/s. At the door's 5400 particles the
+// latency of finding each particle's box: one thread a particle scanned
+// its 160 weight entries alone, a long dependent chain on a card a sixth
+// occupied.
 //
-// Simple design: one thread per particle; the nonzero row range on each
-// axis (fused.cuh), then the visited cells' grid values through the
-// read-only path, summed in double registers, and coalesced row-major
-// stores, rounded once.
-#include "fused.cuh"
+// Design (fused_rows.cuh, without weight rows): 32 particles a tile, one a
+// lane, on a block of 8 warps; the warps split the window's rows to find
+// the boxes (coalesced) and keep their entries; the pair products Wy Wz,
+// WDy Wz, Wy WDz over each (y, z) box staged once in double; then one
+// thread a (particle, velocity component d), which sums its four rows
+// over the box (box_sums of grid d): 3 tasks a particle, so each tile on
+// one block (a second would repeat the box scan for warps with no task).
+// One task an output row (12 a particle) repeats each cell's reads 4
+// times and was slower at both sizes (PERF.md). Each output is one
+// thread's, rounded once, written once: no atomics, repeated runs are
+// bit-identical. One launch a call, no scratch.
+#include "fused_rows.cuh"
 
 namespace {
 
-__global__ void fused_g2p_kernel(const float* __restrict__ Wx,
-                                 const float* __restrict__ WxD,
-                                 const float* __restrict__ Wy,
-                                 const float* __restrict__ WDy,
-                                 const float* __restrict__ Wz,
-                                 const float* __restrict__ WDz,
-                                 const float* __restrict__ gv0,
-                                 const float* __restrict__ gv1,
-                                 const float* __restrict__ gv2,
-                                 float* __restrict__ out, int n, int wx,
-                                 int wy, int wz) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  int x0, x1, y0, y1, z0, z1;
-  softmac::nonzero_rows(Wx, WxD, wx, n, p, &x0, &x1);
-  softmac::nonzero_rows(Wy, WDy, wy, n, p, &y0, &y1);
-  softmac::nonzero_rows(Wz, WDz, wz, n, p, &z0, &z1);
+using softmac::RowsArgs;
+using softmac::RowsShared;
 
-  double v[3] = {0.0, 0.0, 0.0};
-  double c[3][3] = {{0.0, 0.0, 0.0}, {0.0, 0.0, 0.0}, {0.0, 0.0, 0.0}};
-  for (int y = y0; y <= y1; ++y) {
-    const double wy_ = softmac::at(Wy, y, n, p), dy = softmac::at(WDy, y, n, p);
-    for (int z = z0; z <= z1; ++z) {
-      const double wz_ = softmac::at(Wz, z, n, p);
-      const double dz = softmac::at(WDz, z, n, p);
-      const double wyz = wy_ * wz_, dyz = dy * wz_, ydz = wy_ * dz;
-      const int row = y * wz + z;
-      for (int x = x0; x <= x1; ++x) {
-        const double w0 = softmac::at(Wx, x, n, p);
-        const double d0 = softmac::at(WxD, x, n, p);
-        const int idx = row * wx + x;
-        const double g[3] = {__ldg(gv0 + idx), __ldg(gv1 + idx),
-                             __ldg(gv2 + idx)};
-        const double wgt = w0 * wyz, dwx = d0 * wyz;
-        const double dwy = w0 * dyz, dwz = w0 * ydz;
-        for (int d = 0; d < 3; ++d) {
-          v[d] += wgt * g[d];
-          c[d][0] += dwx * g[d];
-          c[d][1] += dwy * g[d];
-          c[d][2] += dwz * g[d];
-        }
-      }
+// G2P's work is the extra tasks alone: task d, the four rows of component
+// d (v_d, C[d][0], C[d][1], C[d][2]) over the particle's box.
+struct G2P {
+  static constexpr int kGrids = 3;
+  static constexpr bool kDeriv = true, kRows = false;
+  static constexpr int kScatter = 0;  // sums, no window
+
+  __device__ static int extra_tasks(const RowsArgs&, bool) { return 3; }
+
+  __device__ static void extra(const RowsArgs& a, RowsShared* sh,
+                               bool narrow, int d, int lane, int p) {
+    double s[4];
+    softmac::box_sums<true>(a, *sh, narrow, d, lane, p, s);
+    const size_t n = a.n;
+    const int rows[4] = {d, 3 + 3 * d, 4 + 3 * d, 5 + 3 * d};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      a.out[rows[k] * n + p] = static_cast<float>(s[k]);
     }
   }
-  for (int d = 0; d < 3; ++d) {
-    out[d * n + p] = static_cast<float>(v[d]);
-    for (int j = 0; j < 3; ++j) {
-      out[(3 + 3 * d + j) * n + p] = static_cast<float>(c[d][j]);
-    }
-  }
+};
+
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(softmac::kRowThreads, softmac::kRowBlocks)
+    fused_g2p_kernel(const RowsArgs a) {
+  __shared__ RowsShared sh;
+  softmac::rows_block<G2P>(a, &sh);
 }
+#endif
 
 }  // namespace
 
 // Wx, WxD (wx, n), Wy, WDy (wy, n), Wz, WDz (wz, n) weight matrices,
-// gv0..gv2 (wy*wz, wx) grid velocity, out (12, n). Returns
-// cudaGetLastError() after the launch.
+// gv0..gv2 (wy*wz, wx) grid velocity, out (12, n). One launch (none for
+// n = 0). Returns cudaGetLastError() after the launch.
 extern "C" int softmac_fused_g2p(const float* Wx, const float* WxD,
                                  const float* Wy, const float* WDy,
                                  const float* Wz, const float* WDz,
@@ -89,9 +80,13 @@ extern "C" int softmac_fused_g2p(const float* Wx, const float* WxD,
                                  const float* gv2, float* out, int n, int wx,
                                  int wy, int wz, void* stream) {
   if (n > 0) {
-    fused_g2p_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2, out, n, wx, wy, wz);
+    const RowsArgs a = {{Wx, WxD, Wy, WDy, Wz, WDz},
+                        {gv0, gv1, gv2, nullptr},
+                        {wx, wx, wx, 0},
+                        nullptr, out, nullptr, nullptr, nullptr,
+                        n, {wx, wy, wz}};
+    fused_g2p_kernel<<<softmac::rows_blocks(n), softmac::kRowThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,7 @@
 // of pallas_fused.g2p; the function of jax.vjp of _g2p_ref :207 (its rows
 // 12-15 given zero cotangent) and of ops/fused.py g2p_vjp_plain, for any
 // dense weights. With the particle's row cotangents cv_d = g[d] and
-// cj_d = g[3 + 3d + j], the cell coefficients of fused_bwd.cuh are
+// cj_d = g[3 + 3d + j], the cell coefficients of fused_rows.cuh are
 //   s.h = sum_d cv_d gv_d[c],  s.dj = sum_d cj_d gv_d[c],
 // and each grid cotangent gathers every particle's terms at the cell:
 //   dgv_d[c] += Wy Wz Wx cv_d + Wy Wz WxD c0_d + WDy Wz Wx c1_d

@@ -28,9 +28,9 @@ __global__ void fused_gather_kernel(const float* __restrict__ Wx,
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   int x0, x1, y0, y1, z0, z1;
-  softmac::nonzero_rows(Wx, nullptr, wx, n, p, &x0, &x1);
-  softmac::nonzero_rows(Wy, nullptr, wy, n, p, &y0, &y1);
-  softmac::nonzero_rows(Wz, nullptr, wz, n, p, &z0, &z1);
+  softmac::nonzero_rows(Wx, wx, n, p, &x0, &x1);
+  softmac::nonzero_rows(Wy, wy, n, p, &y0, &y1);
+  softmac::nonzero_rows(Wz, wz, n, p, &z0, &z1);
   double v[3] = {0.0, 0.0, 0.0};
   for (int y = y0; y <= y1; ++y) {
     const double wy_ = softmac::at(Wy, y, n, p);

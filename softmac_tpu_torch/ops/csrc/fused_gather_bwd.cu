@@ -6,7 +6,7 @@
 // (pallas_call :858, kernel _gather_bwd_kernel :570), the custom_vjp
 // backward of pallas_fused.gather; the function of jax.vjp of _gather_ref
 // :241 and of ops/fused.py gather_vjp_plain, for any dense weights. With
-// dv_d the particle's cotangent, the cell coefficient of fused_bwd.cuh (no
+// dv_d the particle's cotangent, the cell coefficient of fused_rows.cuh (no
 // derivative weights) is s.h = sum_d dv_d gv_d[c], and each grid
 // cotangent gathers every particle's terms at the cell:
 //   dgv_d[c] += Wy Wz Wx dv_d.

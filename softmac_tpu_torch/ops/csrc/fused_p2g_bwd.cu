@@ -7,7 +7,7 @@
 // of pallas_fused.p2g; the function of jax.vjp of _p2g_ref :181 and of
 // ops/fused.py p2g_vjp_plain, for any dense weights. With G_m = dgm[c] and
 // G_d = dgmom[row, d wx + x] at cell c, the cell coefficients of
-// fused_bwd.cuh are
+// fused_rows.cuh are
 //   s.h = G_m mass + sum_d G_d mom_d,  s.dj = sum_d G_d a_dj  (a = dx*affine)
 // and the channel cotangents sum over the particle's box:
 //   dchan[0] = sum Wy Wz Wx G_m,  dchan[1 + d] = sum Wy Wz Wx G_d,
@@ -41,7 +41,8 @@ using softmac::RowsArgs;
 using softmac::RowsShared;
 
 // The channel sums: four tasks a particle, task 0 the mass row, task 1 + d
-// the four rows of momentum component d, each over the particle's box.
+// the four rows of momentum component d, each over the particle's box
+// (fused_rows.cuh box_sums of grid `task`).
 struct P2GBwd {
   static constexpr int kGrids = 4;
   static constexpr bool kDeriv = true, kRows = true;
@@ -49,35 +50,10 @@ struct P2GBwd {
 
   __device__ static int extra_tasks(const RowsArgs&, bool) { return 4; }
 
-  __device__ static void extra(const RowsArgs& a, RowsShared* shp,
+  __device__ static void extra(const RowsArgs& a, RowsShared* sh,
                                bool narrow, int task, int lane, int p) {
-    const RowsShared& sh = *shp;
-    const int lx = softmac::box_len(sh, 0, lane);
-    const int ly = softmac::box_len(sh, 1, lane);
-    const int lz = softmac::box_len(sh, 2, lane);
-    const int x0 = sh.lo[0][lane], y0 = sh.lo[1][lane], z0 = sh.lo[2][lane];
-    const int wz = a.size[2];
-    const float* grid = softmac::grid_of(a, task);
-    const int stride = softmac::stride_of(a, task);
-    double s[4] = {0.0, 0.0, 0.0, 0.0};
-    for (int ix = 0; ix < lx; ++ix) {
-      const int x = x0 + ix;
-      const double w0 = softmac::box_weight<0>(a, sh, narrow, 0, x, lane, p);
-      const double d0 = softmac::box_weight<0>(a, sh, narrow, 1, x, lane, p);
-      for (int ia = 0; ia < ly; ++ia) {
-        for (int ib = 0; ib < lz; ++ib) {
-          double p0, pa, pb;
-          softmac::plane_pair<0, true>(a, sh, narrow, lane, p, ia, ib, &p0,
-                                       &pa, &pb);
-          const double g = __ldg(grid + ((y0 + ia) * wz + z0 + ib) * stride
-                                 + x);
-          s[0] += w0 * p0 * g;
-          s[1] += d0 * p0 * g;
-          s[2] += w0 * pa * g;
-          s[3] += w0 * pb * g;
-        }
-      }
-    }
+    double s[4];
+    softmac::box_sums<true>(a, *sh, narrow, task, lane, p, s);
     const size_t n = a.n;
     float* dchan = a.out + 2 * (a.size[0] + a.size[1] + a.size[2]) * n + p;
     if (task == 0) {

@@ -1,46 +1,66 @@
-// The row-thread design of the door's dense-weight kernels: the P2G
-// (fused_p2g.cu), and the P2G, G2P and gather backwards (fused_p2g_bwd.cu,
-// fused_g2p_bwd.cu, fused_gather_bwd.cu): many threads a particle instead
-// of one. fused_bwd.cuh states the backwards' function: for one particle,
-// the cotangent of its weight entry on row r of axis A sums the cell
-// coefficients s(c) over the particle's box in the plane of the two other
-// axes (a, b), every row r of the window, zeros included; the box on each
-// axis is the range of the rows where W or WD is nonzero. A kernel's Kind
-// says what it has: kDeriv, derivative weights WD (the gather backward
-// has none: WD is null, never read, and its rows dWD are not written);
-// kRows, weight rows to write (P2G has none: its work is the extra tasks
-// alone); kScatter, the channels its extra tasks add into a float64
-// window (rows_scatter: P2G 4, the G2P and gather backwards 3; 0 for the
-// P2G backward, whose extra tasks are channel sums).
+// The row-thread design of the door's dense-weight kernels: P2G and G2P
+// (fused_p2g.cu, fused_g2p.cu), and the P2G, G2P, splat and gather
+// backwards (fused_p2g_bwd.cu, fused_g2p_bwd.cu, fused_splat_bwd.cu,
+// fused_gather_bwd.cu): many threads a particle instead of one.
+//
+// The backwards' function. For one particle, each of the four forwards,
+// dotted with its output cotangent, is a sum over the window cells c =
+// (x, y, z) (row y * wz + z, column x) of a form linear in each axis's
+// weights:
+//   f = sum_c  Wx[x]  Wy[y]  Wz[z]  s.h(c)  + WxD[x] Wy[y]  Wz[z]  s.d0(c)
+//            + Wx[x]  WDy[y] Wz[z]  s.d1(c) + Wx[x]  Wy[y]  WDz[z] s.d2(c)
+// where the cell coefficients s(c) pair the output cotangent at c with the
+// particle's own channels (P2G, splat), or the grids at c with the
+// particle's output cotangent (G2P, gather); the splat and the gather have
+// no derivative weights (s.d0 = s.d1 = s.d2 = 0). The cotangent of a
+// weight entry on row r of axis A is the partial derivative of f: it sums
+// the cell coefficients over the particle's box in the plane of the two
+// other axes (a, b), for every row r of the window, zeros included (zero
+// for every r where the box on a or b is empty: a stencil that left the
+// window there). The box on each axis is the range of the rows where W or
+// WD is nonzero, so it covers every weight a term reads. Every row of
+// every output is written: no memset.
+//
+// A kernel's Kind says what it has: kDeriv, derivative weights WD (the
+// splat and gather backwards have none: WD is null, never read, and their
+// rows dWD are not written); kRows, weight rows to write (P2G and G2P have
+// none: their work is the extra tasks alone); kScatter, the channels its
+// extra tasks add into a float64 window (rows_scatter: P2G 4, the G2P and
+// gather backwards 3; 0 for G2P and the P2G and splat backwards, whose
+// extra tasks are sums over the box, box_sums: G2P's 12 output rows, the
+// P2G backward's 13 channel and the splat backward's 3 value cotangents).
 //
 // A tile of kRowLanes consecutive particles, one a lane, goes to a block
 // of kRowWarps warps, or, where the tiles are too few to fill the card, to
 // up to kRowParts blocks that share its tasks (rows_parts). A first launch
-// writes the grids' other layouts (rows_prep). A block's phases, a
-// barrier between each:
+// writes the grids' other layouts (rows_prep; none without weight rows).
+// A block's phases, a barrier between each:
 //   1. begin: empty boxes and a window of zeros in shared memory;
 //   2. box: the warps split the window's rows; each thread reads its
-//      particle's W (and WD) on its rows (coalesced: lanes are consecutive
-//      particles), widens the particle's box by shared atomicMin / Max and
-//      keeps the nonzero entries in shared memory at row % kBoxCap (exact
-//      for a box at most kBoxCap rows wide, a B-spline stencil's 3);
+//      particle's W (and WD) on its rows, kBoxBatch rows before it tests
+//      them (coalesced: lanes are consecutive particles), widens the
+//      particle's box by shared atomicMin / Max and keeps the nonzero
+//      entries in shared memory at row % kBoxCap (exact for a box at most
+//      kBoxCap rows wide, a B-spline stencil's 3);
 //   3. pairs: where every box of the block is that narrow on every axis,
-//      each particle's pair products over its box in each plane,
-//      P0 = W_a W_b, Pa = WD_a W_b, Pb = W_a WD_b (P0 alone without WD),
-//      formed once in double from the kept entries and kept in shared
-//      memory, and the tile's scatter window, the union of its boxes;
-//      wider boxes (dense weights) read the products from device memory
-//      as they go, and scatter to device memory;
+//      each particle's pair products over its box in each plane (only the
+//      (y, z) plane without weight rows), P0 = W_a W_b, Pa = WD_a W_b,
+//      Pb = W_a WD_b (P0 alone without WD), formed once in double from the
+//      kept entries and kept in shared memory, and the tile's scatter
+//      window, the union of its boxes; wider boxes (dense weights) read
+//      the products from device memory as they go, and scatter to device
+//      memory;
 //   4. x rows (with weight rows), shared out among a tile's blocks: one
 //      warp a particle for its x rows, one lane a row, kept in shared
 //      memory (up to kXTile of them);
 //   5. store: the kept x rows written a row of 32 consecutive particles at
 //      a time;
 //   6. tasks, shared out among a tile's blocks: one thread a (particle,
-//      extra task) of the kernel's own (the P2G backward: the channel
-//      sums; P2G, the G2P and gather backwards: the scatter of
-//      rows_scatter, into the tile's window where it fits, in the x rows'
-//      space); then one thread a (particle, y or z weight row);
+//      extra task) of the kernel's own (G2P, the P2G and splat backwards:
+//      the sums of box_sums; P2G, the G2P and gather backwards: the
+//      scatter of rows_scatter, into the tile's window where it fits, in
+//      the x rows' space); then one thread a (particle, y or z weight
+//      row);
 //   7. flush: the window added to device memory.
 // A row's thread visits its box cells in the plane once, reads the
 // cotangent grids there and keeps, in double, the sums
@@ -50,11 +70,11 @@
 //   dW_A  = mass m0 + sum_d ch_d B_d + m[d][a] Ca_d + m[d][b] Cb_d,
 //   dWD_A = sum_d m[d][A] B_d,
 // with (ch, m) the particle's own rows: P2G (mom, dx*affine), G2P the
-// cotangents of (v, C), the gather its cotangent dv (no m, no Ca, Cb or
-// dWD without WD). The x rows read the grids as they are, (y, z) rows of
-// x: a warp of one particle's x rows reads each box cell's line once,
-// whole. The y and z rows (lanes: particles, y-sorted in the rollout)
-// read the first launch's copies with y, or z, fastest.
+// cotangents of (v, C), the splat its values, the gather its cotangent dv
+// (no m, no Ca, Cb or dWD without WD). The x rows read the grids as they
+// are, (y, z) rows of x: a warp of one particle's x rows reads each box
+// cell's line once, whole. The y and z rows (lanes: particles, y-sorted in
+// the rollout) read the first launch's copies with y, or z, fastest.
 // Each weight or channel output is one thread's, written once, rounded
 // once, in a fixed order; a float64 window takes atomicAdds and is
 // rounded once by a last launch.
@@ -70,6 +90,7 @@ constexpr int kRowThreads = kRowLanes * kRowWarps;
 constexpr int kRowBlocks = 3;      // blocks an SM (launch bounds: 80 registers)
 constexpr int kRowParts = 4;       // blocks a tile's tasks go to, at most
 constexpr int kBoxCap = 3;         // box rows a staged axis holds
+constexpr int kBoxBatch = 4;       // rows a box-phase thread loads at once
 constexpr int kBoxCells = kBoxCap * kBoxCap;
 constexpr int kXTile = 64;         // x rows a block keeps for its stores
 // doubles of a tile's scatter window (rows_scatter), in the x rows' space
@@ -84,10 +105,11 @@ struct RowsArgs {
                           // backward: mass, then momentum cotangents)
   int row_stride[4];      // floats from a grid's (y, z) row to the next
   const float* rows;      // the particle rows: P2G chan (13, n) (and its
-                          // backward's), G2P's g (12, n), the gather's dv
-                          // (3, n)
+                          // backward's), G2P's g (12, n), the splat's vals
+                          // and the gather's dv (3, n); null for G2P
   float* out;             // the weight rows (2 (wx + wy + wz) [+ 13], n),
-                          // without WD (wx + wy + wz, n); null for P2G
+                          // without WD (wx + wy + wz [+ 3], n), then the
+                          // sums of box_sums; G2P's (12, n); null for P2G
   double* acc;            // the float64 window of rows_scatter
   float* yt;              // the grids as (z, x, y), one after the other
   float* zt;              // the grids as (y, x, z)
@@ -146,15 +168,25 @@ __device__ __forceinline__ void rows_box(const RowsArgs& a, RowsShared* sh) {
   if (p >= a.n) return;
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
-    for (int r = rows_warp(); r < a.size[ax]; r += kRowWarps) {
-      const size_t i = static_cast<size_t>(r) * a.n + p;
-      const float w = __ldg(a.w[2 * ax] + i);
-      const float d = kDeriv ? __ldg(a.w[2 * ax + 1] + i) : 0.0f;
-      if (w != 0.0f || d != 0.0f) {
-        atomicMin(&sh->lo[ax][lane], r);
-        atomicMax(&sh->hi[ax][lane], r);
-        sh->ent[ax][r % kBoxCap][0][lane] = w;
-        sh->ent[ax][r % kBoxCap][1][lane] = d;
+    const int size = a.size[ax];
+    for (int r0 = rows_warp(); r0 < size; r0 += kBoxBatch * kRowWarps) {
+      float w[kBoxBatch], d[kBoxBatch];
+#pragma unroll
+      for (int k = 0; k < kBoxBatch; ++k) {
+        const int r = r0 + k * kRowWarps;
+        const size_t i = static_cast<size_t>(r) * a.n + p;
+        w[k] = r < size ? __ldg(a.w[2 * ax] + i) : 0.0f;
+        d[k] = kDeriv && r < size ? __ldg(a.w[2 * ax + 1] + i) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kBoxBatch; ++k) {
+        const int r = r0 + k * kRowWarps;
+        if (w[k] != 0.0f || d[k] != 0.0f) {
+          atomicMin(&sh->lo[ax][lane], r);
+          atomicMax(&sh->hi[ax][lane], r);
+          sh->ent[ax][r % kBoxCap][0][lane] = w[k];
+          sh->ent[ax][r % kBoxCap][1][lane] = d[k];
+        }
       }
     }
   }
@@ -308,12 +340,17 @@ __device__ __forceinline__ bool rows_local(const RowsShared& sh,
          && window_cells<Kind::kScatter>(sh, n) > 0;
 }
 
-template <bool kDeriv>
+// The planes whose pair products a kernel reads: the three of the weight
+// rows, or the (y, z) plane alone (the extra tasks' plane 0).
+template <class Kind>
+__host__ __device__ constexpr int row_planes() { return Kind::kRows ? 3 : 1; }
+
+template <bool kDeriv, int kPlanes>
 __device__ __forceinline__ void rows_pairs(const RowsArgs& a,
                                            RowsShared* sh) {
   const int lane = rows_lane(), p = rows_particle();
   if (p >= a.n) return;
-  for (int t = rows_warp(); t < 3 * kBoxCells; t += kRowWarps) {
+  for (int t = rows_warp(); t < kPlanes * kBoxCells; t += kRowWarps) {
     const int c = t % kBoxCells;
     if (t < kBoxCells) {
       stage_pairs<0, kDeriv>(sh, lane, c);
@@ -418,6 +455,46 @@ __device__ __forceinline__ void yz_row(const RowsArgs& a,
   a.out[(off + row) * n + p] = static_cast<float>(r.w);
   if constexpr (Kind::kDeriv) {
     a.out[(off + a.size[A] + row) * n + p] = static_cast<float>(r.wd);
+  }
+}
+
+// The extra tasks' sums over the particle's box (G2P, the P2G and splat
+// backwards): grid q, in its own x-fastest layout, times the weight
+// products, s[0] = sum Wx Wy Wz g and, with derivative weights,
+// s[1] = sum WxD Wy Wz g, s[2] = sum Wx WDy Wz g, s[3] = sum Wx Wy WDz g;
+// in double, x outermost, then the (y, z) cells in order.
+template <bool kDeriv>
+__device__ __forceinline__ void box_sums(const RowsArgs& a,
+                                         const RowsShared& sh, bool narrow,
+                                         int q, int lane, int p,
+                                         double s[4]) {
+  const int lx = box_len(sh, 0, lane);
+  const int ly = box_len(sh, 1, lane);
+  const int lz = box_len(sh, 2, lane);
+  const int x0 = sh.lo[0][lane], y0 = sh.lo[1][lane], z0 = sh.lo[2][lane];
+  const int wz = a.size[2];
+  const float* grid = grid_of(a, q);
+  const int stride = stride_of(a, q);
+  s[0] = s[1] = s[2] = s[3] = 0.0;
+  for (int ix = 0; ix < lx; ++ix) {
+    const int x = x0 + ix;
+    const double w0 = box_weight<0>(a, sh, narrow, 0, x, lane, p);
+    double d0 = 0.0;
+    if constexpr (kDeriv) d0 = box_weight<0>(a, sh, narrow, 1, x, lane, p);
+    for (int ia = 0; ia < ly; ++ia) {
+      for (int ib = 0; ib < lz; ++ib) {
+        double p0, pa, pb;
+        plane_pair<0, kDeriv>(a, sh, narrow, lane, p, ia, ib, &p0, &pa, &pb);
+        const double g = __ldg(grid + ((y0 + ia) * wz + z0 + ib) * stride
+                               + x);
+        s[0] += w0 * p0 * g;
+        if constexpr (kDeriv) {
+          s[1] += d0 * p0 * g;
+          s[2] += w0 * pa * g;
+          s[3] += w0 * pb * g;
+        }
+      }
+    }
   }
 }
 
@@ -642,7 +719,7 @@ __device__ __forceinline__ void rows_block(const RowsArgs& a,
   __syncthreads();
   const bool narrow = __syncthreads_and(rows_fit(*sh));
   if (narrow) {
-    rows_pairs<Kind::kDeriv>(a, sh);
+    rows_pairs<Kind::kDeriv, row_planes<Kind>()>(a, sh);
     rows_window<Kind::kScatter>(sh);
     __syncthreads();
   }

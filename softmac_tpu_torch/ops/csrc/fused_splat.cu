@@ -28,9 +28,9 @@ __global__ void fused_splat_kernel(const float* __restrict__ Wx,
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   int x0, x1, y0, y1, z0, z1;
-  softmac::nonzero_rows(Wx, nullptr, wx, n, p, &x0, &x1);
-  softmac::nonzero_rows(Wy, nullptr, wy, n, p, &y0, &y1);
-  softmac::nonzero_rows(Wz, nullptr, wz, n, p, &z0, &z1);
+  softmac::nonzero_rows(Wx, wx, n, p, &x0, &x1);
+  softmac::nonzero_rows(Wy, wy, n, p, &y0, &y1);
+  softmac::nonzero_rows(Wz, wz, n, p, &z0, &z1);
   if (x0 > x1 || y0 > y1 || z0 > z1) return;
   const double val[3] = {vals[p], vals[n + p], vals[2 * n + p]};
   if (val[0] == 0.0 && val[1] == 0.0 && val[2] == 0.0) return;

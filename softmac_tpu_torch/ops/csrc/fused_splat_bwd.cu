@@ -6,78 +6,86 @@
 // backward of pallas_fused.splat; the function of jax.vjp of _splat_ref
 // :232 and of ops/fused.py splat_vjp_plain, for any dense weights. With
 // G_d = dout[row, d wx + x] at cell c, the cell coefficient of
-// fused_bwd.cuh (no derivative weights) is s.h = sum_d G_d vals_d, and
+// fused_rows.cuh (no derivative weights) is s.h = sum_d vals_d G_d, and
 //   dvals_d = sum over the box of Wy Wz Wx G_d.
 //
 // What bounds it on the H100: by bytes it reads the three weight matrices
 // and writes their cotangents ((wx + wy + wz) floats a particle each way),
 // the values in and out, and the window once: 3.8 MB at the door's 5400
 // particles and window (32, 16, 32), 1.1 us at 3.35 TB/s. In practice the
-// cell reads, 3 floats a visited cell.
+// cell reads of the weight rows, 3 floats a box cell of a row.
 //
-// Simple design: one thread per particle, a pure gather (no atomics,
-// bit-identical repeats): its box (fused.cuh), the weight rows
-// (fused_bwd.cuh weight_adjoint), then the values over the box.
-#include "fused_bwd.cuh"
+// Design (fused_rows.cuh, without derivative weights): the gather
+// backward's rows with the values in place of dv. 32 particles a tile,
+// one a lane, on a block of 8 warps (or a few blocks that share its tasks
+// where the tiles are too few to fill the card); their boxes (W alone)
+// and pair products Wy Wz staged once; one thread a (particle, y or z
+// weight row), one warp a particle's x rows, each row dW_A = sum_d vals_d
+// B_d with B_d the row's sum of the pair products times component d of
+// the cotangent; and three threads a particle for the value sums, each
+// over the particle's box (box_sums). Each output is written by one
+// thread in a fixed order: no atomics, repeated runs are bit-identical.
+// Two launches a call: the cotangent's y- and z-fastest layouts, then the
+// kernel.
+#include "fused_rows.cuh"
 
 namespace {
 
-__global__ void fused_splat_bwd_kernel(const float* __restrict__ Wx,
-                                       const float* __restrict__ Wy,
-                                       const float* __restrict__ Wz,
-                                       const float* __restrict__ vals,
-                                       const float* __restrict__ dout,
-                                       float* __restrict__ out, int n, int wx,
-                                       int wy, int wz) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const softmac::Box b = softmac::particle_box(Wx, Wy, Wz, n, p, wx, wy, wz);
-  const double val[3] = {vals[p], vals[n + p], vals[2 * n + p]};
-  auto cell = [&](int row, int x) {
-    const float* gr = dout + static_cast<size_t>(row) * 3 * wx + x;
-    return val[0] * __ldg(gr) + val[1] * __ldg(gr + wx)
-           + val[2] * __ldg(gr + 2 * wx);
-  };
-  float* dWy = out + static_cast<size_t>(wx) * n;
-  float* dWz = dWy + static_cast<size_t>(wy) * n;
-  float* dvals = dWz + static_cast<size_t>(wz) * n;
-  softmac::weight_adjoint(Wx, Wy, Wz, n, p, wx, wy, wz, b, cell, out, dWy,
-                          dWz);
+using softmac::RowsArgs;
+using softmac::RowsShared;
 
-  double dv[3] = {0.0, 0.0, 0.0};
-  if (!b.empty()) {
-    for (int y = b.y0; y <= b.y1; ++y) {
-      const double wy_ = softmac::at(Wy, y, n, p);
-      for (int z = b.z0; z <= b.z1; ++z) {
-        const double wyz = wy_ * softmac::at(Wz, z, n, p);
-        const float* gr = dout + static_cast<size_t>(y * wz + z) * 3 * wx;
-        for (int x = b.x0; x <= b.x1; ++x) {
-          const double wgt = softmac::at(Wx, x, n, p) * wyz;
-          for (int d = 0; d < 3; ++d) dv[d] += wgt * __ldg(gr + d * wx + x);
-        }
-      }
-    }
+// The value sums: three tasks a particle, task d the sum over the
+// particle's box of Wx Wy Wz times component d of the cotangent.
+struct SplatBwd {
+  static constexpr int kGrids = 3;
+  static constexpr bool kDeriv = false, kRows = true;
+  static constexpr int kScatter = 0;  // value sums, no window
+
+  __device__ static int extra_tasks(const RowsArgs&, bool) { return 3; }
+
+  __device__ static void extra(const RowsArgs& a, RowsShared* sh,
+                               bool narrow, int task, int lane, int p) {
+    double s[4];
+    softmac::box_sums<false>(a, *sh, narrow, task, lane, p, s);
+    const size_t row = a.size[0] + a.size[1] + a.size[2] + task;
+    a.out[row * a.n + p] = static_cast<float>(s[0]);
   }
-  for (int d = 0; d < 3; ++d) {
-    dvals[static_cast<size_t>(d) * n + p] = static_cast<float>(dv[d]);
-  }
+};
+
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(softmac::kRowThreads, softmac::kRowBlocks)
+    fused_splat_bwd_kernel(const RowsArgs a) {
+  __shared__ RowsShared sh;
+  softmac::rows_block<SplatBwd>(a, &sh);
 }
+#endif
 
 }  // namespace
 
 // Wx (wx, n), Wy (wy, n), Wz (wz, n) weight matrices and vals (3, n) as for
 // softmac_fused_splat; dout (wy*wz, 3*wx) the cotangent of its window.
 // out: (wx + wy + wz + 3, n) float32, the rows dWx, dWy, dWz, dvals one
-// after the other, every row written. Returns cudaGetLastError() after the
-// launch.
+// after the other, every row written; scratch: 6 * wy*wz*wx floats (the
+// cotangent's two other layouts). Two launches: the layouts, the kernel
+// (none for n = 0). Returns cudaGetLastError() after the launches.
 extern "C" int softmac_fused_splat_bwd(const float* Wx, const float* Wy,
                                        const float* Wz, const float* vals,
-                                       const float* dout, float* out, int n,
-                                       int wx, int wy, int wz, void* stream) {
+                                       const float* dout, float* out,
+                                       float* scratch, int n, int wx, int wy,
+                                       int wz, void* stream) {
   if (n > 0) {
-    fused_splat_bwd_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        Wx, Wy, Wz, vals, dout, out, n, wx, wy, wz);
+    const int count = 3 * wx * wy * wz;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const RowsArgs a = {{Wx, nullptr, Wy, nullptr, Wz, nullptr},
+                        {dout, dout + wx, dout + 2 * wx, nullptr},
+                        {3 * wx, 3 * wx, 3 * wx, 0},
+                        vals, out, nullptr, scratch, scratch + count,
+                        n, {wx, wy, wz}};
+    softmac::rows_prep<3><<<softmac::blocks_for(count), softmac::kThreads, 0,
+                            s>>>(a);
+    fused_splat_bwd_kernel<<<dim3(softmac::rows_blocks(n),
+                                  softmac::rows_parts(n)),
+                             softmac::kRowThreads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

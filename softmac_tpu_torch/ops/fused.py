@@ -298,8 +298,9 @@ def g2p_bwd(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2, g):
 
 def splat_bwd(Wx, Wy, Wz, vals, dout):
     """The splat backward: (dWx, dWy, dWz, dvals) as ``splat_vjp_plain``
-    computes them. CUDA tensors launch the kernel (a gather: no
-    atomics)."""
+    computes them. CUDA tensors launch the kernel (a gather over the window
+    cotangent: no atomics; two launches, the first writing the
+    cotangent's other layouts into a scratch buffer)."""
     if build.on_cpu(Wx, "fused splat_bwd"):
         return splat_vjp_plain(Wx, Wy, Wz, vals, dout)
     wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
@@ -309,9 +310,11 @@ def splat_bwd(Wx, Wy, Wz, vals, dout):
                          f"cotangent {tuple(dout.shape)}")
     rows = (wx, wy, wz, 3)
     out = torch.empty((sum(rows), n), dtype=Wx.dtype, device=Wx.device)
+    scratch = torch.empty(6 * wx * wy * wz, dtype=Wx.dtype, device=Wx.device)
     rc = build.library().softmac_fused_splat_bwd(
         Wx.data_ptr(), Wy.data_ptr(), Wz.data_ptr(), vals.data_ptr(),
-        dout.data_ptr(), out.data_ptr(), n, wx, wy, wz, _stream(Wx))
+        dout.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, wx, wy, wz,
+        _stream(Wx))
     build.check(rc, "fused splat_bwd")
     splat_bwd.launches += 1
     return torch.split(out, rows)

@@ -314,7 +314,8 @@ static int rows(const softmac::RowsArgs& a, int count, int parts,
       phase([&] { narrow = softmac::rows_fit(sh) && narrow; });
       if (narrow) {
         phase([&] {
-          softmac::rows_pairs<Kind::kDeriv>(a, &sh);
+          softmac::rows_pairs<Kind::kDeriv, softmac::row_planes<Kind>()>(
+              a, &sh);
           softmac::rows_window<Kind::kScatter>(&sh);
         });
       }
@@ -460,9 +461,13 @@ void h_fused_p2g(const float* Wx, const float* WxD, const float* Wy,
 void h_fused_g2p(const float* Wx, const float* WxD, const float* Wy,
                  const float* WDy, const float* Wz, const float* WDz,
                  const float* g0, const float* g1, const float* g2,
-                 float* out, int n, int wx, int wy, int wz) {
-  launch(n, [&] { k_fused_g2p::fused_g2p_kernel(Wx, WxD, Wy, WDy, Wz, WDz, g0,
-                                                g1, g2, out, n, wx, wy, wz); });
+                 float* out, int n, int wx, int wy, int wz, int parts,
+                 int* narrow) {
+  const softmac::RowsArgs a = {{Wx, WxD, Wy, WDy, Wz, WDz},
+                               {g0, g1, g2, nullptr}, {wx, wx, wx, 0},
+                               nullptr, out, nullptr, nullptr, nullptr, n,
+                               {wx, wy, wz}};
+  narrow[0] = rows<k_fused_g2p::G2P>(a, 0, parts, narrow[1]);
 }
 void h_fused_splat(const float* Wx, const float* Wy, const float* Wz,
                    const float* vals, double* acc, int n, int wx, int wy,
@@ -507,9 +512,16 @@ void h_fused_g2p_bwd(const float* Wx, const float* WxD, const float* Wy,
 }
 void h_fused_splat_bwd(const float* Wx, const float* Wy, const float* Wz,
                        const float* vals, const float* dout, float* out,
-                       int n, int wx, int wy, int wz) {
-  launch(n, [&] { k_fused_splat_bwd::fused_splat_bwd_kernel(
-      Wx, Wy, Wz, vals, dout, out, n, wx, wy, wz); });
+                       int n, int wx, int wy, int wz, int parts, int* narrow) {
+  const int count = 3 * wx * wy * wz;
+  std::vector<float> scratch(2 * count,
+                             std::numeric_limits<float>::quiet_NaN());
+  const softmac::RowsArgs a = {{Wx, nullptr, Wy, nullptr, Wz, nullptr},
+                               {dout, dout + wx, dout + 2 * wx, nullptr},
+                               {3 * wx, 3 * wx, 3 * wx, 0},
+                               vals, out, nullptr, scratch.data(),
+                               scratch.data() + count, n, {wx, wy, wz}};
+  narrow[0] = rows<k_fused_splat_bwd::SplatBwd>(a, count, parts, narrow[1]);
 }
 void h_fused_gather_bwd(const float* Wx, const float* Wy, const float* Wz,
                         const float* g0, const float* g1, const float* g2,
@@ -1304,11 +1316,13 @@ def test_fused_transfer_sources(lib, case):
             < 1e-12
 
     gv = [_f32(rng, wy * wz, wx) for _ in range(3)]
-    out = torch.zeros(12, N)
-    lib.h_fused_g2p(*map(_p, ws), *map(_p, gv), _p(out), *_fdims(window))
     ref = fused.g2p_plain(*w64, *(g.double() for g in gv))
-    for r in range(12):
-        assert _rel(out[r], ref[r]) < 1e-6
+    for parts in (1, 2):
+        out = torch.zeros(12, N)
+        lib.h_fused_g2p(*map(_p, ws), *map(_p, gv), _p(out), *_fdims(window),
+                        ctypes.c_int(parts), (ctypes.c_int * 2)())
+        for r in range(12):
+            assert _rel(out[r], ref[r]) < 1e-6
 
     W, W64 = ws[0::2], w64[0::2]
     vals = _f32(rng, 3, N)
@@ -1356,28 +1370,35 @@ def _grid_check(acc, refs):
             assert _rel(got, want) < 1e-12
 
 
-def _rows_check(lib, ws, window, n, chan, gv, dgm, dgmom, g12, dv):
-    """The row-thread kernels (fused_rows.cuh) on n particles: P2G against
-    the float64 plain version, its float64 window within 1e-12; the P2G,
-    G2P and gather backwards against the float64 plain vjps, every row of
-    every weight cotangent and the channel cotangents within 1e-6 of each
-    row's largest |value| (written where a particle's dv is zero: zeros),
-    the float64 grid cotangents within 1e-12; with a tile's tasks on one
-    block and split over three (rows_parts), the weight and channel rows
-    bit for bit the same. Returns the P2G backward's output rows, its
-    count of tiles that staged their pair products (the other kernels'
-    must be the same) and the scatter kernels' (P2G, the G2P and gather
-    backwards) counts of tiles whose scatter went through the tile's
-    window."""
+def _rows_check(lib, ws, window, n, chan, gv, dgm, dgmom, g12, dv, vals,
+                dout):
+    """The row-thread kernels (fused_rows.cuh) on n particles: P2G and G2P
+    against the float64 plain versions, P2G's float64 window within 1e-12
+    and G2P's rows within 1e-6 of each row's largest |value|; the P2G, G2P,
+    splat and gather backwards against the float64 plain vjps, every row
+    of every weight cotangent and the channel and value cotangents within
+    1e-6 of each row's largest |value| (written where a particle's dv or
+    vals is zero: zeros), the float64 grid cotangents within 1e-12; every
+    particle row poisoned with NaN before the call; with a tile's tasks on
+    one block and split over three (rows_parts), the particle rows bit for
+    bit the same. Returns the particle rows of each kernel ("g2p",
+    "p2g_bwd", "g2p_bwd", "splat_bwd", "gather_bwd"), the count of tiles
+    that staged their pair products (every kernel's the same) and the
+    scatter kernels' (P2G, the G2P and gather backwards) counts of tiles
+    whose scatter went through the tile's window."""
     wx, wy, wz = window
     w64 = [w.double() for w in ws]
     gv64 = [g.double() for g in gv]
     rows6 = (wx, wx, wy, wy, wz, wz)
+    rows3 = (wx, wy, wz)
     dims = [ctypes.c_int(n)] + [ctypes.c_int(w) for w in window]
     gm, gmom = fused.p2g_plain(*w64, chan.double())
+    g2p_fwd = fused.g2p_plain(*w64, *gv64)
     p2g_ref = fused.p2g_vjp_plain(*w64, chan.double(), dgm.double(),
                                   dgmom.double())
     g2p_ref = fused.g2p_vjp_plain(*w64, *gv64, g12.double())
+    splat_ref = fused.splat_vjp_plain(*w64[0::2], vals.double(),
+                                      dout.double())
     gather_ref = fused.gather_vjp_plain(*w64[0::2], *gv64, dv.double())
 
     def rows_ok(out, sizes, refs):
@@ -1385,37 +1406,52 @@ def _rows_check(lib, ws, window, n, chan, gv, dgm, dgmom, g12, dv):
             assert not bool(got.isnan().any())
             if n:
                 assert _rows_rel(got, want) < 1e-6
-    outs, narrow = [], (ctypes.c_int * 6)()
+
+    def nans(rows):
+        return torch.full((rows, n), float("nan"))
+    runs, narrow = [], (ctypes.c_int * 10)()
     for parts in (1, 3):
+        part = ctypes.c_int(parts)
         acc, p2g_narrow = _p2g_rows(lib, ws, window, n, chan, parts)
         _grid_check(acc, [gm, gmom])
-        out = torch.full((sum(rows6) + 13, n), float("nan"))
+        out = {"g2p": nans(12)}
+        lib.h_fused_g2p(*map(_p, ws), *map(_p, gv), _p(out["g2p"]), *dims,
+                        part, ctypes.byref(narrow, 24))
+        rows_ok(out["g2p"], (12,), (g2p_fwd,))
+        out["p2g_bwd"] = nans(sum(rows6) + 13)
         lib.h_fused_p2g_bwd(*map(_p, ws), _p(chan), _p(dgm), _p(dgmom),
-                            _p(out), *dims, ctypes.c_int(parts),
+                            _p(out["p2g_bwd"]), *dims, part,
                             ctypes.byref(narrow, 0))
-        rows_ok(out, rows6 + (13,), p2g_ref)
-        g_out = torch.full((sum(rows6), n), float("nan"))
+        rows_ok(out["p2g_bwd"], rows6 + (13,), p2g_ref)
+        out["g2p_bwd"] = nans(sum(rows6))
         # the backwards' first launch zeroes the float64 window
         acc = torch.full((3 * wx * wy * wz,), float("nan"),
                          dtype=torch.float64)
-        lib.h_fused_g2p_bwd(*map(_p, ws), *map(_p, gv), _p(g12), _p(g_out),
-                            _p(acc), *dims, ctypes.c_int(parts),
+        lib.h_fused_g2p_bwd(*map(_p, ws), *map(_p, gv), _p(g12),
+                            _p(out["g2p_bwd"]), _p(acc), *dims, part,
                             ctypes.byref(narrow, 8))
-        rows_ok(g_out, rows6, g2p_ref[:6])
+        rows_ok(out["g2p_bwd"], rows6, g2p_ref[:6])
         _grid_check(acc, g2p_ref[6:])
-        d_out = torch.full((wx + wy + wz, n), float("nan"))
+        out["splat_bwd"] = nans(sum(rows3) + 3)
+        lib.h_fused_splat_bwd(*map(_p, ws[0::2]), _p(vals), _p(dout),
+                              _p(out["splat_bwd"]), *dims, part,
+                              ctypes.byref(narrow, 32))
+        rows_ok(out["splat_bwd"], rows3 + (3,), splat_ref)
+        out["gather_bwd"] = nans(sum(rows3))
         acc.fill_(float("nan"))
         lib.h_fused_gather_bwd(*map(_p, ws[0::2]), *map(_p, gv), _p(dv),
-                               _p(d_out), _p(acc), *dims,
-                               ctypes.c_int(parts), ctypes.byref(narrow, 16))
-        rows_ok(d_out, (wx, wy, wz), gather_ref[:3])
+                               _p(out["gather_bwd"]), _p(acc), *dims, part,
+                               ctypes.byref(narrow, 16))
+        rows_ok(out["gather_bwd"], rows3, gather_ref[:3])
         _grid_check(acc, gather_ref[3:])
-        assert p2g_narrow[0] == narrow[0] == narrow[2] == narrow[4]
-        assert narrow[1] == 0       # the P2G backward has no scatter
-        outs.append((out, g_out, d_out))
-    assert all(torch.equal(p, q) for p, q in zip(*outs))
-    return outs[0][0], narrow[0], {"p2g": p2g_narrow[1], "g2p_bwd": narrow[3],
-                                   "gather_bwd": narrow[5]}
+        assert p2g_narrow[0] == narrow[0] == narrow[2] == narrow[4] \
+            == narrow[6] == narrow[8]
+        # G2P and the P2G and splat backwards have no scatter
+        assert narrow[1] == narrow[7] == narrow[9] == 0
+        runs.append(out)
+    assert all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+    return runs[0], narrow[0], {"p2g": p2g_narrow[1], "g2p_bwd": narrow[3],
+                                "gather_bwd": narrow[5]}
 
 
 @pytest.mark.parametrize("case", ["bspline", "dense"])
@@ -1433,8 +1469,9 @@ def test_fused_backward_sources(lib, case):
     dgm, dgmom = _f32(rng, wy * wz, wx), _f32(rng, wy * wz, 3 * wx)
     g12, dout, dv = _f32(rng, 12, N), _f32(rng, wy * wz, 3 * wx), \
         _f32(rng, 3, N)
-    out, narrow, windows = _rows_check(lib, ws, window, N, chan, gv, dgm,
-                                       dgmom, g12, dv)
+    outs, narrow, windows = _rows_check(lib, ws, window, N, chan, gv, dgm,
+                                        dgmom, g12, dv, vals, dout)
+    out = outs["p2g_bwd"]
     # the B-spline boxes (at most 3 rows an axis) stage their pair products
     # in every block; the dense ones (the whole window) read them as they go
     assert narrow == ((N + 31) // 32 if case == "bspline" else 0)
@@ -1450,7 +1487,8 @@ def test_fused_backward_sources(lib, case):
 
     out = torch.zeros(wx + wy + wz + 3, N)
     lib.h_fused_splat_bwd(*map(_p, W), _p(vals), _p(dout), _p(out),
-                          *_fdims(window))
+                          *_fdims(window), ctypes.c_int(1),
+                          (ctypes.c_int * 2)())
     ref = fused.splat_vjp_plain(*W64, vals.double(), dout.double())
     for got, want in zip(torch.split(out, [wx, wy, wz, 3]), ref):
         assert _rows_rel(got, want) < 1e-6
@@ -1460,21 +1498,23 @@ def test_fused_backward_sources(lib, case):
                                   "wide_x", "long_x", "zero_dv", "none",
                                   "sorted"])
 def test_fused_rows_edges_source(lib, case):
-    """The row-thread kernels (P2G, the P2G, G2P and gather backwards) at
-    the edges of their blocks of 32 particles, on the scene's B-spline
-    weights: n = 37 (a last block of 5); particles whose box is empty on
-    one axis (their rows of that axis still sum over the other two, the
-    other axes' rows are zero); one particle whose six columns are dense
-    (its box the whole window: its block reads the pair products from
-    memory, the others stage them); one particle dense on x only; dense
-    random weights on a window of 70 x rows, more than a block keeps in
-    shared memory (kXTile), 37 particles; the gather's cotangent dv zero
-    for every particle (no grid terms; its weight rows written, zeros); and
-    n = 0 (no block: the backwards' first launch alone, windows of zeros);
-    the particles sorted by their stencil's base cell (y, z, x), so that
-    every tile's boxes span few cells and even P2G's scatter goes through
-    the tile's window (the scene's random order leaves it too wide). In
-    every case a few particles' dv is zero."""
+    """The row-thread kernels (P2G and G2P, the P2G, G2P, splat and gather
+    backwards) at the edges of their blocks of 32 particles, on the
+    scene's B-spline weights: n = 37 (a last block of 5); particles whose
+    box is empty on one axis (their weight rows of that axis still sum
+    over the other two, the other axes' rows are zero, and so are their
+    G2P rows and value cotangents); one particle whose six columns are
+    dense (its box the whole window: its block reads the pair products
+    from memory, the others stage them); one particle dense on x only;
+    dense random weights on a window of 70 x rows, more than a block keeps
+    in shared memory (kXTile), 37 particles; the gather's cotangent dv and
+    the splat's values zero for every particle (no grid terms; their
+    weight rows written, zeros); and n = 0 (no block: the backwards' first
+    launch alone, windows of zeros); the particles sorted by their
+    stencil's base cell (y, z, x), so that every tile's boxes span few
+    cells and even P2G's scatter goes through the tile's window (the
+    scene's random order leaves it too wide). In every case a few
+    particles' dv and values are zero."""
     ws, window, rng = _fused_weights("bspline")
     if case == "long_x":
         window = (70, 3, 4)
@@ -1501,13 +1541,15 @@ def test_fused_rows_edges_source(lib, case):
         ws[0][:, 70] = _f32(rng, wx)
     chan, gv = _f32(rng, 13, n), [_f32(rng, wy * wz, wx) for _ in range(3)]
     dgm, dgmom = _f32(rng, wy * wz, wx), _f32(rng, wy * wz, 3 * wx)
-    dv = _f32(rng, 3, n)
-    dv[:, [q for q in (5, 33, 36) if q < n]] = 0.0
+    dv, vals = _f32(rng, 3, n), _f32(rng, 3, n)
+    few = [q for q in (5, 33, 36) if q < n]
+    dv[:, few] = vals[:, few] = 0.0
     if case == "zero_dv":
         dv.zero_()
-    out, narrow, windows = _rows_check(lib, ws, window, n, chan, gv, dgm,
-                                       dgmom,
-                              _f32(rng, 12, n), dv)
+        vals.zero_()
+    outs, narrow, windows = _rows_check(lib, ws, window, n, chan, gv, dgm,
+                                        dgmom, _f32(rng, 12, n), dv, vals,
+                                        _f32(rng, wy * wz, 3 * wx))
     blocks = (n + 31) // 32
     # the windows fit where the tiles' boxes span few cells, P2G's (4
     # channels) no more often than the backwards' (3); sorted, both ways
@@ -1517,12 +1559,21 @@ def test_fused_rows_edges_source(lib, case):
     assert case != "sorted" or 0 < windows["p2g"] < narrow
     assert narrow == {"wide_box": blocks - 1, "wide_x": blocks - 1,
                       "long_x": 0}.get(case, blocks)
+    rows3 = wx + wy + wz
+    if case == "zero_dv":
+        for k in ("splat_bwd", "gather_bwd"):
+            assert bool((outs[k][:rows3] == 0).all()), k
     if case == "empty_axis":
         starts = (0, 2 * wx, 2 * (wx + wy))
         for q, ax in empty.items():
             for b, size in enumerate(window):
-                rows = out[starts[b]:starts[b] + 2 * size, q]
+                rows = outs["p2g_bwd"][starts[b]:starts[b] + 2 * size, q]
                 assert bool((rows != 0).any()) == (b == ax), (q, ax, b)
+                start = (0, wx, wx + wy)[b]
+                rows = outs["splat_bwd"][start:start + size, q]
+                assert bool((rows != 0).any()) == (b == ax and q not in few)
+            assert bool((outs["g2p"][:, q] == 0).all()), q
+            assert bool((outs["splat_bwd"][rows3:, q] == 0).all()), q
 
 
 @pytest.mark.parametrize("case", ["bspline", "dense"])
