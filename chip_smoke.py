@@ -19,11 +19,13 @@ script exits non-zero:
            (torch.profiler over 10 calls: the device kernels a call
            launched), the plain version's time, the least time the card
            needs for the same work, launches on the main paths. P2G, G2P
-           and the particle contact on the 1e5-particle pour_vel scene,
+           and the particle contact (the tiled kernel, which returns the
+           impulse and the wrench) on the 1e5-particle pour_vel scene,
            window (40, 32, 16), the state after 10 env steps; the three
-           backward kernels (p2g_bwd, g2p_bwd, collide_particle_bwd)
-           against the plain vjps in float64 on the same inputs with seeded
-           normal cotangents; gather, splat and the mixed contact (the
+           backward kernels (p2g_bwd, g2p_bwd, collide_particle_bwd, which
+           takes the cotangents of the impulse and the wrench) against the
+           plain vjps in float64 on the same inputs with seeded normal
+           cotangents; gather, splat and the mixed contact (the
            tiled kernel, which returns p_v_out and the wrench, and the
            split pair with the wrench's PyTorch reduction) against their
            plain versions in float64 on the flagship pour scene's state
@@ -33,7 +35,9 @@ script exits non-zero:
            collide_mixed_bwd, which takes the wrench's cotangent, and the
            split pair collide_mixed2_bwd -> collide_mixed1_bwd after the
            tail's autograd) against their plain vjps in float64 on the same
-           inputs. Both contact families are also held on particles spread
+           inputs. Both contact families (each a tiled pair: 10 calls
+           bit-identical, the build phase failing if ptxas reports a spill
+           for the penalty pair) are also held on particles spread
            over each body's SDF box, so that both bodies have many contacts
            (and, for the mixed contact, particles that approach, lie in the
            soft band, penetrate and forecast across a cell face), and the
@@ -81,7 +85,9 @@ script exits non-zero:
            rollout_and_grad (remat "none"): device busy share of the wall
            time, kernel launches per substep, the kernels that take the
            most device time, and each of the port's own kernels' device
-           time a launch and launches a substep
+           time a launch and launches a substep; on pour_vel's rollout
+           and gradient the penalty contact's kernels held to one launch
+           a body a substep (by kernel name)
   parity   each demo's own 5000-particle scene, card (float32, kernels)
            against the CPU (float64, plain versions): 20 steps of rollout
            and of rollout_and_grad
@@ -272,6 +278,13 @@ FUSED_BWD = tuple(k + "_bwd" for k in FUSED)
 ROW_KERNELS = ("fused_p2g", "fused_g2p", "fused_p2g_bwd", "fused_g2p_bwd",
                "fused_splat_bwd", "fused_gather_bwd")
 FUSED_REPEATS = 10
+# the tiled penalty contact pair: the build phase fails if ptxas reports a
+# spill for them
+PENALTY_SOURCES = ("contact.cu", "contact_bwd.cu")
+# its device kernels, by name in a profile: each launches once a body a
+# substep on pour_vel's paths (the backward on each substep of its
+# gradient but the first env step's)
+PENALTY_KERNELS = ("collide_particle_kernel", "collide_particle_bwd_kernel")
 # float operations per visited window cell (the kernels work in double,
 # counted at the float32 rate, the least time for the same work): the
 # three weight products and the cell's terms
@@ -464,10 +477,9 @@ def kernel_inputs(env, carry):
 def check_kernels(inp):
     """Each kernel against its plain version; returns the JSON entries
     (launches filled in by the caller)."""
-    import torch
-    from softmac_tpu_torch.ops import contact, m33, transfer
-    cfg, st = inp["cfg"], inp["state"]
-    x, v, n = st.x, st.v, st.x.shape[1]
+    from softmac_tpu_torch.ops import transfer
+    cfg, x = inp["cfg"], inp["state"].x
+    n = x.shape[1]
     corner, sizes = inp["corner"], inp["sizes"]
     wx, wy, wz = sizes
     cells = wx * wy * wz
@@ -507,58 +519,124 @@ def check_kernels(inp):
           (3 * n + 3 * cells + 12 * n) * 4)
     entries[-1]["rel_err_is"] = "max |kernel - plain| / max |plain| per row"
 
-    # --- collide_particle, once per body, on the main path's particles and
-    # on particles spread over the body's SDF box (many contacts) ------------
-    def contact_err(cargs, label):
-        imp_k, mask_k = contact.collide_particle(*cargs)
-        imp_p, mask_p = contact.collide_particle_plain(*cargs)
-        prim, bp, bq, xs = cargs[0], cargs[1], cargs[2], cargs[6]
-        dist, _ = contact.sample_sdf_normal_world(prim, tuple(bp), tuple(bq),
-                                                  tuple(xs))
-        edge = (dist - contact.CONTACT_THRESHOLD).abs() < 1e-6
-        if bool(((mask_k != mask_p) & ~edge).any()):
-            raise AssertionError(f"collide_particle ({label}): contact masks "
-                                 "differ away from the threshold")
-        diff = ((imp_k - imp_p).abs() * (mask_k == mask_p)).max().item()
-        n_contacts = int(mask_p.sum())
-        print(f"collide_particle {label}: contacts {n_contacts}, max abs err "
-              f"{diff}", flush=True)
-        return diff, diff / max(imp_p.abs().max().item(), 1e-30), n_contacts
-
-    gen = torch.Generator(device=x.device).manual_seed(0)
-    errs, rels, ms, plain_ms, nbytes = [], [], 0.0, 0.0, 0
-    for b, (prim, bp, bq, bv, bw, fr) in enumerate(inp["contacts"]):
-        cargs = (prim, bp, bq, bv, bw, fr, x, v, cfg.dt, cfg.p_mass)
-        x_box = box_particles(prim, bp, bq, n, gen)
-        for args, label in ((cargs, f"body {b} main path"),
-                            (cargs[:6] + (x_box,) + cargs[7:],
-                             f"body {b} SDF box")):
-            diff, rel, n_contacts = contact_err(args, label)
-            errs.append(diff)
-            rels.append(rel)
-        if n_contacts < MIN_BOX_CONTACTS:
-            raise AssertionError(f"collide_particle: only {n_contacts} "
-                                 f"contacts in body {b}'s SDF box")
-        ms += cuda_time_ms(lambda: contact.collide_particle(*cargs))
-        device_ms("collide_particle", lambda: contact.collide_particle(*cargs))
-        plain_ms += cuda_time_ms(lambda: contact.collide_particle_plain(*cargs))
-        qinv = m33.qnorm(m33.qconj(tuple(bq)))
-        p_loc = m33.qrot(qinv, m33.vsub(tuple(x), tuple(bp)))
-        rows = torch.unique(contact.cell_index(prim, p_loc)[0]).numel()
-        nbytes += 6 * n * 4 + rows * 128 + 14 * 4 + n * (3 * 4 + 1)
-        print(f"collide_particle body {b}: distinct table rows {rows}",
-              flush=True)
-    entry("collide_particle", "softmac_tpu_torch/ops/csrc/contact.cu",
-          "softmac_tpu/ops/pallas_contact.py:393 (_make_particle_kernel via "
-          "_particle_factory :704, pallas_call in _run_kernel :472, call "
-          "site :723)", max(errs), max(rels), ms, plain_ms, nbytes)
-    entries[-1]["rel_err_is"] = ("max |kernel - plain| / max |plain| where "
-                                 "the masks agree, over the main path's and "
-                                 "the SDF-box particles; times and bytes "
-                                 "(main path's particles) summed over glass "
-                                 "+ bowl")
-    entries[-1]["per_substep"] = len(inp["contacts"])
+    # --- collide_particle (the tiled kernel: the impulse and the wrench in
+    # one launch), once per body, on the main path's particles and on
+    # particles spread over the body's SDF box (many contacts) -------------
+    entries.append(check_particle_contact(inp))
     return entries
+
+
+def check_particle_contact(inp):
+    """The tiled penalty contact (impulse and wrench, one launch) per body,
+    on the main path's particles and on particles spread over the body's
+    SDF box, against collide_particle_wrench_plain in float64: the impulse
+    within ROW_TOL of its largest |value| away from the threshold, the
+    wrench within ROW_TOL of its force's and its torque's; the masks agree
+    away from the threshold; MIXED_REPEATS calls bit-identical, also on two
+    streams at once (main path). Call and device time on each set."""
+    import torch
+    from softmac_tpu_torch.ops import contact, m33
+    cfg, st = inp["cfg"], inp["state"]
+    x, v, n = st.x, st.v, st.x.shape[1]
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    worst = {"impulse": (0.0, 0.0), "wrench": 0.0}
+    ms = plain_ms = 0.0
+    nbytes = flops = 0
+    by_set, bands = [], {}
+    for b, (prim, bp, bq, bv, bw, fr) in enumerate(inp["contacts"]):
+        prim64 = _prim64(prim)
+        x_box = box_particles(prim, bp, bq, n, gen)
+        for xs, label in ((x, "main path"), (x_box, "SDF box")):
+            cargs = (prim, bp, bq, bv, bw, fr, xs, v, cfg.dt, cfg.p_mass)
+            cargs64 = (prim64,) + tuple(map(_f64, cargs[1:8])) + cargs[8:]
+            outs = [contact.collide_particle(*cargs)
+                    for _ in range(MIXED_REPEATS)]
+            imp, wr = outs[0]
+            if not all(torch.equal(o[0], imp) and torch.equal(o[1], wr)
+                       for o in outs[1:]):
+                raise AssertionError(f"collide_particle ({label}, body "
+                                     f"{b}): repeated calls differ")
+            if label == "main path" and not same_on_two_streams(
+                    lambda: contact.collide_particle(*cargs), (imp, wr)):
+                raise AssertionError(f"collide_particle (body {b}): calls "
+                                     "on two streams differ")
+            imp_p, wr_p = contact.collide_particle_wrench_plain(*cargs64)
+            dist, _ = contact.sample_sdf_normal_world(
+                prim64, tuple(_f64(bp)), tuple(_f64(bq)), tuple(_f64(xs)))
+            mask_p = dist < contact.CONTACT_THRESHOLD
+            keep = (dist - contact.CONTACT_THRESHOLD).abs() >= 1e-6
+            if bool((((imp != 0).any(dim=0) != (imp_p != 0).any(dim=0))
+                     & keep).any()):
+                raise AssertionError(f"collide_particle ({label}): contact "
+                                     "masks differ away from the threshold")
+            err = ((imp.double() - imp_p).abs() * keep).max().item()
+            rel = err / max(imp_p.abs().max().item(), 1e-30)
+            worst["impulse"] = max(worst["impulse"], (rel, err))
+            wrel = _wrench_rel(wr, wr_p) if bool(wr_p.any()) else \
+                wr.abs().max().item()
+            worst["wrench"] = max(worst["wrench"], wrel)
+            band, worst_tile = band_counts(prim64, (_f64(bp), _f64(bq)), xs,
+                                           contact.MIXED_TILE)
+            counts = {"contacts": int(mask_p.sum()), "band": band,
+                      "worst_tile_band": worst_tile,
+                      "tile": contact.MIXED_TILE}
+            bands[f"body {b} {label}"] = counts
+            print(f"collide_particle body {b} {label}: {json.dumps(counts)}"
+                  f", impulse rel err {rel}, wrench rel err {wrel}",
+                  flush=True)
+            if label == "SDF box" and counts["contacts"] < MIN_BOX_CONTACTS:
+                raise AssertionError(f"collide_particle: only "
+                                     f"{counts['contacts']} contacts in "
+                                     f"body {b}'s SDF box")
+            main = label == "main path"
+            t = cuda_time_ms(lambda: contact.collide_particle(*cargs))
+            dev = device_ms("collide_particle" if main
+                            else f"collide_particle {b} {label}",
+                            lambda: contact.collide_particle(*cargs))
+            by_set.append({"body": b, "particles": label, "ms": t,
+                           "device_ms": dev, "band": band})
+            if not main:
+                continue
+            ms += t
+            plain_ms += cuda_time_ms(
+                lambda: contact.collide_particle_wrench_plain(*cargs))
+            qinv = m33.qnorm(m33.qconj(tuple(bq)))
+            p_loc = m33.qrot(qinv, m33.vsub(tuple(xs), tuple(bp)))
+            rows = torch.unique(contact.cell_index(prim, p_loc)[0]).numel()
+            # in: x, the rows, 14 body floats and v of the band only (the
+            # impulse is zero out of it); out: imp, the wrench
+            nbytes += (6 * n + 3 * band) * 4 + rows * 128 + 14 * 4 + 6 * 4
+            flops += n * MIXED_CLASSIFY_FLOPS + band * FLOPS_PER_PARTICLE[
+                "collide_particle"]
+            print(f"collide_particle body {b}: distinct table rows {rows}",
+                  flush=True)
+    for key, rel in (("impulse", worst["impulse"][0]),
+                     ("wrench", worst["wrench"])):
+        if not rel <= ROW_TOL:
+            raise AssertionError(f"collide_particle: {key} relative error "
+                                 f"{rel} > {ROW_TOL}")
+    e = kernel_entry(
+        n, "collide_particle", "softmac_tpu_torch/ops/csrc/contact.cu",
+        "softmac_tpu/ops/pallas_contact.py:393 (_make_particle_kernel via "
+        "_particle_factory :704, pallas_call in _run_kernel :472, call site "
+        ":723; the wrench tail _tail_particle :693)",
+        worst["impulse"][1], worst["impulse"][0], ms, plain_ms, nbytes,
+        ROW_TOL, flops=flops)
+    e["rel_err_by_output"] = {"impulse": worst["impulse"][0],
+                              "wrench": worst["wrench"]}
+    e["rel_err_is"] = ("max |kernel - plain| / max |plain| of the impulse "
+                       "(away from the threshold) over both bodies and both "
+                       "particle sets, the plain version in float64; the "
+                       "wrench's in rel_err_by_output (force and torque each "
+                       "against its largest |value|); times and bytes (main "
+                       "path's particles) summed over glass + bowl")
+    e["plain_is"] = "collide_particle_wrench_plain in float32"
+    e["repeats_bit_identical"] = MIXED_REPEATS
+    e["two_streams_bit_identical"] = MIXED_REPEATS
+    e["band"] = bands
+    e["by_particle_set"] = by_set
+    e["per_substep"] = len(inp["contacts"])
+    return e
 
 
 def box_particles(prim, bp, bq, n, gen):
@@ -644,77 +722,109 @@ def check_backward_kernels(inp):
 
 
 def check_contact_backward(inp, normal):
-    """collide_particle_bwd against collide_particle_vjp_plain in float64,
-    per body, on the main path's particles and on particles spread over
-    the body's SDF box (>= MIN_BOX_CONTACTS contacts there)."""
+    """collide_particle_bwd (the tiled kernel, the wrench's reverse folded
+    in) against collide_particle_wrench_vjp_plain in float64, per body, on
+    the main path's particles and on particles spread over the body's SDF
+    box (>= MIN_BOX_CONTACTS contacts there), with seeded normal
+    cotangents of the impulse and the wrench (and, on the main path, of
+    the impulse alone, as velocity control gives it: no wrench cotangent):
+    dx, dv within ROW_TOL, the 14 body floats within BODY_TOL of their
+    group's largest |value|; MIXED_REPEATS calls bit-identical."""
     import torch
     from softmac_tpu_torch.ops import contact, m33
     cfg, st = inp["cfg"], inp["state"]
     x, v, n = st.x, st.v, st.x.shape[1]
     gen = torch.Generator(device=x.device).manual_seed(0)
-    groups = {"dx": None, "dv": None, "body_pos": (0, 3),
-              "body_quat": (3, 7), "body_v": (7, 10), "body_w": (10, 13),
-              "friction": (13, 14)}
+    groups = {"dx": 5, "dv": 6, "body_pos": 0, "body_quat": 1, "body_v": 2,
+              "body_w": 3, "friction": 4}
     worst = {k: (0.0, 0.0) for k in groups}
     ms = plain_ms = 0.0
-    nbytes = 0
+    nbytes = flops = 0
+    by_set = []
     for b, (prim, bp, bq, bv, bw, fr) in enumerate(inp["contacts"]):
-        prim64 = prim.replace(neighborhood=prim.neighborhood.double(),
-                              lower=prim.lower.double(),
-                              upper=prim.upper.double(),
-                              inv_dx=prim.inv_dx.double())
+        prim64 = _prim64(prim)
         x_box = box_particles(prim, bp, bq, n, gen)
         for xs, label in ((x, "main path"), (x_box, "SDF box")):
             cargs = (prim, bp, bq, bv, bw, fr, xs, v, cfg.dt, cfg.p_mass)
             cargs64 = (prim64,) + tuple(map(_f64, cargs[1:8])) + cargs[8:]
-            dimp = normal(3, n)
-            got = contact.collide_particle_bwd(*cargs, dimp)
-            want = contact.collide_particle_vjp_plain(*cargs64, dimp.double())
-            got = (torch.cat([g.reshape(-1) for g in got[:5]]),) + got[5:]
-            want = (torch.cat([w.reshape(-1) for w in want[:5]]),) + want[5:]
-            for name, sl in groups.items():
-                if sl is None:
-                    g, w = got[1 + (name == "dv")], want[1 + (name == "dv")]
-                else:
-                    g, w = got[0][sl[0]:sl[1]], want[0][sl[0]:sl[1]]
-                (err, rel), = _errors((g,), (w,), (name,)).values()
-                worst[name] = max(worst[name], (rel, err))
+            dimp, dwr = normal(3, n), normal(6)
+            cases = [(dimp, dwr)] + ([(dimp, None)]
+                                     if label == "main path" else [])
+            for gi, gw in cases:
+                outs = [contact.collide_particle_bwd(*cargs, gi, gw)
+                        for _ in range(MIXED_REPEATS)]
+                got = outs[0]
+                if not all(all(torch.equal(a, c) for a, c in zip(o, got))
+                           for o in outs[1:]):
+                    raise AssertionError(f"collide_particle_bwd ({label}, "
+                                         f"body {b}): repeated calls differ")
+                want = contact.collide_particle_wrench_vjp_plain(
+                    *cargs64, gi.double(), None if gw is None
+                    else gw.double())
+                for name, i in groups.items():
+                    (err, rel), = _errors((got[i],), (want[i],),
+                                          (name,)).values()
+                    worst[name] = max(worst[name], (rel, err))
             contacts = int(contact.collide_particle_plain(*cargs)[1].sum())
+            band, _ = band_counts(prim64, (_f64(bp), _f64(bq)), xs,
+                                  contact.MIXED_BWD_TILE)
             print(f"collide_particle_bwd body {b} {label}: contacts "
-                  f"{contacts}, worst rel err so far " + json.dumps(
-                      {k: w[0] for k, w in worst.items()}), flush=True)
+                  f"{contacts}, band {band}, worst rel err so far "
+                  + json.dumps({k: w[0] for k, w in worst.items()}),
+                  flush=True)
             if label == "SDF box" and contacts < MIN_BOX_CONTACTS:
                 raise AssertionError(f"collide_particle_bwd: only {contacts} "
                                      f"contacts in body {b}'s SDF box")
-        cargs = (prim, bp, bq, bv, bw, fr, x, v, cfg.dt, cfg.p_mass)
-        dimp = normal(3, n)
-        ms += cuda_time_ms(lambda: contact.collide_particle_bwd(*cargs, dimp))
-        device_ms("collide_particle_bwd",
-                  lambda: contact.collide_particle_bwd(*cargs, dimp))
-        plain_ms += cuda_time_ms(
-            lambda: contact.collide_particle_vjp_plain(*cargs, dimp))
-        qinv = m33.qnorm(m33.qconj(tuple(bq)))
-        p_loc = m33.qrot(qinv, m33.vsub(tuple(x), tuple(bp)))
-        rows = torch.unique(contact.cell_index(prim, p_loc)[0]).numel()
-        nbytes += 15 * n * 4 + rows * 128 + 14 * 4 + 14 * (-(-n // 256)) * 4
+            main = label == "main path"
+            t = cuda_time_ms(
+                lambda: contact.collide_particle_bwd(*cargs, dimp, dwr))
+            dev = device_ms(
+                "collide_particle_bwd" if main
+                else f"collide_particle_bwd {b} {label}",
+                lambda: contact.collide_particle_bwd(*cargs, dimp, dwr))
+            by_set.append({"body": b, "particles": label, "ms": t,
+                           "device_ms": dev, "band": band})
+            if not main:
+                continue
+            ms += t
+            plain_ms += cuda_time_ms(
+                lambda: contact.collide_particle_wrench_vjp_plain(
+                    *cargs, dimp, dwr))
+            qinv = m33.qnorm(m33.qconj(tuple(bq)))
+            p_loc = m33.qrot(qinv, m33.vsub(tuple(x), tuple(bp)))
+            rows = torch.unique(contact.cell_index(prim, p_loc)[0]).numel()
+            # in: x, the rows, 14 body floats, the wrench cotangent, and v
+            # and the impulse cotangent of the band only (dx = dv = 0 out of
+            # it); out: dx, dv, the 14 body cotangents
+            nbytes += ((9 * n + 6 * band) * 4 + rows * 128 + 14 * 4 + 6 * 4
+                       + 14 * 4)
+            flops += n * MIXED_CLASSIFY_FLOPS + band * FLOPS_PER_PARTICLE[
+                "collide_particle_bwd"]
     for name, (rel, _) in worst.items():
-        tol = ROW_TOL if groups[name] is None else BODY_TOL
+        tol = ROW_TOL if name in ("dx", "dv") else BODY_TOL
         if not rel <= tol:
             raise AssertionError(f"collide_particle_bwd: {name} relative "
                                  f"error {rel} > {tol}")
     e = kernel_entry(
         n, "collide_particle_bwd", "softmac_tpu_torch/ops/csrc/contact_bwd.cu",
         "softmac_tpu/ops/pallas_contact.py:401 (_make_particle_bwd_kernel, "
-        "launched from _particle_factory's _bwd :749)",
-        max(w[1] for w in worst.values()),
-        max(worst["dx"][0], worst["dv"][0]), ms, plain_ms, nbytes, ROW_TOL)
+        "launched from _particle_factory's _bwd :749, with the vjp of the "
+        "wrench tail _tail_particle :693)",
+        max(worst["dx"][1], worst["dv"][1]),
+        max(worst["dx"][0], worst["dv"][0]), ms, plain_ms, nbytes, ROW_TOL,
+        flops=flops)
     e["rel_err_by_output"] = {k: w[0] for k, w in worst.items()}
-    e["tolerance_by_output"] = {k: ROW_TOL if sl is None else BODY_TOL
-                                for k, sl in groups.items()}
+    e["tolerance_by_output"] = {k: ROW_TOL if k in ("dx", "dv") else BODY_TOL
+                                for k in groups}
     e["rel_err_is"] = ("max |kernel - plain| / max |plain| of the dx and dv "
-                       "rows over both bodies and both particle sets; the "
-                       "body groups in rel_err_by_output; times and bytes "
-                       "(main path's particles) summed over glass + bowl")
+                       "rows over both bodies and both particle sets (and "
+                       "the impulse's cotangent alone on the main path); "
+                       "the body groups in rel_err_by_output; times and "
+                       "bytes (main path's particles, both cotangents) "
+                       "summed over glass + bowl")
+    e["plain_is"] = "collide_particle_wrench_vjp_plain in float32"
+    e["repeats_bit_identical"] = MIXED_REPEATS
+    e["by_particle_set"] = by_set
     e["per_substep"] = len(inp["contacts"])
     return e
 
@@ -2001,6 +2111,24 @@ def run_profile(env, acts, grad=False):
             "top_kernels": [{"name": k[:90], "ms_per_substep": t / 1e3 / n_sub,
                              "calls_per_substep": c / n_sub}
                             for k, (t, c) in top]}
+
+
+def penalty_launches(prof, env, steps):
+    """The penalty contact's device kernels a substep in a pour_vel
+    profile (run_profile over ``steps`` env steps, remat "none" for a
+    gradient), by name, held to exactly one launch a body a substep
+    forward and, for a gradient, one backward a body a substep of every
+    env step but the first (which autograd does not record)."""
+    got = {k: sum(v["launches_per_substep"]
+                  for name, v in prof["port_kernels"].items()
+                  if k + "(" in name) for k in PENALTY_KERNELS}
+    want = {PENALTY_KERNELS[0]: env.n_primitives,
+            PENALTY_KERNELS[1]: (env.n_primitives * (steps - 1) / steps
+                                 if prof["grad"] else 0)}
+    if any(abs(got[k] - want[k]) > 1e-9 for k in PENALTY_KERNELS):
+        raise AssertionError(f"penalty contact launches a substep {got}, "
+                             f"expected {want}")
+    return got
 
 
 def kernel_origin(env, acts, pattern):
@@ -3349,11 +3477,23 @@ def main():
     rows_ptxas = {k + ".cu": [f for f in ptxas.get(k + ".cu", [])
                               if "round_to_float" not in f["function"]]
                   for k in ROW_KERNELS}
+    contact_ptxas = {k: [f for f in ptxas.get(k, [])
+                         if "round_to_float" not in f["function"]]
+                     for k in PENALTY_SOURCES}
     emit("build", {"seconds": secs, "library": so.name,
-                   "row_kernels": rows_ptxas, "ptxas": ptxas})
+                   "row_kernels": rows_ptxas,
+                   "penalty_contact_kernels": contact_ptxas, "ptxas": ptxas})
+    for k, fns in contact_ptxas.items():
+        print(f"{k} ptxas: " + ", ".join(
+            f"registers {f['registers']}, spill stores {f['spill_stores']}"
+            for f in fns), flush=True)
     if log and not all(fns and all(f["spill_stores"] == 0 for f in fns)
                        for fns in rows_ptxas.values()):
         raise AssertionError(f"row-thread kernels: ptxas {rows_ptxas}")
+    if log and not all(fns and all(f["spill_stores"] == 0 for f in fns)
+                       for fns in contact_ptxas.values()):
+        raise AssertionError(f"penalty contact kernels: ptxas "
+                             f"{contact_ptxas}")
 
     env = SoftMacEnv(pour_vel_cfg(WINDOW),
                      init_particles=tiled_pour_particles(N_MAIN))
@@ -3443,12 +3583,17 @@ def main():
     emit("pour_split", split_res)
     emit("pour_grad", pour_grad_res)
     emit("pour_split_grad", split_grad_res)
-    emit("profile", run_profile(env, actions(20, seed=3)))
+    profile = run_profile(env, actions(20, seed=3))
+    profile["penalty_contact_launches"] = penalty_launches(profile, env, 20)
+    emit("profile", profile)
     profile_pour = run_profile(pour_env, np.zeros((20, pour_env.action_dim)))
     profile_pour["rigid_step_launches_per_env_step"] = rigid_step_launches(
         pour_env)
     emit("profile_pour", profile_pour)
-    emit("profile_grad", run_profile(env, actions(10, seed=3), grad=True))
+    profile_grad = run_profile(env, actions(10, seed=3), grad=True)
+    profile_grad["penalty_contact_launches"] = penalty_launches(
+        profile_grad, env, 10)
+    emit("profile_grad", profile_grad)
     emit("profile_pour_grad", run_profile(
         pour_env, np.zeros((10, pour_env.action_dim)), grad=True))
     emit("parity", run_parity())

@@ -38,8 +38,8 @@ PER = r"constexpr int (kMixedPer|kMixedBwdPer) = \d+;"
 # each phase's end in contact_mixed.cuh's mixed_tiled, and whether the
 # copy returns after it (else before it)
 STOPS = {
-    "classify": ("      if (!band[j]) mixed_out_of_band<K>(a, p0 + q, "
-                 "keep[j]);\n    }\n  }\n", True),
+    "classify": ("      if (!band[j]) Op::out_of_band(a, p0 + q, keep[j]);"
+                 "\n    }\n  }\n", True),
     "compact": ("  for (int c = warp; c < chunks; c += kMixedWarps) "
                 "mixed_place(&sh, c, lane);\n  __syncthreads();\n", True),
     "full_math": ("  mixed_warp_trees<K>(acc, &sh);\n  __syncthreads();\n"
@@ -223,7 +223,7 @@ def copy_calls(contact, lib2, cargs, gout, gwrench, tile=None,
     calls)."""
     import torch
     prim, body, x = cargs[0], cargs[1:8], cargs[8]
-    call = contact._mixed_call("variant", prim, body, x, cargs[9])
+    call = contact._tiled_call("collide_mixed", prim, body, x, cargs[9])
     ptrs, n, _ = call
     tile = tile or contact.MIXED_TILE
     bwd_tile = bwd_tile or contact.MIXED_BWD_TILE

@@ -7,13 +7,15 @@ The three models of the reference: grid contact (``collide_grid``,
 from ``ops.contact`` (CUDA kernels on the card, plain PyTorch on the CPU);
 grid contact is plain PyTorch on both devices, as the JAX package leaves it
 to XLA. The 6-DoF wrench on the body (force, torque about the body
-origin) is, for grid and particle contact, a masked sum here
-(``ops.contact.wrench_plain``). For mixed contact ``ops.contact``'s
-``collide_mixed`` returns it: summed on the card by the tiled kernel,
-by ``collide_mixed_wrench_plain`` on the CPU, and by ``wrench_plain``
-over the split kernels' forces under ``SOFTMAC_TPU_CONTACT_SPLIT``. The
-SDF sample, ``collider_velocity`` and the contact threshold live beside
-the kernels in ``ops.contact``.
+origin) is, for grid contact, a masked sum here
+(``ops.contact.wrench_plain``). For particle and mixed contact
+``ops.contact``'s ``collide_particle`` and ``collide_mixed`` return it:
+summed on the card by the tiled kernels, by
+``collide_particle_wrench_plain`` and ``collide_mixed_wrench_plain`` on
+the CPU, and for mixed contact by ``wrench_plain`` over the split kernels'
+forces under ``SOFTMAC_TPU_CONTACT_SPLIT``. The SDF sample,
+``collider_velocity`` and the contact threshold live beside the kernels in
+``ops.contact``.
 """
 from __future__ import annotations
 
@@ -30,12 +32,9 @@ def collide_particle(prim, body_pos, body_quat, body_v, body_w, friction,
 
     The friction impulse is Coulomb-clamped so it can stop relative sliding
     but never reverse it (see the JAX package's docstring)."""
-    imp, mask = contact_ops.collide_particle(
+    return contact_ops.collide_particle(
         prim, body_pos, body_quat, body_v, body_w, friction, x, p_v, dt,
         p_mass)
-    b_f = (imp[0] * (-1.0 / dt), imp[1] * (-1.0 / dt), imp[2] * (-1.0 / dt))
-    r = m33.vsub((x[0], x[1], x[2]), (body_pos[0], body_pos[1], body_pos[2]))
-    return imp, contact_ops.wrench_plain(b_f, r, mask)
 
 
 def _length(v, eps=1e-8):

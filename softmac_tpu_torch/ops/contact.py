@@ -1,12 +1,14 @@
 """Particle contact against SDF primitives: the CUDA kernels and their plain
 PyTorch versions.
 
-Penalty contact: counterpart of the particle-contact kernel of
-``softmac_tpu/ops/pallas_contact.py`` (``_particle_math`` behind
-``_particle_factory``), including the stencil-row gather the JAX package
-leaves to XLA. Both versions return the masked impulse (3, N) and the
-contact mask (N,); the wrench reduction is done by the caller
-(``engine.contact.collide_particle``).
+Penalty contact (``collide_particle``): counterpart of the
+particle-contact kernel of ``softmac_tpu/ops/pallas_contact.py``
+(``_particle_math`` behind ``_particle_factory``), including the
+stencil-row gather the JAX package leaves to XLA, with the wrench tail
+``_tail_particle`` of its custom_vjp: it returns the masked impulse (3, N)
+and the reaction wrench (6,). Its plain version is
+``collide_particle_wrench_plain`` (``collide_particle_plain``, which
+returns the impulse and the contact mask, then the wrench's reduction).
 
 Forecast mixed contact (``collide_mixed``, further below): counterpart of
 the merged kernel ``_make_mixed12_kernel`` (``_mixed12_math``) with the
@@ -22,12 +24,14 @@ lives here, beside the kernel it stands for, as ``_cell_index`` and
 of the engine.
 
 ``collide_particle`` dispatches on the device of the particles: the CPU runs
-the plain version, CUDA launches the kernel (and counts the launch),
-anything else raises. Under autograd it goes through ``CollideParticle``
-(the custom_vjp of ``pallas_contact._particle_factory``): cotangents reach
-x, v and the 14 body floats (position, quaternion, velocity, angular
-velocity, friction); the backward launches ``collide_particle_bwd`` on
-CUDA and runs ``collide_particle_vjp_plain`` on the CPU. ``collide_mixed``
+the plain version, CUDA launches the tiled kernel (one launch: the
+contact, the wrench and its reduction; the launch counted), anything else
+raises. Under autograd it goes through ``CollideParticle`` (the
+custom_vjp of ``pallas_contact._particle_factory``): cotangents of the
+impulse and the wrench reach x, v and the 14 body floats (position,
+quaternion, velocity, angular velocity, friction); the backward launches
+``collide_particle_bwd`` on CUDA and runs
+``collide_particle_wrench_vjp_plain`` on the CPU. ``collide_mixed``
 returns (p_v_out, wrench) and does the same through ``CollideMixed`` (the
 tiled kernels with the wrench folded in, ``collide_mixed_bwd`` /
 ``collide_mixed_wrench_vjp_plain``) or, under the split switch,
@@ -48,9 +52,13 @@ from softmac_tpu_torch.ops import build, m33
 BIG = 1e10
 CONTACT_THRESHOLD = 5e-3
 K1 = 50.0
-MIXED_TILE = 512        # particles a block of the tiled mixed contact
-MIXED_BWD_TILE = 1024   # and of its backward (contact_mixed.cuh's tiles)
+MIXED_TILE = 512        # particles a block of the tiled forwards (mixed
+MIXED_BWD_TILE = 1024   # and penalty) and backwards: contact_mixed.cuh's
 _DONE = {}              # the tiled kernels' block counter of each stream
+# the numels of each tiled family's body tensors: bp, bq, bv, bw, friction
+# and, for the mixed contact, softness and life
+_TILED_BODY = {"collide_particle": (3, 4, 3, 3, 1),
+               "collide_mixed": (3, 4, 3, 3, 1, 1, 1)}
 
 
 def _in_box(prim, p):
@@ -155,106 +163,100 @@ def collide_particle_plain(prim, body_pos, body_quat, body_v, body_w,
     return torch.stack([torch.where(mask, i, 0.0) for i in imp]), mask
 
 
-def collide_particle_vjp_plain(prim, body_pos, body_quat, body_v, body_w,
-                               friction, x, v, dt, p_mass, dimp):
+def collide_particle_wrench_plain(prim, body_pos, body_quat, body_v, body_w,
+                                  friction, x, v, dt, p_mass):
+    """The plain version of the tiled kernel: ``collide_particle_plain``
+    followed by the wrench tail (``pallas_contact._tail_particle``).
+    Returns (impulse (3, N), wrench (6,): the force b_f = -imp / dt and its
+    torque about body_pos, summed over the particles in contact), the
+    outputs of ``contact._collide_particle_xla``."""
+    imp, mask = collide_particle_plain(prim, body_pos, body_quat, body_v,
+                                       body_w, friction, x, v, dt, p_mass)
+    b_f = (imp[0] * (-1.0 / dt), imp[1] * (-1.0 / dt), imp[2] * (-1.0 / dt))
+    r = m33.vsub((x[0], x[1], x[2]), (body_pos[0], body_pos[1], body_pos[2]))
+    return imp, wrench_plain(b_f, r, mask)
+
+
+def collide_particle_wrench_vjp_plain(prim, body_pos, body_quat, body_v,
+                                      body_w, friction, x, v, dt, p_mass,
+                                      dimp, dwrench):
     """Cotangents (d body_pos, d body_quat, d body_v, d body_w, d friction,
-    dx, dv) of ``collide_particle_plain``'s impulse for the cotangent dimp
-    (3, N): autograd of the plain version, recomputed."""
+    dx, dv) of ``collide_particle_wrench_plain``'s impulse and wrench for
+    the cotangents dimp (3, N) and dwrench (6,), either None for zero:
+    autograd of the plain version, recomputed."""
     with torch.enable_grad():
         ins = tuple(t.detach().requires_grad_() for t in
                     (body_pos, body_quat, body_v, body_w, friction, x, v))
-        imp, _ = collide_particle_plain(prim, *ins, dt, p_mass)
-        return torch.autograd.grad(imp, ins, dimp)
-
-
-def _body_floats(body_pos, body_quat, body_v, body_w, friction):
-    return torch.cat([body_pos, body_quat, body_v, body_w,
-                      friction.reshape(1)]).contiguous()
-
-
-def _check_cuda(name, prim, tensors, n):
-    table = prim.neighborhood
-    for t in tensors + (table,):
-        if t.device != tensors[0].device or t.dtype != torch.float32:
-            raise TypeError(f"{name}: CUDA kernel takes float32 tensors on "
-                            f"one device, got {t.dtype} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-    if (any(t.shape != (3, n) for t in tensors[:-1])
-            or tensors[-1].shape != (14,)
-            or table.shape != (prim.res[0] * prim.res[1] * prim.res[2], 32)
-            or table.data_ptr() % 16):
-        raise ValueError(f"{name}: bad shapes or table alignment")
+        out = collide_particle_wrench_plain(prim, *ins, dt, p_mass)
+        pairs = [(o, g) for o, g in zip(out, (dimp, dwrench))
+                 if g is not None] or [(out[0], torch.zeros_like(out[0]))]
+        outs, gs = zip(*pairs)
+        return torch.autograd.grad(outs, ins, gs)
 
 
 def _collide_particle(prim, body_pos, body_quat, body_v, body_w, friction,
                       x, v, dt, p_mass):
+    """The penalty contact with its wrench; see
+    ``collide_particle_wrench_plain``. CUDA tensors launch the tiled
+    kernel."""
+    args = (body_pos, body_quat, body_v, body_w, friction)
     if build.on_cpu(x, "collide_particle"):
-        return collide_particle_plain(prim, body_pos, body_quat, body_v,
-                                      body_w, friction, x, v, dt, p_mass)
-    n = x.shape[1]
-    body = _body_floats(body_pos, body_quat, body_v, body_w, friction)
-    _check_cuda("collide_particle", prim, (x, v, body), n)
-    imp = torch.empty((3, n), dtype=x.dtype, device=x.device)
-    mask = torch.empty((n,), dtype=torch.bool, device=x.device)
-    rc = build.library().softmac_collide_particle(
-        x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
-        body.data_ptr(), imp.data_ptr(), mask.data_ptr(), n, *prim.res,
-        *prim.geom, float(dt), float(p_mass),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "collide_particle")
-    collide_particle.launches += 1
-    return imp, mask
+        return collide_particle_wrench_plain(prim, *args, x, v, dt, p_mass)
+    return _tiled_launch(collide_particle,
+                         _tiled_call("collide_particle", prim, args, x, v),
+                         prim, x, dt, p_mass)
 
 
 def collide_particle_bwd(prim, body_pos, body_quat, body_v, body_w, friction,
-                         x, v, dt, p_mass, dimp):
-    """The contact backward kernel: the cotangents
-    ``collide_particle_vjp_plain`` returns, on CUDA float32 tensors. The
-    body cotangent is summed in a fixed order (per-block partials, then
-    ``torch.sum``), so it is the same on every run."""
-    n = x.shape[1]
-    body = _body_floats(body_pos, body_quat, body_v, body_w, friction)
-    _check_cuda("collide_particle_bwd", prim, (x, v, dimp, body), n)
-    blocks = -(-n // 256)     # the kernel's block count (kThreads = 256)
-    dx = torch.empty((3, n), dtype=x.dtype, device=x.device)
-    dv = torch.empty((3, n), dtype=x.dtype, device=x.device)
-    part = torch.empty((14, blocks), dtype=x.dtype, device=x.device)
-    rc = build.library().softmac_collide_particle_bwd(
-        x.data_ptr(), v.data_ptr(), prim.neighborhood.data_ptr(),
-        body.data_ptr(), dimp.data_ptr(), dx.data_ptr(), dv.data_ptr(),
-        part.data_ptr(), n, *prim.res, *prim.geom, float(dt), float(p_mass),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "collide_particle_bwd")
-    collide_particle_bwd.launches += 1
-    db = part.sum(dim=1, dtype=torch.float64).to(x.dtype)
-    return (db[0:3], db[3:7], db[7:10], db[10:13], db[13].reshape(()),
-            dx, dv)
+                         x, v, dt, p_mass, dimp, dwrench):
+    """The tiled penalty backward kernel: the cotangents
+    ``collide_particle_wrench_vjp_plain`` returns for the cotangents dimp
+    (3, N) of the impulse and dwrench (6,) of the wrench (either None for
+    zero), on CUDA float32 tensors, in one launch. The body cotangents are
+    summed in a fixed order on the card (block partials, then the last
+    block over them), so they are the same on every run."""
+    args = (body_pos, body_quat, body_v, body_w, friction)
+    call = _tiled_call("collide_particle_bwd", prim, args, x, v)
+    return _tiled_bwd_launch(collide_particle_bwd, call, prim, x, dt, p_mass,
+                             (), dimp, dwrench)
 
 
 class CollideParticle(torch.autograd.Function):
-    """Particle contact with its backward kernel
-    (``pallas_contact._particle_factory``'s custom_vjp). Outputs the impulse
-    (3, N) and the contact mask (N,), which is not differentiable."""
+    """Penalty contact with its wrench and its backward kernel
+    (``pallas_contact._particle_factory``'s custom_vjp, whose outputs are
+    (impulse, wrench)). Outputs the impulse (3, N) and the wrench (6,):
+    force and torque about body_pos over the particles in contact.
+    Cotangents of either output (a missing one is zero, with no fill
+    launch) reach the body tensors, x and v; the SDF table gets none. On
+    CUDA the forward and the backward are one launch each, the launch's
+    checks made in the forward only; on the CPU they are
+    ``collide_particle_wrench_plain`` and its plain vjp."""
 
     @staticmethod
     def forward(ctx, prim, body_pos, body_quat, body_v, body_w, friction, x,
                 v, dt, p_mass):
-        imp, mask = _collide_particle(prim, body_pos, body_quat, body_v,
-                                      body_w, friction, x, v, dt, p_mass)
-        ctx.mark_non_differentiable(mask)
+        out = _collide_particle(prim, body_pos, body_quat, body_v, body_w,
+                                friction, x, v, dt, p_mass)
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(body_pos, body_quat, body_v, body_w, friction,
                               x, v)
         ctx.prim, ctx.dt, ctx.p_mass = prim, dt, p_mass
-        return imp, mask
+        return out
 
     @staticmethod
-    def backward(ctx, dimp, _dmask):
+    def backward(ctx, dimp, dwrench):
         saved = ctx.saved_tensors
-        vjp = (collide_particle_vjp_plain
-               if build.on_cpu(saved[5], "collide_particle")
-               else collide_particle_bwd)
-        grads = vjp(ctx.prim, *saved, ctx.dt, ctx.p_mass, dimp.contiguous())
+        x, v = saved[5], saved[6]
+        rest = (ctx.dt, ctx.p_mass,
+                None if dimp is None else dimp.contiguous(),
+                None if dwrench is None else dwrench.contiguous())
+        if build.on_cpu(x, "collide_particle"):
+            grads = collide_particle_wrench_vjp_plain(ctx.prim, *saved, *rest)
+        else:
+            call = _tiled_call("collide_particle_bwd", ctx.prim, saved[:5], x,
+                               v, check=False)
+            grads = _tiled_bwd_launch(collide_particle_bwd, call, ctx.prim,
+                                      x, ctx.dt, ctx.p_mass, (), *rest[2:])
         return ((None,) + tuple(g if need else None for g, need in
                                 zip(grads, ctx.needs_input_grad[1:8]))
                 + (None, None))
@@ -262,10 +264,11 @@ class CollideParticle(torch.autograd.Function):
 
 def collide_particle(prim, body_pos, body_quat, body_v, body_w, friction,
                      x, v, dt, p_mass):
-    """Penalty contact impulse and mask; see ``collide_particle_plain``.
-    body_pos/v/w (3,), body_quat (4,) wxyz and friction () are tensors on
-    the particles' device. CUDA tensors launch the kernel; under autograd
-    the backward launches ``collide_particle_bwd``."""
+    """Penalty contact impulse and its wrench on the body; see
+    ``collide_particle_wrench_plain``. Returns (impulse (3, N), wrench
+    (6,)). body_pos/v/w (3,), body_quat (4,) wxyz and friction () are
+    tensors on the particles' device. CUDA tensors launch the tiled kernel;
+    under autograd the backward launches ``collide_particle_bwd``."""
     args = (body_pos, body_quat, body_v, body_w, friction, x, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return CollideParticle.apply(prim, *args, dt, p_mass)
@@ -534,15 +537,17 @@ def _mixed_outputs(x):
             torch.empty((n,), dtype=torch.bool, device=x.device))
 
 
-def _mixed_call(name, prim, args, x, v, check=True):
-    """The pointers of a tiled mixed-contact launch: (pointers of x, v, the
-    table and the seven body tensors, N, the body tensors made contiguous
-    (no copy where they are), which must outlive the launch). With
-    ``check`` it checks what the kernels take: float32 tensors on x's
-    device, x and v contiguous (3, N), body tensors of 3, 4, 3, 3, 1, 1
-    and 1 floats, the table 16-byte aligned. ``CollideMixed`` checks in
-    its forward only, and takes the pointers again in its backward from
-    the saved tensors (a checkpoint may have recomputed them)."""
+def _tiled_call(name, prim, args, x, v, check=True):
+    """The pointers of a launch of the tiled kernel ``name`` (its C entry
+    point without ``softmac_``): (pointers of x, v, the table and the body
+    tensors (seven mixed, five penalty), N, the body tensors made
+    contiguous (no copy where they are), which must outlive the launch).
+    With ``check`` it checks what the kernel takes: float32 tensors on x's
+    device, x and v contiguous (3, N), the body tensors of its family
+    (``_TILED_BODY``), the table 16-byte aligned.
+    ``CollideMixed`` and ``CollideParticle`` check in their forward only,
+    and take the pointers again in their backward from the saved tensors
+    (a checkpoint may have recomputed them)."""
     table = prim.neighborhood
     body = tuple(t.contiguous() for t in args)
     n = x.shape[1]
@@ -557,7 +562,8 @@ def _mixed_call(name, prim, args, x, v, check=True):
     res = prim.res
     if (x.shape != (3, n) or v.shape != (3, n) or not x.is_contiguous()
             or not v.is_contiguous() or not table.is_contiguous()
-            or tuple(t.numel() for t in body) != (3, 4, 3, 3, 1, 1, 1)
+            or tuple(t.numel() for t in body)
+            != _TILED_BODY[name.removesuffix("_bwd")]
             or table.shape != (res[0] * res[1] * res[2], 32)
             or table.data_ptr() % 16):
         raise ValueError(f"{name}: bad shapes, strides or table alignment")
@@ -576,23 +582,24 @@ def _done(x):
     return _DONE[key].data_ptr(), stream
 
 
-def _mixed_launch(call, prim, x, dt, p_mass, push_cap):
-    """One launch of the tiled forward on a checked call: (p_v_out (3, N),
-    wrench (6,))."""
+def _tiled_launch(fn, call, prim, x, dt, p_mass, *extra):
+    """One launch of the tiled forward of ``fn`` (``collide_particle`` or
+    ``collide_mixed``, whose count it raises) on a checked call: (the
+    impulse or p_v_out (3, N), wrench (6,)). ``extra``: the C entry's
+    arguments after p_mass (the mixed contact's push cap)."""
     ptrs, n, _ = call
-    p_v_out = torch.empty((3, n), dtype=x.dtype, device=x.device)
-    wrench = torch.zeros((6,), dtype=x.dtype, device=x.device) if n == 0 \
-        else torch.empty((6,), dtype=x.dtype, device=x.device)
+    out = torch.empty((3, n), dtype=x.dtype, device=x.device)
+    wrench = (torch.zeros if n == 0 else torch.empty)(
+        (6,), dtype=x.dtype, device=x.device)
     partial = torch.empty((6, -(-n // MIXED_TILE)), dtype=torch.float64,
                           device=x.device)
     done, stream = _done(x)
-    rc = build.library().softmac_collide_mixed(
-        *ptrs, p_v_out.data_ptr(), wrench.data_ptr(), partial.data_ptr(),
-        done, n, *prim.res, *prim.geom, float(dt), float(p_mass),
-        _cap(push_cap), stream)
-    build.check(rc, "collide_mixed")
-    collide_mixed.launches += 1
-    return p_v_out, wrench
+    rc = getattr(build.library(), f"softmac_{fn.__name__}")(
+        *ptrs, out.data_ptr(), wrench.data_ptr(), partial.data_ptr(), done,
+        n, *prim.res, *prim.geom, float(dt), float(p_mass), *extra, stream)
+    build.check(rc, fn.__name__)
+    fn.launches += 1
+    return out, wrench
 
 
 def _collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
@@ -604,8 +611,9 @@ def _collide_mixed(prim, body_pos, body_quat, body_v, body_w, friction,
     if build.on_cpu(x, "collide_mixed"):
         return collide_mixed_wrench_plain(prim, *args, x, v, dt, p_mass,
                                           push_cap)
-    return _mixed_launch(_mixed_call("collide_mixed", prim, args, x, v), prim,
-                         x, dt, p_mass, push_cap)
+    return _tiled_launch(collide_mixed,
+                         _tiled_call("collide_mixed", prim, args, x, v), prim,
+                         x, dt, p_mass, _cap(push_cap))
 
 
 def _collide_mixed_split(prim, args, x, v, dt, p_mass, push_cap):
@@ -670,31 +678,45 @@ def _part(x, n):
     return torch.empty((16, blocks), dtype=torch.float64, device=x.device)
 
 
-def _mixed_bwd_launch(call, prim, x, dt, p_mass, push_cap, gout, gwrench):
-    """One launch of the tiled backward on a checked call (cotangents
-    checked here): the seven body cotangents (views of one float32 (16,)
-    tensor), dx and dv."""
-    ptrs, n, _ = call
-    _check_cotangents("collide_mixed_bwd", x, gout)
-    if (gwrench.shape != (6,) or gwrench.dtype != x.dtype
+def _tiled_bwd_launch(fn, call, prim, x, dt, p_mass, extra, gout, gwrench):
+    """One launch of the tiled backward ``fn`` (``collide_particle_bwd`` or
+    ``collide_mixed_bwd``, whose count it raises) on a checked call, for
+    the cotangents gout (3, N) of the forward's first output and gwrench
+    (6,) of the wrench, checked here. The penalty kernel reads a None
+    cotangent (a null pointer) as zero; the mixed one takes both. Returns
+    the body cotangents (views of one float32 tensor, each of its body
+    tensor's shape), dx and dv. ``extra`` as for ``_tiled_launch``."""
+    ptrs, n, body = call
+    name = fn.__name__
+    if (gout is None or gwrench is None) and name != "collide_particle_bwd":
+        raise ValueError(f"{name}: takes both cotangents")
+    if gout is not None:
+        _check_cotangents(name, x, gout)
+    if gwrench is not None and (
+            gwrench.shape != (6,) or gwrench.dtype != x.dtype
             or gwrench.device != x.device or not gwrench.is_contiguous()):
-        raise ValueError("collide_mixed_bwd: the wrench cotangent must be a "
+        raise ValueError(f"{name}: the wrench cotangent must be a "
                          "contiguous (6,) tensor like x")
+    k = sum(t.numel() for t in body)
     dx = torch.empty_like(x)
     dv = torch.empty_like(x)
-    db = torch.zeros((16,), dtype=x.dtype, device=x.device) if n == 0 \
-        else torch.empty((16,), dtype=x.dtype, device=x.device)
-    partial = torch.empty((16, -(-n // MIXED_BWD_TILE)), dtype=torch.float64,
+    db = (torch.zeros if n == 0 else torch.empty)(
+        (k,), dtype=x.dtype, device=x.device)
+    partial = torch.empty((k, -(-n // MIXED_BWD_TILE)), dtype=torch.float64,
                           device=x.device)
     done, stream = _done(x)
-    rc = build.library().softmac_collide_mixed_bwd(
-        *ptrs, gout.data_ptr(), gwrench.data_ptr(), dx.data_ptr(),
-        dv.data_ptr(), db.data_ptr(), partial.data_ptr(), done, n, *prim.res,
-        *prim.geom, float(dt), float(p_mass), _cap(push_cap), stream)
-    build.check(rc, "collide_mixed_bwd")
-    collide_mixed_bwd.launches += 1
-    return (db[0:3], db[3:7], db[7:10], db[10:13], db[13], db[14], db[15],
-            dx, dv)
+    rc = getattr(build.library(), f"softmac_{name}")(
+        *ptrs, None if gout is None else gout.data_ptr(),
+        None if gwrench is None else gwrench.data_ptr(), dx.data_ptr(),
+        dv.data_ptr(), db.data_ptr(), partial.data_ptr(), done, n,
+        *prim.res, *prim.geom, float(dt), float(p_mass), *extra, stream)
+    build.check(rc, name)
+    fn.launches += 1
+    grads, o = [], 0
+    for t in body:      # 0-d and 1-d tensors: one view each
+        grads.append(db[o] if t.dim() == 0 else db[o:o + t.numel()])
+        o += t.numel()
+    return (*grads, dx, dv)
 
 
 def collide_mixed_bwd(prim, body_pos, body_quat, body_v, body_w, friction,
@@ -707,9 +729,9 @@ def collide_mixed_bwd(prim, body_pos, body_quat, body_v, body_w, friction,
     card (block partials, then the last block over them), so they are the
     same on every run."""
     args = (body_pos, body_quat, body_v, body_w, friction, softness, life)
-    call = _mixed_call("collide_mixed_bwd", prim, args, x, v)
-    return _mixed_bwd_launch(call, prim, x, dt, p_mass, push_cap, gout,
-                             gwrench)
+    call = _tiled_call("collide_mixed_bwd", prim, args, x, v)
+    return _tiled_bwd_launch(collide_mixed_bwd, call, prim, x, dt, p_mass,
+                             (_cap(push_cap),), gout, gwrench)
 
 
 def collide_mixed2_bwd(prim, body_pos, body_quat, body_v, body_w, friction,
@@ -806,9 +828,11 @@ class CollideMixed(torch.autograd.Function):
         if build.on_cpu(x, "collide_mixed"):
             grads = collide_mixed_wrench_vjp_plain(ctx.prim, *saved, *rest)
         else:
-            call = _mixed_call("collide_mixed_bwd", ctx.prim, saved[:7], x, v,
+            call = _tiled_call("collide_mixed_bwd", ctx.prim, saved[:7], x, v,
                                check=False)
-            grads = _mixed_bwd_launch(call, ctx.prim, x, *rest)
+            grads = _tiled_bwd_launch(collide_mixed_bwd, call, ctx.prim, x,
+                                      ctx.dt, ctx.p_mass,
+                                      (_cap(ctx.push_cap),), *rest[3:])
         return ((None,) + tuple(g if need else None for g, need in
                                 zip(grads, ctx.needs_input_grad[1:10]))
                 + (None, None, None))

@@ -1,66 +1,86 @@
-// Penalty particle contact against one SDF primitive.
+// Penalty particle contact against one SDF primitive, with its reaction
+// wrench: the tiled kernel of contact_mixed.cuh with PenaltyFwdOp.
 //
 // Replaces: softmac_tpu/ops/pallas_contact.py _make_particle_kernel (the
 // kernel of _particle_factory, launched through _run_kernel) together with
-// the XLA row gather in front of it (pallas_contact.py:712-723). The math,
-// shared with the backward kernel, is contact.cuh contact_forward, here in
-// float.
-// The wrench sum over particles stays a PyTorch reduction in the caller,
-// as it is plain XLA in the JAX package.
+// the XLA row gather in front of it (pallas_contact.py:712-723) and the
+// wrench tail _tail_particle behind it (:693), which XLA fuses inside the
+// custom_vjp. The math is contact.cuh contact_forward, in double on the
+// float inputs: the backward kernel needs double (contact.cuh says why),
+// and one precision gives the forward and the backward one contact mask.
 //
-// What bounds it on the H100: bytes and latency of the table gather. A
-// particle reads 6 floats (x, v), one 128-byte stencil row at a
-// data-dependent address, and writes 3 floats + 1 byte. At 1e5 particles
-// that is at most 15.6 MB (12.8 MB of rows, fewer distinct rows because
-// neighbouring particles share cells), about 5 us at 3.35 TB/s; the ~150
-// flops a particle are far from the compute limit.
+// The kernel reads x, the SDF lane of each particle's stencil row and the
+// 14 body floats (bp, bq, bv, bw, friction, where the rollout keeps them),
+// and writes the impulse (3, n) and the wrench (6,): the force b_f =
+// -imp / dt and its torque about the body's position, summed over the
+// particles in contact (dist(x) - 5e-3 < 0) in double in a fixed order and
+// rounded once. Only the particles in the contact band read v and the
+// whole row and run the contact (60 of 1e5 against the glass and none
+// against the bowl on pour_vel's state after 10 env steps: chip_smoke.py
+// on an H100); the rest write a zero impulse.
 //
-// Simple design: one thread per particle. The row is read with eight
-// 16-byte vector loads through the read-only path; the y-sorted particle
-// order lets neighbouring threads share rows in L1/L2. Body state arrives
-// as 14 floats in device memory so that the rollout never waits on the host.
-#include "contact.cuh"
+// What bounds it on the H100. The least time is the bytes': every
+// particle reads x and writes its impulse (6 floats), a band particle
+// also reads v, and each stencil row the particles touch is read once
+// (128 bytes; out of the band only its SDF lane is used, in the same
+// lines): 2.4-2.8 MB a body at 1e5 particles on pour_vel's state
+// (chip_smoke.py), 0.7-0.8 us at 3.35 TB/s; the band's ~240 double
+// operations a particle are far from the compute limit. The first design
+// (one thread a particle, every particle's whole row and contact in
+// float, and ~20 PyTorch launches of the wrench tail behind it) spent its
+// time on the full contact of particles whose impulse is zero and on the
+// tail's elementwise passes. Here a launch is the tile skeleton's chain of
+// dependent round trips (the inputs, the rows, the band's own loads, the
+// fence and counter, the partials), with PER particles a thread staged so
+// that their loads are in flight together (contact_mixed.cuh,
+// kMixedPer: scripts/contact_phases.py measured 256 to 2048 particles a
+// block on an H100).
+#include "contact_mixed.cuh"
 
 namespace {
 
-__global__ void collide_particle_kernel(const float* __restrict__ x,
-                                        const float* __restrict__ v,
-                                        const float4* __restrict__ table,
-                                        const float* __restrict__ body,
-                                        float* __restrict__ imp,
-                                        uint8_t* __restrict__ mask_out,
-                                        int n, softmac::Geom g, float dt,
-                                        float p_mass) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const softmac::Body<float> b = softmac::load_body<float>(body);
-  const softmac::V3<float> xp = {x[p], x[n + p], x[2 * n + p]};
-  const softmac::V3<float> vp = {v[p], v[n + p], v[2 * n + p]};
-  const softmac::Contact<float> k =
-      softmac::contact_forward(b, xp, vp, table, g, dt, p_mass);
-  imp[p] = k.imp.x;
-  imp[n + p] = k.imp.y;
-  imp[2 * n + p] = k.imp.z;
-  mask_out[p] = k.mask ? 1 : 0;
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(softmac::kMixedThreads, 2)
+    collide_particle_kernel(softmac::MixedArgs a) {
+  softmac::mixed_tiled<softmac::PenaltyFwdOp, softmac::kMixedPer>(a);
+}
+#endif
+
+softmac::Geom geom(int res0, int res1, int res2, float lower0, float lower1,
+                   float lower2, float upper0, float upper1, float upper2,
+                   float inv_dx) {
+  return {{lower0, lower1, lower2}, {upper0, upper1, upper2}, inv_dx,
+          {res0, res1, res2}};
 }
 
 }  // namespace
 
-// x, v (3, n); table (cells, 32) f32, 16-byte aligned; body (14,) f32 on
-// the device; imp (3, n) and mask (n,) bool outputs. lower/upper/inv_dx/res
-// describe the table. Returns cudaGetLastError() after the launch.
+// x, v (3, n); table (cells, 32) f32, 16-byte aligned; the body tensors bp
+// (3), bq (4, wxyz), bv (3), bw (3) and friction (one float) on the
+// device. Writes imp (3, n), wrench (6,) f32 and partial (6, blocks) f64
+// scratch, blocks = ceil(n / (kMixedPer * kMixedThreads)); done is the
+// launch's finished-block counter, zero on entry and on return
+// (contact_mixed.cuh). lower/upper/inv_dx/res describe the table. Returns
+// cudaGetLastError() after the launch.
 extern "C" int softmac_collide_particle(
-    const float* x, const float* v, const float* table, const float* body,
-    float* imp, uint8_t* mask, int n, int res0, int res1, int res2,
-    float lower0, float lower1, float lower2, float upper0, float upper1,
-    float upper2, float inv_dx, float dt, float p_mass, void* stream) {
+    const float* x, const float* v, const float* table, const float* bp,
+    const float* bq, const float* bv, const float* bw, const float* friction,
+    float* imp, float* wrench, double* partial, unsigned* done, int n,
+    int res0, int res1, int res2, float lower0, float lower1, float lower2,
+    float upper0, float upper1, float upper2, float inv_dx, float dt,
+    float p_mass, void* stream) {
+  const softmac::MixedArgs a = {
+      x, v, reinterpret_cast<const float4*>(table),
+      {bp, bq, bv, bw, friction, nullptr, nullptr}, nullptr, nullptr, imp,
+      nullptr, wrench, partial, done, n,
+      geom(res0, res1, res2, lower0, lower1, lower2, upper0, upper1, upper2,
+           inv_dx),
+      dt, p_mass, 0.0f};
   if (n > 0) {
-    softmac::Geom g = {{lower0, lower1, lower2}, {upper0, upper1, upper2},
-                       inv_dx, {res0, res1, res2}};
-    collide_particle_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        x, v, reinterpret_cast<const float4*>(table), body, imp, mask, n, g,
-        dt, p_mass);
+    const int threads = softmac::kMixedThreads;
+    const int blocks = softmac::mixed_blocks(n, softmac::kMixedPer * threads);
+    collide_particle_kernel<<<blocks, threads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // Per-particle contact against one SDF primitive: the penalty contact,
-// forward and reverse, shared by contact.cu and contact_bwd.cu, and the
-// forecast mixed contact of contact_mixed.cu (at the end of this file).
+// forward and reverse, which contact_mixed.cuh's penalty ops run for the
+// tiled kernels of contact.cu and contact_bwd.cu, and the forecast mixed
+// contact of contact_mixed.cu (at the end of this file).
 // The penalty contact has the same math as pallas_contact._particle_math
 // and engine.contact._collide_particle_xla of the JAX package:
 //   p_loc  = rot(conj(q)/|q|, x - bp)
@@ -16,13 +17,14 @@
 //   (k1 = 50, nc = (v - cv).D, p_v_t the tangential part, |.| with the
 //   1e-8 inside the root), zero where mask is false.
 //
-// The math is a template on the scalar type T. The forward kernel runs it
-// in float. The backward kernel runs it in double on the float inputs:
-// the normal's derivative divides by |u|^2, |u| the trilinear normal
-// before normalisation, which is short near the SDF's medial surface, so
-// float rounding of u alone moved the position cotangent by up to 4e-5 of
-// its largest value (measured on the H100 against the float64 plain vjp);
-// in double the cotangent is the one of the float inputs, rounded once.
+// The math is a template on the scalar type T; both kernels run it in
+// double on the float inputs. The backward needs it: the normal's
+// derivative divides by |u|^2, |u| the trilinear normal before
+// normalisation, which is short near the SDF's medial surface, so float
+// rounding of u alone moved the position cotangent by up to 4e-5 of its
+// largest value (measured on the H100 against the float64 plain vjp); in
+// double the cotangent is the one of the float inputs, rounded once. The
+// forward runs it in double too, so that both take one mask.
 #pragma once
 
 #include "bspline.cuh"

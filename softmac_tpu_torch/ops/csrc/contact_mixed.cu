@@ -53,7 +53,7 @@ using softmac::V3;
 #ifdef __CUDACC__
 __global__ void __launch_bounds__(softmac::kMixedThreads, 2)
     collide_mixed_kernel(softmac::MixedArgs a) {
-  softmac::mixed_tiled<6, softmac::kMixedPer>(a);
+  softmac::mixed_tiled<softmac::MixedFwdOp, softmac::kMixedPer>(a);
 }
 #endif
 

@@ -1,24 +1,31 @@
-// Forecast mixed contact against one SDF primitive: what the tiled kernels
-// (contact_mixed.cu, contact_mixed_bwd.cu) and the split pair share. The
-// math is contact.cuh's mixed_stage1 / mixed_stage2 and their reverse
-// sweeps, in double on the float inputs (contact_mixed.cu says why).
+// The tiled contact kernels' skeleton and its per-particle ops: the
+// forecast mixed contact (contact_mixed.cu, contact_mixed_bwd.cu, and the
+// split pair's shared pieces) and the penalty particle contact
+// (contact.cu, contact_bwd.cu). The math is contact.cuh's (mixed_stage1 /
+// mixed_stage2 and contact_forward, and their reverse sweeps), in double
+// on the float inputs (contact_mixed.cu and contact.cu say why).
 //
 // The tiled design. A block of kMixedThreads threads takes a tile of
-// consecutive particles (kMixedPer a thread, 512, for the forward, whose
-// kernel keeps two blocks an SM; kMixedBwdPer, 1024, for the backward,
-// whose reverse sweep needs one block's registers: scripts/
-// mixed_variants.py measured 512 / 1024 / 2048 and both bounds on an
-// H100) and runs, with a barrier between each phase (the host
-// tests in tests/test_torch_kernel_source.py run each phase over all
-// threads of a block before the next, as the barriers order them):
+// consecutive particles (PER a thread: the forwards kMixedPer, 2, whose
+// kernels keep two blocks an SM, the backwards kMixedBwdPer, 4, whose
+// reverse sweeps need one block's registers; measured for the mixed pair
+// by scripts/mixed_variants.py and for the penalty pair by scripts/
+// contact_phases.py, which found the same tiles) and runs
+// mixed_tiled<Op, PER>, where Op is
+// the per-particle op (MixedFwdOp, MixedBwdOp, PenaltyFwdOp,
+// PenaltyBwdOp), with a barrier between each phase (the host tests in
+// tests/test_torch_kernel_source.py run each phase over all threads of a
+// block before the next, as the barriers order them):
 //   classify         each particle's body-frame point, cell and the SDF
 //                    lane of its stencil row only (mixed_classify), a
-//                    thread's particles (tile / 256) staged so that their
-//                    loads are in flight together, the 16 body floats read
-//                    where the rollout keeps them (no packing). A particle
-//                    out of the contact band then writes its exact result
-//                    (forward: p_v_out = v; backward: dx = 0, dv = gout)
-//                    and nothing else;
+//                    thread's particles staged so that their loads are in
+//                    flight together, the body floats (16 mixed, 14
+//                    penalty) read where the rollout keeps them (no
+//                    packing). A particle out of the contact band then
+//                    writes its exact result (Op::out_of_band; mixed
+//                    forward: p_v_out = v, backward: dx = 0, dv = gout;
+//                    penalty forward: imp = 0, backward: dx = dv = 0,
+//                    reading neither v nor a cotangent) and nothing else;
 //   compact          each warp's ballot of the band particles of a 32-
 //                    particle chunk (mask[chunk]), one thread's exclusive
 //                    scan over the chunks in tile order (mixed_scan), and
@@ -29,8 +36,9 @@
 //                    (entry i goes to thread i mod the block) and run the
 //                    whole contact, its wrench share (forward) or its
 //                    reverse with the wrench's reverse folded in
-//                    (backward), summing K doubles each in a column of
-//                    shared memory (registers are the reverse sweep's);
+//                    (backward), Op::particle, summing K doubles each in a
+//                    column of shared memory (registers are the reverse
+//                    sweep's);
 //   reduce           a shuffle tree in each warp, then the warps' sums in
 //                    warp order (mixed_block_sum) to the block's column of
 //                    the (K, blocks) float64 partials;
@@ -51,8 +59,10 @@
 // faults leaves it non-zero, but a fault also ends the CUDA context, so no
 // later launch reads it.
 //
-// The band test is conservative. mixed_stage1's mask is dist(x) <= 5e-3 on
-// the trilinear sample of the cell at base(x), BIG outside the table's box.
+// The band test is conservative, and one rule serves both contacts.
+// mixed_stage1's mask is dist(x) <= 5e-3, contact_forward's dist(x) - 5e-3
+// < 0, both on the trilinear sample of the cell at base(x), BIG outside
+// the table's box.
 // mixed_classify computes the same body-frame point and cell with the same
 // expressions, the SDF lane with trilinear's sdf sum, and calls a particle
 // out only when that sum exceeds 5e-3 + kBandMargin or the point lies
@@ -131,8 +141,8 @@ __device__ __forceinline__ void mixed_reverse(
 
 constexpr int kMixedThreads = 256;
 constexpr int kMixedWarps = kMixedThreads / 32;
-constexpr int kMixedPer = 2;      // particles a thread, forward
-constexpr int kMixedBwdPer = 4;   // and backward
+constexpr int kMixedPer = 2;      // particles a thread, both forwards
+constexpr int kMixedBwdPer = 4;   // and both backwards
 constexpr int kMixedMaxTile =
     (kMixedPer > kMixedBwdPer ? kMixedPer : kMixedBwdPer) * kMixedThreads;
 constexpr int kMixedMaxChunks = kMixedMaxTile / 32;
@@ -146,7 +156,8 @@ constexpr double kBandMargin = 1e-6;
 #endif
 using MixedOut = SOFTMAC_MIXED_OUT;
 
-// The rollout's body tensors, read where they lie
+// The rollout's body tensors, read where they lie (the penalty contact
+// has no softness and life: null)
 struct MixedBody {
   const float* bp;
   const float* bq;
@@ -157,9 +168,11 @@ struct MixedBody {
   const float* life;
 };
 
-// Everything a tiled launch reads and writes. Forward: out0 = p_v_out,
-// total = wrench (6,), K = 6. Backward: gout, gwrench (6,) in, out0 = dx,
-// out1 = dv, total = the 16 body cotangents, K = 16. done: the launch's
+// Everything a tiled launch reads and writes. Forward: out0 = p_v_out
+// (mixed) or the impulse (penalty), total = wrench (6,), K = 6. Backward:
+// gout (the cotangent of out0), gwrench (6,) in, out0 = dx, out1 = dv,
+// total = the body cotangents (K: 16 mixed, 14 penalty; the penalty
+// backward reads a null gout or gwrench as zero). done: the launch's
 // finished-block counter (see the header).
 struct MixedArgs {
   const float* x;
@@ -188,8 +201,9 @@ struct MixedShared {
   int last;                         // this block finished last
 };
 
-// The 16 body floats [bp, bq wxyz, bv, bw, friction, softness, life],
-// read where the rollout keeps them (no packing)
+// The B body floats [bp, bq wxyz, bv, bw, friction] and, where B is 16,
+// [softness, life], read where the rollout keeps them (no packing)
+template <int B>
 __device__ __forceinline__ void mixed_body_floats(const MixedArgs& a,
                                                   float body[16]) {
   for (int i = 0; i < 3; ++i) {
@@ -199,36 +213,42 @@ __device__ __forceinline__ void mixed_body_floats(const MixedArgs& a,
   }
   for (int i = 0; i < 4; ++i) body[3 + i] = a.body.bq[i];
   body[13] = *a.body.friction;
-  body[14] = *a.body.softness;
-  body[15] = *a.body.life;
+  if constexpr (B == 16) {
+    body[14] = *a.body.softness;
+    body[15] = *a.body.life;
+  }
 }
 
 // phase 1: may the particles p + j * stride (j < PER) lie in the contact
-// band? (See the header: false only where mixed_stage1's dist(x) <= 5e-3
-// cannot hold.) Staged so that the loads are in flight together, a
+// band? (See the header: false only where the contact's mask cannot
+// hold.) Staged so that the loads are in flight together, a
 // round trip each stage: the body, every x and what an out-of-band
-// particle copies (keep: v forward, gout backward) first, then every cell
+// particle copies (keep, where Op::kKeep: v for the mixed forward, gout
+// for its backward) first, then every cell
 // and its stencil row's SDF lane, then the sums. Loads only and no branch
 // (a particle past n reads the last one's inputs and is out), so no output
 // is written before all are classified. The point, the cell and the sum
-// are mixed_stage1's expressions (locate, trilinear's sdf lane). Thread
-// t < 16 also puts body float t in shared memory for the full math.
-template <int K, int PER>
+// are mixed_stage1's and contact_forward's expressions (locate,
+// trilinear's sdf lane). Thread t < Op::kBody also puts body float t in
+// shared memory for the full math.
+template <class Op, int PER>
 __device__ __forceinline__ void mixed_classify(const MixedArgs& a,
                                                MixedShared* sh, int p,
                                                int stride, bool band[PER],
                                                float keep[PER][3]) {
   float body[16];
-  mixed_body_floats(a, body);
+  mixed_body_floats<Op::kBody>(a, body);
   V3<double> xp[PER];
-  const float* src = K == 6 ? a.v : a.gout;
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
     const int q = p + j * stride < a.n ? p + j * stride : a.n - 1;
     xp[j] = load3(a.x, a.n, q);
-    for (int d = 0; d < 3; ++d) keep[j][d] = src[d * a.n + q];
+    if constexpr (Op::kKeep) {
+      const float* src = Op::keep_src(a);
+      for (int d = 0; d < 3; ++d) keep[j][d] = src[d * a.n + q];
+    }
   }
-  if (threadIdx.x < 16) sh->body[threadIdx.x] = body[threadIdx.x];
+  if (threadIdx.x < Op::kBody) sh->body[threadIdx.x] = body[threadIdx.x];
   const Body<double> b = load_body<double>(body);
   const V3<double> nv_conj = {-b.nv.x, -b.nv.y, -b.nv.z};
   const float4* row[PER];
@@ -263,23 +283,6 @@ __device__ __forceinline__ void mixed_classify(const MixedArgs& a,
       sdf += wi * wk * wl * double(e[j][c]);
     }
     band[j] = near[j] && sdf <= kThreshold + kBandMargin;
-  }
-}
-
-// phase 1, after the thread's particles are classified: the exact result
-// of particle p out of the band (forward: p_v_out = v; backward: dx = 0,
-// dv = gout, from keep), and nothing else
-template <int K>
-__device__ __forceinline__ void mixed_out_of_band(const MixedArgs& a, int p,
-                                                  const float keep[3]) {
-  if (p >= a.n) return;
-  for (int d = 0; d < 3; ++d) {
-    if constexpr (K == 6) {
-      a.out0[d * a.n + p] = keep[d];
-    } else {
-      a.out0[d * a.n + p] = MixedOut(0);
-      a.out1[d * a.n + p] = keep[d];
-    }
   }
 }
 
@@ -365,6 +368,143 @@ __device__ __forceinline__ void mixed_particle_bwd(const MixedArgs& a,
   for (int k = 0; k < 16; ++k) acc[k * stride] += gb[k];
 }
 
+// phase 4, penalty forward: particle p's impulse (contact_forward in
+// double), and where its mask holds its reaction force b_f = -imp / dt
+// and the torque about bp added to the thread's sums acc[k * stride]
+// (pallas_contact._tail_particle)
+__device__ __forceinline__ void penalty_particle_fwd(const MixedArgs& a,
+                                                     const float* body, int p,
+                                                     double* acc,
+                                                     int stride) {
+  const V3<double> xp = load3(a.x, a.n, p), vp = load3(a.v, a.n, p);
+  const Body<double> b = load_body<double>(body);
+  const double dt = a.dt;
+  const Contact<double> k =
+      contact_forward(b, xp, vp, a.table, a.g, dt, double(a.p_mass));
+  store3(a.out0, a.n, p, k.imp);
+  if (k.mask) {
+    const V3<double> f = k.imp * (-1.0 / dt);
+    const V3<double> t = cross(k.r, f);
+    const double w[6] = {f.x, f.y, f.z, t.x, t.y, t.z};
+    for (int i = 0; i < 6; ++i) acc[i * stride] += w[i];
+  }
+}
+
+// phase 4, penalty backward: particle p's dx, dv and its 14 body
+// cotangents added to acc[k * stride], the wrench's reverse folded in.
+// With r = x - bp and b_f = -imp / dt, the impulse's cotangent is
+// gimp - (gF + gT x r) / dt on the mask, and r's is b_f x gT, which goes
+// to x and, negated, to bp (the vjp of _tail_particle in
+// pallas_contact._particle_factory's _bwd). Out of contact (mask false)
+// every cotangent is zero, as contact_backward's.
+__device__ __forceinline__ void penalty_particle_bwd(const MixedArgs& a,
+                                                     const float* body, int p,
+                                                     double* acc,
+                                                     int stride) {
+  const V3<double> xp = load3(a.x, a.n, p), vp = load3(a.v, a.n, p);
+  const Body<double> b = load_body<double>(body);
+  const double dt = a.dt, p_mass = a.p_mass;
+  const Contact<double> k = contact_forward(b, xp, vp, a.table, a.g, dt,
+                                            p_mass);
+  const V3<double> zero = {0.0, 0.0, 0.0};
+  if (!k.mask) {
+    store3(a.out0, a.n, p, zero);
+    store3(a.out1, a.n, p, zero);
+    return;
+  }
+  V3<double> gi = a.gout ? load3(a.gout, a.n, p) : zero;
+  V3<double> gr = zero;
+  if (a.gwrench) {
+    const V3<double> gF = {double(a.gwrench[0]), double(a.gwrench[1]),
+                           double(a.gwrench[2])};
+    const V3<double> gT = {double(a.gwrench[3]), double(a.gwrench[4]),
+                           double(a.gwrench[5])};
+    const double inv = -1.0 / dt;
+    gi = gi + (gF + cross(gT, k.r)) * inv;
+    gr = cross(k.imp * inv, gT);
+  }
+  V3<double> gx, gv;
+  double gb[14];
+  contact_backward(b, k, gi, a.g, dt, p_mass, gx, gv, gb);
+  store3(a.out0, a.n, p, gx + gr);
+  store3(a.out1, a.n, p, gv);
+  gb[0] -= gr.x;
+  gb[1] -= gr.y;
+  gb[2] -= gr.z;
+  for (int i = 0; i < 14; ++i) acc[i * stride] += gb[i];
+}
+
+// The per-particle ops of mixed_tiled: K sums a block, kBody body floats,
+// whether an out-of-band particle's result copies 3 floats of each
+// particle (kKeep, from keep_src, which only such an op has), that result
+// (out_of_band, for particle p < n or nothing) and the band's full math
+// (particle).
+struct MixedFwdOp {
+  static constexpr int K = 6, kBody = 16;
+  static constexpr bool kKeep = true;
+  __device__ static const float* keep_src(const MixedArgs& a) { return a.v; }
+  __device__ static void out_of_band(const MixedArgs& a, int p,
+                                     const float keep[3]) {
+    if (p >= a.n) return;
+    for (int d = 0; d < 3; ++d) a.out0[d * a.n + p] = keep[d];
+  }
+  __device__ static void particle(const MixedArgs& a, const float* body,
+                                  int p, double* acc, int stride) {
+    mixed_particle_fwd(a, body, p, acc, stride);
+  }
+};
+
+struct MixedBwdOp {
+  static constexpr int K = 16, kBody = 16;
+  static constexpr bool kKeep = true;
+  __device__ static const float* keep_src(const MixedArgs& a) {
+    return a.gout;
+  }
+  __device__ static void out_of_band(const MixedArgs& a, int p,
+                                     const float keep[3]) {
+    if (p >= a.n) return;
+    for (int d = 0; d < 3; ++d) {
+      a.out0[d * a.n + p] = MixedOut(0);
+      a.out1[d * a.n + p] = keep[d];
+    }
+  }
+  __device__ static void particle(const MixedArgs& a, const float* body,
+                                  int p, double* acc, int stride) {
+    mixed_particle_bwd(a, body, p, acc, stride);
+  }
+};
+
+struct PenaltyFwdOp {
+  static constexpr int K = 6, kBody = 14;
+  static constexpr bool kKeep = false;
+  __device__ static void out_of_band(const MixedArgs& a, int p,
+                                     const float*) {
+    if (p >= a.n) return;
+    for (int d = 0; d < 3; ++d) a.out0[d * a.n + p] = MixedOut(0);
+  }
+  __device__ static void particle(const MixedArgs& a, const float* body,
+                                  int p, double* acc, int stride) {
+    penalty_particle_fwd(a, body, p, acc, stride);
+  }
+};
+
+struct PenaltyBwdOp {
+  static constexpr int K = 14, kBody = 14;
+  static constexpr bool kKeep = false;
+  __device__ static void out_of_band(const MixedArgs& a, int p,
+                                     const float*) {
+    if (p >= a.n) return;
+    for (int d = 0; d < 3; ++d) {
+      a.out0[d * a.n + p] = MixedOut(0);
+      a.out1[d * a.n + p] = MixedOut(0);
+    }
+  }
+  __device__ static void particle(const MixedArgs& a, const float* body,
+                                  int p, double* acc, int stride) {
+    penalty_particle_bwd(a, body, p, acc, stride);
+  }
+};
+
 // Value k's sum over the block once each warp's is in red[warp][k]: the
 // warps in order
 __device__ __forceinline__ double mixed_warps_sum(const MixedShared* sh,
@@ -386,18 +526,22 @@ __device__ __forceinline__ void mixed_block_sum(const MixedArgs& a,
 
 // phase 6, the last block: thread t's share of each value, the partials of
 // blocks t, t + 256, ... in order, into acc[k * stride]; the block then
-// sums the shares as phase 5 sums the particles'
+// sums the shares as phase 5 sums the particles'. A block's K partials are
+// loaded together (no store between them), so that their round trips
+// overlap.
 template <int K>
 __device__ __forceinline__ void mixed_gather_partials(const MixedArgs& a,
                                                       int blocks, double* acc,
                                                       int stride) {
-  for (int k = 0; k < K; ++k) {
-    double s = 0.0;
-    for (int b = threadIdx.x; b < blocks; b += kMixedThreads) {
-      s += __ldcg(a.partial + k * blocks + b);
-    }
-    acc[k * stride] = s;
+  double s[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) s[k] = 0.0;
+  for (int b = threadIdx.x; b < blocks; b += kMixedThreads) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) s[k] += __ldcg(a.partial + k * blocks + b);
   }
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k * stride] = s[k];
 }
 
 // phase 6, the end: thread k < K rounds value k's total once
@@ -411,28 +555,32 @@ __device__ __forceinline__ void mixed_total(const MixedArgs& a,
 #ifdef __CUDACC__
 // Each warp's sums of the K values (acc[k * kMixedThreads + thread]) by a
 // shuffle tree (lane l adds lane l + off, off = 16, 8, .., 1) into
-// red[warp][k]
+// red[warp][k]; the K trees step together, so that their shuffles overlap
 template <int K>
 __device__ __forceinline__ void mixed_warp_trees(const double* acc,
                                                  MixedShared* sh) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  double v[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    double v = acc[k * kMixedThreads + t];
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    }
-    if (lane == 0) sh->red[warp][k] = v;
+  for (int k = 0; k < K; ++k) v[k] = acc[k * kMixedThreads + t];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) sh->red[warp][k] = v[k];
   }
 }
 
-// The tiled kernel; K = 6 (forward) or 16 (backward), PER particles a
-// thread. The thread's sums live in shared memory (a column of acc), which
-// keeps the reverse sweep's registers free. a.done counts the finished
-// blocks; the last one resets it.
-template <int K, int PER>
+// The tiled kernel of the per-particle op Op, PER particles a thread. The
+// thread's sums live in shared memory (a column of acc), which keeps the
+// reverse sweep's registers free. a.done counts the finished blocks; the
+// last one resets it.
+template <class Op, int PER>
 __device__ __forceinline__ void mixed_tiled(const MixedArgs& a) {
-  constexpr int tile = PER * kMixedThreads, chunks = tile / 32;
+  constexpr int K = Op::K, tile = PER * kMixedThreads, chunks = tile / 32;
   static_assert(tile <= kMixedMaxTile, "tile larger than MixedShared");
   __shared__ MixedShared sh;
   __shared__ double acc[K * kMixedThreads];
@@ -442,13 +590,13 @@ __device__ __forceinline__ void mixed_tiled(const MixedArgs& a) {
   {
     bool band[PER];
     float keep[PER][3];
-    mixed_classify<K, PER>(a, &sh, p0 + t, kMixedThreads, band, keep);
+    mixed_classify<Op, PER>(a, &sh, p0 + t, kMixedThreads, band, keep);
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int q = j * kMixedThreads + t;
       const unsigned m = __ballot_sync(0xffffffffu, band[j]);
       if (lane == 0) sh.mask[q >> 5] = m;
-      if (!band[j]) mixed_out_of_band<K>(a, p0 + q, keep[j]);
+      if (!band[j]) Op::out_of_band(a, p0 + q, keep[j]);
     }
   }
   __syncthreads();
@@ -457,11 +605,7 @@ __device__ __forceinline__ void mixed_tiled(const MixedArgs& a) {
   for (int c = warp; c < chunks; c += kMixedWarps) mixed_place(&sh, c, lane);
   __syncthreads();
   for (int i = t; i < sh.count; i += kMixedThreads) {
-    if constexpr (K == 6) {
-      mixed_particle_fwd(a, sh.body, p0 + sh.list[i], acc + t, kMixedThreads);
-    } else {
-      mixed_particle_bwd(a, sh.body, p0 + sh.list[i], acc + t, kMixedThreads);
-    }
+    Op::particle(a, sh.body, p0 + sh.list[i], acc + t, kMixedThreads);
   }
   mixed_warp_trees<K>(acc, &sh);
   __syncthreads();

@@ -55,7 +55,7 @@ using softmac::V3;
 #ifdef __CUDACC__
 __global__ void __launch_bounds__(softmac::kMixedThreads)
     collide_mixed_bwd_kernel(softmac::MixedArgs a) {
-  softmac::mixed_tiled<16, softmac::kMixedBwdPer>(a);
+  softmac::mixed_tiled<softmac::MixedBwdOp, softmac::kMixedBwdPer>(a);
 }
 #endif
 

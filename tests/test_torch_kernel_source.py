@@ -3,12 +3,13 @@ host. There is no card and no nvcc here, so the kernel bodies of
 softmac_tpu_torch/ops/csrc (each .cu file above its C entry point, and the
 headers) are compiled with the host C++ compiler over a small stand-in for
 the CUDA runtime header; each kernel runs one thread at a time. The block
-reductions of the contact backwards (shared memory and barriers) are left
-to chip_smoke.py; here the per-particle reverse sweeps are summed on the
-host. The y-slab kernels (slab.cuh: P2G, the splat and the G2P and gather
-backwards) and the door's row-thread P2G and P2G, G2P and gather
+reductions of the split mixed backward (shared memory and barriers) are
+left to chip_smoke.py; here its per-particle reverse sweeps are summed on
+the host. The y-slab kernels (slab.cuh: P2G, the splat and the G2P and
+gather backwards), the door's row-thread P2G and P2G, G2P and gather
 backwards (fused_rows.cuh: their first launch, then each block's box, pair
-and window, x row, store, task and flush phases), block kernels with
+and window, x row, store, task and flush phases) and the tiled contact
+pairs (contact_mixed.cuh), block kernels with
 barriers, run phase by phase: each phase over all
 threads of a block before the next, as the barriers order them on the
 card.
@@ -29,21 +30,21 @@ of their blocks of 32 particles (a ragged last block, boxes empty on one
 axis, a block whose boxes are too wide to stage, a window of more x rows
 than a block keeps, a zero cotangent, no particle, tiles whose scatter
 goes through a shared window and tiles whose does not); the Khatri-Rao pair build (kr3) bit for
-bit against its float32 plain version on the same weights; the penalty
-contact backward, which computes in double on its float inputs, within
-1e-6 (float literals
-and the float dt / p_mass set that floor); the split mixed contact and its
-backward pair, also double math, within 1e-6 and 1e-12 given the float dt
-and p_mass they see. The tiled mixed-contact
-kernels (contact_mixed.cuh, the wrench folded in) run phase by phase, as
-the y-slab kernels do, with double outputs: the classification against
-its rule in float64 (and every particle in contact kept, also particles
-placed within the band margin), the compacted lists, p_v_out, dx, dv,
-each block's partial wrench and body cotangents and the last block's sum,
-within 1e-12 of the float64 plain version and its vjp, on the glass's box
-particles, with every particle in the band and with none. The contact
-checks run on the real glass table, with particles spread over its SDF box
-(contact, soft band, penetration and face-crossing forecasts counted)."""
+bit against its float32 plain version on the same weights; the split
+mixed contact and its backward pair, double math, within 1e-6 and 1e-12
+given the float dt and p_mass they see. The tiled contact kernels of
+contact_mixed.cuh (the mixed pair and the penalty pair, the wrench
+folded in) run phase by phase, as the y-slab kernels do, with double
+outputs: the classification against its rule in float64 (and every
+particle in contact kept, also particles placed within the band
+margin), the compacted lists, p_v_out or the impulse, dx, dv, each
+block's partial wrench and body cotangents and the last block's sum,
+within 1e-12 of the float64 plain version and its vjp, on the glass's
+box particles, with every particle in the band and with none (the
+penalty pair also at a ragged last tile, with no particle and with no
+wrench cotangent). The contact checks run on the real glass table, with
+particles spread over its SDF box (contact, soft band, penetration and
+face-crossing forecasts counted)."""
 import ctypes
 import math
 import re
@@ -179,8 +180,9 @@ static void slab(const float* x, const float* src, const int* corner,
   plan[2] = 0;
   for (int tl = 0; tl < pl.tiles; ++tl) plan[2] += meta[2 * tl + 1];
 }
-// The tiled mixed contact of contact_mixed.cuh (K = 6 forward, 16
-// backward; outputs in double, SOFTMAC_MIXED_OUT): each block's phases in
+// The tiled contact kernels of contact_mixed.cuh, of the per-particle op
+// Op (the mixed pair: K = 6 forward, 16 backward; the penalty pair: 6 and
+// 14; outputs in double, SOFTMAC_MIXED_OUT): each block's phases in
 // order, each over all the block's threads, with the shared memory
 // poisoned (all ones); the warp ballots and shuffle trees taken as the card
 // takes them (a chunk's mask from its 32 lanes' flags; lane l < off adds
@@ -199,9 +201,10 @@ static void warp_trees(const std::vector<double>& acc, softmac::MixedShared* sh)
     }
   }
 }
-template <int K>
+template <class Op>
 static void mixed_tiled(const softmac::MixedArgs& a, int tile,
                         unsigned char* band, int* lists) {
+  constexpr int K = Op::K;
   const int threads = softmac::kMixedThreads, chunks = tile / 32;
   const int per = tile / threads;
   const int blocks = softmac::mixed_blocks(a.n, tile);
@@ -223,21 +226,20 @@ static void mixed_tiled(const softmac::MixedArgs& a, int tile,
       float keep[4][3];
       switch (per) {
         case 1:
-          softmac::mixed_classify<K, 1>(a, &sh, p0 + t, threads, band,
-                                        (float(*)[3])keep);
+          softmac::mixed_classify<Op, 1>(a, &sh, p0 + t, threads, band,
+                                         (float(*)[3])keep);
           break;
         case 2:
-          softmac::mixed_classify<K, 2>(a, &sh, p0 + t, threads, band,
-                                        (float(*)[3])keep);
+          softmac::mixed_classify<Op, 2>(a, &sh, p0 + t, threads, band,
+                                         (float(*)[3])keep);
           break;
         default:
-          softmac::mixed_classify<K, 4>(a, &sh, p0 + t, threads, band,
-                                        (float(*)[3])keep);
+          softmac::mixed_classify<Op, 4>(a, &sh, p0 + t, threads, band,
+                                         (float(*)[3])keep);
       }
       for (int j = 0; j < per; ++j) {
         flag[j * threads + t] = band[j];
-        if (!band[j])
-          softmac::mixed_out_of_band<K>(a, p0 + j * threads + t, keep[j]);
+        if (!band[j]) Op::out_of_band(a, p0 + j * threads + t, keep[j]);
       }
     });
     for (int c = 0; c < chunks; ++c) {
@@ -252,15 +254,8 @@ static void mixed_tiled(const softmac::MixedArgs& a, int tile,
         softmac::mixed_place(&sh, c, t & 31);
     });
     phase([&](int t) {
-      for (int i = t; i < sh.count; i += threads) {
-        if constexpr (K == 6) {
-          softmac::mixed_particle_fwd(a, sh.body, p0 + sh.list[i], &acc[t],
-                                      threads);
-        } else {
-          softmac::mixed_particle_bwd(a, sh.body, p0 + sh.list[i], &acc[t],
-                                      threads);
-        }
-      }
+      for (int i = t; i < sh.count; i += threads)
+        Op::particle(a, sh.body, p0 + sh.list[i], &acc[t], threads);
     });
     warp_trees<K>(acc, &sh);
     phase([&](int) { softmac::mixed_block_sum<K>(a, &sh, blk, blocks); });
@@ -443,8 +438,25 @@ void h_mixed_tiled(int backward, int tile, const float* x, const float* v,
       {body, body + 3, body + 7, body + 10, body + 13, body + 14, body + 15},
       gout, gwrench, out0, out1, total, partial, nullptr, n,
       {{l0, l1, l2}, {u0, u1, u2}, inv_dx, {r0, r1, r2}}, dt, p_mass, cap};
-  if (backward) mixed_tiled<16>(a, tile, band, lists);
-  else mixed_tiled<6>(a, tile, band, lists);
+  if (backward) mixed_tiled<softmac::MixedBwdOp>(a, tile, band, lists);
+  else mixed_tiled<softmac::MixedFwdOp>(a, tile, band, lists);
+}
+// The tiled penalty contact: body the 14 floats [bp, bq, bv, bw,
+// friction]; gout and gwrench may be null (zero)
+void h_penalty_tiled(int backward, int tile, const float* x, const float* v,
+                     const float* table, const float* body, const float* gout,
+                     const float* gwrench, double* out0, double* out1,
+                     double* total, double* partial, unsigned char* band,
+                     int* lists, int n, int r0, int r1, int r2, float l0,
+                     float l1, float l2, float u0, float u1, float u2,
+                     float inv_dx, float dt, float p_mass) {
+  softmac::MixedArgs a = {
+      x, v, (const float4*)table,
+      {body, body + 3, body + 7, body + 10, body + 13, nullptr, nullptr},
+      gout, gwrench, out0, out1, total, partial, nullptr, n,
+      {{l0, l1, l2}, {u0, u1, u2}, inv_dx, {r0, r1, r2}}, dt, p_mass, 0.0f};
+  if (backward) mixed_tiled<softmac::PenaltyBwdOp>(a, tile, band, lists);
+  else mixed_tiled<softmac::PenaltyFwdOp>(a, tile, band, lists);
 }
 // The row-thread kernels: narrow[0] the tiles that staged their pair
 // products, narrow[1] those whose scatter went through the tile's window.
@@ -548,28 +560,6 @@ void h_kr3(const float* Wy, const float* Wz, const float* WDy,
       k_kr3::kr3_kernel(Wy, Wz, WDy, WDz, H, HDy, HDz, n, wy, wz);
     }
 }
-void h_contact_bwd(const float* x, const float* v, const float* table,
-                   const float* body, const float* gimp, double* dx,
-                   double* dv, double* dbody, int n, int r0, int r1, int r2,
-                   float l0, float l1, float l2, float u0, float u1, float u2,
-                   float inv_dx, float dt, float p_mass) {
-  softmac::Geom g = {{l0, l1, l2}, {u0, u1, u2}, inv_dx, {r0, r1, r2}};
-  const softmac::Body<double> b = softmac::load_body<double>(body);
-  for (int i = 0; i < 14; ++i) dbody[i] = 0.0;
-  for (int p = 0; p < n; ++p) {
-    softmac::V3<double> xp = {x[p], x[n + p], x[2 * n + p]};
-    softmac::V3<double> vp = {v[p], v[n + p], v[2 * n + p]};
-    softmac::Contact<double> k = softmac::contact_forward(
-        b, xp, vp, (const float4*)table, g, double(dt), double(p_mass));
-    softmac::V3<double> gi = {gimp[p], gimp[n + p], gimp[2 * n + p]}, gx, gv;
-    double gb[14];
-    softmac::contact_backward(b, k, gi, g, double(dt), double(p_mass), gx,
-                              gv, gb);
-    dx[p] = gx.x; dx[n + p] = gx.y; dx[2 * n + p] = gx.z;
-    dv[p] = gv.x; dv[n + p] = gv.y; dv[2 * n + p] = gv.z;
-    for (int i = 0; i < 14; ++i) dbody[i] += gb[i];
-  }
-}
 }
 """
 
@@ -592,7 +582,7 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_STANDIN)
     src = "".join(_kernel_bodies(n) for n in (
         "p2g", "p2g_bwd", "g2p_bwd", "gather", "splat", "contact",
-        "contact_mixed", "gather_bwd", "splat_bwd", "contact_mixed_bwd",
+        "contact_bwd", "contact_mixed", "gather_bwd", "splat_bwd", "contact_mixed_bwd",
         "fused_p2g", "fused_g2p", "fused_splat", "fused_gather",
         "fused_p2g_bwd", "fused_g2p_bwd", "fused_splat_bwd",
         "fused_gather_bwd", "kr3")) \
@@ -974,10 +964,12 @@ def _mixed_cases(prim64, b64, x, v, dt):
             "face-crossing": int((mask & (base1 != base2)).sum())}
 
 
-def test_contact_backward_source(lib):
+def _penalty_scene(seed, n=4000):
+    """The glass, a pose slightly off unit quaternion, the penalty
+    contact's 14 body floats (friction 10) and n particles over its SDF
+    box with velocities of up to ~1.5 m/s."""
     prim, prim64 = _glass()
-    rng = np.random.RandomState(0)
-    n = 4000
+    rng = np.random.RandomState(seed)
     q = np.array([0.9, 0.1, -0.2, 0.15])
     q *= 1.001 / np.linalg.norm(q)        # slightly off unit, as |q| may be
     body = torch.tensor(np.concatenate(
@@ -985,27 +977,36 @@ def test_contact_backward_source(lib):
         dtype=torch.float32)
     b64 = body.double()
     x = _box_particles(prim64, b64, n, rng)
-    v, gimp = _f32(rng, 3, n) * 0.5, _f32(rng, 3, n)
-    dt, p_mass = 1e-3, 1.5e-5
+    v = _f32(rng, 3, n) * 0.5
+    return prim, prim64, body, b64, x, v, rng
 
-    dx = torch.zeros(3, n, dtype=torch.float64)
-    dv = torch.zeros(3, n, dtype=torch.float64)
-    db = torch.zeros(14, dtype=torch.float64)
-    f = ctypes.c_float
-    lib.h_contact_bwd(_p(x), _p(v), _p(prim.neighborhood), _p(body),
-                      _p(gimp), _p(dx), _p(dv), _p(db), ctypes.c_int(n),
-                      *_geom(prim), f(dt), f(p_mass))
-    parts = (b64[0:3], b64[3:7], b64[7:10], b64[10:13], b64[13])
-    _, mask = contact.collide_particle_plain(prim64, *parts, x.double(),
-                                             v.double(), dt, p_mass)
+
+def test_contact_backward_source(lib):
+    """The tiled penalty backward (contact_bwd.cu, at the wrappers' tile)
+    for the impulse's cotangent alone (no wrench cotangent: a null
+    pointer) on the glass's SDF box particles against the float64 plain
+    vjp of the impulse, given the dt and p_mass the kernel sees (float32
+    values): dx, dv and each body group within 1e-12 of its largest
+    |value| (the kernel's double math is the plain vjp's, summed in
+    another order)."""
+    prim, prim64, body, b64, x, v, rng = _penalty_scene(0)
+    n = x.shape[1]
+    gimp = _f32(rng, 3, n)
+    dt, p_mass = float(np.float32(1e-3)), float(np.float32(1.5e-5))
+    out = _tiled_call(lib, 1, contact.MIXED_BWD_TILE, prim, body, x, v,
+                      gimp, None, dt, p_mass, None, "penalty")
+    _, mask = contact.collide_particle_plain(prim64, *_parts14(b64),
+                                             x.double(), v.double(), dt,
+                                             p_mass)
     assert int(mask.sum()) > 400, "too few contacts"
-    ref = contact.collide_particle_vjp_plain(prim64, *parts, x.double(),
-                                             v.double(), dt, p_mass,
-                                             gimp.double())
-    assert _rel(dx, ref[5]) < 1e-6 and _rel(dv, ref[6]) < 1e-6
+    ref = contact.collide_particle_wrench_vjp_plain(
+        prim64, *_parts14(b64), x.double(), v.double(), dt, p_mass,
+        gimp.double(), None)
+    assert _rel(out["out0"], ref[5]) < 1e-12
+    assert _rel(out["out1"], ref[6]) < 1e-12
     for (a, b), r in zip(((0, 3), (3, 7), (7, 10), (10, 13), (13, 14)),
                          ref[:5]):
-        assert _rel(db[a:b], r.reshape(-1)) < 1e-6
+        assert _rel(out["total"][a:b], r.reshape(-1)) < 1e-12
 
 
 @pytest.mark.parametrize("cap", [float("inf"), 0.5])
@@ -1051,6 +1052,19 @@ BAND_MARGIN = float(re.search(
     (build.CSRC / "contact_mixed.cuh").read_text()).group(1))
 
 
+def test_penalty_tiles_match_kernels():
+    """The penalty pair's wrappers size its block partials by MIXED_TILE and
+    MIXED_BWD_TILE: contact.cu and contact_bwd.cu run and launch the tiles
+    of the mixed pair (test_mixed_tiles_match_kernels holds those)."""
+    for source, per in (("contact.cu", "kMixedPer"),
+                        ("contact_bwd.cu", "kMixedBwdPer")):
+        src = (build.CSRC / source).read_text()
+        kernel = re.findall(r"mixed_tiled<softmac::\w+, softmac::(\w+)>", src)
+        blocks = re.findall(
+            r"mixed_blocks\(\s*n, softmac::(\w+) \* threads\)", src)
+        assert kernel == [per] and blocks == [per], (source, kernel, blocks)
+
+
 def test_mixed_tiles_match_kernels():
     """The wrappers size the block partials by MIXED_TILE and
     MIXED_BWD_TILE: they are the tiles the kernels launch with
@@ -1069,11 +1083,23 @@ def _parts(b64):
             b64[15])
 
 
+def _parts14(b64):
+    """The penalty contact's five body tensors from its 14 floats."""
+    return (b64[0:3], b64[3:7], b64[7:10], b64[10:13], b64[13])
+
+
+def _ptr(t):
+    return None if t is None else _p(t)
+
+
 def _tiled_call(lib, backward, tile, prim, body, x, v, gout, gwrench, dt,
-                p_mass, cap):
-    """One tiled mixed-contact launch run on the host (double outputs)."""
+                p_mass, cap, kind="mixed"):
+    """One tiled contact launch run on the host (double outputs): the mixed
+    pair, or (kind "penalty", body the 14 floats, no cap) the penalty
+    pair, whose gout and gwrench may be None (zero)."""
     n = x.shape[1]
-    blocks, k = -(-n // tile), 16 if backward else 6
+    blocks = -(-n // tile)
+    k = (16 if kind == "mixed" else 14) if backward else 6
     nan = float("nan")
     out = {"out0": torch.full((3, n), nan, dtype=torch.float64),
            "out1": torch.full((3, n), nan, dtype=torch.float64),
@@ -1082,12 +1108,15 @@ def _tiled_call(lib, backward, tile, prim, body, x, v, gout, gwrench, dt,
            "band": torch.zeros(n, dtype=torch.uint8),
            "lists": torch.zeros(blocks * tile, dtype=torch.int32)}
     f = ctypes.c_float
-    lib.h_mixed_tiled(ctypes.c_int(backward), ctypes.c_int(tile), _p(x),
-                      _p(v), _p(prim.neighborhood), _p(body), _p(gout),
-                      _p(gwrench), *(_p(out[k]) for k in (
-                          "out0", "out1", "total", "partial", "band",
-                          "lists")),
-                      ctypes.c_int(n), *_geom(prim), f(dt), f(p_mass), f(cap))
+    args = [ctypes.c_int(backward), ctypes.c_int(tile), _p(x), _p(v),
+            _p(prim.neighborhood), _p(body), _ptr(gout), _ptr(gwrench)] + [
+        _p(out[k]) for k in ("out0", "out1", "total", "partial", "band",
+                             "lists")] + [ctypes.c_int(n), *_geom(prim),
+                                          f(dt), f(p_mass)]
+    if kind == "mixed":
+        lib.h_mixed_tiled(*args, f(cap))
+    else:
+        lib.h_penalty_tiled(*args)
     out["band"] = out["band"].bool()
     out["lists"] = out["lists"].reshape(blocks, tile)
     return out
@@ -1113,7 +1142,7 @@ def _band_rule(prim64, b64, x):
 
 def _close_rows(got, want, tol=1e-12):
     """|got - want| within tol of want's largest |value| (NaN fails)."""
-    scale = want.abs().max().clamp(min=1e-300)
+    scale = want.abs().max().clamp(min=1e-300) if want.numel() else 1.0
     return bool(((got - want).abs() <= tol * scale).all())
 
 
@@ -1137,34 +1166,70 @@ def _block_order_sum(values, threads=256):
     return total
 
 
-def _check_tiled(lib, prim, prim64, body, b64, x, v, rng, tile, cap):
-    """The tiled forward and backward on (x, v), each phase against the
-    float64 plain version and its vjp (dt and p_mass as the kernels see
-    them): classification (the rule in float64; every particle in contact
-    kept), the tiles' lists, p_v_out, dx, dv, the block partials (each
-    tile's wrench and body cotangents) and the last block's sum. Returns
-    the dist of every particle (float64 plain)."""
+# each pair's plain version and vjp (float64), its contact set (the
+# particles the full math must see) from the float64 distance, the body
+# groups of its backward's total and the out-of-band results (forward
+# out0; backward out0, out1: "v", "gout" or zero)
+KINDS = {
+    "mixed": dict(
+        plain=lambda prim64, b64, x, v, dt, p_mass, cap: (
+            contact.collide_mixed_wrench_plain(prim64, *_parts(b64), x, v,
+                                               dt, p_mass, cap)),
+        vjp=lambda prim64, b64, x, v, dt, p_mass, cap, gout, gwrench: (
+            contact.collide_mixed_wrench_vjp_plain(
+                prim64, *_parts(b64), x, v, dt, p_mass, cap, gout, gwrench)),
+        contact=lambda prim64, b64, x, v, dt: contact.collide_mixed1_plain(
+            prim64, *_parts(b64), x, v, dt)[6] <= contact.CONTACT_THRESHOLD,
+        groups=((0, 3), (3, 7), (7, 10), (10, 13), (13, 14), (14, 15),
+                (15, 16)),
+        out_of_band=("v", (None, "gout"))),
+    "penalty": dict(
+        plain=lambda prim64, b64, x, v, dt, p_mass, cap: (
+            contact.collide_particle_wrench_plain(prim64, *_parts14(b64), x,
+                                                  v, dt, p_mass)),
+        vjp=lambda prim64, b64, x, v, dt, p_mass, cap, gout, gwrench: (
+            contact.collide_particle_wrench_vjp_plain(
+                prim64, *_parts14(b64), x, v, dt, p_mass, gout, gwrench)),
+        contact=lambda prim64, b64, x, v, dt: contact.sample_sdf_normal_world(
+            prim64, tuple(b64[0:3]), tuple(b64[3:7]), tuple(x))[0]
+        < contact.CONTACT_THRESHOLD,
+        groups=((0, 3), (3, 7), (7, 10), (10, 13), (13, 14)),
+        out_of_band=(None, (None, None))),
+}
+
+
+def _check_tiled(lib, prim, prim64, body, b64, x, v, rng, tile, cap,
+                 kind="mixed", wrench_cotangent=True):
+    """The tiled forward and backward of the pair ``kind`` on (x, v), each
+    phase against the float64 plain version and its vjp (dt and p_mass as
+    the kernels see them): classification (the rule in float64; every
+    particle in contact kept), the tiles' lists, the out-of-band results
+    (exact), out0 (p_v_out or the impulse), dx, dv, the block partials
+    (each tile's wrench and body cotangents) and the last block's sum.
+    Without ``wrench_cotangent`` the backward gets none (a null pointer:
+    zero). Returns the contact set and the classification."""
+    kd = KINDS[kind]
     n = x.shape[1]
     dt, p_mass = float(np.float32(1e-3)), float(np.float32(1.5e-5))
     cap_p = None if cap == float("inf") else cap
     x64, v64 = x.double(), v.double()
     gout, gwrench = _f32(rng, 3, n), _f32(rng, 6)
-    dist = contact.collide_mixed1_plain(prim64, *_parts(b64), x64, v64, dt)[6]
+    gw = gwrench if wrench_cotangent else None
+    in_contact = kd["contact"](prim64, b64, x64, v64, dt)
     band, gap = _band_rule(prim64, b64, x)
-    fwd = _tiled_call(lib, 0, tile, prim, body, x, v, gout, gwrench, dt,
-                      p_mass, cap)
-    bwd = _tiled_call(lib, 1, tile, prim, body, x, v, gout, gwrench, dt,
-                      p_mass, cap)
-    pv, wrench = contact.collide_mixed_wrench_plain(
-        prim64, *_parts(b64), x64, v64, dt, p_mass, cap_p)
-    grads = contact.collide_mixed_wrench_vjp_plain(
-        prim64, *_parts(b64), x64, v64, dt, p_mass, cap_p, gout.double(),
-        gwrench.double())
+    fwd = _tiled_call(lib, 0, tile, prim, body, x, v, gout, gw, dt, p_mass,
+                      cap, kind)
+    bwd = _tiled_call(lib, 1, tile, prim, body, x, v, gout, gw, dt, p_mass,
+                      cap, kind)
+    out0, wrench = kd["plain"](prim64, b64, x64, v64, dt, p_mass, cap_p)
+    grads = kd["vjp"](prim64, b64, x64, v64, dt, p_mass, cap_p,
+                      gout.double(), None if gw is None else gw.double())
+    nb = len(kd["groups"])
     for out in (fwd, bwd):
         # classification: the rule, and conservative
         sure = gap > 1e-12
         assert torch.equal(out["band"][sure], band[sure])
-        assert bool(out["band"][dist <= contact.CONTACT_THRESHOLD].all())
+        assert bool(out["band"][in_contact].all())
         # compaction: each tile's band particles in tile order
         for b in range(out["lists"].shape[0]):
             flags = out["band"][b * tile:(b + 1) * tile]
@@ -1174,33 +1239,35 @@ def _check_tiled(lib, prim, prim64, body, b64, x, v, rng, tile, cap):
             assert bool((got[want.numel():] == -1).all())
     # full math and the particles out of the band
     out_band = ~fwd["band"]
-    assert torch.equal(fwd["out0"][:, out_band], v64[:, out_band])
-    assert torch.equal(bwd["out0"][:, out_band],
-                       torch.zeros_like(x64)[:, out_band])
-    assert torch.equal(bwd["out1"][:, out_band], gout.double()[:, out_band])
-    assert _close_rows(fwd["out0"], pv)
-    assert _close_rows(bwd["out0"], grads[7])
-    assert _close_rows(bwd["out1"], grads[8])
+    keep = {"v": v64, "gout": gout.double(), None: torch.zeros_like(x64)}
+    fwd_ob, bwd_ob = kd["out_of_band"]
+    assert torch.equal(fwd["out0"][:, out_band], keep[fwd_ob][:, out_band])
+    for k, src in zip(("out0", "out1"), bwd_ob):
+        assert torch.equal(bwd[k][:, out_band], keep[src][:, out_band])
+    assert _close_rows(fwd["out0"], out0)
+    assert _close_rows(bwd["out0"], grads[nb])
+    assert _close_rows(bwd["out1"], grads[nb + 1])
     # block partials: each tile's own wrench and body cotangents
-    groups = ((0, 3), (3, 7), (7, 10), (10, 13), (13, 14), (14, 15),
-              (15, 16))
-    parts_f, parts_b = [], []
-    for b in range(fwd["partial"].shape[1]):
-        sl = slice(b * tile, min((b + 1) * tile, n))
-        xs, vs = x64[:, sl].contiguous(), v64[:, sl].contiguous()
-        parts_f.append(contact.collide_mixed_wrench_plain(
-            prim64, *_parts(b64), xs, vs, dt, p_mass, cap_p)[1])
-        g = contact.collide_mixed_wrench_vjp_plain(
-            prim64, *_parts(b64), xs, vs, dt, p_mass, cap_p,
-            gout.double()[:, sl].contiguous(), gwrench.double())
-        parts_b.append(torch.cat([t.reshape(-1) for t in g[:7]]))
-    parts_f, parts_b = torch.stack(parts_f, 1), torch.stack(parts_b, 1)
-    body_grad = torch.cat([t.reshape(-1) for t in grads[:7]])
-    for got, want, total, rows in (
-            (fwd["partial"], parts_f, wrench, ((0, 3), (3, 6))),
-            (bwd["partial"], parts_b, body_grad, groups)):
-        for a, c in rows:
-            assert _close_rows(got[a:c], want[a:c]), (a, c)
+    groups = kd["groups"]
+    body_grad = torch.cat([t.reshape(-1) for t in grads[:nb]])
+    blocks = fwd["partial"].shape[1]
+    if blocks:
+        parts_f, parts_b = [], []
+        for b in range(blocks):
+            sl = slice(b * tile, min((b + 1) * tile, n))
+            xs, vs = x64[:, sl].contiguous(), v64[:, sl].contiguous()
+            parts_f.append(kd["plain"](prim64, b64, xs, vs, dt, p_mass,
+                                       cap_p)[1])
+            g = kd["vjp"](prim64, b64, xs, vs, dt, p_mass, cap_p,
+                          gout.double()[:, sl].contiguous(),
+                          None if gw is None else gw.double())
+            parts_b.append(torch.cat([t.reshape(-1) for t in g[:nb]]))
+        parts_f, parts_b = torch.stack(parts_f, 1), torch.stack(parts_b, 1)
+        for got, want, rows in (
+                (fwd["partial"], parts_f, ((0, 3), (3, 6))),
+                (bwd["partial"], parts_b, groups)):
+            for a, c in rows:
+                assert _close_rows(got[a:c], want[a:c]), (a, c)
     # the last block: the partials summed in the block's fixed order, then
     # the total against the plain version's
     for out, want, rows in ((fwd, wrench, ((0, 3), (3, 6))),
@@ -1210,7 +1277,7 @@ def _check_tiled(lib, prim, prim64, body, b64, x, v, rng, tile, cap):
                 out["partial"][k].tolist())
         for a, c in rows:
             assert _close_rows(out["total"][a:c], want[a:c]), (a, c)
-    return dist, fwd["band"]
+    return in_contact, fwd["band"]
 
 
 @pytest.mark.parametrize("tile,cap", [(1024, float("inf")), (256, 2.0),
@@ -1221,8 +1288,8 @@ def test_mixed_tiled_source(lib, tile, cap):
     occur): every phase within 1e-12 of the float64 plain version and its
     vjp; the band is a few particles in ten, so most take the short way."""
     prim, prim64, body, b64, x, v, rng = _mixed_scene(6)
-    dist, band = _check_tiled(lib, prim, prim64, body, b64, x, v, rng, tile,
-                              cap)
+    _, band = _check_tiled(lib, prim, prim64, body, b64, x, v, rng, tile,
+                           cap)
     counts = _mixed_cases(prim64, b64, x, v, 1e-3)
     assert min(counts.values()) > 20, counts
     assert 0 < int(band.sum()) < x.shape[1] // 2
@@ -1268,15 +1335,15 @@ def test_mixed_tiled_margin_source(lib):
     keep = ((d - target).abs() < 0.2 * BAND_MARGIN).nonzero().flatten()
     x, v = xs[:, keep].float().contiguous(), v[:, idx[keep]].contiguous()
     d, target = d[keep], target[keep]
-    dist, band = _check_tiled(lib, prim, prim64, body, b64, x, v, rng, 256,
-                              float("inf"))
+    in_contact, band = _check_tiled(lib, prim, prim64, body, b64, x, v, rng,
+                                    256, float("inf"))
     off = ((target - contact.CONTACT_THRESHOLD) / BAND_MARGIN).round(
         decimals=1)
     for o, kept in ((-0.5, True), (0.5, True), (1.5, False), (3.0, False)):
         sel = off == o
         assert int(sel.sum()) >= 5, (o, int(sel.sum()))
         assert bool((band[sel] == kept).all()), o
-    assert bool((dist[off == 0.5] > contact.CONTACT_THRESHOLD).all())
+    assert not bool(in_contact[off == 0.5].any())
 
 
 def _fused_weights(case):
@@ -1589,3 +1656,84 @@ def test_kr3_source(lib, case):
               ctypes.c_int(window[1]), ctypes.c_int(window[2]))
     for got, want in zip(outs, kr.kr3_plain(Wy, Wz, WDy, WDz)):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tile", [1024, 512, 256])
+def test_penalty_tiled_source(lib, tile):
+    """The tiled penalty pair (contact.cu, contact_bwd.cu on
+    contact_mixed.cuh's skeleton, the wrench folded in) on 4000 particles
+    over the glass's SDF box: every phase within 1e-12 of
+    collide_particle_wrench_plain and its vjp in float64 (classification
+    and lists, imp, dx, dv, each block's partial wrench and body
+    cotangents, the last block's sum); the band is a few particles in
+    ten, so most take the short way."""
+    prim, prim64, body, b64, x, v, rng = _penalty_scene(20)
+    in_contact, band = _check_tiled(lib, prim, prim64, body, b64, x, v, rng,
+                                    tile, None, "penalty")
+    assert int(in_contact.sum()) > 400
+    assert int(in_contact.sum()) <= int(band.sum()) < x.shape[1] // 2
+
+
+@pytest.mark.parametrize("case", ["all", "none", "ragged", "empty",
+                                  "no_wrench_cotangent", "margin"])
+def test_penalty_tiled_cases_source(lib, case):
+    """The tiled penalty pair at the edges: every particle in contact (500,
+    tile 256: two tiles, the last ragged), none in the band (1000 more than
+    1 cm from the glass, tile 512), a ragged last tile at the wrappers'
+    tile (1300 box particles), no particle (n = 0: empty outputs, zero
+    totals), no wrench cotangent (a null pointer, the Function's None:
+    the plain vjp of the impulse alone), and particles moved along the SDF
+    normal to dist = 5e-3 + (-0.5, 0.5, 1.5, 3) x the band margin (those
+    in contact and within the margin above it kept, the latter out of
+    contact in the full math; those past it not kept)."""
+    prim, prim64, body, b64, x, v, rng = _penalty_scene(21)
+    bp, bq = tuple(b64[0:3]), tuple(b64[3:7])
+    dist, normal = contact.sample_sdf_normal_world(prim64, bp, bq,
+                                                   tuple(x.double()))
+    tile, kw = contact.MIXED_TILE, {}
+    if case in ("all", "none"):
+        pick = (dist < contact.CONTACT_THRESHOLD if case == "all"
+                else dist > 0.01)
+        count, tile = (500, 256) if case == "all" else (1000, 512)
+        idx = torch.nonzero(pick).flatten()[:count]
+        assert idx.numel() == count
+        x, v = x[:, idx].contiguous(), v[:, idx].contiguous()
+    elif case == "ragged":
+        x, v = x[:, :1300].contiguous(), v[:, :1300].contiguous()
+    elif case == "empty":
+        x, v = x[:, :0].contiguous(), v[:, :0].contiguous()
+    elif case == "no_wrench_cotangent":
+        kw = {"wrench_cotangent": False}
+    else:
+        idx = torch.nonzero((dist > 0.001) & (dist < 0.01)).flatten()[:400]
+        offsets = torch.tensor([-0.5, 0.5, 1.5, 3.0], dtype=torch.float64)
+        target = contact.CONTACT_THRESHOLD + BAND_MARGIN * offsets.repeat(100)
+        xs = x[:, idx].double()
+        for _ in range(4):
+            d, nrm = contact.sample_sdf_normal_world(prim64, bp, bq,
+                                                     tuple(xs))
+            xs = (xs - (d - target) * torch.stack(nrm)).float().double()
+        d, _ = contact.sample_sdf_normal_world(prim64, bp, bq, tuple(xs))
+        keep = ((d - target).abs() < 0.2 * BAND_MARGIN).nonzero().flatten()
+        x, v = xs[:, keep].float().contiguous(), v[:, idx[keep]].contiguous()
+        target, tile = target[keep], 256
+    in_contact, band = _check_tiled(lib, prim, prim64, body, b64, x, v, rng,
+                                    tile, None, "penalty", **kw)
+    n = x.shape[1]
+    if case == "all":
+        assert int(in_contact.sum()) == int(band.sum()) == n
+    elif case == "none":
+        assert int(band.sum()) == 0
+    elif case == "ragged":
+        assert n % tile and -(-n // tile) >= 2
+    elif case == "margin":
+        off = ((target - contact.CONTACT_THRESHOLD) / BAND_MARGIN).round(
+            decimals=1)
+        for o, kept in ((-0.5, True), (0.5, True), (1.5, False),
+                        (3.0, False)):
+            sel = off == o
+            assert int(sel.sum()) >= 5, (o, int(sel.sum()))
+            assert bool((band[sel] == kept).all()), o
+        assert not bool(in_contact[off == 0.5].any())
+    if case != "none":
+        assert n == 0 or int(in_contact.sum()) > 0
