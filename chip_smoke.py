@@ -12,7 +12,10 @@ script exits non-zero:
            the ptxas log (also in its entry of the kernels line); the
            row-thread kernels of fused_rows.cuh (the door's P2G and G2P
            and the P2G, G2P, splat and gather backwards) apart
-           ("row_kernels"), which fail the phase if they spill
+           ("row_kernels"), which fail the phase if they spill; so do the
+           penalty contact pair and the read-side tile kernels (G2P and
+           the gather, ops/csrc/slab_read.cuh), whose registers and spills
+           are printed
   kernels  each kernel against its plain PyTorch version at the main path's
            shapes: max error, time over 20+ calls (CUDA events: the call,
            the wrapper's host time included), its device-only time
@@ -44,7 +47,16 @@ script exits non-zero:
            mixed contact on 1e5 particles of the glass's box all in the
            contact band: the band's particles and the fullest tile's
            counted, 10 calls bit-identical, call and device time on each
-           set of particles. The y-slab kernels (ops/csrc/slab.cuh: P2G,
+           set of particles. G2P and the gather (the read-side tiles of
+           ops/csrc/slab_read.cuh: a tile's grid rows staged in shared
+           memory) are held to their float64 plain versions within 1e-5
+           of each output row's largest |value| on the pour_vel and pour
+           states, on a random permutation of each, over the full 64^3
+           grid and on as many particles spread uniformly over the pour's
+           window: the particles that read device memory instead of the
+           slab counted (some order of each must: the spread state's
+           permutation), 10 calls bit-identical, call and device ms. The y-slab kernels
+           (ops/csrc/slab.cuh: P2G,
            the splat and the G2P and gather backwards) are also held on
            the pour_vel and pour states, on a random permutation of each,
            and over the full 64^3 grid: within 1e-5 of the float64 plain
@@ -53,7 +65,8 @@ script exits non-zero:
            each must spill), 10 calls bit-identical; on the two windowed
            states the backwards' call and device time
   slice    the pour_vel main path: SoftMacEnv.rollout of that scene for 50
-           env steps on the card, launches counted; then 7 more timed
+           env steps on the card, launches counted, G2P's particles off
+           its tiles' slabs summed over the run; then 7 more timed
            rollouts of the same actions: substeps/s (median and spread),
            loss, overflow, and how far the repeats' end states differ
   grad     pour_vel's gradient path: SoftMacEnv.rollout_and_grad of the
@@ -65,7 +78,9 @@ script exits non-zero:
   pour     the flagship main path: SoftMacEnv.rollout of the demo_pour
            scene (mixed contact, two floating force-controlled bodies) at
            1e5 particles, window (32, 32, 16), 100 env steps of zero
-           actions, launches counted; 7 more timed rollouts; then the same
+           actions, launches counted, G2P's and the gather's particles off
+           their tiles' slabs summed over the run; 7 more timed rollouts;
+           then the same
            scene under SOFTMAC_TPU_CONTACT_SPLIT (the split contact
            kernels, counted)
   pour_grad  the flagship's gradient main path: rollout_and_grad of the
@@ -505,16 +520,16 @@ def check_kernels(inp):
           cuda_time_ms(lambda: transfer.p2g_plain(*args)),
           (16 * n + 4 * cells) * 4)
 
-    # --- g2p: relative to each output row's largest value ------------------
+    # --- g2p: each output row against its largest |value|, the plain
+    # version in float64 on the same inputs ---------------------------------
     args = (x, *inp["grids"], corner, sizes, cfg.inv_dx)
     device_ms("g2p", lambda: transfer.g2p(*args))
-    out_k, out_p = transfer.g2p(*args), transfer.g2p_plain(*args)
-    row_scale = out_p.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
-    rel = ((out_k - out_p).abs() / row_scale).max().item()
+    err, rel = _row_rel(transfer.g2p(*args),
+                        transfer.g2p_plain(*map(_f64, args)))
     entry("g2p", "softmac_tpu_torch/ops/csrc/g2p.cu",
           "softmac_tpu/ops/pallas_chunked.py:688 (_g2p_c_pallas, "
           "pallas_call :704, kernel _g2p_c_kernel :245)",
-          (out_k - out_p).abs().max().item(), rel, cuda_time_ms(lambda: transfer.g2p(*args)),
+          err, rel, cuda_time_ms(lambda: transfer.g2p(*args)),
           cuda_time_ms(lambda: transfer.g2p_plain(*args)),
           (3 * n + 3 * cells + 12 * n) * 4)
     entries[-1]["rel_err_is"] = "max |kernel - plain| / max |plain| per row"
@@ -1095,6 +1110,144 @@ def check_slab_kernels(inp, pour_inp):
         if not any(p > 0 for _, p in spilled.values()):
             raise AssertionError(f"{name}: no permuted order spilled")
     return res
+
+
+# the read-side tile kernels (ops/csrc/slab_read.cuh) and their output rows
+READ_ROWS = {"g2p": 12, "gather": 3}
+READ_SOURCES = ("g2p.cu", "gather.cu")
+
+
+def off_slab_count(wrapper):
+    """The particles of a G2P or gather call that read device memory (the
+    sum of its tiles' counts, read after a synchronize)."""
+    return int(wrapper.off_slab.sum())
+
+
+def check_read(name, args, gen):
+    """The read-side tile kernel ``name`` (G2P or the gather) on ``args``
+    (a y-sorted state, its window and grids) and on a random permutation
+    of its particles: each output row within ROW_TOL of its largest |value|
+    in the float64 plain version, the particles that read device memory
+    (off the slab), SLAB_REPEATS calls bit-identical, call and device ms of
+    each order."""
+    import torch
+    from softmac_tpu_torch.ops import transfer
+    wrapper = getattr(transfer, name)
+    kernel = getattr(transfer, "_" + name)
+    plain = getattr(transfer, name + "_plain")
+    x, sizes = args[0], args[5]
+    want = plain(*map(_f64, args))
+    perm = torch.randperm(x.shape[1], generator=gen, device=x.device)
+    permuted = (x[:, perm].contiguous(),) + args[1:]
+    res = {"window": list(sizes), "tile": transfer.READ_TILE}
+    for order, a, w in (("sorted", args, want),
+                        ("permuted", permuted, want[:, perm])):
+        outs = [kernel(*a) for _ in range(SLAB_REPEATS)]
+        torch.cuda.synchronize()
+        err, rel = _row_rel(outs[0], w)
+        res[order] = {"max_abs_err": err, "max_rel_err": rel,
+                      "off_slab": off_slab_count(wrapper),
+                      "repeats_bit_identical": all(
+                          torch.equal(o, outs[0]) for o in outs[1:]),
+                      "ms": cuda_time_ms(lambda: kernel(*a)),
+                      "device_ms": device_ms(
+                          f"{name} read {order} {tuple(sizes)}",
+                          lambda: kernel(*a))}
+    if not all(res[o]["max_rel_err"] <= ROW_TOL
+               and res[o]["repeats_bit_identical"]
+               for o in ("sorted", "permuted")):
+        raise AssertionError(f"{name} read-side tiles: {res}")
+    return res
+
+
+def spread_particles(inp, gen):
+    """As many particles as ``inp``'s state, uniform over its window (a
+    cell's margin inside), in the y-sorted order: a tile's box then spans
+    the window's whole x-z plane, of which the slab holds a few rows."""
+    import torch
+    x, corner, sizes = inp["state"].x, inp["corner"], inp["sizes"]
+    inv_dx = inp["cfg"].inv_dx
+    w = torch.tensor(sizes, dtype=x.dtype, device=x.device)[:, None]
+    u = torch.rand(x.shape, generator=gen, device=x.device, dtype=x.dtype)
+    xs = (corner.to(x.dtype)[:, None] + 1.0 + u * (w - 2.0)) / inv_dx
+    key = torch.floor(xs[1] * inv_dx - 0.5)
+    return xs[:, torch.argsort(key, stable=True)].contiguous()
+
+
+def check_read_kernels(inp, pour_inp):
+    """check_read of G2P and the gather on the pour_vel and the pour states
+    (the main paths' y-sorted particles, windows and grids), on the pour's
+    particles over the full 64^3 grid (no window, seeded normal grids), and
+    on as many particles spread uniformly over the pour's window with its
+    grids (spread_particles: a tile's box is the window's whole x-z plane,
+    so in the permuted order the slab holds a few of the rows a tile
+    spans). Some order of each kernel must go off the slab (the
+    device-memory path ran). Returns {kernel: {state: result}}."""
+    import torch
+    x_p = pour_inp["state"].x
+    gen = torch.Generator(device=x_p.device).manual_seed(12)
+    ng = pour_inp["cfg"].n_grid
+    full = (tuple(torch.randn((ng * ng, ng), generator=gen, device=x_p.device)
+                  for _ in range(3)),
+            torch.zeros(3, dtype=torch.int32, device=x_p.device),
+            (ng, ng, ng))
+    pour_window = (pour_inp["gvm"], pour_inp["corner"], pour_inp["sizes"])
+    res = {name: {} for name in READ_ROWS}
+    for state, src, x, (grids, corner, sizes) in (
+            ("pour_vel", inp, inp["state"].x,
+             (inp["grids"], inp["corner"], inp["sizes"])),
+            ("pour", pour_inp, x_p, pour_window),
+            ("full_grid", pour_inp, x_p, full),
+            ("spread", pour_inp, spread_particles(pour_inp, gen),
+             pour_window)):
+        args = (x, *grids, corner, sizes, src["cfg"].inv_dx)
+        for name in READ_ROWS:
+            res[name][state] = check_read(name, args, gen)
+    for name, by_state in res.items():
+        off = {k: (v["sorted"]["off_slab"], v["permuted"]["off_slab"])
+               for k, v in by_state.items()}
+        print(f"{name} read-side tiles: off the slab (sorted, permuted) "
+              f"{off}", flush=True)
+        if not any(p > 0 for o in off.values() for p in o):
+            raise AssertionError(f"{name}: no order went off the slab")
+    return res
+
+
+class OffSlab:
+    """Within it, every G2P and gather call's off-slab counts (the tensor
+    each leaves in ``off_slab``) are kept; ``counts()`` sums them after a
+    synchronize: the main path's particles that read device memory."""
+
+    def __enter__(self):
+        from softmac_tpu_torch.ops import transfer
+        self.transfer = transfer
+        self.kept = {name: [] for name in READ_ROWS}
+        self.kernels = {name: getattr(transfer, "_" + name)
+                        for name in READ_ROWS}
+        for name, fn in self.kernels.items():
+            def kept(*args, _name=name, _fn=fn):
+                out = _fn(*args)
+                self.kept[_name].append(getattr(transfer, _name).off_slab)
+                return out
+            setattr(transfer, "_" + name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.kernels.items():
+            setattr(self.transfer, "_" + name, fn)
+
+    def counts(self):
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for name, kept in self.kept.items():
+            if not kept:
+                continue
+            per_call = torch.stack([t.sum() for t in kept]).tolist()
+            out[name] = {"calls": len(kept), "off_slab": int(sum(per_call)),
+                         "calls_off_slab": sum(c > 0 for c in per_call),
+                         "max_a_call": int(max(per_call))}
+        return out
 
 
 def check_real_backward(keep, kernels):
@@ -1711,8 +1864,11 @@ def run_slice(env):
     import torch
     acts = actions(VEL_STEPS)
     reset_launches()
-    out, secs = timed_rollout(env, acts)
+    with OffSlab() as off:
+        out, secs = timed_rollout(env, acts)
     launches = read_launches()
+    off_slab = off.counts()
+    print(f"slice: G2P particles off the slab {off_slab}", flush=True)
     loss = out["loss"].item()
     terms = {k: float(v) for k, v in out["terms"].items()}
     state = out["carry"][0]
@@ -1731,7 +1887,7 @@ def run_slice(env):
            "counted_run_substeps_per_s": n_sub / secs,
            "repeat_x_max_abs_diff": repeat_diff,
            "loss": loss, "terms": terms,
-           "launches": launches,
+           "launches": launches, "off_slab": off_slab,
            "x_finite": bool(torch.isfinite(state.x).all()),
            "x_shape": list(state.x.shape)}
     expect = dict.fromkeys(wrappers(), 0)
@@ -1861,8 +2017,12 @@ def run_pour(env):
     acts = np.zeros((SLICE_STEPS, env.action_dim))
     q0 = env._initial_carry()[2].q
     reset_launches()
-    out, secs = timed_rollout(env, acts)
+    with OffSlab() as off:
+        out, secs = timed_rollout(env, acts)
     launches = read_launches()
+    off_slab = off.counts()
+    print(f"pour: G2P and gather particles off the slab {off_slab}",
+          flush=True)
     n_sub = SLICE_STEPS * env.substeps
     expect = dict.fromkeys(wrappers(), 0)
     expect.update({"p2g": n_sub, "g2p": n_sub, "gather": n_sub,
@@ -1892,6 +2052,7 @@ def run_pour(env):
            "terms": {k: float(v) for k, v in out["terms"].items()},
            "rigid_q": rigid.q.tolist(), "rigid_qd": rigid.qd.tolist(),
            "glass_q_moved": glass_moved, "launches": launches,
+           "off_slab": off_slab,
            "x_finite": bool(torch.isfinite(state.x).all()),
            "x_shape": list(state.x.shape),
            # particles off their tile's y-slab in the last substep (the
@@ -3480,10 +3641,12 @@ def main():
     contact_ptxas = {k: [f for f in ptxas.get(k, [])
                          if "round_to_float" not in f["function"]]
                      for k in PENALTY_SOURCES}
+    read_ptxas = {k: ptxas.get(k, []) for k in READ_SOURCES}
     emit("build", {"seconds": secs, "library": so.name,
                    "row_kernels": rows_ptxas,
-                   "penalty_contact_kernels": contact_ptxas, "ptxas": ptxas})
-    for k, fns in contact_ptxas.items():
+                   "penalty_contact_kernels": contact_ptxas,
+                   "read_tile_kernels": read_ptxas, "ptxas": ptxas})
+    for k, fns in {**contact_ptxas, **read_ptxas}.items():
         print(f"{k} ptxas: " + ", ".join(
             f"registers {f['registers']}, spill stores {f['spill_stores']}"
             for f in fns), flush=True)
@@ -3494,6 +3657,9 @@ def main():
                        for fns in contact_ptxas.values()):
         raise AssertionError(f"penalty contact kernels: ptxas "
                              f"{contact_ptxas}")
+    if log and not all(fns and all(f["spill_stores"] == 0 for f in fns)
+                       for fns in read_ptxas.values()):
+        raise AssertionError(f"read-side tile kernels: ptxas {read_ptxas}")
 
     env = SoftMacEnv(pour_vel_cfg(WINDOW),
                      init_particles=tiled_pour_particles(N_MAIN))
@@ -3508,9 +3674,12 @@ def main():
     kernels += check_pour_kernels(pour_inp)
     kernels += check_pour_backward_kernels(pour_inp)
     slab = check_slab_kernels(inp, pour_inp)
+    read = check_read_kernels(inp, pour_inp)
     for k in kernels:
         if k["name"] in slab:
             k["slab"] = slab[k["name"]]
+        if k["name"] in read:
+            k["read_tiles"] = read[k["name"]]
     denv, door10, door_inp = door_states()
     big_inp = door_inp.pop("1e5")
     door_inp = door_inp["door"]

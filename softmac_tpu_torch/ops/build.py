@@ -33,12 +33,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "softmac_p2g": [_P] * 7 + [_I] * 5 + [_F, _P],
     "softmac_slab_plan": [_I] * 7 + [_P],
-    "softmac_g2p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "softmac_g2p": [_P] * 7 + [_I] * 4 + [_F, _P],
     "softmac_collide_particle": [_P] * 12 + [_I] * 4 + [_F] * 9 + [_P],
     "softmac_p2g_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
     "softmac_g2p_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
     "softmac_collide_particle_bwd": [_P] * 15 + [_I] * 4 + [_F] * 9 + [_P],
-    "softmac_gather": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "softmac_gather": [_P] * 7 + [_I] * 4 + [_F, _P],
     "softmac_splat": [_P] * 7 + [_I] * 5 + [_F, _P],
     "softmac_collide_mixed": [_P] * 14 + [_I] * 4 + [_F] * 10 + [_P],
     "softmac_collide_mixed1": [_P] * 5 + [_I] * 4 + [_F] * 8 + [_P],

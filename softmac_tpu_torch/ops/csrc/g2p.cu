@@ -14,83 +14,49 @@
 // output has 16 rows, rows 12-15 being zero sublane padding; nothing reads
 // them, so this kernel writes the 12 rows the substep uses.
 //
-// What bounds it on the H100: bytes. It reads 3 position floats a particle
-// and the window's three grids (240 KB at (40, 32, 16), L2-resident), and
-// writes 12 floats a particle: about 6.2 MB at 1e5 particles, 1.9 us at
-// 3.35 TB/s. The 81 grid reads a particle hit L1/L2, and the sorted
-// particle order makes a warp read neighbouring cells.
+// What bounds it on the H100: not bytes. It must move 3 position floats
+// and 12 output floats a particle and the window's three grids once, about
+// 6.2 MB at 1e5 particles (1.9 us at 3.35 TB/s). The first design, one
+// thread a particle with 81 scattered 4-byte __ldg's of the three separate
+// grids, took 9.9 us on pour_vel's 1e5-particle state (NVIDIA H100 80GB
+// HBM3, 700 W): the rollout sorts particles by y cell only, so a warp's
+// lanes touched many lines a load and the L1's load pipe set the pace.
+// This design takes 6.5 us there (scripts/read_ab.py, in turns), in three
+// serial phases of one wave of 391 blocks: the weights and the tile's box
+// (~1.7 us, the launch and the position loads), the staging (~1.3 us of L2
+// reads), and the sums (~3.5 us: 27 shared float4 loads and ~600
+// instructions a particle, issue-bound).
 //
-// Simple design: one thread per particle, read-only loads through the
-// texture path (__ldg), sums in registers, coalesced row-major stores.
-#include "bspline.cuh"
+// Design (slab_read.cuh, G2PKind): a block of 256 threads takes 256
+// consecutive particles of the y-sorted order, stages the box of grid
+// cells their stencils reach into shared memory, channel-interleaved (27
+// float4 loads a particle), and sums each particle's stencil there in the
+// first design's order and products (the same bits); particles whose rows
+// do not fit the slab read device memory in the same loop (counted in
+// off_slab). One launch.
+#include "slab_read.cuh"
 
 namespace {
 
-__global__ void g2p_kernel(const float* __restrict__ x,
-                           const float* __restrict__ gv0,
-                           const float* __restrict__ gv1,
-                           const float* __restrict__ gv2,
-                           const int* __restrict__ corner,
-                           float* __restrict__ out,
-                           int n, int wx, int wy, int wz, float inv_dx) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-
-  softmac::Axis ax[3];
-  int rel[3];
-  for (int d = 0; d < 3; ++d) {
-    ax[d] = softmac::axis_weights(x[d * n + p], inv_dx);
-    rel[d] = ax[d].base - corner[d];
-  }
-
-  float v[3] = {0.f, 0.f, 0.f};
-  float c[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-  for (int j = 0; j < 3; ++j) {
-    const int cy = rel[1] + j;
-    if (cy < 0 || cy >= wy) continue;
-    for (int k = 0; k < 3; ++k) {
-      const int cz = rel[2] + k;
-      if (cz < 0 || cz >= wz) continue;
-      const int row = cy * wz + cz;
-      const float wyz = ax[1].w[j] * ax[2].w[k];
-      const float dyz = ax[1].wd[j] * ax[2].w[k];
-      const float ydz = ax[1].w[j] * ax[2].wd[k];
-      for (int i = 0; i < 3; ++i) {
-        const int cx = rel[0] + i;
-        if (cx < 0 || cx >= wx) continue;
-        const int idx = row * wx + cx;
-        const float g[3] = {__ldg(gv0 + idx), __ldg(gv1 + idx), __ldg(gv2 + idx)};
-        const float wgt = ax[0].w[i] * wyz;
-        const float dwx = ax[0].wd[i] * wyz;
-        const float dwy = ax[0].w[i] * dyz;
-        const float dwz = ax[0].w[i] * ydz;
-        for (int d = 0; d < 3; ++d) {
-          v[d] += wgt * g[d];
-          c[d][0] += dwx * g[d];
-          c[d][1] += dwy * g[d];
-          c[d][2] += dwz * g[d];
-        }
-      }
-    }
-  }
-  for (int d = 0; d < 3; ++d) {
-    out[d * n + p] = v[d];
-    for (int j = 0; j < 3; ++j) out[(3 + 3 * d + j) * n + p] = c[d][j];
-  }
+__global__ void __launch_bounds__(softmac::kReadTile,
+                                  softmac::kReadBlocks)
+    g2p_kernel(softmac::ReadArgs a) {
+  softmac::read_block<softmac::G2PKind>(a);
 }
 
 }  // namespace
 
 // x (3, n) positions, gv0..gv2 (wy*wz, wx) grid velocity, corner (3,) int32
-// on the device, out (12, n). Returns cudaGetLastError() after the launch.
+// on the device, out (12, n), off_slab (read_tiles(n)) int32: each tile's
+// particles that read device memory. Returns cudaGetLastError() after the
+// launch.
 extern "C" int softmac_g2p(const float* x, const float* gv0, const float* gv1,
                            const float* gv2, const int* corner, float* out,
-                           int n, int wx, int wy, int wz, float inv_dx,
-                           void* stream) {
-  if (n > 0) {
-    g2p_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-        x, gv0, gv1, gv2, corner, out, n, wx, wy, wz, inv_dx);
-  }
-  return static_cast<int>(cudaGetLastError());
+                           int* off_slab, int n, int wx, int wy, int wz,
+                           float inv_dx, void* stream) {
+  const softmac::ReadArgs a = {x, {gv0, gv1, gv2}, corner, out, off_slab, n,
+                               wx, wy, wz, inv_dx, 0};
+  static unsigned opted = 0;
+  return softmac::read_launch(g2p_kernel, a,
+                              static_cast<cudaStream_t>(stream), opted);
 }

@@ -10,67 +10,48 @@
 //   out[d] = sum W g_d      (W = Wx Wy Wz, the bspline.cuh weights)
 // Cells outside the window are skipped, as in G2P.
 //
-// What bounds it on the H100: bytes. It reads 3 position floats a particle
-// and the window's three grids (196 KB at (32, 32, 16), L2-resident), and
-// writes 3 floats a particle: about 2.6 MB at 1e5 particles, 0.8 us at
-// 3.35 TB/s. The 81 grid reads a particle hit L1/L2; the y-sorted particle
-// order makes a warp read neighbouring cells.
+// What bounds it on the H100: not bytes. It must move 3 position floats
+// and 3 output floats a particle and the window's three grids once, about
+// 2.6 MB at 1e5 particles (0.8 us at 3.35 TB/s). The first design, one
+// thread a particle with G2P's 81 scattered 4-byte __ldg's, took 7.3 us on
+// the flagship pour's 1e5-particle state (NVIDIA H100 80GB HBM3, 700 W),
+// the L1's load pipe setting the pace as in G2P. This design takes 6.2 us
+// there (scripts/read_ab.py, in turns; 6.0 against the first design's 5.8
+// on pour_vel's state, which runs no gather): the tile's box and its
+// staging take ~3 us as in G2P, and the sums ~3 us, bound by the shared
+// loads (27 float4 a particle, at least four wavefronts a warp each; bank
+// conflicts ~0.5 us of it).
 //
-// Simple design: G2P's loop without the C rows. One thread per particle,
-// read-only loads through the texture path (__ldg), sums in registers,
-// coalesced row-major stores.
-#include "bspline.cuh"
+// Design (slab_read.cuh, GatherKind): G2P's tiles without the nine C rows
+// and the derivative weights. A block stages the box of grid cells its 256
+// particles reach into shared memory, a cell one float4 of the three
+// grids, and each particle sums its 27 cells there in the first design's
+// order (the same bits); particles whose rows do not fit the slab read
+// device memory in the same loop (counted in off_slab). One launch.
+#include "slab_read.cuh"
 
 namespace {
 
-__global__ void gather_kernel(const float* __restrict__ x,
-                              const float* __restrict__ gv0,
-                              const float* __restrict__ gv1,
-                              const float* __restrict__ gv2,
-                              const int* __restrict__ corner,
-                              float* __restrict__ out,
-                              int n, int wx, int wy, int wz, float inv_dx) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-
-  softmac::Axis ax[3];
-  int rel[3];
-  softmac::particle_stencil(x, n, p, corner, inv_dx, ax, rel);
-  float v[3] = {0.f, 0.f, 0.f};
-  for (int j = 0; j < 3; ++j) {
-    const int cy = rel[1] + j;
-    if (cy < 0 || cy >= wy) continue;
-    for (int k = 0; k < 3; ++k) {
-      const int cz = rel[2] + k;
-      if (cz < 0 || cz >= wz) continue;
-      const int row = cy * wz + cz;
-      const float wyz = ax[1].w[j] * ax[2].w[k];
-      for (int i = 0; i < 3; ++i) {
-        const int cx = rel[0] + i;
-        if (cx < 0 || cx >= wx) continue;
-        const int idx = row * wx + cx;
-        const float wgt = ax[0].w[i] * wyz;
-        v[0] += wgt * __ldg(gv0 + idx);
-        v[1] += wgt * __ldg(gv1 + idx);
-        v[2] += wgt * __ldg(gv2 + idx);
-      }
-    }
-  }
-  for (int d = 0; d < 3; ++d) out[d * n + p] = v[d];
+__global__ void __launch_bounds__(softmac::kReadTile,
+                                  softmac::kReadBlocks)
+    gather_kernel(softmac::ReadArgs a) {
+  softmac::read_block<softmac::GatherKind>(a);
 }
 
 }  // namespace
 
 // x (3, n) positions, gv0..gv2 (wy*wz, wx) grid velocity, corner (3,) int32
-// on the device, out (3, n). Returns cudaGetLastError() after the launch.
+// on the device, out (3, n), off_slab (read_tiles(n)) int32: each tile's
+// particles that read device memory. Returns cudaGetLastError() after the
+// launch.
 extern "C" int softmac_gather(const float* x, const float* gv0,
                               const float* gv1, const float* gv2,
-                              const int* corner, float* out, int n, int wx,
-                              int wy, int wz, float inv_dx, void* stream) {
-  if (n > 0) {
-    gather_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        x, gv0, gv1, gv2, corner, out, n, wx, wy, wz, inv_dx);
-  }
-  return static_cast<int>(cudaGetLastError());
+                              const int* corner, float* out, int* off_slab,
+                              int n, int wx, int wy, int wz, float inv_dx,
+                              void* stream) {
+  const softmac::ReadArgs a = {x, {gv0, gv1, gv2}, corner, out, off_slab, n,
+                               wx, wy, wz, inv_dx, 0};
+  static unsigned opted = 0;
+  return softmac::read_launch(gather_kernel, a,
+                              static_cast<cudaStream_t>(stream), opted);
 }

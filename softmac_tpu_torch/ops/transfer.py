@@ -18,7 +18,12 @@ memory (``ops/csrc/slab.cuh``); particles whose cells fall outside their
 tile's rows go by global atomics instead and are counted in
 ``p2g.spilled``, ``splat.spilled``, ``g2p_bwd.spilled`` and
 ``gather_bwd.spilled`` (0 when the particles are sorted by y, as the
-rollout keeps them).
+rollout keeps them). The G2P and gather kernels stage a tile's grid rows
+in shared memory and read every stencil cell there
+(``ops/csrc/slab_read.cuh``); a particle whose rows do not fit its tile's
+slab reads device memory instead, and ``g2p.off_slab`` and
+``gather.off_slab`` hold each tile's count of those (their sum is the
+call's).
 
 Under autograd (grad enabled and an input that requires grad) each goes
 through its autograd Function (``P2G``, ``G2P``, ``Gather``, ``Splat``: the
@@ -48,6 +53,9 @@ from softmac_tpu_torch.ops import build
 # two up to 1024; scripts/slab_phases.py times 256, 512 and 1024 on the
 # main paths' states
 SLAB_TILE = 512
+# particles a block of the read-side tiles (ops/csrc/slab_read.cuh: G2P and
+# the gather), kReadTile there
+READ_TILE = 256
 
 
 def stencil(x: torch.Tensor, corner: torch.Tensor, window, inv_dx: float):
@@ -264,21 +272,34 @@ def _grid_views(out, window):
 
 
 def _g2p(x, gv0, gv1, gv2, corner, window, inv_dx):
-    """G2P gather; see ``g2p_plain``. CUDA tensors launch the kernel."""
+    """G2P gather; see ``g2p_plain``. CUDA tensors launch the kernel;
+    ``g2p.off_slab`` then holds each tile's count of particles that read
+    device memory."""
     if build.on_cpu(x, "g2p"):
         return g2p_plain(x, gv0, gv1, gv2, corner, window, inv_dx)
-    wx, wy, wz = (int(w) for w in window)
-    n = x.shape[1]
-    _check_cuda("g2p", (x, gv0, gv1, gv2), corner)
-    _check_grids("g2p", x, (gv0, gv1, gv2), window)
-    out = torch.empty((12, n), dtype=x.dtype, device=x.device)
-    rc = build.library().softmac_g2p(
-        x.data_ptr(), gv0.data_ptr(), gv1.data_ptr(), gv2.data_ptr(),
-        corner.data_ptr(), out.data_ptr(), n, wx, wy, wz, float(inv_dx),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "g2p")
+    out, g2p.off_slab = _read("g2p", 12, x, (gv0, gv1, gv2), corner, window,
+                              inv_dx)
     g2p.launches += 1
     return out
+
+
+def _read(name, rows, x, grids, corner, window, inv_dx):
+    """One call of a read-side tile kernel (G2P: 12 output rows, the
+    gather: 3): (out (rows, N), each tile's count of particles that read
+    device memory, an int32 tensor on the card)."""
+    wx, wy, wz = (int(w) for w in window)
+    n = x.shape[1]
+    _check_cuda(name, (x, *grids), corner)
+    _check_grids(name, x, grids, window)
+    out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
+    off_slab = torch.empty(-(-n // READ_TILE), dtype=torch.int32,
+                           device=x.device)
+    rc = getattr(build.library(), "softmac_" + name)(
+        x.data_ptr(), *(g.data_ptr() for g in grids), corner.data_ptr(),
+        out.data_ptr(), off_slab.data_ptr(), n, wx, wy, wz, float(inv_dx),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, name)
+    return out, off_slab
 
 
 def _check_grids(name, x, grids, window):
@@ -453,19 +474,12 @@ def _needs_grad(*tensors):
 
 def _gather(x, gv0, gv1, gv2, corner, window, inv_dx):
     """Gather of the grid velocity at the particles; see ``gather_plain``.
-    CUDA tensors launch the kernel."""
+    CUDA tensors launch the kernel; ``gather.off_slab`` then holds each
+    tile's count of particles that read device memory."""
     if build.on_cpu(x, "gather"):
         return gather_plain(x, gv0, gv1, gv2, corner, window, inv_dx)
-    wx, wy, wz = (int(w) for w in window)
-    n = x.shape[1]
-    _check_cuda("gather", (x, gv0, gv1, gv2), corner)
-    _check_grids("gather", x, (gv0, gv1, gv2), window)
-    out = torch.empty((3, n), dtype=x.dtype, device=x.device)
-    rc = build.library().softmac_gather(
-        x.data_ptr(), gv0.data_ptr(), gv1.data_ptr(), gv2.data_ptr(),
-        corner.data_ptr(), out.data_ptr(), n, wx, wy, wz, float(inv_dx),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "gather")
+    out, gather.off_slab = _read("gather", 3, x, (gv0, gv1, gv2), corner,
+                                 window, inv_dx)
     gather.launches += 1
     return out
 
@@ -531,6 +545,8 @@ g2p_bwd.launches = 0
 gather_bwd.launches = 0
 splat_bwd.launches = 0
 p2g.spilled = None
+g2p.off_slab = None
+gather.off_slab = None
 splat.spilled = None
 g2p_bwd.spilled = None
 gather_bwd.spilled = None

@@ -81,6 +81,9 @@ struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 struct int2 { int x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 struct dim3s { unsigned x, y, z; };
 extern dim3s blockIdx, threadIdx, blockDim, gridDim;
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
@@ -107,6 +110,7 @@ DRIVER = r"""
 #include <cstring>
 #include <limits>
 #include <vector>
+#include "slab_read.cuh"
 dim3s blockIdx, threadIdx, blockDim, gridDim;
 // The y-slab scatter of slab.cuh: each block's phases, each over all the
 // block's threads before the next (the barriers' order on the card, the
@@ -272,6 +276,34 @@ static void mixed_tiled(const softmac::MixedArgs& a, int tile,
   warp_trees<K>(acc, &sh);
   phase([&](int) { softmac::mixed_total<K>(a, &sh); });
 }
+// The read-side tiles of slab_read.cuh (G2P, the gather): each block's
+// phases, each over all the block's threads (the barriers' order on the
+// card), with the slab, the shared bookkeeping and each thread's particles
+// poisoned (NaN, all ones); cells the slab's size (read_cells, or fewer to
+// send particles to device memory).
+template <class Kind>
+static void read_tiled(const float* x, const float* g0, const float* g1,
+                       const float* g2, const int* corner, float* out,
+                       int* off, int n, int wx, int wy, int wz, float inv_dx,
+                       int cells) {
+  const softmac::ReadArgs a = {x, {g0, g1, g2}, corner, out, off, n, wx, wy,
+                               wz, inv_dx, cells};
+  blockDim.x = softmac::kReadTile;
+  std::vector<softmac::ReadThread> me(softmac::kReadTile);
+  auto phase = [&](auto f) {
+    for (unsigned t = 0; t < blockDim.x; ++t) { threadIdx.x = t; f(me[t]); }
+  };
+  const float nan = std::numeric_limits<float>::quiet_NaN();
+  for (int tl = 0; tl < softmac::read_tiles(n); ++tl) {
+    blockIdx.x = tl;
+    std::vector<float4> smem(softmac::read_smem(a) / 16,
+                             float4{nan, nan, nan, nan});
+    softmac::ReadShared sh;
+    memset(&sh, 0xff, sizeof sh);
+    memset(me.data(), 0xff, me.size() * sizeof(softmac::ReadThread));
+    softmac::read_phases<Kind>(a, tl, &sh, smem.data(), phase);
+  }
+}
 template <class F> static void launch(int n, F f) {
   blockDim.x = 256; gridDim.x = (n + 255) / 256;
   for (unsigned b = 0; b < gridDim.x; ++b)
@@ -367,11 +399,20 @@ void h_p2g_bwd(const float* x, const float* chan, const int* corner,
   launch(n, [&] { k_p2g_bwd::p2g_bwd_kernel(x, chan, corner, dgm, dgmom, dx,
                                             dchan, n, wx, wy, wz, inv_dx); });
 }
-void h_gather(const float* x, const float* g0, const float* g1,
-              const float* g2, const int* corner, float* out, int n, int wx,
-              int wy, int wz, float inv_dx) {
-  launch(n, [&] { k_gather::gather_kernel(x, g0, g1, g2, corner, out, n, wx,
-                                          wy, wz, inv_dx); });
+int h_read_cells(int wx, int wy, int wz) {
+  return softmac::read_cells(wx, wy, wz);
+}
+void h_g2p_read(const float* x, const float* g0, const float* g1,
+                const float* g2, const int* corner, float* out, int* off,
+                int n, int wx, int wy, int wz, float inv_dx, int cells) {
+  read_tiled<softmac::G2PKind>(x, g0, g1, g2, corner, out, off, n, wx, wy, wz,
+                               inv_dx, cells);
+}
+void h_gather_read(const float* x, const float* g0, const float* g1,
+                   const float* g2, const int* corner, float* out, int* off,
+                   int n, int wx, int wy, int wz, float inv_dx, int cells) {
+  read_tiled<softmac::GatherKind>(x, g0, g1, g2, corner, out, off, n, wx, wy,
+                                  wz, inv_dx, cells);
 }
 // The split mixed contact: stage 1 over all particles, then stage 2
 void h_mixed(const float* x, const float* v, const float* table,
@@ -581,7 +622,7 @@ def lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("kernel_source")
     (d / "cuda_runtime.h").write_text(CUDA_STANDIN)
     src = "".join(_kernel_bodies(n) for n in (
-        "p2g", "p2g_bwd", "g2p_bwd", "gather", "splat", "contact",
+        "p2g", "p2g_bwd", "g2p_bwd", "splat", "contact",
         "contact_bwd", "contact_mixed", "gather_bwd", "splat_bwd", "contact_mixed_bwd",
         "fused_p2g", "fused_g2p", "fused_splat", "fused_gather",
         "fused_p2g_bwd", "fused_g2p_bwd", "fused_splat_bwd",
@@ -680,8 +721,7 @@ def test_gather_and_splat_sources(lib, shift):
     x, corner, rng = _scene(shift, seed=2)
     wx, wy, wz = WINDOW
     gv = [_f32(rng, wy * wz, wx) for _ in range(3)]
-    out = torch.zeros(3, N)
-    lib.h_gather(_p(x), *map(_p, gv), _p(corner), _p(out), *_dims(WINDOW))
+    out, _ = _read_call(lib, "gather", x, gv, corner, WINDOW)
     ref = transfer.gather_plain(x.double(), *(g.double() for g in gv), corner,
                                 WINDOW, INV_DX)
     for d in range(3):
@@ -693,6 +733,152 @@ def test_gather_and_splat_sources(lib, shift):
     ref = transfer.splat_plain(x.double(), vals.double(), corner, WINDOW,
                                INV_DX)
     assert _rel(out, ref.reshape(-1)) < 2e-6
+
+
+def _read_call(lib, name, x, grids, corner, window, cells=None):
+    """One call of the read-side tiles (slab_read.cuh) on the host: G2P (12
+    rows) or the gather (3), with a slab of ``cells`` float4 cells (default
+    the kernel's, read_cells). Returns (out, each tile's count of particles
+    that read device memory)."""
+    n = x.shape[1]
+    if cells is None:
+        cells = lib.h_read_cells(*window)
+    out = torch.full(({"g2p": 12, "gather": 3}[name], n), float("nan"))
+    off = torch.full((-(-n // transfer.READ_TILE),), -1, dtype=torch.int32)
+    getattr(lib, f"h_{name}_read")(
+        _p(x), *map(_p, grids), _p(corner), _p(out), _p(off),
+        ctypes.c_int(n), *[ctypes.c_int(w) for w in window],
+        ctypes.c_float(INV_DX), ctypes.c_int(cells))
+    return out, off
+
+
+def _read_plain(name, x, grids, corner, window):
+    args = (x.double(), *(g.double() for g in grids), corner, window, INV_DX)
+    return (transfer.g2p_plain if name == "g2p"
+            else transfer.gather_plain)(*args)
+
+
+def _row_rel_max(got, want):
+    """The worst row of got against want, each row relative to its largest
+    |value|."""
+    return max(_rel(got[r], want[r]) for r in range(want.shape[0]))
+
+
+def _read_scene(n, window, shift, seed, spread=(0.09, 0.18, 0.05)):
+    """n particles over ``spread`` on each axis (0.18 in y: 23 cells at
+    INV_DX), the window centred on them and moved by ``shift`` cells,
+    seeded normal grids."""
+    rng = np.random.RandomState(seed)
+    x = np.stack([lo + sp * rng.rand(n)
+                  for lo, sp in zip((0.45, 0.25, 0.5), spread)])
+    wx, wy, wz = window
+    grids = [_f32(rng, wy * wz, wx) for _ in range(3)]
+    return torch.tensor(x, dtype=torch.float32), \
+        _corner(x, window, shift), grids, rng
+
+
+def _read_off_slab(x, corner, window, cells):
+    """Each tile's particles that read device memory: those whose stencil
+    reaches the window (a cell inside on every axis) with a window row past
+    the tile's slab. The slab holds the tile's box (the x and z cells its
+    reaching stencils cover, rows from the lowest they cover) as far as
+    ``cells`` float4 cells go, its rows (cells / (nz * (nx | 1))) cut at
+    the end."""
+    base = torch.floor(x * INV_DX - 0.5).long() - corner.long()[:, None]
+    w = torch.tensor(window)[:, None]
+    r0, r1 = base.clamp(min=0), torch.minimum(base + 3, w)
+    reach = (r0 < r1).all(dim=0)
+    out = []
+    for t0 in range(0, x.shape[1], transfer.READ_TILE):
+        m = reach[t0:t0 + transfer.READ_TILE]
+        if not m.any():
+            out.append(0)
+            continue
+        lo = r0[:, t0:t0 + transfer.READ_TILE][:, m].min(dim=1).values
+        hi = r1[:, t0:t0 + transfer.READ_TILE][:, m].max(dim=1).values
+        nx, nz = int(hi[0] - lo[0]), int(hi[2] - lo[2])
+        rows = min(int(hi[1] - lo[1]), cells // (nz * (nx | 1)))
+        last = r1[1, t0:t0 + transfer.READ_TILE]
+        out.append(int((m & (last > int(lo[1]) + rows)).sum()))
+    return out
+
+
+READ_N = 1300            # six tiles of 256, the last one ragged
+# the windows of the read-side tile tests, with the spread of their scenes:
+# (24, 32, 16); a window wide in x (64) with the scene across it, whose box
+# rows leave the slab room for 3 rows (of 15 z rows of 65 cells); a window
+# the slab holds whole (6 rows of 8 x 9 cells)
+READ_WINDOWS = {"window": (WINDOW, (0.09, 0.18, 0.05)),
+                "wide": ((64, 8, 48), (0.5, 0.18, 0.1)),
+                "small": ((8, 6, 8), (0.09, 0.18, 0.05))}
+
+
+def test_read_tile_matches_kernels():
+    """The wrappers size each call's off-slab counts by READ_TILE: the tile
+    slab_read.cuh's blocks take (a particle a thread)."""
+    src = (build.CSRC / "slab_read.cuh").read_text()
+    tile = re.search(r"constexpr int kReadTile = (\d+);", src).group(1)
+    assert transfer.READ_TILE == int(tile)
+
+
+@pytest.mark.parametrize("name", ["g2p", "gather"])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("shift", [0, 2])
+@pytest.mark.parametrize("case", sorted(READ_WINDOWS))
+def test_read_tiles_source(lib, case, shift, order, name):
+    """G2P and the gather of slab_read.cuh, phase by phase, against their
+    float64 plain versions: each output row within 2e-6 of its largest
+    |value|, over six tiles (the last one ragged), with stencils leaving
+    the window (shift 2). The off-slab count of each tile is the number of
+    its particles with a window row past the tile's slab (its box's rows
+    from the lowest, as far as the slab goes, _read_off_slab): none in the
+    rollout's y-sorted order on the window (a tile's box, ~7 rows of ~9 x
+    15 cells, fits its 3072 cells), some in a shuffled order (a tile spans
+    the scene's ~25 rows), some in every order on the wide window, whose
+    box rows leave room for 3, and none in any order on the small window,
+    which the slab holds whole. The call with no slab (every particle from
+    device memory) gives the same bits."""
+    window, spread = READ_WINDOWS[case]
+    x, corner, grids, rng = _read_scene(READ_N, window, shift, 21, spread)
+    if order == "sorted":
+        (x,) = _y_sorted(x)
+    else:
+        x = x[:, torch.as_tensor(rng.permutation(READ_N))].contiguous()
+    out, off = _read_call(lib, name, x, grids, corner, window)
+    assert _row_rel_max(out, _read_plain(name, x, grids, corner, window)) \
+        < 2e-6
+    cells = lib.h_read_cells(*window)
+    assert cells == (432 if case == "small" else 3072)
+    want = _read_off_slab(x, corner, window, cells)
+    assert off.tolist() == want
+    assert (sum(want) > 0) == (case == "wide" or (
+        case == "window" and order == "shuffled"))
+    device, off0 = _read_call(lib, name, x, grids, corner, window, cells=0)
+    assert torch.equal(device, out)
+    assert off0.tolist() == _read_off_slab(x, corner, window, 0)
+
+
+@pytest.mark.parametrize("name", ["g2p", "gather"])
+@pytest.mark.parametrize("case", ["none", "one", "outside"])
+def test_read_tiles_edges_source(lib, case, name):
+    """G2P and the gather at the edges of their tiles: no particle (no
+    block runs, nothing is written), one particle, and a tile whose
+    particles all lie beyond the window in y (an empty box: nothing
+    staged; every output +0.0, no particle counted)."""
+    n = {"none": 0, "one": 1, "outside": 300}[case]
+    x, corner, grids, _ = _read_scene(max(n, 1), WINDOW, 0, seed=22)
+    x = x[:, :n].contiguous()
+    if case == "outside":
+        corner = corner + torch.tensor([0, 40, 0], dtype=torch.int32)
+    out, off = _read_call(lib, name, x, grids, corner, WINDOW)
+    assert off.shape == (-(-n // transfer.READ_TILE),)
+    assert off.tolist() == [0] * off.shape[0]
+    want = _read_plain(name, x, grids, corner, WINDOW)
+    if case == "outside":
+        assert torch.equal(out, torch.zeros_like(out))
+        assert not bool(torch.signbit(out).any())
+    elif n:
+        assert _row_rel_max(out, want) < 2e-6
 
 
 SLAB_TILE = 64           # 400 particles: 7 tiles, the last one ragged
