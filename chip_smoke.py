@@ -116,14 +116,16 @@ script exits non-zero:
            kernels (fused_p2g, fused_g2p, fused_splat, fused_gather) and
            their backward kernels (fused_*_bwd) are first held against
            their float64 plain versions and plain vjps (seeded normal
-           cotangents) on the door's state after 10 env steps and on fully
-           dense random weights (window (16, 8, 16)), and timed there and
-           on that state tiled to 1e5 particles, beside their plain
-           versions and one torch.einsum over the dense weights, or one
-           torch.autograd.grad through it (the library calls); the
-           row-thread P2G and G2P and P2G, G2P, splat and gather
-           backwards also held at 1e5 particles, and 10 calls of each
-           bit-identical on every input; then
+           cotangents) on the door's state after 10 env steps, on fully
+           dense random weights (window (16, 8, 16)) and on that state
+           tiled to 1e5 particles, 10 calls of each bit-identical on every
+           input, and timed on the door's state and at 1e5, beside their
+           plain versions and one torch.einsum over the dense weights, or
+           one torch.autograd.grad through it (the library calls); the
+           four forwards also held and timed on the door's state after 150
+           env steps, whose contact band is not empty (the splat's band
+           printed), their device launches a call held (P2G 3, G2P 1, the
+           splat 2, the gather 1); then
            SoftMacEnv.rollout of the demo's initial actions for 300 env
            steps with launches counted, its end state against a
            zero-action rollout of the same 300 steps (the controller
@@ -248,7 +250,9 @@ MIXED_REPEATS = 10         # tiled mixed-contact calls agreeing bit for bit
 DEVICE_MS = {}             # device_ms: device-only ms a call, by kernel row
 # the names of the port's kernels in a profile (ops/csrc/*.cu)
 PORT_KERNEL = (r"(p2g|g2p|gather|splat|collide|kr3|slab_|rows_"
-               r"|round_to_float)\w*(<[^>]*>)?\(")
+               r"|round_to_float|round_and_clear)\w*(<[^>]*>)?\(")
+# the launches that round a float64 window (left out of a source's ptxas)
+ROUND_KERNELS = ("round_to_float", "round_and_clear")
 GRAD_REPEATS = 5
 GRAD_TOL = 1e-6           # step vs none, repeats vs the counted call
 ROW_TOL = 1e-5            # backward rows and grids
@@ -290,8 +294,18 @@ FUSED = ("fused_p2g", "fused_g2p", "fused_splat", "fused_gather")
 FUSED_BWD = tuple(k + "_bwd" for k in FUSED)
 # the row-thread kernels (ops/csrc/fused_rows.cuh): also held at 1e5
 # particles, FUSED_REPEATS calls bit-identical, no ptxas spills
-ROW_KERNELS = ("fused_p2g", "fused_g2p", "fused_p2g_bwd", "fused_g2p_bwd",
-               "fused_splat_bwd", "fused_gather_bwd")
+ROW_KERNELS = ("fused_p2g", "fused_g2p", "fused_splat", "fused_gather",
+               "fused_p2g_bwd", "fused_g2p_bwd", "fused_splat_bwd",
+               "fused_gather_bwd")
+# the device launches of one call of the dense-weight transfers: P2G's
+# zero fill, kernel and round; the splat's kernel and round (its kept
+# window needs no fill); G2P's and the gather's kernel
+FUSED_CALL_LAUNCHES = {"fused_p2g": 3, "fused_g2p": 1, "fused_splat": 2,
+                       "fused_gather": 1}
+# the door's env steps before its band state, whose contact band holds
+# particles (none yet after STATE_STEPS): the transfers are held and timed
+# there too
+BAND_STEPS = 150
 FUSED_REPEATS = 10
 # the tiled penalty contact pair: the build phase fails if ptxas reports a
 # spill for them
@@ -418,6 +432,11 @@ def bound(name, n, bytes_moved, flops=None):
         flops = n * FLOPS_PER_PARTICLE[name]
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def is_round(function):
+    """Whether a kernel of a ptxas log rounds a float64 window."""
+    return any(r in function for r in ROUND_KERNELS)
 
 
 def ptxas_by_source(log):
@@ -2614,15 +2633,20 @@ def door_states():
     """The door env on the card, its carry after STATE_STEPS env steps of
     the demo's actions, and the dense-weight kernels' inputs of its first
     substep from that carry: {"door": 5400 particles, "1e5": the carry
-    tiled to N_MAIN particles}."""
+    tiled to N_MAIN particles, "band": the 5400 after BAND_STEPS env steps,
+    when the boxes touch the door and the splat's values are nonzero in
+    the contact band}."""
     env = door_env()
     carry = env.rollout(door_actions(STATE_STEPS))["carry"]
+    band = env.rollout(door_actions(BAND_STEPS - STATE_STEPS),
+                       carry0=carry)["carry"]
     big = tiled_carry(carry, N_MAIN)
     return env, carry, {
         "door": door_kernel_inputs(env, carry, door_actions(1)[0]),
         "1e5": door_kernel_inputs(
             door_env(init_particles=big[0].x.T.cpu().numpy()), big,
-            door_actions(1)[0])}
+            door_actions(1)[0]),
+        "band": door_kernel_inputs(env, band, door_actions(1)[0])}
 
 
 def dense_kernel_inputs(device):
@@ -2736,18 +2760,23 @@ def _rows_rel(got, want):
 
 
 def fused_work(name, inp):
-    """(bytes, visited cells, dense cells) of one call: each input read
-    once and each output written once; the cells inside each particle's
-    nonzero row ranges (what the kernel visits), and wx*wy*wz a particle
-    (the dense contraction)."""
+    """(bytes, visited cells, dense cells, band) of one call: each input
+    read once and each output written once; the cells inside each
+    particle's nonzero row ranges (what the kernel visits), and wx*wy*wz a
+    particle (the dense contraction). The splat's work is its band's, the
+    particles with a nonzero value (``band``; all n for the others): their
+    weights and cells; every particle's 3 values are read."""
     import torch
     n, (wx, wy, wz) = inp["n"], inp["sizes"]
     cells = wx * wy * wz
     ws6 = inp["ws6"]
     deriv = name in ("fused_p2g", "fused_g2p")
+    live = (inp["vals"] != 0).any(dim=0) if name == "fused_splat" else \
+        torch.ones(n, dtype=torch.bool, device=ws6[0].device)
+    band = int(live.sum().item())
     lengths = []
     for a, b in zip(ws6[0::2], ws6[1::2]):
-        nz = (a != 0) | (b != 0) if deriv else a != 0
+        nz = ((a != 0) | (b != 0) if deriv else a != 0) & live
         rows = torch.arange(a.shape[0], device=a.device)[:, None]
         lo = torch.where(nz, rows, a.shape[0]).amin(dim=0)
         hi = torch.where(nz, rows, -1).amax(dim=0)
@@ -2756,20 +2785,21 @@ def fused_work(name, inp):
     w_rows = (2 if deriv else 1) * (wx + wy + wz)
     per_particle = {"fused_p2g": 13, "fused_g2p": 12, "fused_splat": 3,
                     "fused_gather": 3}[name]
-    nbytes = (w_rows + per_particle) * n * 4 + (4 if name == "fused_p2g"
-                                                else 3) * cells * 4
-    return nbytes, visited, n * cells
+    nbytes = (w_rows * band + per_particle * n) * 4 \
+        + (4 if name == "fused_p2g" else 3) * cells * 4
+    return nbytes, visited, n * cells, band
 
 
-def check_fused_kernels(door_inp, big_inp, dense_inp):
+def check_fused_kernels(door_inp, big_inp, dense_inp, band_inp):
     """The four dense-weight transfer kernels against their float64 plain
-    versions on the door's state and on dense random weights (1e-5 of each
-    output row's largest |value|), timed with CUDA events on the door's
-    state and on it tiled to 1e5 particles, beside the plain version and
-    one torch.einsum over the dense weights; bounds from each run's
-    inputs. The row-thread P2G and G2P (ROW_KERNELS) are also held on the
-    1e5 particles, and FUSED_REPEATS calls of each on every input must
-    agree bit for bit."""
+    versions on the door's state, on dense random weights and on that
+    state tiled to 1e5 particles (1e-5 of each output row's largest
+    |value|), FUSED_REPEATS calls of each on every input bit for bit the
+    same; timed with CUDA events on the door's state and at 1e5, beside the
+    plain version and one torch.einsum over the dense weights; bounds from
+    each run's inputs. Each is also held and timed on the door's band
+    state (band_inp), and its device launches a call on each timed input
+    are FUSED_CALL_LAUNCHES."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2782,22 +2812,19 @@ def check_fused_kernels(door_inp, big_inp, dense_inp):
                         ":700, kernel _splat_kernel :505)"),
         "fused_gather": ("fused_gather.cu", ":714 (_gather_pallas, "
                          "pallas_call :725, kernel _gather_kernel :520)")}
-    calls = {k: fused_calls(inp) for k, inp in
-             (("door", door_inp), ("big", big_inp), ("dense", dense_inp))}
-    libs = {k: fused_einsums(inp) for k, inp in
-            (("door", door_inp), ("big", big_inp))}
+    inputs = {"door": door_inp, "dense": dense_inp, "big": big_inp,
+              "band": band_inp}
+    calls = {k: fused_calls(inp) for k, inp in inputs.items()}
+    libs = {k: fused_einsums(inputs[k]) for k in ("door", "big")}
     entries = []
     for name, (src, where) in srcs.items():
         errs, repeats = {}, {}
-        for case, inp in (("door", door_inp), ("dense", dense_inp),
-                          ("big", big_inp)):
-            if case == "big" and name not in ROW_KERNELS:
-                continue
+        for case in inputs:
             kern, _, ref = calls[case][name]
-            errs[case] = _rows_rel(_fused_rows(name, kern(), inp["sizes"]),
-                                   _fused_rows(name, ref(), inp["sizes"]))
-            if name in ROW_KERNELS:
-                repeats[case] = bit_identical(kern)
+            sizes = inputs[case]["sizes"]
+            errs[case] = _rows_rel(_fused_rows(name, kern(), sizes),
+                                   _fused_rows(name, ref(), sizes))
+            repeats[case] = bit_identical(kern)
         if not all(repeats.values()):
             raise AssertionError(f"{name}: {FUSED_REPEATS} calls differ: "
                                  f"{repeats}")
@@ -2816,7 +2843,7 @@ def check_fused_kernels(door_inp, big_inp, dense_inp):
                            cuda_time_ms(libs[case][name], iters=5),
                            device_ms(name + ("@1e5" if case == "big" else ""),
                                      kern))
-        nbytes, visited, dense = fused_work(name, door_inp)
+        nbytes, visited, dense, band = fused_work(name, door_inp)
         e = kernel_entry(door_inp["n"], name,
                          "softmac_tpu_torch/ops/csrc/" + src,
                          "softmac_tpu/ops/pallas_fused.py" + where,
@@ -2831,22 +2858,42 @@ def check_fused_kernels(door_inp, big_inp, dense_inp):
         e["rel_err_is"] = ("max |kernel - plain| / max |plain| per output "
                            "row (window components for P2G and the splat), "
                            "the plain version in float64, over the door's "
-                           "state and the dense random weights")
+                           "state, the dense random weights, the 1e5 "
+                           "tiling and the band state")
         e["rel_err_by_input"] = {k: v[1] for k, v in errs.items()}
-        if name in ROW_KERNELS:
-            e["repeats_bit_identical"] = repeats
+        e["repeats_bit_identical"] = repeats
         e["dense_input"] = {"window": list(DENSE_WINDOW), "n": N_DENSE}
         e["n_particles"] = door_inp["n"]
+        e["band"] = band
         e["visited_cells"] = visited
         e["dense_flops"] = dense * FLOPS_PER_CELL[name]
-        nb, vis, _ = fused_work(name, big_inp)
+        nb, vis, _, big_band = fused_work(name, big_inp)
         b_ms, b_by = bound(name, big_inp["n"], nb,
                            vis * FLOPS_PER_CELL[name])
         e["at_1e5"] = {"n_particles": big_inp["n"], "ms": times["big"][0],
                        "device_ms": times["big"][3],
                        "plain_ms": times["big"][1],
                        "library_ms": times["big"][2], "bound_ms": b_ms,
-                       "bound_by": b_by, "bytes": nb, "visited_cells": vis}
+                       "bound_by": b_by, "bytes": nb, "visited_cells": vis,
+                       "band": big_band}
+        kern, plain, _ = calls["band"][name]
+        nb, vis, _, band_n = fused_work(name, band_inp)
+        b_ms, b_by = bound(name, band_inp["n"], nb, vis * FLOPS_PER_CELL[name])
+        e["at_band"] = {"env_steps": BAND_STEPS, "band": band_n,
+                        "ms": cuda_time_ms(kern),
+                        "device_ms": device_ms(name + "@band", kern),
+                        "plain_ms": cuda_time_ms(plain), "bound_ms": b_ms,
+                        "bound_by": b_by, "bytes": nb, "visited_cells": vis}
+        launches = {k: DEVICE_MS[name + k][1] for k in ("", "@1e5", "@band")}
+        e["device_launches_by_input"] = launches
+        if set(launches.values()) != {FUSED_CALL_LAUNCHES[name]}:
+            raise AssertionError(f"{name}: device launches a call "
+                                 f"{launches}, expected "
+                                 f"{FUSED_CALL_LAUNCHES[name]}")
+        if name == "fused_splat":
+            print(f"{name}: band {band} of {door_inp['n']} (door state), "
+                  f"{band_n} (band state), {big_band} of {big_inp['n']} "
+                  f"(1e5)", flush=True)
         entries.append(e)
     return entries
 
@@ -3636,10 +3683,10 @@ def main():
     build.library()
     ptxas = ptxas_by_source(log)
     rows_ptxas = {k + ".cu": [f for f in ptxas.get(k + ".cu", [])
-                              if "round_to_float" not in f["function"]]
+                              if not is_round(f["function"])]
                   for k in ROW_KERNELS}
     contact_ptxas = {k: [f for f in ptxas.get(k, [])
-                         if "round_to_float" not in f["function"]]
+                         if not is_round(f["function"])]
                      for k in PENALTY_SOURCES}
     read_ptxas = {k: ptxas.get(k, []) for k in READ_SOURCES}
     emit("build", {"seconds": secs, "library": so.name,
@@ -3682,11 +3729,12 @@ def main():
             k["read_tiles"] = read[k["name"]]
     denv, door10, door_inp = door_states()
     big_inp = door_inp.pop("1e5")
+    band_inp = door_inp.pop("band")
     door_inp = door_inp["door"]
     dense_inp = dense_kernel_inputs(denv.device)
-    kernels += check_fused_kernels(door_inp, big_inp, dense_inp)
+    kernels += check_fused_kernels(door_inp, big_inp, dense_inp, band_inp)
     kernels += check_fused_backward_kernels(door_inp, big_inp, dense_inp)
-    del big_inp
+    del big_inp, band_inp
     kernels += check_kr3_kernel(pour_env, pour10)
     full_env = SoftMacEnv(full_grid_cfg(),
                           init_particles=tiled_pour_particles(N_MAIN))
@@ -3734,7 +3782,7 @@ def main():
         k["launches"] = paths[path][counter]
         k["main_path"] = path
         k["ptxas"] = [f for f in ptxas.get(Path(k["source"]).name, [])
-                      if "round_to_float" not in f["function"]]
+                      if not is_round(f["function"])]
         k["launches_by_path"] = {p: c[counter] for p, c in paths.items()}
         if name in DEVICE_MS:
             k["device_ms"], k["device_launches_per_call"] = DEVICE_MS[name]

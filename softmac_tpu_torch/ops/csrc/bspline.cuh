@@ -132,6 +132,15 @@ constexpr int kThreads = 256;
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+// element i of round_and_clear: the float64 sum rounded to float32 once,
+// and its place zeroed for the next call that adds into it
+__device__ __forceinline__ void round_clear_at(double* __restrict__ src,
+                                               float* __restrict__ dst,
+                                               int i) {
+  dst[i] = static_cast<float>(src[i]);
+  src[i] = 0.0;
+}
+
 #ifdef __CUDACC__
 // rounds a float64 accumulator window to float32, once (one copy in each
 // translation unit that includes this header)
@@ -139,6 +148,14 @@ static __global__ void round_to_float(const double* __restrict__ src,
                                       float* __restrict__ dst, int count) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < count) dst[i] = static_cast<float>(src[i]);
+}
+
+// round_to_float for a window kept between calls: it leaves the window
+// zeroed, so the next call needs no fill launch
+static __global__ void round_and_clear(double* __restrict__ src,
+                                       float* __restrict__ dst, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count) round_clear_at(src, dst, i);
 }
 #endif
 

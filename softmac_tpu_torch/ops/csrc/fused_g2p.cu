@@ -40,7 +40,7 @@ using softmac::RowsShared;
 
 // G2P's work is the extra tasks alone: task d, the four rows of component
 // d (v_d, C[d][0], C[d][1], C[d][2]) over the particle's box.
-struct G2P {
+struct G2P : softmac::RowsKind {
   static constexpr int kGrids = 3;
   static constexpr bool kDeriv = true, kRows = false;
   static constexpr int kScatter = 0;  // sums, no window
@@ -50,7 +50,7 @@ struct G2P {
   __device__ static void extra(const RowsArgs& a, RowsShared* sh,
                                bool narrow, int d, int lane, int p) {
     double s[4];
-    softmac::box_sums<true>(a, *sh, narrow, d, lane, p, s);
+    softmac::box_sums<true, true>(a, *sh, narrow, d, lane, p, s);
     const size_t n = a.n;
     const int rows[4] = {d, 3 + 3 * d, 4 + 3 * d, 5 + 3 * d};
 #pragma unroll

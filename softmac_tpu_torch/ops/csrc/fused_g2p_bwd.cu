@@ -39,7 +39,7 @@ using softmac::RowsShared;
 
 // The grid terms: one task a (y, z) cell of the particle's box, each adding
 // the cell's x rows (fused_rows.cuh rows_scatter).
-struct G2PBwd {
+struct G2PBwd : softmac::RowsKind {
   static constexpr int kGrids = 3;
   static constexpr bool kDeriv = true, kRows = true;
   static constexpr int kScatter = 3;  // channels of the window
@@ -50,7 +50,7 @@ struct G2PBwd {
 
   __device__ static void extra(const RowsArgs& a, RowsShared* sh,
                                bool narrow, int task, int lane, int p) {
-    softmac::rows_scatter<3, true>(a, sh, narrow, task, lane, p);
+    softmac::rows_scatter<G2PBwd>(a, sh, narrow, task, lane, p);
   }
 };
 

@@ -39,10 +39,11 @@ using softmac::RowsShared;
 
 // P2G's work is the extra tasks alone: one a (y, z) cell of the
 // particle's box.
-struct P2G {
+struct P2G : softmac::RowsKind {
   static constexpr int kGrids = 0;     // no weight rows, no grids to read
   static constexpr bool kDeriv = true, kRows = false;
   static constexpr int kScatter = 4;  // channels of the window
+  static constexpr bool kLines = true;  // gm, then gmom (wy*wz, 3*wx)
 
   __device__ static int extra_tasks(const RowsArgs& a, bool narrow) {
     return softmac::scatter_tasks(a, narrow);
@@ -50,7 +51,7 @@ struct P2G {
 
   __device__ static void extra(const RowsArgs& a, RowsShared* sh,
                                bool narrow, int task, int lane, int p) {
-    softmac::rows_scatter<4, true>(a, sh, narrow, task, lane, p);
+    softmac::rows_scatter<P2G>(a, sh, narrow, task, lane, p);
   }
 };
 

@@ -43,7 +43,7 @@ using softmac::RowsShared;
 // The channel sums: four tasks a particle, task 0 the mass row, task 1 + d
 // the four rows of momentum component d, each over the particle's box
 // (fused_rows.cuh box_sums of grid `task`).
-struct P2GBwd {
+struct P2GBwd : softmac::RowsKind {
   static constexpr int kGrids = 4;
   static constexpr bool kDeriv = true, kRows = true;
   static constexpr int kScatter = 0;  // channel sums, no window

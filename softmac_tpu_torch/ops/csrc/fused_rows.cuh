@@ -1,5 +1,6 @@
-// The row-thread design of the door's dense-weight kernels: P2G and G2P
-// (fused_p2g.cu, fused_g2p.cu), and the P2G, G2P, splat and gather
+// The row-thread design of the door's eight dense-weight kernels: P2G,
+// G2P, the splat and the gather (fused_p2g.cu, fused_g2p.cu,
+// fused_splat.cu, fused_gather.cu), and the P2G, G2P, splat and gather
 // backwards (fused_p2g_bwd.cu, fused_g2p_bwd.cu, fused_splat_bwd.cu,
 // fused_gather_bwd.cu): many threads a particle instead of one.
 //
@@ -21,22 +22,31 @@
 // WD is nonzero, so it covers every weight a term reads. Every row of
 // every output is written: no memset.
 //
-// A kernel's Kind says what it has: kDeriv, derivative weights WD (the
-// splat and gather backwards have none: WD is null, never read, and their
-// rows dWD are not written); kRows, weight rows to write (P2G and G2P have
-// none: their work is the extra tasks alone); kScatter, the channels its
-// extra tasks add into a float64 window (rows_scatter: P2G 4, the G2P and
-// gather backwards 3; 0 for G2P and the P2G and splat backwards, whose
-// extra tasks are sums over the box, box_sums: G2P's 12 output rows, the
-// P2G backward's 13 channel and the splat backward's 3 value cotangents).
+// A kernel's Kind (derived from RowsKind, whose hooks it may replace)
+// says what it has: kDeriv, derivative weights WD (the splat, the gather
+// and their backwards have none: WD is null, never read, and their rows
+// dWD are not written); kRows, weight rows to write (P2G, G2P, the splat
+// and the gather have none: their work is the extra tasks alone);
+// kScatter, the channels its extra tasks add into a float64 window
+// (rows_scatter: P2G 4, the splat and the G2P and gather backwards 3; 0
+// for G2P, the gather and the P2G and splat backwards, whose extra tasks
+// are sums over the box, box_sums: G2P's 12 output rows, the gather's 3,
+// the P2G backward's 13 channel and the splat backward's 3 value
+// cotangents); kLines, the window's layout (acc_at); kWindow, whether a
+// narrow tile's scatter goes through a window in shared memory (not the
+// splat's); live(a, p), whether particle p has work at all (the splat: a
+// nonzero value): a particle that has none keeps an empty box and its
+// weights are never read, and a block with no live particle ends after
+// the vote.
 //
 // A tile of kRowLanes consecutive particles, one a lane, goes to a block
 // of kRowWarps warps, or, where the tiles are too few to fill the card, to
 // up to kRowParts blocks that share its tasks (rows_parts). A first launch
 // writes the grids' other layouts (rows_prep; none without weight rows).
 // A block's phases, a barrier between each:
-//   1. begin: empty boxes and a window of zeros in shared memory;
-//   2. box: the warps split the window's rows; each thread reads its
+//   1. begin: empty boxes and a window of zeros in shared memory; the
+//      block's vote (rows_live): without a live particle it ends here;
+//   2. box: the warps split the window's rows; each thread reads its live
 //      particle's W (and WD) on its rows, kBoxBatch rows before it tests
 //      them (coalesced: lanes are consecutive particles), widens the
 //      particle's box by shared atomicMin / Max and keeps the nonzero
@@ -56,11 +66,11 @@
 //   5. store: the kept x rows written a row of 32 consecutive particles at
 //      a time;
 //   6. tasks, shared out among a tile's blocks: one thread a (particle,
-//      extra task) of the kernel's own (G2P, the P2G and splat backwards:
-//      the sums of box_sums; P2G, the G2P and gather backwards: the
-//      scatter of rows_scatter, into the tile's window where it fits, in
-//      the x rows' space); then one thread a (particle, y or z weight
-//      row);
+//      extra task) of the kernel's own (G2P, the gather, the P2G and splat
+//      backwards: the sums of box_sums; P2G, the splat, the G2P and gather
+//      backwards: the scatter of rows_scatter, into the tile's window where
+//      it fits, in the x rows' space); then one thread a (particle, y or z
+//      weight row);
 //   7. flush: the window added to device memory.
 // A row's thread visits its box cells in the plane once, reads the
 // cotangent grids there and keeps, in double, the sums
@@ -77,7 +87,8 @@
 // the rollout) read the first launch's copies with y, or z, fastest.
 // Each weight or channel output is one thread's, written once, rounded
 // once, in a fixed order; a float64 window takes atomicAdds and is
-// rounded once by a last launch.
+// rounded once by a last launch (the splat's, kept between calls, is left
+// zeroed by it: round_and_clear).
 #pragma once
 
 #include "fused.cuh"
@@ -128,6 +139,20 @@ struct RowsShared {
   int wlo[3], whi[3];     // the scatter window's rows on each axis
 };
 
+// The hooks a Kind may replace (a Kind derives from RowsKind).
+struct RowsKind {
+  // the float64 window's layout: the last three channels interleaved a
+  // row, (wy*wz, 3*wx) (kLines), or each its own (wy*wz, wx) grid
+  static constexpr bool kLines = false;
+  // whether a narrow tile's scatter goes through the tile's window in
+  // shared memory (rows_window), where it fits; else to device memory
+  static constexpr bool kWindow = true;
+
+  // whether particle p (< a.n) has work: every particle, unless the Kind
+  // says otherwise
+  __device__ static bool live(const RowsArgs&, int) { return true; }
+};
+
 // the two other axes of axis A, in index order
 __host__ __device__ constexpr int plane_a(int A) { return A == 0 ? 1 : 0; }
 __host__ __device__ constexpr int plane_b(int A) { return A == 2 ? 1 : 2; }
@@ -162,32 +187,65 @@ __device__ __forceinline__ void rows_begin(RowsShared* sh) {
   }
 }
 
+// This thread's vote for running the block: its particle is live.
+template <class Kind>
+__device__ __forceinline__ bool rows_live(const RowsArgs& a) {
+  const int p = rows_particle();
+  return p < a.n && Kind::live(a, p);
+}
+
+// A batch of the box phase: W (and WD) of axis ax on the rows r0 + k
+// kRowWarps of particle p (zero past the axis's rows).
 template <bool kDeriv>
+__device__ __forceinline__ void box_load(const RowsArgs& a, int ax, int r0,
+                                         int p, float w[kBoxBatch],
+                                         float d[kBoxBatch]) {
+  const int size = a.size[ax];
+#pragma unroll
+  for (int k = 0; k < kBoxBatch; ++k) {
+    const int r = r0 + k * kRowWarps;
+    const size_t i = static_cast<size_t>(r) * a.n + p;
+    w[k] = r < size ? __ldg(a.w[2 * ax] + i) : 0.0f;
+    d[k] = kDeriv && r < size ? __ldg(a.w[2 * ax + 1] + i) : 0.0f;
+  }
+}
+
+// A loaded batch tested: each nonzero entry widens the particle's box on
+// axis ax and is kept.
+__device__ __forceinline__ void box_keep(RowsShared* sh, int ax, int r0,
+                                         int lane, const float w[kBoxBatch],
+                                         const float d[kBoxBatch]) {
+#pragma unroll
+  for (int k = 0; k < kBoxBatch; ++k) {
+    const int r = r0 + k * kRowWarps;
+    if (w[k] != 0.0f || d[k] != 0.0f) {
+      atomicMin(&sh->lo[ax][lane], r);
+      atomicMax(&sh->hi[ax][lane], r);
+      sh->ent[ax][r % kBoxCap][0][lane] = w[k];
+      sh->ent[ax][r % kBoxCap][1][lane] = d[k];
+    }
+  }
+}
+
+// Phase 2: the boxes of the live particles (a particle that is not live
+// keeps its empty box; its weights are not read). The first batch of
+// every axis is loaded before any is tested: one round trip to memory
+// where no axis has more than kBoxBatch * kRowWarps rows (the door's).
+template <class Kind>
 __device__ __forceinline__ void rows_box(const RowsArgs& a, RowsShared* sh) {
-  const int lane = rows_lane(), p = rows_particle();
-  if (p >= a.n) return;
+  constexpr bool kDeriv = Kind::kDeriv;
+  constexpr int kStep = kBoxBatch * kRowWarps;
+  const int lane = rows_lane(), p = rows_particle(), r0 = rows_warp();
+  if (!rows_live<Kind>(a)) return;
+  float w[3][kBoxBatch], d[3][kBoxBatch];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) box_load<kDeriv>(a, ax, r0, p, w[ax], d[ax]);
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
-    const int size = a.size[ax];
-    for (int r0 = rows_warp(); r0 < size; r0 += kBoxBatch * kRowWarps) {
-      float w[kBoxBatch], d[kBoxBatch];
-#pragma unroll
-      for (int k = 0; k < kBoxBatch; ++k) {
-        const int r = r0 + k * kRowWarps;
-        const size_t i = static_cast<size_t>(r) * a.n + p;
-        w[k] = r < size ? __ldg(a.w[2 * ax] + i) : 0.0f;
-        d[k] = kDeriv && r < size ? __ldg(a.w[2 * ax + 1] + i) : 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < kBoxBatch; ++k) {
-        const int r = r0 + k * kRowWarps;
-        if (w[k] != 0.0f || d[k] != 0.0f) {
-          atomicMin(&sh->lo[ax][lane], r);
-          atomicMax(&sh->hi[ax][lane], r);
-          sh->ent[ax][r % kBoxCap][0][lane] = w[k];
-          sh->ent[ax][r % kBoxCap][1][lane] = d[k];
-        }
-      }
+    box_keep(sh, ax, r0, lane, w[ax], d[ax]);
+    for (int r = r0 + kStep; r < a.size[ax]; r += kStep) {
+      box_load<kDeriv>(a, ax, r, p, w[ax], d[ax]);
+      box_keep(sh, ax, r, lane, w[ax], d[ax]);
     }
   }
 }
@@ -330,13 +388,20 @@ __device__ __forceinline__ int window_cells(const RowsShared& sh, int n[3]) {
   return kChan * cells <= kWinDoubles ? cells : 0;
 }
 
+// The channels of a kernel's window in shared memory: its scatter's,
+// unless it scatters to device memory alone (Kind::kWindow false).
+template <class Kind>
+__host__ __device__ constexpr int window_channels() {
+  return Kind::kWindow ? Kind::kScatter : 0;
+}
+
 // Whether the block's scatter goes through its window: a narrow tile
 // whose window fits.
 template <class Kind>
 __device__ __forceinline__ bool rows_local(const RowsShared& sh,
                                            bool narrow) {
   int n[3];
-  return Kind::kScatter > 0 && narrow
+  return window_channels<Kind>() > 0 && narrow
          && window_cells<Kind::kScatter>(sh, n) > 0;
 }
 
@@ -458,16 +523,80 @@ __device__ __forceinline__ void yz_row(const RowsArgs& a,
   }
 }
 
-// The extra tasks' sums over the particle's box (G2P, the P2G and splat
-// backwards): grid q, in its own x-fastest layout, times the weight
-// products, s[0] = sum Wx Wy Wz g and, with derivative weights,
-// s[1] = sum WxD Wy Wz g, s[2] = sum Wx WDy Wz g, s[3] = sum Wx Wy WDz g;
-// in double, x outermost, then the (y, z) cells in order.
+// box_sums over a narrow box (every axis at most kBoxCap rows, its
+// entries and pair products staged) for the kernels without weight rows
+// (G2P, the gather): the cells of kPre x rows loaded before they are
+// summed, one round trip to memory a kPre rows instead of one a cell
+// (G2P's four sums leave registers for one row's 9, the gather takes the
+// box's 27 at once); summed in box_sums' order, so the same bits. (The
+// P2G and splat backwards keep the loop: these registers on top of their
+// weight rows' cost them a block an SM, 7-10 % at 1e5.)
 template <bool kDeriv>
+__device__ __forceinline__ void box_sums_narrow(const RowsArgs& a,
+                                                const RowsShared& sh, int q,
+                                                int lane, double s[4]) {
+  constexpr int kPre = kDeriv ? 1 : kBoxCap;
+  const int lx = box_len(sh, 0, lane);
+  const int ly = box_len(sh, 1, lane);
+  const int lz = box_len(sh, 2, lane);
+  if (lx == 0 || ly == 0 || lz == 0) return;
+  const int x0 = sh.lo[0][lane], y0 = sh.lo[1][lane], z0 = sh.lo[2][lane];
+  const int wz = a.size[2];
+  const float* grid = grid_of(a, q) + (y0 * wz + z0) * stride_of(a, q) + x0;
+  const int stride = stride_of(a, q);
+#pragma unroll
+  for (int i0 = 0; i0 < kBoxCap; i0 += kPre) {
+    float g[kPre][kBoxCells];
+#pragma unroll
+    for (int i = 0; i < kPre; ++i) {
+#pragma unroll
+      for (int c = 0; c < kBoxCells; ++c) {
+        const int ia = c / kBoxCap, ib = c % kBoxCap;
+        g[i][c] = i0 + i < lx && ia < ly && ib < lz
+                      ? __ldg(grid + (ia * wz + ib) * stride + i0 + i)
+                      : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPre; ++i) {
+      if (i0 + i >= lx) break;
+      const int xs = (x0 + i0 + i) % kBoxCap;
+      const double w0 = sh.ent[0][xs][0][lane];
+      const double d0 = kDeriv ? sh.ent[0][xs][1][lane] : 0.0;
+#pragma unroll
+      for (int c = 0; c < kBoxCells; ++c) {
+        if (c / kBoxCap >= ly || c % kBoxCap >= lz) continue;
+        const double p0 = sh.pair[0][c][0][lane];
+        const double cell = g[i][c];
+        s[0] += w0 * p0 * cell;
+        if constexpr (kDeriv) {
+          const double pa = sh.pair[0][c][1][lane];
+          const double pb = sh.pair[0][c][2][lane];
+          s[1] += d0 * p0 * cell;
+          s[2] += w0 * pa * cell;
+          s[3] += w0 * pb * cell;
+        }
+      }
+    }
+  }
+}
+
+// The extra tasks' sums over the particle's box (G2P, the gather, the P2G
+// and splat backwards): grid q, in its own x-fastest layout, times the
+// weight products, s[0] = sum Wx Wy Wz g and, with derivative weights,
+// s[1] = sum WxD Wy Wz g, s[2] = sum Wx WDy Wz g, s[3] = sum Wx Wy WDz g;
+// in double, x outermost, then the (y, z) cells in order; with
+// kPrefetch, a narrow box's by box_sums_narrow.
+template <bool kDeriv, bool kPrefetch = false>
 __device__ __forceinline__ void box_sums(const RowsArgs& a,
                                          const RowsShared& sh, bool narrow,
                                          int q, int lane, int p,
                                          double s[4]) {
+  s[0] = s[1] = s[2] = s[3] = 0.0;
+  if (kPrefetch && narrow) {
+    box_sums_narrow<kDeriv>(a, sh, q, lane, s);
+    return;
+  }
   const int lx = box_len(sh, 0, lane);
   const int ly = box_len(sh, 1, lane);
   const int lz = box_len(sh, 2, lane);
@@ -475,7 +604,6 @@ __device__ __forceinline__ void box_sums(const RowsArgs& a,
   const int wz = a.size[2];
   const float* grid = grid_of(a, q);
   const int stride = stride_of(a, q);
-  s[0] = s[1] = s[2] = s[3] = 0.0;
   for (int ix = 0; ix < lx; ++ix) {
     const int x = x0 + ix;
     const double w0 = box_weight<0>(a, sh, narrow, 0, x, lane, p);
@@ -526,37 +654,44 @@ __device__ __forceinline__ int scatter_tasks(const RowsArgs& a, bool narrow) {
   return narrow ? kBoxCells : a.size[1] * a.size[2];
 }
 
-// The destination of component c (of kChan) at window cell (row, x) in
-// the float64 window a.acc: kChan 4 (P2G) the mass grid (wy*wz, wx), then
-// the momentum grid (wy*wz, 3*wx); kChan 3 (the G2P and gather backwards)
-// the three grid cotangents (wy*wz, wx) one after the other.
-template <int kChan>
+// The destination of component c (of Kind::kScatter) at window cell (row,
+// x) in the float64 window a.acc: with kLines, the channels before the
+// last three each a grid (wy*wz, wx), then the last three in one grid
+// (wy*wz, 3*wx), component q0 + d in columns d*wx .. (d+1)*wx (P2G: the
+// mass grid, then the momentum grid; the splat: its window); else every
+// channel a grid (wy*wz, wx), one after the other (the G2P and gather
+// backwards' three grid cotangents).
+template <class Kind>
 __device__ __forceinline__ double* acc_at(const RowsArgs& a, int c, int row,
                                           int x) {
-  const int wx = a.size[0];
-  if (kChan == 4 && c > 0) {
-    return a.acc + wx * a.size[1] * a.size[2] + (row * 3 + c - 1) * wx + x;
+  constexpr int q0 = Kind::kScatter - 3;
+  const int wx = a.size[0], rows = a.size[1] * a.size[2];
+  if (Kind::kLines && c >= q0) {
+    return a.acc + q0 * rows * wx + (row * 3 + c - q0) * wx + x;
   }
-  return a.acc + (c * a.size[1] * a.size[2] + row) * wx + x;
+  return a.acc + (c * rows + row) * wx + x;
 }
 
-// An extra task of the kernels that sum into a.acc (zeroed before the
+// An extra task of the kernels that sum into a.acc (zero before the
 // kernel, rounded to float32 once after it): (y, z) cell `task` of the
 // particle's box (task ia * lz + ib), whose x rows' terms it adds. With
 // wgt = Wx Wy Wz at the cell and, with derivative weights, dwx = WxD Wy
 // Wz, dwy = Wx WDy Wz, dwz = Wx Wy WDz, component d adds wgt ch_d + dwx
-// m[d][0] + dwy m[d][1] + dwz m[d][2]: kChan 4 (P2G) with the particle
-// rows (mass, ch_d = mom_d, m[d][j] = (dx*affine)[d][j] in row 4 + 3d +
-// j), and the mass component wgt mass; kChan 3 (the G2P and gather
-// backwards) with the rows (ch_d, m[d][j] in row 3 + 3d + j: the
-// cotangents of G2P's v and C, or the gather's dv). A particle whose rows
-// are all zero adds nothing. The terms go by shared atomicAdd(double) into
-// the tile's window (rows_window) where it has one, flushed to a.acc by
+// m[d][0] + dwy m[d][1] + dwz m[d][2] (kChan = Kind::kScatter channels):
+// kChan 4 (P2G) with the particle rows (mass, ch_d = mom_d, m[d][j] =
+// (dx*affine)[d][j] in row 4 + 3d + j), and the mass component wgt mass;
+// kChan 3 with the rows ch_d (the splat's values) and, with derivative
+// weights, m[d][j] in row 3 + 3d + j (the G2P backward's cotangents of v
+// and C; the gather backward's dv has none). A particle whose rows are all
+// zero adds nothing. The terms go by shared atomicAdd(double) into the
+// tile's window (rows_window) where it has one, flushed to a.acc by
 // rows_flush; else by atomicAdd(double) to a.acc.
-template <int kChan, bool kDeriv>
+template <class Kind>
 __device__ __forceinline__ void rows_scatter(const RowsArgs& a,
                                              RowsShared* sh, bool narrow,
                                              int task, int lane, int p) {
+  constexpr int kChan = Kind::kScatter;
+  constexpr bool kDeriv = Kind::kDeriv;
   const int lx = box_len(*sh, 0, lane);
   const int ly = box_len(*sh, 1, lane);
   const int lz = box_len(*sh, 2, lane);
@@ -590,7 +725,8 @@ __device__ __forceinline__ void rows_scatter(const RowsArgs& a,
   // the tile's window: component c of cell (y, z, x) at
   // win[c * size + ((y - y0) * nz + z - z0) * nx + x - x0]
   int wn[3] = {0, 0, 0};
-  const int size = narrow ? window_cells<kChan>(*sh, wn) : 0;
+  const int size = narrow && Kind::kWindow ? window_cells<kChan>(*sh, wn)
+                                            : 0;
   const bool local = size > 0;
   const int wrow = ((y - sh->wlo[1]) * wn[2] + z - sh->wlo[2]) * wn[0]
                    - sh->wlo[0];
@@ -621,16 +757,17 @@ __device__ __forceinline__ void rows_scatter(const RowsArgs& a,
 #pragma unroll
     for (int c = 0; c < kChan; ++c) {
       atomicAdd(local ? sh->win + c * size + wrow + x
-                      : acc_at<kChan>(a, c, row, x), v[c]);
+                      : acc_at<Kind>(a, c, row, x), v[c]);
     }
   }
 }
 
 // After the scatter tasks and a barrier: the tile's window added to a.acc
 // by atomicAdd(double), one thread an element, its zeros left out.
-template <int kChan>
+template <class Kind>
 __device__ __forceinline__ void rows_flush(const RowsArgs& a,
                                            const RowsShared& sh) {
+  constexpr int kChan = Kind::kScatter;
   int wn[3];
   const int size = window_cells<kChan>(sh, wn);
   const int nx = wn[0], nz = wn[2];
@@ -640,8 +777,8 @@ __device__ __forceinline__ void rows_flush(const RowsArgs& a,
     const int c = i / size, cell = i - c * size;
     const int line = cell / nx, x = cell - line * nx;
     const int y = line / nz, z = line - y * nz;
-    atomicAdd(acc_at<kChan>(a, c, (sh.wlo[1] + y) * a.size[2] + sh.wlo[2] + z,
-                            sh.wlo[0] + x), v);
+    atomicAdd(acc_at<Kind>(a, c, (sh.wlo[1] + y) * a.size[2] + sh.wlo[2] + z,
+                           sh.wlo[0] + x), v);
   }
 }
 
@@ -708,19 +845,21 @@ __global__ void rows_prep(const RowsArgs a) {
   rows_prep_at<kGrids>(a, blockIdx.x * blockDim.x + threadIdx.x);
 }
 
-// The phases of one block, barriers between them. The scatter window
-// shares its space with the kept x rows: they are stored first.
+// The phases of one block, barriers between them. The vote's barrier
+// ends the block where no particle of its tile is live (the splat's
+// tiles away from the contact band). The scatter window shares its space
+// with the kept x rows: they are stored first.
 template <class Kind>
 __device__ __forceinline__ void rows_block(const RowsArgs& a,
                                            RowsShared* sh) {
-  rows_begin<Kind::kScatter>(sh);
-  __syncthreads();
-  rows_box<Kind::kDeriv>(a, sh);
+  rows_begin<window_channels<Kind>()>(sh);
+  if (!__syncthreads_or(rows_live<Kind>(a))) return;
+  rows_box<Kind>(a, sh);
   __syncthreads();
   const bool narrow = __syncthreads_and(rows_fit(*sh));
   if (narrow) {
     rows_pairs<Kind::kDeriv, row_planes<Kind>()>(a, sh);
-    rows_window<Kind::kScatter>(sh);
+    rows_window<window_channels<Kind>()>(sh);
     __syncthreads();
   }
   const bool local = rows_local<Kind>(*sh, narrow);
@@ -733,7 +872,7 @@ __device__ __forceinline__ void rows_block(const RowsArgs& a,
   rows_tasks<Kind>(a, sh, narrow);
   if (local) {
     __syncthreads();
-    rows_flush<Kind::kScatter>(a, *sh);
+    rows_flush<Kind>(a, *sh);
   }
 }
 

@@ -36,7 +36,7 @@ using softmac::RowsShared;
 
 // The value sums: three tasks a particle, task d the sum over the
 // particle's box of Wx Wy Wz times component d of the cotangent.
-struct SplatBwd {
+struct SplatBwd : softmac::RowsKind {
   static constexpr int kGrids = 3;
   static constexpr bool kDeriv = false, kRows = true;
   static constexpr int kScatter = 0;  // value sums, no window

@@ -198,21 +198,43 @@ def _g2p(Wx, WxD, Wy, WDy, Wz, WDz, gv0, gv1, gv2):
     return out
 
 
+# the splat's float64 windows, one a (device index, stream): zero between
+# calls (the kernel's last launch rounds a window and zeroes it again)
+_SPLAT_WINDOWS = {}
+
+
+def _splat_window(device, stream, count):
+    """The kept float64 window of ``stream`` on ``device``: at least
+    ``count`` doubles, all zero; allocated zeroed at its first use and
+    again when a larger window comes."""
+    key = (device.index, stream)
+    acc = _SPLAT_WINDOWS.get(key)
+    if acc is None or acc.numel() < count:
+        acc = torch.zeros(count, dtype=torch.float64, device=device)
+        _SPLAT_WINDOWS[key] = acc
+    return acc
+
+
 def _splat(Wx, Wy, Wz, vals):
     """Splat of vals (3, N) over dense weights; see ``splat_plain``. CUDA
-    tensors launch the kernel (float64 accumulation, rounded once)."""
+    tensors launch the kernel (float64 accumulation into the stream's kept
+    window, rounded once by a second launch that leaves it zeroed; a
+    failed launch drops the window, so the next call starts from a new
+    one)."""
     if build.on_cpu(Wx, "fused splat"):
         return splat_plain(Wx, Wy, Wz, vals)
     wx, wy, wz = Wx.shape[0], Wy.shape[0], Wz.shape[0]
     n = _check("fused splat", (Wx, Wy, Wz), (vals,), (wx, wy, wz))
     if vals.shape != (3, n):
         raise ValueError(f"fused splat: vals {tuple(vals.shape)}")
-    cells = wx * wy * wz
-    acc = torch.zeros(3 * cells, dtype=torch.float64, device=Wx.device)
+    stream = _stream(Wx)
+    acc = _splat_window(Wx.device, stream, 3 * wx * wy * wz)
     out = torch.empty((wy * wz, 3 * wx), dtype=Wx.dtype, device=Wx.device)
     rc = build.library().softmac_fused_splat(
         Wx.data_ptr(), Wy.data_ptr(), Wz.data_ptr(), vals.data_ptr(),
-        acc.data_ptr(), out.data_ptr(), n, wx, wy, wz, _stream(Wx))
+        acc.data_ptr(), out.data_ptr(), n, wx, wy, wz, stream)
+    if rc != 0:
+        _SPLAT_WINDOWS.pop((Wx.device.index, stream), None)
     build.check(rc, "fused splat")
     splat.launches += 1
     return out

@@ -6,13 +6,14 @@ the CUDA runtime header; each kernel runs one thread at a time. The block
 reductions of the split mixed backward (shared memory and barriers) are
 left to chip_smoke.py; here its per-particle reverse sweeps are summed on
 the host. The y-slab kernels (slab.cuh: P2G, the splat and the G2P and
-gather backwards), the door's row-thread P2G and P2G, G2P and gather
-backwards (fused_rows.cuh: their first launch, then each block's box, pair
-and window, x row, store, task and flush phases) and the tiled contact
-pairs (contact_mixed.cuh), block kernels with
-barriers, run phase by phase: each phase over all
-threads of a block before the next, as the barriers order them on the
-card.
+gather backwards), the door's eight row-thread kernels (fused_rows.cuh:
+P2G, G2P, the splat and the gather and their backwards; their first
+launch, then each block's vote, box, pair and window, x row, store, task
+and flush phases, and the splat's last launch, which rounds its kept
+window and leaves it zero) and the tiled contact pairs
+(contact_mixed.cuh), block kernels with barriers, run phase by phase: each
+phase over all threads of a block before the next, as the barriers order
+them on the card.
 
 Held against the plain versions in float64 on the same float32 inputs:
 P2G, gather, splat and the P2G / G2P / gather / splat backward kernels
@@ -29,7 +30,10 @@ largest |value| (one rounding); the row-thread kernels also at the edges
 of their blocks of 32 particles (a ragged last block, boxes empty on one
 axis, a block whose boxes are too wide to stage, a window of more x rows
 than a block keeps, a zero cotangent, no particle, tiles whose scatter
-goes through a shared window and tiles whose does not); the Khatri-Rao pair build (kr3) bit for
+goes through a shared window and tiles whose does not), the splat on a
+band of nonzero values (tiles without one end at the vote, and the
+zero-valued particles' weights are not read) and two splats on one kept
+window bit for bit the same; the Khatri-Rao pair build (kr3) bit for
 bit against its float32 plain version on the same weights; the split
 mixed contact and its backward pair, double math, within 1e-6 and 1e-12
 given the float dt and p_mass they see. The tiled contact kernels of
@@ -311,14 +315,17 @@ template <class F> static void launch(int n, F f) {
 }
 // The row-thread kernels of fused_rows.cuh: the first launch (the grids'
 // layouts, the backwards' zero fill) over its `count` elements (none for
-// P2G), then each block of the (tiles, parts) grid, its phases in order,
-// each over all the block's threads, with the shared memory poisoned (all
-// ones); the vote of __syncthreads_and taken over every thread. Returns
-// the tiles that staged their pair products (narrow); `windows` counts
-// those whose scatter went through the tile's window.
+// P2G, G2P, the splat and the gather), then each block of the (tiles,
+// parts) grid, its phases in order, each over all the block's threads,
+// with the shared memory poisoned (all ones); the votes of
+// __syncthreads_or (a live particle, else the block ends) and
+// __syncthreads_and taken over every thread. Returns the tiles that
+// staged their pair products (narrow); `windows` counts those whose
+// scatter went through the tile's window, and `ran` (where given) those
+// that passed the vote.
 template <class Kind>
 static int rows(const softmac::RowsArgs& a, int count, int parts,
-                int& windows) {
+                int& windows, int* ran = nullptr) {
   for (int i = 0; i < count; ++i)
     softmac::rows_prep_at<Kind::kGrids>(a, i);
   blockDim.x = softmac::kRowThreads;
@@ -329,21 +336,28 @@ static int rows(const softmac::RowsArgs& a, int count, int parts,
   };
   int narrow_tiles = 0;
   windows = 0;
+  if (ran) *ran = 0;
   for (unsigned b = 0; b < gridDim.x; ++b) {
     for (unsigned part = 0; part < gridDim.y; ++part) {
       blockIdx.x = b;
       blockIdx.y = part;
       softmac::RowsShared sh;
       memset(&sh, 0xff, sizeof sh);
-      phase([&] { softmac::rows_begin<Kind::kScatter>(&sh); });
-      phase([&] { softmac::rows_box<Kind::kDeriv>(a, &sh); });
+      phase([&] {
+        softmac::rows_begin<softmac::window_channels<Kind>()>(&sh);
+      });
+      bool live = false;
+      phase([&] { live = softmac::rows_live<Kind>(a) || live; });
+      if (!live) continue;
+      if (ran) *ran += part == 0;
+      phase([&] { softmac::rows_box<Kind>(a, &sh); });
       bool narrow = true;
       phase([&] { narrow = softmac::rows_fit(sh) && narrow; });
       if (narrow) {
         phase([&] {
           softmac::rows_pairs<Kind::kDeriv, softmac::row_planes<Kind>()>(
               a, &sh);
-          softmac::rows_window<Kind::kScatter>(&sh);
+          softmac::rows_window<softmac::window_channels<Kind>()>(&sh);
         });
       }
       const bool local = softmac::rows_local<Kind>(sh, narrow);
@@ -353,7 +367,7 @@ static int rows(const softmac::RowsArgs& a, int count, int parts,
       }
       phase([&] { softmac::rows_tasks<Kind>(a, &sh, narrow); });
       if (local) {
-        phase([&] { softmac::rows_flush<Kind::kScatter>(a, sh); });
+        phase([&] { softmac::rows_flush<Kind>(a, sh); });
         windows += part == 0;
       }
       if (part == 0) narrow_tiles += narrow;
@@ -522,17 +536,31 @@ void h_fused_g2p(const float* Wx, const float* WxD, const float* Wy,
                                {wx, wy, wz}};
   narrow[0] = rows<k_fused_g2p::G2P>(a, 0, parts, narrow[1]);
 }
+// The splat's kernel alone: its sums added into the float64 window acc
+// (zero on entry, as the wrapper keeps it); h_round_and_clear is its last
+// launch. narrow[2]: the tiles that passed the vote (a live particle).
 void h_fused_splat(const float* Wx, const float* Wy, const float* Wz,
                    const float* vals, double* acc, int n, int wx, int wy,
-                   int wz) {
-  launch(n, [&] { k_fused_splat::fused_splat_kernel(Wx, Wy, Wz, vals, acc, n,
-                                                    wx, wy, wz); });
+                   int wz, int parts, int* narrow) {
+  const softmac::RowsArgs a = {{Wx, nullptr, Wy, nullptr, Wz, nullptr},
+                               {nullptr, nullptr, nullptr, nullptr},
+                               {0, 0, 0, 0}, vals, nullptr, acc, nullptr,
+                               nullptr, n, {wx, wy, wz}};
+  narrow[0] = rows<k_fused_splat::Splat>(a, 0, parts, narrow[1],
+                                         &narrow[2]);
+}
+void h_round_and_clear(double* acc, float* out, int count) {
+  for (int i = 0; i < count; ++i) softmac::round_clear_at(acc, out, i);
 }
 void h_fused_gather(const float* Wx, const float* Wy, const float* Wz,
                     const float* g0, const float* g1, const float* g2,
-                    float* out, int n, int wx, int wy, int wz) {
-  launch(n, [&] { k_fused_gather::fused_gather_kernel(Wx, Wy, Wz, g0, g1, g2,
-                                                      out, n, wx, wy, wz); });
+                    float* out, int n, int wx, int wy, int wz, int parts,
+                    int* narrow) {
+  const softmac::RowsArgs a = {{Wx, nullptr, Wy, nullptr, Wz, nullptr},
+                               {g0, g1, g2, nullptr}, {wx, wx, wx, 0},
+                               nullptr, out, nullptr, nullptr, nullptr, n,
+                               {wx, wy, wz}};
+  narrow[0] = rows<k_fused_gather::Gather>(a, 0, parts, narrow[1]);
 }
 void h_fused_p2g_bwd(const float* Wx, const float* WxD, const float* Wy,
                      const float* WDy, const float* Wz, const float* WDz,
@@ -1579,16 +1607,81 @@ def test_fused_transfer_sources(lib, case):
 
     W, W64 = ws[0::2], w64[0::2]
     vals = _f32(rng, 3, N)
+    ref = fused.splat_plain(*W64, vals.double()).reshape(-1)
     acc = torch.zeros(3 * cells, dtype=torch.float64)
-    lib.h_fused_splat(*map(_p, W), _p(vals), _p(acc), *_fdims(window))
-    ref = fused.splat_plain(*W64, vals.double())
-    assert _rel(acc, ref.reshape(-1)) < 1e-12
+    for parts in (1, 2):
+        # two calls on one kept window: the round leaves it zero for the next
+        runs = [_splat_rows(lib, W, window, N, vals, parts, acc)
+                for _ in range(2)]
+        assert _rel(runs[0][0], ref) < 1e-12
+        assert torch.equal(runs[0][1], runs[1][1])
 
-    out = torch.zeros(3, N)
-    lib.h_fused_gather(*map(_p, W), *map(_p, gv), _p(out), *_fdims(window))
     ref = fused.gather_plain(*W64, *(g.double() for g in gv))
-    for d in range(3):
-        assert _rel(out[d], ref[d]) < 1e-6
+    for parts in (1, 2):
+        out = torch.full((3, N), float("nan"))
+        lib.h_fused_gather(*map(_p, W), *map(_p, gv), _p(out),
+                           *_fdims(window), ctypes.c_int(parts),
+                           (ctypes.c_int * 2)())
+        for d in range(3):
+            assert _rel(out[d], ref[d]) < 1e-6
+
+
+def _splat_rows(lib, W, window, n, vals, parts, acc=None):
+    """The row-thread splat on n particles, a tile's tasks split over
+    ``parts`` blocks, into the kept float64 window ``acc`` (zero; a new one
+    where None): its sums (the window before the last launch), its float32
+    window after ``round_and_clear`` (the sums rounded, and the kept window
+    left zero), and its counts of tiles that staged their pair products,
+    of those whose scatter went through the tile's window and of those
+    that passed the vote."""
+    wx, wy, wz = window
+    count = 3 * wx * wy * wz
+    if acc is None:
+        acc = torch.zeros(count, dtype=torch.float64)
+    narrow = (ctypes.c_int * 3)()
+    lib.h_fused_splat(*map(_p, W), _p(vals), _p(acc), ctypes.c_int(n),
+                      *map(ctypes.c_int, window), ctypes.c_int(parts), narrow)
+    sums = acc.clone()
+    out = torch.full((wy * wz, 3 * wx), float("nan"))
+    lib.h_round_and_clear(_p(acc), _p(out), ctypes.c_int(count))
+    assert bool((acc == 0).all())
+    assert torch.equal(out.reshape(-1), sums.float())
+    return sums, out, tuple(narrow)
+
+
+@pytest.mark.parametrize("case", ["bspline", "dense"])
+def test_fused_splat_band_source(lib, case):
+    """The splat band only, at N = 400 (a last tile of 16): about one
+    particle in eight with nonzero values, none in particles 64-95 (a whole
+    tile) and one alone in 128-159; the zero-valued particles' weight
+    columns made dense (seeded normal on every row), which would make
+    their tile too wide to stage had the kernel read them. Only the tiles
+    with a live particle pass the vote; with B-spline weights every one of
+    them stages its pair products (and scatters to device memory: the
+    splat has no tile window). The
+    float64 window within 1e-12 of splat_plain, with a tile's tasks on 1
+    and 2 blocks; two calls on one kept window bit-identical, the window
+    left zero."""
+    ws, window, rng = _fused_weights(case)
+    W = [w.clone() for w in ws[0::2]]
+    live = torch.tensor(rng.rand(N) < 0.125)
+    live[64:96] = live[128:160] = False
+    live[130] = live[N - 1] = True
+    vals = _f32(rng, 3, N) * live
+    for w in W:
+        w[:, ~live] = _f32(rng, w.shape[0], int((~live).sum()))
+    ref = fused.splat_plain(*(w.double() for w in W), vals.double())
+    tiles = int(torch.nn.functional.pad(live, (0, (-N) % 32)).reshape(
+        -1, 32).any(dim=1).sum())
+    acc = torch.zeros(ref.numel(), dtype=torch.float64)
+    for parts in (1, 2):
+        runs = [_splat_rows(lib, W, window, N, vals, parts, acc)
+                for _ in range(2)]
+        assert _rel(runs[0][0], ref.reshape(-1)) < 1e-12
+        assert torch.equal(runs[0][1], runs[1][1])
+        narrow, windows, ran = runs[0][2]
+        assert ran == tiles < (N + 31) // 32
+        assert (narrow, windows) == (tiles if case == "bspline" else 0, 0)
 
 
 def _rows_rel(got, want):
@@ -1625,20 +1718,24 @@ def _grid_check(acc, refs):
 
 def _rows_check(lib, ws, window, n, chan, gv, dgm, dgmom, g12, dv, vals,
                 dout):
-    """The row-thread kernels (fused_rows.cuh) on n particles: P2G and G2P
-    against the float64 plain versions, P2G's float64 window within 1e-12
-    and G2P's rows within 1e-6 of each row's largest |value|; the P2G, G2P,
-    splat and gather backwards against the float64 plain vjps, every row
-    of every weight cotangent and the channel and value cotangents within
-    1e-6 of each row's largest |value| (written where a particle's dv or
-    vals is zero: zeros), the float64 grid cotangents within 1e-12; every
-    particle row poisoned with NaN before the call; with a tile's tasks on
-    one block and split over three (rows_parts), the particle rows bit for
-    bit the same. Returns the particle rows of each kernel ("g2p",
-    "p2g_bwd", "g2p_bwd", "splat_bwd", "gather_bwd"), the count of tiles
-    that staged their pair products (every kernel's the same) and the
-    scatter kernels' (P2G, the G2P and gather backwards) counts of tiles
-    whose scatter went through the tile's window."""
+    """The row-thread kernels (fused_rows.cuh) on n particles: P2G, G2P,
+    the splat and the gather against the float64 plain versions, the P2G
+    and splat float64 windows within 1e-12 and the G2P and gather rows
+    within 1e-6 of each row's largest |value|; the P2G, G2P, splat and
+    gather backwards against the float64 plain vjps, every row of every
+    weight cotangent and the channel and value cotangents within 1e-6 of
+    each row's largest |value| (written where a particle's dv or vals is
+    zero: zeros), the float64 grid cotangents within 1e-12; every particle
+    row poisoned with NaN before the call; with a tile's tasks on one block
+    and split over three (rows_parts), the particle rows bit for bit the
+    same. The splat runs only the tiles with a nonzero value (its vote)
+    and has no tile window.
+    Returns the particle rows of each kernel ("g2p", "gather", "p2g_bwd",
+    "g2p_bwd", "splat_bwd", "gather_bwd"), the count of tiles that staged
+    their pair products (every kernel's the same but the splat's, which
+    counts the tiles that ran) and the scatter kernels' (P2G, the splat,
+    the G2P and gather backwards) counts of tiles whose scatter went
+    through the tile's window (none of the splat's)."""
     wx, wy, wz = window
     w64 = [w.double() for w in ws]
     gv64 = [g.double() for g in gv]
@@ -1647,6 +1744,11 @@ def _rows_check(lib, ws, window, n, chan, gv, dgm, dgmom, g12, dv, vals,
     dims = [ctypes.c_int(n)] + [ctypes.c_int(w) for w in window]
     gm, gmom = fused.p2g_plain(*w64, chan.double())
     g2p_fwd = fused.g2p_plain(*w64, *gv64)
+    gather_fwd = fused.gather_plain(*w64[0::2], *gv64)
+    splat_fwd = fused.splat_plain(*w64[0::2], vals.double())
+    live = (vals != 0).any(dim=0)
+    live_tiles = int(torch.nn.functional.pad(live, (0, (-n) % 32)).reshape(
+        -1, 32).any(dim=1).sum())
     p2g_ref = fused.p2g_vjp_plain(*w64, chan.double(), dgm.double(),
                                   dgmom.double())
     g2p_ref = fused.g2p_vjp_plain(*w64, *gv64, g12.double())
@@ -1662,7 +1764,7 @@ def _rows_check(lib, ws, window, n, chan, gv, dgm, dgmom, g12, dv, vals,
 
     def nans(rows):
         return torch.full((rows, n), float("nan"))
-    runs, narrow = [], (ctypes.c_int * 10)()
+    runs, narrow = [], (ctypes.c_int * 12)()
     for parts in (1, 3):
         part = ctypes.c_int(parts)
         acc, p2g_narrow = _p2g_rows(lib, ws, window, n, chan, parts)
@@ -1671,6 +1773,16 @@ def _rows_check(lib, ws, window, n, chan, gv, dgm, dgmom, g12, dv, vals,
         lib.h_fused_g2p(*map(_p, ws), *map(_p, gv), _p(out["g2p"]), *dims,
                         part, ctypes.byref(narrow, 24))
         rows_ok(out["g2p"], (12,), (g2p_fwd,))
+        out["gather"] = nans(3)
+        lib.h_fused_gather(*map(_p, ws[0::2]), *map(_p, gv),
+                           _p(out["gather"]), *dims, part,
+                           ctypes.byref(narrow, 40))
+        rows_ok(out["gather"], (3,), (gather_fwd,))
+        splat_sums, _, splat_narrow = _splat_rows(lib, ws[0::2], window, n,
+                                                  vals, parts)
+        _grid_check(splat_sums, [splat_fwd])
+        assert splat_narrow[2] == live_tiles
+        assert splat_narrow[0] <= live_tiles
         out["p2g_bwd"] = nans(sum(rows6) + 13)
         lib.h_fused_p2g_bwd(*map(_p, ws), _p(chan), _p(dgm), _p(dgmom),
                             _p(out["p2g_bwd"]), *dims, part,
@@ -1698,13 +1810,14 @@ def _rows_check(lib, ws, window, n, chan, gv, dgm, dgmom, g12, dv, vals,
         rows_ok(out["gather_bwd"], rows3, gather_ref[:3])
         _grid_check(acc, gather_ref[3:])
         assert p2g_narrow[0] == narrow[0] == narrow[2] == narrow[4] \
-            == narrow[6] == narrow[8]
-        # G2P and the P2G and splat backwards have no scatter
-        assert narrow[1] == narrow[7] == narrow[9] == 0
+            == narrow[6] == narrow[8] == narrow[10]
+        # G2P, the gather and the P2G and splat backwards have no scatter
+        assert narrow[1] == narrow[7] == narrow[9] == narrow[11] == 0
         runs.append(out)
     assert all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
     return runs[0], narrow[0], {"p2g": p2g_narrow[1], "g2p_bwd": narrow[3],
-                                "gather_bwd": narrow[5]}
+                                "gather_bwd": narrow[5],
+                                "splat": splat_narrow[1]}
 
 
 @pytest.mark.parametrize("case", ["bspline", "dense"])
@@ -1733,7 +1846,7 @@ def test_fused_backward_sources(lib, case):
     # P2G's (4 channels: the boxes of a tile of the scene's random order
     # span too much; test_fused_rows_edges_source sorts them)
     assert windows["g2p_bwd"] == windows["gather_bwd"] == narrow
-    assert windows["p2g"] == 0
+    assert windows["p2g"] == windows["splat"] == 0
     # a weight cotangent is dense in the row: rows off the stencil too
     off = (out[:wx] != 0) & (ws[0] == 0) & (ws[1] == 0)
     assert case == "dense" or bool(off.any())
@@ -1751,8 +1864,9 @@ def test_fused_backward_sources(lib, case):
                                   "wide_x", "long_x", "zero_dv", "none",
                                   "sorted"])
 def test_fused_rows_edges_source(lib, case):
-    """The row-thread kernels (P2G and G2P, the P2G, G2P, splat and gather
-    backwards) at the edges of their blocks of 32 particles, on the
+    """The row-thread kernels (P2G, G2P, the splat and the gather, and the
+    P2G, G2P, splat and gather backwards) at the edges of their blocks of
+    32 particles, on the
     scene's B-spline weights: n = 37 (a last block of 5); particles whose
     box is empty on one axis (their weight rows of that axis still sum
     over the other two, the other axes' rows are zero, and so are their
@@ -1762,7 +1876,8 @@ def test_fused_rows_edges_source(lib, case):
     dense random weights on a window of 70 x rows, more than a block keeps
     in shared memory (kXTile), 37 particles; the gather's cotangent dv and
     the splat's values zero for every particle (no grid terms; their
-    weight rows written, zeros); and n = 0 (no block: the backwards' first
+    weight rows written, zeros; no tile of the splat passes its vote); and
+    n = 0 (no block: the backwards' first
     launch alone, windows of zeros); the particles sorted by their
     stencil's base cell (y, z, x), so that every tile's boxes span few
     cells and even P2G's scatter goes through the tile's window (the
@@ -1809,6 +1924,8 @@ def test_fused_rows_edges_source(lib, case):
     # occur among the narrow tiles
     assert windows["p2g"] <= windows["g2p_bwd"] == windows["gather_bwd"] \
         <= narrow
+    # the splat scatters to device memory alone
+    assert windows["splat"] == 0
     assert case != "sorted" or 0 < windows["p2g"] < narrow
     assert narrow == {"wide_box": blocks - 1, "wide_x": blocks - 1,
                       "long_x": 0}.get(case, blocks)
