@@ -13,9 +13,10 @@ script exits non-zero:
            row-thread kernels of fused_rows.cuh (the door's P2G and G2P
            and the P2G, G2P, splat and gather backwards) apart
            ("row_kernels"), which fail the phase if they spill; so do the
-           penalty contact pair and the read-side tile kernels (G2P and
-           the gather, ops/csrc/slab_read.cuh), whose registers and spills
-           are printed
+           penalty contact pair and the read-side tile kernels (G2P, the
+           gather and the P2G and splat backwards,
+           ops/csrc/slab_read.cuh), whose registers and spills are
+           printed
   kernels  each kernel against its plain PyTorch version at the main path's
            shapes: max error, time over 20+ calls (CUDA events: the call,
            the wrapper's host time included), its device-only time
@@ -47,15 +48,18 @@ script exits non-zero:
            mixed contact on 1e5 particles of the glass's box all in the
            contact band: the band's particles and the fullest tile's
            counted, 10 calls bit-identical, call and device time on each
-           set of particles. G2P and the gather (the read-side tiles of
-           ops/csrc/slab_read.cuh: a tile's grid rows staged in shared
-           memory) are held to their float64 plain versions within 1e-5
-           of each output row's largest |value| on the pour_vel and pour
+           set of particles. G2P, the gather and the P2G and splat
+           backwards (the read-side tiles of ops/csrc/slab_read.cuh: a
+           tile's box of window cells staged in shared memory; the splat
+           backward's entry also counts the band, its nonzero values) are
+           held to their float64 plain versions or vjps within 1e-5 of
+           each output row's largest |value| on the pour_vel and pour
            states, on a random permutation of each, over the full 64^3
            grid and on as many particles spread uniformly over the pour's
            window: the particles that read device memory instead of the
-           slab counted (some order of each must: the spread state's
-           permutation), 10 calls bit-identical, call and device ms. The y-slab kernels
+           slab counted (none in the two main-path states' sorted order;
+           some order of each must: the spread state's permutation), 10
+           calls bit-identical, call and device ms. The y-slab kernels
            (ops/csrc/slab.cuh: P2G,
            the splat and the G2P and gather backwards) are also held on
            the pour_vel and pour states, on a random permutation of each,
@@ -74,7 +78,8 @@ script exits non-zero:
            under remat "step" and "none": one counted call and 5 timed ones
            each, fwd+bwd substeps/s, peak device memory, the launches of its
            six kernels, finite nonzero gradients, and how far step and none
-           and the repeats differ
+           and the repeats differ; the read-side kernels' particles off
+           their tiles' slabs summed over the counted calls
   pour     the flagship main path: SoftMacEnv.rollout of the demo_pour
            scene (mixed contact, two floating force-controlled bodies) at
            1e5 particles, window (32, 32, 16), 100 env steps of zero
@@ -88,7 +93,9 @@ script exits non-zero:
            under remat "step" and "none": one counted call and 5 timed ones
            each, fwd+bwd substeps/s, peak memory, the launches of every
            forward and backward kernel, a finite nonzero gradient, step
-           against none and the repeats within GRAD_TOL; then 20 steps
+           against none and the repeats within GRAD_TOL, the read-side
+           kernels' particles off the slab summed over the counted calls
+           (G2P, the gather and the P2G and splat backwards); then 20 steps
            under SOFTMAC_TPU_CONTACT_SPLIT (the split backward pair,
            counted) against the merged gradient. The counted "step" call
            keeps the inputs of three real calls of gather_bwd and g2p_bwd
@@ -178,6 +185,7 @@ script exits non-zero:
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -441,11 +449,11 @@ def is_round(function):
 
 def ptxas_by_source(log):
     """{source file: [{"function", "registers", "spill_stores",
-    "smem_bytes"}]} of every kernel, from the ``nvcc -Xptxas -v`` log of
-    ``build.build()`` (static shared memory; the y-slab kernels' dynamic
-    slab is in their ``slab`` checks)."""
+    "stack_bytes", "smem_bytes"}]} of every kernel, from the ``nvcc -Xptxas
+    -v`` log of ``build.build()`` (static shared memory; the y-slab
+    kernels' dynamic slab is in their ``slab`` checks)."""
     import re
-    out, src, fn, spill = {}, None, None, 0
+    out, src, fn, spill, stack = {}, None, None, 0, 0
     for ln in log.splitlines():
         if ln.startswith("== "):
             src = ln[3:].strip()
@@ -454,11 +462,13 @@ def ptxas_by_source(log):
             fn = ln.split("'")[1]
         elif "spill stores" in ln:
             spill = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
+            stack = re.search(r"(\d+) bytes stack frame", ln)
+            stack = int(stack.group(1)) if stack else 0
         elif "Used" in ln and "registers" in ln and src and fn:
             regs = int(re.search(r"Used (\d+) registers", ln).group(1))
             smem = re.search(r"(\d+) bytes smem", ln)
             out[src].append({"function": fn, "registers": regs,
-                             "spill_stores": spill,
+                             "spill_stores": spill, "stack_bytes": stack,
                              "smem_bytes": int(smem.group(1)) if smem else 0})
     return out
 
@@ -1131,43 +1141,63 @@ def check_slab_kernels(inp, pour_inp):
     return res
 
 
-# the read-side tile kernels (ops/csrc/slab_read.cuh) and their output rows
-READ_ROWS = {"g2p": 12, "gather": 3}
-READ_SOURCES = ("g2p.cu", "gather.cu")
+# the read-side tile kernels (ops/csrc/slab_read.cuh): the build phase
+# fails if ptxas reports a spill for them
+READ_KERNELS = ("g2p", "gather", "p2g_bwd", "splat_bwd")
+READ_SOURCES = tuple(k + ".cu" for k in READ_KERNELS)
+
+
+def read_fns(name):
+    """(kernel, the wrapper that holds its .off_slab, float64 reference,
+    the positions of its arguments that hold one column a particle) of
+    the read-side kernel ``name``: G2P and the gather take (x, gv0, gv1,
+    gv2, corner, window, inv_dx), the P2G backward (x, chan, corner,
+    window, inv_dx, dgm, dgmom), the splat backward (x, vals, corner,
+    window, inv_dx, dout). Every output holds one column a particle."""
+    from softmac_tpu_torch.ops import transfer
+    if name in ("g2p", "gather"):
+        return (getattr(transfer, "_" + name), getattr(transfer, name),
+                getattr(transfer, name + "_plain"), (0,))
+    fn = getattr(transfer, name)
+    return fn, fn, getattr(transfer, name.replace("_bwd", "_vjp_plain")), \
+        (0, 1)
 
 
 def off_slab_count(wrapper):
-    """The particles of a G2P or gather call that read device memory (the
-    sum of its tiles' counts, read after a synchronize)."""
+    """The particles of a read-side call that read device memory (the sum
+    of its tiles' counts, read after a synchronize)."""
     return int(wrapper.off_slab.sum())
 
 
 def check_read(name, args, gen):
-    """The read-side tile kernel ``name`` (G2P or the gather) on ``args``
-    (a y-sorted state, its window and grids) and on a random permutation
-    of its particles: each output row within ROW_TOL of its largest |value|
-    in the float64 plain version, the particles that read device memory
-    (off the slab), SLAB_REPEATS calls bit-identical, call and device ms of
-    each order."""
+    """The read-side tile kernel ``name`` (a key of READ_KERNELS) on
+    ``args`` (a y-sorted state, its window and grids or cotangents) and on
+    a random permutation of its particles: each output row within ROW_TOL
+    of its largest |value| in the float64 plain version or vjp, the
+    particles that read device memory (off the slab), SLAB_REPEATS calls
+    bit-identical, call and device ms of each order."""
     import torch
     from softmac_tpu_torch.ops import transfer
-    wrapper = getattr(transfer, name)
-    kernel = getattr(transfer, "_" + name)
-    plain = getattr(transfer, name + "_plain")
-    x, sizes = args[0], args[5]
-    want = plain(*map(_f64, args))
+    kernel, wrapper, plain, cols = read_fns(name)
+    x = args[0]
+    sizes = args[5] if name in ("g2p", "gather") else args[3]
+    want = _as_tuple(plain(*map(_f64, args)))
     perm = torch.randperm(x.shape[1], generator=gen, device=x.device)
-    permuted = (x[:, perm].contiguous(),) + args[1:]
+    permuted = tuple(a[:, perm].contiguous() if i in cols else a
+                     for i, a in enumerate(args))
     res = {"window": list(sizes), "tile": transfer.READ_TILE}
     for order, a, w in (("sorted", args, want),
-                        ("permuted", permuted, want[:, perm])):
-        outs = [kernel(*a) for _ in range(SLAB_REPEATS)]
+                        ("permuted", permuted,
+                         tuple(t[:, perm] for t in want))):
+        outs = [_as_tuple(kernel(*a)) for _ in range(SLAB_REPEATS)]
         torch.cuda.synchronize()
-        err, rel = _row_rel(outs[0], w)
-        res[order] = {"max_abs_err": err, "max_rel_err": rel,
+        errs = [_row_rel(o, t) for o, t in zip(outs[0], w)]
+        res[order] = {"max_abs_err": max(e[0] for e in errs),
+                      "max_rel_err": max(e[1] for e in errs),
                       "off_slab": off_slab_count(wrapper),
                       "repeats_bit_identical": all(
-                          torch.equal(o, outs[0]) for o in outs[1:]),
+                          all(torch.equal(p, q) for p, q in zip(o, outs[0]))
+                          for o in outs[1:]),
                       "ms": cuda_time_ms(lambda: kernel(*a)),
                       "device_ms": device_ms(
                           f"{name} read {order} {tuple(sizes)}",
@@ -1194,34 +1224,49 @@ def spread_particles(inp, gen):
 
 
 def check_read_kernels(inp, pour_inp):
-    """check_read of G2P and the gather on the pour_vel and the pour states
-    (the main paths' y-sorted particles, windows and grids), on the pour's
-    particles over the full 64^3 grid (no window, seeded normal grids), and
-    on as many particles spread uniformly over the pour's window with its
-    grids (spread_particles: a tile's box is the window's whole x-z plane,
-    so in the permuted order the slab holds a few of the rows a tile
-    spans). Some order of each kernel must go off the slab (the
+    """check_read of G2P, the gather and the P2G and splat backwards on the
+    pour_vel and the pour states (the main paths' y-sorted particles,
+    windows and grids; the P2G backward with each state's channels, the
+    splat backward with the pour's real values, -2 dv, zero outside the
+    contact band, and seeded normal values on pour_vel, which runs no
+    splat; seeded normal cotangents), on the pour's particles over the
+    full 64^3 grid (no window: seeded normal grids and cotangents) and on
+    as many particles spread uniformly over the pour's window
+    (spread_particles: a tile's box is the window's whole x-z plane, so in
+    the permuted order the slab holds a few of the rows a tile spans;
+    seeded normal values). No particle of the two main-path states goes off
+    the slab in their sorted order; some order of each kernel must (the
     device-memory path ran). Returns {kernel: {state: result}}."""
     import torch
     x_p = pour_inp["state"].x
     gen = torch.Generator(device=x_p.device).manual_seed(12)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=x_p.device)
     ng = pour_inp["cfg"].n_grid
-    full = (tuple(torch.randn((ng * ng, ng), generator=gen, device=x_p.device)
-                  for _ in range(3)),
+    full = (tuple(normal(ng * ng, ng) for _ in range(3)),
             torch.zeros(3, dtype=torch.int32, device=x_p.device),
             (ng, ng, ng))
     pour_window = (pour_inp["gvm"], pour_inp["corner"], pour_inp["sizes"])
-    res = {name: {} for name in READ_ROWS}
-    for state, src, x, (grids, corner, sizes) in (
+    x_s = spread_particles(pour_inp, gen)
+    res = {name: {} for name in READ_KERNELS}
+    for state, src, x, (grids, corner, sizes), vals in (
             ("pour_vel", inp, inp["state"].x,
-             (inp["grids"], inp["corner"], inp["sizes"])),
-            ("pour", pour_inp, x_p, pour_window),
-            ("full_grid", pour_inp, x_p, full),
-            ("spread", pour_inp, spread_particles(pour_inp, gen),
-             pour_window)):
-        args = (x, *grids, corner, sizes, src["cfg"].inv_dx)
-        for name in READ_ROWS:
-            res[name][state] = check_read(name, args, gen)
+             (inp["grids"], inp["corner"], inp["sizes"]),
+             normal(*inp["state"].x.shape)),
+            ("pour", pour_inp, x_p, pour_window, pour_inp["vals"]),
+            ("full_grid", pour_inp, x_p, full, pour_inp["vals"]),
+            ("spread", pour_inp, x_s, pour_window, normal(*x_s.shape))):
+        wx, wy, wz = sizes
+        inv_dx = src["cfg"].inv_dx
+        args = {"g2p": (x, *grids, corner, sizes, inv_dx),
+                "p2g_bwd": (x, src["chan"], corner, sizes, inv_dx,
+                            normal(wy * wz, wx), normal(wy * wz, 3 * wx)),
+                "splat_bwd": (x, vals, corner, sizes, inv_dx,
+                              normal(wy * wz, 3 * wx))}
+        args["gather"] = args["g2p"]
+        for name in READ_KERNELS:
+            res[name][state] = check_read(name, args[name], gen)
     for name, by_state in res.items():
         off = {k: (v["sorted"]["off_slab"], v["permuted"]["off_slab"])
                for k, v in by_state.items()}
@@ -1229,31 +1274,37 @@ def check_read_kernels(inp, pour_inp):
               f"{off}", flush=True)
         if not any(p > 0 for o in off.values() for p in o):
             raise AssertionError(f"{name}: no order went off the slab")
+        if off["pour_vel"][0] or off["pour"][0]:
+            raise AssertionError(f"{name}: the main-path states' sorted "
+                                 "order went off the slab")
     return res
 
 
 class OffSlab:
-    """Within it, every G2P and gather call's off-slab counts (the tensor
-    each leaves in ``off_slab``) are kept; ``counts()`` sums them after a
-    synchronize: the main path's particles that read device memory."""
+    """Within it, every read-side kernel call's off-slab counts (a copy of
+    the tensor each leaves in ``off_slab``, which its next call
+    overwrites: G2P and the gather forward, the P2G and splat backwards)
+    are kept; ``counts()`` sums them after a synchronize: the main path's
+    particles that read device memory. One OffSlab may be entered more
+    than once; it keeps every call."""
+
+    def __init__(self):
+        self.kept = {name: [] for name in READ_KERNELS}
 
     def __enter__(self):
         from softmac_tpu_torch.ops import transfer
         self.transfer = transfer
-        self.kept = {name: [] for name in READ_ROWS}
-        self.kernels = {name: getattr(transfer, "_" + name)
-                        for name in READ_ROWS}
-        for name, fn in self.kernels.items():
-            def kept(*args, _name=name, _fn=fn):
-                out = _fn(*args)
-                self.kept[_name].append(getattr(transfer, _name).off_slab)
-                return out
-            setattr(transfer, "_" + name, kept)
+        self.read = transfer._read
+
+        def kept(name, *args):
+            off = self.read(name, *args)
+            self.kept[name].append(off.clone())
+            return off
+        transfer._read = kept
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self.kernels.items():
-            setattr(self.transfer, "_" + name, fn)
+        self.transfer._read = self.read
 
     def counts(self):
         import torch
@@ -1631,9 +1682,10 @@ def check_pour_backward_kernels(inp):
         (9 * n + 6 * cells) * 4, ROW_TOL))
     entries[-1]["rel_err_by_output"] = {k: e[1] for k, e in errs.items()}
 
-    # --- splat_bwd ---------------------------------------------------------
+    # --- splat_bwd: the real values, a band of nonzero ones -----------------
     args = (x, inp["vals"], corner, sizes, cfg.inv_dx,
             normal(wy * wz, 3 * wx))
+    band = int((inp["vals"] != 0).any(dim=0).sum())
     device_ms("splat_bwd", lambda: transfer.splat_bwd(*args))
     errs = _errors(transfer.splat_bwd(*args),
                    transfer.splat_vjp_plain(*map(_f64, args)),
@@ -1645,8 +1697,13 @@ def check_pour_backward_kernels(inp):
         max(e[0] for e in errs.values()), max(e[1] for e in errs.values()),
         cuda_time_ms(lambda: transfer.splat_bwd(*args)),
         cuda_time_ms(lambda: transfer.splat_vjp_plain(*args)),
-        (12 * n + 3 * cells) * 4, ROW_TOL))
+        (12 * n + 3 * cells) * 4, ROW_TOL,
+        # the band's particles take the reverse sweep, the others the
+        # gather's sums alone
+        flops=band * FLOPS_PER_PARTICLE["splat_bwd"]
+        + (n - band) * FLOPS_PER_PARTICLE["gather"]))
     entries[-1]["rel_err_by_output"] = {k: e[1] for k, e in errs.items()}
+    entries[-1]["nonzero_vals"] = band
     return entries + check_mixed_backward(inp, normal)
 
 
@@ -1936,10 +1993,11 @@ def timed_grad(env, acts, remat, loss_start_frame=0, grad_clip=None,
 
 def run_gradient(tag, env, acts, expect, glass, window, repeats=GRAD_REPEATS,
                  loss_start_frame=0, grad_clip=None, loss_stride=20,
-                 remats=("step", "none")):
+                 remats=("step", "none"), counted=None):
     """A gradient main path: rollout_and_grad of ``acts`` under each remat
-    of ``remats``, each one counted call (launches from zero, peak memory)
-    and ``repeats`` timed ones, and "step" against "none" where both run.
+    of ``remats``, each one counted call (launches from zero, peak memory;
+    within ``counted``, a context such as an OffSlab, where given) and
+    ``repeats`` timed ones, and "step" against "none" where both run.
     ``expect(remat)`` gives the launch counts, ``glass`` the action columns
     whose gradient may not be all zero."""
     kw = dict(loss_start_frame=loss_start_frame, grad_clip=grad_clip,
@@ -1950,7 +2008,8 @@ def run_gradient(tag, env, acts, expect, glass, window, repeats=GRAD_REPEATS,
     for remat in remats:
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        out, secs = timed_grad(env, acts, remat, **kw)
+        with counted if counted is not None else contextlib.nullcontext():
+            out, secs = timed_grad(env, acts, remat, **kw)
         launches[remat] = read_launches()
         peak = torch.cuda.max_memory_allocated()
         g = out["action_grad"]
@@ -2023,8 +2082,13 @@ def run_grad(env):
             counts[k + "_bwd"] = c * graded
         return counts
     # the glass's wz, vx, vy
-    return run_gradient("grad", env, actions(VEL_STEPS), expect, [2, 3, 4],
-                        WINDOW)
+    off = OffSlab()
+    out, launches = run_gradient("grad", env, actions(VEL_STEPS), expect,
+                                 [2, 3, 4], WINDOW, counted=off)
+    out["off_slab"] = off.counts()
+    print(f"grad: read-side particles off the slab (counted calls) "
+          f"{out['off_slab']}", flush=True)
+    return out, launches
 
 
 def run_pour(env):
@@ -2188,7 +2252,8 @@ def run_pour_grad(env):
     inputs of the CAPTURE_CALLS of gather_bwd and of g2p_bwd in
     the first counted call (remat "step") are kept, with the count of
     nonzero cotangent columns of each of its calls: the KeepCall of each
-    kernel is returned, by name."""
+    kernel is returned, by name. The read-side kernels' off-slab counts
+    are summed over the counted calls (OffSlab)."""
     import numpy as np
     from softmac_tpu_torch.ops import transfer
     first = pour_grad_expect(env, SLICE_STEPS, "step")
@@ -2196,14 +2261,19 @@ def run_pour_grad(env):
                            first[name]) for name in REAL_BWD}
     for name, k in keep.items():
         setattr(transfer, name, k)
+    off = OffSlab()
     try:
         out, launches = run_gradient(
             "pour_grad", env, np.zeros((SLICE_STEPS, env.action_dim)),
             lambda remat: pour_grad_expect(env, SLICE_STEPS, remat),
-            list(range(6)), POUR_WINDOW)      # the glass's torque and force
+            list(range(6)), POUR_WINDOW,      # the glass's torque and force
+            counted=off)
     finally:
         for name, k in keep.items():
             setattr(transfer, name, k.fn)
+    out["off_slab"] = off.counts()
+    print(f"pour_grad: read-side particles off the slab (counted calls) "
+          f"{out['off_slab']}", flush=True)
     return {"scene": "demo_pour", "actions": "zero", **out}, launches, keep
 
 

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's checks of G2P and the gather alone, on one CUDA card.
+"""chip_smoke.py's checks of the read-side tile kernels alone, on one CUDA
+card.
 
     python3 scripts/read_checks.py
 
 Builds the kernel library and prints, one line each: the registers and
 spills of the read-side tile kernels (ops/csrc/slab_read.cuh: g2p.cu,
-gather.cu) from the build's ptxas log; chip_smoke.check_read_kernels
-(each kernel against its float64 plain version on the pour_vel and pour
-states, sorted and permuted, 10 calls bit-identical, the particles that
-read device memory, call and device ms); and the off-slab counts of the
-pour's and pour_vel's forward rollouts (20 env steps, chip_smoke.OffSlab).
-The card's name and power limit on the first and last lines. Needs a card
+gather.cu, p2g_bwd.cu, splat_bwd.cu) from the build's ptxas log;
+chip_smoke.check_read_kernels (each kernel against its float64 plain
+version or vjp on the pour_vel and pour states, sorted and permuted, the
+full 64^3 grid and spread particles, 10 calls bit-identical, the
+particles that read device memory, call and device ms); and the off-slab
+counts of the pour's and pour_vel's forward rollouts and
+rollout_and_grads (20 env steps, remat "none", chip_smoke.OffSlab). The
+card's name and power limit on the first and last lines. Needs a card
 and nvcc; exits non-zero without them.
 """
 import json
@@ -54,6 +57,11 @@ def main():
         with cs.OffSlab() as off:
             e.rollout(acts)
         print(f"{name} rollout off_slab", json.dumps(off.counts()),
+              flush=True)
+        with cs.OffSlab() as off:
+            e.rollout_and_grad(acts, loss_start_frame=0, loss_stride=20,
+                               remat="none")
+        print(f"{name} rollout_and_grad off_slab", json.dumps(off.counts()),
               flush=True)
     print(smi, flush=True)
     return 0

@@ -35,7 +35,7 @@ SIGNATURES = {
     "softmac_slab_plan": [_I] * 7 + [_P],
     "softmac_g2p": [_P] * 7 + [_I] * 4 + [_F, _P],
     "softmac_collide_particle": [_P] * 12 + [_I] * 4 + [_F] * 9 + [_P],
-    "softmac_p2g_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "softmac_p2g_bwd": [_P] * 8 + [_I] * 4 + [_F, _P],
     "softmac_g2p_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
     "softmac_collide_particle_bwd": [_P] * 15 + [_I] * 4 + [_F] * 9 + [_P],
     "softmac_gather": [_P] * 7 + [_I] * 4 + [_F, _P],
@@ -44,7 +44,7 @@ SIGNATURES = {
     "softmac_collide_mixed1": [_P] * 5 + [_I] * 4 + [_F] * 8 + [_P],
     "softmac_collide_mixed2": [_P] * 8 + [_I] * 4 + [_F] * 10 + [_P],
     "softmac_gather_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
-    "softmac_splat_bwd": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "softmac_splat_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
     "softmac_collide_mixed_bwd": [_P] * 17 + [_I] * 4 + [_F] * 10 + [_P],
     "softmac_collide_mixed1_bwd": [_P] * 8 + [_I] * 4 + [_F] * 8 + [_P],
     "softmac_collide_mixed2_bwd": [_P] * 10 + [_I] * 4 + [_F] * 10 + [_P],

@@ -27,11 +27,9 @@ struct Axis {
   int base;
 };
 
-__device__ __forceinline__ Axis axis_weights(float x, float inv_dx) {
+// The weights of one axis at fx (base left 0)
+__device__ __forceinline__ Axis axis_at(float fx) {
   Axis a;
-  const float p = __fmul_rn(x, inv_dx);
-  const float b = floorf(__fsub_rn(p, 0.5f));
-  const float fx = __fsub_rn(p, b);
   const float t0 = 1.5f - fx;
   const float t1 = fx - 1.0f;
   const float t2 = fx - 0.5f;
@@ -42,6 +40,14 @@ __device__ __forceinline__ Axis axis_weights(float x, float inv_dx) {
   a.wd[1] = a.w[1] * (1.0f - fx);
   a.wd[2] = a.w[2] * (2.0f - fx);
   a.fx = fx;
+  a.base = 0;
+  return a;
+}
+
+__device__ __forceinline__ Axis axis_weights(float x, float inv_dx) {
+  const float p = __fmul_rn(x, inv_dx);
+  const float b = floorf(__fsub_rn(p, 0.5f));
+  Axis a = axis_at(__fsub_rn(p, b));
   a.base = static_cast<int>(b);
   return a;
 }
@@ -76,44 +82,58 @@ __device__ __forceinline__ void particle_stencil(const float* __restrict__ x,
   }
 }
 
-// Reverse sweep over one particle's stencil. For every cell inside the
-// window, cell(row, cx, W, WxD, WDy, WDz, s) sees the cell's four weights
+// Reverse sweep over one particle's stencil. For every window cell (cy,
+// cz, cx) inside the window, in the order j (y), k (z), i (x),
+// cell(cy, cz, cx, W, WxD, WDy, WDz, s) sees the cell's four weights
 // and sets s[0..3] to the cotangents of W, WxD, WDy and WDz at that cell
 // (accumulating whatever else it needs on the way). Returns in dx the
 // position cotangent those weight cotangents give through the weights:
 //   dx_a = inv_dx * sum_cells s . d(W, WxD, WDy, WDz) / d fx_a.
-template <class Cell>
+// With kRemake each axis's weights are made again from its fx where they
+// are used (axis_at: the operations of axis_weights, so the same bits): y
+// for each j, z and x for each (j, k). The compiler then keeps fewer of
+// them live (the P2G backward's sweep fits the 80 registers of three
+// blocks an SM without a spill) but does more work (the y-slab G2P
+// backward's dx gather ~10 % slower on its real inputs;
+// scripts/read_ab.py --variants, scripts/slab_checks.py).
+template <bool kRemake = false, class Cell>
 __device__ __forceinline__ void stencil_adjoint(const Axis ax[3],
                                                 const int rel[3], int wx,
                                                 int wy, int wz, float inv_dx,
                                                 Cell cell, float dx[3]) {
-  const AxisGrad g0 = axis_weight_grads(ax[0]);
-  const AxisGrad g1 = axis_weight_grads(ax[1]);
-  const AxisGrad g2 = axis_weight_grads(ax[2]);
+  auto axis = [&](int d) { return kRemake ? axis_at(ax[d].fx) : ax[d]; };
   float gfx = 0.f, gfy = 0.f, gfz = 0.f;
+#pragma unroll
   for (int j = 0; j < 3; ++j) {
     const int cy = rel[1] + j;
     if (cy < 0 || cy >= wy) continue;
+    const Axis ay = axis(1);
+    const AxisGrad g1 = axis_weight_grads(ay);
+#pragma unroll
     for (int k = 0; k < 3; ++k) {
       const int cz = rel[2] + k;
       if (cz < 0 || cz >= wz) continue;
-      const int row = cy * wz + cz;
-      const float wyz = ax[1].w[j] * ax[2].w[k];
-      const float dyz = ax[1].wd[j] * ax[2].w[k];
-      const float ydz = ax[1].w[j] * ax[2].wd[k];
+      const Axis az = axis(2);
+      const AxisGrad g2 = axis_weight_grads(az);
+      const float wyz = ay.w[j] * az.w[k];
+      const float dyz = ay.wd[j] * az.w[k];
+      const float ydz = ay.w[j] * az.wd[k];
       // y and z derivatives of (wyz, dyz, ydz)
-      const float wyz_y = g1.dw[j] * ax[2].w[k];
-      const float dyz_y = g1.dwd[j] * ax[2].w[k];
-      const float ydz_y = g1.dw[j] * ax[2].wd[k];
-      const float wyz_z = ax[1].w[j] * g2.dw[k];
-      const float dyz_z = ax[1].wd[j] * g2.dw[k];
-      const float ydz_z = ax[1].w[j] * g2.dwd[k];
+      const float wyz_y = g1.dw[j] * az.w[k];
+      const float dyz_y = g1.dwd[j] * az.w[k];
+      const float ydz_y = g1.dw[j] * az.wd[k];
+      const float wyz_z = ay.w[j] * g2.dw[k];
+      const float dyz_z = ay.wd[j] * g2.dw[k];
+      const float ydz_z = ay.w[j] * g2.dwd[k];
+      const Axis ax0 = axis(0);
+      const AxisGrad g0 = axis_weight_grads(ax0);
+#pragma unroll
       for (int i = 0; i < 3; ++i) {
         const int cx = rel[0] + i;
         if (cx < 0 || cx >= wx) continue;
-        const float w0 = ax[0].w[i], wd0 = ax[0].wd[i];
+        const float w0 = ax0.w[i], wd0 = ax0.wd[i];
         float s[4];
-        cell(row, cx, w0 * wyz, wd0 * wyz, w0 * dyz, w0 * ydz, s);
+        cell(cy, cz, cx, w0 * wyz, wd0 * wyz, w0 * dyz, w0 * ydz, s);
         gfx += g0.dw[i] * (s[0] * wyz + s[2] * dyz + s[3] * ydz)
                + g0.dwd[i] * (s[1] * wyz);
         gfy += w0 * (s[0] * wyz_y + s[2] * dyz_y + s[3] * ydz_y)

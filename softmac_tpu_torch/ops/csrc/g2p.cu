@@ -54,8 +54,9 @@ extern "C" int softmac_g2p(const float* x, const float* gv0, const float* gv1,
                            const float* gv2, const int* corner, float* out,
                            int* off_slab, int n, int wx, int wy, int wz,
                            float inv_dx, void* stream) {
-  const softmac::ReadArgs a = {x, {gv0, gv1, gv2}, corner, out, off_slab, n,
-                               wx, wy, wz, inv_dx, 0};
+  const softmac::ReadArgs a = {x, {gv0, gv1, gv2, nullptr}, nullptr, corner,
+                               out, nullptr, off_slab, n, wx, wy, wz, inv_dx,
+                               0};
   static unsigned opted = 0;
   return softmac::read_launch(g2p_kernel, a,
                               static_cast<cudaStream_t>(stream), opted);

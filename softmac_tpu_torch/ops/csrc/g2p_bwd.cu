@@ -77,8 +77,9 @@ struct G2PBwdValues {
     const float* __restrict__ gv1 = a.grid[1];
     const float* __restrict__ gv2 = a.grid[2];
     const int wx = a.wx;
-    auto cell = [&](int row, int cx, float, float, float, float, float s[4]) {
-      const int idx = row * wx + cx;
+    auto cell = [&](int cy, int cz, int cx, float, float, float, float,
+                    float s[4]) {
+      const int idx = (cy * a.wz + cz) * wx + cx;
       const float gc[3] = {__ldg(gv0 + idx), __ldg(gv1 + idx),
                            __ldg(gv2 + idx)};
       s[0] = s[1] = s[2] = s[3] = 0.f;

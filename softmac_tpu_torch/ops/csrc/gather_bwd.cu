@@ -56,8 +56,9 @@ struct GatherBwdValues : softmac::SlabThreeValues {
     const float* __restrict__ gv1 = a.grid[1];
     const float* __restrict__ gv2 = a.grid[2];
     const int wx = a.wx;
-    auto cell = [&](int row, int cx, float, float, float, float, float s[4]) {
-      const int idx = row * wx + cx;
+    auto cell = [&](int cy, int cz, int cx, float, float, float, float,
+                    float s[4]) {
+      const int idx = (cy * a.wz + cz) * wx + cx;
       s[0] = val.v[0] * __ldg(gv0 + idx) + val.v[1] * __ldg(gv1 + idx)
              + val.v[2] * __ldg(gv2 + idx);
       s[1] = s[2] = s[3] = 0.f;

@@ -1,36 +1,52 @@
-// Read-side tiles: G2P and the gather (g2p.cu, gather.cu) from a tile's
-// box of grid cells staged once in shared memory.
+// Read-side tiles: G2P and the gather (g2p.cu, gather.cu) and the
+// backwards of P2G and of the splat (p2g_bwd.cu, splat_bwd.cu), each from
+// a tile's box of window cells staged once in shared memory.
 //
-// The TPU kernels these replace (pallas_chunked._g2p_c_kernel and
-// _gather_c_kernel) keep a sorted particle tile's 16-row y-window of the
-// three velocity grids in VMEM and read every stencil cell from there.
-// Here a block takes kReadTile consecutive particles of the rollout's
-// y-sorted order (one a thread, a warp's lanes on consecutive particles),
-// computes each one's weights and window-relative base once, and reduces
-// the box of window cells their stencils reach: its y rows, and in x and z
-// the tile's footprint (at 1e5 particles of pour_vel and the pour a tile's
-// box is ~15-19 % of its full window rows). It stages the box's rows, as
-// many as the budget (kReadSmem bytes) holds, from the three (wy*wz, wx)
-// grids into shared memory, channel-interleaved: a cell is one float4
-// (v0, v1, v2, pad), so a particle makes 27 shared loads where it would
-// make 81 scattered global ones; a box row's x cells are contiguous in
-// each grid, so a warp's loads are coalesced within each row. After a
-// barrier each particle sums its stencil, in the order j (y), k (z), i (x)
-// with the products of mpm.g2p_dense: from shared memory when all its
-// window rows lie in the slab, else from device memory (__ldg of the three
-// grids), the same arithmetic in the same order, so the two paths give the
-// same bits. Such particles (a tile that spans more rows than the budget
-// holds: an unsorted order, a sparse stream of particles, a wide
-// footprint) are counted, a tile's count written to off_slab[tile]; the
-// result is exact for any order. One launch, no atomics but the block's
-// shared bounds and count, no scratch.
+// The TPU kernels these replace (pallas_chunked._g2p_c_kernel,
+// _gather_c_kernel, _p2g_c_bwd_kernel and _splat_c_bwd_kernel) keep a
+// sorted particle tile's 16-row y-window of the grids (or of their
+// cotangents) in VMEM and read every stencil cell from there. Here a block
+// takes kReadTile consecutive particles of the rollout's y-sorted order
+// (one a thread, a warp's lanes on consecutive particles), computes each
+// one's weights and window-relative base once, and reduces the box of
+// window cells their stencils reach: its y rows, and in x and z the tile's
+// footprint (at 1e5 particles of pour_vel and the pour a tile's box is
+// ~15-19 % of its full window rows). It stages the box's rows, as many as
+// the budget (kReadSmem bytes) holds, from the Kind's three or four
+// channels into shared memory, channel-interleaved: a cell is one float4
+// (G2P and the gather: the three velocity grids and a zero; the P2G
+// backward: dgm and the three components of dgmom; the splat backward: the
+// three components of its window cotangent and a zero), so a particle
+// makes 27 shared loads where it would make 81 or 108 scattered global
+// ones. Channel c of window cell (row, cx), row = cy * wz + cz, lies at
+// src[c][row * stride_c + cx], the stride wx for a grid of its own and 3 wx
+// for a component of an interleaved (wy*wz, 3*wx) window (the Kind's kWide
+// bit c; known when the kernel is compiled, so that channels of one stride
+// share their offset); a box row's x cells are contiguous in each channel,
+// so a warp's loads are coalesced within each row. After a barrier each
+// particle takes its Kind's sums over its stencil, in the order j (y), k
+// (z), i (x): from shared memory when all its window rows lie in the slab,
+// else from device memory (__ldg of the channels), the same arithmetic in
+// the same order, so the two paths give the same bits. Such particles (a
+// tile that spans more rows than the budget holds: an unsorted order, a
+// sparse stream of particles, a wide footprint) are counted, a tile's
+// count written to off_slab[tile]; the result is exact for any order. One
+// launch, no atomics but the block's shared bounds and count, no scratch.
 //
 // A block (read_block) runs its phases in order with a barrier after each
 // (read_phases; the host tests run them the same way, one phase over all
 // threads at a time): read_begin; read_bounds; read_tile, read_stage and
 // read_locate; read_sums.
-// Kind: G2PKind (velocity and the nine unscaled C rows, 12 rows out) or
-// GatherKind (the velocity alone, 3 rows).
+// A Kind gives kChannels (3 or 4: the staged channels of a cell), kWide
+// (bit c set: channel c has the stride 3 wx), Inputs and load(a, p, in)
+// (particle p's own input rows, loaded in the bounds phase) and
+// sums(a, me, cells, p):
+// particle p's outputs, each stencil cell's float4 from cells(cy, cz, cx)
+// (SlabCells or GridCells). G2PKind (velocity and the nine unscaled C
+// rows, 12 rows out) and GatherKind (the velocity alone, 3 rows) are
+// below, read_stencil's gathers; P2GBwdKind (p2g_bwd.cu) and SplatBwdKind
+// (splat_bwd.cu) take a reverse sweep (bspline.cuh stencil_adjoint) and
+// write dx as well.
 #pragma once
 
 #include "slab.cuh"
@@ -43,24 +59,20 @@ constexpr int kReadTile = 256;           // particles (threads) a block
 constexpr int kReadSmem = 48 * 1024;     // a slab's budget
 constexpr int kReadBlocks = 3;           // blocks an SM the launch bounds ask
 
-struct G2PKind {
-  static constexpr bool kDeriv = true;
-  static constexpr int kRows = 12;
-};
-
-struct GatherKind {
-  static constexpr bool kDeriv = false;
-  static constexpr int kRows = 3;
-};
-
-// One call: x (3, n), the three (wy*wz, wx) grids, corner (3,) int32, out
-// (Kind::kRows, n), off_slab (tiles) the particles a tile read from device
-// memory; cells, the float4 cells a block's slab holds (read_cells).
+// One call: x (3, n); the staged channels src[c] (window cell (row, cx) at
+// src[c][row * stride_c + cx]; src[3] unused by a Kind of three); in
+// (kInputs, n) the Kind's particle rows (the P2G backward's 13 channels,
+// the splat backward's 3 values) or null; corner (3,) int32; out (kRows,
+// n); dx (3, n) the backwards' position cotangent, or null; off_slab
+// (tiles) the particles a tile read from device memory; cells, the float4
+// cells a block's slab holds (read_cells).
 struct ReadArgs {
   const float* x;
-  const float* grid[3];
+  const float* src[4];
+  const float* in;
   const int* corner;
   float* out;
+  float* dx;
   int* off_slab;
   int n, wx, wy, wz;
   float inv_dx;
@@ -93,11 +105,15 @@ struct ReadShared {
 };
 
 // A thread's particle between the phases: its weights, window-relative
-// base, and whether all its window cells lie in the slab
+// base, whether all its window cells lie in the slab, and its own input
+// rows (Kind::Inputs: the backwards' channels or values), loaded in the
+// bounds phase so that their loads overlap the box and the staging
+template <class Kind>
 struct ReadThread {
   Axis ax[3];
   int rel[3];
   bool in_slab;
+  typename Kind::Inputs in;
 };
 
 // The block's slab: the box's x [x0, x0 + nx) and z [z0, z0 + nz) and its
@@ -108,7 +124,7 @@ struct ReadTile {
   float4* cells;
 };
 
-// A cell's three grid values, by window cell (cy, cz, cx): from the slab
+// A cell's staged float4, by window cell (cy, cz, cx): from the slab
 struct SlabCells {
   const float4* cells;
   int x0, y0, z0, nz, stride;
@@ -117,15 +133,25 @@ struct SlabCells {
   }
 };
 
+// window cell (row, cx)'s channels of a Kind from device memory, a zero
+// past them
+template <class Kind>
+__device__ __forceinline__ float4 read_cell(const ReadArgs& a, int row,
+                                            int cx) {
+  const int narrow = row * a.wx + cx, wide = row * (3 * a.wx) + cx;
+  auto at = [&](int c) {
+    return __ldg(a.src[c] + ((Kind::kWide >> c & 1) ? wide : narrow));
+  };
+  return make_float4(at(0), at(1), at(2),
+                     Kind::kChannels > 3 ? at(3) : 0.f);
+}
+
 // ... or from device memory
+template <class Kind>
 struct GridCells {
-  const float* g0;
-  const float* g1;
-  const float* g2;
-  int wx, wz;
+  const ReadArgs& a;
   __device__ __forceinline__ float4 operator()(int cy, int cz, int cx) const {
-    const int e = (cy * wz + cz) * wx + cx;
-    return make_float4(__ldg(g0 + e), __ldg(g1 + e), __ldg(g2 + e), 0.f);
+    return read_cell<Kind>(a, cy * a.wz + cz, cx);
   }
 };
 
@@ -164,13 +190,16 @@ __device__ __forceinline__ bool read_reaches(const ReadArgs& a,
          && read_r0(rel[2]) < read_r1(rel[2], a.wz);
 }
 
-// phase 1: the particle's weights and window-relative base, and the box
-// the tile's stencils reach
+// phase 1: the particle's weights, window-relative base and input rows,
+// and the box the tile's stencils reach
+template <class Kind>
 __device__ __forceinline__ void read_bounds(const ReadArgs& a, int tile,
-                                            ReadThread& me, ReadShared* sh) {
+                                            ReadThread<Kind>& me,
+                                            ReadShared* sh) {
   const int p = read_particle(a, tile);
   if (p < 0) return;
   particle_stencil(a.x, a.n, p, a.corner, a.inv_dx, me.ax, me.rel);
+  Kind::load(a, p, me.in);
   if (!read_reaches(a, me.rel)) return;
   const int w[3] = {a.wx, a.wy, a.wz};
 #pragma unroll
@@ -199,26 +228,27 @@ __device__ __forceinline__ ReadTile read_tile(const ReadArgs& a,
   return t;
 }
 
-// phase 2: the slab's cells of the three grids, interleaved (consecutive
-// threads on consecutive cells of a box row)
+// phase 2: the slab's cells of the Kind's channels, interleaved
+// (consecutive threads on consecutive cells of a box row)
+template <class Kind>
 __device__ __forceinline__ void read_stage(const ReadArgs& a,
                                            const ReadTile& t) {
   const int count = t.rows * t.nz * t.nx;
   for (int e = threadIdx.x; e < count; e += kReadTile) {
     const int row = e / t.nx, cx = e - row * t.nx;   // row = r * nz + z
     const int r = row / t.nz, cz = row - r * t.nz;
-    const int g = ((t.y0 + r) * a.wz + t.z0 + cz) * a.wx + t.x0 + cx;
-    t.cells[row * t.stride + cx] = make_float4(
-        __ldg(a.grid[0] + g), __ldg(a.grid[1] + g), __ldg(a.grid[2] + g),
-        0.f);
+    t.cells[row * t.stride + cx] =
+        read_cell<Kind>(a, (t.y0 + r) * a.wz + t.z0 + cz, t.x0 + cx);
   }
 }
 
 // phase 2, after the staging: whether the particle's window cells all lie
 // in the slab (else it is counted); the box holds every stencil's x and z
 // cells, so only its rows can leave one out
+template <class Kind>
 __device__ __forceinline__ void read_locate(const ReadArgs& a, int tile,
-                                            const ReadTile& t, ReadThread& me,
+                                            const ReadTile& t,
+                                            ReadThread<Kind>& me,
                                             ReadShared* sh) {
   me.in_slab = read_particle(a, tile) < 0 || !read_reaches(a, me.rel)
                || (read_r0(me.rel[1]) >= t.y0
@@ -227,9 +257,9 @@ __device__ __forceinline__ void read_locate(const ReadArgs& a, int tile,
 }
 
 // One particle's sums over its stencil cells inside the window, each
-// cell's three values from `cells`: out rows v[d] and, for G2P, the
-// unscaled C[d][0..2] in rows 3 + 3d + 0..2.
-template <class Kind, class Cells>
+// cell's three values from `cells`: out rows v[d] and, with kDeriv (G2P),
+// the unscaled C[d][0..2] in rows 3 + 3d + 0..2.
+template <bool kDeriv, class Cells>
 __device__ __forceinline__ void read_stencil(const ReadArgs& a,
                                              const Axis ax[3],
                                              const int rel[3], Cells cells,
@@ -257,7 +287,7 @@ __device__ __forceinline__ void read_stencil(const ReadArgs& a,
         const float wgt = ax[0].w[i] * wyz;
 #pragma unroll
         for (int d = 0; d < 3; ++d) v[d] += wgt * g[d];
-        if (Kind::kDeriv) {
+        if (kDeriv) {
           const float dwx = ax[0].wd[i] * wyz;
           const float dwy = ax[0].w[i] * dyz;
           const float dwz = ax[0].w[i] * ydz;
@@ -274,29 +304,56 @@ __device__ __forceinline__ void read_stencil(const ReadArgs& a,
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     a.out[d * a.n + p] = v[d];
-    if (Kind::kDeriv) {
+    if (kDeriv) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) a.out[(3 + 3 * d + k) * a.n + p] = c[d][k];
     }
   }
 }
 
+// A Kind whose particles bring no input rows of their own
+struct ReadNoInputs {
+  struct Inputs {};
+  static __device__ __forceinline__ void load(const ReadArgs&, int,
+                                              Inputs&) {}
+};
+
+struct G2PKind : ReadNoInputs {
+  static constexpr int kChannels = 3, kWide = 0;
+  template <class Thread, class Cells>
+  static __device__ __forceinline__ void sums(const ReadArgs& a,
+                                              const Thread& me, Cells cells,
+                                              int p) {
+    read_stencil<true>(a, me.ax, me.rel, cells, p);
+  }
+};
+
+struct GatherKind : ReadNoInputs {
+  static constexpr int kChannels = 3, kWide = 0;
+  template <class Thread, class Cells>
+  static __device__ __forceinline__ void sums(const ReadArgs& a,
+                                              const Thread& me, Cells cells,
+                                              int p) {
+    read_stencil<false>(a, me.ax, me.rel, cells, p);
+  }
+};
+
 // phase 3: the tile's count (thread 0), and the particle's sums from the
 // slab or from device memory
 template <class Kind>
 __device__ __forceinline__ void read_sums(const ReadArgs& a, int tile,
                                           const ReadTile& t,
-                                          const ReadThread& me,
+                                          const ReadThread<Kind>& me,
                                           const ReadShared* sh) {
   if (threadIdx.x == 0) a.off_slab[tile] = sh->off;
   const SlabCells slab = {t.cells, t.x0, t.y0, t.z0, t.nz, t.stride};
-  const GridCells grid = {a.grid[0], a.grid[1], a.grid[2], a.wx, a.wz};
+  const GridCells<Kind> grid = {a};
   const int p = read_particle(a, tile);
   if (p < 0) return;
   if (me.in_slab) {
-    read_stencil<Kind>(a, me.ax, me.rel, slab, p);
+    Kind::sums(a, me, slab, p);
   } else {
-    read_stencil<Kind>(a, me.ax, me.rel, grid, p);
+    Kind::sums(a, me, grid, p);
   }
 }
 
@@ -307,25 +364,27 @@ template <class Kind, class Phase>
 __device__ __forceinline__ void read_phases(const ReadArgs& a, int tile,
                                             ReadShared* sh, void* smem,
                                             Phase phase) {
+  using Thread = ReadThread<Kind>;
   ReadTile t;
-  phase([&](ReadThread&) { read_begin(a, sh); });
-  phase([&](ReadThread& me) { read_bounds(a, tile, me, sh); });
-  phase([&](ReadThread& me) {
+  phase([&](Thread&) { read_begin(a, sh); });
+  phase([&](Thread& me) { read_bounds(a, tile, me, sh); });
+  phase([&](Thread& me) {
     t = read_tile(a, sh, smem);
-    read_stage(a, t);
+    read_stage<Kind>(a, t);
     read_locate(a, tile, t, me, sh);
   });
-  phase([&](ReadThread& me) { read_sums<Kind>(a, tile, t, me, sh); });
+  phase([&](Thread& me) { read_sums<Kind>(a, tile, t, me, sh); });
 }
 
 #ifdef __CUDACC__
-// The body of a block (g2p_kernel, gather_kernel: __launch_bounds__
-// (kReadTile, kReadBlocks), one block a tile)
+// The body of a block (g2p_kernel, gather_kernel, p2g_bwd_kernel,
+// splat_bwd_kernel: __launch_bounds__(kReadTile, kReadBlocks), one block
+// a tile)
 template <class Kind>
 __device__ __forceinline__ void read_block(const ReadArgs& a) {
   extern __shared__ float4 read_slab[];
   __shared__ ReadShared sh;
-  ReadThread me;
+  ReadThread<Kind> me;
   read_phases<Kind>(a, blockIdx.x, &sh, read_slab, [&](auto f) {
     f(me);
     __syncthreads();

@@ -18,19 +18,21 @@ memory (``ops/csrc/slab.cuh``); particles whose cells fall outside their
 tile's rows go by global atomics instead and are counted in
 ``p2g.spilled``, ``splat.spilled``, ``g2p_bwd.spilled`` and
 ``gather_bwd.spilled`` (0 when the particles are sorted by y, as the
-rollout keeps them). The G2P and gather kernels stage a tile's grid rows
-in shared memory and read every stencil cell there
-(``ops/csrc/slab_read.cuh``); a particle whose rows do not fit its tile's
-slab reads device memory instead, and ``g2p.off_slab`` and
-``gather.off_slab`` hold each tile's count of those (their sum is the
+rollout keeps them). The G2P and gather kernels and the P2G and splat
+backwards stage a tile's box of window cells in shared memory and read
+every stencil cell there (``ops/csrc/slab_read.cuh``); a particle whose
+rows do not fit its tile's slab reads device memory instead, and
+``g2p.off_slab``, ``gather.off_slab``, ``p2g_bwd.off_slab`` and
+``splat_bwd.off_slab`` hold each tile's count of those (their sum is the
 call's).
 
 Under autograd (grad enabled and an input that requires grad) each goes
 through its autograd Function (``P2G``, ``G2P``, ``Gather``, ``Splat``: the
-custom_vjps of ``pallas_chunked.family``): the backward launches
-``p2g_bwd`` / ``g2p_bwd`` / ``gather_bwd`` / ``splat_bwd`` on CUDA and runs
-the plain vjp (``p2g_vjp_plain`` and its kin: autograd of the plain
-version, recomputed) on the CPU. The window corner is an int tensor and
+custom_vjps of ``pallas_chunked.family``), whose backward calls
+``p2g_bwd`` / ``g2p_bwd`` / ``gather_bwd`` / ``splat_bwd``: these dispatch
+as the forwards do, launching the kernel on CUDA and running the plain vjp
+(``p2g_vjp_plain`` and its kin: autograd of the plain version,
+recomputed) on the CPU. The window corner is an int tensor and
 gets no gradient.
 
 Window semantics differ from the TPU kernels on purpose: those truncate each
@@ -53,8 +55,8 @@ from softmac_tpu_torch.ops import build
 # two up to 1024; scripts/slab_phases.py times 256, 512 and 1024 on the
 # main paths' states
 SLAB_TILE = 512
-# particles a block of the read-side tiles (ops/csrc/slab_read.cuh: G2P and
-# the gather), kReadTile there
+# particles a block of the read-side tiles (ops/csrc/slab_read.cuh: G2P, the
+# gather and the P2G and splat backwards), kReadTile there
 READ_TILE = 256
 
 
@@ -277,29 +279,40 @@ def _g2p(x, gv0, gv1, gv2, corner, window, inv_dx):
     device memory."""
     if build.on_cpu(x, "g2p"):
         return g2p_plain(x, gv0, gv1, gv2, corner, window, inv_dx)
-    out, g2p.off_slab = _read("g2p", 12, x, (gv0, gv1, gv2), corner, window,
-                              inv_dx)
+    _check_cuda("g2p", (x, gv0, gv1, gv2), corner)
+    _check_grids("g2p", x, (gv0, gv1, gv2), window)
+    out = torch.empty((12, x.shape[1]), dtype=x.dtype, device=x.device)
+    g2p.off_slab = _read("g2p", (x, gv0, gv1, gv2, corner, out), window,
+                         inv_dx)
     g2p.launches += 1
     return out
 
 
-def _read(name, rows, x, grids, corner, window, inv_dx):
-    """One call of a read-side tile kernel (G2P: 12 output rows, the
-    gather: 3): (out (rows, N), each tile's count of particles that read
-    device memory, an int32 tensor on the card)."""
-    wx, wy, wz = (int(w) for w in window)
+# each read-side kernel's per-tile counts, by (kernel, device, particles):
+# one buffer that every such call overwrites (a new tensor a call cost the
+# host ~4 us of each call, on a path whose calls wait on the host)
+_OFF_SLAB = {}
+
+
+def _read(name, tensors, window, inv_dx):
+    """One call of a read-side tile kernel (G2P, the gather, the P2G or the
+    splat backward): its entry point takes the data pointers of
+    ``tensors`` (x first, then the rest in its order, outputs last) and
+    each tile's count of particles that read device memory, which is
+    returned (an int32 tensor on the card, which the next call of this
+    kernel on as many particles overwrites)."""
+    x = tensors[0]
     n = x.shape[1]
-    _check_cuda(name, (x, *grids), corner)
-    _check_grids(name, x, grids, window)
-    out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
-    off_slab = torch.empty(-(-n // READ_TILE), dtype=torch.int32,
-                           device=x.device)
+    off_slab = _OFF_SLAB.get((name, x.device, n))
+    if off_slab is None:
+        off_slab = _OFF_SLAB[name, x.device, n] = torch.empty(
+            -(-n // READ_TILE), dtype=torch.int32, device=x.device)
     rc = getattr(build.library(), "softmac_" + name)(
-        x.data_ptr(), *(g.data_ptr() for g in grids), corner.data_ptr(),
-        out.data_ptr(), off_slab.data_ptr(), n, wx, wy, wz, float(inv_dx),
+        *(t.data_ptr() for t in tensors), off_slab.data_ptr(), n,
+        *(int(w) for w in window), float(inv_dx),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, name)
-    return out, off_slab
+    return off_slab
 
 
 def _check_grids(name, x, grids, window):
@@ -311,8 +324,12 @@ def _check_grids(name, x, grids, window):
 
 
 def p2g_bwd(x, chan, corner, window, inv_dx, dgm, dgmom):
-    """The P2G backward kernel: (dx, dchan) as ``p2g_vjp_plain`` computes
-    them, on CUDA float32 tensors."""
+    """The P2G backward: (dx, dchan) as ``p2g_vjp_plain`` computes them.
+    CUDA float32 tensors launch the kernel (a gather: no atomics);
+    ``p2g_bwd.off_slab`` then holds each tile's count of particles that
+    read device memory."""
+    if build.on_cpu(x, "p2g_bwd"):
+        return p2g_vjp_plain(x, chan, corner, window, inv_dx, dgm, dgmom)
     wx, wy, wz = (int(w) for w in window)
     n = x.shape[1]
     _check_cuda("p2g_bwd", (x, chan, dgm, dgmom), corner)
@@ -321,21 +338,20 @@ def p2g_bwd(x, chan, corner, window, inv_dx, dgm, dgmom):
         raise ValueError("p2g_bwd: bad shapes")
     dx = torch.empty((3, n), dtype=x.dtype, device=x.device)
     dchan = torch.empty((13, n), dtype=x.dtype, device=x.device)
-    rc = build.library().softmac_p2g_bwd(
-        x.data_ptr(), chan.data_ptr(), corner.data_ptr(), dgm.data_ptr(),
-        dgmom.data_ptr(), dx.data_ptr(), dchan.data_ptr(), n, wx, wy, wz,
-        float(inv_dx), torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "p2g_bwd")
+    p2g_bwd.off_slab = _read("p2g_bwd", (x, chan, corner, dgm, dgmom, dx,
+                                         dchan), window, inv_dx)
     p2g_bwd.launches += 1
     return dx, dchan
 
 
 def g2p_bwd(x, gv0, gv1, gv2, corner, window, inv_dx, g):
-    """The G2P backward kernel: (dx, dgv0, dgv1, dgv2) as ``g2p_vjp_plain``
-    computes them, on CUDA float32 tensors. One y-slab call: the grid
+    """The G2P backward: (dx, dgv0, dgv1, dgv2) as ``g2p_vjp_plain``
+    computes them. CUDA float32 tensors launch one y-slab call: the grid
     cotangents are summed per cell in float64, in a fixed order, and
     rounded once, as P2G's window; dx is gathered in the same launch.
     ``g2p_bwd.spilled`` then holds the call's count of spilled particles."""
+    if build.on_cpu(x, "g2p_bwd"):
+        return g2p_vjp_plain(x, gv0, gv1, gv2, corner, window, inv_dx, g)
     wx, wy, wz = (int(w) for w in window)
     _check_cuda("g2p_bwd", (x, gv0, gv1, gv2, g), corner)
     _check_grids("g2p_bwd", x, (gv0, gv1, gv2), window)
@@ -359,9 +375,8 @@ class P2G(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dgm, dgmom):
         x, chan, corner = ctx.saved_tensors
-        vjp = p2g_vjp_plain if build.on_cpu(x, "p2g") else p2g_bwd
-        dx, dchan = vjp(x, chan, corner, ctx.window, ctx.inv_dx,
-                        dgm.contiguous(), dgmom.contiguous())
+        dx, dchan = p2g_bwd(x, chan, corner, ctx.window, ctx.inv_dx,
+                            dgm.contiguous(), dgmom.contiguous())
         need = ctx.needs_input_grad
         return (dx if need[0] else None, dchan if need[1] else None,
                 None, None, None)
@@ -379,21 +394,22 @@ class G2P(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, gv0, gv1, gv2, corner = ctx.saved_tensors
-        vjp = g2p_vjp_plain if build.on_cpu(x, "g2p") else g2p_bwd
-        grads = vjp(x, gv0, gv1, gv2, corner, ctx.window, ctx.inv_dx,
-                    g.contiguous())
+        grads = g2p_bwd(x, gv0, gv1, gv2, corner, ctx.window, ctx.inv_dx,
+                        g.contiguous())
         return tuple(gr if need else None
                      for gr, need in zip(grads, ctx.needs_input_grad)) \
             + (None, None, None)
 
 
 def gather_bwd(x, gv0, gv1, gv2, corner, window, inv_dx, dv):
-    """The gather backward kernel: (dx, dgv0, dgv1, dgv2) as
-    ``gather_vjp_plain`` computes them, on CUDA float32 tensors. One y-slab
-    call, as ``g2p_bwd``: a particle whose cotangent is all zero adds
-    nothing to the grids and gets dx = 0 (exact to the bit: the splat's
-    skip). ``gather_bwd.spilled`` then holds the call's count of spilled
+    """The gather backward: (dx, dgv0, dgv1, dgv2) as ``gather_vjp_plain``
+    computes them. CUDA float32 tensors launch one y-slab call, as
+    ``g2p_bwd``: a particle whose cotangent is all zero adds nothing to the
+    grids and gets dx = 0 (exact to the bit: the splat's skip).
+    ``gather_bwd.spilled`` then holds the call's count of spilled
     particles."""
+    if build.on_cpu(x, "gather_bwd"):
+        return gather_vjp_plain(x, gv0, gv1, gv2, corner, window, inv_dx, dv)
     wx, wy, wz = (int(w) for w in window)
     _check_cuda("gather_bwd", (x, gv0, gv1, gv2, dv), corner)
     _check_grids("gather_bwd", x, (gv0, gv1, gv2), window)
@@ -407,8 +423,13 @@ def gather_bwd(x, gv0, gv1, gv2, corner, window, inv_dx, dv):
 
 
 def splat_bwd(x, vals, corner, window, inv_dx, dout):
-    """The splat backward kernel: (dx, dvals) as ``splat_vjp_plain``
-    computes them, on CUDA float32 tensors (a gather: no atomics)."""
+    """The splat backward: (dx, dvals) as ``splat_vjp_plain`` computes
+    them. CUDA float32 tensors launch the kernel (a gather: no atomics; a
+    particle whose values are all zero gets dx = 0 and the gather's
+    dvals); ``splat_bwd.off_slab`` then holds each tile's count of
+    particles that read device memory."""
+    if build.on_cpu(x, "splat_bwd"):
+        return splat_vjp_plain(x, vals, corner, window, inv_dx, dout)
     wx, wy, wz = (int(w) for w in window)
     n = x.shape[1]
     _check_cuda("splat_bwd", (x, vals, dout), corner)
@@ -417,11 +438,8 @@ def splat_bwd(x, vals, corner, window, inv_dx, dout):
         raise ValueError("splat_bwd: bad shapes")
     dx = torch.empty((3, n), dtype=x.dtype, device=x.device)
     dvals = torch.empty((3, n), dtype=x.dtype, device=x.device)
-    rc = build.library().softmac_splat_bwd(
-        x.data_ptr(), vals.data_ptr(), corner.data_ptr(), dout.data_ptr(),
-        dx.data_ptr(), dvals.data_ptr(), n, wx, wy, wz, float(inv_dx),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "splat_bwd")
+    splat_bwd.off_slab = _read("splat_bwd", (x, vals, corner, dout, dx,
+                                             dvals), window, inv_dx)
     splat_bwd.launches += 1
     return dx, dvals
 
@@ -439,9 +457,8 @@ class Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dv):
         x, gv0, gv1, gv2, corner = ctx.saved_tensors
-        vjp = gather_vjp_plain if build.on_cpu(x, "gather") else gather_bwd
-        grads = vjp(x, gv0, gv1, gv2, corner, ctx.window, ctx.inv_dx,
-                    dv.contiguous())
+        grads = gather_bwd(x, gv0, gv1, gv2, corner, ctx.window, ctx.inv_dx,
+                           dv.contiguous())
         return tuple(gr if need else None
                      for gr, need in zip(grads, ctx.needs_input_grad)) \
             + (None, None, None)
@@ -460,9 +477,8 @@ class Splat(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, vals, corner = ctx.saved_tensors
-        vjp = splat_vjp_plain if build.on_cpu(x, "splat") else splat_bwd
-        dx, dvals = vjp(x, vals, corner, ctx.window, ctx.inv_dx,
-                        dout.contiguous())
+        dx, dvals = splat_bwd(x, vals, corner, ctx.window, ctx.inv_dx,
+                              dout.contiguous())
         need = ctx.needs_input_grad
         return (dx if need[0] else None, dvals if need[1] else None,
                 None, None, None)
@@ -478,8 +494,11 @@ def _gather(x, gv0, gv1, gv2, corner, window, inv_dx):
     tile's count of particles that read device memory."""
     if build.on_cpu(x, "gather"):
         return gather_plain(x, gv0, gv1, gv2, corner, window, inv_dx)
-    out, gather.off_slab = _read("gather", 3, x, (gv0, gv1, gv2), corner,
-                                 window, inv_dx)
+    _check_cuda("gather", (x, gv0, gv1, gv2), corner)
+    _check_grids("gather", x, (gv0, gv1, gv2), window)
+    out = torch.empty((3, x.shape[1]), dtype=x.dtype, device=x.device)
+    gather.off_slab = _read("gather", (x, gv0, gv1, gv2, corner, out), window,
+                            inv_dx)
     gather.launches += 1
     return out
 
@@ -547,6 +566,8 @@ splat_bwd.launches = 0
 p2g.spilled = None
 g2p.off_slab = None
 gather.off_slab = None
+p2g_bwd.off_slab = None
+splat_bwd.off_slab = None
 splat.spilled = None
 g2p_bwd.spilled = None
 gather_bwd.spilled = None

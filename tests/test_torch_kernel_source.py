@@ -6,7 +6,9 @@ the CUDA runtime header; each kernel runs one thread at a time. The block
 reductions of the split mixed backward (shared memory and barriers) are
 left to chip_smoke.py; here its per-particle reverse sweeps are summed on
 the host. The y-slab kernels (slab.cuh: P2G, the splat and the G2P and
-gather backwards), the door's eight row-thread kernels (fused_rows.cuh:
+gather backwards), the read-side tiles (slab_read.cuh: G2P, the gather and
+the P2G and splat backwards; a warp's vote taken one thread at a time, or
+as true for every thread), the door's eight row-thread kernels (fused_rows.cuh:
 P2G, G2P, the splat and the gather and their backwards; their first
 launch, then each block's vote, box, pair and window, x row, store, task
 and flush phases, and the splat's last launch, which rounds its kept
@@ -17,7 +19,8 @@ them on the card.
 
 Held against the plain versions in float64 on the same float32 inputs:
 P2G, gather, splat and the P2G / G2P / gather / splat backward kernels
-(the G2P and gather backwards the y-slab ones), which compute in float32,
+(the G2P and gather backwards the y-slab ones, the P2G and splat
+backwards read-side tiles, each output row), which compute in float32,
 within 2e-6 of the largest |value| of each output; the dense-weight transfers
 (fused_p2g, fused_g2p, fused_splat, fused_gather) and their backward
 kernels (fused_p2g_bwd, fused_g2p_bwd, fused_splat_bwd, fused_gather_bwd,
@@ -90,6 +93,7 @@ inline float4 make_float4(float x, float y, float z, float w) {
 }
 struct dim3s { unsigned x, y, z; };
 extern dim3s blockIdx, threadIdx, blockDim, gridDim;
+int g_vote_all = 0;
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 template <class T> inline T __ldg(const T* p) { return *p; }
@@ -105,6 +109,12 @@ inline int atomicMin(int* p, int v) { int o = *p; if (v < o) *p = v; return o; }
 inline int atomicMax(int* p, int v) { int o = *p; if (v > o) *p = v; return o; }
 inline unsigned atomicOr(unsigned* p, unsigned v) { unsigned o = *p; *p = o | v; return o; }
 inline int __ffs(int v) { return __builtin_ffs(v); }
+// a warp's vote, one thread at a time: the thread's own predicate (a warp
+// of one), or true for every thread while g_vote_all is set (a warp with
+// another thread whose predicate holds)
+extern int g_vote_all;
+inline unsigned __activemask() { return ~0u; }
+inline int __any_sync(unsigned, int pred) { return pred || g_vote_all; }
 #define __shared__ static
 inline void __syncthreads() {}
 """
@@ -280,31 +290,27 @@ static void mixed_tiled(const softmac::MixedArgs& a, int tile,
   warp_trees<K>(acc, &sh);
   phase([&](int) { softmac::mixed_total<K>(a, &sh); });
 }
-// The read-side tiles of slab_read.cuh (G2P, the gather): each block's
-// phases, each over all the block's threads (the barriers' order on the
-// card), with the slab, the shared bookkeeping and each thread's particles
-// poisoned (NaN, all ones); cells the slab's size (read_cells, or fewer to
-// send particles to device memory).
+// The read-side tiles of slab_read.cuh (G2P, the gather, the P2G and
+// splat backwards): each block's phases, each over all the block's threads
+// (the barriers' order on the card), with the slab, the shared
+// bookkeeping and each thread's particles poisoned (NaN, all ones);
+// a.cells the slab's size (read_cells, or fewer to send particles to
+// device memory).
 template <class Kind>
-static void read_tiled(const float* x, const float* g0, const float* g1,
-                       const float* g2, const int* corner, float* out,
-                       int* off, int n, int wx, int wy, int wz, float inv_dx,
-                       int cells) {
-  const softmac::ReadArgs a = {x, {g0, g1, g2}, corner, out, off, n, wx, wy,
-                               wz, inv_dx, cells};
+static void read_tiled(const softmac::ReadArgs& a) {
   blockDim.x = softmac::kReadTile;
-  std::vector<softmac::ReadThread> me(softmac::kReadTile);
+  std::vector<softmac::ReadThread<Kind>> me(softmac::kReadTile);
   auto phase = [&](auto f) {
     for (unsigned t = 0; t < blockDim.x; ++t) { threadIdx.x = t; f(me[t]); }
   };
   const float nan = std::numeric_limits<float>::quiet_NaN();
-  for (int tl = 0; tl < softmac::read_tiles(n); ++tl) {
+  for (int tl = 0; tl < softmac::read_tiles(a.n); ++tl) {
     blockIdx.x = tl;
     std::vector<float4> smem(softmac::read_smem(a) / 16,
                              float4{nan, nan, nan, nan});
     softmac::ReadShared sh;
     memset(&sh, 0xff, sizeof sh);
-    memset(me.data(), 0xff, me.size() * sizeof(softmac::ReadThread));
+    memset(me.data(), 0xff, me.size() * sizeof(softmac::ReadThread<Kind>));
     softmac::read_phases<Kind>(a, tl, &sh, smem.data(), phase);
   }
 }
@@ -407,26 +413,39 @@ void h_gather_bwd_slab(const float* x, const float* dv, const int* corner,
                                       wx, wy, wz, inv_dx, plan, g0, g1, g2,
                                       dx);
 }
-void h_p2g_bwd(const float* x, const float* chan, const int* corner,
-               const float* dgm, const float* dgmom, float* dx, float* dchan,
-               int n, int wx, int wy, int wz, float inv_dx) {
-  launch(n, [&] { k_p2g_bwd::p2g_bwd_kernel(x, chan, corner, dgm, dgmom, dx,
-                                            dchan, n, wx, wy, wz, inv_dx); });
-}
+void h_set_vote_all(int on) { g_vote_all = on; }
 int h_read_cells(int wx, int wy, int wz) {
   return softmac::read_cells(wx, wy, wz);
 }
 void h_g2p_read(const float* x, const float* g0, const float* g1,
                 const float* g2, const int* corner, float* out, int* off,
                 int n, int wx, int wy, int wz, float inv_dx, int cells) {
-  read_tiled<softmac::G2PKind>(x, g0, g1, g2, corner, out, off, n, wx, wy, wz,
-                               inv_dx, cells);
+  read_tiled<softmac::G2PKind>({x, {g0, g1, g2, nullptr}, nullptr, corner,
+                                out, nullptr, off, n, wx, wy, wz, inv_dx,
+                                cells});
 }
 void h_gather_read(const float* x, const float* g0, const float* g1,
                    const float* g2, const int* corner, float* out, int* off,
                    int n, int wx, int wy, int wz, float inv_dx, int cells) {
-  read_tiled<softmac::GatherKind>(x, g0, g1, g2, corner, out, off, n, wx, wy,
-                                  wz, inv_dx, cells);
+  read_tiled<softmac::GatherKind>({x, {g0, g1, g2, nullptr}, nullptr,
+                                   corner, out, nullptr, off, n, wx, wy, wz,
+                                   inv_dx, cells});
+}
+void h_p2g_bwd_read(const float* x, const float* chan, const int* corner,
+                    const float* dgm, const float* dgmom, float* dx,
+                    float* dchan, int* off, int n, int wx, int wy, int wz,
+                    float inv_dx, int cells) {
+  read_tiled<k_p2g_bwd::P2GBwdKind>(
+      {x, {dgm, dgmom, dgmom + wx, dgmom + 2 * wx}, chan, corner, dchan, dx,
+       off, n, wx, wy, wz, inv_dx, cells});
+}
+void h_splat_bwd_read(const float* x, const float* vals, const int* corner,
+                      const float* dout, float* dx, float* dvals, int* off,
+                      int n, int wx, int wy, int wz, float inv_dx,
+                      int cells) {
+  read_tiled<k_splat_bwd::SplatBwdKind>(
+      {x, {dout, dout + wx, dout + 2 * wx, nullptr}, vals, corner, dvals,
+       dx, off, n, wx, wy, wz, inv_dx, cells});
 }
 // The split mixed contact: stage 1 over all particles, then stage 2
 void h_mixed(const float* x, const float* v, const float* table,
@@ -440,13 +459,6 @@ void h_mixed(const float* x, const float* v, const float* table,
                                                          n, g, dt); });
   launch(n, [&] { k_contact_mixed::collide_mixed2_kernel(
       x, v, t, body, st1, pv, force, mask, n, g, dt, p_mass, cap); });
-}
-void h_splat_bwd(const float* x, const float* vals, const int* corner,
-                 const float* dout, float* dx, float* dvals, int n, int wx,
-                 int wy, int wz, float inv_dx) {
-  launch(n, [&] { k_splat_bwd::splat_bwd_kernel(x, vals, corner, dout, dx,
-                                                dvals, n, wx, wy, wz,
-                                                inv_dx); });
 }
 // The split mixed backward one particle at a time: k2b over all particles,
 // then k1b, dv passed between them in float as the kernels pass it; dx, dv
@@ -670,11 +682,6 @@ def _p(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _dims(window):
-    return [ctypes.c_int(N)] + [ctypes.c_int(w) for w in window] + [
-        ctypes.c_float(INV_DX)]
-
-
 def _rel(got, want):
     return ((got.double() - want).abs().max()
             / want.abs().max().clamp(min=1e-300)).item()
@@ -711,9 +718,8 @@ def test_p2g_and_backward_sources(lib, shift):
                                   INV_DX)
     assert _rel(out, torch.cat([gm.reshape(-1), gmom.reshape(-1)])) < 2e-6
 
-    dx, dchan = torch.zeros(3, N), torch.zeros(13, N)
-    lib.h_p2g_bwd(_p(x), _p(chan), _p(corner), _p(dgm), _p(dgmom), _p(dx),
-                  _p(dchan), *_dims(WINDOW))
+    (dx, dchan), _ = _read_call(lib, "p2g_bwd", x, [chan, dgm, dgmom],
+                                corner, WINDOW)
     ref = transfer.p2g_vjp_plain(x.double(), chan.double(), corner, WINDOW,
                                  INV_DX, dgm.double(), dgmom.double())
     assert _rel(dx, ref[0]) < 2e-6 and _rel(dchan, ref[1]) < 2e-6
@@ -749,7 +755,7 @@ def test_gather_and_splat_sources(lib, shift):
     x, corner, rng = _scene(shift, seed=2)
     wx, wy, wz = WINDOW
     gv = [_f32(rng, wy * wz, wx) for _ in range(3)]
-    out, _ = _read_call(lib, "gather", x, gv, corner, WINDOW)
+    (out,), _ = _read_call(lib, "gather", x, gv, corner, WINDOW)
     ref = transfer.gather_plain(x.double(), *(g.double() for g in gv), corner,
                                 WINDOW, INV_DX)
     for d in range(3):
@@ -763,27 +769,69 @@ def test_gather_and_splat_sources(lib, shift):
     assert _rel(out, ref.reshape(-1)) < 2e-6
 
 
-def _read_call(lib, name, x, grids, corner, window, cells=None):
-    """One call of the read-side tiles (slab_read.cuh) on the host: G2P (12
-    rows) or the gather (3), with a slab of ``cells`` float4 cells (default
-    the kernel's, read_cells). Returns (out, each tile's count of particles
-    that read device memory)."""
+# the outputs of each read-side kernel, by rows: G2P's 12, the gather's 3,
+# the backwards' dx and dchan or dvals
+READ_OUT_ROWS = {"g2p": (12,), "gather": (3,), "p2g_bwd": (3, 13),
+                 "splat_bwd": (3, 3)}
+
+
+def _read_call(lib, name, x, ins, corner, window, cells=None):
+    """One call of the read-side tiles (slab_read.cuh) on the host: G2P or
+    the gather (``ins`` the three grids), the P2G backward (the 13
+    channels, dgm, dgmom) or the splat backward (the values, dout), with a
+    slab of ``cells`` float4 cells (default the kernel's, read_cells).
+    Returns (the outputs: G2P's 12 rows or the gather's 3, or dx and dchan
+    or dvals; each tile's count of particles that read device memory)."""
     n = x.shape[1]
     if cells is None:
         cells = lib.h_read_cells(*window)
-    out = torch.full(({"g2p": 12, "gather": 3}[name], n), float("nan"))
+    outs = tuple(torch.full((r, n), float("nan"))
+                 for r in READ_OUT_ROWS[name])
     off = torch.full((-(-n // transfer.READ_TILE),), -1, dtype=torch.int32)
+    # the entry points' order: the grids before the corner, the backwards'
+    # particle rows before it and their window cotangents after
+    ptrs = ((x, *ins, corner) if name in ("g2p", "gather")
+            else (x, ins[0], corner, *ins[1:]))
     getattr(lib, f"h_{name}_read")(
-        _p(x), *map(_p, grids), _p(corner), _p(out), _p(off),
-        ctypes.c_int(n), *[ctypes.c_int(w) for w in window],
-        ctypes.c_float(INV_DX), ctypes.c_int(cells))
-    return out, off
+        *map(_p, ptrs + outs), _p(off), ctypes.c_int(n),
+        *[ctypes.c_int(w) for w in window], ctypes.c_float(INV_DX),
+        ctypes.c_int(cells))
+    return outs, off
 
 
-def _read_plain(name, x, grids, corner, window):
-    args = (x.double(), *(g.double() for g in grids), corner, window, INV_DX)
-    return (transfer.g2p_plain if name == "g2p"
-            else transfer.gather_plain)(*args)
+def _read_plain(name, x, ins, corner, window):
+    """The float64 plain version (G2P, the gather) or plain vjp (the P2G
+    and splat backwards) of a read-side kernel, its outputs as
+    _read_call's."""
+    x64, ins64 = x.double(), [t.double() for t in ins]
+    if name == "p2g_bwd":
+        return transfer.p2g_vjp_plain(x64, ins64[0], corner, window, INV_DX,
+                                      *ins64[1:])
+    if name == "splat_bwd":
+        return transfer.splat_vjp_plain(x64, ins64[0], corner, window,
+                                        INV_DX, ins64[1])
+    plain = transfer.g2p_plain if name == "g2p" else transfer.gather_plain
+    return (plain(x64, *ins64, corner, window, INV_DX),)
+
+
+def _read_inputs(name, rng, n, window, grids):
+    """What the read-side kernel ``name`` takes besides x and the corner:
+    the three grids (G2P, the gather); the 13 channels and the cotangents
+    of the mass and momentum windows (the P2G backward); the values and
+    the window cotangent (the splat backward); seeded normal."""
+    wx, wy, wz = window
+    if name == "p2g_bwd":
+        return [_f32(rng, 13, n), _f32(rng, wy * wz, wx),
+                _f32(rng, wy * wz, 3 * wx)]
+    if name == "splat_bwd":
+        return [_f32(rng, 3, n), _f32(rng, wy * wz, 3 * wx)]
+    return list(grids)
+
+
+def _read_err(outs, want):
+    """The worst output row of a read-side call against the float64 plain
+    version or vjp, each row relative to its largest |value|."""
+    return max(_row_rel_max(o, w) for o, w in zip(outs, want))
 
 
 def _row_rel_max(got, want):
@@ -849,64 +897,118 @@ def test_read_tile_matches_kernels():
     assert transfer.READ_TILE == int(tile)
 
 
-@pytest.mark.parametrize("name", ["g2p", "gather"])
+# the read-side tile kernels (slab_read.cuh)
+READ_NAMES = ["g2p", "gather", "p2g_bwd", "splat_bwd"]
+
+
+@pytest.mark.parametrize("name", READ_NAMES)
 @pytest.mark.parametrize("order", ["sorted", "shuffled"])
 @pytest.mark.parametrize("shift", [0, 2])
 @pytest.mark.parametrize("case", sorted(READ_WINDOWS))
 def test_read_tiles_source(lib, case, shift, order, name):
-    """G2P and the gather of slab_read.cuh, phase by phase, against their
-    float64 plain versions: each output row within 2e-6 of its largest
-    |value|, over six tiles (the last one ragged), with stencils leaving
-    the window (shift 2). The off-slab count of each tile is the number of
-    its particles with a window row past the tile's slab (its box's rows
-    from the lowest, as far as the slab goes, _read_off_slab): none in the
-    rollout's y-sorted order on the window (a tile's box, ~7 rows of ~9 x
-    15 cells, fits its 3072 cells), some in a shuffled order (a tile spans
-    the scene's ~25 rows), some in every order on the wide window, whose
-    box rows leave room for 3, and none in any order on the small window,
-    which the slab holds whole. The call with no slab (every particle from
-    device memory) gives the same bits."""
+    """G2P, the gather and the P2G and splat backwards of slab_read.cuh,
+    phase by phase, against their float64 plain versions or plain vjps:
+    each output row within 2e-6 of its largest |value|, over six tiles
+    (the last one ragged), with stencils leaving the window (shift 2). The
+    off-slab count of each tile is the number of its particles with a
+    window row past the tile's slab (its box's rows from the lowest, as
+    far as the slab goes, _read_off_slab): none in the rollout's y-sorted
+    order on the window (a tile's box, ~7 rows of ~9 x 15 cells, fits its
+    3072 cells), some in a shuffled order (a tile spans the scene's ~25
+    rows), some in every order on the wide window, whose box rows leave
+    room for 3, and none in any order on the small window, which the slab
+    holds whole. The call with no slab (every particle from device memory)
+    gives the same bits."""
     window, spread = READ_WINDOWS[case]
     x, corner, grids, rng = _read_scene(READ_N, window, shift, 21, spread)
     if order == "sorted":
         (x,) = _y_sorted(x)
     else:
         x = x[:, torch.as_tensor(rng.permutation(READ_N))].contiguous()
-    out, off = _read_call(lib, name, x, grids, corner, window)
-    assert _row_rel_max(out, _read_plain(name, x, grids, corner, window)) \
-        < 2e-6
+    ins = _read_inputs(name, rng, READ_N, window, grids)
+    out, off = _read_call(lib, name, x, ins, corner, window)
+    assert _read_err(out, _read_plain(name, x, ins, corner, window)) < 2e-6
     cells = lib.h_read_cells(*window)
     assert cells == (432 if case == "small" else 3072)
     want = _read_off_slab(x, corner, window, cells)
     assert off.tolist() == want
     assert (sum(want) > 0) == (case == "wide" or (
         case == "window" and order == "shuffled"))
-    device, off0 = _read_call(lib, name, x, grids, corner, window, cells=0)
-    assert torch.equal(device, out)
+    device, off0 = _read_call(lib, name, x, ins, corner, window, cells=0)
+    assert all(torch.equal(d, o) for d, o in zip(device, out))
     assert off0.tolist() == _read_off_slab(x, corner, window, 0)
 
 
-@pytest.mark.parametrize("name", ["g2p", "gather"])
+@pytest.mark.parametrize("name", READ_NAMES)
 @pytest.mark.parametrize("case", ["none", "one", "outside"])
 def test_read_tiles_edges_source(lib, case, name):
-    """G2P and the gather at the edges of their tiles: no particle (no
-    block runs, nothing is written), one particle, and a tile whose
+    """The read-side tile kernels at the edges of their tiles: no particle
+    (no block runs, nothing is written), one particle, and a tile whose
     particles all lie beyond the window in y (an empty box: nothing
-    staged; every output +0.0, no particle counted)."""
+    staged; every output, the backwards' dx too, +0.0, no particle
+    counted)."""
     n = {"none": 0, "one": 1, "outside": 300}[case]
-    x, corner, grids, _ = _read_scene(max(n, 1), WINDOW, 0, seed=22)
+    x, corner, grids, rng = _read_scene(max(n, 1), WINDOW, 0, seed=22)
     x = x[:, :n].contiguous()
+    ins = _read_inputs(name, rng, n, WINDOW, grids)
     if case == "outside":
         corner = corner + torch.tensor([0, 40, 0], dtype=torch.int32)
-    out, off = _read_call(lib, name, x, grids, corner, WINDOW)
+    out, off = _read_call(lib, name, x, ins, corner, WINDOW)
     assert off.shape == (-(-n // transfer.READ_TILE),)
     assert off.tolist() == [0] * off.shape[0]
-    want = _read_plain(name, x, grids, corner, WINDOW)
+    want = _read_plain(name, x, ins, corner, WINDOW)
     if case == "outside":
-        assert torch.equal(out, torch.zeros_like(out))
-        assert not bool(torch.signbit(out).any())
+        for o in out:
+            assert torch.equal(o, torch.zeros_like(o))
+            assert not bool(torch.signbit(o).any())
     elif n:
-        assert _row_rel_max(out, want) < 2e-6
+        assert _read_err(out, want) < 2e-6
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_read_splat_bwd_band_source(lib, shift):
+    """The splat backward of slab_read.cuh in the rollout's order with nine
+    values in ten zero (the pour's contact correction, zero outside the
+    contact band) and the second tile's all zero: within 2e-6 of the
+    float64 plain vjp per output row; a zero-valued particle's dx is
+    exactly 0; every particle's dvals are the gather's sums over dout's
+    three components to the bit (GatherKind's sums, which a particle at
+    zero takes, and the sweep's, in the same order with the same
+    products); the off-slab counts as the tiles' rows give them, and the
+    call with no slab the same bits. Each thread votes alone here (a warp
+    of one); with every vote true, as in a warp on the card that holds a
+    particle of the band, the zero-valued particles sweep too, and every
+    output keeps its bits (dx +0.0)."""
+    x, corner, grids, rng = _read_scene(READ_N, WINDOW, shift, 23)
+    (x,) = _y_sorted(x)
+    vals, dout = _read_inputs("splat_bwd", rng, READ_N, WINDOW, grids)
+    vals[:, torch.as_tensor(rng.rand(READ_N) < 0.9)] = 0.0
+    vals[:, 256:512] = 0.0
+    zero = (vals == 0).all(dim=0)
+    assert 60 < int((~zero).sum()) < 200
+    (dx, dvals), off = _read_call(lib, "splat_bwd", x, [vals, dout], corner,
+                                  WINDOW)
+    assert _read_err((dx, dvals), _read_plain(
+        "splat_bwd", x, [vals, dout], corner, WINDOW)) < 2e-6
+    assert torch.equal(dx[:, zero], torch.zeros_like(dx[:, zero]))
+    assert bool((dx[:, ~zero] != 0).any())
+    wx = WINDOW[0]
+    comps = [dout[:, d * wx:(d + 1) * wx].contiguous() for d in range(3)]
+    (gathered,), _ = _read_call(lib, "gather", x, comps, corner, WINDOW)
+    assert torch.equal(dvals, gathered)
+    assert off.tolist() == _read_off_slab(x, corner, WINDOW,
+                                          lib.h_read_cells(*WINDOW))
+    device, _ = _read_call(lib, "splat_bwd", x, [vals, dout], corner, WINDOW,
+                           cells=0)
+    assert torch.equal(device[0], dx) and torch.equal(device[1], dvals)
+    lib.h_set_vote_all(1)
+    try:
+        swept, _ = _read_call(lib, "splat_bwd", x, [vals, dout], corner,
+                              WINDOW)
+    finally:
+        lib.h_set_vote_all(0)
+    assert torch.equal(swept[0], dx) and torch.equal(swept[1], dvals)
+    assert not bool(torch.signbit(swept[0][:, zero]).any())
 
 
 SLAB_TILE = 64           # 400 particles: 7 tiles, the last one ragged
@@ -1087,17 +1189,16 @@ def test_slab_splat_mostly_zero_source(lib, shift, tile, name):
 
 @pytest.mark.parametrize("shift", [0, 2])
 def test_gather_and_splat_backward_sources(lib, shift):
-    """The splat backward (one thread a particle, a gather: no atomics)
-    against the float64 plain vjp; the gather backward's kernel is the
-    y-slab one of test_slab_sources."""
+    """The splat backward (the read-side tiles of slab_read.cuh, a gather:
+    no atomics) against the float64 plain vjp; the gather backward's
+    kernel is the y-slab one of test_slab_sources."""
     x, corner, rng = _scene(shift, seed=3)
     wx, wy, wz = WINDOW
     for shape in [(wy * wz, wx)] * 3 + [(3, N)]:
         _f32(rng, *shape)   # the draws of the removed gather half: same vals
     vals, dout = _f32(rng, 3, N), _f32(rng, wy * wz, 3 * wx)
-    dx, dvals = torch.zeros(3, N), torch.zeros(3, N)
-    lib.h_splat_bwd(_p(x), _p(vals), _p(corner), _p(dout), _p(dx), _p(dvals),
-                    *_dims(WINDOW))
+    (dx, dvals), _ = _read_call(lib, "splat_bwd", x, [vals, dout], corner,
+                                WINDOW)
     ref = transfer.splat_vjp_plain(x.double(), vals.double(), corner, WINDOW,
                                    INV_DX, dout.double())
     assert _rel(dx, ref[0]) < 2e-6 and _rel(dvals, ref[1]) < 2e-6
