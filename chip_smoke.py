@@ -181,6 +181,53 @@ script exits non-zero:
            20 env steps on the card (one kr3 a substep, no contact kernel),
            the glass's wrench in the first env step nonzero, the glass
            moved; then card against CPU over 10 steps, forward and gradient
+  grip     the grip (demo_grip_config.py: 10 000 particles of a
+           corotated-plastic block, two prismatic fingers below a fixed
+           palm whose contact is off, forecast mixed contact, five
+           substeps an env step, window (32, 24, 32)), the fingers
+           started 2.8 mm from the block and moving in: SoftMacEnv.rollout
+           of 100 env steps (500 substeps) of the demo's 0.3 N, launches
+           counted (exact: one P2G, G2P, gather and splat and two mixed
+           contacts a substep), the y-slab kernels' spilled particles and
+           the read-side kernels' off-slab particles summed over the run,
+           each env step's wrench kept (the palm's zero, each finger's
+           nonzero once in contact, the fingers moved inward), no
+           overflow; a timed rollout of 20 env steps (wall ms a substep)
+           and a profile of 4 (device ms a substep, busy share)
+  grip_kernels  rows 1-8 and 11-12 of PERF.md's table on the grip's state
+           after that rollout (in contact): P2G, G2P, the gather, the
+           splat and their backwards against their float64 plain versions
+           or vjps (seeded normal cotangents; the splat's backward on the
+           real values) within 1e-5 of each output row's largest |value|,
+           device ms beside the bound for this state; the mixed pair at
+           each remaining-window factor life = 1, 1/2, 1/3, 1/4, 1/5 of
+           the five substeps, on the state's particles and on particles
+           spread over each finger's SDF box with seeded velocities (their
+           forecast points penetrate, where life acts): p_v_out, the
+           wrench and the cotangents of dx, dv and the 16 body floats
+           (life's among them, nonzero in the box) within 1e-5 of the
+           float64 plain version and vjp. The pour's and the door's mixed
+           pair are held the same way at life 1 and 1/3 (their gates
+           unchanged: body floats 1e-4), in the kernels line
+  grip_grad  rollout_and_grad of 12 env steps of the demo's forces with
+           its loss frames (every 20 substeps from three quarters of the
+           horizon), under remat "step" and "none": one counted call and
+           one timed repeat each, exact launch counts of every forward and
+           backward kernel (grip_grad_expect), a finite gradient nonzero
+           in the fingers' columns, step against none and the repeats
+           within GRAD_TOL; spills and off-slab particles summed
+  profile_grip  torch.profiler over 4 env steps of the grip's rollout
+           (from the grip phase) and 4 of its rollout_and_grad (remat
+           "none"), and the rigid step's launches
+  grip_parity  the grip at its 10 000 particles, the fingers in contact,
+           4 env steps, card (float32) against the CPU (float64): x, q and
+           qd within 1e-4, the loss within 1e-4 relative, the action
+           gradient within 1e-3 relative L2
+  demo_grip, demo_pour_vel  the ported trainers
+           softmac_tpu_torch.demos.demo_grip and demo_pour_vel on the
+           card, 3 epochs of 12 env steps each on their own scenes: finite
+           losses, losses.npy and the checkpoints written, every kernel of
+           their forward and backward launched
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -331,6 +378,25 @@ FLOPS_PER_CELL = {"fused_p2g": 6 + 1 + 3 * 7, "fused_g2p": 6 + 3 * 8,
 # the particle's box). A row sum forms the cell's coefficients (P2G: 22, G2P:
 # 20, splat and gather: 5) and adds them with its weights (14, 3); a box
 # cell adds the channel or grid terms (P2G 32, G2P 27, splat and gather 8)
+# the grip (demo_grip_config.py): the fingers started 2.8 mm from the
+# block (the contact band is 5 mm) and moving in at 0.1 m/s under the
+# demo's 0.3 N (its contact comes only after ~300 env steps from rest)
+GRIP_NEAR = (0.017, -0.017, 0.1, -0.1)
+GRIP_FORCE = 0.3
+GRIP_STEPS = 100           # the counted rollout: 500 substeps
+GRIP_TIMED_STEPS = 20      # the timed repeat (the host's clock)
+GRIP_PROFILE_STEPS = 4
+GRIP_GRAD_STEPS = 12       # cut from 40 to keep the time
+GRIP_GRAD_REPEATS = 1
+GRIP_GRAD_PROFILE_STEPS = 4   # 15 of its 20 substeps run backward
+GRIP_PARITY_STEPS = 4
+DEMO_GRIP_STEPS = 12       # both new trainers (cut from 400 and 2000)
+# the forecast contact's remaining-window factor 1 / (substeps - k) over
+# the grip's five substeps
+GRIP_LIVES = (1.0, 1 / 2, 1 / 3, 1 / 4, 1 / 5)
+GRIP_BODY_TOL = 1e-5       # the mixed pair's body floats on the grip
+# the pour's and the door's mixed pair, also held at a life below 1
+LIFE_BELOW_ONE = 1 / 3
 FLOPS_PER_BWD_CELL = {"fused_p2g_bwd": (22 + 14, 32),
                       "fused_g2p_bwd": (20 + 14, 27),
                       "fused_splat_bwd": (5 + 3, 8),
@@ -1961,7 +2027,6 @@ def run_slice(env):
            "substeps_per_s_min": min(rates), "substeps_per_s_max": max(rates),
            "substeps_per_s_runs": rates,
            "counted_run_substeps_per_s": n_sub / secs,
-           "repeat_x_max_abs_diff": repeat_diff,
            "loss": loss, "terms": terms,
            "launches": launches, "off_slab": off_slab,
            "x_finite": bool(torch.isfinite(state.x).all()),
@@ -2310,9 +2375,10 @@ def run_pour_split_grad(env):
     return res, launches
 
 
-def run_profile(env, acts, grad=False):
+def run_profile(env, acts, grad=False, loss_stride=None):
     """Device busy share and the top kernels over a short rollout of
-    ``acts`` (or rollout_and_grad with remat "none")."""
+    ``acts`` (or rollout_and_grad with remat "none", loss frames every
+    ``loss_stride`` substeps from 0, by default every len(acts))."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2322,7 +2388,8 @@ def run_profile(env, acts, grad=False):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         if grad:
-            env.rollout_and_grad(acts, loss_start_frame=0, loss_stride=steps,
+            env.rollout_and_grad(acts, loss_start_frame=0,
+                                 loss_stride=loss_stride or steps,
                                  remat="none")
         else:
             env.rollout(acts)
@@ -2473,11 +2540,15 @@ def rigid_step_launches(env):
     ext_f = torch.zeros((rm.n_primitives, 6), **kw)
     rm.body_states(rm.step(rigid, act, ext_f))      # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        rm.body_states(rm.step(rigid, act, ext_f))
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    for _ in range(3):      # a profile now and then holds no device event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rm.body_states(rm.step(rigid, act, ext_f))
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    raise AssertionError("rigid step: the profiler saw no device kernel")
 
 
 def run_parity():
@@ -2579,36 +2650,14 @@ def run_pour_parity():
 
 
 def run_demo():
-    """The ported trainer on the card: softmac_tpu_torch.demos.demo_pour for
-    DEMO_EPOCHS epochs of DEMO_STEPS env steps on the demo's own scene, logs
-    in a temporary directory. Every epoch's loss finite, losses.npy and a
-    checkpoint per epoch written, the actions moved, every kernel of the
+    """The ported pour trainer on the card (run_demo_trainer, DEMO_STEPS
+    env steps an epoch): also the actions moved and every kernel of the
     pour's forward and backward launched."""
-    import tempfile
-    import numpy as np
     from softmac_tpu_torch.demos import demo_pour
-    with tempfile.TemporaryDirectory() as tmp:
-        reset_launches()
-        t0 = time.perf_counter()
-        out = demo_pour.main(["--steps", str(DEMO_STEPS), "--epochs",
-                              str(DEMO_EPOCHS), "--log-root", tmp])
-        secs = time.perf_counter() - t0
-        launches = read_launches()
-        log = Path(tmp) / "pour"
-        ckpts = sorted(p.name for p in (log / "ckpt").glob("actions_*.npy"))
-        saved = np.load(log / "losses.npy").tolist()
-        a0 = np.load(log / "ckpt/actions_0.npy")
-        a_last = np.load(log / f"ckpt/actions_{DEMO_EPOCHS - 1}.npy")
-    res = {"epochs": DEMO_EPOCHS, "env_steps": DEMO_STEPS,
-           "losses": out["losses"], "epoch_seconds": out["epoch_seconds"],
-           "seconds_with_setup": secs, "checkpoints": ckpts,
-           "actions_max_abs_change": float(np.abs(a_last - a0).max()),
-           "launches": launches}
-    if not (all(math.isfinite(v) for v in out["losses"])
-            and saved == out["losses"] and len(ckpts) == DEMO_EPOCHS
-            and res["actions_max_abs_change"] > 0
-            and all(launches[k] > 0 for k in POUR + POUR_BWD
-                    + ("p2g", "g2p", "p2g_bwd", "g2p_bwd"))):
+    res = run_demo_trainer(demo_pour, "pour", DEMO_STEPS,
+                           POUR + POUR_BWD + ("p2g", "g2p", "p2g_bwd",
+                                              "g2p_bwd"))
+    if not res["actions_max_abs_change"] > 0:
         raise AssertionError(f"demo_pour on the card failed: {res}")
     return res
 
@@ -2683,12 +2732,14 @@ def door_kernel_inputs(env, carry, action):
     v_tmp = fused.gather(*tr.W, *gvm)
     life = torch.full((), 1.0 / cfg.substeps, dtype=state.x.dtype,
                       device=state.x.device)      # substep k = 0
-    v_tgt = v_tmp
+    v_tgt, contacts = v_tmp, []
     for i, prim in enumerate(env.prims):
+        body = (bodies.pos[i], bodies.quat[i], bodies.v[i], bodies.w[i],
+                params.friction[i], params.softness[i], life)
+        contacts.append((prim, body, v_tgt))
         v_tgt = contact.collide_mixed(
-            prim, bodies.pos[i], bodies.quat[i], bodies.v[i], bodies.w[i],
-            params.friction[i], params.softness[i], life, state.x, v_tgt,
-            cfg.dt, cfg.p_mass, cfg.contact_push_velocity_cap)[0]
+            prim, *body, state.x, v_tgt, cfg.dt, cfg.p_mass,
+            cfg.contact_push_velocity_cap)[0]
     vals = (-2.0 * (v_tmp - v_tgt)).contiguous()
     corr = fused.splat(*tr.W, vals)
     wx = tr.sizes[0]
@@ -2696,7 +2747,8 @@ def door_kernel_inputs(env, carry, action):
         torch.where(mask, gvm[d] + corr[:, d * wx:(d + 1) * wx], 0.0)
         for d in range(3))))
     return dict(n=state.x.shape[1], sizes=tr.sizes, ws6=tr.ws6, chan=chan,
-                gvm=gvm, vals=vals, gv=gv)
+                gvm=gvm, vals=vals, gv=gv, cfg=cfg, state=state,
+                contacts=contacts)
 
 
 def door_states():
@@ -3597,16 +3649,21 @@ def run_full_grid(env):
     return res, launches, grad_launches["step"]
 
 
-def gpu_cpu_parity(cfg_fn, steps, acts, loss_stride, kernels, bwd=()):
+def gpu_cpu_parity(cfg_fn, steps, acts, loss_stride, kernels, bwd=(),
+                   setup=None):
     """A scene of ``cfg_fn()`` with the demo's own particles on the card
     (float32, kernels) and on the CPU (float64, plain versions), loss
     frames every ``loss_stride`` from 0: rollout (x, the bodies' q and qd
     within 1e-4, the loss within 1e-4 relative)
     and rollout_and_grad under remat "none" (loss within 1e-4, the action
     gradient within 1e-3 relative L2); ``kernels`` must each launch on both
-    of the card's runs, ``bwd`` on its gradient run."""
+    of the card's runs, ``bwd`` on its gradient run. ``setup(env)``, where
+    given, is called on both envs before they run."""
     from softmac_tpu_torch import SoftMacEnv
     envs = {dev: SoftMacEnv(cfg_fn(), device=dev) for dev in ("cuda", "cpu")}
+    for env in envs.values():
+        if setup is not None:
+            setup(env)
     frames = dict(loss_start_frame=0, loss_stride=loss_stride)
     reset_launches()
     outs = {"cuda": envs["cuda"].rollout(acts, **frames)}
@@ -3725,6 +3782,522 @@ def svd_launches(env, carry):
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
+# ---------------------------------------------------------------------------
+# the grip: a corotated-plastic block, two prismatic fingers below a fixed
+# palm, forecast mixed contact, five substeps an env step, window (32, 24, 32)
+# ---------------------------------------------------------------------------
+def grip_cfg(init_state=None):
+    from softmac_tpu_torch import load
+    cfg = load(str(ROOT / "softmac_tpu_torch/config/demo_grip_config.py"))
+    if init_state is not None:
+        cfg.defrost()
+        cfg.RIGID.init_state = tuple(init_state)
+        cfg.freeze()
+    return cfg
+
+
+def grip_env(device=None, init_state=GRIP_NEAR):
+    """The grip scene at its 10 000 particles, the fingers started at
+    ``init_state``, the palm's contact off (demos/demo_grip.py)."""
+    from softmac_tpu_torch import SoftMacEnv
+    env = SoftMacEnv(grip_cfg(init_state), device=device)
+    env.set_primitives_contact([False, True, True])
+    return env
+
+
+def grip_actions(n_steps, force=GRIP_FORCE):
+    """The demo's initial actions: ``force`` N inward on each finger."""
+    import numpy as np
+    return np.tile([force, -force], (n_steps, 1))
+
+
+class Spills:
+    """Within it, every y-slab kernel call's count of particles that fell
+    off their tile's slab rows (the one-element tensor ``transfer._slab``
+    returns: P2G, the splat, the G2P and gather backwards) is kept;
+    ``counts()`` sums them after a synchronize. One Spills may be entered
+    more than once; it keeps every call."""
+
+    def __init__(self):
+        self.kept = {}
+
+    def __enter__(self):
+        from softmac_tpu_torch.ops import transfer
+        self.transfer, self.slab = transfer, transfer._slab
+
+        def kept(name, *args, **kw):
+            out = self.slab(name, *args, **kw)
+            self.kept.setdefault(name, []).append(out[2])
+            return out
+        transfer._slab = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.transfer._slab = self.slab
+
+    def counts(self):
+        import torch
+        torch.cuda.synchronize()
+        return {name: {"calls": len(k),
+                       "spilled": int(torch.cat(k).sum().item())}
+                for name, k in self.kept.items()}
+
+
+def run_grip(env):
+    """The grip's main path: SoftMacEnv.rollout of GRIP_STEPS env steps of
+    the demo's initial forces, launches counted from zero, the slab
+    kernels' spills and the read-side kernels' off-slab particles summed,
+    each env step's wrench kept; a timed rollout of its first
+    GRIP_TIMED_STEPS env steps (wall ms a substep) and a profile of
+    GRIP_PROFILE_STEPS (device ms a substep, busy share). The
+    fingers move inward, the palm's wrench is zero, each finger's is
+    nonzero once in contact, no overflow."""
+    import torch
+    acts = grip_actions(GRIP_STEPS)
+    q0 = env._initial_carry()[2].q.clone()
+    wrenches = []
+    rigid_step = env._rigid_step
+
+    def keep(bodies, rigid, action, ext_f):
+        wrenches.append(ext_f)
+        return rigid_step(bodies, rigid, action, ext_f)
+    env._rigid_step = keep
+    try:
+        reset_launches()
+        with OffSlab() as off, Spills() as spills:
+            out, secs = timed_rollout(env, acts)
+        launches = read_launches()
+    finally:
+        del env._rigid_step
+    n_sub = GRIP_STEPS * env.substeps
+    expect = dict.fromkeys(wrappers(), 0)
+    expect.update({"p2g": n_sub, "g2p": n_sub, "gather": n_sub,
+                   "splat": n_sub, "collide_mixed": 2 * n_sub})
+    if launches != expect:
+        raise AssertionError(f"grip launch counts {launches}, expected "
+                             f"{expect}")
+    wr = torch.stack(wrenches).double().cpu()          # (steps, 3, 6)
+    touching = [torch.nonzero(wr[:, b].abs().amax(dim=1) > 0).flatten()
+                for b in (1, 2)]
+    state, _, rigid = out["carry"]
+    loss = out["loss"].item()
+    _, secs_timed = timed_rollout(env, acts[:GRIP_TIMED_STEPS])
+    prof = run_profile(env, acts[:GRIP_PROFILE_STEPS])
+    res = {"profile": prof, "scene": "demo_grip",
+           "n_particles": env.n_particles,
+           "window": list(env.mpm_cfg.active_window),
+           "substeps_per_env_step": env.substeps, "env_steps": GRIP_STEPS,
+           "substeps": n_sub, "init_state": list(GRIP_NEAR),
+           "finger_force": GRIP_FORCE,
+           "wall_ms_per_substep": secs_timed * 1e3 / (
+               GRIP_TIMED_STEPS * env.substeps),
+           "timed_env_steps": GRIP_TIMED_STEPS,
+           "counted_run_wall_ms_per_substep": secs * 1e3 / n_sub,
+           "device_busy_ms_per_substep": prof["device_busy_ms_per_substep"],
+           "device_busy_share": prof["device_busy_share"],
+           "kernel_launches_per_substep": prof["kernel_launches_per_substep"],
+           "profile_env_steps": GRIP_PROFILE_STEPS,
+           "launches": launches,
+           "launches_per_substep": {k: v / n_sub for k, v in launches.items()
+                                    if v},
+           "spilled": spills.counts(), "off_slab": off.counts(),
+           "loss": loss,
+           "terms": {k: float(v) for k, v in out["terms"].items()},
+           "q0": q0.tolist(), "rigid_q": rigid.q.tolist(),
+           "rigid_qd": rigid.qd.tolist(),
+           "palm_wrench_max_abs": wr[:, 0].abs().max().item(),
+           "finger_force_max_abs": [wr[:, b, :3].abs().max().item()
+                                    for b in (1, 2)],
+           "first_contact_env_step": [int(t[0]) if len(t) else None
+                                      for t in touching],
+           "contact_env_steps": [len(t) for t in touching],
+           "last_wrench": wr[-1].tolist(),
+           "x_finite": bool(torch.isfinite(state.x).all())}
+    print(f"grip: spilled {res['spilled']}, off the slab {res['off_slab']}",
+          flush=True)
+    spilled = sum(v["spilled"] for v in res["spilled"].values())
+    res["spilled_total"] = spilled
+    res["off_slab_total"] = sum(v["off_slab"]
+                                for v in res["off_slab"].values())
+    if (res["terms"]["window_overflow"] or not math.isfinite(loss)
+            or not res["x_finite"]
+            or not (rigid.q[0] > q0[0] and rigid.q[1] < q0[1])
+            or res["palm_wrench_max_abs"] != 0.0
+            or not all(len(t) for t in touching)
+            or not bool((wr[-1, 1:, :3].abs().amax(dim=1) > 0).all())):
+        raise AssertionError(f"grip output wrong: {res}")
+    return res, launches, out["carry"]
+
+
+def grip_grad_expect(env, steps, remat):
+    """Launches of every kernel in the grip's rollout_and_grad over
+    ``steps`` env steps of five substeps, two fingers in contact. The first
+    env step records nothing for autograd (the fingers take the first
+    action at its end). In the second, the fingers carry a gradient from
+    its first substep on, the particles from its second: that substep's
+    P2G and gather see no input that requires one. Under remat "step"
+    every env step is replayed once in the backward, the first too (its
+    rigid step takes the first action)."""
+    sub = env.substeps
+    n_sub = steps * sub
+    replays = n_sub if remat == "step" else 0
+    graded = (steps - 1) * sub
+    expect = dict.fromkeys(wrappers(), 0)
+    for k in ("p2g", "g2p", "gather", "splat"):
+        expect[k] = n_sub + replays
+    expect["collide_mixed"] = 2 * (n_sub + replays)
+    expect.update({"p2g_bwd": graded - 1, "gather_bwd": graded - 1,
+                   "g2p_bwd": graded, "splat_bwd": graded,
+                   "collide_mixed_bwd": 2 * graded})
+    return expect
+
+
+def grip_loss_start(env, steps):
+    """The demo's first loss frame: three quarters of the horizon's
+    substeps, rounded down to the stride of 20."""
+    return (3 * steps * env.substeps // 4) // 20 * 20
+
+
+def run_grip_grad(env):
+    """The grip's gradient path: rollout_and_grad of GRIP_GRAD_STEPS env
+    steps of the demo's forces with its loss frames, under remat "step"
+    and "none": one counted call and GRIP_GRAD_REPEATS timed ones each,
+    exact launch counts (grip_grad_expect), finite, the fingers' columns
+    nonzero, step against none and the repeats within GRAD_TOL; the slab
+    kernels' spills and the read-side off-slab particles summed over the
+    counted calls."""
+    spills, off = Spills(), OffSlab()
+
+    class Both:
+        def __enter__(self):
+            off.__enter__()
+            spills.__enter__()
+
+        def __exit__(self, *exc):
+            spills.__exit__(*exc)
+            off.__exit__(*exc)
+    start = grip_loss_start(env, GRIP_GRAD_STEPS)
+    out, launches = run_gradient(
+        "grip_grad", env, grip_actions(GRIP_GRAD_STEPS),
+        lambda remat: grip_grad_expect(env, GRIP_GRAD_STEPS, remat), [0, 1],
+        env.mpm_cfg.active_window, repeats=GRIP_GRAD_REPEATS,
+        loss_start_frame=start, counted=Both())
+    out["spilled"] = spills.counts()
+    out["off_slab"] = off.counts()
+    print(f"grip_grad: spilled {out['spilled']}, off the slab "
+          f"{out['off_slab']}", flush=True)
+    return {"scene": "demo_grip", "init_state": list(GRIP_NEAR), **out}, \
+        launches
+
+
+def grip_kernel_inputs(env, carry):
+    """The inputs the grip's first substep from ``carry`` hands each kernel
+    of its path, built with the port's own substep stages and the kernels
+    (y-sorted, as the rollout keeps them): P2G's channels, the bounded grid
+    velocity the gather reads, the fingers' contact inputs (life 1/5, the
+    first substep's), the splat's values and the grid velocity G2P
+    reads."""
+    import torch
+    from softmac_tpu_torch.engine import mpm
+    from softmac_tpu_torch.ops import contact, m33, transfer
+    cfg = env.mpm_cfg
+    state, bodies, _ = carry
+    q, _ = mpm.sort_perm(cfg, state.x)
+    state = mpm.permute_state(state, q)
+    params = mpm.permute_params(env.mpm_params, q)
+    stress, _ = mpm.stress_and_F(cfg, params, state)
+    sizes, corner, overflow = mpm.window_geometry(cfg, state.x)
+    if bool(overflow) or mpm.transfer_route(cfg) != "transfer":
+        raise AssertionError("grip kernel-check state: overflow or route")
+    zero = torch.zeros_like(state.x[0])
+    chan = mpm._p2g_channels(cfg, tuple(state.v), m33.from_mat_array(state.C),
+                             stress, (zero, zero, zero))
+    gm, gmom = transfer.p2g(state.x, chan, corner, sizes, cfg.inv_dx)
+    gvm, mask = mpm._bounded_velocity(cfg, params, gm, gmom, sizes, corner)
+    gvm = tuple(g.contiguous() for g in gvm)
+    v_tmp = transfer.gather(state.x, *gvm, corner, sizes, cfg.inv_dx)
+    life = torch.full((), 1.0 / cfg.substeps, dtype=state.x.dtype,
+                      device=state.x.device)
+    contacts, v_in = [], v_tmp
+    for i, prim in enumerate(env.prims):
+        if not cfg.primitives_contact[i]:
+            continue
+        body = (bodies.pos[i], bodies.quat[i], bodies.v[i], bodies.w[i],
+                params.friction[i], params.softness[i], life)
+        contacts.append((prim, body, v_in))
+        v_in = contact.collide_mixed(
+            prim, *body, state.x, v_in, cfg.dt, cfg.p_mass,
+            cfg.contact_push_velocity_cap)[0]
+    vals = (-2.0 * (v_tmp - v_in)).contiguous()
+    corr = transfer.splat(state.x, vals, corner, sizes, cfg.inv_dx)
+    wx = sizes[0]
+    gv = tuple(torch.where(mask, gvm[d] + corr[:, d * wx:(d + 1) * wx],
+                           0.0).contiguous() for d in range(3))
+    return dict(cfg=cfg, state=state, corner=corner, sizes=sizes, chan=chan,
+                gvm=gvm, gv=gv, contacts=contacts, vals=vals)
+
+
+def check_mixed_lives(tag, inp, lives, body_tol, every_body=True, seed=5):
+    """The tiled mixed pair at each remaining-window factor of ``lives``,
+    per body of ``inp``'s contacts, on its main-path particles and on as
+    many spread over the body's SDF box with seeded velocities (their
+    forecast points penetrate: life scales the push-out there alone):
+    p_v_out within ROW_TOL of its largest |value| (away from the
+    threshold) and the wrench within ``body_tol`` of its force's and
+    torque's, against collide_mixed_wrench_plain in float64; the backward
+    (seeded normal cotangents of p_v_out and the wrench) against
+    collide_mixed_wrench_vjp_plain in float64: dx, dv within ROW_TOL, the
+    16 body floats (life's cotangent among them) within ``body_tol`` of
+    their group's largest |value|. On the main path each body's band
+    (``every_body``; else one body's) must hold particles and its wrench
+    must not be zero; in each SDF box some forecast points penetrate and
+    life's cotangent is not zero. Returns the worst relative errors by
+    life, and the counts."""
+    import torch
+    from softmac_tpu_torch.ops import contact
+    cfg, x = inp["cfg"], inp["state"].x
+    n = x.shape[1]
+    dt, p_mass = cfg.dt, cfg.p_mass
+    cap = cfg.contact_push_velocity_cap
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    groups = {"dx": 7, "dv": 8, "body_pos": 0, "body_quat": 1, "body_v": 2,
+              "body_w": 3, "friction": 4, "softness": 5, "life": 6}
+    sets = []
+    for b, (prim, body, v_in) in enumerate(inp["contacts"]):
+        x_box = box_particles(prim, body[0], body[1], n, gen)
+        v_box = (1.5 * torch.randn((3, n), generator=gen, dtype=x.dtype,
+                                   device=x.device)).contiguous()
+        sets += [(b, prim, body, x, v_in, "main path"),
+                 (b, prim, body, x_box, v_box, "SDF box")]
+    by_life, counts = {}, {}
+    for life in lives:
+        worst = dict.fromkeys(("p_v_out", "wrench", *groups), 0.0)
+        touching = {}
+        for b, prim, body, xs, vs, label in sets:
+            body = body[:6] + (torch.full((), life, dtype=x.dtype,
+                                          device=x.device),)
+            prim64, body64 = _prim64(prim), tuple(map(_f64, body))
+            cargs = (prim, *body, xs, vs, dt, p_mass, cap)
+            cargs64 = (prim64, *body64, _f64(xs), _f64(vs), dt, p_mass, cap)
+            pv, wr = contact.collide_mixed(*cargs)
+            want = contact.collide_mixed_wrench_plain(*cargs64)
+            st1 = contact.collide_mixed1_plain(*cargs64[:10], dt)
+            keep = (st1[6] - contact.CONTACT_THRESHOLD).abs() >= 1e-6
+            err = ((pv.double() - want[0]).abs() * keep).max().item()
+            worst["p_v_out"] = max(worst["p_v_out"], err / max(
+                want[0].abs().max().item(), 1e-30))
+            worst["wrench"] = max(worst["wrench"], _wrench_rel(wr, want[1]))
+            wrench = want[1].abs().max().item()
+            gout = torch.randn((3, n), generator=gen, dtype=x.dtype,
+                               device=x.device)
+            gwr = torch.randn((6,), generator=gen, dtype=x.dtype,
+                              device=x.device)
+            got = contact.collide_mixed_bwd(*cargs, gout, gwr)
+            want = contact.collide_mixed_wrench_vjp_plain(
+                *cargs64, gout.double(), gwr.double())
+            for name, i in groups.items():
+                (_, rel), = _errors((got[i],), (want[i],), (name,)).values()
+                worst[name] = max(worst[name], rel)
+            mask = st1[6] <= contact.CONTACT_THRESHOLD
+            sdf2, _ = contact.sample_sdf_normal_world(
+                prim64, tuple(body64[0]), tuple(body64[1]), tuple(st1[3:6]))
+            band, _ = band_counts(prim64, body64, xs, contact.MIXED_TILE)
+            c = {"band": band, "penetrating": int((mask & (sdf2 < 0)).sum()),
+                 "wrench_max_abs": wrench,
+                 "life_cotangent": abs(want[6].item())}
+            counts[f"life {life:.4g} body {b} {label}"] = c
+            if label == "main path":
+                touching[b] = band > 0 and wrench > 0
+            elif not (c["penetrating"] > 0 and c["life_cotangent"] > 0):
+                raise AssertionError(f"{tag}: body {b}'s SDF box at life "
+                                     f"{life}: {c}")
+        if not (all if every_body else any)(touching.values()):
+            raise AssertionError(f"{tag}: no contact (band and wrench) at "
+                                 f"life {life}: {counts}")
+        by_life[f"{life:.6g}"] = worst
+        print(f"{tag} life {life:.4g}: {json.dumps(worst)}", flush=True)
+    tol = {k: ROW_TOL if k in ("p_v_out", "dx", "dv") else body_tol
+           for k in by_life[f"{lives[0]:.6g}"]}
+    for life, worst in by_life.items():
+        for k, rel in worst.items():
+            if not rel <= tol[k]:
+                raise AssertionError(f"{tag}: {k} relative error {rel} > "
+                                     f"{tol[k]} at life {life}")
+    return {"lives": list(lives), "rel_err_by_life": by_life,
+            "tolerance_by_output": tol, "counts": counts}
+
+
+def check_grip_kernels(env, carry):
+    """Rows 1-8 and 11-12 of the port's table on the grip's state in
+    contact (``carry``): each kernel against its plain version (a backward:
+    its plain vjp, seeded normal cotangents; the splat's backward on the
+    real values) in float64 on the same inputs within ROW_TOL of each
+    output row's largest |value|, device ms beside the bound for this
+    state; the mixed pair at each of GRIP_LIVES (check_mixed_lives, body
+    floats within GRIP_BODY_TOL)."""
+    import torch
+    from softmac_tpu_torch.ops import contact, m33, transfer
+    inp = grip_kernel_inputs(env, carry)
+    cfg, x = inp["cfg"], inp["state"].x
+    n = x.shape[1]
+    corner, sizes = inp["corner"], inp["sizes"]
+    wx, wy, wz = sizes
+    cells = wx * wy * wz
+    gen = torch.Generator(device=x.device).manual_seed(7)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=x.dtype,
+                           device=x.device)
+    band = int((inp["vals"] != 0).any(dim=0).sum())
+    w = (x, corner, sizes, cfg.inv_dx)
+    rows = {
+        # name: (kernel, plain, args, bytes, flops)
+        "p2g": (transfer.p2g, transfer.p2g_plain,
+                (x, inp["chan"]) + w[1:], (16 * n + 4 * cells) * 4, None),
+        "g2p": (transfer.g2p, transfer.g2p_plain,
+                (x, *inp["gv"]) + w[1:], (15 * n + 3 * cells) * 4, None),
+        "gather": (transfer.gather, transfer.gather_plain,
+                   (x, *inp["gvm"]) + w[1:], (6 * n + 3 * cells) * 4, None),
+        "splat": (transfer.splat, transfer.splat_plain,
+                  (x, inp["vals"]) + w[1:], (6 * n + 3 * cells) * 4, None),
+        "p2g_bwd": (transfer.p2g_bwd, transfer.p2g_vjp_plain,
+                    (x, inp["chan"]) + w[1:] + (normal(wy * wz, wx),
+                                                normal(wy * wz, 3 * wx)),
+                    (32 * n + 4 * cells) * 4, None),
+        "g2p_bwd": (transfer.g2p_bwd, transfer.g2p_vjp_plain,
+                    (x, *inp["gv"]) + w[1:] + (normal(12, n),),
+                    (18 * n + 6 * cells) * 4, None),
+        "gather_bwd": (transfer.gather_bwd, transfer.gather_vjp_plain,
+                       (x, *inp["gvm"]) + w[1:] + (normal(3, n),),
+                       (9 * n + 6 * cells) * 4, None),
+        "splat_bwd": (transfer.splat_bwd, transfer.splat_vjp_plain,
+                      (x, inp["vals"]) + w[1:] + (normal(wy * wz, 3 * wx),),
+                      (12 * n + 3 * cells) * 4,
+                      band * FLOPS_PER_PARTICLE["splat_bwd"]
+                      + (n - band) * FLOPS_PER_PARTICLE["gather"])}
+    res = {}
+    for name, (fn, plain, args, nbytes, flops) in rows.items():
+        got = _as_tuple(fn(*args))
+        want = _as_tuple(plain(*map(_f64, args)))
+        if name in ("g2p", "gather"):
+            rel = _row_rel(got[0], want[0])[1]      # each particle row
+        elif name == "splat":
+            rel = _row_rel(*(o.reshape(wy * wz, 3, wx).transpose(0, 1)
+                             .reshape(3, -1) for o in (got[0], want[0])))[1]
+        else:                                       # each output
+            rel = max(e[1] for e in _errors(got, want, range(len(got)))
+                      .values())
+        dev = device_ms("grip " + name, lambda: fn(*args))
+        b_ms, b_by = bound(name, n, nbytes, flops)
+        res[name] = {"max_rel_err": rel, "tolerance": ROW_TOL,
+                     "device_ms": dev, "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes": nbytes}
+        print(f"grip_kernels {name}: rel err {rel}, device ms {dev}, bound "
+              f"ms {b_ms}", flush=True)
+        if not rel <= ROW_TOL:
+            raise AssertionError(f"grip {name}: relative error {rel} > "
+                                 f"{ROW_TOL}")
+    # the mixed pair: device ms (both fingers, as a substep runs them) and
+    # its bound at the first substep's life
+    dt, p_mass = cfg.dt, cfg.p_mass
+    cap = cfg.contact_push_velocity_cap
+    cts = [(normal(3, n), normal(6)) for _ in inp["contacts"]]
+    nbytes = {"collide_mixed": 0, "collide_mixed_bwd": 0}
+    flops = {"collide_mixed": 0, "collide_mixed_bwd": 0}
+    for prim, body, v_in in inp["contacts"]:
+        qinv = m33.qnorm(m33.qconj(tuple(body[1])))
+        p_loc = m33.qrot(qinv, m33.vsub(tuple(x), tuple(body[0])))
+        tab = torch.unique(contact.cell_index(prim, p_loc)[0]).numel()
+        b, _ = band_counts(_prim64(prim), tuple(map(_f64, body)), x,
+                           contact.MIXED_TILE)
+        nbytes["collide_mixed"] += 9 * n * 4 + tab * 128 + 16 * 4 + 6 * 4
+        nbytes["collide_mixed_bwd"] += (15 * n * 4 + tab * 128 + 16 * 4
+                                        + 6 * 4 + 16 * 4)
+        for k in flops:
+            flops[k] += n * MIXED_CLASSIFY_FLOPS + b * FLOPS_PER_PARTICLE[k]
+
+    def mixed():
+        for prim, body, v_in in inp["contacts"]:
+            contact.collide_mixed(prim, *body, x, v_in, dt, p_mass, cap)
+
+    def mixed_bwd():
+        for (prim, body, v_in), (go, gw) in zip(inp["contacts"], cts):
+            contact.collide_mixed_bwd(prim, *body, x, v_in, dt, p_mass, cap,
+                                      go, gw)
+    lives = check_mixed_lives("grip_kernels collide_mixed", inp, GRIP_LIVES,
+                              GRIP_BODY_TOL)
+    for name, fn in (("collide_mixed", mixed),
+                     ("collide_mixed_bwd", mixed_bwd)):
+        dev = device_ms("grip " + name, fn)
+        b_ms, b_by = bound(name, n, nbytes[name], flops[name])
+        res[name] = {"device_ms": dev, "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes": nbytes[name], "per_call": "both fingers",
+                     **lives}
+        print(f"grip_kernels {name}: device ms {dev}, bound ms {b_ms}",
+              flush=True)
+    return {"n_particles": n, "window": list(sizes),
+            "splat_nonzero_vals": band, "kernels": res}
+
+
+def run_grip_parity():
+    """The grip at its 10 000 particles, the fingers started in contact,
+    GRIP_PARITY_STEPS env steps of the demo's forces, card (float32,
+    kernels) against the CPU (float64, plain versions): x, q and qd within
+    1e-4, the loss within 1e-4 relative, the action gradient within 1e-3
+    relative L2 (gpu_cpu_parity); the loss frames every 10 substeps."""
+    res = gpu_cpu_parity(
+        lambda: grip_cfg(GRIP_NEAR), GRIP_PARITY_STEPS,
+        grip_actions(GRIP_PARITY_STEPS), 10, POUR + ("p2g", "g2p"),
+        POUR_BWD + ("p2g_bwd", "g2p_bwd"),
+        setup=lambda env: env.set_primitives_contact([False, True, True]))
+    return {"scene": "demo_grip", "init_state": list(GRIP_NEAR), **res}
+
+
+def run_demo_trainer(module, name, steps, kernels):
+    """A ported trainer on the card, DEMO_EPOCHS epochs of ``steps`` env
+    steps on its own scene, logs in a temporary directory: every epoch's
+    loss finite, losses.npy and a checkpoint per epoch written, each of
+    ``kernels`` launched; how far the last checkpoint's actions moved from
+    the first's."""
+    import tempfile
+    import numpy as np
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = module.main(["--steps", str(steps), "--epochs",
+                           str(DEMO_EPOCHS), "--log-root", tmp])
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        log = Path(tmp) / name
+        ckpts = sorted(p.name for p in (log / "ckpt").glob("actions_*.npy"))
+        saved = np.load(log / "losses.npy").tolist()
+        a0 = np.load(log / "ckpt/actions_0.npy")
+        a_last = np.load(log / f"ckpt/actions_{DEMO_EPOCHS - 1}.npy")
+    res = {"epochs": DEMO_EPOCHS, "env_steps": steps,
+           "losses": out["losses"], "epoch_seconds": out["epoch_seconds"],
+           "seconds_with_setup": secs, "checkpoints": ckpts,
+           "actions_max_abs_change": float(np.abs(a_last - a0).max()),
+           "launches": launches}
+    if not (all(math.isfinite(v) for v in out["losses"])
+            and saved == out["losses"] and len(ckpts) == DEMO_EPOCHS
+            and all(launches[k] > 0 for k in kernels)):
+        raise AssertionError(f"{name} trainer on the card failed: {res}")
+    return res
+
+
+def run_demo_grip():
+    from softmac_tpu_torch.demos import demo_grip
+    return run_demo_trainer(demo_grip, "grip", DEMO_GRIP_STEPS,
+                            POUR + POUR_BWD + ("p2g", "g2p", "p2g_bwd",
+                                               "g2p_bwd"))
+
+
+def run_demo_pour_vel():
+    from softmac_tpu_torch.demos import demo_pour_vel
+    return run_demo_trainer(demo_pour_vel, "pour_vel", DEMO_GRIP_STEPS,
+                            FORWARD + tuple(k + "_bwd" for k in FORWARD))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3790,6 +4363,11 @@ def main():
     pour_inp = pour_kernel_inputs(pour_env, pour10)
     kernels += check_pour_kernels(pour_inp)
     kernels += check_pour_backward_kernels(pour_inp)
+    # the mixed pair at a remaining-window factor below 1 (the pour's
+    # substep has life 1), its gates unchanged
+    pour_lives = check_mixed_lives("pour collide_mixed", pour_inp,
+                                   (1.0, LIFE_BELOW_ONE), BODY_TOL,
+                                   every_body=False)
     slab = check_slab_kernels(inp, pour_inp)
     read = check_read_kernels(inp, pour_inp)
     for k in kernels:
@@ -3801,6 +4379,9 @@ def main():
     big_inp = door_inp.pop("1e5")
     band_inp = door_inp.pop("band")
     door_inp = door_inp["door"]
+    door_lives = check_mixed_lives("door collide_mixed", band_inp,
+                                   (1.0, LIFE_BELOW_ONE), BODY_TOL,
+                                   every_body=False)
     dense_inp = dense_kernel_inputs(denv.device)
     kernels += check_fused_kernels(door_inp, big_inp, dense_inp, band_inp)
     kernels += check_fused_backward_kernels(door_inp, big_inp, dense_inp)
@@ -3828,6 +4409,13 @@ def main():
         door_grad_launches["step"], door_grad_launches["none"])
     full_res, paths["dense"], paths["dense_grad_step"] = run_full_grid(
         full_env)
+    genv = grip_env()
+    grip_res, paths["grip"], grip_carry = run_grip(genv)
+    grip_grad_res, grip_grad_launches = run_grip_grad(genv)
+    paths["grip_grad_step"], paths["grip_grad_none"] = (
+        grip_grad_launches["step"], grip_grad_launches["none"])
+    grip_kernels = check_grip_kernels(genv, grip_carry)
+    del grip_carry
     for k in kernels:
         # each kernel's main path: the forward kernels of pour_vel on its
         # rollout, their backwards on its gradient path with the default
@@ -3856,6 +4444,11 @@ def main():
         k["launches_by_path"] = {p: c[counter] for p, c in paths.items()}
         if name in DEVICE_MS:
             k["device_ms"], k["device_launches_per_call"] = DEVICE_MS[name]
+        if name in grip_kernels["kernels"]:
+            # on the grip's state in contact: error, device ms and bound
+            k["grip_state"] = grip_kernels["kernels"][name]
+        if name == "collide_mixed":
+            k["lives"] = {"pour": pour_lives, "door_band_state": door_lives}
         if not k["launches"] > 0:
             raise AssertionError(f"{name} was not launched on its main path "
                                  f"({path})")
@@ -3906,6 +4499,21 @@ def main():
     del full_env
     emit("dense_parity", run_full_grid_parity())
     emit("grid", run_grid_contact())
+    profile_grip = {"forward": grip_res.pop("profile"),
+                    "fwd_bwd": run_profile(
+                        genv, grip_actions(GRIP_GRAD_PROFILE_STEPS),
+                        grad=True,
+                        loss_stride=GRIP_GRAD_PROFILE_STEPS * genv.substeps)}
+    profile_grip["rigid_step_launches_per_env_step"] = rigid_step_launches(
+        genv)
+    emit("grip", grip_res)
+    emit("grip_kernels", grip_kernels)
+    emit("grip_grad", grip_grad_res)
+    emit("profile_grip", profile_grip)
+    del genv
+    emit("grip_parity", run_grip_parity())
+    emit("demo_grip", run_demo_grip())
+    emit("demo_pour_vel", run_demo_pour_vel())
     print(smi, flush=True)      # the card again, next to the result
     emit(None, {"ok": True, "device": {"platform": "gpu", "kind": kind,
                                       "count": torch.cuda.device_count()}})

@@ -30,6 +30,7 @@ ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import warnings
 from pathlib import Path
@@ -276,6 +277,17 @@ class SoftMacEnv:
                 return cand
         raise FileNotFoundError(f"{path} not found in {self.search_dirs}")
 
+    def set_primitives_contact(self, flags):
+        """Turn each primitive's contact on or off (the reference's
+        ``simulator.primitives_contact``; demo_grip turns the palm's off).
+        A substep skips the primitives whose flag is off."""
+        flags = tuple(bool(f) for f in flags)
+        if len(flags) != self.n_primitives:
+            raise ValueError(f"{len(flags)} contact flags for "
+                             f"{self.n_primitives} primitives")
+        self.mpm_cfg = dataclasses.replace(self.mpm_cfg,
+                                           primitives_contact=flags)
+
     def set_control_idx(self, idx):
         """Assign each particle to a controller (-1: none), (N,) ints."""
         self.mpm_params = self.mpm_params.replace(
@@ -375,9 +387,10 @@ class SoftMacEnv:
         each gravity-affected body's weight are subtracted from its action,
         and the rigid step takes the adjusted action. An active-window
         overflow warns, as in the rollouts. Returns the adjusted actions as
-        a numpy array. The port's bodies are all floating, so
-        there is no weld wrench to fold onto a carrier (welds raise when
-        the RigidModel is built)."""
+        a numpy array. Only a body with a free joint is compensated: a
+        revolute, prismatic or fixed body's actions stay as they are (its
+        ``compensation_mass`` is None). There is no weld wrench to fold
+        onto a carrier: welds raise when the RigidModel is built."""
         if self.control_mode != "rigid" or self.rigid_model is None:
             raise ValueError("adjust_action_with_ext_force needs "
                              "force-controlled rigid bodies (control_mode "
@@ -400,8 +413,9 @@ class SoftMacEnv:
             overflow = overflow | ovf
             adj = action.clone()
             for i, b in enumerate(model.bodies):
-                if b.gravity_on:
-                    o, mass = b.q_offset, model.compensation_mass(i)
+                mass = model.compensation_mass(i)
+                if b.gravity_on and mass is not None:
+                    o = b.q_offset
                     adj[o:o + 3] -= ext_f[i, 3:]
                     adj[o + 3:o + 6] -= ext_f[i, :3] + mass * g
             bodies, rigid = self._rigid_step(bodies, rigid, adj, ext_f)

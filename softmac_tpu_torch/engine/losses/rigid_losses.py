@@ -1,9 +1,10 @@
 """Task losses of the rigid-coupled scenes
 (``softmac_tpu/engine/losses/rigid_losses.py``): ``PourLoss`` (reference
-``softmac/engine/losses/loss_pour.py``: chamfer + pose + velocity) and
-``DoorLoss`` (``loss_door.py``: pose on the door's quaternion + velocity +
-min contact distance); the grip and transport losses come with their
-scenes."""
+``softmac/engine/losses/loss_pour.py``: chamfer + pose + velocity),
+``GripLoss`` (``loss_grip.py``: chamfer + the palm's pose, with a band on
+its rotation, + velocity) and ``DoorLoss`` (``loss_door.py``: pose on the
+door's quaternion + velocity + min contact distance); the transport loss
+comes with its scene."""
 from __future__ import annotations
 
 import numpy as np
@@ -44,6 +45,19 @@ class PourLoss(LossBase):
         out["pose_loss"] = self.pose_weight * 10.0 * (s.bodies.pos[0, 1] - 0.4) ** 2
         out["vel_loss"] = self.velocity_weight * (
             torch.sum(s.bodies.v[0] ** 2) + 0.1 * torch.sum(s.bodies.w[0] ** 2))
+        return out
+
+
+class GripLoss(PourLoss):
+    """PourLoss whose pose term also holds the first body's (the palm's)
+    |quat_w| in a band (loss_grip.py:74-79)."""
+
+    def terms(self, s: FrameSample) -> dict:
+        out = super().terms(s)
+        qw = torch.abs(s.bodies.quat[0, 0])
+        band = (torch.clamp(qw - 0.5, max=0.0) ** 2
+                + torch.clamp(qw - 0.9, min=0.0) ** 2)
+        out["pose_loss"] = out["pose_loss"] + self.pose_weight * band
         return out
 
 

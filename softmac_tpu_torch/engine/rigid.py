@@ -1,5 +1,5 @@
-"""Rigid bodies: the velocity-controlled model and the floating part of the
-force-controlled ``RigidModel`` (``softmac_tpu/engine/rigid.py``).
+"""Rigid bodies: the velocity-controlled model and the force-controlled
+``RigidModel`` (``softmac_tpu/engine/rigid.py``).
 
 ``RigidVelocityModel`` (reference ``softmac/engine/rigid_simulator_vel.py``)
 has no dynamics: actions set each body's (w, v) for the next window and
@@ -7,7 +7,7 @@ poses integrate kinematically every substep.
 
 ``RigidModel`` is the force-controlled simulator built from URDFs
 (reference ``rigid_simulator.py``, Jade joints) for bodies jointed to the
-world (through fixed joints only) in one of two ways:
+world (through fixed joints only), each in one of four ways:
 - floating, as in the pour scene: a semi-implicit Newton-Euler step about
   the centre of mass with the window-averaged contact wrench, the actions
   (a world-frame torque and force at the body origin), gravity where the
@@ -16,13 +16,17 @@ world (through fixed joints only) in one of two ways:
 - revolute (or continuous), as the door's hinge: the torque about the
   joint axis from the action, the wrench and gravity, the parallel-axis
   inertia about the axis, implicit viscous ``joint_damping``, and the
-  URDF's velocity and position limits.
+  URDF's velocity and position limits;
+- prismatic, as the gripper's fingers: the force along the joint axis
+  from the action, the wrench and gravity, over the link mass, with the
+  same damping and limits;
+- fixed, as the gripper's palm: a constant pose, no dofs.
 State layout as the JAX package's: ``q`` = per floating body [exp(3),
-pos(3)] and per revolute body [angle], ``qd`` = [w(3), v(3)] world-frame
-and [angular rate]. A model's bodies are all of one kind (every reference
-scene's are), stepped batched, with no host sync. Prismatic, fixed and
-articulated bodies, mixed kinds, welds and body-body contact come with the
-grip slice of the port.
+pos(3)], per revolute body [angle], per prismatic body [slide], in body
+order; ``qd`` = [w(3), v(3)] world-frame and the 1-dof rates. Any mix of
+the kinds is allowed; each moving kind is stepped in one batched call, and
+a step runs with no host sync. Welds, articulated trees and body-body
+contact are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,8 +40,12 @@ from softmac_tpu_torch.engine import quat as Q
 from softmac_tpu_torch.engine.meshio import UrdfModel, load_obj
 from softmac_tpu_torch.engine.types import BodyState, _Replace
 
-_LATER = ("is not ported yet; it comes with the grip slice of the port "
-          "(the port's RigidModel steps floating and revolute bodies)")
+_LATER = ("is not ported yet: the port's RigidModel steps floating, "
+          "revolute, prismatic and fixed bodies jointed to the world; welds, "
+          "articulated trees and body-body contact come with the rest of the "
+          "rigid family")
+# dofs of a body of each joint kind
+_NDOF = {"floating": 6, "revolute": 1, "prismatic": 1, "fixed": 0}
 
 
 @dataclasses.dataclass
@@ -109,8 +117,8 @@ def grad_scale(bodies: BodyState, s: float) -> BodyState:
 @dataclasses.dataclass
 class _BodyDef:
     """One moving collision body = one contact primitive."""
-    jtype: str                  # floating | revolute
-    q_offset: int               # dof offset into the global q vector
+    jtype: str                  # floating | revolute | prismatic | fixed
+    q_offset: int               # dof offset into the global q (-1: none)
     mass: float
     inertia: np.ndarray         # (3,3) about the COM, inertial frame
     com: np.ndarray             # (3,) link-frame COM (URDF <inertial><origin>)
@@ -118,7 +126,7 @@ class _BodyDef:
     joint_rot: np.ndarray       # (3,3) world joint frame
     gravity_on: bool
     support_points: np.ndarray  # (8,3) body-frame points for floor penalty
-    axis: np.ndarray            # (3,) unit joint axis, joint frame (revolute)
+    axis: np.ndarray            # (3,) unit joint axis, joint frame (1 dof)
     limit_lower: float = -np.inf
     limit_upper: float = np.inf
     limit_velocity: float = np.inf
@@ -146,9 +154,60 @@ def _support_points(verts: np.ndarray) -> np.ndarray:
                      for y in (lo[1], hi[1]) for z in (lo[2], hi[2])])
 
 
+def _selector(idx, total, device):
+    """``idx`` (ascending ints into a dimension of ``total``): None where
+    it is all of it (the tensor itself: nothing to differentiate through),
+    a slice where it is one contiguous range (a view), else an index
+    tensor (one gather)."""
+    idx = [int(i) for i in idx]
+    if idx == list(range(total)):
+        return None
+    if idx == list(range(idx[0], idx[0] + len(idx))):
+        return slice(idx[0], idx[0] + len(idx))
+    return torch.as_tensor(idx, dtype=torch.int64, device=device)
+
+
+def _take(t, sel):
+    """The rows ``sel`` (a ``_selector``) of t."""
+    return t if sel is None else t[sel]
+
+
+def _order(groups, key, device):
+    """The gather that puts the concatenated parts of ``groups`` (each with
+    the ascending ints ``key(g)``) back in the order of those ints, or None
+    where the concatenation already is in that order."""
+    flat = [i for g in groups for i in key(g)]
+    if flat == sorted(flat):
+        return None
+    return torch.as_tensor(np.argsort(flat, kind="stable"), dtype=torch.int64,
+                           device=device)
+
+
+def _assemble(parts, order):
+    """One tensor from the parts of each group: the part itself where it is
+    the only one, else one ``cat`` and, where ``order`` is given, one
+    gather."""
+    out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return out if order is None else out[order]
+
+
+class _Kind:
+    """The bodies of one joint kind, stepped in one batched call: their
+    slots, their dofs in the global q, and their constants (tensors over
+    the kind's bodies, in slot order)."""
+
+    def __init__(self, kind, slots, dofs, n_slots, n_dofs, device):
+        self.kind = kind
+        self.slots = slots                  # ascending body slots
+        self.dofs = dofs                    # ascending global dofs
+        self.slot_sel = _selector(slots, n_slots, device)
+        self.dof_sel = _selector(dofs, n_dofs, device) if dofs else None
+
+
 class RigidModel:
-    """Force-controlled rigid simulator built from URDFs (floating and
-    revolute bodies).
+    """Force-controlled rigid simulator built from URDFs: floating,
+    revolute (or continuous) and prismatic bodies jointed to the world,
+    and fixed bodies, in any mix.
 
     ``step(state, action, ext_f) -> state`` and
     ``body_states(state) -> BodyState``, as the JAX package's."""
@@ -180,25 +239,29 @@ class RigidModel:
                 if link.mesh_path is None:
                     continue
                 jtype = "revolute" if j.jtype == "continuous" else j.jtype
-                if jtype not in ("floating", "revolute"):
+                if jtype not in _NDOF:
                     raise NotImplementedError(
                         f"a {j.jtype} joint ({j.name}) {_LATER}")
                 # the joint frame through the fixed joints above it; a
-                # moving ancestor would make an articulated tree
+                # moving ancestor would make a weld or an articulated tree
                 pos, rot = np.zeros(3), np.eye(3)
                 name = j.parent
                 while name in by_child:
                     up = by_child[name]
                     if up.jtype != "fixed":
+                        what = ("welds" if jtype == "fixed"
+                                else "articulated trees")
                         raise NotImplementedError(
                             f"link {j.child} below moving link {name}: "
-                            f"articulated trees {_LATER}")
+                            f"{what} {_LATER}")
                     pos = up.origin_xyz + Q.rpy2mat(up.origin_rpy) @ pos
                     rot = Q.rpy2mat(up.origin_rpy) @ rot
                     name = up.parent
                 verts, _ = load_obj(link.mesh_path)
+                ndof = _NDOF[jtype]
                 self.bodies.append(_BodyDef(
-                    jtype=jtype, q_offset=offset + ndof_skel,
+                    jtype=jtype,
+                    q_offset=offset + ndof_skel if ndof > 0 else -1,
                     mass=float(link.mass),
                     inertia=np.asarray(link.inertia, np.float64),
                     com=np.asarray(link.inertial_origin, np.float64),
@@ -211,7 +274,7 @@ class RigidModel:
                     limit_lower=float(j.limit_lower),
                     limit_upper=float(j.limit_upper),
                     limit_velocity=float(j.limit_velocity)))
-                ndof_skel += 6 if jtype == "floating" else 1
+                ndof_skel += ndof
             offset += ndof_skel
         if ext_force_flags:
             for b, flag in zip(self.bodies, ext_force_flags):
@@ -233,53 +296,88 @@ class RigidModel:
             self._q0 = np.zeros(self.state_dim_half)
             self._qd0 = np.zeros(self.state_dim_half)
 
-        kinds = {b.jtype for b in self.bodies}
-        if len(kinds) > 1:
-            raise NotImplementedError(f"floating and revolute bodies in one "
-                                      f"model {_LATER}")
-        self.floating = kinds != {"revolute"}
-
-        # per-body constants, batched over the bodies (q.view(B, 6) is
-        # [exp, pos] per floating body, q[i] the angle of revolute body i)
-        def dev(a):
-            return torch.as_tensor(np.asarray(a, np.float64)).to(
-                dtype=dtype, device=self.device)
         bs = self.bodies
-        self._com = dev([b.com for b in bs]).reshape(-1, 3)
-        self._g = dev(self.gravity)
+        self._g = self._dev(self.gravity)
         self._gravity_masked = not all(b.gravity_on for b in bs)
-        self._gravity_on = dev([1.0 if b.gravity_on else 0.0
-                                for b in bs]).reshape(-1, 1)
-        if self.floating:
-            self._inertia = dev([b.inertia for b in bs]).reshape(-1, 3, 3)
-            self._mass = dev([b.mass for b in bs]).reshape(-1, 1)
-            self._support = dev([b.support_points
-                                 for b in bs]).reshape(-1, 8, 3)
-            return
-        self._axis = dev([b.axis for b in bs]).reshape(-1, 3)
-        self._axis_w = dev([b.joint_rot @ b.axis for b in bs]).reshape(-1, 3)
-        self._joint_quat = Q.mat2quat(dev([b.joint_rot
-                                           for b in bs]).reshape(-1, 3, 3))
-        self._joint_pos = dev([b.joint_pos for b in bs]).reshape(-1, 3)
-        self._weight = dev([b.mass * self.gravity for b in bs]).reshape(-1, 3)
-        # parallel axis: the URDF inertia is about the COM and the joint
-        # axis passes through the body origin, |c - (c.a)a| from the COM
-        i_a = [float(b.axis @ b.inertia @ b.axis
-                     + b.mass * (b.com @ b.com - (b.com @ b.axis) ** 2))
-               for b in bs]
-        self._i_axis = dev(i_a)
-        self._damp = dev([1.0 + self.dt * self.joint_damping / v for v in i_a])
-        lo, hi, vmax = (np.array([getattr(b, k) for b in bs], np.float64)
-                        for k in ("limit_lower", "limit_upper",
+        self._gravity_on = self._dev([1.0 if b.gravity_on else 0.0
+                                      for b in bs]).reshape(-1, 1)
+        # one group a moving kind, in the order of its first body; the
+        # fixed bodies are constant rows of body_states
+        self._kinds: List[_Kind] = []
+        for kind in ("floating", "revolute", "prismatic"):
+            slots = [s for s, b in enumerate(bs) if b.jtype == kind]
+            if slots:
+                self._kinds.append(self._make_kind(kind, slots))
+        self._kinds.sort(key=lambda k: k.slots[0])
+        rows = list(self._kinds)
+        fixed = [s for s, b in enumerate(bs) if b.jtype == "fixed"]
+        if fixed:
+            fx = [bs[s] for s in fixed]
+            zero = self._dev(np.zeros((len(fx), 3)))
+            rows.append(_Kind("fixed", fixed, [], len(bs), offset,
+                              self.device))
+            rows[-1].rows = (self._dev([b.joint_pos for b in fx]),
+                             Q.mat2quat(self._dev([b.joint_rot for b in fx])),
+                             zero, zero)
+        rows.sort(key=lambda k: k.slots[0])
+        self._rows = rows
+        self._slot_order = _order(rows, lambda k: k.slots, self.device)
+        self._dof_order = _order(self._kinds, lambda k: k.dofs, self.device)
+
+    def _dev(self, a):
+        return torch.as_tensor(np.asarray(a, np.float64)).to(
+            dtype=self.dtype, device=self.device)
+
+    def _make_kind(self, kind, slots) -> _Kind:
+        """A kind's group and its constants."""
+        bs = [self.bodies[s] for s in slots]
+        dofs = [b.q_offset + i for b in bs for i in range(_NDOF[kind])]
+        k = _Kind(kind, slots, dofs, len(self.bodies), self.state_dim_half,
+                  self.device)
+        dev = self._dev
+        k.com = dev([b.com for b in bs]).reshape(-1, 3)
+        k.gravity_on = dev([1.0 if b.gravity_on else 0.0 for b in bs])
+        if kind == "floating":
+            k.gravity_on = k.gravity_on.reshape(-1, 1)
+            k.inertia = dev([b.inertia for b in bs]).reshape(-1, 3, 3)
+            k.mass = dev([b.mass for b in bs]).reshape(-1, 1)
+            k.support = dev([b.support_points for b in bs]).reshape(-1, 8, 3)
+            return k
+        k.axis = dev([b.axis for b in bs]).reshape(-1, 3)
+        k.axis_w = dev([b.joint_rot @ b.axis for b in bs]).reshape(-1, 3)
+        k.joint_quat = Q.mat2quat(dev([b.joint_rot
+                                       for b in bs]).reshape(-1, 3, 3))
+        k.joint_pos = dev([b.joint_pos for b in bs]).reshape(-1, 3)
+        if kind == "revolute":
+            k.weight = dev([b.mass * self.gravity for b in bs]).reshape(-1, 3)
+            # parallel axis: the URDF inertia is about the COM and the
+            # joint axis passes through the body origin, |c - (c.a)a| from
+            # the COM
+            inertia = [float(b.axis @ b.inertia @ b.axis
+                             + b.mass * (b.com @ b.com - (b.com @ b.axis) ** 2))
+                       for b in bs]
+        else:
+            # the weight along the axis; the link mass is the joint's
+            # inertia; a slider does not turn
+            k.weight = dev([float((b.joint_rot @ b.axis)
+                                  @ (b.mass * self.gravity)) for b in bs])
+            inertia = [b.mass for b in bs]
+            k.zero = torch.zeros_like(k.axis)
+        k.inertia = dev(inertia)
+        k.damp = dev([1.0 + self.dt * self.joint_damping / v
+                      for v in inertia])
+        lo, hi, vmax = (np.array([getattr(b, a) for b in bs], np.float64)
+                        for a in ("limit_lower", "limit_upper",
                                   "limit_velocity"))
-        self._vmax = dev(vmax) if np.isfinite(vmax).any() else None
-        self._range = ((dev(lo), dev(hi))
-                       if np.isfinite(np.r_[lo, hi]).any() else None)
+        k.vmax = dev(vmax) if np.isfinite(vmax).any() else None
+        k.range = ((dev(lo), dev(hi))
+                   if np.isfinite(np.r_[lo, hi]).any() else None)
+        return k
 
     def compensation_mass(self, slot: int) -> Optional[float]:
         """The gravity-affected mass the free joint of body ``slot`` holds
         (``adjust_action_with_ext_force``): a floating body's own mass;
-        None for a revolute body, which has no free joint."""
+        None for any other body, which has no free joint."""
         b = self.bodies[slot]
         return b.mass if b.jtype == "floating" else None
 
@@ -289,38 +387,55 @@ class RigidModel:
             return torch.as_tensor(a).to(dtype=self.dtype, device=self.device)
         return RigidState(q=dev(self._q0), qd=dev(self._qd0))
 
-    def _revolute_quat(self, angle):
+    @staticmethod
+    def _revolute_quat(k, angle):
         """Link frame of each revolute body: the joint frame composed with
         the rotation by ``angle`` about the joint axis."""
-        return Q.qmul(self._joint_quat, Q.w2quat(self._axis * angle[:, None]))
+        return Q.qmul(k.joint_quat, Q.w2quat(k.axis * angle[:, None]))
 
     def body_states(self, state: RigidState) -> BodyState:
         """Per-primitive world pose + BODY-frame COM spatial velocity (the
         reference exports DART's ``getCOMSpatialVelocity()``, in body
-        coordinates; the contact collider rotates it body -> world)."""
-        if not self.floating:
-            # the axis is invariant under its own rotation: the link-frame
-            # angular velocity is axis * qd
-            w_b = self._axis * state.qd[:, None]
-            return BodyState(pos=self._joint_pos,
-                             quat=self._revolute_quat(state.q),
-                             v=torch.cross(w_b, self._com, dim=-1), w=w_b)
-        q = state.q.reshape(-1, 6)
-        qd = state.qd.reshape(-1, 6)
-        bq = Q.w2quat(q[:, :3])
-        bqc = Q.qconj(bq)
-        w_b = Q.qrot(bqc, qd[:, :3])
-        v_b = Q.qrot(bqc, qd[:, 3:])
-        return BodyState(pos=q[:, 3:], quat=bq,
-                         v=v_b + torch.cross(w_b, self._com, dim=-1), w=w_b)
+        coordinates; the contact collider rotates it body -> world). Each
+        kind's rows in one batched call, the fixed bodies' constant; put in
+        slot order by one ``cat`` and, where the kinds interleave, one
+        gather per field."""
+        rows = []
+        for k in self._rows:
+            if k.kind == "fixed":
+                rows.append(k.rows)
+                continue
+            q, qd = _take(state.q, k.dof_sel), _take(state.qd, k.dof_sel)
+            if k.kind == "floating":
+                q, qd = q.reshape(-1, 6), qd.reshape(-1, 6)
+                bq = Q.w2quat(q[:, :3])
+                bqc = Q.qconj(bq)
+                w_b = Q.qrot(bqc, qd[:, :3])
+                v_b = Q.qrot(bqc, qd[:, 3:])
+                rows.append((q[:, 3:], bq,
+                             v_b + torch.cross(w_b, k.com, dim=-1), w_b))
+            elif k.kind == "revolute":
+                # the axis is invariant under its own rotation: the
+                # link-frame angular velocity is axis * qd
+                w_b = k.axis * qd[:, None]
+                rows.append((k.joint_pos, self._revolute_quat(k, q),
+                             torch.cross(w_b, k.com, dim=-1), w_b))
+            else:
+                # prismatic: the link frame is the joint frame, slid along
+                # the world axis; its body-frame velocity is axis * qd
+                rows.append((k.joint_pos + k.axis_w * q[:, None],
+                             k.joint_quat, k.axis * qd[:, None], k.zero))
+        pos, quat, v, w = (_assemble([r[i] for r in rows], self._slot_order)
+                           for i in range(4))
+        return BodyState(pos=pos, quat=quat, v=v, w=w)
 
-    def _floor_wrench(self, pos, bq, v, w):
+    def _floor_wrench(self, k, pos, bq, v, w):
         """Spring-damper floor penalty at the support points; (B, 3) force
         and torque about the body origin. v, w: world velocity at the
         origin and world angular velocity."""
-        pts = self._support
-        k = pts.shape[1]
-        p_w = Q.qrot(bq[:, None, :].expand(-1, k, 4), pts) + pos[:, None]
+        pts = k.support
+        n = pts.shape[1]
+        p_w = Q.qrot(bq[:, None, :].expand(-1, n, 4), pts) + pos[:, None]
         r = p_w - pos[:, None]
         v_pt = v[:, None] + torch.cross(w[:, None].expand_as(r), r, dim=-1)
         pen = self.floor_height - p_w[..., 1]
@@ -341,7 +456,12 @@ class RigidModel:
         """Semi-implicit Euler step. ext_f: (B, 6) window-averaged wrench
         [force, torque about the body origin] per primitive; action: per
         free joint the [torque(3), force(3)], world frame, at the origin,
-        per revolute joint the torque about its axis."""
+        per revolute joint the torque about its axis, per prismatic joint
+        the force along it. Each kind is stepped in one batched call; the
+        new q and qd are put in dof order by one ``cat`` (and, where the
+        kinds interleave, one gather)."""
+        if not self._kinds:
+            return state
         if action is None:
             action = torch.zeros((self.action_dim,), dtype=self.dtype,
                                  device=self.device)
@@ -350,41 +470,50 @@ class RigidModel:
         # flag; the floor penalty below acts regardless of the flag
         if self._gravity_masked:
             ext_f = ext_f * self._gravity_on
-        if not self.floating:
-            return self._revolute_step(state.q, state.qd, action, ext_f)
-        q, qd = self._floating_step(state.q.reshape(-1, 6),
-                                    state.qd.reshape(-1, 6),
-                                    action.reshape(-1, 6), ext_f)
-        return RigidState(q=q.reshape(-1), qd=qd.reshape(-1))
+        qs, qds = [], []
+        for k in self._kinds:
+            q, qd = _take(state.q, k.dof_sel), _take(state.qd, k.dof_sel)
+            a, f = _take(action, k.dof_sel), _take(ext_f, k.slot_sel)
+            if k.kind == "floating":
+                q, qd = self._floating_step(k, q.reshape(-1, 6),
+                                            qd.reshape(-1, 6),
+                                            a.reshape(-1, 6), f)
+                q, qd = q.reshape(-1), qd.reshape(-1)
+            else:
+                q, qd = self._one_dof_step(k, q, qd, a, f)
+            qs.append(q)
+            qds.append(qd)
+        return RigidState(q=_assemble(qs, self._dof_order),
+                          qd=_assemble(qds, self._dof_order))
 
-    def _floating_step(self, q, qd, a, ext_f):
+    def _floating_step(self, k, q, qd, a, ext_f):
         """The floating bodies' step; q, qd, a, ext_f: (B_floating, 6)."""
         exp, pos = q[:, :3], q[:, 3:]
         w, v = qd[:, :3], qd[:, 3:]
         bq = Q.w2quat(exp)
         R = Q.quat2mat(bq)
         Rt = R.transpose(-1, -2)
-        com = self._com
+        com = k.com
         r_c = (R @ com[..., None])[..., 0]        # world COM offset
 
         tau_o = a[:, :3] + ext_f[:, 3:]           # torque about the origin
         force = a[:, 3:] + ext_f[:, :3]           # excludes gravity
         if self.enable_floor:
-            f_fl, t_fl = self._floor_wrench(pos, bq, v, w)
+            f_fl, t_fl = self._floor_wrench(k, pos, bq, v, w)
             force = force + f_fl
             tau_o = tau_o + t_fl
 
         # Newton-Euler about the COM: gravity contributes no torque there,
         # origin-referenced wrenches shift by -r_c x F
         tau_c = tau_o - torch.cross(r_c, force, dim=-1)
-        force = force + self._gravity_on * (self._mass * self._g)
+        force = force + k.gravity_on * (k.mass * self._g)
 
-        I_w = R @ self._inertia @ Rt
+        I_w = R @ k.inertia @ Rt
         w_dot = _solve3(I_w, tau_c - torch.cross(
             w, (I_w @ w[..., None])[..., 0], dim=-1))
         w_new = w + self.dt * w_dot
         v_c = v + torch.cross(w, r_c, dim=-1)
-        v_c_new = v_c + self.dt * force / self._mass
+        v_c_new = v_c + self.dt * force / k.mass
         bq_new = Q.qmul(Q.w2quat(w_new * self.dt), bq)
         r_c_new = Q.qrot(bq_new, com)
         pos_new = (pos + r_c) + self.dt * v_c_new - r_c_new
@@ -393,29 +522,34 @@ class RigidModel:
         return (torch.cat([exp_new, pos_new], dim=-1),
                 torch.cat([w_new, v_new], dim=-1))
 
-    def _revolute_step(self, q, qd, a, ext_f):
-        """The revolute bodies' step; q, qd, a: (B,), ext_f: (B, 6). The
-        torque about the joint axis from the body-origin wrench (body
-        origin = joint origin in the reference's URDFs) and gravity about
-        the hinge, then implicit viscous damping (explicit -c qd is
+    def _one_dof_step(self, k, q, qd, a, ext_f):
+        """The revolute or prismatic bodies' step; q, qd, a: (B,), ext_f:
+        (B, 6). A hinge takes the torque about its axis from the
+        body-origin wrench (body origin = joint origin in the reference's
+        URDFs) and gravity about the hinge, over its parallel-axis inertia;
+        a slider the force along its axis and the weight's share, over the
+        link mass. Then implicit viscous damping (explicit -c qd is
         unstable once dt c / I > 2, which a gram-scale hinge hits at once)
         and the joint limits."""
-        tau = a + torch.sum(self._axis_w * ext_f[:, 3:], dim=-1)
-        com_w = Q.qrot(self._revolute_quat(q), self._com)
-        tau = tau + self._gravity_on[:, 0] * torch.sum(
-            self._axis_w * torch.cross(com_w, self._weight, dim=-1), dim=-1)
-        qd_new = (qd + self.dt * tau / self._i_axis) / self._damp
+        if k.kind == "revolute":
+            gen = a + torch.sum(k.axis_w * ext_f[:, 3:], dim=-1)
+            com_w = Q.qrot(self._revolute_quat(k, q), k.com)
+            gen = gen + k.gravity_on * torch.sum(
+                k.axis_w * torch.cross(com_w, k.weight, dim=-1), dim=-1)
+        else:
+            gen = a + torch.sum(k.axis_w * ext_f[:, :3], dim=-1)
+            gen = gen + k.gravity_on * k.weight
+        qd_new = (qd + self.dt * gen / k.inertia) / k.damp
         # URDF joint limits (the reference's Jade/DART enforces the
         # declared <limit> tags, e.g. door.urdf velocity 6.545, position
         # +-3.14): velocity clamp, then position clamp with qd zeroed at
         # the stops
-        if self._vmax is not None:
-            qd_new = torch.minimum(torch.maximum(qd_new, -self._vmax),
-                                   self._vmax)
+        if k.vmax is not None:
+            qd_new = torch.minimum(torch.maximum(qd_new, -k.vmax), k.vmax)
         q_new = q + self.dt * qd_new
-        if self._range is not None:
-            lo, hi = self._range
+        if k.range is not None:
+            lo, hi = k.range
             q_clamped = torch.minimum(torch.maximum(q_new, lo), hi)
             qd_new = torch.where(q_clamped != q_new, 0.0, qd_new)
             q_new = q_clamped
-        return RigidState(q=q_new, qd=qd_new)
+        return q_new, qd_new

@@ -28,26 +28,33 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
                         "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_double)
 # C signature of every kernel entry point (argument types, in order)
 SIGNATURES = {
     "softmac_p2g": [_P] * 7 + [_I] * 5 + [_F, _P],
     "softmac_slab_plan": [_I] * 7 + [_P],
     "softmac_g2p": [_P] * 7 + [_I] * 4 + [_F, _P],
-    "softmac_collide_particle": [_P] * 12 + [_I] * 4 + [_F] * 9 + [_P],
+    "softmac_collide_particle": [_P] * 12 + [_I] * 4 + [_F] * 7 + [_D] * 2
+    + [_P],
     "softmac_p2g_bwd": [_P] * 8 + [_I] * 4 + [_F, _P],
     "softmac_g2p_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
-    "softmac_collide_particle_bwd": [_P] * 15 + [_I] * 4 + [_F] * 9 + [_P],
+    "softmac_collide_particle_bwd": [_P] * 15 + [_I] * 4 + [_F] * 7
+    + [_D] * 2 + [_P],
     "softmac_gather": [_P] * 7 + [_I] * 4 + [_F, _P],
     "softmac_splat": [_P] * 7 + [_I] * 5 + [_F, _P],
-    "softmac_collide_mixed": [_P] * 14 + [_I] * 4 + [_F] * 10 + [_P],
-    "softmac_collide_mixed1": [_P] * 5 + [_I] * 4 + [_F] * 8 + [_P],
-    "softmac_collide_mixed2": [_P] * 8 + [_I] * 4 + [_F] * 10 + [_P],
+    "softmac_collide_mixed": [_P] * 14 + [_I] * 4 + [_F] * 7 + [_D] * 3
+    + [_P],
+    "softmac_collide_mixed1": [_P] * 5 + [_I] * 4 + [_F] * 7 + [_D, _P],
+    "softmac_collide_mixed2": [_P] * 8 + [_I] * 4 + [_F] * 7 + [_D] * 3
+    + [_P],
     "softmac_gather_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
     "softmac_splat_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
-    "softmac_collide_mixed_bwd": [_P] * 17 + [_I] * 4 + [_F] * 10 + [_P],
-    "softmac_collide_mixed1_bwd": [_P] * 8 + [_I] * 4 + [_F] * 8 + [_P],
-    "softmac_collide_mixed2_bwd": [_P] * 10 + [_I] * 4 + [_F] * 10 + [_P],
+    "softmac_collide_mixed_bwd": [_P] * 17 + [_I] * 4 + [_F] * 7 + [_D] * 3
+    + [_P],
+    "softmac_collide_mixed1_bwd": [_P] * 8 + [_I] * 4 + [_F] * 7 + [_D, _P],
+    "softmac_collide_mixed2_bwd": [_P] * 10 + [_I] * 4 + [_F] * 7
+    + [_D] * 3 + [_P],
     "softmac_fused_p2g": [_P] * 9 + [_I] * 4 + [_P],
     "softmac_fused_g2p": [_P] * 10 + [_I] * 4 + [_P],
     "softmac_fused_splat": [_P] * 6 + [_I] * 4 + [_P],

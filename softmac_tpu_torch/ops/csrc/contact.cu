@@ -67,15 +67,15 @@ extern "C" int softmac_collide_particle(
     const float* bq, const float* bv, const float* bw, const float* friction,
     float* imp, float* wrench, double* partial, unsigned* done, int n,
     int res0, int res1, int res2, float lower0, float lower1, float lower2,
-    float upper0, float upper1, float upper2, float inv_dx, float dt,
-    float p_mass, void* stream) {
+    float upper0, float upper1, float upper2, float inv_dx, double dt,
+    double p_mass, void* stream) {
   const softmac::MixedArgs a = {
       x, v, reinterpret_cast<const float4*>(table),
       {bp, bq, bv, bw, friction, nullptr, nullptr}, nullptr, nullptr, imp,
       nullptr, wrench, partial, done, n,
       geom(res0, res1, res2, lower0, lower1, lower2, upper0, upper1, upper2,
            inv_dx),
-      dt, p_mass, 0.0f};
+      dt, p_mass, 0.0};
   if (n > 0) {
     const int threads = softmac::kMixedThreads;
     const int blocks = softmac::mixed_blocks(n, softmac::kMixedPer * threads);

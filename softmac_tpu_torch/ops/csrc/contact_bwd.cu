@@ -70,7 +70,7 @@ extern "C" int softmac_collide_particle_bwd(
     const float* gimp, const float* gwrench, float* dx, float* dv,
     float* dbody, double* partial, unsigned* done, int n, int res0, int res1,
     int res2, float lower0, float lower1, float lower2, float upper0,
-    float upper1, float upper2, float inv_dx, float dt, float p_mass,
+    float upper1, float upper2, float inv_dx, double dt, double p_mass,
     void* stream) {
   const softmac::MixedArgs a = {
       x, v, reinterpret_cast<const float4*>(table),
@@ -78,7 +78,7 @@ extern "C" int softmac_collide_particle_bwd(
       dbody, partial, done, n,
       geom(res0, res1, res2, lower0, lower1, lower2, upper0, upper1, upper2,
            inv_dx),
-      dt, p_mass, 0.0f};
+      dt, p_mass, 0.0};
   if (n > 0) {
     const int threads = softmac::kMixedThreads;
     const int blocks =

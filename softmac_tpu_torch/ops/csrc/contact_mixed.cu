@@ -18,7 +18,11 @@
 // the glass's SDF box (a host build of this file in float; the plain
 // version in float32 is off by the same). In double the result is the one
 // of the float inputs. The split's stage-1 block is kept in double for the
-// same reason.
+// same reason, and dt, p_mass and the push cap come in as double, as the
+// plain versions take them: dt rounded to float (1e-3 by 4.7e-8) moved
+// dx, dv and the body cotangents by up to 1.3e-5 of their largest |value|
+// on particles over the glass's box at life 1/3 (an H100 against the
+// float64 plain vjp).
 //
 // The tiled kernel (contact_mixed.cuh describes its phases) reads x, v,
 // the SDF lane of each particle's stencil row and the 16 body floats, and
@@ -60,7 +64,7 @@ __global__ void __launch_bounds__(softmac::kMixedThreads, 2)
 __global__ void collide_mixed1_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     const float4* __restrict__ table, const float* __restrict__ body,
-    double* __restrict__ st1, int n, softmac::Geom g, float dt) {
+    double* __restrict__ st1, int n, softmac::Geom g, double dt) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   const V3<double> xp = softmac::load3(x, n, p), vp = softmac::load3(v, n, p);
@@ -78,7 +82,7 @@ __global__ void collide_mixed2_kernel(
     const float4* __restrict__ table, const float* __restrict__ body,
     const double* __restrict__ st1, float* __restrict__ pv_out,
     float* __restrict__ force, uint8_t* __restrict__ mask_out, int n,
-    softmac::Geom g, float dt, float p_mass, float push_cap) {
+    softmac::Geom g, double dt, double p_mass, double push_cap) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   const V3<double> xp = softmac::load3(x, n, p), vp = softmac::load3(v, n, p);
@@ -120,7 +124,7 @@ extern "C" int softmac_collide_mixed(
     const float* softness, const float* life, float* pv_out, float* wrench,
     double* partial, unsigned* done, int n, int res0, int res1, int res2,
     float lower0, float lower1, float lower2, float upper0, float upper1,
-    float upper2, float inv_dx, float dt, float p_mass, float push_cap,
+    float upper2, float inv_dx, double dt, double p_mass, double push_cap,
     void* stream) {
   const softmac::MixedArgs a = {
       x, v, reinterpret_cast<const float4*>(table),
@@ -145,7 +149,7 @@ extern "C" int softmac_collide_mixed1(
     const float* x, const float* v, const float* table, const float* body,
     double* st1, int n, int res0, int res1, int res2, float lower0,
     float lower1, float lower2, float upper0, float upper1, float upper2,
-    float inv_dx, float dt, void* stream) {
+    float inv_dx, double dt, void* stream) {
   if (n > 0) {
     collide_mixed1_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
@@ -163,8 +167,8 @@ extern "C" int softmac_collide_mixed2(
     const float* x, const float* v, const float* table, const float* body,
     const double* st1, float* pv_out, float* force, uint8_t* mask, int n,
     int res0, int res1, int res2, float lower0, float lower1, float lower2,
-    float upper0, float upper1, float upper2, float inv_dx, float dt,
-    float p_mass, float push_cap, void* stream) {
+    float upper0, float upper1, float upper2, float inv_dx, double dt,
+    double p_mass, double push_cap, void* stream) {
   if (n > 0) {
     collide_mixed2_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(

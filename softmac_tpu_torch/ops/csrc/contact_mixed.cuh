@@ -188,7 +188,7 @@ struct MixedArgs {
   unsigned* done;
   int n;
   Geom g;
-  float dt, p_mass, push_cap;
+  double dt, p_mass, push_cap;
 };
 
 struct MixedShared {

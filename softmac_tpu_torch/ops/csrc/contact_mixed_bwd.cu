@@ -67,7 +67,7 @@ __device__ __forceinline__ void mixed2_bwd_particle(
     const float4* __restrict__ table, const float* __restrict__ body,
     const double* __restrict__ st1, const float* __restrict__ gout,
     const float* __restrict__ gforce, double* __restrict__ gst1, int n, int p,
-    const softmac::Geom& g, float dt, float p_mass, float push_cap,
+    const softmac::Geom& g, double dt, double p_mass, double push_cap,
     V3<double>& gv, double gb[16]) {
   const V3<double> xp = softmac::load3(x, n, p), vp = softmac::load3(v, n, p);
   const softmac::MixedParticle q =
@@ -96,7 +96,7 @@ __device__ __forceinline__ void mixed1_bwd_particle(
     const float* __restrict__ x, const float* __restrict__ v,
     const float4* __restrict__ table, const float* __restrict__ body,
     const double* __restrict__ gst1, int n, int p, const softmac::Geom& g,
-    float dt, V3<double>& gx, V3<double>& gv, double gb[16]) {
+    double dt, V3<double>& gx, V3<double>& gv, double gb[16]) {
   const V3<double> xp = softmac::load3(x, n, p), vp = softmac::load3(v, n, p);
   const softmac::MixedParticle q =
       softmac::load_mixed_particle(body, xp, table, g);
@@ -116,7 +116,7 @@ __global__ void collide_mixed2_bwd_kernel(
     const double* __restrict__ st1, const float* __restrict__ gout,
     const float* __restrict__ gforce, double* __restrict__ gst1,
     float* __restrict__ dv, double* __restrict__ dbody_part, int n,
-    softmac::Geom g, float dt, float p_mass, float push_cap) {
+    softmac::Geom g, double dt, double p_mass, double push_cap) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   double gb[16];
   for (int i = 0; i < 16; ++i) gb[i] = 0.0;
@@ -135,7 +135,7 @@ __global__ void collide_mixed1_bwd_kernel(
     const float4* __restrict__ table, const float* __restrict__ body,
     const double* __restrict__ gst1, float* __restrict__ dx,
     float* __restrict__ dv, double* __restrict__ dbody_part, int n,
-    softmac::Geom g, float dt) {
+    softmac::Geom g, double dt) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   double gb[16];
   for (int i = 0; i < 16; ++i) gb[i] = 0.0;
@@ -171,7 +171,7 @@ extern "C" int softmac_collide_mixed_bwd(
     const float* gwrench, float* dx, float* dv, float* dbody, double* partial,
     unsigned* done, int n, int res0, int res1, int res2, float lower0,
     float lower1, float lower2, float upper0, float upper1, float upper2,
-    float inv_dx, float dt, float p_mass, float push_cap, void* stream) {
+    float inv_dx, double dt, double p_mass, double push_cap, void* stream) {
   const softmac::MixedArgs a = {
       x, v, reinterpret_cast<const float4*>(table),
       {bp, bq, bv, bw, friction, softness, life}, gout, gwrench, dx, dv,
@@ -199,7 +199,7 @@ extern "C" int softmac_collide_mixed2_bwd(
     const double* st1, const float* gout, const float* gforce, double* gst1,
     float* dv, double* dbody_part, int n, int res0, int res1, int res2,
     float lower0, float lower1, float lower2, float upper0, float upper1,
-    float upper2, float inv_dx, float dt, float p_mass, float push_cap,
+    float upper2, float inv_dx, double dt, double p_mass, double push_cap,
     void* stream) {
   if (n > 0) {
     collide_mixed2_bwd_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0,
@@ -221,7 +221,7 @@ extern "C" int softmac_collide_mixed1_bwd(
     const float* x, const float* v, const float* table, const float* body,
     const double* gst1, float* dx, float* dv, double* dbody_part, int n,
     int res0, int res1, int res2, float lower0, float lower1, float lower2,
-    float upper0, float upper1, float upper2, float inv_dx, float dt,
+    float upper0, float upper1, float upper2, float inv_dx, double dt,
     void* stream) {
   if (n > 0) {
     collide_mixed1_bwd_kernel<<<softmac::blocks_for(n), softmac::kThreads, 0,

@@ -67,7 +67,8 @@ def _plain(node):
 
 @pytest.mark.parametrize("name", [None, "demo_pour_vel_config.py",
                                   "demo_pour_config.py",
-                                  "demo_door_config.py"])
+                                  "demo_door_config.py",
+                                  "demo_grip_config.py"])
 def test_config_loads_to_same_dict(name):
     jpath = tpath = None
     if name is not None:
@@ -187,12 +188,13 @@ def test_kernel_library_is_keyed_by_sources():
 @pytest.mark.parametrize("name", sorted(build.SIGNATURES))
 def test_kernel_signature_matches_source(name):
     """The ctypes argument list of each entry point has the C prototype's
-    length and types (pointer, int, float), so no argument is cut."""
+    length and types (pointer, int, float, double), so no argument is cut
+    and no double is passed as a float."""
     sources = " ".join(p.read_text() for p in build.CSRC.glob("*.cu"))
     head = sources.split(f'extern "C" int {name}(', 1)[1].split(")", 1)[0]
     params = [a.strip() for a in head.split(",")]
-    kinds = ["p" if "*" in a else "i" if a.startswith("int ") else "f"
-             for a in params]
+    kinds = ["p" if "*" in a else "i" if a.startswith("int ")
+             else "d" if a.startswith("double ") else "f" for a in params]
     want = {build.ctypes.c_void_p: "p", build.ctypes.c_int: "i",
-            build.ctypes.c_float: "f"}
+            build.ctypes.c_float: "f", build.ctypes.c_double: "d"}
     assert kinds == [want[t] for t in build.SIGNATURES[name]]

@@ -217,22 +217,40 @@ def test_quat_functions_match_jax():
     _close(g.numpy(), jg)
 
 
-def test_unported_bodies_raise():
-    """The gripper's prismatic fingers and body-body contact raise, naming
-    the grip slice; the door's revolute hinge builds (test_torch_door.py
-    holds it to JAX)."""
+def test_unported_bodies_raise(tmp_path):
+    """Welds, articulated trees and body-body contact raise, naming what
+    the port's RigidModel steps; the gripper (a fixed palm and two
+    prismatic fingers) and the door's revolute hinge build
+    (test_torch_grip.py and test_torch_door.py hold them to JAX)."""
     tcfg = softmac_tpu_torch.load(
-        str(ROOT / "softmac_tpu_torch/config/demo_pour_config.py"))
-    with pytest.raises(NotImplementedError, match="grip slice"):
-        trigid.RigidModel([tload_urdf(str(ROOT / "assets/gripper/"
-                                          "gripper.urdf"))], tcfg.RIGID,
-                          1e-3, torch.float64)
+        str(ROOT / "softmac_tpu_torch/config/demo_grip_config.py"))
+    grip = ROOT / "assets/gripper/gripper.urdf"
+    gripper = trigid.RigidModel([tload_urdf(str(grip))], tcfg.RIGID, 1e-3,
+                                torch.float64)
+    assert [b.jtype for b in gripper.bodies] == ["fixed", "prismatic",
+                                                 "prismatic"]
     dcfg = softmac_tpu_torch.load(
         str(ROOT / "softmac_tpu_torch/config/demo_door_config.py"))
     door = trigid.RigidModel([tload_urdf(str(ROOT / "assets/door/door.urdf"))],
                              dcfg.RIGID, 1e-3, torch.float64)
     assert [b.jtype for b in door.bodies] == ["revolute"]
+    text = grip.read_text().replace('filename="',
+                                    f'filename="{grip.parent}/')
+    # the palm on a slider: the fingers' joints hang below a moving link
+    # (an articulated tree), or, made fixed, are welds onto it
+    for kind, what in (("prismatic", "articulated trees"),
+                       ("fixed", "welds")):
+        urdf = text.replace('"palm_to_world" type="fixed"',
+                            '"palm_to_world" type="prismatic"').replace(
+            '_to_palm" type="prismatic"', f'_to_palm" type="{kind}"')
+        (tmp_path / "g.urdf").write_text(urdf)
+        tcfg.defrost()
+        tcfg.RIGID.init_state = ()
+        with pytest.raises(NotImplementedError, match=what):
+            trigid.RigidModel([tload_urdf(str(tmp_path / "g.urdf"))],
+                              tcfg.RIGID, 1e-3, torch.float64)
     tcfg.defrost()
     tcfg.RIGID.body_contact = True
-    with pytest.raises(NotImplementedError, match="grip slice"):
+    with pytest.raises(NotImplementedError, match="body_contact is not "
+                                                  "ported"):
         trigid.RigidModel([], tcfg.RIGID, 1e-3, torch.float64)
