@@ -397,6 +397,17 @@ GRIP_LIVES = (1.0, 1 / 2, 1 / 3, 1 / 4, 1 / 5)
 GRIP_BODY_TOL = 1e-5       # the mixed pair's body floats on the grip
 # the pour's and the door's mixed pair, also held at a life below 1
 LIFE_BELOW_ONE = 1 / 3
+HIT_FORCE = -8.0           # the demo's initial push on z
+HIT_STEPS = 100            # the demo's horizon: the counted rollout
+HIT_GRAD_STEPS = 10        # from the rollout's carry, in contact
+HIT_GRAD_REPEATS = 1
+HIT_PROFILE_STEPS = 1
+HIT_PARITY_STEPS = 3
+HIT_PARITY_TOL = 1e-4      # x (particles whose pair agrees), cloth x, loss
+HIT_MOVED = 1e-3           # the towel's least displacement in contact
+DEMO_HIT_STEPS = 6         # the hit trainer (cut from 100)
+DEMO_HIT_EPOCHS = 2
+TRANSFERS = ("p2g", "g2p", "gather", "splat")
 FLOPS_PER_BWD_CELL = {"fused_p2g_bwd": (22 + 14, 32),
                       "fused_g2p_bwd": (20 + 14, 27),
                       "fused_splat_bwd": (5 + 3, 8),
@@ -479,7 +490,10 @@ def device_ms(name, fn, iters=10):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):      # a profile now and then holds no device event
+    # a profile now and then holds no device event, or loses one (9 of a
+    # call's 10 launches seen): the iters calls launch alike, so a count
+    # that is not a multiple of iters is such a loss; profile again
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -487,9 +501,9 @@ def device_ms(name, fn, iters=10):
             torch.cuda.synchronize()
         kern = [e for e in prof.events()
                 if e.device_type == DeviceType.CUDA]
-        if kern:
+        if kern and len(kern) % iters == 0:
             break
-    else:
+    if not kern:
         raise AssertionError(f"{name}: the profiler saw no device kernel")
     ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / iters
     ms0, launches = DEVICE_MS.get(name, (0.0, 0.0))
@@ -2045,28 +2059,29 @@ def run_slice(env):
 
 
 def timed_grad(env, acts, remat, loss_start_frame=0, grad_clip=None,
-               loss_stride=20):
+               loss_stride=20, carry0=None):
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = env.rollout_and_grad(acts, loss_start_frame=loss_start_frame,
                                loss_stride=loss_stride, grad_clip=grad_clip,
-                               remat=remat)
+                               remat=remat, carry0=carry0)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
 
 def run_gradient(tag, env, acts, expect, glass, window, repeats=GRAD_REPEATS,
                  loss_start_frame=0, grad_clip=None, loss_stride=20,
-                 remats=("step", "none"), counted=None):
-    """A gradient main path: rollout_and_grad of ``acts`` under each remat
-    of ``remats``, each one counted call (launches from zero, peak memory;
-    within ``counted``, a context such as an OffSlab, where given) and
-    ``repeats`` timed ones, and "step" against "none" where both run.
+                 remats=("step", "none"), counted=None, carry0=None):
+    """A gradient main path: rollout_and_grad of ``acts`` (from ``carry0``,
+    by default the scene's initial state) under each remat of ``remats``,
+    each one counted call (launches from zero, peak memory; within
+    ``counted``, a context such as an OffSlab, where given) and ``repeats``
+    timed ones, and "step" against "none" where both run.
     ``expect(remat)`` gives the launch counts, ``glass`` the action columns
     whose gradient may not be all zero."""
     kw = dict(loss_start_frame=loss_start_frame, grad_clip=grad_clip,
-              loss_stride=loss_stride)
+              loss_stride=loss_stride, carry0=carry0)
     import torch
     n_sub = len(acts) * env.substeps
     res, launches, grads = {}, {}, {}
@@ -2375,10 +2390,11 @@ def run_pour_split_grad(env):
     return res, launches
 
 
-def run_profile(env, acts, grad=False, loss_stride=None):
+def run_profile(env, acts, grad=False, loss_stride=None, carry0=None):
     """Device busy share and the top kernels over a short rollout of
     ``acts`` (or rollout_and_grad with remat "none", loss frames every
-    ``loss_stride`` substeps from 0, by default every len(acts))."""
+    ``loss_stride`` substeps from 0, by default every len(acts)), from
+    ``carry0`` (by default the scene's initial state)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2390,9 +2406,9 @@ def run_profile(env, acts, grad=False, loss_stride=None):
         if grad:
             env.rollout_and_grad(acts, loss_start_frame=0,
                                  loss_stride=loss_stride or steps,
-                                 remat="none")
+                                 remat="none", carry0=carry0)
         else:
-            env.rollout(acts)
+            env.rollout(acts, carry0=carry0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -4127,17 +4143,16 @@ def check_mixed_lives(tag, inp, lives, body_tol, every_body=True, seed=5):
             "tolerance_by_output": tol, "counts": counts}
 
 
-def check_grip_kernels(env, carry):
-    """Rows 1-8 and 11-12 of the port's table on the grip's state in
-    contact (``carry``): each kernel against its plain version (a backward:
+def check_transfer_rows(tag, inp):
+    """Rows 1-8 on a main path's state (``inp`` of grip_kernel_inputs or
+    hit_kernel_inputs): each kernel against its plain version (a backward:
     its plain vjp, seeded normal cotangents; the splat's backward on the
     real values) in float64 on the same inputs within ROW_TOL of each
     output row's largest |value|, device ms beside the bound for this
-    state; the mixed pair at each of GRIP_LIVES (check_mixed_lives, body
-    floats within GRIP_BODY_TOL)."""
+    state. Returns ({name: reading}, the splat's nonzero values, the
+    seeded normal draw)."""
     import torch
-    from softmac_tpu_torch.ops import contact, m33, transfer
-    inp = grip_kernel_inputs(env, carry)
+    from softmac_tpu_torch.ops import transfer
     cfg, x = inp["cfg"], inp["state"].x
     n = x.shape[1]
     corner, sizes = inp["corner"], inp["sizes"]
@@ -4187,16 +4202,30 @@ def check_grip_kernels(env, carry):
         else:                                       # each output
             rel = max(e[1] for e in _errors(got, want, range(len(got)))
                       .values())
-        dev = device_ms("grip " + name, lambda: fn(*args))
+        dev = device_ms(f"{tag} {name}", lambda: fn(*args))
         b_ms, b_by = bound(name, n, nbytes, flops)
         res[name] = {"max_rel_err": rel, "tolerance": ROW_TOL,
                      "device_ms": dev, "bound_ms": b_ms, "bound_by": b_by,
                      "bytes": nbytes}
-        print(f"grip_kernels {name}: rel err {rel}, device ms {dev}, bound "
+        print(f"{tag}_kernels {name}: rel err {rel}, device ms {dev}, bound "
               f"ms {b_ms}", flush=True)
         if not rel <= ROW_TOL:
-            raise AssertionError(f"grip {name}: relative error {rel} > "
+            raise AssertionError(f"{tag} {name}: relative error {rel} > "
                                  f"{ROW_TOL}")
+    return res, band, normal
+
+
+def check_grip_kernels(env, carry):
+    """Rows 1-8 and 11-12 of the port's table on the grip's state in
+    contact (``carry``): rows 1-8 by check_transfer_rows; the mixed pair's
+    device ms beside its bound, and the pair at each of GRIP_LIVES
+    (check_mixed_lives, body floats within GRIP_BODY_TOL)."""
+    import torch
+    from softmac_tpu_torch.ops import contact, m33
+    inp = grip_kernel_inputs(env, carry)
+    cfg, x = inp["cfg"], inp["state"].x
+    n = x.shape[1]
+    res, band, normal = check_transfer_rows("grip", inp)
     # the mixed pair: device ms (both fingers, as a substep runs them) and
     # its bound at the first substep's life
     dt, p_mass = cfg.dt, cfg.p_mass
@@ -4235,7 +4264,7 @@ def check_grip_kernels(env, carry):
                      **lives}
         print(f"grip_kernels {name}: device ms {dev}, bound ms {b_ms}",
               flush=True)
-    return {"n_particles": n, "window": list(sizes),
+    return {"n_particles": n, "window": list(inp["sizes"]),
             "splat_nonzero_vals": band, "kernels": res}
 
 
@@ -4253,8 +4282,8 @@ def run_grip_parity():
     return {"scene": "demo_grip", "init_state": list(GRIP_NEAR), **res}
 
 
-def run_demo_trainer(module, name, steps, kernels):
-    """A ported trainer on the card, DEMO_EPOCHS epochs of ``steps`` env
+def run_demo_trainer(module, name, steps, kernels, epochs=DEMO_EPOCHS):
+    """A ported trainer on the card, ``epochs`` epochs of ``steps`` env
     steps on its own scene, logs in a temporary directory: every epoch's
     loss finite, losses.npy and a checkpoint per epoch written, each of
     ``kernels`` launched; how far the last checkpoint's actions moved from
@@ -4265,21 +4294,21 @@ def run_demo_trainer(module, name, steps, kernels):
         reset_launches()
         t0 = time.perf_counter()
         out = module.main(["--steps", str(steps), "--epochs",
-                           str(DEMO_EPOCHS), "--log-root", tmp])
+                           str(epochs), "--log-root", tmp])
         secs = time.perf_counter() - t0
         launches = read_launches()
         log = Path(tmp) / name
         ckpts = sorted(p.name for p in (log / "ckpt").glob("actions_*.npy"))
         saved = np.load(log / "losses.npy").tolist()
         a0 = np.load(log / "ckpt/actions_0.npy")
-        a_last = np.load(log / f"ckpt/actions_{DEMO_EPOCHS - 1}.npy")
-    res = {"epochs": DEMO_EPOCHS, "env_steps": steps,
+        a_last = np.load(log / f"ckpt/actions_{epochs - 1}.npy")
+    res = {"epochs": epochs, "env_steps": steps,
            "losses": out["losses"], "epoch_seconds": out["epoch_seconds"],
            "seconds_with_setup": secs, "checkpoints": ckpts,
            "actions_max_abs_change": float(np.abs(a_last - a0).max()),
            "launches": launches}
     if not (all(math.isfinite(v) for v in out["losses"])
-            and saved == out["losses"] and len(ckpts) == DEMO_EPOCHS
+            and saved == out["losses"] and len(ckpts) == epochs
             and all(launches[k] > 0 for k in kernels)):
         raise AssertionError(f"{name} trainer on the card failed: {res}")
     return res
@@ -4296,6 +4325,304 @@ def run_demo_pour_vel():
     from softmac_tpu_torch.demos import demo_pour_vel
     return run_demo_trainer(demo_pour_vel, "pour_vel", DEMO_GRIP_STEPS,
                             FORWARD + tuple(k + "_bwd" for k in FORWARD))
+
+
+# ---------------------------------------------------------------------------
+# the hit: two MPM-controlled corotated-elastic cylinders and a box against a
+# towel (144 vertices, 242 faces) hanging from two vertices, forecast mixed
+# cloth contact in plain PyTorch, ten substeps an env step, window
+# (32, 24, 32): rows 1-8 on the cloth path
+# ---------------------------------------------------------------------------
+def hit_env(device=None):
+    """The hit at its 5000 particles, the two cylinders on the controller
+    (demos/demo_hit.py)."""
+    import numpy as np
+    from softmac_tpu_torch import SoftMacEnv, load
+    cfg = load(str(ROOT / "softmac_tpu_torch/config/demo_hit_config.py"))
+    env = SoftMacEnv(cfg, device=device)
+    idx = np.full(env.n_particles, -1, np.int32)
+    idx[:sum(int(s["n_particles"]) for s in cfg.SHAPES[:2])] = 0
+    env.set_control_idx(idx)
+    return env
+
+
+def hit_actions(n_steps):
+    """The demo's initial actions: HIT_FORCE on z."""
+    import numpy as np
+    return np.tile([0.0, 0.0, HIT_FORCE], (n_steps, 1))
+
+
+class ClothContacts:
+    """Within it, each env step's contact pairs and penetrating particles
+    after the cloth moved (what ``trace_penetration_after_cloth`` returns)
+    and the largest |vertex force| the cloth step of ``env`` took are kept;
+    ``counts()`` reads them after a synchronize."""
+
+    def __init__(self, env):
+        self.env, self.pairs, self.forces = env, [], []
+
+    def __enter__(self):
+        import torch
+        from softmac_tpu_torch.engine import cloth_contact as cc
+        self.cc, self.trace = cc, cc.trace_penetration_after_cloth
+        step = self.env.cloth_model.step
+
+        def traced(*args, **kw):
+            out = self.trace(*args, **kw)
+            self.pairs.append(torch.stack([(out.contact_id >= 0).sum(),
+                                           (out.penetration != 0).sum()]))
+            return out
+
+        def stepped(state, attach, ext_f):
+            self.forces.append(ext_f.abs().amax())
+            return step(state, attach, ext_f)
+        cc.trace_penetration_after_cloth = traced
+        self.env.cloth_model.step = stepped
+        return self
+
+    def __exit__(self, *exc):
+        self.cc.trace_penetration_after_cloth = self.trace
+        del self.env.cloth_model.step
+
+    def counts(self):
+        import torch
+        torch.cuda.synchronize()
+        pairs = torch.stack(self.pairs).tolist() if self.pairs else []
+        return {"pairs": [p[0] for p in pairs],
+                "penetrating": [p[1] for p in pairs],
+                "vertex_force_max_abs": torch.stack(self.forces).double()
+                .tolist() if self.forces else []}
+
+
+def run_hit(env):
+    """The hit's main path: SoftMacEnv.rollout of the demo's HIT_STEPS env
+    steps at its initial push, launches counted from zero (rows 1-8 each
+    once a substep; the cloth contact launches none of the port's
+    kernels), the slab kernels' spills and the read-side off-slab
+    particles summed, each env step's pairs, penetrating particles and
+    largest vertex force kept. No overflow, finite, contact pairs, a
+    nonzero vertex force and a towel that moved more than HIT_MOVED."""
+    import torch
+    acts = hit_actions(HIT_STEPS)
+    reset_launches()
+    with OffSlab() as off, Spills() as spills, ClothContacts(env) as touch:
+        out, secs = timed_rollout(env, acts)
+    launches = read_launches()
+    n_sub = HIT_STEPS * env.substeps
+    expect = dict.fromkeys(wrappers(), 0)
+    expect.update(dict.fromkeys(TRANSFERS, n_sub))
+    if launches != expect:
+        raise AssertionError(f"hit launch counts {launches}, expected "
+                             f"{expect}")
+    state, cloth, pen = out["carry"]
+    rest = env.cloth_model.init_state().x
+    contacts = touch.counts()
+    forces = contacts["vertex_force_max_abs"]
+    loss = out["loss"].item()
+    res = {"scene": "demo_hit", "n_particles": env.n_particles,
+           "cloth_vertices": env.cloth_model.n_vertices,
+           "cloth_faces": int(env.cloth_params.faces.shape[0]),
+           "window": list(env.mpm_cfg.active_window),
+           "substeps_per_env_step": env.substeps, "env_steps": HIT_STEPS,
+           "substeps": n_sub, "push_z": HIT_FORCE,
+           "wall_ms_per_substep": secs * 1e3 / n_sub,
+           "launches": launches, "spilled": spills.counts(),
+           "off_slab": off.counts(), "loss": loss,
+           "terms": {k: float(v) for k, v in out["terms"].items()},
+           "pairs_by_env_step": contacts["pairs"],
+           "penetrating_by_env_step": contacts["penetrating"],
+           "vertex_force_max_abs_by_env_step": forces,
+           "first_contact_env_step": next(
+               (t for t, f in enumerate(forces) if f > 0), None),
+           "towel_moved_max_abs": (cloth.x - rest).abs().max().item(),
+           "x_finite": bool(torch.isfinite(state.x).all()),
+           "cloth_finite": bool(torch.isfinite(cloth.x).all()
+                                and torch.isfinite(cloth.v).all())}
+    res["spilled_total"] = sum(v["spilled"] for v in res["spilled"].values())
+    res["off_slab_total"] = sum(v["off_slab"]
+                                for v in res["off_slab"].values())
+    print(f"hit: spilled {res['spilled']}, off the slab {res['off_slab']}, "
+          f"pairs {contacts['pairs'][-5:]}, penetrating "
+          f"{contacts['penetrating'][-5:]}, vertex force "
+          f"{max(forces)}, towel moved {res['towel_moved_max_abs']}",
+          flush=True)
+    if (res["terms"]["window_overflow"] or not math.isfinite(loss)
+            or not (res["x_finite"] and res["cloth_finite"])
+            or not max(contacts["pairs"]) > 0 or not max(forces) > 0
+            or not res["towel_moved_max_abs"] > HIT_MOVED):
+        raise AssertionError(f"hit output wrong: {res}")
+    return res, launches, out["carry"]
+
+
+def hit_grad_expect(env, steps, remat):
+    """Launches of rows 1-8 in the hit's rollout_and_grad over ``steps``
+    env steps from a carry, the loss on the towel at the last frame only
+    (the demo's). Every substep's P2G and gather feed that substep's
+    vertex forces, so they run backward; the last substep's G2P output and
+    the splat under it reach no loss (the towel took its forces before
+    it), so theirs do not. Under remat "step" every env step is replayed
+    once."""
+    n_sub = steps * env.substeps
+    replays = n_sub if remat == "step" else 0
+    expect = dict.fromkeys(wrappers(), 0)
+    expect.update(dict.fromkeys(TRANSFERS, n_sub + replays))
+    expect.update({"p2g_bwd": n_sub, "gather_bwd": n_sub,
+                   "g2p_bwd": n_sub - 1, "splat_bwd": n_sub - 1})
+    return expect
+
+
+def run_hit_grad(env, carry):
+    """The hit's gradient path: rollout_and_grad of HIT_GRAD_STEPS env
+    steps of the demo's push from ``carry`` (the rollout's, in contact),
+    the demo's loss (the last frame), remat "step": one counted call and
+    HIT_GRAD_REPEATS timed ones, exact launch counts (hit_grad_expect),
+    finite, nonzero, the repeats within GRAD_TOL; contact in every env
+    step of the counted call."""
+    touch, spills, off = ClothContacts(env), Spills(), OffSlab()
+
+    class All:
+        def __enter__(self):
+            off.__enter__()
+            spills.__enter__()
+            touch.__enter__()
+
+        def __exit__(self, *exc):
+            touch.__exit__(*exc)
+            spills.__exit__(*exc)
+            off.__exit__(*exc)
+    frames = HIT_GRAD_STEPS * env.substeps
+    out, launches = run_gradient(
+        "hit_grad", env, hit_actions(HIT_GRAD_STEPS),
+        lambda remat: hit_grad_expect(env, HIT_GRAD_STEPS, remat), [0, 1, 2],
+        env.mpm_cfg.active_window, repeats=HIT_GRAD_REPEATS,
+        loss_start_frame=frames, loss_stride=frames, remats=("step",),
+        counted=All(), carry0=carry)
+    out.update(touch.counts())
+    out["spilled"], out["off_slab"] = spills.counts(), off.counts()
+    print(f"hit_grad: pairs {out['pairs']}, spilled {out['spilled']}, off "
+          f"the slab {out['off_slab']}", flush=True)
+    if not (min(out["pairs"]) > 0 and min(out["vertex_force_max_abs"]) > 0):
+        raise AssertionError(f"hit_grad: an env step without contact: "
+                             f"{out}")
+    return {"scene": "demo_hit", "from": "the hit rollout's exit carry",
+            **out}, launches
+
+
+def hit_kernel_inputs(env, carry):
+    """The inputs the hit's first substep from ``carry`` hands rows 1-8
+    (y-sorted, as the rollout keeps them), built with the port's own
+    substep stages and the kernels: P2G's channels (the controller's
+    push in), the bounded grid velocity the gather reads, the cloth
+    contact's target velocity (plain PyTorch, life 1/10), the splat's
+    values and the grid velocity G2P reads."""
+    import torch
+    from softmac_tpu_torch.engine import cloth_contact as cc
+    from softmac_tpu_torch.engine import mpm
+    from softmac_tpu_torch.ops import m33, transfer
+    cfg = env.mpm_cfg
+    state, cloth, pen = carry
+    q, _ = mpm.sort_perm(cfg, state.x)
+    state, pen = mpm.permute_state(state, q), cc.permute_pen(pen, q)
+    params = mpm.permute_params(env.mpm_params, q)
+    stress, _ = mpm.stress_and_F(cfg, params, state)
+    sizes, corner, overflow = mpm.window_geometry(cfg, state.x)
+    if bool(overflow) or mpm.transfer_route(cfg) != "transfer":
+        raise AssertionError("hit kernel-check state: overflow or route")
+    zero = torch.zeros_like(state.x[0])
+    push = torch.tensor(hit_actions(1), dtype=state.x.dtype,
+                        device=state.x.device)
+    impulse = mpm.control_impulse(cfg, params, (zero, zero, zero), push)
+    chan = mpm._p2g_channels(cfg, tuple(state.v), m33.from_mat_array(state.C),
+                             stress, impulse)
+    gm, gmom = transfer.p2g(state.x, chan, corner, sizes, cfg.inv_dx)
+    gvm, mask = mpm._bounded_velocity(cfg, params, gm, gmom, sizes, corner)
+    gvm = tuple(g.contiguous() for g in gvm)
+    v_tmp = transfer.gather(state.x, *gvm, corner, sizes, cfg.inv_dx)
+    v_tgt, ext = cc.collide_cloth(
+        env.cloth_params, cloth.x, cloth.v, tuple(state.x), tuple(v_tmp),
+        cfg.p_mass, cfg.dt, 1.0 / cfg.substeps, pen,
+        env.cloth_model.n_vertices)
+    vals = (-2.0 * (v_tmp - torch.stack(v_tgt))).contiguous()
+    corr = transfer.splat(state.x, vals, corner, sizes, cfg.inv_dx)
+    wx = sizes[0]
+    gv = tuple(torch.where(mask, gvm[d] + corr[:, d * wx:(d + 1) * wx],
+                           0.0).contiguous() for d in range(3))
+    return dict(cfg=cfg, state=state, corner=corner, sizes=sizes, chan=chan,
+                gvm=gvm, gv=gv, vals=vals,
+                pairs=int((pen.contact_id >= 0).sum()),
+                vertex_force_max_abs=ext.abs().max().item())
+
+
+def check_hit_kernels(env, carry):
+    """Rows 1-8 on the hit's state in contact (``carry``), by
+    check_transfer_rows: the state must hold contact pairs and particles
+    whose velocity the cloth changed (the splat's nonzero values)."""
+    inp = hit_kernel_inputs(env, carry)
+    res, band, _ = check_transfer_rows("hit", inp)
+    if not (inp["pairs"] > 0 and band > 0
+            and inp["vertex_force_max_abs"] > 0):
+        raise AssertionError(f"hit kernel-check state not in contact: pairs "
+                             f"{inp['pairs']}, nonzero values {band}")
+    return {"n_particles": inp["state"].x.shape[1],
+            "window": list(inp["sizes"]), "contact_pairs": inp["pairs"],
+            "splat_nonzero_vals": band,
+            "vertex_force_max_abs": inp["vertex_force_max_abs"],
+            "kernels": res}
+
+
+def run_hit_parity(env, carry):
+    """HIT_PARITY_STEPS env steps of the demo's push from ``carry`` (the
+    rollout's, in contact) on the card (float32, kernels) and on the CPU
+    (float64, plain versions, the same carry widened), the demo's loss:
+    how many particles' contact id or penetration bit differ at the end;
+    x of the particles that agree, the towel's x and the loss within
+    HIT_PARITY_TOL (the loss relative)."""
+    import torch
+    from softmac_tpu_torch.engine.env import map_carry
+    cpu = hit_env("cpu")
+    wide = map_carry(lambda t: (t.double() if t.is_floating_point() else t)
+                     .cpu(), carry)
+    acts = hit_actions(HIT_PARITY_STEPS)
+    frames = HIT_PARITY_STEPS * env.substeps
+    kw = dict(loss_start_frame=frames, loss_stride=frames)
+    reset_launches()
+    got = env.rollout(acts, carry0=carry, **kw)
+    launches = read_launches()
+    want = cpu.rollout(acts, carry0=wide, **kw)
+    (mg, cg, pg), (mc, cc_, pc) = got["carry"], want["carry"]
+    agree = ((pg.contact_id.cpu() == pc.contact_id)
+             & (pg.penetration.cpu() == pc.penetration))
+    lg, lc = got["loss"].item(), want["loss"].item()
+    res = {"scene": "demo_hit", "from": "the hit rollout's exit carry",
+           "n_particles": env.n_particles, "env_steps": HIT_PARITY_STEPS,
+           "pairs_gpu": int((pg.contact_id >= 0).sum()),
+           "pairs_cpu": int((pc.contact_id >= 0).sum()),
+           "penetrating_cpu": int((pc.penetration != 0).sum()),
+           "pair_or_bit_differs": int((~agree).sum()),
+           "x_max_abs_err_where_agree": (mg.x.double().cpu() - mc.x)[
+               :, agree].abs().max().item(),
+           "cloth_x_max_abs_err": (cg.x.double().cpu() - cc_.x).abs().max()
+           .item(),
+           "loss_gpu": lg, "loss_cpu": lc,
+           "loss_rel_err": abs(lg - lc) / abs(lc),
+           "tolerance": HIT_PARITY_TOL, "gpu_launches": launches}
+    print(f"hit_parity: {res['pair_or_bit_differs']} particles' pair or bit "
+          f"differ; x {res['x_max_abs_err_where_agree']}, cloth x "
+          f"{res['cloth_x_max_abs_err']}, loss {res['loss_rel_err']}",
+          flush=True)
+    if not (all(launches[k] > 0 for k in TRANSFERS) and res["pairs_cpu"] > 0
+            and res["x_max_abs_err_where_agree"] <= HIT_PARITY_TOL
+            and res["cloth_x_max_abs_err"] <= HIT_PARITY_TOL
+            and res["loss_rel_err"] <= HIT_PARITY_TOL):
+        raise AssertionError(f"hit GPU/CPU parity failed: {res}")
+    return res
+
+
+def run_demo_hit():
+    from softmac_tpu_torch.demos import demo_hit
+    return run_demo_trainer(demo_hit, "hit", DEMO_HIT_STEPS,
+                            TRANSFERS + tuple(k + "_bwd" for k in TRANSFERS),
+                            epochs=DEMO_HIT_EPOCHS)
 
 
 def main():
@@ -4416,6 +4743,11 @@ def main():
         grip_grad_launches["step"], grip_grad_launches["none"])
     grip_kernels = check_grip_kernels(genv, grip_carry)
     del grip_carry
+    henv = hit_env()
+    hit_res, paths["hit"], hit_carry = run_hit(henv)
+    hit_kernels = check_hit_kernels(henv, hit_carry)
+    hit_grad_res, hit_grad_launches = run_hit_grad(henv, hit_carry)
+    paths["hit_grad_step"] = hit_grad_launches["step"]
     for k in kernels:
         # each kernel's main path: the forward kernels of pour_vel on its
         # rollout, their backwards on its gradient path with the default
@@ -4447,6 +4779,8 @@ def main():
         if name in grip_kernels["kernels"]:
             # on the grip's state in contact: error, device ms and bound
             k["grip_state"] = grip_kernels["kernels"][name]
+        if name in hit_kernels["kernels"]:
+            k["hit_state"] = hit_kernels["kernels"][name]
         if name == "collide_mixed":
             k["lives"] = {"pour": pour_lives, "door_band_state": door_lives}
         if not k["launches"] > 0:
@@ -4514,6 +4848,19 @@ def main():
     emit("grip_parity", run_grip_parity())
     emit("demo_grip", run_demo_grip())
     emit("demo_pour_vel", run_demo_pour_vel())
+    emit("hit", hit_res)
+    emit("hit_kernels", hit_kernels)
+    emit("hit_grad", hit_grad_res)
+    emit("profile_hit", {
+        "from": "the hit rollout's exit carry",
+        "forward": run_profile(henv, hit_actions(HIT_PROFILE_STEPS),
+                               carry0=hit_carry),
+        "fwd_bwd": run_profile(henv, hit_actions(HIT_PROFILE_STEPS),
+                               grad=True, carry0=hit_carry,
+                               loss_stride=HIT_PROFILE_STEPS * henv.substeps)})
+    emit("hit_parity", run_hit_parity(henv, hit_carry))
+    del henv, hit_carry
+    emit("demo_hit", run_demo_hit())
     print(smi, flush=True)      # the card again, next to the result
     emit(None, {"ok": True, "device": {"platform": "gpu", "kind": kind,
                                       "count": torch.cuda.device_count()}})

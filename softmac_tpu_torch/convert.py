@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from softmac_tpu_torch.engine import sdf as sdf_mod
+from softmac_tpu_torch.engine.cloth import ClothState
+from softmac_tpu_torch.engine.cloth_contact import PenetrationState
 from softmac_tpu_torch.engine.rigid import RigidState
 from softmac_tpu_torch.engine.types import (
     BodyState, MPMParams, MPMState, SDFParams,
@@ -51,6 +53,18 @@ def mpm_params(arrays, device="cpu", dtype=torch.float64) -> MPMParams:
     """mu, lam, yield_stress, control_idx (N,), gravity (3,), friction,
     softness (B,)."""
     return _fields(MPMParams, arrays, device, dtype)
+
+
+def cloth_state(arrays, device="cpu", dtype=torch.float64) -> ClothState:
+    """x (V, 3), v (V, 3) cloth vertices."""
+    return _fields(ClothState, arrays, device, dtype)
+
+
+def penetration_state(arrays, device="cpu",
+                      dtype=torch.float64) -> PenetrationState:
+    """contact_id (N,) int32, penetration (N,) int8: integer, so they keep
+    their type."""
+    return _fields(PenetrationState, arrays, device, dtype)
 
 
 def sdf_params(arrays, device="cpu", dtype=torch.float64) -> SDFParams:

@@ -4,9 +4,14 @@ Counterpart of ``softmac_tpu/engine/env.py`` for the rigid-coupled scenes:
 the velocity-controlled pour_vel (particle contact against SDF primitives
 whose (w, v) the actions set), the flagship pour (forecast mixed contact
 against floating, force-controlled bodies that the ``RigidModel`` steps
-once per env step with the window-averaged contact wrench) and the door
-(``control_mode`` "mpm": the actions drive particle controllers, and the
-``RigidModel`` steps the revolute door with no action). ``rollout``
+once per env step with the window-averaged contact wrench), the door and
+the grip (``control_mode`` "mpm": the actions drive particle controllers,
+and the ``RigidModel`` steps the bodies with no action), and for the
+cloth-coupled hit (a ``CLOTH`` section: the carry is (mpm, cloth, pen);
+each env step runs its substeps against the forecast cloth with the
+contact pairs and penetration bits traced after each, then one
+projective-dynamics cloth step on the window-averaged vertex forces, then
+the pairs re-resolved against the moved cloth). ``rollout``
 (under ``torch.no_grad()``) and ``rollout_and_grad`` (autograd, then
 ``torch.autograd.grad`` of the loss with respect to the actions) run one
 loop, eagerly on ``device`` (CUDA by default):
@@ -25,7 +30,7 @@ with the same loss-frame sampling as the JAX rollout (``_sample_mask``).
 (a batched carry: the carry with a leading B on every tensor, from
 ``jittered_carry`` or the initial state broadcast B ways) one after
 another through the same loop, which gives what JAX's vmap over the
-rollout gives. The imperative facade and the other scene families are not
+rollout gives. The imperative facade and the cloth control mode are not
 ported yet.
 """
 from __future__ import annotations
@@ -39,12 +44,16 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from softmac_tpu_torch.engine import cloth_contact as cc
 from softmac_tpu_torch.engine import mpm as mpm_mod
+from softmac_tpu_torch.engine.cloth import (
+    ClothModel, ClothState, parse_scene_config, transform_mesh,
+)
 from softmac_tpu_torch.engine.losses import LOSS_REGISTRY, FrameSample
 from softmac_tpu_torch.engine.materials import lame_parameters
 from softmac_tpu_torch.engine.meshio import load_obj, load_urdf
 from softmac_tpu_torch.engine.rigid import (
-    RigidModel, RigidState, RigidVelocityModel, grad_scale,
+    GradScale, RigidModel, RigidState, RigidVelocityModel, grad_scale,
 )
 from softmac_tpu_torch.engine.sdf import preprocess_sdf, sdf_params_from_bake
 from softmac_tpu_torch.engine.shapes import Shapes
@@ -105,22 +114,43 @@ class ClipCotangent(torch.autograd.Function):
 
 
 def _carry_tensors(carry):
-    mpm, bodies, rigid = carry
-    return (mpm.x, mpm.v, mpm.C, mpm.F, bodies.pos, bodies.quat, bodies.v,
-            bodies.w, rigid.q, rigid.qd)
+    """The tensors of a rigid carry (mpm, bodies, rigid) or a cloth carry
+    (mpm, cloth, pen), in a fixed order."""
+    mpm, second, third = carry
+    head = (mpm.x, mpm.v, mpm.C, mpm.F)
+    if isinstance(second, ClothState):
+        return head + (second.x, second.v, third.contact_id,
+                       third.penetration)
+    return head + (second.pos, second.quat, second.v, second.w, third.q,
+                   third.qd)
 
 
-def _carry_from(t):
-    return (MPMState(x=t[0], v=t[1], C=t[2], F=t[3]),
-            BodyState(pos=t[4], quat=t[5], v=t[6], w=t[7]),
+def _carry_from(t, like):
+    """A carry of ``like``'s kind from the tensors ``t`` of
+    ``_carry_tensors``."""
+    mpm = MPMState(x=t[0], v=t[1], C=t[2], F=t[3])
+    if isinstance(like[1], ClothState):
+        return (mpm, ClothState(x=t[4], v=t[5]),
+                cc.PenetrationState(contact_id=t[6], penetration=t[7]))
+    return (mpm, BodyState(pos=t[4], quat=t[5], v=t[6], w=t[7]),
             RigidState(q=t[8], qd=t[9]))
 
 
 def map_carry(fn, carry):
     """``fn`` applied to every tensor of a carry (``jax.tree.map`` over the
-    port's (mpm, bodies, rigid) carry), e.g. to tile or slice a batched
-    carry along its leading axis."""
-    return _carry_from([fn(t) for t in _carry_tensors(carry)])
+    port's (mpm, bodies, rigid) or (mpm, cloth, pen) carry), e.g. to tile
+    or slice a batched carry along its leading axis."""
+    return _carry_from([fn(t) for t in _carry_tensors(carry)], carry)
+
+
+def _clip_carry(carry, cap):
+    """``ClipCotangent`` over the carry's floating tensors together (the
+    integer side-state has no cotangent)."""
+    ts = list(_carry_tensors(carry))
+    fl = [i for i, t in enumerate(ts) if t.is_floating_point()]
+    for i, t in zip(fl, ClipCotangent.apply(cap, *(ts[i] for i in fl))):
+        ts[i] = t
+    return _carry_from(ts, carry)
 
 
 def _remat_group(remat, block):
@@ -156,8 +186,10 @@ class SoftMacEnv:
             torch.backends.cudnn.allow_tf32 = False
         mpm_scale = cfg.get("mpm_scale", 1.0)
         self.search_dirs = [".", str(REPO_ROOT)]
-        if cfg.get("CLOTH") and cfg.CLOTH.get("sceneConfig"):
-            raise NotImplementedError("cloth scenes are not ported yet")
+        self.has_cloth = bool(cfg.get("CLOTH") and cfg.CLOTH.get("sceneConfig"))
+        if cfg.control_mode == "cloth":
+            raise NotImplementedError("the cloth control mode is not ported "
+                                      "yet")
 
         # ---------------- particles ----------------------------------------
         # init_particles overrides SHAPES with an explicit (N, 3) position
@@ -237,6 +269,10 @@ class SoftMacEnv:
             softness=torch.full((max(self.n_primitives, 1),), 666.0, **kw),
         )
 
+        self.cloth_model = self.cloth_params = None
+        if self.has_cloth:
+            self._build_cloth(cfg, mpm_scale)
+
         # ---------------- rigid bodies ----------------------------------------
         self.rigid_vel_model = None
         self.rigid_model = None
@@ -266,6 +302,56 @@ class SoftMacEnv:
         else:
             self.action_dim = 6 * self.n_primitives
         self._overflow_warned = False
+
+    def _build_cloth(self, cfg, mpm_scale):
+        """The cloth model and its contact parameters (JAX env.py:218-268):
+        the mesh of the sceneConfig from ``envs/assets``, placed by
+        ``CLOTH.transform``; the face adjacency read from its cached
+        ``adjacency_<mesh>.npz`` beside it, or searched (and not written)
+        where there is none."""
+        scene = dict(cfg.CLOTH.sceneConfig[0])
+        mesh_name = Path(str(scene["fabric:name"])).name
+        mesh_path = self._resolve(Path("envs/assets") / mesh_name.split(".")[0]
+                                  .split("_")[0] / mesh_name)
+        cverts, cfaces = load_obj(mesh_path)
+        if len(cfg.CLOTH.get("transform", [])) > 0:
+            cverts = transform_mesh(cverts, dict(cfg.CLOTH.transform[0]))
+        sp = parse_scene_config(scene)
+        sp["dt"] = cfg.env_dt
+        sp["velocity_damping"] = float(cfg.CLOTH.get("velocity_damping", 0.02))
+        if cfg.CLOTH.get("n_iterations"):
+            # CLOTH.n_iterations overrides the sceneConfig's solverIterations
+            sp["n_iterations"] = int(cfg.CLOTH.n_iterations)
+        self.cloth_model = ClothModel(cverts, cfaces, dtype=self.dtype,
+                                      device=self.device, **sp)
+        pcfg = cfg.PRIMITIVES     # cloth scenes: one contact-param node
+        nb_cache = Path(mesh_path).parent / f"adjacency_{mesh_name}.npz"
+        if nb_cache.exists():
+            data = np.load(nb_cache)
+            nb, nd = data["neighbors"], data["dirs"]
+        else:
+            nb, nd = cc.process_faces(cfaces, n_neighbors=200)
+        kw = dict(dtype=self.dtype, device=self.device)
+        self.cloth_params = cc.ClothContactParams(
+            faces=torch.as_tensor(np.asarray(cfaces), dtype=torch.int64,
+                                  device=self.device),
+            neighbor_faces=torch.as_tensor(np.asarray(nb), dtype=torch.int32,
+                                           device=self.device),
+            neighbor_dirs=torch.as_tensor(np.asarray(nd), dtype=torch.int8,
+                                          device=self.device),
+            friction=torch.tensor(float(pcfg.friction), **kw),
+            softness=torch.tensor(float(pcfg.get("softness", 666.0)), **kw),
+            cloth_force_scale=torch.tensor(
+                float(pcfg.get("cloth_force_scale", 1.0)), **kw),
+            mpm_force_scale=torch.tensor(
+                float(pcfg.get("mpm_force_scale", 1.0)), **kw),
+            sticky=bool(pcfg.get("sticky", False)),
+            mpm_scale=float(mpm_scale),
+            push_velocity_cap=float(pcfg.get("push_velocity_cap", 5.0)),
+            contact_geom_grad_scale=float(
+                pcfg.get("contact_geom_grad_scale", 1.0)),
+            contact_cv_grad_scale=float(
+                pcfg.get("contact_cv_grad_scale", 1.0)))
 
     def _resolve(self, path) -> Path:
         p = Path(path)
@@ -304,6 +390,15 @@ class SoftMacEnv:
             mpm0 = mpm_state_zero(self.mpm_cfg, x0)
         else:
             mpm0 = mpm_state_from_packed(self.mpm_cfg, x0)
+        if self.has_cloth:
+            # (mpm, cloth, pen): the first pairs against the rest cloth
+            cloth0 = self.cloth_model.init_state()
+            pen0 = torch.zeros((self.n_particles,), dtype=torch.int8,
+                               device=self.device)
+            cid0 = cc.get_contact_pair(self.cloth_params, cloth0.x,
+                                       tuple(mpm0.x), pen0)
+            return (mpm0, cloth0, cc.PenetrationState(contact_id=cid0,
+                                                      penetration=pen0))
         empty = torch.zeros((0,), dtype=self.dtype, device=self.device)
         rigid0 = RigidState(q=empty, qd=empty.clone())
         if self.rigid_vel_model is not None:
@@ -325,6 +420,9 @@ class SoftMacEnv:
         post-substep state (particles in original order via
         ``unsort_perm``); zero weights are skipped."""
         params = self.mpm_params if params is None else params
+        if self.has_cloth:
+            return self._env_step_cloth(carry, action, params, loss_weights,
+                                        unsort_perm)
         mpm, bodies, rigid = carry
         if self.rigid_model is not None:
             # the bodies stay frozen over the substeps; their cotangents
@@ -365,6 +463,66 @@ class SoftMacEnv:
                     terms[name] = terms.get(name, 0.0) + loss_weights[k] * v
         ext_f = torch.stack(ext).sum(dim=0) / cfg.substeps
         return mpm, bodies, ext_f, torch.stack(ovf).any(), terms
+
+    def _env_step_cloth(self, carry, action, params, loss_weights=None,
+                        unsort_perm=None):
+        """One coupled MPM + cloth env step (soft_cloth taichi_env.py:74-96;
+        JAX env.py:510-583): the substeps against the window's forecast
+        cloth, each followed by the pair search and the penetration tracing
+        after the MPM move; one cloth step on the window-averaged vertex
+        forces; the pairs re-resolved against the moved cloth. Returns
+        ((mpm, cloth, pen), (overflow, vertex force[, loss terms]))."""
+        mpm, cloth, pen = carry
+        cfg, cparams = self.mpm_cfg, self.cloth_params
+        mpm_action = None
+        if self.action_dim > 0:
+            mpm_action = action.reshape(cfg.n_controllers, 3).to(self.dtype)
+        # the forecast cloth of the window, its cotangents damped by
+        # ext_grad_scale
+        cxf, cvf = GradScale.apply(self.ext_grad_scale, cloth.x, cloth.v)
+        ext, ovf, terms = [], [], {}
+        for k in range(cfg.substeps):
+            x_prev = mpm.x
+            mpm, extv, aux = mpm_mod.substep_cloth(
+                cfg, params, cparams, mpm, cxf, cvf, pen, k, mpm_action)
+            cid = cc.get_contact_pair(cparams, cxf, tuple(mpm.x),
+                                      pen.penetration)
+            pen = cc.trace_penetration_after_mpm(
+                cparams, cxf, tuple(mpm.x), tuple(x_prev), pen, cid)
+            ext.append(extv)
+            ovf.append(aux["window_overflow"])
+            if loss_weights is not None and loss_weights[k] != 0:
+                sample = FrameSample(x=_unsort_rows(mpm.x_nd, unsort_perm),
+                                     bodies=None, cloth_x=cxf, cloth_v=cvf)
+                for name, v in self.loss.terms(sample).items():
+                    terms[name] = terms.get(name, 0.0) + loss_weights[k] * v
+        ext_vertex_f = torch.stack(ext).sum(dim=0) / cfg.substeps
+        cloth = self.cloth_model.step(cloth, None, ext_vertex_f)
+        # re-resolve the pairs against the moved cloth (taichi_env:88-90)
+        cid = cc.get_contact_pair(cparams, cloth.x, tuple(mpm.x),
+                                  pen.penetration)
+        pen = cc.trace_penetration_after_cloth(cparams, cloth.x, cxf,
+                                               tuple(mpm.x), pen, cid)
+        out = (torch.stack(ovf).any(), ext_vertex_f)
+        if loss_weights is not None:
+            out = out + (terms,)
+        return (mpm, cloth, pen), out
+
+    def _sample(self, carry, perm=None):
+        """What the loss sees of a carry, particles in original order."""
+        mpm, second, _ = carry
+        x = _unsort_rows(mpm.x_nd, perm)
+        if self.has_cloth:
+            return FrameSample(x=x, bodies=None, cloth_x=second.x,
+                               cloth_v=second.v)
+        return FrameSample(x=x, bodies=second)
+
+    def _permute(self, carry, q):
+        """The carry's per-particle state under the permutation q."""
+        mpm, second, third = carry
+        if self.has_cloth:
+            third = cc.permute_pen(third, q)
+        return (mpm_mod.permute_state(mpm, q), second, third)
 
     def _rigid_step(self, bodies, rigid, action, ext_f):
         """The env step's rigid half: the action and the wrench ext_f move
@@ -499,7 +657,7 @@ class SoftMacEnv:
             grad = torch.zeros_like(actions)
         terms = {k: v.detach() if torch.is_tensor(v) else v
                  for k, v in terms.items()}
-        carry = _carry_from([t.detach() for t in _carry_tensors(carry)])
+        carry = map_carry(torch.Tensor.detach, carry)
         self._check_overflow(terms)
         return {"loss": loss.detach(), "terms": terms, "carry": carry,
                 "action_grad": grad.detach()}
@@ -549,7 +707,8 @@ class SoftMacEnv:
                                          for o in outs])
                          for k in outs[0]["terms"]},
                "carry": _carry_from([torch.stack(ts) for ts in zip(
-                   *(_carry_tensors(o["carry"]) for o in outs))])}
+                   *(_carry_tensors(o["carry"]) for o in outs))],
+                   outs[0]["carry"])}
         if "action_grad" in outs[0]:
             res["action_grad"] = torch.stack([o["action_grad"] for o in outs])
         return res
@@ -624,12 +783,11 @@ class SoftMacEnv:
         per_block, general = [], []
         for b in range(n_blocks):
             if grad_clip is not None:
-                carry = _carry_from(ClipCotangent.apply(
-                    float(grad_clip), *_carry_tensors(carry)))
-            # _resort: re-key the sorted carry at every block boundary
-            mpm, bodies, rigid = carry
-            q, _ = mpm_mod.sort_perm(cfg, mpm.x)
-            carry = (mpm_mod.permute_state(mpm, q), bodies, rigid)
+                carry = _clip_carry(carry, float(grad_clip))
+            # _resort: re-key the sorted carry at every block boundary (the
+            # cloth's side-state rides the permutation)
+            q, _ = mpm_mod.sort_perm(cfg, carry[0].x)
+            carry = self._permute(carry, q)
             params_s = mpm_mod.permute_params(params_s, q)
             perm = perm[q]
             block_terms = {}
@@ -643,19 +801,20 @@ class SoftMacEnv:
                 for k, v in terms.items():
                     block_terms[k] = block_terms.get(k, 0.0) + v
             general.append(block_terms)
-            mpm, bodies, _ = carry
             if self.loss is not None and (mask_np[b] or b == n_blocks - 1):
-                sample = FrameSample(x=_unsort_rows(mpm.x_nd, perm),
-                                     bodies=bodies)
-                per_block.append(self.loss.terms(sample))
+                per_block.append(self.loss.terms(self._sample(carry, perm)))
             else:
                 per_block.append(None)
             if (b + 1) % seg_blocks == 0 and b + 1 < n_blocks:
                 # truncated BPTT: gradients stop at the segment boundary
-                carry = _carry_from([t.detach()
-                                     for t in _carry_tensors(carry)])
+                carry = map_carry(torch.Tensor.detach, carry)
 
         terms_acc = {"window_overflow": overflow}
+        if self.has_cloth:
+            # the reference's check_penetration (soft_cloth
+            # mpm_simulator.py:556-561) at the last block
+            terms_acc["n_penetration"] = (carry[2].penetration != 0).sum(
+                dtype=torch.int32)
         loss_total = self._scalar(0.0)
         if self.loss is not None:
             mask = self._scalar(mask_np)
@@ -671,16 +830,13 @@ class SoftMacEnv:
                 loss_total = loss_total + terms_acc[k]
                 terms_acc[f"final_{k}"] = v[-1]
             if include_f0:
-                mpm0, bodies0, _ = carry0
-                f0 = self.loss.terms(FrameSample(x=mpm0.x_nd, bodies=bodies0))
+                f0 = self.loss.terms(self._sample(carry0))
                 for k, v in f0.items():
                     terms_acc[k] = terms_acc[k] + v
                     loss_total = loss_total + v
 
         # _sort_out: back to the original particle order
-        mpm, bodies, rigid = carry
-        carry = (mpm_mod.permute_state(mpm, _inverse(perm)), bodies, rigid)
-        return loss_total, terms_acc, carry
+        return loss_total, terms_acc, self._permute(carry, _inverse(perm))
 
     def _check_overflow(self, terms):
         """Warn (once per env) when the active window missed a particle:

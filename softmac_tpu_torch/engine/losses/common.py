@@ -19,6 +19,8 @@ class FrameSample:
     """What a loss sees at one sampled frame of the rollout."""
     x: torch.Tensor                  # (N, 3) particle positions
     bodies: Optional[BodyState]      # rigid primitive states (or None)
+    cloth_x: Optional[torch.Tensor] = None  # (V, 3) cloth vertices
+    cloth_v: Optional[torch.Tensor] = None  # (V, 3) their velocities
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -417,37 +417,49 @@ def control_impulse(cfg: MPMConfig, params: MPMParams, impulse, mpm_action):
                  for d in range(3))
 
 
-def grid_velocity_mixed(cfg: MPMConfig, params: MPMParams,
-                        prims: Tuple[SDFParams, ...], state: MPMState,
-                        bodies: BodyState, gm, gmom, tr: Transfers, k: int,
-                        wrenches):
+def grid_velocity_mixed(cfg: MPMConfig, params: MPMParams, gm, gmom,
+                        tr: Transfers, collide):
     """P2G grids -> grid velocity under forecast mixed contact
     (grid_op_mixed1-4): normalize, add gravity, apply the boundary, gather
-    the grid velocity at the particles (v_tmp), run each contacting
-    primitive's mixed contact in order (each from the previous one's
-    target velocity), splat the correction -2 (v_tmp - v_tgt) back onto
-    the non-empty cells and apply the optional CFL clamp (the boundary is
-    not applied again). Adds each primitive's wrench to ``wrenches[i]``."""
+    the grid velocity at the particles (v_tmp), take the contact's target
+    velocity ``collide(v_tmp)`` (3, N), splat the correction
+    -2 (v_tmp - v_tgt) back onto the non-empty cells and apply the optional
+    CFL clamp (the boundary is not applied again)."""
     wx = tr.sizes[0]
     gvm, mask = _bounded_velocity(cfg, params, gm, gmom, tr.sizes, tr.corner)
-    x = state.x
     v_tmp = tr.gather(tuple(g.contiguous() for g in gvm))
-    v_tgt = v_tmp
-    # the remaining-window factor, a device scalar: no host round trip
-    life = torch.full((), 1.0 / (cfg.substeps - k), dtype=x.dtype,
-                      device=x.device)
-    for i, prim in enumerate(prims):
-        if not cfg.primitives_contact[i]:
-            continue
-        v_tgt, wr = contact_mod.collide_mixed(
-            prim, bodies.pos[i], bodies.quat[i], bodies.v[i], bodies.w[i],
-            params.friction[i], params.softness[i], x, v_tgt, cfg.p_mass,
-            cfg.dt, life, push_cap=cfg.contact_push_velocity_cap)
-        wrenches[i] = wrenches[i] + wr
-    corr = tr.splat(-2.0 * (v_tmp - v_tgt))
+    corr = tr.splat(-2.0 * (v_tmp - collide(v_tmp)))
     gv = tuple(torch.where(mask, gvm[d] + corr[:, d * wx:(d + 1) * wx], 0.0)
                for d in range(3))
     return tuple(g.contiguous() for g in cfl_clamp(cfg, gv))
+
+
+def _life(cfg: MPMConfig, k: int) -> float:
+    """The remaining-window factor of the k-th substep of an env step."""
+    return 1.0 / (cfg.substeps - k)
+
+
+def _collide_prims(cfg: MPMConfig, params: MPMParams,
+                   prims: Tuple[SDFParams, ...], x, bodies: BodyState, k: int,
+                   wrenches):
+    """v_tmp -> v_tgt through each contacting primitive's mixed contact in
+    order (each from the previous one's target velocity); adds each
+    primitive's wrench to ``wrenches[i]``."""
+    # the remaining-window factor, a device scalar: no host round trip
+    life = torch.full((), _life(cfg, k), dtype=x.dtype, device=x.device)
+
+    def collide(v_tgt):
+        for i, prim in enumerate(prims):
+            if not cfg.primitives_contact[i]:
+                continue
+            v_tgt, wr = contact_mod.collide_mixed(
+                prim, bodies.pos[i], bodies.quat[i], bodies.v[i],
+                bodies.w[i], params.friction[i], params.softness[i], x, v_tgt,
+                cfg.p_mass, cfg.dt, life,
+                push_cap=cfg.contact_push_velocity_cap)
+            wrenches[i] = wrenches[i] + wr
+        return v_tgt
+    return collide
 
 
 def substep(cfg: MPMConfig, params: MPMParams,
@@ -467,19 +479,71 @@ def substep(cfg: MPMConfig, params: MPMParams,
                          stress, impulse)
     gm, gmom = tr.p2g(chan)
     if cfg.collision_type == CONTACT_MIXED:
-        gv = grid_velocity_mixed(cfg, params, prims, state, bodies, gm, gmom,
-                                 tr, k, wrenches)
+        gv = grid_velocity_mixed(
+            cfg, params, gm, gmom, tr,
+            _collide_prims(cfg, params, prims, state.x, bodies, k, wrenches))
     elif cfg.collision_type == CONTACT_GRID:
         gv = grid_velocity_grid(cfg, params, prims, bodies, gm, gmom,
                                 tr.sizes, tr.corner, wrenches)
     else:
         gv = grid_velocity(cfg, params, gm, gmom, tr.sizes, tr.corner)
-    vc = tr.g2p(gv)
-    v_new = vc[0:3]
-    new_state = MPMState(
-        x=state.x + cfg.dt * v_new,
-        v=v_new,
-        C=(4.0 * cfg.inv_dx) * vc[3:12].reshape(3, 3, -1),
-        F=m33.to_mat_array(F_new),
-    )
+    new_state = _advect(cfg, state, tr.g2p(gv), F_new)
     return new_state, torch.stack(wrenches), {"window_overflow": tr.overflow}
+
+
+def _advect(cfg: MPMConfig, state: MPMState, vc, F_new) -> MPMState:
+    """The G2P output vc (12, N) -> the new particle state."""
+    v_new = vc[0:3]
+    return MPMState(x=state.x + cfg.dt * v_new, v=v_new,
+                    C=(4.0 * cfg.inv_dx) * vc[3:12].reshape(3, 3, -1),
+                    F=m33.to_mat_array(F_new))
+
+
+def substep_cloth(cfg: MPMConfig, params: MPMParams, cloth_params,
+                  state: MPMState, cloth_x, cloth_v, pen, k: int,
+                  mpm_action=None):
+    """One MLS-MPM substep coupled to a triangle-mesh cloth (the soft_cloth
+    substep, ``soft_cloth/engine/mpm_simulator.py:418-428``; the JAX
+    package's ``mpm.substep_cloth``), against the window's forecast cloth
+    ``cloth_x``, ``cloth_v`` (V, 3) and the side-state ``pen``
+    (``cloth_contact.PenetrationState``).
+
+    Stress, the cloth's penalty impulse (collision_type particle), the
+    controllers' impulse, P2G, normalize, boundary, gather, the cloth's
+    forecast contact (mixed), the alpha = 2 correction splat, G2P: the
+    transfers on the route of ``Transfers``, as ``substep``. Returns
+    (new_state, vertex forces (V, 3), {"window_overflow"})."""
+    from softmac_tpu_torch.engine import cloth_contact as cc
+    n_vertices = cloth_x.shape[0]
+    stress, F_new = stress_and_F(cfg, params, state)
+    zero = torch.zeros_like(state.x[0])
+    impulse = (zero, zero, zero)
+    ext_vertex_f = torch.zeros((n_vertices, 3), dtype=state.x.dtype,
+                               device=state.x.device)
+    if cfg.collision_type == CONTACT_PARTICLE:
+        impulse, ext = cc.collide_cloth(
+            cloth_params, cloth_x, cloth_v, tuple(state.x), tuple(state.v),
+            cfg.p_mass, cfg.dt, 1.0, pen, n_vertices, mode="particle")
+        ext_vertex_f = ext_vertex_f + ext
+    impulse = control_impulse(cfg, params, impulse, mpm_action)
+
+    tr = Transfers(cfg, state.x)
+    chan = _p2g_channels(cfg, tuple(state.v), m33.from_mat_array(state.C),
+                         stress, impulse)
+    gm, gmom = tr.p2g(chan)
+    if cfg.collision_type == CONTACT_MIXED:
+        forces = []
+
+        def collide(v_tmp):
+            v_tgt, ext = cc.collide_cloth(
+                cloth_params, cloth_x, cloth_v, tuple(state.x), tuple(v_tmp),
+                cfg.p_mass, cfg.dt, _life(cfg, k), pen, n_vertices,
+                mode="mixed")
+            forces.append(ext)
+            return torch.stack(v_tgt)
+        gv = grid_velocity_mixed(cfg, params, gm, gmom, tr, collide)
+        ext_vertex_f = ext_vertex_f + forces[0]
+    else:
+        gv = grid_velocity(cfg, params, gm, gmom, tr.sizes, tr.corner)
+    new_state = _advect(cfg, state, tr.g2p(gv), F_new)
+    return new_state, ext_vertex_f, {"window_overflow": tr.overflow}

@@ -1,13 +1,15 @@
 """Particle shapes of a scene (``softmac_tpu/engine/shapes.py``).
 
-Two shapes are ported: ``"predefined"``, a particle set (positions, or a
-packed ``(N, 24)`` state) loaded from a ``.npy`` file, and ``"box"``,
-uniform samples in an axis-aligned box, optionally rotated about its mean
-by ``init_rot`` (a wxyz quaternion). Sampling is seeded with NumPy seed 0
-as in the reference (``shape_maker.py:20``), and the global NumPy random
-state is restored afterwards, so the particles match the JAX package's
-``Shapes`` bit for bit. The sphere and cylinder come with the scenes that
-use them.
+All four shapes are ported: ``"predefined"``, a particle set (positions,
+or a packed ``(N, 24)`` state) loaded from a ``.npy`` file; ``"box"``,
+uniform samples in an axis-aligned box; ``"sphere"``, uniform samples in a
+ball; and ``"cylinder"``, uniform samples in a y-axis cylinder (the cloth
+variant's, ``soft_cloth/engine/shapes/shape_maker.py:65-73``). A sampled
+shape is optionally rotated about its mean by ``init_rot`` (a wxyz
+quaternion). Sampling is seeded with NumPy seed 0 as in the reference
+(``shape_maker.py:20``), and the global NumPy random state is restored
+afterwards, so the particles match the JAX package's ``Shapes`` bit for
+bit.
 """
 from __future__ import annotations
 
@@ -32,16 +34,16 @@ class Shapes:
         self.objects = []
         self.dim = 3
         self.search_dirs = [str(d) for d in search_dirs]
-        samplers = {"box": self.add_box, "predefined": self.add_predefined}
+        samplers = {"box": self.add_box, "sphere": self.add_sphere,
+                    "cylinder": self.add_cylinder,
+                    "predefined": self.add_predefined}
         state = np.random.get_state()
         np.random.seed(0)  # fixed seed, reference parity
         try:
             for spec in cfg:
                 if spec["shape"] not in samplers:
                     raise NotImplementedError(
-                        f"shape {spec['shape']!r} is not ported yet; the "
-                        "PyTorch port samples 'box' and loads 'predefined' "
-                        "shapes")
+                        f"Shape {spec['shape']} is not supported!")
                 samplers[spec["shape"]](**{k: _parse(k, v)
                                            for k, v in spec.items()
                                            if k != "shape"})
@@ -68,15 +70,42 @@ class Shapes:
                                        @ m.T + origin)
         self.objects.append(particles)
 
+    @staticmethod
+    def get_n_particles(volume):
+        return max(int(volume / 0.2 ** 3) * 10000, 1)
+
     def add_box(self, init_pos, width, n_particles=10000, color=None,
                 init_rot=None):
         """``color`` is for the renderer, which is not ported yet."""
         width = (np.array([width] * self.dim)
                  if isinstance(width, (int, float)) else np.array(width))
         if n_particles is None:
-            n_particles = max(int(np.prod(width) / 0.2 ** 3) * 10000, 1)
+            n_particles = self.get_n_particles(np.prod(width))
         p = ((np.random.random((n_particles, self.dim)) * 2 - 1)
              * (0.5 * width) + np.array(init_pos))
+        self.add_object(p, init_rot=init_rot)
+
+    def add_sphere(self, init_pos, radius, n_particles=10000, color=None,
+                   init_rot=None):
+        """Uniform in the ball; ``color`` is for the renderer."""
+        if n_particles is None:
+            n_particles = self.get_n_particles(radius ** 3 * 4 * np.pi / 3)
+        p = np.random.normal(size=(n_particles, self.dim))
+        p /= np.linalg.norm(p, axis=-1, keepdims=True)
+        u = np.random.random(size=(n_particles, 1)) ** (1.0 / self.dim)
+        p = p * u * radius + np.array(init_pos)[:self.dim]
+        self.add_object(p, init_rot=init_rot)
+
+    def add_cylinder(self, init_pos, radius, height, n_particles=10000,
+                     color=None, init_rot=None):
+        """Uniform in the y-axis cylinder; ``color`` is for the renderer."""
+        if n_particles is None:
+            n_particles = self.get_n_particles(np.pi * radius ** 2 * height)
+        theta = np.random.random(n_particles) * 2 * np.pi
+        r = np.sqrt(np.random.random(n_particles)) * radius
+        y = (np.random.random(n_particles) - 0.5) * height
+        p = np.stack([r * np.cos(theta), y, r * np.sin(theta)], axis=-1) \
+            + np.array(init_pos)
         self.add_object(p, init_rot=init_rot)
 
     def add_predefined(self, path, offset=None, color=None):
