@@ -70,12 +70,12 @@ script exits non-zero:
            states the backwards' call and device time
   slice    the pour_vel main path: SoftMacEnv.rollout of that scene for 50
            env steps on the card, launches counted, G2P's particles off
-           its tiles' slabs summed over the run; then 7 more timed
+           its tiles' slabs summed over the run; then 3 more timed
            rollouts of the same actions: substeps/s (median and spread),
            loss, overflow, and how far the repeats' end states differ
   grad     pour_vel's gradient path: SoftMacEnv.rollout_and_grad of the
            same scene and actions (loss_start_frame 0, loss_stride 20),
-           under remat "step" and "none": one counted call and 5 timed ones
+           under remat "step" and "none": one counted call and a timed one
            each, fwd+bwd substeps/s, peak device memory, the launches of its
            six kernels, finite nonzero gradients, and how far step and none
            and the repeats differ; the read-side kernels' particles off
@@ -84,13 +84,13 @@ script exits non-zero:
            scene (mixed contact, two floating force-controlled bodies) at
            1e5 particles, window (32, 32, 16), 100 env steps of zero
            actions, launches counted, G2P's and the gather's particles off
-           their tiles' slabs summed over the run; 7 more timed rollouts;
+           their tiles' slabs summed over the run; 3 more timed rollouts;
            then the same
            scene under SOFTMAC_TPU_CONTACT_SPLIT (the split contact
            kernels, counted)
   pour_grad  the flagship's gradient main path: rollout_and_grad of the
            same scene and actions (loss_start_frame 0, loss_stride 20)
-           under remat "step" and "none": one counted call and 5 timed ones
+           under remat "step" and "none": one counted call and a timed one
            each, fwd+bwd substeps/s, peak memory, the launches of every
            forward and backward kernel, a finite nonzero gradient, step
            against none and the repeats within GRAD_TOL, the read-side
@@ -136,9 +136,9 @@ script exits non-zero:
            SoftMacEnv.rollout of the demo's initial actions for 300 env
            steps with launches counted, its end state against a
            zero-action rollout of the same 300 steps (the controller
-           acts), 5 timed rollouts of 50 steps, and a 500-step horizon
+           acts), 5 timed rollouts of 50 steps, and a 300-step horizon
            (cut from the demo's 3000) with the demo's loss frames
-  door_grad  the door's gradient main path: rollout_and_grad of 100 env
+  door_grad  the door's gradient main path: rollout_and_grad of 50 env
            steps of the demo's initial actions with its loss frames and
            grad_clip 1.0, under remat "step" and "none": one counted call
            and one timed repeat each, exact launch counts of every forward
@@ -153,7 +153,7 @@ script exits non-zero:
   door_parity  the door, card (float32, kernels) against the CPU (float64,
            plain versions), 20 env steps of rollout and of rollout_and_grad
   demo_door  the ported door trainer softmac_tpu_torch.demos.demo_door on
-           the card, 2 epochs of 100 env steps with 2 jittered replicas on
+           the card, 2 epochs of 50 env steps with 2 jittered replicas on
            its own scene: finite non-increasing losses, losses.npy and the
            checkpoints written, the actions moved, every fused forward and
            backward kernel launched
@@ -175,12 +175,12 @@ script exits non-zero:
            to the dense route's (x 1e-4, action gradient 1e-3 relative L2)
   profile_dense  torch.profiler over 5 env steps of the full-grid rollout
   dense_parity  the full-grid pour at the demo's own 5000 particles, card
-           (float32) against the CPU (float64), 10 env steps of rollout
+           (float32) against the CPU (float64), 5 env steps of rollout
            and of rollout_and_grad (remat "none")
   grid     the same scene under grid contact (SIMULATOR.collision_type 0):
            20 env steps on the card (one kr3 a substep, no contact kernel),
            the glass's wrench in the first env step nonzero, the glass
-           moved; then card against CPU over 10 steps, forward and gradient
+           moved; then card against CPU over 5 steps, forward and gradient
   grip     the grip (demo_grip_config.py: 10 000 particles of a
            corotated-plastic block, two prismatic fingers below a fixed
            palm whose contact is off, forecast mixed contact, five
@@ -228,6 +228,36 @@ script exits non-zero:
            card, 3 epochs of 12 env steps each on their own scenes: finite
            losses, losses.npy and the checkpoints written, every kernel of
            their forward and backward launched
+  hit, hit_kernels, hit_grad, profile_hit, hit_parity, demo_hit  the hit
+           (demo_hit_config.py: 5000 particles, two cylinders on the
+           controller pushed at -8 on z into a 144-vertex towel, ten
+           substeps an env step, window (32, 24, 32)): 60 env steps of the
+           push (contact from env step 16) with exact launches (one P2G,
+           G2P, gather and splat a substep; the cloth path is plain
+           PyTorch), spills, off-slab particles and each env step's pairs
+           and vertex forces; rows 1-8 on its state in contact within 1e-5
+           of float64; 5 env steps of rollout_and_grad from that state
+           (remat "step", exact launches, repeats within GRAD_TOL); a
+           profile of one env step forward and one fwd+bwd; 3 env steps
+           card against CPU float64 (x of the particles whose pair agrees,
+           the towel's x and the loss within 1e-4); the trainer, 2 epochs
+           of 6 env steps
+  taco, taco_kernels, taco_grad, profile_taco, taco_parity, demo_taco  the
+           taco (demo_taco_config.py: a 10 000-particle plastic disk on a
+           217-vertex tortilla whose 17 attachment vertices the actions
+           move, the cloth control mode, sticky contact with gradient
+           scales 0.3, mpm_scale 5, window (48, 24, 48)): the first 30 env
+           steps of the demo's 200-step scripted fold, contact in every
+           env step from the first, exact launches, spills, off-slab
+           particles; rows 1-8 on its state within 1e-5 of float64; 3 env
+           steps of rollout_and_grad from that state with the demo's
+           grad_clip (exact launches from taco_grad_expect, repeats within
+           GRAD_TOL, nonzero on the handles' x and y); a profile of one env
+           step forward and two fwd+bwd (the handles reach the particles an
+           env step late); 3 env steps card against CPU float64 at 10 000
+           particles (gates as the hit's); the trainer for one epoch of 4
+           env steps with each optimiser (Adam over 2 jittered replicas, the
+           line search), launch counts exact
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -248,7 +278,7 @@ N_MAIN = 100_000
 SPLIT_STEPS = 20
 SLICE_STEPS = 100
 VEL_STEPS = 50                    # pour_vel's paths, cut to keep the time
-SLICE_REPEATS = 7
+SLICE_REPEATS = 3          # cut from 7 to keep the time
 STATE_STEPS = 10
 MIN_BOX_CONTACTS = 5000
 TIME_ITERS = 25
@@ -303,12 +333,13 @@ FLOPS_PER_PARTICLE = {"p2g": 57 + 27 + 27 * 30, "g2p": 57 + 27 + 27 * 28,
 MIXED_CLASSIFY_FLOPS = 30 + 20 + 32
 MIXED_REPEATS = 10         # tiled mixed-contact calls agreeing bit for bit
 DEVICE_MS = {}             # device_ms: device-only ms a call, by kernel row
+EVENT_TIMED = set()        # device_ms calls timed by CUDA events instead
 # the names of the port's kernels in a profile (ops/csrc/*.cu)
 PORT_KERNEL = (r"(p2g|g2p|gather|splat|collide|kr3|slab_|rows_"
                r"|round_to_float|round_and_clear)\w*(<[^>]*>)?\(")
 # the launches that round a float64 window (left out of a source's ptxas)
 ROUND_KERNELS = ("round_to_float", "round_and_clear")
-GRAD_REPEATS = 5
+GRAD_REPEATS = 1           # cut from 5 to keep the time
 GRAD_TOL = 1e-6           # step vs none, repeats vs the counted call
 ROW_TOL = 1e-5            # backward rows and grids
 BODY_TOL = 1e-4           # the 14 body floats, sums over 1e5 particles
@@ -320,10 +351,10 @@ DEMO_EPOCHS = 3
 DOOR_STEPS = 300           # the counted door rollout
 DOOR_TIMED_STEPS = 50      # each timed door rollout (cut to keep the time)
 DOOR_REPEATS = 5
-DOOR_HORIZON = 500         # cut from demos/demo_door.py's 3000 steps
-DOOR_GRAD_STEPS = 100      # the door's rollout_and_grad (cut from 3000)
+DOOR_HORIZON = 300         # cut from demos/demo_door.py's 3000 steps
+DOOR_GRAD_STEPS = 50       # the door's rollout_and_grad (cut from 3000)
 DOOR_GRAD_REPEATS = 1
-DEMO_DOOR_STEPS = 100      # the door trainer (cut from 3000)
+DEMO_DOOR_STEPS = 50       # the door trainer (cut from 3000)
 DEMO_DOOR_EPOCHS = 2
 DEMO_DOOR_REPLICAS = 2
 DENSE_WINDOW = (16, 8, 16)
@@ -335,7 +366,7 @@ FULL_REPEATS = 3
 FULL_GRAD_STEPS = 10       # its rollout_and_grad, remat "step" only
 FULL_LOSS_STRIDE = 5       # loss frames 5 and 10 within those 10 steps
 FULL_PROFILE_STEPS = 5
-FULL_PARITY_STEPS = 10
+FULL_PARITY_STEPS = 5      # cut from 10 to keep the time
 GRID_STEPS = 20
 KR3_TOL = 1e-7
 SLAB_REPEATS = 10          # y-slab calls that must agree bit for bit
@@ -398,15 +429,26 @@ GRIP_BODY_TOL = 1e-5       # the mixed pair's body floats on the grip
 # the pour's and the door's mixed pair, also held at a life below 1
 LIFE_BELOW_ONE = 1 / 3
 HIT_FORCE = -8.0           # the demo's initial push on z
-HIT_STEPS = 100            # the demo's horizon: the counted rollout
-HIT_GRAD_STEPS = 10        # from the rollout's carry, in contact
-HIT_GRAD_REPEATS = 1
+HIT_STEPS = 60             # the counted rollout (cut from the demo's 100)
+HIT_GRAD_STEPS = 5         # from the rollout's carry, in contact
 HIT_PROFILE_STEPS = 1
 HIT_PARITY_STEPS = 3
 HIT_PARITY_TOL = 1e-4      # x (particles whose pair agrees), cloth x, loss
 HIT_MOVED = 1e-3           # the towel's least displacement in contact
 DEMO_HIT_STEPS = 6         # the hit trainer (cut from 100)
 DEMO_HIT_EPOCHS = 2
+CLOTH_GRAD_REPEATS = 1     # the cloth scenes' timed gradient repeats
+TACO_FOLD_STEPS = 200      # the demo's horizon, over which the fold runs
+TACO_STEPS = 30            # the counted rollout: the fold's first 30 steps
+TACO_MOVED = 1e-3          # the tortilla's least displacement
+TACO_GRAD_STEPS = 3        # from the rollout's carry
+TACO_GRAD_CLIP = 10.0      # the demo's
+TACO_PROFILE_STEPS = 1     # forward; fwd+bwd one more (the actions reach
+                           # the particles an env step late)
+TACO_PARITY_STEPS = 3
+TACO_PARITY_TOL = 1e-4     # x (particles whose pair agrees), cloth x, loss
+DEMO_TACO_STEPS = 4        # each taco optimiser, one epoch (cut from 200)
+DEMO_TACO_REPLICAS = 2
 TRANSFERS = ("p2g", "g2p", "gather", "splat")
 FLOPS_PER_BWD_CELL = {"fused_p2g_bwd": (22 + 14, 32),
                       "fused_g2p_bwd": (20 + 14, 27),
@@ -492,8 +534,11 @@ def device_ms(name, fn, iters=10):
     torch.cuda.synchronize()
     # a profile now and then holds no device event, or loses one (9 of a
     # call's 10 launches seen): the iters calls launch alike, so a count
-    # that is not a multiple of iters is such a loss; profile again
-    for _ in range(3):
+    # that is not a multiple of iters is such a loss; profile again. Late
+    # in a long run every profile of a call may come back empty: then the
+    # call is timed with CUDA events (its launch gaps included) and listed
+    # in EVENT_TIMED
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -503,10 +548,15 @@ def device_ms(name, fn, iters=10):
                 if e.device_type == DeviceType.CUDA]
         if kern and len(kern) % iters == 0:
             break
-    if not kern:
-        raise AssertionError(f"{name}: the profiler saw no device kernel")
-    ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / iters
     ms0, launches = DEVICE_MS.get(name, (0.0, 0.0))
+    if not kern:
+        ms = cuda_time_ms(fn, iters)
+        EVENT_TIMED.add(name)
+        print(f"{name}: the profiler saw no device kernel; CUDA events: "
+              f"{ms} ms a call", flush=True)
+        DEVICE_MS[name] = (ms0 + ms, launches)
+        return ms
+    ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / iters
     DEVICE_MS[name] = (ms0 + ms, launches + len(kern) / iters)
     return ms
 
@@ -4205,8 +4255,10 @@ def check_transfer_rows(tag, inp):
         dev = device_ms(f"{tag} {name}", lambda: fn(*args))
         b_ms, b_by = bound(name, n, nbytes, flops)
         res[name] = {"max_rel_err": rel, "tolerance": ROW_TOL,
-                     "device_ms": dev, "bound_ms": b_ms, "bound_by": b_by,
-                     "bytes": nbytes}
+                     "device_ms": dev, "device_ms_by": (
+                         "cuda events" if f"{tag} {name}" in EVENT_TIMED
+                         else "profiler"),
+                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
         print(f"{tag}_kernels {name}: rel err {rel}, device ms {dev}, bound "
               f"ms {b_ms}", flush=True)
         if not rel <= ROW_TOL:
@@ -4282,19 +4334,20 @@ def run_grip_parity():
     return {"scene": "demo_grip", "init_state": list(GRIP_NEAR), **res}
 
 
-def run_demo_trainer(module, name, steps, kernels, epochs=DEMO_EPOCHS):
+def run_demo_trainer(module, name, steps, kernels, epochs=DEMO_EPOCHS,
+                     extra=()):
     """A ported trainer on the card, ``epochs`` epochs of ``steps`` env
-    steps on its own scene, logs in a temporary directory: every epoch's
-    loss finite, losses.npy and a checkpoint per epoch written, each of
-    ``kernels`` launched; how far the last checkpoint's actions moved from
-    the first's."""
+    steps on its own scene (``extra``: more arguments), logs in a temporary
+    directory: every epoch's loss finite, losses.npy and a checkpoint per
+    epoch written, each of ``kernels`` launched; how far the last
+    checkpoint's actions moved from the first's."""
     import tempfile
     import numpy as np
     with tempfile.TemporaryDirectory() as tmp:
         reset_launches()
         t0 = time.perf_counter()
         out = module.main(["--steps", str(steps), "--epochs",
-                           str(epochs), "--log-root", tmp])
+                           str(epochs), "--log-root", tmp, *extra])
         secs = time.perf_counter() - t0
         launches = read_launches()
         log = Path(tmp) / name
@@ -4307,6 +4360,8 @@ def run_demo_trainer(module, name, steps, kernels, epochs=DEMO_EPOCHS):
            "seconds_with_setup": secs, "checkpoints": ckpts,
            "actions_max_abs_change": float(np.abs(a_last - a0).max()),
            "launches": launches}
+    if "moved" in out:
+        res["moved"] = out["moved"]
     if not (all(math.isfinite(v) for v in out["losses"])
             and saved == out["losses"] and len(ckpts) == epochs
             and all(launches[k] > 0 for k in kernels)):
@@ -4328,10 +4383,16 @@ def run_demo_pour_vel():
 
 
 # ---------------------------------------------------------------------------
-# the hit: two MPM-controlled corotated-elastic cylinders and a box against a
-# towel (144 vertices, 242 faces) hanging from two vertices, forecast mixed
-# cloth contact in plain PyTorch, ten substeps an env step, window
-# (32, 24, 32): rows 1-8 on the cloth path
+# the cloth scenes, rows 1-8 around the cloth path in plain PyTorch (the
+# projective-dynamics cloth, the dense pair search, the penetration tracing
+# and the cloth contact, as the JAX package's are plain XLA), ten substeps an
+# env step. The hit: two MPM-controlled corotated-elastic cylinders and a box
+# against a towel (144 vertices, 242 faces) hanging from two vertices,
+# forecast mixed contact, window (32, 24, 32). The taco: a 10 000-particle
+# plastic disk on a tortilla (217 vertices, 384 faces) whose 17 attachment
+# vertices the actions move (the cloth control mode), sticky contact with
+# both gradient scales 0.3, mpm_scale 5 (n_grid 64, inv_dx 12.8), window
+# (48, 24, 48)
 # ---------------------------------------------------------------------------
 def hit_env(device=None):
     """The hit at its 5000 particles, the two cylinders on the controller
@@ -4350,6 +4411,33 @@ def hit_actions(n_steps):
     """The demo's initial actions: HIT_FORCE on z."""
     import numpy as np
     return np.tile([0.0, 0.0, HIT_FORCE], (n_steps, 1))
+
+
+def taco_env(device=None):
+    """The taco at its 10 000 particles in the cloth control mode
+    (demos/demo_taco.py)."""
+    from softmac_tpu_torch import SoftMacEnv, load
+    cfg = load(str(ROOT / "softmac_tpu_torch/config/demo_taco_config.py"))
+    env = SoftMacEnv(cfg, device=device)
+    env.set_control_mode("cloth")
+    return env
+
+
+def taco_actions(env, n_steps):
+    """The first n_steps env steps of the scripted fold that made the
+    target (demo_taco.get_init_actions choice 1 over the demo's
+    TACO_FOLD_STEPS): the first two handles swing up and in at the demo's
+    pace. Compressed into 30 env steps the fold flings the disk (vertex
+    forces of 1e5 by env step 12, then non-finite particles)."""
+    from softmac_tpu_torch.demos.demo_taco import get_init_actions
+    return get_init_actions(TACO_FOLD_STEPS, env, choice=1)[:n_steps]
+
+
+def taco_hold(env, n_steps):
+    """The rollout's last targets held for n_steps env steps: the actions
+    of the phases that start from the rollout's exit."""
+    import numpy as np
+    return np.repeat(taco_actions(env, TACO_STEPS)[-1:], n_steps, axis=0)
 
 
 class ClothContacts:
@@ -4394,64 +4482,101 @@ class ClothContacts:
                 .tolist() if self.forces else []}
 
 
-def run_hit(env):
-    """The hit's main path: SoftMacEnv.rollout of the demo's HIT_STEPS env
-    steps at its initial push, launches counted from zero (rows 1-8 each
-    once a substep; the cloth contact launches none of the port's
-    kernels), the slab kernels' spills and the read-side off-slab
-    particles summed, each env step's pairs, penetrating particles and
-    largest vertex force kept. No overflow, finite, contact pairs, a
-    nonzero vertex force and a towel that moved more than HIT_MOVED."""
+class Counted:
+    """OffSlab, Spills and ClothContacts(env) entered together."""
+
+    def __init__(self, env):
+        self.off, self.spills = OffSlab(), Spills()
+        self.touch = ClothContacts(env)
+
+    def __enter__(self):
+        for c in (self.off, self.spills, self.touch):
+            c.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for c in (self.touch, self.spills, self.off):
+            c.__exit__(*exc)
+
+
+def run_cloth(tag, env, acts, moved, first_contact=None, **extra):
+    """A cloth scene's main path: SoftMacEnv.rollout of ``acts``, launches
+    counted from zero (rows 1-8 each once a substep; the cloth path
+    launches none of the port's kernels), the slab kernels' spills and the
+    read-side off-slab particles summed, each env step's pairs,
+    penetrating particles and largest vertex force kept. No overflow,
+    finite, contact pairs (in every env step from ``first_contact`` on,
+    where given), a nonzero vertex force and a cloth that moved more than
+    ``moved``."""
     import torch
-    acts = hit_actions(HIT_STEPS)
     reset_launches()
-    with OffSlab() as off, Spills() as spills, ClothContacts(env) as touch:
+    with Counted(env) as c:
         out, secs = timed_rollout(env, acts)
     launches = read_launches()
-    n_sub = HIT_STEPS * env.substeps
+    n_sub = len(acts) * env.substeps
     expect = dict.fromkeys(wrappers(), 0)
     expect.update(dict.fromkeys(TRANSFERS, n_sub))
     if launches != expect:
-        raise AssertionError(f"hit launch counts {launches}, expected "
+        raise AssertionError(f"{tag} launch counts {launches}, expected "
                              f"{expect}")
     state, cloth, pen = out["carry"]
     rest = env.cloth_model.init_state().x
-    contacts = touch.counts()
+    contacts = c.touch.counts()
     forces = contacts["vertex_force_max_abs"]
     loss = out["loss"].item()
-    res = {"scene": "demo_hit", "n_particles": env.n_particles,
+    res = {"scene": f"demo_{tag}", "n_particles": env.n_particles,
            "cloth_vertices": env.cloth_model.n_vertices,
            "cloth_faces": int(env.cloth_params.faces.shape[0]),
            "window": list(env.mpm_cfg.active_window),
-           "substeps_per_env_step": env.substeps, "env_steps": HIT_STEPS,
-           "substeps": n_sub, "push_z": HIT_FORCE,
+           "substeps_per_env_step": env.substeps, "env_steps": len(acts),
+           "substeps": n_sub, **extra,
            "wall_ms_per_substep": secs * 1e3 / n_sub,
-           "launches": launches, "spilled": spills.counts(),
-           "off_slab": off.counts(), "loss": loss,
+           "launches": launches, "spilled": c.spills.counts(),
+           "off_slab": c.off.counts(), "loss": loss,
            "terms": {k: float(v) for k, v in out["terms"].items()},
            "pairs_by_env_step": contacts["pairs"],
            "penetrating_by_env_step": contacts["penetrating"],
            "vertex_force_max_abs_by_env_step": forces,
            "first_contact_env_step": next(
                (t for t, f in enumerate(forces) if f > 0), None),
-           "towel_moved_max_abs": (cloth.x - rest).abs().max().item(),
+           "cloth_moved_max_abs": (cloth.x - rest).abs().max().item(),
            "x_finite": bool(torch.isfinite(state.x).all()),
            "cloth_finite": bool(torch.isfinite(cloth.x).all()
                                 and torch.isfinite(cloth.v).all())}
     res["spilled_total"] = sum(v["spilled"] for v in res["spilled"].values())
     res["off_slab_total"] = sum(v["off_slab"]
                                 for v in res["off_slab"].values())
-    print(f"hit: spilled {res['spilled']}, off the slab {res['off_slab']}, "
-          f"pairs {contacts['pairs'][-5:]}, penetrating "
-          f"{contacts['penetrating'][-5:]}, vertex force "
-          f"{max(forces)}, towel moved {res['towel_moved_max_abs']}",
-          flush=True)
+    print(f"{tag}: spilled {res['spilled']}, off the slab {res['off_slab']}, "
+          f"pairs {contacts['pairs'][:3]} .. {contacts['pairs'][-3:]}, "
+          f"penetrating {contacts['penetrating'][-3:]}, vertex force "
+          f"{forces[:3]} .. {max(forces)}, cloth moved "
+          f"{res['cloth_moved_max_abs']}", flush=True)
+    touching = (min(contacts["pairs"][first_contact:]) > 0
+                and min(forces[first_contact:]) > 0
+                if first_contact is not None else
+                max(contacts["pairs"]) > 0 and max(forces) > 0)
     if (res["terms"]["window_overflow"] or not math.isfinite(loss)
             or not (res["x_finite"] and res["cloth_finite"])
-            or not max(contacts["pairs"]) > 0 or not max(forces) > 0
-            or not res["towel_moved_max_abs"] > HIT_MOVED):
-        raise AssertionError(f"hit output wrong: {res}")
+            or not touching or not res["cloth_moved_max_abs"] > moved):
+        raise AssertionError(f"{tag} output wrong: {res}")
     return res, launches, out["carry"]
+
+
+def run_hit(env):
+    """The hit's main path: the demo's HIT_STEPS env steps at its initial
+    push (contact from env step 16), by run_cloth."""
+    return run_cloth("hit", env, hit_actions(HIT_STEPS), HIT_MOVED,
+                     push_z=HIT_FORCE)
+
+
+def run_taco(env):
+    """The taco's main path: the first TACO_STEPS env steps of the scripted
+    fold, by run_cloth, contact in every env step from the first (the disk
+    spans y 2.005-2.205 over a tortilla at 2.0; pairs within 0.05)."""
+    return run_cloth("taco", env, taco_actions(env, TACO_STEPS), TACO_MOVED,
+                     first_contact=0,
+                     actions=f"the first {TACO_STEPS} env steps of the "
+                     f"{TACO_FOLD_STEPS}-step scripted fold")
 
 
 def hit_grad_expect(env, steps, remat):
@@ -4471,50 +4596,81 @@ def hit_grad_expect(env, steps, remat):
     return expect
 
 
-def run_hit_grad(env, carry):
-    """The hit's gradient path: rollout_and_grad of HIT_GRAD_STEPS env
-    steps of the demo's push from ``carry`` (the rollout's, in contact),
-    the demo's loss (the last frame), remat "step": one counted call and
-    HIT_GRAD_REPEATS timed ones, exact launch counts (hit_grad_expect),
-    finite, nonzero, the repeats within GRAD_TOL; contact in every env
-    step of the counted call."""
-    touch, spills, off = ClothContacts(env), Spills(), OffSlab()
+def taco_grad_expect(env, steps, remat, calls=1, clipped_steps=False):
+    """Launches of rows 1-8 in ``calls`` of the taco's rollout_and_grad
+    over ``steps`` env steps (>= 2) from a carry, the loss on the particles
+    at frames of the last env steps. The actions reach the particles only
+    through the cloth, which moves after an env step's substeps: the first
+    env step's substeps record no graph, and in the second one's first
+    substep only the contact's target velocity depends on them, so its P2G
+    and gather do not run backward while its splat and G2P do; unless
+    ``clipped_steps`` (a loss block an env step and a ``grad_clip``: the
+    carry passes ``ClipCotangent`` between env steps, and every tensor of
+    it then carries the graph). Under remat "step" every env step is
+    replayed once (the first for its cloth step)."""
+    n_sub = steps * env.substeps
+    graph = n_sub - env.substeps
+    first = graph if clipped_steps else graph - 1
+    replays = n_sub if remat == "step" else 0
+    expect = dict.fromkeys(wrappers(), 0)
+    expect.update(dict.fromkeys(TRANSFERS, calls * (n_sub + replays)))
+    expect.update({"p2g_bwd": calls * first, "gather_bwd": calls * first,
+                   "g2p_bwd": calls * graph, "splat_bwd": calls * graph})
+    return expect
 
-    class All:
-        def __enter__(self):
-            off.__enter__()
-            spills.__enter__()
-            touch.__enter__()
 
-        def __exit__(self, *exc):
-            touch.__exit__(*exc)
-            spills.__exit__(*exc)
-            off.__exit__(*exc)
-    frames = HIT_GRAD_STEPS * env.substeps
+def run_cloth_grad(tag, env, carry, acts, expect, glass, grad_clip=None):
+    """A cloth scene's gradient path: rollout_and_grad of ``acts`` from
+    ``carry`` (the rollout's, in contact), the loss at the last frame only,
+    remat "step": one counted call and the repeats, exact launch counts
+    (``expect(remat)``), finite, nonzero on the action columns ``glass``,
+    the repeats within GRAD_TOL (bit-identical in practice); contact in
+    every env step of the counted call."""
+    counted = Counted(env)
+    frames = len(acts) * env.substeps
     out, launches = run_gradient(
-        "hit_grad", env, hit_actions(HIT_GRAD_STEPS),
-        lambda remat: hit_grad_expect(env, HIT_GRAD_STEPS, remat), [0, 1, 2],
-        env.mpm_cfg.active_window, repeats=HIT_GRAD_REPEATS,
-        loss_start_frame=frames, loss_stride=frames, remats=("step",),
-        counted=All(), carry0=carry)
-    out.update(touch.counts())
-    out["spilled"], out["off_slab"] = spills.counts(), off.counts()
-    print(f"hit_grad: pairs {out['pairs']}, spilled {out['spilled']}, off "
+        f"{tag}_grad", env, acts, expect, glass, env.mpm_cfg.active_window,
+        repeats=CLOTH_GRAD_REPEATS, loss_start_frame=frames,
+        loss_stride=frames, grad_clip=grad_clip, remats=("step",),
+        counted=counted, carry0=carry)
+    out.update(counted.touch.counts())
+    out["spilled"] = counted.spills.counts()
+    out["off_slab"] = counted.off.counts()
+    print(f"{tag}_grad: pairs {out['pairs']}, spilled {out['spilled']}, off "
           f"the slab {out['off_slab']}", flush=True)
     if not (min(out["pairs"]) > 0 and min(out["vertex_force_max_abs"]) > 0):
-        raise AssertionError(f"hit_grad: an env step without contact: "
+        raise AssertionError(f"{tag}_grad: an env step without contact: "
                              f"{out}")
-    return {"scene": "demo_hit", "from": "the hit rollout's exit carry",
+    return {"scene": f"demo_{tag}", "from": f"the {tag} rollout's exit carry",
             **out}, launches
 
 
-def hit_kernel_inputs(env, carry):
-    """The inputs the hit's first substep from ``carry`` hands rows 1-8
+def run_hit_grad(env, carry):
+    """HIT_GRAD_STEPS env steps of the demo's push from the rollout's
+    carry, the demo's loss (the last frame), by run_cloth_grad."""
+    return run_cloth_grad(
+        "hit", env, carry, hit_actions(HIT_GRAD_STEPS),
+        lambda remat: hit_grad_expect(env, HIT_GRAD_STEPS, remat), [0, 1, 2])
+
+
+def run_taco_grad(env, carry):
+    """TACO_GRAD_STEPS env steps of the fold's last targets held, from
+    the rollout's carry, the demo's grad_clip, by run_cloth_grad: nonzero
+    on the first two handles' x and y (columns 0, 1, 3, 4, what the
+    demo optimises)."""
+    return run_cloth_grad(
+        "taco", env, carry, taco_hold(env, TACO_GRAD_STEPS),
+        lambda remat: taco_grad_expect(env, TACO_GRAD_STEPS, remat),
+        [0, 1, 3, 4], grad_clip=TACO_GRAD_CLIP)
+
+
+def cloth_kernel_inputs(env, carry, mpm_action=None):
+    """The inputs the first substep from ``carry`` hands rows 1-8
     (y-sorted, as the rollout keeps them), built with the port's own
-    substep stages and the kernels: P2G's channels (the controller's
-    push in), the bounded grid velocity the gather reads, the cloth
-    contact's target velocity (plain PyTorch, life 1/10), the splat's
-    values and the grid velocity G2P reads."""
+    substep stages and the kernels: P2G's channels (the controllers'
+    ``mpm_action`` in), the bounded grid velocity the gather reads, the
+    cloth contact's target velocity (plain PyTorch, the first substep's
+    life), the splat's values and the grid velocity G2P reads."""
     import torch
     from softmac_tpu_torch.engine import cloth_contact as cc
     from softmac_tpu_torch.engine import mpm
@@ -4527,11 +4683,10 @@ def hit_kernel_inputs(env, carry):
     stress, _ = mpm.stress_and_F(cfg, params, state)
     sizes, corner, overflow = mpm.window_geometry(cfg, state.x)
     if bool(overflow) or mpm.transfer_route(cfg) != "transfer":
-        raise AssertionError("hit kernel-check state: overflow or route")
+        raise AssertionError("cloth kernel-check state: overflow or route")
     zero = torch.zeros_like(state.x[0])
-    push = torch.tensor(hit_actions(1), dtype=state.x.dtype,
-                        device=state.x.device)
-    impulse = mpm.control_impulse(cfg, params, (zero, zero, zero), push)
+    impulse = mpm.control_impulse(cfg, params, (zero, zero, zero),
+                                  mpm_action)
     chan = mpm._p2g_channels(cfg, tuple(state.v), m33.from_mat_array(state.C),
                              stress, impulse)
     gm, gmom = transfer.p2g(state.x, chan, corner, sizes, cfg.inv_dx)
@@ -4540,7 +4695,7 @@ def hit_kernel_inputs(env, carry):
     v_tmp = transfer.gather(state.x, *gvm, corner, sizes, cfg.inv_dx)
     v_tgt, ext = cc.collide_cloth(
         env.cloth_params, cloth.x, cloth.v, tuple(state.x), tuple(v_tmp),
-        cfg.p_mass, cfg.dt, 1.0 / cfg.substeps, pen,
+        cfg.p_mass, cfg.dt, mpm._life(cfg, 0), pen,
         env.cloth_model.n_vertices)
     vals = (-2.0 * (v_tmp - torch.stack(v_tgt))).contiguous()
     corr = transfer.splat(state.x, vals, corner, sizes, cfg.inv_dx)
@@ -4553,16 +4708,16 @@ def hit_kernel_inputs(env, carry):
                 vertex_force_max_abs=ext.abs().max().item())
 
 
-def check_hit_kernels(env, carry):
-    """Rows 1-8 on the hit's state in contact (``carry``), by
+def check_cloth_kernels(tag, env, carry, mpm_action=None):
+    """Rows 1-8 on a cloth scene's state in contact (``carry``), by
     check_transfer_rows: the state must hold contact pairs and particles
     whose velocity the cloth changed (the splat's nonzero values)."""
-    inp = hit_kernel_inputs(env, carry)
-    res, band, _ = check_transfer_rows("hit", inp)
+    inp = cloth_kernel_inputs(env, carry, mpm_action)
+    res, band, _ = check_transfer_rows(tag, inp)
     if not (inp["pairs"] > 0 and band > 0
             and inp["vertex_force_max_abs"] > 0):
-        raise AssertionError(f"hit kernel-check state not in contact: pairs "
-                             f"{inp['pairs']}, nonzero values {band}")
+        raise AssertionError(f"{tag} kernel-check state not in contact: "
+                             f"pairs {inp['pairs']}, nonzero values {band}")
     return {"n_particles": inp["state"].x.shape[1],
             "window": list(inp["sizes"]), "contact_pairs": inp["pairs"],
             "splat_nonzero_vals": band,
@@ -4570,20 +4725,28 @@ def check_hit_kernels(env, carry):
             "kernels": res}
 
 
-def run_hit_parity(env, carry):
-    """HIT_PARITY_STEPS env steps of the demo's push from ``carry`` (the
-    rollout's, in contact) on the card (float32, kernels) and on the CPU
-    (float64, plain versions, the same carry widened), the demo's loss:
-    how many particles' contact id or penetration bit differ at the end;
-    x of the particles that agree, the towel's x and the loss within
-    HIT_PARITY_TOL (the loss relative)."""
+def check_hit_kernels(env, carry):
     import torch
+    push = torch.tensor(hit_actions(1), dtype=carry[0].x.dtype,
+                        device=carry[0].x.device)
+    return check_cloth_kernels("hit", env, carry, push)
+
+
+def check_taco_kernels(env, carry):
+    return check_cloth_kernels("taco", env, carry)
+
+
+def run_cloth_parity(tag, env, carry, cpu, acts, tol):
+    """``acts`` from ``carry`` (the rollout's, in contact) on the card
+    (float32, kernels) and on the CPU env ``cpu`` (float64, plain versions,
+    the same carry widened), the loss at the last frame: how many
+    particles' contact id or penetration bit differ at the end; x of the
+    particles that agree, the cloth's x and the loss within ``tol`` (the
+    loss relative)."""
     from softmac_tpu_torch.engine.env import map_carry
-    cpu = hit_env("cpu")
     wide = map_carry(lambda t: (t.double() if t.is_floating_point() else t)
                      .cpu(), carry)
-    acts = hit_actions(HIT_PARITY_STEPS)
-    frames = HIT_PARITY_STEPS * env.substeps
+    frames = len(acts) * env.substeps
     kw = dict(loss_start_frame=frames, loss_stride=frames)
     reset_launches()
     got = env.rollout(acts, carry0=carry, **kw)
@@ -4593,8 +4756,8 @@ def run_hit_parity(env, carry):
     agree = ((pg.contact_id.cpu() == pc.contact_id)
              & (pg.penetration.cpu() == pc.penetration))
     lg, lc = got["loss"].item(), want["loss"].item()
-    res = {"scene": "demo_hit", "from": "the hit rollout's exit carry",
-           "n_particles": env.n_particles, "env_steps": HIT_PARITY_STEPS,
+    res = {"scene": f"demo_{tag}", "from": f"the {tag} rollout's exit carry",
+           "n_particles": env.n_particles, "env_steps": len(acts),
            "pairs_gpu": int((pg.contact_id >= 0).sum()),
            "pairs_cpu": int((pc.contact_id >= 0).sum()),
            "penetrating_cpu": int((pc.penetration != 0).sum()),
@@ -4605,17 +4768,37 @@ def run_hit_parity(env, carry):
            .item(),
            "loss_gpu": lg, "loss_cpu": lc,
            "loss_rel_err": abs(lg - lc) / abs(lc),
-           "tolerance": HIT_PARITY_TOL, "gpu_launches": launches}
-    print(f"hit_parity: {res['pair_or_bit_differs']} particles' pair or bit "
-          f"differ; x {res['x_max_abs_err_where_agree']}, cloth x "
+           "tolerance": tol, "gpu_launches": launches}
+    print(f"{tag}_parity: {res['pair_or_bit_differs']} particles' pair or "
+          f"bit differ; x {res['x_max_abs_err_where_agree']}, cloth x "
           f"{res['cloth_x_max_abs_err']}, loss {res['loss_rel_err']}",
           flush=True)
     if not (all(launches[k] > 0 for k in TRANSFERS) and res["pairs_cpu"] > 0
-            and res["x_max_abs_err_where_agree"] <= HIT_PARITY_TOL
-            and res["cloth_x_max_abs_err"] <= HIT_PARITY_TOL
-            and res["loss_rel_err"] <= HIT_PARITY_TOL):
-        raise AssertionError(f"hit GPU/CPU parity failed: {res}")
+            and res["x_max_abs_err_where_agree"] <= tol
+            and res["cloth_x_max_abs_err"] <= tol
+            and res["loss_rel_err"] <= tol):
+        raise AssertionError(f"{tag} GPU/CPU parity failed: {res}")
     return res
+
+
+def run_hit_parity(env, carry):
+    return run_cloth_parity("hit", env, carry, hit_env("cpu"),
+                            hit_actions(HIT_PARITY_STEPS), HIT_PARITY_TOL)
+
+
+def run_taco_parity(env, carry):
+    return run_cloth_parity("taco", env, carry, taco_env("cpu"),
+                            taco_hold(env, TACO_PARITY_STEPS),
+                            TACO_PARITY_TOL)
+
+
+def profile_cloth(tag, env, carry, acts, grad_acts):
+    """torch.profiler over ``acts`` forward and ``grad_acts`` forward and
+    backward (remat "none", the loss at the last frame) from ``carry``."""
+    return {"from": f"the {tag} rollout's exit carry",
+            "forward": run_profile(env, acts, carry0=carry),
+            "fwd_bwd": run_profile(env, grad_acts, grad=True, carry0=carry,
+                                   loss_stride=len(grad_acts) * env.substeps)}
 
 
 def run_demo_hit():
@@ -4623,6 +4806,36 @@ def run_demo_hit():
     return run_demo_trainer(demo_hit, "hit", DEMO_HIT_STEPS,
                             TRANSFERS + tuple(k + "_bwd" for k in TRANSFERS),
                             epochs=DEMO_HIT_EPOCHS)
+
+
+def run_demo_taco(substeps):
+    """The taco trainer (``substeps`` an env step) for one epoch of
+    DEMO_TACO_STEPS env steps with each optimiser: Adam over
+    DEMO_TACO_REPLICAS jittered replicas (that many rollout_and_grads), and
+    the line search (one rollout_and_grad, four candidate rollouts, and one
+    more rollout_and_grad where a candidate won), launch counts exact
+    (taco_grad_expect: the demo's loss frames lie a block an env step
+    apart, and it clips the carry's cotangent)."""
+    import types
+    from softmac_tpu_torch.demos import demo_taco
+    env = types.SimpleNamespace(substeps=substeps)
+    steps, out = DEMO_TACO_STEPS, {}
+    for method, extra in (("adam", ["--replicas", str(DEMO_TACO_REPLICAS)]),
+                          ("line_search", ["--line-search"])):
+        res = run_demo_trainer(demo_taco, "taco", steps, TRANSFERS + tuple(
+            k + "_bwd" for k in TRANSFERS), epochs=1, extra=extra)
+        grads = (DEMO_TACO_REPLICAS if method == "adam"
+                 else 1 + sum(res["moved"]))
+        expect = taco_grad_expect(env, steps, "step", calls=grads,
+                                  clipped_steps=True)
+        if method == "line_search":
+            for k in TRANSFERS:
+                expect[k] += len(demo_taco.LRS) * steps * env.substeps
+        if res["launches"] != expect:
+            raise AssertionError(f"demo_taco ({method}) launch counts "
+                                 f"{res['launches']}, expected {expect}")
+        out[method] = res
+    return out
 
 
 def main():
@@ -4748,6 +4961,11 @@ def main():
     hit_kernels = check_hit_kernels(henv, hit_carry)
     hit_grad_res, hit_grad_launches = run_hit_grad(henv, hit_carry)
     paths["hit_grad_step"] = hit_grad_launches["step"]
+    tenv = taco_env()
+    taco_res, paths["taco"], taco_carry = run_taco(tenv)
+    taco_kernels = check_taco_kernels(tenv, taco_carry)
+    taco_grad_res, taco_grad_launches = run_taco_grad(tenv, taco_carry)
+    paths["taco_grad_step"] = taco_grad_launches["step"]
     for k in kernels:
         # each kernel's main path: the forward kernels of pour_vel on its
         # rollout, their backwards on its gradient path with the default
@@ -4781,6 +4999,8 @@ def main():
             k["grip_state"] = grip_kernels["kernels"][name]
         if name in hit_kernels["kernels"]:
             k["hit_state"] = hit_kernels["kernels"][name]
+        if name in taco_kernels["kernels"]:
+            k["taco_state"] = taco_kernels["kernels"][name]
         if name == "collide_mixed":
             k["lives"] = {"pour": pour_lives, "door_band_state": door_lives}
         if not k["launches"] > 0:
@@ -4851,16 +5071,22 @@ def main():
     emit("hit", hit_res)
     emit("hit_kernels", hit_kernels)
     emit("hit_grad", hit_grad_res)
-    emit("profile_hit", {
-        "from": "the hit rollout's exit carry",
-        "forward": run_profile(henv, hit_actions(HIT_PROFILE_STEPS),
-                               carry0=hit_carry),
-        "fwd_bwd": run_profile(henv, hit_actions(HIT_PROFILE_STEPS),
-                               grad=True, carry0=hit_carry,
-                               loss_stride=HIT_PROFILE_STEPS * henv.substeps)})
+    emit("profile_hit", profile_cloth(
+        "hit", henv, hit_carry, hit_actions(HIT_PROFILE_STEPS),
+        hit_actions(HIT_PROFILE_STEPS)))
     emit("hit_parity", run_hit_parity(henv, hit_carry))
     del henv, hit_carry
     emit("demo_hit", run_demo_hit())
+    emit("taco", taco_res)
+    emit("taco_kernels", taco_kernels)
+    emit("taco_grad", taco_grad_res)
+    emit("profile_taco", profile_cloth(
+        "taco", tenv, taco_carry, taco_hold(tenv, TACO_PROFILE_STEPS),
+        taco_hold(tenv, TACO_PROFILE_STEPS + 1)))
+    emit("taco_parity", run_taco_parity(tenv, taco_carry))
+    substeps = tenv.substeps
+    del tenv, taco_carry
+    emit("demo_taco", run_demo_taco(substeps))
     print(smi, flush=True)      # the card again, next to the result
     emit(None, {"ok": True, "device": {"platform": "gpu", "kind": kind,
                                       "count": torch.cuda.device_count()}})

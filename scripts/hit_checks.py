@@ -4,11 +4,12 @@
     python3 scripts/hit_checks.py [PHASE ...]
 
 Builds the kernel library and runs, each printed on a line of its own
-with the seconds it took: hit (the demo's 100-step rollout at its 5000
-particles and 144 cloth vertices, exact launches, spills and off-slab
-particles, each env step's contact pairs and vertex forces), hit_kernels
-(rows 1-8 on the hit's state in contact), hit_grad (10 env steps of
-rollout_and_grad from that state), profile_hit, hit_parity (the card
+with the seconds it took: hit (HIT_STEPS env steps of the demo's push at
+its 5000 particles and 144 cloth vertices, exact launches, spills and
+off-slab particles, each env step's contact pairs and vertex forces),
+hit_kernels (rows 1-8 on the hit's state in contact), hit_grad
+(HIT_GRAD_STEPS env steps of rollout_and_grad from that state),
+profile_hit, hit_parity (the card
 against the CPU in float64 from that state) and demo_hit. PHASE names
 pick some of them (every phase but demo_hit runs the hit rollout first).
 The card's name and power limit on the first and last lines. Needs a card

@@ -3,7 +3,9 @@ for the reference's C++ DiffCloth, ``soft_cloth/engine/cloth_simulator.py``).
 
 - Constraints: a stretch spring on each unique mesh edge, a bending spring
   across each interior edge (its two opposite vertices), and stiff
-  attachment springs at the scene's ``customAttachmentVertexIdx``.
+  attachment springs at the scene's ``customAttachmentVertexIdx``. A vertex
+  listed twice there (the taco's 193) gets two springs: its diagonal of A
+  and its right-hand side both take the stiffness twice, as in JAX.
 - The global matrix A = M/dt^2 + L + W is constant. A, its dense inverse and
   the edge incidence operators are built once on the host in float64 and
   cast to the env's dtype, so each local/global iteration is three dense
@@ -120,6 +122,12 @@ class ClothModel:
                                             device=self.device),
                           v=torch.zeros((self.n_vertices, 3), dtype=self.dtype,
                                         device=self.device))
+
+    def attachment_rest_positions(self) -> np.ndarray:
+        """The handles' rest targets, flat (3 * n_att,): the cloth control
+        mode's rest action (reference cloth_simulator.py:33). A vertex
+        listed twice among the attachments is listed twice here too."""
+        return self.rest_verts[self.attachment_idx].reshape(-1).copy()
 
     def _base_rhs_and_pred(self, state: ClothState, attach_pos, ext_f):
         dt, m = self.dt, self._mass

@@ -6,15 +6,17 @@ whose (w, v) the actions set), the flagship pour (forecast mixed contact
 against floating, force-controlled bodies that the ``RigidModel`` steps
 once per env step with the window-averaged contact wrench), the door and
 the grip (``control_mode`` "mpm": the actions drive particle controllers,
-and the ``RigidModel`` steps the bodies with no action), and for the
-cloth-coupled hit (a ``CLOTH`` section: the carry is (mpm, cloth, pen);
-each env step runs its substeps against the forecast cloth with the
+and the ``RigidModel`` steps the bodies with no action), and the
+cloth-coupled hit and taco (a ``CLOTH`` section: the carry is (mpm, cloth,
+pen); each env step runs its substeps against the forecast cloth with the
 contact pairs and penetration bits traced after each, then one
 projective-dynamics cloth step on the window-averaged vertex forces, then
-the pairs re-resolved against the moved cloth). ``rollout``
-(under ``torch.no_grad()``) and ``rollout_and_grad`` (autograd, then
-``torch.autograd.grad`` of the loss with respect to the actions) run one
-loop, eagerly on ``device`` (CUDA by default):
+the pairs re-resolved against the moved cloth). In ``control_mode``
+"cloth" (the taco) an action is the attachment vertices' targets, (3 *
+n_att,), which the cloth step takes; the particle controllers get none.
+``rollout`` (under ``torch.no_grad()``) and ``rollout_and_grad``
+(autograd, then ``torch.autograd.grad`` of the loss with respect to the
+actions) run one loop, eagerly on ``device`` (CUDA by default):
 
     sort particles by y-cell
     for each loss block:   clip the carry's cotangent (``grad_clip``),
@@ -30,8 +32,7 @@ with the same loss-frame sampling as the JAX rollout (``_sample_mask``).
 (a batched carry: the carry with a leading B on every tensor, from
 ``jittered_carry`` or the initial state broadcast B ways) one after
 another through the same loop, which gives what JAX's vmap over the
-rollout gives. The imperative facade and the cloth control mode are not
-ported yet.
+rollout gives. The imperative facade is not ported yet.
 """
 from __future__ import annotations
 
@@ -185,11 +186,11 @@ class SoftMacEnv:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         mpm_scale = cfg.get("mpm_scale", 1.0)
+        self.mpm_scale = mpm_scale
         self.search_dirs = [".", str(REPO_ROOT)]
         self.has_cloth = bool(cfg.get("CLOTH") and cfg.CLOTH.get("sceneConfig"))
-        if cfg.control_mode == "cloth":
-            raise NotImplementedError("the cloth control mode is not ported "
-                                      "yet")
+        if cfg.control_mode == "cloth" and not self.has_cloth:
+            raise ValueError("control_mode 'cloth' needs a CLOTH section")
 
         # ---------------- particles ----------------------------------------
         # init_particles overrides SHAPES with an explicit (N, 3) position
@@ -297,6 +298,8 @@ class SoftMacEnv:
 
         if self.control_mode == "mpm":
             self.action_dim = 3 * self.mpm_cfg.n_controllers
+        elif self.control_mode == "cloth":
+            self.action_dim = 3 * len(self.cloth_model.attachment_idx)
         elif self.rigid_model is not None:
             self.action_dim = self.rigid_model.action_dim
         else:
@@ -373,6 +376,21 @@ class SoftMacEnv:
                              f"{self.n_primitives} primitives")
         self.mpm_cfg = dataclasses.replace(self.mpm_cfg,
                                            primitives_contact=flags)
+
+    def set_control_mode(self, mode):
+        """Switch between "mpm", "cloth" and "rigid" control (the
+        reference's soft_cloth taichi_env.py:133-135; JAX env.py:588):
+        "mpm" and "cloth" set ``action_dim`` (3 per particle controller, 3
+        per attachment vertex); "rigid" leaves it as it was."""
+        if mode not in ("mpm", "rigid", "cloth"):
+            raise ValueError(f"unknown control mode {mode!r}")
+        if mode == "cloth" and not self.has_cloth:
+            raise ValueError("control_mode 'cloth' needs a CLOTH section")
+        self.control_mode = mode
+        if mode == "mpm":
+            self.action_dim = 3 * self.mpm_cfg.n_controllers
+        elif mode == "cloth":
+            self.action_dim = 3 * len(self.cloth_model.attachment_idx)
 
     def set_control_idx(self, idx):
         """Assign each particle to a controller (-1: none), (N,) ints."""
@@ -470,13 +488,18 @@ class SoftMacEnv:
         JAX env.py:510-583): the substeps against the window's forecast
         cloth, each followed by the pair search and the penetration tracing
         after the MPM move; one cloth step on the window-averaged vertex
-        forces; the pairs re-resolved against the moved cloth. Returns
-        ((mpm, cloth, pen), (overflow, vertex force[, loss terms]))."""
+        forces; the pairs re-resolved against the moved cloth. In "mpm"
+        control the action drives the particle controllers; in "cloth"
+        control it is the attachment targets of the cloth step and never
+        reaches the particles. Returns ((mpm, cloth, pen), (overflow,
+        vertex force[, loss terms]))."""
         mpm, cloth, pen = carry
         cfg, cparams = self.mpm_cfg, self.cloth_params
-        mpm_action = None
-        if self.action_dim > 0:
+        mpm_action = cloth_action = None
+        if self.control_mode == "mpm" and self.action_dim > 0:
             mpm_action = action.reshape(cfg.n_controllers, 3).to(self.dtype)
+        elif self.control_mode == "cloth":
+            cloth_action = action
         # the forecast cloth of the window, its cotangents damped by
         # ext_grad_scale
         cxf, cvf = GradScale.apply(self.ext_grad_scale, cloth.x, cloth.v)
@@ -497,7 +520,7 @@ class SoftMacEnv:
                 for name, v in self.loss.terms(sample).items():
                     terms[name] = terms.get(name, 0.0) + loss_weights[k] * v
         ext_vertex_f = torch.stack(ext).sum(dim=0) / cfg.substeps
-        cloth = self.cloth_model.step(cloth, None, ext_vertex_f)
+        cloth = self.cloth_model.step(cloth, cloth_action, ext_vertex_f)
         # re-resolve the pairs against the moved cloth (taichi_env:88-90)
         cid = cc.get_contact_pair(cparams, cloth.x, tuple(mpm.x),
                                   pen.penetration)

@@ -10,8 +10,8 @@
   this env costs ~50 s to compile here, so the gradient's JAX side is
   test_torch_cloth.py's vjps and the substep's).
 - The trainer (softmac_tpu_torch.demos.demo_hit) for one epoch on the CPU
-  on the scene cut to 250 particles; a cloth env refuses the cloth control
-  mode.
+  on the scene cut to 250 particles; the hit built in the cloth control
+  mode takes its towel's two handles as the action (action_dim 6).
 """
 from pathlib import Path
 
@@ -69,5 +69,5 @@ def test_demo_hit_main_on_cpu(tmp_path):
     cfg = softmac_tpu_torch.load(str(tmp_path / "config.py"))
     cfg.defrost()
     cfg.control_mode = "cloth"
-    with pytest.raises(NotImplementedError, match="cloth control"):
-        TorchEnv(cfg.freeze(), device="cpu")
+    env = TorchEnv(cfg.freeze(), device="cpu")
+    assert (env.control_mode, env.action_dim) == ("cloth", 6)

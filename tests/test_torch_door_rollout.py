@@ -3,8 +3,10 @@ JAX package, in float64 on the CPU: 300 of the door's particles (the
 fixtures of test_torch_door.py), 3 env steps of seeded actions that push
 the boxes into the door. The JAX package's rollout_and_grad runs op by op
 under jax.disable_jit with its default remat "step", which here is faster
-than compiling it. Loss and terms 1e-8 relative, end state 1e-8 absolute,
-the action gradient 1e-8 of its largest |value|.
+than compiling it, and each op compiled with XLA's optimisations off
+(jax_disable_most_optimizations), a quarter faster again. Loss and terms
+1e-8 relative, end state 1e-8 absolute, the action gradient 1e-8 of its
+largest |value|.
 """
 import sys
 from pathlib import Path
@@ -25,8 +27,14 @@ def runs(envs):
     jenv, tenv = envs
     acts = _actions()
     assert tenv.action_dim == jenv.action_dim == 3
-    with jax.disable_jit():
-        jout = jenv.rollout_and_grad(acts, loss_stride=1)
+    # op by op, each op compiled without XLA's optimisation passes: the
+    # same float64 function, compiled in less time
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        with jax.disable_jit():
+            jout = jenv.rollout_and_grad(acts, loss_stride=1)
+    finally:
+        jax.config.update("jax_disable_most_optimizations", False)
     return (jout, tenv.rollout(acts, loss_stride=1),
             tenv.rollout_and_grad(acts, loss_stride=1))
 

@@ -69,7 +69,8 @@ def _plain(node):
                                   "demo_pour_config.py",
                                   "demo_door_config.py",
                                   "demo_grip_config.py",
-                                  "demo_hit_config.py"])
+                                  "demo_hit_config.py",
+                                  "demo_taco_config.py"])
 def test_config_loads_to_same_dict(name):
     jpath = tpath = None
     if name is not None:
