@@ -258,6 +258,25 @@ script exits non-zero:
            particles (gates as the hit's); the trainer for one epoch of 4
            env steps with each optimiser (Adam over 2 jittered replicas, the
            line search), launch counts exact
+  policy_grad  the closed-loop policy (engine/policy.py) on the slice's
+           1e5-particle pour_vel: the demo's MLP (64, 64) from seed 0 maps
+           200 subsampled particles' x and v and the bodies' state to the
+           velocity command at each of 50 env steps, each env step
+           checkpointed; the loss and its gradient with respect to the
+           MLP's parameters: launches exact (as the pour_vel gradient's
+           under remat "step", rehearsed on the CPU), finite, nonzero, no
+           overflow, a repeat bit-identical, fwd+bwd substeps/s, peak
+           memory, and a profile of 5 env steps. Its launches are the
+           kernels line's "policy_grad" path
+  policy_deploy  the same weights on the demo's 5000-particle scene: 50
+           env steps closed loop through the facade (reset,
+           get_observation, step; launches exact) against the closed-loop
+           forward's exit x within 1e-5 of its largest |x|; a get_state /
+           step / set_state round trip exact; backward() finite
+  demo_policy  the ported trainer softmac_tpu_torch.demos.demo_policy, 3
+           epochs of 60 env steps on its own scene: finite losses,
+           losses.npy and policy_<epoch>.pt written, the parameters moved,
+           rows 1-4, 9 and 10 launched
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -450,6 +469,10 @@ TACO_PARITY_TOL = 1e-4     # x (particles whose pair agrees), cloth x, loss
 DEMO_TACO_STEPS = 4        # each taco optimiser, one epoch (cut from 200)
 DEMO_TACO_REPLICAS = 2
 TRANSFERS = ("p2g", "g2p", "gather", "splat")
+POLICY_HIDDEN = (64, 64)   # demos/demo_policy.py's MLP
+POLICY_OBSERVED = 200      # its config's ENV.n_observed_particles
+POLICY_PROFILE_STEPS = 5
+DEPLOY_TOL = 1e-5          # the facade's closed loop against the forward
 FLOPS_PER_BWD_CELL = {"fused_p2g_bwd": (22 + 14, 32),
                       "fused_g2p_bwd": (20 + 14, 27),
                       "fused_splat_bwd": (5 + 3, 8),
@@ -2195,26 +2218,32 @@ def run_gradient(tag, env, acts, expect, glass, window, repeats=GRAD_REPEATS,
     return out, launches
 
 
+def vel_grad_expect(env, steps, remat):
+    """pour_vel's launches in a gradient of ``steps`` env steps, one env
+    step checkpointed at a time under remat "step". The first env step's
+    state does not depend on the actions (the first action sets the
+    bodies' velocities at its end), so autograd records nothing there: no
+    replay under remat "step", no backward launches. The closed-loop
+    policy's gradient launches the same (rehearsed on the CPU)."""
+    n_sub = steps * env.substeps
+    graded = (steps - 1) * env.substeps
+    replays = graded if remat == "step" else 0   # checkpoint replays
+    counts = dict.fromkeys(wrappers(), 0)
+    for k, c in {"p2g": 1, "g2p": 1,
+                 "collide_particle": env.n_primitives}.items():
+        counts[k] = c * (n_sub + replays)
+        counts[k + "_bwd"] = c * graded
+    return counts
+
+
 def run_grad(env):
     """pour_vel's gradient path on the slice phase's actions."""
-    # the first env step's state does not depend on the actions (the first
-    # action sets the bodies' velocities at its end), so autograd records
-    # nothing there: no replay under remat "step", no backward launches
-    n_sub = VEL_STEPS * env.substeps
-    graded = (VEL_STEPS - 1) * env.substeps
-    per_step = {"p2g": 1, "g2p": 1, "collide_particle": env.n_primitives}
-
-    def expect(remat):
-        replays = graded if remat == "step" else 0   # checkpoint replays
-        counts = dict.fromkeys(wrappers(), 0)
-        for k, c in per_step.items():
-            counts[k] = c * (n_sub + replays)
-            counts[k + "_bwd"] = c * graded
-        return counts
     # the glass's wz, vx, vy
     off = OffSlab()
-    out, launches = run_gradient("grad", env, actions(VEL_STEPS), expect,
-                                 [2, 3, 4], WINDOW, counted=off)
+    out, launches = run_gradient(
+        "grad", env, actions(VEL_STEPS),
+        lambda remat: vel_grad_expect(env, VEL_STEPS, remat), [2, 3, 4],
+        WINDOW, counted=off)
     out["off_slab"] = off.counts()
     print(f"grad: read-side particles off the slab (counted calls) "
           f"{out['off_slab']}", flush=True)
@@ -2445,20 +2474,33 @@ def run_profile(env, acts, grad=False, loss_stride=None, carry0=None):
     ``acts`` (or rollout_and_grad with remat "none", loss frames every
     ``loss_stride`` substeps from 0, by default every len(acts)), from
     ``carry0`` (by default the scene's initial state)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     steps = len(acts)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def call():
         if grad:
             env.rollout_and_grad(acts, loss_start_frame=0,
                                  loss_stride=loss_stride or steps,
                                  remat="none", carry0=carry0)
         else:
             env.rollout(acts, carry0=carry0)
+    return {"env_steps": steps, "grad": grad,
+            **profile_call(call, steps * env.substeps)}
+
+
+def profile_call(fn, n_sub):
+    """torch.profiler over one call of ``fn``, which runs ``n_sub``
+    substeps: device busy share of the wall time, kernel launches and
+    device ms a substep, the kernels that take the most device time, and
+    each of the port's own kernels' device time a launch and launches a
+    substep."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -2469,7 +2511,6 @@ def run_profile(env, acts, grad=False, loss_stride=None, carry0=None):
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     busy_us = sum(t for t, _ in by_name.values())
-    n_sub = steps * env.substeps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     # the y-slab kernels: scatter and reduce launches (their names carry
     # the template argument)
@@ -2484,8 +2525,7 @@ def run_profile(env, acts, grad=False, loss_stride=None, carry0=None):
                      "launches_per_substep": c / n_sub}
             for k, (t, c) in by_name.items()
             if re.search(PORT_KERNEL, k)}
-    return {"env_steps": steps, "grad": grad,
-            "port_kernels": ours,
+    return {"port_kernels": ours,
             "slab_kernels_ms_per_substep": scatter,
             "wall_ms_per_substep": wall * 1e3 / n_sub,
             "device_busy_ms_per_substep": busy_us / 1e3 / n_sub,
@@ -4334,31 +4374,53 @@ def run_grip_parity():
     return {"scene": "demo_grip", "init_state": list(GRIP_NEAR), **res}
 
 
+def checkpoint_values(path):
+    """A trainer checkpoint's numbers, flat: the actions of an .npy, every
+    tensor of a state_dict's .pt in order."""
+    import numpy as np
+    import torch
+    if path.suffix == ".npy":
+        return np.load(path)
+    return np.concatenate([t.detach().cpu().numpy().ravel()
+                           for t in torch.load(path).values()])
+
+
 def run_demo_trainer(module, name, steps, kernels, epochs=DEMO_EPOCHS,
-                     extra=()):
+                     extra=(), ckpt="actions"):
     """A ported trainer on the card, ``epochs`` epochs of ``steps`` env
     steps on its own scene (``extra``: more arguments), logs in a temporary
     directory: every epoch's loss finite, losses.npy and a checkpoint per
     epoch written, each of ``kernels`` launched; how far the last
-    checkpoint's actions moved from the first's."""
+    checkpoint moved from the first (``ckpt``: the checkpoints' stem,
+    "actions" for actions_<epoch>.npy, "policy" for the policy trainer's
+    policy_<epoch>.pt; that trainer has no --log-root, as the JAX
+    package's demo_policy has none, and runs in the temporary directory)."""
     import tempfile
     import numpy as np
     with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--steps", str(steps), "--epochs", str(epochs), *extra]
+        here = contextlib.nullcontext()
+        if ckpt == "policy":
+            here = contextlib.chdir(tmp)
+        else:
+            argv += ["--log-root", tmp]
         reset_launches()
         t0 = time.perf_counter()
-        out = module.main(["--steps", str(steps), "--epochs",
-                           str(epochs), "--log-root", tmp, *extra])
+        with here:
+            out = module.main(argv)
         secs = time.perf_counter() - t0
         launches = read_launches()
-        log = Path(tmp) / name
-        ckpts = sorted(p.name for p in (log / "ckpt").glob("actions_*.npy"))
+        log = Path(tmp) / ("logs" if ckpt == "policy" else "") / name
+        files = sorted((log / "ckpt").glob(f"{ckpt}_*"))
+        ckpts = [p.name for p in files]
         saved = np.load(log / "losses.npy").tolist()
-        a0 = np.load(log / "ckpt/actions_0.npy")
-        a_last = np.load(log / f"ckpt/actions_{epochs - 1}.npy")
+        first = checkpoint_values(log / "ckpt" / f"{ckpt}_0{files[0].suffix}")
+        last = checkpoint_values(
+            log / "ckpt" / f"{ckpt}_{epochs - 1}{files[0].suffix}")
     res = {"epochs": epochs, "env_steps": steps,
            "losses": out["losses"], "epoch_seconds": out["epoch_seconds"],
            "seconds_with_setup": secs, "checkpoints": ckpts,
-           "actions_max_abs_change": float(np.abs(a_last - a0).max()),
+           f"{ckpt}_max_abs_change": float(np.abs(last - first).max()),
            "launches": launches}
     if "moved" in out:
         res["moved"] = out["moved"]
@@ -4380,6 +4442,152 @@ def run_demo_pour_vel():
     from softmac_tpu_torch.demos import demo_pour_vel
     return run_demo_trainer(demo_pour_vel, "pour_vel", DEMO_GRIP_STEPS,
                             FORWARD + tuple(k + "_bwd" for k in FORWARD))
+
+
+# ---------------------------------------------------------------------------
+# the closed-loop policy on pour_vel: at every env step the MLP maps the
+# observation (200 subsampled particles' x and v, the two bodies' state) to
+# the 12-dim velocity command; the particles sorted by y-cell and re-keyed
+# every env step; each env step checkpointed; rows 1-4, 9 and 10
+# ---------------------------------------------------------------------------
+def closed_loop_grad(loss_fn, params):
+    """One closed-loop loss and its gradient with respect to ``params``,
+    timed on the host's clock after a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, aux = loss_fn()
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    return loss.detach(), aux, grads, time.perf_counter() - t0
+
+
+def run_policy_grad(env):
+    """The closed loop's gradient on the slice's 1e5-particle pour_vel:
+    the demo's MLP from seed 0, VEL_STEPS env steps, launches counted
+    (exact: vel_grad_expect's "step"), a finite loss, finite gradients of
+    nonzero sum |g|, no overflow, a repeat bit-identical, fwd+bwd
+    substeps/s and peak memory; then a profile of POLICY_PROFILE_STEPS env
+    steps (launches and device ms a substep, busy share). Returns (result,
+    launches, the policy)."""
+    import torch
+    from softmac_tpu_torch.demos import demo_policy
+    from softmac_tpu_torch.engine.policy import make_closed_loop_rollout
+    policy = demo_policy.make_policy(env, POLICY_HIDDEN, 1.0,
+                                     POLICY_OBSERVED)
+    params = list(policy.parameters())
+    loss_fn, _ = make_closed_loop_rollout(env, policy, VEL_STEPS,
+                                          POLICY_OBSERVED)
+    n_sub = VEL_STEPS * env.substeps
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    loss, aux, grads, secs = closed_loop_grad(loss_fn, params)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    rep_loss, _, again, rep_secs = closed_loop_grad(loss_fn, params)
+    short_fn, _ = make_closed_loop_rollout(env, policy, POLICY_PROFILE_STEPS,
+                                           POLICY_OBSERVED)
+    profile = profile_call(
+        lambda: torch.autograd.grad(short_fn()[0], params),
+        POLICY_PROFILE_STEPS * env.substeps)
+    expect = vel_grad_expect(env, VEL_STEPS, "step")
+    res = {"n_particles": env.n_particles, "window": list(WINDOW),
+           "env_steps": VEL_STEPS, "substeps": n_sub,
+           "hidden": list(POLICY_HIDDEN), "n_observed": POLICY_OBSERVED,
+           "parameters": sum(p.numel() for p in params),
+           "loss": loss.item(),
+           "window_overflow": bool(aux["window_overflow"]),
+           "grad_abs_sum": sum(g.abs().sum().item() for g in grads),
+           "grads_finite": all(bool(torch.isfinite(g).all())
+                               for g in grads),
+           "repeat_bit_identical": bool(torch.equal(rep_loss, loss)) and all(
+               torch.equal(a, b) for a, b in zip(grads, again)),
+           "fwd_bwd_substeps_per_s": n_sub / rep_secs,
+           "counted_run_substeps_per_s": n_sub / secs,
+           "max_memory_allocated_bytes": peak,
+           "launches": launches, "profile_env_steps": POLICY_PROFILE_STEPS,
+           "profile": profile}
+    if launches != expect:
+        raise AssertionError(f"policy_grad: launch counts {launches}, "
+                             f"expected {expect}")
+    if not (math.isfinite(res["loss"]) and res["grads_finite"]
+            and res["grad_abs_sum"] > 0) or res["window_overflow"] \
+            or not res["repeat_bit_identical"]:
+        raise AssertionError(f"policy_grad failed: {res}")
+    return res, launches, policy
+
+
+def run_policy_deploy(policy):
+    """The same weights on the demo's own 5000-particle scene: VEL_STEPS env
+    steps closed loop through the facade (reset, get_observation, step;
+    launches exact) against the closed-loop forward's exit x within
+    DEPLOY_TOL of its largest |x|; a get_state / step / set_state round
+    trip exact; backward() of the recorded actions finite."""
+    import numpy as np
+    import torch
+    from softmac_tpu_torch import SoftMacEnv
+    from softmac_tpu_torch.engine.policy import make_closed_loop_rollout
+    env = SoftMacEnv(pour_vel_cfg())
+    loss_fn, _ = make_closed_loop_rollout(env, policy, VEL_STEPS,
+                                          POLICY_OBSERVED)
+    with torch.no_grad():
+        _, aux = loss_fn()
+    x_loop = aux["carry"][0].x.T.cpu().numpy()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env.reset()
+    for _ in range(VEL_STEPS):
+        obs = torch.as_tensor(env.get_observation(), device=env.device)
+        with torch.no_grad():
+            env.step(policy(obs))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    x_facade = env.get_x()
+    diff = float(np.abs(x_facade - x_loop).max())
+    scale = float(np.abs(x_loop).max())
+    state = env.get_state()
+    env.step()
+    moved = float(np.abs(env.get_state() - state).max())
+    env.set_state(state)
+    round_trip = bool(np.array_equal(env.get_state(), state))
+    g = env.backward()
+    expect = dict.fromkeys(wrappers(), 0)
+    n_sub = VEL_STEPS * env.substeps
+    expect.update({"p2g": n_sub, "g2p": n_sub,
+                   "collide_particle": n_sub * env.n_primitives})
+    res = {"n_particles": env.n_particles, "env_steps": VEL_STEPS,
+           "facade_vs_closed_loop_x_max_abs_diff": diff,
+           "facade_vs_closed_loop_x_rel_diff": diff / scale,
+           "tolerance": DEPLOY_TOL,
+           "facade_ms_per_env_step": secs * 1e3 / VEL_STEPS,
+           "launches": launches, "state_moved_by_step": moved,
+           "set_state_round_trip_exact": round_trip,
+           "backward_shape": list(g.shape),
+           "backward_finite": bool(np.isfinite(g).all()),
+           "backward_max_abs": float(np.abs(g).max())}
+    if launches != expect:
+        raise AssertionError(f"policy_deploy: launch counts {launches}, "
+                             f"expected {expect}")
+    if not (diff <= DEPLOY_TOL * scale and round_trip and moved > 0
+            and res["backward_finite"]
+            and res["backward_shape"] == [VEL_STEPS + 1, env.action_dim]):
+        raise AssertionError(f"policy_deploy failed: {res}")
+    return res
+
+
+def run_demo_policy():
+    """The ported policy trainer softmac_tpu_torch.demos.demo_policy on the
+    card (run_demo_trainer, DEMO_STEPS env steps an epoch): also the
+    policy's parameters moved."""
+    from softmac_tpu_torch.demos import demo_policy
+    res = run_demo_trainer(demo_policy, "policy", DEMO_STEPS,
+                           FORWARD + tuple(k + "_bwd" for k in FORWARD),
+                           ckpt="policy")
+    if not res["policy_max_abs_change"] > 0:
+        raise AssertionError(f"demo_policy on the card failed: {res}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4935,6 +5143,7 @@ def main():
     grad_res, grad_launches = run_grad(env)
     paths["grad_step"], paths["grad_none"] = (grad_launches["step"],
                                               grad_launches["none"])
+    policy_res, paths["policy_grad"], policy = run_policy_grad(env)
     pour_res, paths["pour"] = run_pour(pour_env)
     split_res, paths["pour_split"] = run_pour_split(pour_env)
     pour_grad_res, pour_grad_launches, real_bwd = run_pour_grad(pour_env)
@@ -5087,6 +5296,10 @@ def main():
     substeps = tenv.substeps
     del tenv, taco_carry
     emit("demo_taco", run_demo_taco(substeps))
+    emit("policy_grad", policy_res)
+    emit("policy_deploy", run_policy_deploy(policy))
+    del policy
+    emit("demo_policy", run_demo_policy())
     print(smi, flush=True)      # the card again, next to the result
     emit(None, {"ok": True, "device": {"platform": "gpu", "kind": kind,
                                       "count": torch.cuda.device_count()}})

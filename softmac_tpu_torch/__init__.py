@@ -8,8 +8,8 @@ first use. Entry points run on CUDA unless the caller passes
 package imports neither JAX nor ``softmac_tpu``.
 """
 from softmac_tpu_torch.config import CN, get_cfg_defaults, load
-from softmac_tpu_torch.engine.env import SoftMacEnv
+from softmac_tpu_torch.engine.env import SoftMacEnv, TaichiEnv
 
 __version__ = "0.1.0"
 
-__all__ = ["load", "get_cfg_defaults", "CN", "SoftMacEnv"]
+__all__ = ["load", "get_cfg_defaults", "CN", "SoftMacEnv", "TaichiEnv"]

@@ -4,7 +4,8 @@ Each function takes a mapping from field name to array (for example the
 fields of a JAX ``MPMState`` passed through ``np.asarray``) and returns the
 port's container on ``device`` in ``dtype``. Floating arrays take ``dtype``;
 integer arrays keep their type. The tests hand both packages the same bytes
-this way.
+this way. ``mlp_policy_state_dict`` carries a flax policy's weights into the
+port's ``MLPPolicy``.
 """
 from __future__ import annotations
 
@@ -73,3 +74,19 @@ def sdf_params(arrays, device="cpu", dtype=torch.float64) -> SDFParams:
         np.asarray(arrays["neighborhood"]), np.asarray(arrays["lower"]),
         np.asarray(arrays["upper"]), float(np.asarray(arrays["inv_dx"])),
         tuple(int(r) for r in arrays["res"]), dtype, device)
+
+
+def mlp_policy_state_dict(params, device="cpu",
+                          dtype=torch.float64) -> dict:
+    """The ``state_dict`` of ``engine.policy.MLPPolicy`` from flax
+    ``MLPPolicy`` params as numpy arrays ({"params": {"Dense_k": {"kernel"
+    (in, out), "bias" (out,)}}}, or the inner mapping): Dense_k is
+    ``layers.k``, its kernel transposed into the weight (out, in)."""
+    params = params.get("params", params)
+    out = {}
+    for k in range(len(params)):
+        dense = params[f"Dense_{k}"]
+        out[f"layers.{k}.weight"] = _tensor(np.asarray(dense["kernel"]).T,
+                                            device, dtype)
+        out[f"layers.{k}.bias"] = _tensor(dense["bias"], device, dtype)
+    return out

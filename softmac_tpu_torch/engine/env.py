@@ -32,7 +32,14 @@ with the same loss-frame sampling as the JAX rollout (``_sample_mask``).
 (a batched carry: the carry with a leading B on every tensor, from
 ``jittered_carry`` or the initial state broadcast B ways) one after
 another through the same loop, which gives what JAX's vmap over the
-rollout gives. The imperative facade is not ported yet.
+rollout gives.
+
+The imperative facade (the reference's ``TaichiEnv``: ``reset``, ``step``,
+``get_observation``, ``get_state`` / ``set_state``, ``compute_loss``,
+``backward``; JAX env.py:377-711) holds one carry between calls. It keeps
+that carry sorted by y-cell, as the rollout does, with the permutation
+(sorted position -> original particle index), and re-keys it at every
+``step``; whatever a reader returns is in the original particle order.
 """
 from __future__ import annotations
 
@@ -60,7 +67,7 @@ from softmac_tpu_torch.engine.sdf import preprocess_sdf, sdf_params_from_bake
 from softmac_tpu_torch.engine.shapes import Shapes
 from softmac_tpu_torch.engine.types import (
     BodyState, MPMConfig, MPMParams, MPMState, mpm_state_from_packed,
-    mpm_state_zero,
+    mpm_state_to_packed, mpm_state_zero,
 )
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -305,6 +312,12 @@ class SoftMacEnv:
         else:
             self.action_dim = 6 * self.n_primitives
         self._overflow_warned = False
+        self.n_observed = int(cfg.ENV.get("n_observed_particles", 200))
+
+        # ---------------- runtime state (facade) ------------------------------
+        self._is_copy = False
+        self.keep_history = True
+        self.reset()
 
     def _build_cloth(self, cfg, mpm_scale):
         """The cloth model and its contact parameters (JAX env.py:218-268):
@@ -558,6 +571,175 @@ class SoftMacEnv:
             bodies = self.rigid_model.body_states(rigid)
         return bodies, rigid
 
+    def _rekey(self, carry, perm):
+        """Re-sort a carry by its particles' current y-cells. ``perm`` maps
+        the carry's positions to original particle indices. Returns (carry,
+        perm, params): the re-sorted carry, its permutation and the
+        per-particle parameters in its order (the cloth's side-state rides
+        the permutation)."""
+        q, _ = mpm_mod.sort_perm(self.mpm_cfg, carry[0].x)
+        perm = perm[q]
+        return (self._permute(carry, q), perm,
+                mpm_mod.permute_params(self.mpm_params, perm))
+
+    # ==================================================================
+    # imperative facade (reference API; JAX env.py:334, 377-711, 1229)
+    # ==================================================================
+    def set_copy(self, is_copy: bool):
+        self._is_copy = is_copy
+        self.keep_history = not is_copy
+
+    def reset(self):
+        self._hold(self._initial_carry())
+        self.cur = 0
+        self.action_list = []
+        self._history = [self._snapshot()]
+
+    def initialize(self):
+        self.reset()
+
+    def _hold(self, carry):
+        """Hold ``carry`` (original particle order) sorted by y-cell."""
+        self._carry, self._perm, _ = self._rekey(
+            carry, torch.arange(self.n_particles, device=self.device))
+
+    def _held(self):
+        """The held carry in the original particle order."""
+        return self._permute(self._carry, _inverse(self._perm))
+
+    def _snapshot(self):
+        """(x (N, 3), bodies | None, cloth_x | None, cloth_v | None) of the
+        held carry as numpy arrays, the particles in original order; the
+        bodies a BodyState of numpy arrays."""
+        mpm, second, _ = self._carry
+        x = _unsort_rows(mpm.x_nd, self._perm).cpu().numpy()
+        if self.has_cloth:
+            return (x, None, second.x.cpu().numpy(), second.v.cpu().numpy())
+        bodies = BodyState(**{k: getattr(second, k).cpu().numpy()
+                              for k in ("pos", "quat", "v", "w")})
+        return (x, bodies, None, None)
+
+    @torch.no_grad()
+    def step(self, action=None):
+        """One env step of the held carry. ``action``: a numpy array or a
+        tensor, zeros of max(action_dim, 1) when None. The carry is
+        re-sorted first; the action is kept for ``backward``; a snapshot is
+        recorded (the history keeps only the last under ``set_copy``)."""
+        if action is None:
+            action = np.zeros((max(self.action_dim, 1),))
+        if torch.is_tensor(action):
+            action = action.detach().to(device=self.device, dtype=self.dtype,
+                                        copy=True)
+        else:
+            action = torch.as_tensor(np.asarray(action, np.float64),
+                                     dtype=self.dtype, device=self.device)
+        self.action_list.append(action)
+        carry, self._perm, params = self._rekey(self._carry, self._perm)
+        self._carry, (_, ext_f) = self._env_step_fn(carry, action, params)
+        self.last_ext_f = ext_f
+        self.cur += self.substeps
+        if self.keep_history:
+            self._history.append(self._snapshot())
+        else:
+            self._history = [self._snapshot()]
+
+    def get_x(self, f=None):
+        if f is None:
+            f = self.cur
+        return self.get_state_frame(f)[0]
+
+    def get_state_frame(self, f):
+        """(x, bodies, cloth_x, cloth_v) snapshot at frame f (env step
+        boundaries only)."""
+        return self._history[min(f // self.substeps, len(self._history) - 1)]
+
+    def compute_loss(self, f=None):
+        """The loss terms (floats, and their sum "loss") at the snapshot of
+        frame f, by default the current frame (frame 0 for a copy)."""
+        if self.loss is None:
+            raise ValueError("this env has no loss (ENV.loss_type is empty)")
+        if f is None:
+            f = 0 if self._is_copy else self.cur
+        x, bodies, cx, cv = self.get_state_frame(f)
+
+        def t(a):
+            return None if a is None else torch.as_tensor(
+                a, dtype=self.dtype, device=self.device)
+        if bodies is not None:
+            bodies = BodyState(**{k: t(getattr(bodies, k))
+                                  for k in ("pos", "quat", "v", "w")})
+        with torch.no_grad():
+            terms = {k: float(v) for k, v in self.loss.terms(FrameSample(
+                x=t(x), bodies=bodies, cloth_x=t(cx), cloth_v=t(cv))).items()}
+        terms["loss"] = sum(terms.values())
+        return terms
+
+    def get_observation(self, f=None):
+        """The flat observation of the held carry as a numpy array:
+        ``n_observed`` subsampled particles' x and v, then the cloth's or
+        the bodies' state (``policy.observation``; soft_cloth
+        taichi_env.get_observation :148-156)."""
+        from softmac_tpu_torch.engine import policy as policy_mod
+        with torch.no_grad():
+            obs = policy_mod.observation(self, self._carry, self.n_observed,
+                                         _inverse(self._perm))
+        return obs.cpu().numpy()
+
+    def get_state(self, f=None):
+        """The packed particle state, the reference's checkpoint layout:
+        (N, 24) ``[x v F C]`` (softmac mpm_simulator.py:481-492); cloth envs
+        append contact_id and penetration for (N, 26) (soft_cloth
+        mpm_simulator.py:604-615)."""
+        mpm, _, pen = self._held()
+        packed = mpm_state_to_packed(mpm).cpu().numpy()
+        if self.has_cloth:
+            packed = np.hstack([
+                packed,
+                pen.contact_id.cpu().numpy().astype(np.float64)[:, None],
+                pen.penetration.cpu().numpy().astype(np.float64)[:, None]])
+        return packed
+
+    def set_state(self, packed):
+        """Load a packed (N, 24) or (N, 26) particle state into the held
+        carry (the reference's setframe restores [x v F C], soft_cloth
+        mpm_simulator.py:617-618; on a cloth env 26 columns also restore
+        contact_id and penetration, 24 keep them). The bodies or the cloth
+        stay as they are; the history restarts."""
+        packed = np.asarray(packed)
+        mpm = mpm_state_from_packed(self.mpm_cfg, torch.as_tensor(
+            packed[:, :24], device=self.device))
+        _, second, third = self._held()
+        if self.has_cloth and packed.shape[1] >= 26:
+            third = cc.PenetrationState(
+                contact_id=torch.as_tensor(packed[:, 24].astype(np.int32),
+                                           device=self.device),
+                penetration=torch.as_tensor(packed[:, 25].astype(np.int8),
+                                            device=self.device))
+        self._hold((mpm, second, third))
+        self._history = [self._snapshot()]
+
+    def check_penetration(self) -> int:
+        """Number of particles flagged as penetrating the cloth (soft_cloth
+        mpm_simulator.py:555-561)."""
+        if not self.has_cloth:
+            return 0
+        return int(self._carry[2].penetration.to(torch.int32).sum())
+
+    def backward(self, loss_start_frame=None, loss_stride=20):
+        """Gradient of the sampled-frame loss with respect to the actions
+        recorded by ``step``: ``rollout_and_grad`` of them from the initial
+        state, as a numpy array (T, action_dim)."""
+        out = self.rollout_and_grad(torch.stack(self.action_list),
+                                    loss_start_frame=loss_start_frame,
+                                    loss_stride=loss_stride)
+        return out["action_grad"].cpu().numpy()
+
+    def set_render_target(self, points):
+        raise NotImplementedError("rendering is not ported yet (ROADMAP A11)")
+
+    def render(self, f=None):
+        raise NotImplementedError("rendering is not ported yet (ROADMAP A11)")
+
     @torch.no_grad()
     def adjust_action_with_ext_force(self, actions):
         """Compensate an action trajectory (T, action_dim) for gravity and
@@ -795,24 +977,18 @@ class SoftMacEnv:
             seg_blocks = max(int(bptt_window) // block, 1)
             while n_blocks % seg_blocks != 0:
                 seg_blocks -= 1
-        cfg = self.mpm_cfg
 
         if carry0 is None:
             carry0 = self._initial_carry()
         carry = carry0
-        params_s = self.mpm_params
         perm = torch.arange(self.n_particles, device=self.device)
         overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         per_block, general = [], []
         for b in range(n_blocks):
             if grad_clip is not None:
                 carry = _clip_carry(carry, float(grad_clip))
-            # _resort: re-key the sorted carry at every block boundary (the
-            # cloth's side-state rides the permutation)
-            q, _ = mpm_mod.sort_perm(cfg, carry[0].x)
-            carry = self._permute(carry, q)
-            params_s = mpm_mod.permute_params(params_s, q)
-            perm = perm[q]
+            # _resort: re-key the sorted carry at every block boundary
+            carry, perm, params_s = self._rekey(carry, perm)
             block_terms = {}
             for t0 in range(0, block, group):
                 s0 = b * block + t0
@@ -887,3 +1063,6 @@ def _unsort_rows(x_nd, perm):
     if perm is None:
         return x_nd
     return x_nd[_inverse(perm)]
+
+
+TaichiEnv = SoftMacEnv

@@ -166,3 +166,13 @@ def mpm_state_from_packed(cfg: MPMConfig, packed: torch.Tensor) -> MPMState:
         F=p[:, 6:15].reshape(n, 3, 3).permute(1, 2, 0).contiguous(),
         C=p[:, 15:24].reshape(n, 3, 3).permute(1, 2, 0).contiguous(),
     )
+
+
+def mpm_state_to_packed(state: MPMState) -> torch.Tensor:
+    """The (N, 24) packed state [x(3) v(3) F(9) C(9)], each 3x3 row-major:
+    the layout ``mpm_state_from_packed`` reads."""
+    n = state.x.shape[-1]
+    return torch.cat(
+        [state.x.T, state.v.T,
+         state.F.permute(2, 0, 1).reshape(n, 9),
+         state.C.permute(2, 0, 1).reshape(n, 9)], dim=1)
