@@ -11,8 +11,10 @@ The initial actions are compensated for gravity and the contact wrench
 (``adjust_action_with_ext_force``); two Adam controllers (torque at 0.3x the
 force's lr, b1 = 0) step on the action gradient every epoch; each epoch
 writes ``<log-root>/<exp-name>/ckpt/actions_<epoch>.npy`` and ``losses.npy``.
-Runs on the card unless ``--device cpu``. Not ported yet: rendering
-(``--render-interval`` > 0) and rigid-rigid contact (``--body-contact``).
+Runs on the card unless ``--device cpu``. ``--body-contact`` turns on the
+rigid-rigid penalty contact between the glass and the bowl
+(``RIGID.body_contact``; the reference's Jade world resolves it by LCP).
+Not ported yet: rendering (``--render-interval`` > 0).
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ def parse_args(argv=None):
     parser.add_argument("--steps", type=int, default=3000)
     parser.add_argument("--body-contact", action="store_true",
                         help="rigid-rigid contact between the glass and the "
-                             "bowl (not ported yet)")
+                             "bowl")
     parser.add_argument("--safeguard", action="store_true",
                         help="reject overshooting Adam steps (rollback + lr "
                              "halving); off = raw reference driver")
@@ -61,10 +63,13 @@ def main(argv=None):
         raise NotImplementedError("rendering is not ported yet (the renderer "
                                   "comes with module A15); pass "
                                   "--render-interval 0")
-    if args.body_contact:
-        raise NotImplementedError("rigid-rigid body contact is not ported yet "
-                                  "(module A11)")
     log_dir, cfg = prepare(args, args.log_root)
+    if args.body_contact:
+        # the glass clinks on the bowl (off by default: the reference
+        # trajectory never makes the bodies touch)
+        cfg.defrost()
+        cfg.RIGID.body_contact = True
+        cfg.freeze()
     env = SoftMacEnv(cfg, device=args.device)
 
     if args.init_actions:

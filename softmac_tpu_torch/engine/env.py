@@ -567,7 +567,8 @@ class SoftMacEnv:
             bodies = self.rigid_vel_model.apply_action(bodies, action)
         elif self.rigid_model is not None:
             rigid_action = action if self.control_mode == "rigid" else None
-            rigid = self.rigid_model.step(rigid, rigid_action, ext_f)
+            rigid = self.rigid_model.step(rigid, rigid_action, ext_f,
+                                          prims=self.prims)
             bodies = self.rigid_model.body_states(rigid)
         return bodies, rigid
 
@@ -750,10 +751,12 @@ class SoftMacEnv:
         each gravity-affected body's weight are subtracted from its action,
         and the rigid step takes the adjusted action. An active-window
         overflow warns, as in the rollouts. Returns the adjusted actions as
-        a numpy array. Only a body with a free joint is compensated: a
+        a numpy array. Only a free joint is compensated (a floating body,
+        or a tree's floating joint for its whole subtree's weight): a
         revolute, prismatic or fixed body's actions stay as they are (its
-        ``compensation_mass`` is None). There is no weld wrench to fold
-        onto a carrier: welds raise when the RigidModel is built."""
+        ``compensation_mass`` is None). The compensation sees the wrench of
+        each welded primitive folded onto its carrier, in a copy of ext_f:
+        the rigid step folds the welds of the ext_f it takes itself."""
         if self.control_mode != "rigid" or self.rigid_model is None:
             raise ValueError("adjust_action_with_ext_force needs "
                              "force-controlled rigid bodies (control_mode "
@@ -774,13 +777,26 @@ class SoftMacEnv:
         for action in acts:
             mpm, bodies, ext_f, ovf, _ = self._substeps(mpm, bodies, params)
             overflow = overflow | ovf
+            ext_c = ext_f.clone()
+            bs = None
+            for i, b in enumerate(model.bodies):
+                if b.jtype != "weld" or not b.gravity_on:
+                    continue
+                if bs is None:
+                    bs = model.body_states(rigid)
+                p = b.weld_parent
+                f = ext_c[i, :3].clone()
+                r = bs.pos[i] - bs.pos[p]
+                ext_c[p, :3] += f
+                ext_c[p, 3:] += ext_c[i, 3:] + torch.cross(r, f, dim=-1)
+                ext_c[i] = 0.0
             adj = action.clone()
             for i, b in enumerate(model.bodies):
                 mass = model.compensation_mass(i)
                 if b.gravity_on and mass is not None:
                     o = b.q_offset
-                    adj[o:o + 3] -= ext_f[i, 3:]
-                    adj[o + 3:o + 6] -= ext_f[i, :3] + mass * g
+                    adj[o:o + 3] -= ext_c[i, 3:]
+                    adj[o + 3:o + 6] -= ext_c[i, :3] + mass * g
             bodies, rigid = self._rigid_step(bodies, rigid, adj, ext_f)
             adjusted.append(adj)
         self._check_overflow({"window_overflow": overflow})

@@ -2,9 +2,10 @@
 (``softmac_tpu/engine/losses/rigid_losses.py``): ``PourLoss`` (reference
 ``softmac/engine/losses/loss_pour.py``: chamfer + pose + velocity),
 ``GripLoss`` (``loss_grip.py``: chamfer + the palm's pose, with a band on
-its rotation, + velocity) and ``DoorLoss`` (``loss_door.py``: pose on the
-door's quaternion + velocity + min contact distance); the transport loss
-comes with its scene."""
+its rotation, + velocity), ``DoorLoss`` (``loss_door.py``: pose on the
+door's quaternion + velocity + min contact distance) and ``TransportLoss``
+(the first body's position pulled to a target + velocity + each half of
+the particles' min contact distance)."""
 from __future__ import annotations
 
 import numpy as np
@@ -79,4 +80,30 @@ class DoorLoss(LossBase):
         d2 = torch.sum((s.x - s.bodies.pos[0]) ** 2, dim=-1)
         min_dist = torch.min(torch.clamp(d2 - 0.01, min=0.0))
         out["contact_loss"] = self.contact_weight * min_dist ** 2
+        return out
+
+
+class TransportLoss(LossBase):
+    term_names = ("pose_loss", "vel_loss", "contact_loss")
+
+    def __init__(self, cfg, scene, target=(0.5, 0.4, 0.5)):
+        super().__init__(cfg, scene)
+        w = cfg.weight
+        self.pose_weight, self.velocity_weight, self.contact_weight = w[0], w[1], w[2]
+        self.target = torch.as_tensor(
+            np.asarray(cfg.get("target", target), np.float64),
+            dtype=scene.dtype, device=scene.device)
+
+    def terms(self, s: FrameSample) -> dict:
+        out = {}
+        out["pose_loss"] = self.pose_weight * torch.sum(
+            (s.bodies.pos[0] - self.target) ** 2)
+        out["vel_loss"] = self.velocity_weight * torch.sum(s.bodies.v[0] ** 2)
+        # each half of the particles' squared min hinged distance to the
+        # body
+        n_half = s.x.shape[0] // 2
+        d2 = torch.sum((s.x - s.bodies.pos[0]) ** 2, dim=-1)
+        m1 = torch.min(torch.clamp(d2[:n_half] - 0.01, min=0.0))
+        m2 = torch.min(torch.clamp(d2[n_half:] - 0.01, min=0.0))
+        out["contact_loss"] = self.contact_weight * (m1 ** 2 + m2 ** 2)
         return out

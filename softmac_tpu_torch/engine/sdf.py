@@ -7,7 +7,8 @@ lives in ``ops/contact.py``, beside the contact kernel that does the same.
 
 The bake (mesh -> SDF grid) is not ported yet: ``preprocess_sdf`` reads the
 ``assets/*/sdf_<key>.npz`` cache under the JAX package's content key and
-raises on a miss.
+raises on a miss. ``weld_vertices`` (the bake's first step) merges a mesh's
+duplicate vertices; the rigid bodies' surface samples start from it.
 """
 from __future__ import annotations
 
@@ -27,6 +28,15 @@ def sdf_cache_key(verts: np.ndarray, faces: np.ndarray) -> str:
     h.update(np.ascontiguousarray(verts).tobytes())
     h.update(np.ascontiguousarray(faces).tobytes())
     return h.hexdigest()[:32]
+
+
+def weld_vertices(verts: np.ndarray, faces: np.ndarray, tol: float = 1e-8):
+    """Merge duplicate vertices (OBJ exports often store unwelded per-face
+    corners): (unique vertices, faces re-indexed into them, int32)."""
+    keys = np.round(verts / tol).astype(np.int64)
+    _, first, inverse = np.unique(keys, axis=0, return_index=True,
+                                  return_inverse=True)
+    return verts[first], inverse.reshape(-1)[faces].astype(np.int32)
 
 
 def preprocess_sdf(verts: np.ndarray, faces: np.ndarray, cache_dir) -> dict:

@@ -108,3 +108,20 @@ def test_demo_main_on_cpu(tmp_path):
     assert a0[0, 4] > 0
     with pytest.raises(NotImplementedError, match="render"):
         demo_pour.main(["--device", "cpu", "--render-interval", "1"])
+
+
+def test_demo_main_body_contact_on_cpu(tmp_path):
+    """``--body-contact``: one short epoch with the glass-bowl contact on
+    (the JAX trainer's flag; the bodies do not touch in the demo's start,
+    so the run matches the plain one's shape)."""
+    np.save(tmp_path / "particles.npy", _particles())
+    text = (ROOT / "softmac_tpu_torch/config/demo_pour_config.py").read_text()
+    text = text.replace('"envs/pour/pour_mpm_init_state_corotated.npy"',
+                        repr(str(tmp_path / "particles.npy")))
+    (tmp_path / "config.py").write_text(text)
+    out = demo_pour.main([
+        "--device", "cpu", "--steps", "6", "--epochs", "1", "--remat",
+        "none", "--config", str(tmp_path / "config.py"), "--log-root",
+        str(tmp_path / "logs"), "--exp-name", "t", "--body-contact"])
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+    assert np.load(tmp_path / "logs/t/ckpt/actions_0.npy").shape == (6, 12)

@@ -218,12 +218,16 @@ def test_quat_functions_match_jax():
 
 
 def test_unported_bodies_raise(tmp_path):
-    """Welds, articulated trees and body-body contact raise, naming what
-    the port's RigidModel steps; the gripper (a fixed palm and two
-    prismatic fingers) and the door's revolute hinge build
-    (test_torch_grip.py and test_torch_door.py hold them to JAX)."""
+    """The bodies an earlier port refused now build as the JAX package's
+    (tests/test_torch_weld.py, test_torch_chain*.py and
+    test_torch_body_contact.py hold them to JAX): the palm on a slider,
+    whose prismatic fingers hang below it (an articulated tree) or, made
+    fixed, are welded onto it, steps as JAX's; body contact builds. What
+    the JAX package refuses still raises: a meshless link inside a tree,
+    and moving links that no world-jointed root carries (a cycle)."""
     tcfg = softmac_tpu_torch.load(
         str(ROOT / "softmac_tpu_torch/config/demo_grip_config.py"))
+    jcfg = softmac_tpu.load(str(ROOT / "softmac_tpu/config/demo_grip_config.py"))
     grip = ROOT / "assets/gripper/gripper.urdf"
     gripper = trigid.RigidModel([tload_urdf(str(grip))], tcfg.RIGID, 1e-3,
                                 torch.float64)
@@ -236,21 +240,50 @@ def test_unported_bodies_raise(tmp_path):
     assert [b.jtype for b in door.bodies] == ["revolute"]
     text = grip.read_text().replace('filename="',
                                     f'filename="{grip.parent}/')
-    # the palm on a slider: the fingers' joints hang below a moving link
-    # (an articulated tree), or, made fixed, are welds onto it
-    for kind, what in (("prismatic", "articulated trees"),
-                       ("fixed", "welds")):
+    for cfg in (tcfg, jcfg):
+        cfg.defrost()
+        cfg.RIGID.init_state = ()
+    rng = np.random.RandomState(2)
+    for kind, kinds, n_dof in (("prismatic", ["chain"] * 3, 3),
+                               ("fixed", ["prismatic", "weld", "weld"], 1)):
         urdf = text.replace('"palm_to_world" type="fixed"',
                             '"palm_to_world" type="prismatic"').replace(
             '_to_palm" type="prismatic"', f'_to_palm" type="{kind}"')
         (tmp_path / "g.urdf").write_text(urdf)
-        tcfg.defrost()
-        tcfg.RIGID.init_state = ()
-        with pytest.raises(NotImplementedError, match=what):
-            trigid.RigidModel([tload_urdf(str(tmp_path / "g.urdf"))],
-                              tcfg.RIGID, 1e-3, torch.float64)
-    tcfg.defrost()
+        tm = trigid.RigidModel([tload_urdf(str(tmp_path / "g.urdf"))],
+                               tcfg.RIGID, 1e-3, torch.float64)
+        jm = JRigidModel([jload_urdf(str(tmp_path / "g.urdf"))], jcfg.RIGID,
+                         1e-3, jnp.float64)
+        assert [b.jtype for b in tm.bodies] == [b.jtype for b in jm.bodies] \
+            == kinds
+        assert tm.action_dim == jm.action_dim == n_dof
+        q, qd = rng.randn(n_dof) * 0.01, rng.randn(n_dof) * 0.1
+        a, ext = rng.randn(n_dof) * 0.1, rng.randn(3, 6) * 0.1
+        js = jax.jit(jm.step)(JRigidState(q=jnp.asarray(q), qd=jnp.asarray(qd)),
+                              jnp.asarray(a), jnp.asarray(ext))
+        ts = tm.step(trigid.RigidState(q=torch.as_tensor(q),
+                                       qd=torch.as_tensor(qd)),
+                     torch.as_tensor(a), torch.as_tensor(ext))
+        _close(ts.q.numpy(), js.q, 1e-10)
+        _close(ts.qd.numpy(), js.qd, 1e-10)
     tcfg.RIGID.body_contact = True
-    with pytest.raises(NotImplementedError, match="body_contact is not "
-                                                  "ported"):
-        trigid.RigidModel([], tcfg.RIGID, 1e-3, torch.float64)
+    assert trigid.RigidModel([], tcfg.RIGID, 1e-3, torch.float64).body_contact
+    tcfg.RIGID.body_contact = False
+    # a meshless palm carrying the fingers' tree; the fingers' joints made
+    # each other's parents (no root)
+    meshless = urdf.replace('"finger1_to_palm" type="fixed"',
+                            '"finger1_to_palm" type="prismatic"')
+    i = meshless.index('<link name="palm"')
+    j = meshless.index("</link>", i)
+    meshless = meshless[:i] + '<link name="palm"/>' + meshless[j + 7:]
+    cycle = text.replace('<parent link="palm"/>', '<parent link="SWAP"/>', 1)
+    cycle = cycle.replace('<parent link="palm"/>', '<parent link="finger1"/>',
+                          1).replace('<parent link="SWAP"/>',
+                                     '<parent link="finger2"/>')
+    for body, what in ((meshless, "meshless"), (cycle, "unsupported topology")):
+        (tmp_path / "bad.urdf").write_text(body)
+        for model, load, cfg, dt in ((JRigidModel, jload_urdf, jcfg, jnp.float64),
+                                     (trigid.RigidModel, tload_urdf, tcfg,
+                                      torch.float64)):
+            with pytest.raises(NotImplementedError, match=what):
+                model([load(str(tmp_path / "bad.urdf"))], cfg.RIGID, 1e-3, dt)
