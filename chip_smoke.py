@@ -114,7 +114,7 @@ script exits non-zero:
            against the CPU (float64, plain versions): 20 steps of rollout
            and of rollout_and_grad
   demo     the ported trainer softmac_tpu_torch.demos.demo_pour on the
-           card, 3 epochs of 60 env steps on its own scene: finite losses,
+           card, 2 epochs of 60 env steps on its own scene: finite losses,
            losses.npy and the checkpoints written, the actions moved, every
            kernel launched, the epoch times
   door     the door's main path (demo_door_config.py: 5400 particles in
@@ -225,9 +225,32 @@ script exits non-zero:
            gradient within 1e-3 relative L2
   demo_grip, demo_pour_vel  the ported trainers
            softmac_tpu_torch.demos.demo_grip and demo_pour_vel on the
-           card, 3 epochs of 12 env steps each on their own scenes: finite
+           card, 2 epochs of 12 env steps each on their own scenes: finite
            losses, losses.npy and the checkpoints written, every kernel of
            their forward and backward launched
+  render   the renderer (engine/renderer.py, PyTorch tensor code in
+           float64 on the card; no kernel of the port) on three snapshots:
+           the flagship pour at 1e5 particles after 20 zero-action env
+           steps (the glass at alpha 0.8, the bowl, the target; 512^2 at
+           ssaa 2), the hit after its counted rollout (1024^2, the towel
+           Gouraud-shaded, the target) and the door after STATE_STEPS env
+           steps; each frame against the CPU's float64 frame of the same
+           snapshot (at least 99.5 % of the pixels equal, the rest within
+           2 of 255), not the bare floor; the card's ms a frame (median of
+           5, synchronized) and the CPU's
+  demo_render  one epoch of demo_pour (10 env steps) without, with and
+           again without --render-interval 1: its GIF's frames, size and
+           loop read by walking the GIF's blocks, loss_curve.png read back;
+           the seconds rendering adds
+  bake     the SDF bake on the card (float32): the door, the palm and the
+           finger baked whole through preprocess_sdf on an empty cache
+           (then timed, 3 bakes) and one y-slab of the glass's and the
+           bowl's grids, against the shipped tables: sdf within 2e-6, no
+           sign flip beyond it, at most 5 % of the cells with another
+           face's normal, each a nearest-face tie in float64
+  native   the port's C++ preprocessing library (native/preprocess.cpp)
+           built with g++ on the card's host, its OBJ parse and its face
+           adjacency equal to the Python bodies
   hit, hit_kernels, hit_grad, profile_hit, hit_parity, demo_hit  the hit
            (demo_hit_config.py: 5000 particles, two cylinders on the
            controller pushed at -8 on z into a 144-vertex towel, ten
@@ -398,7 +421,7 @@ FORWARD = ("p2g", "g2p", "collide_particle")
 POUR = ("gather", "splat", "collide_mixed")
 POUR_BWD = ("gather_bwd", "splat_bwd", "collide_mixed_bwd")
 DEMO_STEPS = 60
-DEMO_EPOCHS = 3
+DEMO_EPOCHS = 2            # cut from 3 to keep the time
 DOOR_STEPS = 300           # the counted door rollout
 DOOR_TIMED_STEPS = 50      # each timed door rollout (cut to keep the time)
 DOOR_REPEATS = 5
@@ -3420,7 +3443,8 @@ def run_demo_door():
         t0 = time.perf_counter()
         out = demo_door.main(["--steps", str(DEMO_DOOR_STEPS), "--epochs",
                               str(DEMO_DOOR_EPOCHS), "--replicas",
-                              str(DEMO_DOOR_REPLICAS), "--log-root", tmp])
+                              str(DEMO_DOOR_REPLICAS), "--log-root", tmp,
+                              "--render-interval", "0"])
         secs = time.perf_counter() - t0
         launches = read_launches()
         log = Path(tmp) / "door"
@@ -4423,7 +4447,8 @@ def run_demo_trainer(module, name, steps, kernels, epochs=DEMO_EPOCHS,
     import tempfile
     import numpy as np
     with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--steps", str(steps), "--epochs", str(epochs), *extra]
+        argv = ["--steps", str(steps), "--epochs", str(epochs),
+                "--render-interval", "0", *extra]
         here = contextlib.nullcontext()
         if ckpt == "policy":
             here = contextlib.chdir(tmp)
@@ -5600,6 +5625,295 @@ def run_transport():
     return res
 
 
+# ---------------------------------------------------------------------------
+# rendering and mesh preprocessing: the renderer on the card (frames of the
+# pour, the hit and the door held against the CPU's float64 frame of the
+# same snapshot), a trainer's GIF, the SDF bake on the card against the
+# shipped tables, the C++ preprocessing library. The renderer and the bake
+# are PyTorch tensor code on the card (the JAX package's renderer is NumPy
+# and its bake plain XLA); they launch none of the port's kernels
+# ---------------------------------------------------------------------------
+RENDER_POUR_STEPS = 20     # the pour's frame: after 20 zero-action steps
+RENDER_REPEATS = 5         # timed card frames (the median is reported)
+RENDER_EQUAL = 0.995       # share of pixels equal to the CPU's float64 frame
+RENDER_NEAR = 2            # the other pixels within 2 of 255
+DEMO_RENDER_STEPS = 10     # the rendering trainer's epoch: 10 frames
+BAKE_MESHES = ("door/door", "gripper/palm", "gripper/finger")
+BAKE_SLABS = ("glass/glass", "bowl/bowl")
+BAKE_TOL = 2e-6            # sdf against the shipped float32 tables
+BAKE_TIE_SHARE = 0.05      # cells whose nearest face is a tie (the glass's
+                           # slab: 1.8 % on the CPU)
+BAKE_REPEATS = 3
+BAKE_CHECK_DEVICE = "cuda"  # where the ties' float64 distances are taken
+
+
+def frame_of(env, carry):
+    """(x (N, 3), bodies, cloth) of a rollout's exit carry (the particles
+    in their original order) on the card."""
+    mpm, second, _ = carry
+    if env.has_cloth:
+        return mpm.x.T, None, (second.x, env.cloth_model.faces)
+    return mpm.x.T, second, None
+
+
+def check_frame(tag, env, carry, target=None):
+    """One frame of ``carry`` drawn on the card (float64, the env's device)
+    and on the CPU (float64): at least RENDER_EQUAL of the pixels equal,
+    the rest within RENDER_NEAR; the card's ms a frame, a median of
+    RENDER_REPEATS frames each ended by a synchronize (host clock)."""
+    import numpy as np
+    import torch
+    from softmac_tpu_torch.engine.renderer import PointRenderer
+    x, bodies, cloth = frame_of(env, carry)
+    card = PointRenderer(env.render_cfg, env)
+    host = PointRenderer(env.render_cfg, env, device="cpu")
+    if target is not None:
+        card.set_target(target)
+        host.set_target(target)
+
+    def draw(r):
+        return r.render(x, env.particle_colors, bodies, cloth=cloth)
+    launches0 = read_launches()
+    img = draw(card)
+    ms = []
+    for _ in range(RENDER_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = draw(card)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    ref = draw(host)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    diff = np.abs(img.astype(np.int64) - ref).max(axis=-1)
+    floor = PointRenderer(env.render_cfg, env, device="cpu").render(
+        None, None, None)
+    res = {"scene": tag, "image": list(img.shape), "ssaa": card.ssaa,
+           "n_particles": int(x.shape[0]),
+           "meshes": len(env.prim_meshes) + (cloth is not None),
+           "target": target is not None,
+           "card_ms_per_frame": statistics.median(ms), "card_ms": ms,
+           "cpu_float64_ms": cpu_ms,
+           "pixels_equal_share": float((diff == 0).mean()),
+           "pixels_differing": int((diff > 0).sum()),
+           "max_abs_diff": int(diff.max()),
+           "pixels_off_the_floor_share": float(
+               (img != floor).any(axis=-1).mean()),
+           "port_kernel_launches": sum(read_launches().values())
+           - sum(launches0.values())}
+    if not (res["pixels_equal_share"] >= RENDER_EQUAL
+            and res["max_abs_diff"] <= RENDER_NEAR
+            and res["pixels_off_the_floor_share"] > 0.005):
+        raise AssertionError(f"render ({tag}) failed: {res}")
+    return res
+
+
+def run_render(pour_env, henv, hit_carry, denv, door10):
+    """The renderer on the card: the flagship pour at 1e5 particles after
+    RENDER_POUR_STEPS zero-action env steps (the glass at alpha 0.8 and the
+    bowl, the target overlaid; 512^2, ssaa 2), the hit after its counted
+    rollout (1024^2, the towel Gouraud-shaded, the target), the door after
+    STATE_STEPS env steps (512^2, ssaa 2)."""
+    import numpy as np
+    pour = pour_env.rollout(np.zeros((RENDER_POUR_STEPS,
+                                      pour_env.action_dim)))["carry"]
+    return {"frames": [
+        check_frame("pour", pour_env, pour, np.load(
+            ROOT / "envs/pour/pour_mpm_target_position_corotated.npy")),
+        check_frame("hit", henv, hit_carry,
+                    np.load(ROOT / "envs/mpm2towel/towel_target_45.npy")),
+        check_frame("door", denv, door10)]}
+
+
+def run_demo_render():
+    """One epoch of demo_pour of DEMO_RENDER_STEPS env steps on its own
+    scene without, with and again without --render-interval 1: with it, the
+    epoch's actions replayed through the facade and drawn on the card to
+    epoch0.gif (DEMO_RENDER_STEPS frames, read by walking the GIF's blocks)
+    and loss_curve.png; each run's seconds (host clock, setup included);
+    what rendering added against the faster run without."""
+    import tempfile
+    from softmac_tpu_torch import images
+    from softmac_tpu_torch.demos import demo_pour
+    res = {"trainer": "demo_pour", "env_steps": DEMO_RENDER_STEPS}
+    for run_name, interval in (("plain_first", "0"), ("render", "1"),
+                               ("plain", "0")):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            out = demo_pour.main(["--steps", str(DEMO_RENDER_STEPS),
+                                  "--epochs", "1", "--render-interval",
+                                  interval, "--log-root", tmp])
+            secs = time.perf_counter() - t0
+            log = Path(tmp) / "pour"
+            gif = log / "epoch0.gif"
+            run = {"seconds_with_setup": secs,
+                   "epoch_seconds": out["epoch_seconds"],
+                   "gif": images.gif_info(gif) if gif.exists() else None,
+                   "gif_bytes": gif.stat().st_size if gif.exists() else 0,
+                   "loss_curve_png": list(images.read_png(
+                       log / "loss_curve.png").shape)}
+        res[run_name] = run
+    res["render_seconds"] = res["render"]["seconds_with_setup"] - min(
+        res[k]["seconds_with_setup"] for k in ("plain_first", "plain"))
+    gif = res["render"]["gif"]
+    if not (res["plain"]["gif"] is None and gif is not None
+            and gif["frames"] == DEMO_RENDER_STEPS and gif["loop"] == 0
+            and gif["size"] == (512, 512)):
+        raise AssertionError(f"demo_render failed: {res}")
+    return res
+
+
+def _bake_check(name, g, sel, got_sdf, got_normal, ref_sdf, ref_normal):
+    """The bake at the grid points ``g["points"][sel]`` against the shipped
+    table; every cell whose normal differs checked to be a nearest-face
+    tie: the shipped normal's face within 1e-6 of the nearest distance in
+    float64 (on the card)."""
+    import numpy as np
+    import torch
+    from softmac_tpu_torch.engine import sdf
+    err = np.abs(got_sdf - ref_sdf)
+    far = np.abs(ref_sdf) > BAKE_TOL
+    ties = np.abs(got_normal - ref_normal).max(axis=-1) > 1e-6
+    tie_gap = 0.0
+    if ties.any():
+        kw = dict(dtype=torch.float64, device=BAKE_CHECK_DEVICE)
+        pts = torch.as_tensor(g["points"][sel][ties], **kw)
+        tri = [torch.as_tensor(g["verts"][g["faces"][:, k]], **kw)
+               for k in range(3)]
+        dist = torch.sqrt(sdf.point_triangle_dist2(pts, *tri)).cpu().numpy()
+        fn = g["face_normals"].astype(np.float32)
+        picked = np.abs(fn[None] - ref_normal[ties][:, None]).max(
+            axis=-1) < 1e-6
+        tie_gap = float(np.max(np.where(picked, dist, np.inf).min(axis=1)
+                               - dist.min(axis=1)))
+    res = {"cells": int(ref_sdf.size), "sdf_max_abs_err": float(err.max()),
+           "sign_flips_beyond_tol": int(
+               (np.sign(got_sdf) != np.sign(ref_sdf))[far].sum()),
+           "normal_tie_cells": int(ties.sum()),
+           "normal_tie_share": float(ties.mean()),
+           "normal_tie_max_distance_gap": tie_gap}
+    if not (res["sdf_max_abs_err"] <= BAKE_TOL
+            and res["sign_flips_beyond_tol"] == 0
+            and res["normal_tie_share"] <= BAKE_TIE_SHARE
+            and tie_gap <= 1e-6):
+        raise AssertionError(f"bake ({name}) failed: {res}")
+    return res
+
+
+def run_bake():
+    """The SDF bake on the card (float32): the door, the palm and the
+    finger baked whole (preprocess_sdf on an empty cache directory, then
+    BAKE_REPEATS timed bake_mesh_sdf calls, host clock, their result on the
+    host) and one y-slab of grid points each of the glass and the bowl,
+    all against the shipped tables (the JAX bake's output): sdf within
+    BAKE_TOL, no sign flip beyond it, at most BAKE_TIE_SHARE of the cells
+    with another nearest face's normal, each of them a tie (_bake_check)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from softmac_tpu_torch.engine import sdf
+    from softmac_tpu_torch.engine.meshio import load_obj
+    out = {}
+    for mesh in BAKE_MESHES + BAKE_SLABS:
+        v, f = load_obj(ROOT / f"assets/{mesh}.obj")
+        key = sdf.sdf_cache_key(v, f)
+        ref = np.load(ROOT / "assets" / mesh.split("/")[0]
+                      / f"sdf_{key}.npz")
+        length = float(np.max(v.max(0) - v.min(0)))
+        dx = min(0.01, length / 80)
+        margin = max(dx * 3, 0.01)
+        if mesh in BAKE_MESHES:
+            with tempfile.TemporaryDirectory() as tmp:
+                got = sdf.preprocess_sdf(v, f, tmp)
+                written = sorted(np.load(Path(tmp) / f"sdf_{key}.npz").files)
+            ms = []
+            for _ in range(BAKE_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sdf.bake_mesh_sdf(v, f, margin, dx)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            if not (np.array_equal(got["res"], ref["res"])
+                    and written == sorted(ref.files)):
+                raise AssertionError(f"bake ({mesh}): res {got['res']} "
+                                     f"against {ref['res']}, fields "
+                                     f"{written}")
+            res = _bake_check(mesh, sdf.bake_grid(v, f, margin, dx),
+                              slice(None), got["sdf"].reshape(-1),
+                              got["normal"].reshape(-1, 3),
+                              ref["sdf"].reshape(-1),
+                              ref["normal"].reshape(-1, 3))
+            res.update(ms_per_bake=statistics.median(ms), ms=ms)
+        else:
+            g = sdf.bake_grid(v, f, margin, dx)
+            j = int(g["res"][1]) // 2
+            sel = (np.arange(len(g["points"])) // int(g["res"][2])
+                   % int(g["res"][1])) == j
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, n = sdf.bake_points(g["points"][sel], g["verts"],
+                                   g["faces"], g["face_normals"])
+            secs = time.perf_counter() - t0
+            res = _bake_check(mesh, g, sel, s, n,
+                              ref["sdf"][:, j].reshape(-1),
+                              ref["normal"][:, j].reshape(-1, 3))
+            res.update(y_slab=j, ms_per_slab=secs * 1e3)
+        res.update(faces=int(len(f)), res=[int(r) for r in ref["res"]])
+        out[mesh] = res
+    return out
+
+
+def run_native():
+    """The C++ preprocessing library: g++ builds it on this host (the phase
+    fails where it cannot; the meshes the scenes loaded before may have
+    built it already, so the phase also times a fresh g++ of the source
+    into a temporary directory), its OBJ parse equals the Python body byte
+    for byte on every mesh under assets/ and envs/assets/, its face
+    adjacency equals the Python body on the tortilla and the towel."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from softmac_tpu_torch import native
+    from softmac_tpu_torch.engine import cloth_contact, meshio
+    prebuilt = native.library_path().exists()
+    so = native.build()
+    native.library()
+    gxx = shutil.which("g++")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([gxx, *native.FLAGS, str(native.SRC), "-o",
+                        str(Path(tmp) / "fresh.so")], check=True)
+        build_s = time.perf_counter() - t0
+    objs = sorted((ROOT / "assets").glob("*/*.obj")) + sorted(
+        (ROOT / "envs/assets").glob("*/*.obj"))
+    parse_equal = {}
+    for path in objs:
+        v, f = native.parse_obj(path)
+        pv, pf = meshio.load_obj_plain(path)
+        parse_equal[str(path.relative_to(ROOT))] = (
+            v.tobytes() == pv.tobytes() and f.tobytes() == pf.tobytes())
+    adjacency = {}
+    for name in ("tortilla", "towel"):
+        faces = meshio.load_obj(ROOT / f"envs/assets/{name}/{name}.obj")[1]
+        t0 = time.perf_counter()
+        got = native.process_faces(faces, 200)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = cloth_contact.process_faces_plain(faces, 200)
+        adjacency[name] = {
+            "faces": int(len(faces)), "native_ms": native_ms,
+            "python_ms": (time.perf_counter() - t0) * 1e3,
+            "equal": all(np.array_equal(a, b) for a, b in zip(got, want))}
+    res = {"library": so.name, "built_before_the_phase": prebuilt,
+           "fresh_build_seconds": build_s,
+           "objs_parsed": len(parse_equal),
+           "parse_equal": all(parse_equal.values()),
+           "adjacency": adjacency}
+    if not (res["parse_equal"]
+            and all(a["equal"] for a in adjacency.values())):
+        raise AssertionError(f"native failed: {res} {parse_equal}")
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5831,6 +6145,10 @@ def main():
     emit("grip_parity", run_grip_parity())
     emit("demo_grip", run_demo_grip())
     emit("demo_pour_vel", run_demo_pour_vel())
+    emit("render", run_render(pour_env, henv, hit_carry, denv, door10))
+    emit("demo_render", run_demo_render())
+    emit("bake", run_bake())
+    emit("native", run_native())
     emit("hit", hit_res)
     emit("hit_kernels", hit_kernels)
     emit("hit_grad", hit_grad_res)

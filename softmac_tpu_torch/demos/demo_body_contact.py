@@ -2,7 +2,7 @@
 port of ``scripts/demo_body_contact.py``).
 
     python -m softmac_tpu_torch.demos.demo_body_contact [--device cpu]
-        [--steps N] [--no-stick] [--log-root DIR]
+        [--steps N] [--no-stick] [--render] [--log-root DIR]
 
 The glass free-falls (zero actions, no gravity compensation) from just
 above the floating bowl, clinks onto it and comes to rest supported by it
@@ -15,8 +15,9 @@ the script's four discriminators: the run without contact overlaps by
 more than a wall's thickness (3 mm) and never moves the bowl; the run with
 it stays within 3 mm, above the other's overlap, and pushes the bowl down
 by more than 1 cm. Writes ``<log-root>/body_contact/trajectory.npy`` (a
-dict of both runs' q and overlaps). Runs on the card unless ``--device
-cpu``. Not ported yet: ``--render``.
+dict of both runs' q and overlaps) and, with ``--render``,
+``body_contact.gif``: about 20 frames of the run with contact from its
+recorded history. Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 from softmac_tpu_torch import SoftMacEnv, load
 from softmac_tpu_torch.engine import quat as Q
 from softmac_tpu_torch.ops.contact import sample_sdf_normal_world
+from softmac_tpu_torch.utils import make_gif_from_numpy
 
 ROOT = Path(__file__).resolve().parents[2]
 CONFIG = ROOT / "softmac_tpu_torch/config/demo_pour_config.py"
@@ -47,7 +49,7 @@ def parse_args(argv=None):
                     help="Coulomb-clamped viscous friction instead of the "
                          "stick branch")
     ap.add_argument("--render", action="store_true",
-                    help="write a GIF (not ported yet)")
+                    help="write body_contact.gif of the run with contact")
     return ap.parse_args(argv)
 
 
@@ -110,17 +112,24 @@ def run(env, steps):
     return qs.cpu().numpy(), overlap_depths(env, qs).cpu().numpy()
 
 
+def render_gif(env, log_dir, steps):
+    """``body_contact.gif`` of ``env``'s recorded history: every
+    max(steps // 20, 1)-th of its ``steps`` env steps and the start."""
+    frames = range(0, steps + 1, max(steps // 20, 1))
+    make_gif_from_numpy([env.render(f * env.substeps) for f in frames],
+                        log_dir, "body_contact")
+    print(f"wrote {Path(log_dir) / 'body_contact.gif'}")
+
+
 def main(argv=None):
     """Both drops and the checks; returns the numbers the checks read."""
     args = parse_args(argv)
-    if args.render:
-        raise NotImplementedError("rendering is not ported yet (the renderer "
-                                  "comes with module A11)")
     stick = not args.no_stick
     log_dir = Path(args.log_root) / "body_contact"
     log_dir.mkdir(parents=True, exist_ok=True)
     traj_off, depth_off = run(build_env(False, stick, args.device), args.steps)
-    traj_on, depth_on = run(build_env(True, stick, args.device), args.steps)
+    env_on = build_env(True, stick, args.device)
+    traj_on, depth_on = run(env_on, args.steps)
     np.save(log_dir / "trajectory.npy",
             {"on": traj_on, "off": traj_off,
              "depth_on": depth_on, "depth_off": depth_off})
@@ -148,6 +157,8 @@ def main(argv=None):
         f"body contact failed to bound the overlap: {out['depth_min_on']}"
     assert out["bowl_drop_off"] < 1e-4, out["bowl_drop_off"]
     assert out["bowl_drop_on"] > 0.01, out["bowl_drop_on"]
+    if args.render:
+        render_gif(env_on, log_dir, args.steps)
     return out
 
 

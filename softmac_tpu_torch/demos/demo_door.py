@@ -17,10 +17,9 @@ does, so the logged loss never rises. ``--replicas K`` optimises the mean
 loss over K jittered copies of the initial state (``jittered_carry``):
 each candidate is rolled out on every replica. Each epoch writes
 ``<log-root>/<exp-name>/ckpt/actions_<epoch>.npy`` and ``losses.npy``.
-Runs on the card unless ``--device cpu``. Not ported yet: rendering
-(``--render-interval`` > 0; ``losses.npy`` stands in for the loss-curve
-plot). JAX's ``env.reset()`` at each epoch start resets the imperative
-facade, which the port does not have yet; the rollouts do not read it.
+Runs on the card unless ``--device cpu``. Every ``--render-interval``
+epochs (and at the last) the best actions are replayed through the facade
+and drawn to ``epoch<K>.gif``; ``loss_curve.png`` at the end.
 """
 from __future__ import annotations
 
@@ -32,7 +31,10 @@ import torch
 
 from softmac_tpu_torch import SoftMacEnv
 from softmac_tpu_torch.engine.env import map_carry
-from softmac_tpu_torch.utils import EpochTimer, prepare, sanitize_grad
+from softmac_tpu_torch.utils import (
+    EpochTimer, make_gif_from_numpy, plot_loss_curve, prepare, render,
+    sanitize_grad,
+)
 
 CONFIG = Path(__file__).resolve().parents[1] / "config/demo_door_config.py"
 LRS = np.array([3e-3, 1e-2, 3e-2, 1e-1])   # candidate step sizes
@@ -46,9 +48,8 @@ def parse_args(argv=None):
                         help="directory the experiment's log dir goes in")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
-    parser.add_argument("--render-interval", type=int, default=0,
-                        help="render a GIF every K epochs (not ported yet: "
-                             "0 only)")
+    parser.add_argument("--render-interval", type=int, default=5,
+                        help="render a GIF every K epochs (0 disables)")
     parser.add_argument("--init-actions", type=str, default=None,
                         help="resume from a saved ckpt/actions_*.npy")
     parser.add_argument("--remat", type=str, default="step",
@@ -67,10 +68,6 @@ def main(argv=None):
     """Run the line search; returns {"losses", "epoch_seconds"} per
     epoch."""
     args = parse_args(argv)
-    if args.render_interval > 0:
-        raise NotImplementedError("rendering is not ported yet (the renderer "
-                                  "comes with module A11); pass "
-                                  "--render-interval 0")
     log_dir, cfg = prepare(args, args.log_root)
     env = SoftMacEnv(cfg, device=args.device)
     env.set_control_idx(np.zeros(env.n_particles, np.int32))
@@ -150,6 +147,15 @@ def main(argv=None):
         epoch_seconds.append(sum(timer.times.values()))
         np.save(log_dir / "ckpt" / f"actions_{epoch}.npy", best)
         np.save(log_dir / "losses.npy", np.asarray(loss_log))
+
+        if args.render_interval > 0 and (
+                (epoch + 1) % args.render_interval == 0
+                or epoch == args.epochs - 1):
+            images = render(env, action=best, n_steps=args.steps,
+                            interval=args.steps // 50)
+            make_gif_from_numpy(images, log_dir, f"epoch{epoch}")
+
+    plot_loss_curve(log_dir, loss_log)
     return {"losses": loss_log, "epoch_seconds": epoch_seconds}
 
 

@@ -14,8 +14,10 @@ z's learning rate (demo_hit.py:44-54). The loss is the towel's distance to
 ``envs/mpm2towel/towel_target_45.npy`` at the final frame only. Each epoch
 is one ``rollout_and_grad`` from the initial state and writes
 ``<log-root>/<exp-name>/ckpt/actions_<epoch>.npy`` and ``losses.npy``. Runs
-on the card unless ``--device cpu``. Not ported yet: rendering
-(``--render-interval`` > 0) and the renderer's target.
+on the card unless ``--device cpu``. Every ``--render-interval`` epochs (and
+after the first) the epoch's actions are replayed through the facade and
+drawn to ``epoch<K>.gif``, the target towel overlaid; ``loss_curve.png`` at
+the end.
 """
 from __future__ import annotations
 
@@ -25,9 +27,14 @@ from pathlib import Path
 import numpy as np
 
 from softmac_tpu_torch import SoftMacEnv
-from softmac_tpu_torch.utils import Controller, EpochTimer, prepare
+from softmac_tpu_torch.utils import (
+    Controller, EpochTimer, make_gif_from_numpy, plot_loss_curve, prepare,
+    render,
+)
 
-CONFIG = Path(__file__).resolve().parents[1] / "config/demo_hit_config.py"
+ROOT = Path(__file__).resolve().parents[2]
+CONFIG = ROOT / "softmac_tpu_torch/config/demo_hit_config.py"
+TARGET = ROOT / "envs/mpm2towel/towel_target_45.npy"
 
 
 def parse_args(argv=None):
@@ -38,9 +45,8 @@ def parse_args(argv=None):
                         help="directory the experiment's log dir goes in")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
-    parser.add_argument("--render-interval", type=int, default=0,
-                        help="render a GIF every K epochs (not ported yet: "
-                             "0 only)")
+    parser.add_argument("--render-interval", type=int, default=5,
+                        help="render a GIF every K epochs (0 disables)")
     parser.add_argument("--remat", type=str, default="step",
                         help="rollout remat policy: step | none | window:K")
     parser.add_argument("--epochs", type=int, default=40)
@@ -54,12 +60,9 @@ def main(argv=None):
     """Run the optimisation; returns {"losses", "epoch_seconds"} per
     epoch."""
     args = parse_args(argv)
-    if args.render_interval > 0:
-        raise NotImplementedError("rendering is not ported yet (the renderer "
-                                  "comes with module A11); pass "
-                                  "--render-interval 0")
     log_dir, cfg = prepare(args, args.log_root)
     env = SoftMacEnv(cfg, device=args.device)
+    env.set_render_target(np.load(TARGET))
     # the two cylinders (4000 of the demo's 5000 particles) are controlled
     control_idx = np.full(env.n_particles, -1, np.int32)
     control_idx[:sum(int(s["n_particles"]) for s in cfg.SHAPES[:2])] = 0
@@ -105,6 +108,14 @@ def main(argv=None):
         epoch_seconds.append(sum(timer.times.values()))
         np.save(log_dir / "ckpt" / f"actions_{epoch}.npy", acts)
         np.save(log_dir / "losses.npy", np.asarray(loss_log))
+
+        if args.render_interval > 0 and (
+                (epoch + 1) % args.render_interval == 0 or epoch == 0):
+            images = render(env, action=acts, n_steps=args.steps,
+                            interval=args.steps // 50)
+            make_gif_from_numpy(images, log_dir, f"epoch{epoch}")
+
+    plot_loss_curve(log_dir, loss_log)
     return {"losses": loss_log, "epoch_seconds": epoch_seconds}
 
 

@@ -12,9 +12,12 @@ bodies' state) to the 12-dim velocity command. Each epoch
 (``train_epoch``) is one closed-loop rollout of ``--steps`` env steps and
 its gradient, then one ``torch.optim.Adam`` step on the policy's
 parameters; it writes ``logs/<exp-name>/ckpt/policy_<epoch>.pt`` (the
-policy's ``state_dict``) and ``losses.npy``. Runs on the card unless
-``--device cpu``. Not ported yet: the deployment through the facade and its
-rendering (``--render-interval`` > 0, ROADMAP A11).
+policy's ``state_dict``) and ``losses.npy``. Every ``--render-interval``
+epochs (and at the last) the policy is deployed closed loop through the
+facade (``reset``, ``get_observation``, ``step``), its actions saved to
+``ckpt/actions_<epoch>.npy`` and the recorded history drawn to
+``epoch<K>.gif``; ``loss_curve.png`` at the end. Runs on the card unless
+``--device cpu``.
 """
 from __future__ import annotations
 
@@ -28,9 +31,13 @@ from softmac_tpu_torch import SoftMacEnv
 from softmac_tpu_torch.engine.policy import (
     MLPPolicy, make_closed_loop_rollout, observation,
 )
-from softmac_tpu_torch.utils import EpochTimer, prepare
+from softmac_tpu_torch.utils import (
+    EpochTimer, make_gif_from_numpy, plot_loss_curve, prepare, render,
+)
 
-CONFIG = Path(__file__).resolve().parents[1] / "config/demo_pour_vel_config.py"
+ROOT = Path(__file__).resolve().parents[2]
+CONFIG = ROOT / "softmac_tpu_torch/config/demo_pour_vel_config.py"
+TARGET = ROOT / "envs/pour/pour_mpm_target_position_corotated.npy"
 
 
 def parse_args(argv=None):
@@ -39,9 +46,9 @@ def parse_args(argv=None):
     parser.add_argument("--config", type=str, default=str(CONFIG))
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
-    parser.add_argument("--render-interval", type=int, default=0,
-                        help="deploy and render every K epochs (not ported "
-                             "yet: 0 only)")
+    parser.add_argument("--render-interval", type=int, default=10,
+                        help="deploy and render every K epochs (0 "
+                             "disables)")
     parser.add_argument("--epochs", type=int, default=30)
     parser.add_argument("--steps", type=int, default=200)
     parser.add_argument("--hidden", type=str, default="64,64")
@@ -71,15 +78,29 @@ def train_epoch(loss_fn, optimizer):
     return loss.detach(), aux
 
 
+@torch.no_grad()
+def deploy(env, policy, n_steps):
+    """Run ``policy`` closed loop through the facade for ``n_steps`` env
+    steps from ``reset``; returns its actions (n_steps, action_dim)."""
+    env.reset()
+    acts = []
+    for _ in range(n_steps):
+        obs = torch.as_tensor(env.get_observation(), device=env.device)
+        a = policy(obs)
+        acts.append(a.cpu().numpy())
+        env.step(a)
+    return np.stack(acts)
+
+
 def main(argv=None):
     """Train; returns {"losses", "epoch_seconds"} per epoch."""
     args = parse_args(argv)
-    if args.render_interval > 0:
-        raise NotImplementedError("rendering is not ported yet (the renderer "
-                                  "comes with module A11); pass "
-                                  "--render-interval 0")
     log_dir, cfg = prepare(args)
     env = SoftMacEnv(cfg, device=args.device)
+    try:
+        env.set_render_target(np.load(TARGET))
+    except FileNotFoundError:
+        pass
 
     hidden = tuple(int(h) for h in args.hidden.split(",") if h)
     # the observation layout is env.get_observation's, which reads
@@ -105,6 +126,19 @@ def main(argv=None):
         torch.save(policy.state_dict(),
                    log_dir / "ckpt" / f"policy_{epoch}.pt")
         np.save(log_dir / "losses.npy", np.asarray(loss_log))
+
+        if args.render_interval > 0 and (
+                (epoch + 1) % args.render_interval == 0
+                or epoch == args.epochs - 1):
+            acts = deploy(env, policy, args.steps)
+            np.save(log_dir / "ckpt" / f"actions_{epoch}.npy", acts)
+            # the frames are the deployment's recorded history (action
+            # None replays nothing)
+            images = render(env, action=None, n_steps=args.steps,
+                            interval=max(args.steps // 50, 1))
+            make_gif_from_numpy(images, log_dir, f"epoch{epoch}")
+
+    plot_loss_curve(log_dir, loss_log)
     return {"losses": loss_log, "epoch_seconds": epoch_seconds}
 
 

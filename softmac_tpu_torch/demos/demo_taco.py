@@ -27,13 +27,15 @@ tenth of the horizon. Two optimisers:
   along the full-horizon gradient in one ``batched_rollout`` and moves to
   the best when it lowers the loss, else halves the step.
 
-``--eval-scripted`` scores the scripted fold that made the target and
-exits. Each epoch is a rollout from the initial state and writes
-``<log-root>/<exp-name>/ckpt/actions_<epoch>.npy`` and ``losses.npy``. Runs
-on the card unless ``--device cpu``. Not ported yet: rendering
-(``--render-interval`` > 0) and the renderer's target. Left out on
-purpose: the JAX demo's pin of ``TPU.tile_c`` under ``--line-search``,
-a workaround for the TPU compiler's memory budget.
+``--eval-scripted`` scores the scripted fold that made the target, draws
+it to ``scripted.gif`` and exits. Each epoch is a rollout from the initial
+state and writes ``<log-root>/<exp-name>/ckpt/actions_<epoch>.npy`` and
+``losses.npy``; every ``--render-interval`` epochs (and after the first;
+the line search also at the last) its actions are replayed through the
+facade and drawn to ``epoch<K>.gif`` with the target overlaid, and
+``loss_curve.png`` at the end. Runs on the card unless ``--device cpu``.
+Left out on purpose: the JAX demo's pin of ``TPU.tile_c`` under
+``--line-search``, a workaround for the TPU compiler's memory budget.
 """
 from __future__ import annotations
 
@@ -45,9 +47,14 @@ import numpy as np
 import torch
 
 from softmac_tpu_torch import SoftMacEnv
-from softmac_tpu_torch.utils import EpochTimer, prepare, sanitize_grad
+from softmac_tpu_torch.utils import (
+    EpochTimer, make_gif_from_numpy, plot_loss_curve, prepare, render,
+    sanitize_grad,
+)
 
-CONFIG = Path(__file__).resolve().parents[1] / "config/demo_taco_config.py"
+ROOT = Path(__file__).resolve().parents[2]
+CONFIG = ROOT / "softmac_tpu_torch/config/demo_taco_config.py"
+TARGET = ROOT / "envs/taco/taco_mpm_target.npy"
 LRS = np.array([2.5e-3, 5e-3, 1e-2, 2e-2])   # delta-space step sizes (>=
                                              # 1e-2 saturates the clamp)
 GRAD_CLIP = 10.0
@@ -190,9 +197,8 @@ def parse_args(argv=None):
                         help="directory the experiment's log dir goes in")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
-    parser.add_argument("--render-interval", type=int, default=0,
-                        help="render a GIF every K epochs (not ported yet: "
-                             "0 only)")
+    parser.add_argument("--render-interval", type=int, default=5,
+                        help="render a GIF every K epochs (0 disables)")
     parser.add_argument("--remat", type=str, default="step",
                         help="rollout remat policy: step | none | window:K")
     parser.add_argument("--init-actions", type=str, default=None,
@@ -299,6 +305,15 @@ def line_search_main(args, log_dir, env):
         epoch_seconds.append(sum(timer.times.values()))
         np.save(log_dir / "ckpt" / f"actions_{epoch}.npy", best)
         np.save(log_dir / "losses.npy", np.asarray(loss_log))
+
+        if args.render_interval > 0 and (
+                (epoch + 1) % args.render_interval == 0 or epoch == 0
+                or epoch == args.epochs - 1):
+            images = render(env, action=best, n_steps=args.steps,
+                            interval=max(args.steps // 50, 1))
+            make_gif_from_numpy(images, log_dir, f"epoch{epoch}")
+
+    plot_loss_curve(log_dir, loss_log)
     return {"losses": loss_log, "epoch_seconds": epoch_seconds,
             "moved": moved}
 
@@ -363,6 +378,14 @@ def adam_main(args, log_dir, env):
         epoch_seconds.append(sum(timer.times.values()))
         np.save(log_dir / "ckpt" / f"actions_{epoch}.npy", acts)
         np.save(log_dir / "losses.npy", np.asarray(loss_log))
+
+        if args.render_interval > 0 and (
+                (epoch + 1) % args.render_interval == 0 or epoch == 0):
+            images = render(env, action=acts, n_steps=args.steps,
+                            interval=max(args.steps // 50, 1))
+            make_gif_from_numpy(images, log_dir, f"epoch{epoch}")
+
+    plot_loss_curve(log_dir, loss_log)
     return {"losses": loss_log, "epoch_seconds": epoch_seconds}
 
 
@@ -370,16 +393,16 @@ def main(argv=None):
     """Run the optimisation; returns {"losses", "epoch_seconds"} per
     epoch ({"scripted_loss"} with ``--eval-scripted``)."""
     args = parse_args(argv)
-    if args.render_interval > 0:
-        raise NotImplementedError("rendering is not ported yet (the renderer "
-                                  "comes with module A11); pass "
-                                  "--render-interval 0")
     log_dir, cfg = prepare(args, args.log_root)
     if args.cloth_damping is not None:
         cfg.defrost()
         cfg.CLOTH.velocity_damping = args.cloth_damping
         cfg.freeze()
     env = SoftMacEnv(cfg, device=args.device)
+    try:
+        env.set_render_target(np.load(TARGET))
+    except FileNotFoundError:
+        pass
     env.set_control_mode("cloth")
 
     if args.eval_scripted:
@@ -389,6 +412,9 @@ def main(argv=None):
         loss = float(out["loss"])
         print(f"scripted-fold loss: {loss:.4f}")
         np.save(log_dir / "scripted_loss.npy", np.asarray([loss]))
+        images = render(env, action=acts, n_steps=args.steps,
+                        interval=max(args.steps // 50, 1))
+        make_gif_from_numpy(images, log_dir, "scripted")
         return {"scripted_loss": loss}
     if args.line_search:
         return line_search_main(args, log_dir, env)

@@ -24,6 +24,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from softmac_tpu_torch import native
 from softmac_tpu_torch.engine.rigid import GradScale
 from softmac_tpu_torch.engine.types import _Replace
 from softmac_tpu_torch.ops import m33
@@ -35,7 +36,17 @@ def process_faces(faces: np.ndarray, n_neighbors: int = 200):
     """Per-face neighbour table (F, n_neighbors) int32, -1 padded, and
     orientation-flip flags (F, n_neighbors) int8: a breadth-first search
     over shared edges; a neighbour reached through an edge traversed in the
-    same winding direction has inverted orientation."""
+    same winding direction has inverted orientation. Runs the port's C++
+    (``softmac_tpu_torch.native``), as the JAX package runs its own, or
+    ``process_faces_plain`` where the library cannot be built."""
+    try:
+        return native.process_faces(np.asarray(faces, np.int32), n_neighbors)
+    except native.NativeUnavailable:
+        return process_faces_plain(faces, n_neighbors)
+
+
+def process_faces_plain(faces: np.ndarray, n_neighbors: int = 200):
+    """``process_faces`` in Python."""
     faces = np.asarray(faces)
     edge_dict = {}
     F = faces.shape[0]

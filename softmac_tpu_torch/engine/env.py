@@ -202,22 +202,33 @@ class SoftMacEnv:
         # ---------------- particles ----------------------------------------
         # init_particles overrides SHAPES with an explicit (N, 3) position
         # array (or (N, >=6) packed state whose first 3 columns are x)
+        # array (or (N, >=6) packed state whose first 3 columns are x); its
+        # particles are drawn black, as the JAX package's
         if init_particles is not None:
             self.init_particles = np.asarray(init_particles, np.float64)[:, :3]
+            self.particle_colors = np.zeros(len(init_particles), np.int64)
         else:
-            self.init_particles = Shapes(cfg.SHAPES, self.search_dirs).get()
+            self.init_particles, self.particle_colors = Shapes(
+                cfg.SHAPES, self.search_dirs).get()
         self.n_particles = len(self.init_particles)
 
         # ---------------- primitives (URDF -> SDF tables) -------------------
+        # per moving link, in the order of ``prims``: its table, its colour
+        # and its rest-frame mesh (the renderer's)
         prims, prim_friction, prim_ext_force, urdf_models = [], [], [], []
+        self.prim_colors, self.prim_meshes = [], []
         prim_cfgs = cfg.PRIMITIVES if isinstance(cfg.PRIMITIVES, (list, tuple)) else []
         for pc in prim_cfgs:
             model = load_urdf(str(self._resolve(pc.urdf_path)))
             urdf_models.append(model)
             for link, _joint in model.moving_links():
                 verts, faces = load_obj(link.mesh_path)
-                bake = preprocess_sdf(verts, faces, Path(link.mesh_path).parent)
+                bake = preprocess_sdf(verts, faces,
+                                      Path(link.mesh_path).parent,
+                                      device=self.device)
                 prims.append(sdf_params_from_bake(bake, self.dtype, self.device))
+                self.prim_colors.append(link.color)
+                self.prim_meshes.append((verts, faces))
                 prim_friction.append(pc.friction)
                 prim_ext_force.append(
                     bool(pc.get("enable_external_force", True)))
@@ -313,6 +324,8 @@ class SoftMacEnv:
             self.action_dim = 6 * self.n_primitives
         self._overflow_warned = False
         self.n_observed = int(cfg.ENV.get("n_observed_particles", 200))
+        self.render_cfg = cfg.RENDERER
+        self._renderer = None
 
         # ---------------- runtime state (facade) ------------------------------
         self._is_copy = False
@@ -735,11 +748,29 @@ class SoftMacEnv:
                                     loss_stride=loss_stride)
         return out["action_grad"].cpu().numpy()
 
+    def _get_renderer(self):
+        """The scene's ``PointRenderer`` (``RENDERER`` of the config) on the
+        env's device, made at first use."""
+        from softmac_tpu_torch.engine.renderer import PointRenderer
+        if self._renderer is None:
+            self._renderer = PointRenderer(self.render_cfg, self)
+        return self._renderer
+
     def set_render_target(self, points):
-        raise NotImplementedError("rendering is not ported yet (ROADMAP A11)")
+        """Show target geometry in renders (reference renderer set_target)."""
+        self._get_renderer().set_target(points)
 
     def render(self, f=None):
-        raise NotImplementedError("rendering is not ported yet (ROADMAP A11)")
+        """The snapshot of frame f (by default the current one) as a uint8
+        (H, W, 3) image, drawn on the env's device."""
+        if f is None:
+            f = self.cur
+        x, bodies, cx, _ = self.get_state_frame(f)
+        cloth = None
+        if cx is not None:
+            cloth = (cx, self.cloth_model.faces)
+        return self._get_renderer().render(x, self.particle_colors, bodies,
+                                      cloth=cloth)
 
     @torch.no_grad()
     def adjust_action_with_ext_force(self, actions):

@@ -1,7 +1,10 @@
 """Mesh and URDF loading (host side, NumPy only).
 
-A copy of ``softmac_tpu/engine/meshio.py`` that parses OBJ files in Python
-only, so vertex bytes (and with them the SDF cache keys) come out the same.
+A copy of ``softmac_tpu/engine/meshio.py``: ``load_obj`` parses an OBJ
+file with the port's C++ parser (``softmac_tpu_torch.native``), as the JAX
+package does with its own, and with the Python body ``load_obj_plain``
+where the library cannot be built; both give the same vertex bytes (and
+with them the SDF cache keys).
 
 Covers what the reference needs: Wavefront OBJ triangle meshes
 (``softmac/engine/primitive/mesh.py`` loads them via trimesh) and the URDF
@@ -20,6 +23,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from softmac_tpu_torch import native
+
 
 # ======================================================================
 # OBJ
@@ -29,6 +34,14 @@ def load_obj(path: str | Path) -> Tuple[np.ndarray, np.ndarray]:
 
     Polygons are fan-triangulated; negative indices supported.
     """
+    try:
+        return native.parse_obj(path)
+    except native.NativeUnavailable:
+        return load_obj_plain(path)
+
+
+def load_obj_plain(path: str | Path) -> Tuple[np.ndarray, np.ndarray]:
+    """``load_obj`` in Python."""
     verts: List[List[float]] = []
     faces: List[List[int]] = []
     with open(path) as f:

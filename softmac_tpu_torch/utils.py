@@ -1,12 +1,17 @@
-"""Demo utilities (``softmac_tpu/utils.py``): log-dir preparation, the
-trajectory controller and the per-epoch timer.
+"""Demo utilities (``softmac_tpu/utils.py``): rendering a rollout, the GIF
+writers and the loss curve, log-dir preparation, the trajectory controller
+and the per-epoch timer.
 
 ``Controller`` optimises an action trajectory with ``torch.optim.Adam`` on
 a float64 CPU tensor, the learning rate set before each step from the
 reference's warmup/decay schedule (``_lr_fn``). torch's Adam and optax's
 ``adam`` make the same update (eps outside the root, bias correction,
-``b1 = 0`` allowed), so the two agree to float64 rounding. The loss-curve
-plot and the GIF helpers are not ported: they wait for the renderer.
+``b1 = 0`` allowed), so the two agree to float64 rounding.
+
+The GIFs and the loss curve's PNG are written by
+``softmac_tpu_torch.images`` (NumPy and the standard library; the hosts have
+neither imageio nor matplotlib): the GIF palette is a fixed colour cube,
+and the loss curve is drawn in its box without axis text.
 """
 from __future__ import annotations
 
@@ -18,6 +23,61 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from softmac_tpu_torch import images as image_files
+
+
+# ===============================
+# Rendering
+# ===============================
+def make_gif_from_numpy(images, logdir, name=None):
+    """Write frames ((H, W, 3) uint8) as ``<logdir>/<name>.gif``
+    (``movie.gif`` without a name), looping forever."""
+    gif_name = "movie.gif" if name is None else name + ".gif"
+    image_files.write_gif(Path(logdir) / gif_name, images)
+
+
+def make_gif_from_files(picture_dir, logdir, name=None):
+    """A GIF of every ``*.png`` / ``*.jpg`` under ``picture_dir`` in sorted
+    filename order (reference ``softmac/utils.py:11-20``). The PNGs are
+    read by ``images.read_png`` (those the port writes); a JPEG raises,
+    since the port carries no JPEG decoder."""
+    files = sorted(p for p in Path(picture_dir).iterdir()
+                   if p.suffix.lower() in (".png", ".jpg", ".jpeg"))
+    jpegs = [p.name for p in files if p.suffix.lower() != ".png"]
+    if jpegs:
+        raise ValueError(f"{jpegs}: the port reads PNG frames only (it "
+                         "carries no JPEG decoder)")
+    make_gif_from_numpy([image_files.read_png(f) for f in files], logdir,
+                        name)
+
+
+def render(env, action=None, n_steps=100, interval=10):
+    """Frames of a rollout (``utils.py:29-47`` of the JAX package): with
+    ``action``, reset and step the facade through ``n_steps`` of them,
+    rendering after every ``interval``-th step; without, render the recorded
+    history every ``interval`` env steps."""
+    print("Rendering...")
+    interval = max(int(interval), 1)   # demos pass steps//50; guard short runs
+    image_list = []
+    if action is not None:
+        env.reset()
+        for i in range(n_steps):
+            env.step(action[i])
+            if i % interval == 0:
+                image_list.append(env.render(env.cur))
+    else:
+        for i in range(0, n_steps, interval):
+            image_list.append(env.render(i * env.substeps))
+    return image_list
+
+
+def plot_loss_curve(log_dir, loss_log):
+    """``losses.npy`` and ``loss_curve.png``: the curve in its box, without
+    the axis labels and tick text of the JAX package's matplotlib plot."""
+    image_files.write_png(Path(log_dir) / "loss_curve.png",
+                          image_files.draw_curve(loss_log))
+    np.save(Path(log_dir) / "losses.npy", np.array(loss_log))
 
 
 def prepare(args, root="logs"):

@@ -46,6 +46,7 @@ from softmac_tpu.engine.sdf import sdf_params_from_bake as jsdf_params
 from softmac_tpu.engine.types import BodyState as JBodyState
 
 import softmac_tpu_torch
+from softmac_tpu_torch import images
 from softmac_tpu_torch.config.node import CN as TCN
 from softmac_tpu_torch.engine import rigid as trigid
 from softmac_tpu_torch.engine.losses import LOSS_REGISTRY
@@ -351,11 +352,11 @@ def test_transport_loss_rollout_and_grad():
     assert np.isfinite(g).all() and np.abs(g).sum() > 0
 
 
-def test_drop_overlap_depths_match_jax():
+def test_drop_overlap_depths_match_jax(tmp_path):
     """demos.demo_body_contact's batched overlap on seeded glass poses in
     and around the bowl, against the JAX script's per-state depth
     (sample_sdf_world of each body's samples in the other's table); a
-    facade step with contact on; --render raises."""
+    facade step with contact on; --render's GIF of the recorded history."""
     from softmac_tpu.engine.sdf import sample_sdf_world
     from softmac_tpu_torch.demos import demo_body_contact as demo
 
@@ -395,5 +396,6 @@ def test_drop_overlap_depths_match_jax():
     ref = np.asarray(jax.jit(jax.vmap(depth_at))(jnp.asarray(qs)))
     assert (ref < 0).any() and (ref > 0).any()
     _close(got, ref, 1e-10)
-    with pytest.raises(NotImplementedError, match="render"):
-        demo.main(["--render"])
+    demo.render_gif(env, tmp_path, 1)
+    assert images.gif_info(tmp_path / "body_contact.gif") == {
+        "size": (512, 512), "frames": 2, "loop": 0}

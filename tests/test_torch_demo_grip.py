@@ -9,7 +9,9 @@ SoftMacEnv.adjust_action_with_ext_force on the grip, in float64 on the CPU.
   actions come back as they went in.
 - Each trainer's main on the CPU for one epoch of a few steps, on its
   scene cut to a few hundred particles: a finite loss, losses.npy and the
-  epoch's checkpoint written; the grip's gradient reaches its actions.
+  epoch's checkpoint written; the grip's gradient reaches its actions;
+  with --render-interval 1 (48 px frames) a GIF of a frame a step and the
+  loss curve.
 """
 from pathlib import Path
 
@@ -21,6 +23,7 @@ import softmac_tpu
 
 import softmac_tpu_torch
 from softmac_tpu_torch import SoftMacEnv as TorchEnv
+from softmac_tpu_torch import images
 from softmac_tpu_torch.demos import demo_grip, demo_pour_vel
 
 torch.set_num_threads(1)
@@ -65,17 +68,20 @@ def _config(tmp_path, name, particles, replace):
     for old, new in replace:
         assert old in text
         text = text.replace(old, new)
-    (tmp_path / "config.py").write_text(text)
+    (tmp_path / "config.py").write_text(text + "\n_C.RENDERER.image_res = (48, 48)\n_C.RENDERER.ssaa = 1\n")
     return str(tmp_path / "config.py")
 
 
 def _run(main, tmp_path, config, steps):
     out = main(["--device", "cpu", "--steps", str(steps), "--epochs", "1",
                 "--remat", "step", "--config", config, "--log-root",
-                str(tmp_path / "logs"), "--exp-name", "t"])
+                str(tmp_path / "logs"), "--exp-name", "t",
+                "--render-interval", "1"])
     log = tmp_path / "logs/t"
     assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
     np.testing.assert_array_equal(np.load(log / "losses.npy"), out["losses"])
+    assert images.gif_info(log / "epoch0.gif") == {
+        "size": (48, 48), "frames": steps, "loop": 0}
     return np.load(log / "ckpt/actions_0.npy")
 
 
@@ -99,8 +105,8 @@ def test_demo_grip_main_on_cpu(tmp_path, monkeypatch):
     # the demo's choice-2 forces, 0.3 N inward on each finger
     np.testing.assert_array_equal(acts, np.tile([0.3, -0.3], (4, 1)))
     assert float(grads[0].abs().max()) > 0
-    with pytest.raises(NotImplementedError, match="render"):
-        demo_grip.main(["--device", "cpu", "--render-interval", "1"])
+    curve = images.read_png(tmp_path / "logs/t/loss_curve.png")
+    assert curve.shape == (900, 1200, 3)
 
 
 def test_demo_pour_vel_main_on_cpu(tmp_path):

@@ -10,7 +10,8 @@
   this env costs ~50 s to compile here, so the gradient's JAX side is
   test_torch_cloth.py's vjps and the substep's).
 - The trainer (softmac_tpu_torch.demos.demo_hit) for one epoch on the CPU
-  on the scene cut to 250 particles; the hit built in the cloth control
+  on the scene cut to 250 particles, with --render-interval 1 (48 px
+  frames: a GIF of a frame a step); the hit built in the cloth control
   mode takes its towel's two handles as the action (action_dim 6).
 """
 from pathlib import Path
@@ -21,6 +22,7 @@ import torch
 
 import softmac_tpu_torch
 from softmac_tpu_torch import SoftMacEnv as TorchEnv
+from softmac_tpu_torch import images
 from softmac_tpu_torch.demos import demo_hit
 
 from test_torch_hit import ACTS, CONFIG, _close, _hit_env
@@ -54,18 +56,19 @@ def test_demo_hit_main_on_cpu(tmp_path):
                      ('"n_particles": 1000', '"n_particles": 50')):
         assert old in text
         text = text.replace(old, new)
-    (tmp_path / "config.py").write_text(text)
+    (tmp_path / "config.py").write_text(text + "\n_C.RENDERER.image_res = (48, 48)\n_C.RENDERER.ssaa = 1\n")
     out = demo_hit.main(["--device", "cpu", "--steps", "2", "--epochs", "1",
                          "--config", str(tmp_path / "config.py"),
                          "--log-root", str(tmp_path / "logs"),
-                         "--exp-name", "t"])
+                         "--exp-name", "t", "--render-interval", "1"])
     log = tmp_path / "logs/t"
     assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
     np.testing.assert_array_equal(np.load(log / "losses.npy"), out["losses"])
     acts = np.load(log / "ckpt/actions_0.npy")
     np.testing.assert_array_equal(acts, np.tile([0.0, 0.0, -8.0], (2, 1)))
-    with pytest.raises(NotImplementedError, match="render"):
-        demo_hit.main(["--device", "cpu", "--render-interval", "1"])
+    assert images.gif_info(log / "epoch0.gif") == {
+        "size": (48, 48), "frames": 2, "loop": 0}
+    assert (log / "loss_curve.png").exists()
     cfg = softmac_tpu_torch.load(str(tmp_path / "config.py"))
     cfg.defrost()
     cfg.control_mode = "cloth"

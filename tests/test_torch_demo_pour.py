@@ -9,7 +9,9 @@ against the JAX package, in float64 on the CPU.
 - adjust_action_with_ext_force on the 400-particle pour scene (the demo's
   window), 3 env steps: the compensated actions within 1e-8 of JAX's.
 - The demo's main on the CPU, 2 epochs of 20 steps on that scene: it
-  writes losses.npy and a checkpoint a epoch, and the actions move.
+  writes losses.npy and a checkpoint a epoch, and the actions move; with
+  --render-interval 1 (48 px frames) a GIF of 20 frames an epoch and the
+  loss curve.
 """
 from pathlib import Path
 
@@ -22,6 +24,7 @@ from softmac_tpu import utils as jutils
 
 from softmac_tpu_torch import SoftMacEnv as TorchEnv
 from softmac_tpu_torch import load as torch_load
+from softmac_tpu_torch import images
 from softmac_tpu_torch import utils as tutils
 from softmac_tpu_torch.demos import demo_pour
 
@@ -94,11 +97,12 @@ def test_demo_main_on_cpu(tmp_path):
     text = (ROOT / "softmac_tpu_torch/config/demo_pour_config.py").read_text()
     text = text.replace('"envs/pour/pour_mpm_init_state_corotated.npy"',
                         repr(str(tmp_path / "particles.npy")))
-    (tmp_path / "config.py").write_text(text)
+    (tmp_path / "config.py").write_text(text + "\n_C.RENDERER.image_res = (48, 48)\n_C.RENDERER.ssaa = 1\n")
     losses = demo_pour.main([
         "--device", "cpu", "--steps", "20", "--epochs", "2", "--remat",
         "none", "--config", str(tmp_path / "config.py"), "--log-root",
-        str(tmp_path / "logs"), "--exp-name", "t", "--safeguard"])["losses"]
+        str(tmp_path / "logs"), "--exp-name", "t", "--safeguard",
+        "--render-interval", "1"])["losses"]
     log = tmp_path / "logs/t"
     assert len(losses) == 2 and all(np.isfinite(losses))
     np.testing.assert_array_equal(np.load(log / "losses.npy"), losses)
@@ -106,8 +110,10 @@ def test_demo_main_on_cpu(tmp_path):
     assert a0.shape == (20, 12) and np.abs(a1 - a0).max() > 0
     # the initial actions hold the glass against gravity
     assert a0[0, 4] > 0
-    with pytest.raises(NotImplementedError, match="render"):
-        demo_pour.main(["--device", "cpu", "--render-interval", "1"])
+    for e in (0, 1):
+        info = images.gif_info(log / f"epoch{e}.gif")
+        assert info == {"size": (48, 48), "frames": 20, "loop": 0}
+    assert images.read_png(log / "loss_curve.png").shape == (900, 1200, 3)
 
 
 def test_demo_main_body_contact_on_cpu(tmp_path):
@@ -122,6 +128,7 @@ def test_demo_main_body_contact_on_cpu(tmp_path):
     out = demo_pour.main([
         "--device", "cpu", "--steps", "6", "--epochs", "1", "--remat",
         "none", "--config", str(tmp_path / "config.py"), "--log-root",
-        str(tmp_path / "logs"), "--exp-name", "t", "--body-contact"])
+        str(tmp_path / "logs"), "--exp-name", "t", "--body-contact",
+        "--render-interval", "0"])
     assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
     assert np.load(tmp_path / "logs/t/ckpt/actions_0.npy").shape == (6, 12)

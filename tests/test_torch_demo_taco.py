@@ -15,7 +15,9 @@ and batched rollouts: test_torch_taco_grad.py).
   frames 0 and 10 lie inside the horizon: Adam over 2 jittered replicas
   (``jittered_carry`` + ``batched_rollout_and_grad``), the line search
   (one ``batched_rollout`` of four candidates), and ``--eval-scripted``:
-  losses finite, losses.npy and the checkpoint written; rendering raises.
+  losses finite, losses.npy and the checkpoint written; the GIFs (the
+  first epoch's at the default --render-interval, the scripted fold's) at
+  48 px, a frame an env step.
 """
 import importlib.util
 import types
@@ -25,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from softmac_tpu_torch import images
 from softmac_tpu_torch.demos import demo_taco
 
 torch.set_num_threads(1)
@@ -124,7 +127,9 @@ def test_delta_controller_matches_jax(jdemo, stub, eager_jax_unoptimised):
 def _small_config(tmp_path):
     text = (ROOT / "softmac_tpu_torch/config/demo_taco_config.py").read_text()
     for old, new in (('"n_particles": 10000', '"n_particles": 100'),
-                     ("_C.SIMULATOR.dt = 2e-4", "_C.SIMULATOR.dt = 1e-3")):
+                     ("_C.SIMULATOR.dt = 2e-4", "_C.SIMULATOR.dt = 1e-3"),
+                     ("RENDERER.image_res = (1024, 1024)",
+                      "RENDERER.image_res = (48, 48)")):
         assert old in text
         text = text.replace(old, new)
     (tmp_path / "config.py").write_text(text)
@@ -146,10 +151,13 @@ def test_demo_taco_main_on_cpu(tmp_path, method):
         assert np.isfinite(out["scripted_loss"])
         np.testing.assert_array_equal(np.load(log / "scripted_loss.npy"),
                                       [out["scripted_loss"]])
-        with pytest.raises(NotImplementedError, match="render"):
-            demo_taco.main(argv + ["--render-interval", "1"])
+        assert images.gif_info(log / "scripted.gif") == {
+            "size": (48, 48), "frames": 5, "loop": 0}
         return
     assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
     np.testing.assert_array_equal(np.load(log / "losses.npy"), out["losses"])
+    # the default --render-interval renders the first epoch
+    assert images.gif_info(log / "epoch0.gif")["frames"] == 5
+    assert (log / "loss_curve.png").exists()
     acts = np.load(log / "ckpt/actions_0.npy")
     assert acts.shape == (5, 51) and np.isfinite(acts).all()

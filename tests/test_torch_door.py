@@ -72,16 +72,19 @@ def test_box_sampling_matches_jax():
     cfg = _cfg(softmac_tpu_torch.load, "softmac_tpu_torch")
     np.random.seed(123)
     before = np.random.get_state()[1].copy()
-    got = Shapes(cfg.SHAPES).get()
+    got, got_colors = Shapes(cfg.SHAPES).get()
     assert np.array_equal(np.random.get_state()[1], before)
-    ref, _ = JShapes(_cfg(softmac_tpu.load, "softmac_tpu").SHAPES).get()
+    ref, ref_colors = JShapes(_cfg(softmac_tpu.load,
+                                   "softmac_tpu").SHAPES).get()
     assert got.shape == (5400, 3)
     np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got_colors, ref_colors)
     spec = [{"shape": "box", "width": 0.05, "init_pos": (0.5, 0.4, 0.5),
              "n_particles": 100, "init_rot": (0.9, 0.1, 0.3, -0.2)},
             {"shape": "box", "width": "(0.02, 0.03, 0.04)",
              "init_pos": "(0.3, 0.2, 0.1)", "n_particles": None}]
-    np.testing.assert_array_equal(Shapes(spec).get(), JShapes(spec).get()[0])
+    np.testing.assert_array_equal(Shapes(spec).get()[0],
+                                  JShapes(spec).get()[0])
 
 
 @pytest.fixture(scope="module")
@@ -194,7 +197,7 @@ def test_door_loss_hand_values():
 
 def _particles(n=N):
     cfg = _cfg(softmac_tpu_torch.load, "softmac_tpu_torch")
-    p = Shapes(cfg.SHAPES).get()
+    p, _ = Shapes(cfg.SHAPES).get()
     return p[np.random.RandomState(3).choice(p.shape[0], n, replace=False)]
 
 

@@ -13,7 +13,8 @@ float64, on the 300-particle door of test_torch_door.py's fixtures.
 - softmac_tpu_torch.demos.demo_door.main on that scene (the config's boxes
   replaced by the 300 particles), 6 env steps, 2 epochs, 2 replicas:
   losses.npy and a checkpoint an epoch written, the logged loss never
-  rises, --render-interval 1 raises. At 6 env steps of one substep the
+  rises, and with --render-interval 1 (48 px frames) a 6-frame GIF an
+  epoch and the loss curve. At 6 env steps of one substep the
   only loss frame is 0, so the line search's gradient is zero there; the
   card's demo_door phase (chip_smoke.py) runs a horizon with later frames.
 """
@@ -27,6 +28,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_door import ROOT, _particles, envs  # noqa: E402,F401
 
+from softmac_tpu_torch import images
 from softmac_tpu_torch.demos import demo_door
 from softmac_tpu_torch.engine.env import map_carry
 
@@ -124,11 +126,11 @@ def test_demo_main_on_cpu(tmp_path):
     b = text.index("\n]\n", a) + 3
     text = text[:a] + ("_C.SHAPES = [{\"shape\": \"predefined\", \"path\": "
                        f"{str(tmp_path / 'particles.npy')!r}}}]\n") + text[b:]
-    (tmp_path / "config.py").write_text(text)
+    (tmp_path / "config.py").write_text(text + "\n_C.RENDERER.image_res = (48, 48)\n_C.RENDERER.ssaa = 1\n")
     out = demo_door.main([
         "--device", "cpu", "--steps", "6", "--epochs", "2", "--replicas",
         "2", "--config", str(tmp_path / "config.py"), "--log-root",
-        str(tmp_path / "logs"), "--exp-name", "t"])
+        str(tmp_path / "logs"), "--exp-name", "t", "--render-interval", "1"])
     log = tmp_path / "logs/t"
     losses = out["losses"]
     assert len(losses) == 2 and all(np.isfinite(losses))
@@ -137,5 +139,7 @@ def test_demo_main_on_cpu(tmp_path):
     for e in (0, 1):
         a = np.load(log / f"ckpt/actions_{e}.npy")
         assert a.shape == (6, 3) and np.allclose(a[:, 2], 0.1)
-    with pytest.raises(NotImplementedError, match="render"):
-        demo_door.main(["--device", "cpu", "--render-interval", "1"])
+    for e in (0, 1):
+        assert images.gif_info(log / f"epoch{e}.gif") == {
+            "size": (48, 48), "frames": 6, "loop": 0}
+    assert (log / "loss_curve.png").exists()

@@ -177,10 +177,10 @@ def test_step_takes_tensors_and_default_action(facades):
     assert torch.equal(env.action_list[0], torch.as_tensor(_actions()[0]))
     assert torch.equal(env.action_list[1], torch.zeros(12,
                                                        dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="A11"):
-        env.render()
-    with pytest.raises(NotImplementedError, match="A11"):
-        env.set_render_target(np.zeros((4, 3)))
+    img = env.render()
+    assert img.shape == (512, 512, 3) and img.dtype == np.uint8
+    np.testing.assert_array_equal(env.render(env.cur), img)
+    assert not np.array_equal(env.render(0), img)
 
 
 @pytest.fixture(scope="module")

@@ -67,15 +67,17 @@ def test_cylinder_and_sphere_match_jax():
         {"shape": "box", "width": (0.12, 0.04, 0.04),
          "init_pos": [0.5, 0.35, 0.51], "n_particles": 100, "color": 7},
     ]
-    got = Shapes(spec).get()
-    want = JShapes(spec).get()[0]
+    got, got_colors = Shapes(spec).get()
+    want, want_colors = JShapes(spec).get()
     # no n_particles: one particle a small shape, as the reference
     assert got.shape == want.shape == (300 + 200 + 1 + 1 + 100, 3)
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_colors, want_colors)
+    assert got_colors[-1] == 7
     cfgs = [load(str(ROOT / pkg / CONFIG)) for load, pkg in (
         (softmac_tpu_torch.load, "softmac_tpu_torch"),
         (softmac_tpu.load, "softmac_tpu"))]
-    hit = Shapes(cfgs[0].SHAPES).get()
+    hit, _ = Shapes(cfgs[0].SHAPES).get()
     assert hit.shape == (5000, 3)
     np.testing.assert_array_equal(hit, JShapes(cfgs[1].SHAPES).get()[0])
 

@@ -31,7 +31,7 @@ from softmac_tpu.engine.rigid import BodyState as JBodyState
 from softmac_tpu.engine.types import MPMState as JMPMState
 
 from softmac_tpu_torch import SoftMacEnv as TorchEnv
-from softmac_tpu_torch import convert
+from softmac_tpu_torch import convert, images
 from softmac_tpu_torch import load as torch_load
 from softmac_tpu_torch.demos import demo_policy
 from softmac_tpu_torch.engine import policy as tpolicy
@@ -239,5 +239,7 @@ def test_demo_policy_main_cpu(tmp_path, monkeypatch):
     assert [k for k in state] == ["layers.0.weight", "layers.0.bias",
                                   "layers.1.weight", "layers.1.bias"]
     assert state["layers.0.weight"].shape == (6 * 200 + 26, 8)[::-1]
-    with pytest.raises(NotImplementedError, match="A11"):
-        demo_policy.main(["--device", "cpu", "--render-interval", "1"])
+    # the default --render-interval deploys and renders the last epoch
+    assert np.load(log / "ckpt" / "actions_0.npy").shape == (2, 12)
+    assert images.gif_info(log / "epoch0.gif")["frames"] == 2
+    assert (log / "loss_curve.png").exists()

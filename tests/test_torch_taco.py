@@ -72,7 +72,7 @@ def taco_cfg(pkg="torch"):
 def taco_particles(n=N, seed=0):
     """n particles of the taco's own 10 000-particle disk, a seeded
     subset in the sampler's order."""
-    x = Shapes(taco_cfg().SHAPES).get()
+    x, _ = Shapes(taco_cfg().SHAPES).get()
     rng = np.random.RandomState(seed)
     return x[np.sort(rng.choice(len(x), n, replace=False))]
 
